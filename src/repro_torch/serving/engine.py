@@ -1,0 +1,497 @@
+"""DCN vision serving over the graph executor.
+
+``DcnServingEngine`` serves the paper's DCN networks through the
+network-graph executor with a per-engine schedule cache: replayed requests
+whose quantized sampling coordinates match an earlier one skip the TDT +
+Algorithm-1 build. It is a continuous-batching service: ``submit()``
+enqueues image requests from any thread, ``step()`` admits queued images
+into a fixed pool of slots and serves every occupied slot with ONE
+``batch_fused`` ragged grid per layer segment, so concurrent requests
+share each kernel launch. Requests carry deadlines; the queue can be
+bounded with ``block``/``reject``/``shed-oldest`` backpressure. ``stats``
+and ``metrics_snapshot()`` expose the cache hit rate, dispatch and
+overlap counters and submit->result latency percentiles.
+
+A step whose execution raises resolves each of its requests with a
+``RequestFailedError`` carrying the cause. The retry/degrade isolation
+ladder of the JAX package is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import threading
+import time
+from collections import deque
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.obs import MetricsRegistry, Tracer, get_tracer
+from repro_torch.serving.errors import (DeadlineExceededError, DrainTimeout,
+                                        QueueFullError, RequestFailedError)
+
+
+@dataclasses.dataclass
+class DcnRequest:
+    """One vision serving request: a small batch of images.
+
+    ``out`` fills per image as serving steps complete the images' slots;
+    the request finishes when its last image does. A request always
+    resolves: ``done`` with outputs, or ``done`` with ``error`` set, in
+    which case ``result()`` raises it.
+    """
+
+    rid: int
+    x: np.ndarray                # (n, H, W, C)
+    submit_s: float
+    out: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    finish_s: float = 0.0
+    error: Exception | None = None
+    deadline: float | None = None
+
+    @property
+    def n_images(self) -> int:
+        return int(self.x.shape[0])
+
+    @property
+    def failed(self) -> bool:
+        return self.error is not None
+
+    @property
+    def latency_s(self) -> float:
+        return (self.finish_s - self.submit_s) if self.done else 0.0
+
+    def result(self) -> np.ndarray:
+        """Stacked per-image outputs, in submit order."""
+        if self.error is not None:
+            raise self.error
+        if not self.done:
+            raise RuntimeError(f"request {self.rid} is not finished")
+        return np.stack([np.asarray(o) for o in self.out])
+
+
+class DcnServingEngine:
+    """Inference service for the paper's DCN networks over the graph
+    executor on ``device`` (default ``"cuda"``; the parameters must live
+    there too).
+
+    * ``infer(x)`` — serve one request synchronously, whole batch in one
+      executor call.
+    * ``submit(x)`` / ``step()`` / ``drain()`` — continuous batching: a
+      submit queue feeds ``slots`` image slots; each ``step()`` admits
+      queued images into free slots and serves ALL occupied slots with
+      one ``batch_fused`` grid per layer segment. ``submit`` is
+      thread-safe; ``step``/``drain`` are driven by one serving loop.
+    """
+
+    def __init__(self, params, cfg, *, graph=None, cache_size: int = 256,
+                 slots: int = 4,
+                 clock: Callable[[], float] | None = None,
+                 tracer: Tracer | None = None,
+                 max_queue: int | None = None,
+                 queue_policy: str = "block",
+                 device="cuda"):
+        from repro_torch.core.scheduler import host_schedule_builds
+        from repro_torch.models.dcn_models import DcnNetConfig
+        from repro_torch.runtime.cache import ScheduleCache
+        from repro_torch.runtime.fused_exec import GraphConfig
+        from repro_torch.runtime.graph import build_graph
+        from repro_torch.runtime.pipeline import clamp_tile_config
+        from repro_torch.runtime.trace import LatencyStats, OverlapSpans
+
+        if not isinstance(cfg, DcnNetConfig):
+            raise ValueError(
+                f"DcnServingEngine needs a DcnNetConfig, got {type(cfg)}")
+        if slots < 1:
+            raise ValueError(f"slots must be >= 1, got {slots}")
+        if queue_policy not in ("block", "reject", "shed-oldest"):
+            raise ValueError(
+                f"unknown queue_policy: {queue_policy!r} (expected "
+                f"'block', 'reject' or 'shed-oldest')")
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        self.device = resolve_device(device)
+        w0 = params["convs"][0]
+        w0 = w0.w if hasattr(w0, "w") else w0["w"]
+        if w0.device.type != self.device.type:
+            raise ValueError(f"params live on {w0.device}, the engine on "
+                             f"{self.device}")
+        self.params = params
+        self.cfg = cfg
+        self.graph_cfg = graph or GraphConfig()
+        self.net_graph = build_graph(cfg)
+        self.cache = ScheduleCache(maxsize=cache_size)
+        self.overlap = OverlapSpans()
+        self.tracer = tracer if tracer is not None else get_tracer()
+        self.metrics = MetricsRegistry()
+        self._m_requests = self.metrics.counter(
+            "serving.requests", help="requests submitted")
+        self._m_images = self.metrics.counter(
+            "serving.images", help="images served")
+        self._m_dispatches = self.metrics.counter(
+            "serving.kernel_dispatches",
+            help="host-issued kernel dispatches")
+        self._m_steps = self.metrics.counter(
+            "serving.steps", help="continuous-batching serving steps")
+        self._m_failed = self.metrics.counter(
+            "serving.requests_failed",
+            help="requests that resolved with an error status")
+        self._m_deadline = self.metrics.counter(
+            "serving.deadline_expired",
+            help="requests failed on a missed deadline (admission or "
+                 "completion)")
+        self._m_rejected = self.metrics.counter(
+            "serving.queue_rejected",
+            help="submits refused by the bounded queue")
+        self._m_shed = self.metrics.counter(
+            "serving.queue_shed",
+            help="queued requests evicted by policy 'shed-oldest'")
+        # Process-wide counter: the engine reports its own delta.
+        self._host_builds = host_schedule_builds
+        self._host_builds0 = host_schedule_builds.count
+        self.n_slots = int(slots)
+        self.max_queue = None if max_queue is None else int(max_queue)
+        self.queue_policy = queue_policy
+        self._clock = clock if clock is not None else time.perf_counter
+        self._lock = threading.Lock()
+        self._queue_room = threading.Condition(self._lock)
+        self._queue: deque[tuple[DcnRequest, int]] = deque()
+        self._slots: list[tuple[DcnRequest, int] | None] = (
+            [None] * self.n_slots)
+        self._rid = itertools.count()
+        self.latency = LatencyStats()
+        self.metrics.register("serving.latency_s", self.latency)
+        self.last_trace = None
+        # The step config pins the coalesced dispatch mode to
+        # batch_fused and is clamped once: serving images share a plane.
+        self._step_cfg = clamp_tile_config(
+            dataclasses.replace(self.graph_cfg, dispatch="batch_fused"),
+            cfg.img_size, cfg.img_size)
+
+    @property
+    def requests(self) -> int:
+        return self._m_requests.count
+
+    @property
+    def images(self) -> int:
+        return self._m_images.count
+
+    @property
+    def kernel_dispatches(self) -> int:
+        return self._m_dispatches.count
+
+    @property
+    def steps(self) -> int:
+        return self._m_steps.count
+
+    @property
+    def host_schedule_builds(self) -> int:
+        """Host-side ``TileSchedule`` builds since this engine was
+        constructed (0 on the device scheduling hot path)."""
+        return self._host_builds.count - self._host_builds0
+
+    @property
+    def requests_failed(self) -> int:
+        return self._m_failed.count
+
+    def _absorb_trace(self, trace) -> None:
+        """Fold one executor trace into the engine counters (caller holds
+        ``self._lock``)."""
+        self._m_dispatches.inc(trace.kernel_dispatches)
+        self.overlap.merge(trace.overlap)
+        self.last_trace = trace
+
+    def _fail_locked(self, req: DcnRequest, error: RequestFailedError,
+                     now: float) -> bool:
+        """Resolve ``req`` with an error (caller holds ``self._lock``);
+        purges its queued images and slots. False if already resolved."""
+        if req.done:
+            return False
+        req.error = error
+        req.done = True
+        req.finish_s = now
+        self._m_failed.inc()
+        if isinstance(error, DeadlineExceededError):
+            self._m_deadline.inc()
+        if any(e[0] is req for e in self._queue):
+            self._queue = deque(e for e in self._queue if e[0] is not req)
+        for i, s in enumerate(self._slots):
+            if s is not None and s[0] is req:
+                self._slots[i] = None
+        self._queue_room.notify_all()
+        return True
+
+    def _to_device(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x, np.float32)).to(self.device)
+
+    def _run_batch(self, x: torch.Tensor, cfg):
+        """One executor call -> (logits on the device, trace)."""
+        from repro_torch.models.dcn_models import apply_head
+        from repro_torch.runtime.fused_exec import run_graph
+
+        y, trace = run_graph(
+            self.params["convs"], self.net_graph, x, config=cfg,
+            max_displacement=self.cfg.max_displacement, return_trace=True,
+            schedule_cache=self.cache, tracer=self.tracer)
+        return apply_head(self.params, self.cfg, y), trace
+
+    def infer(self, x) -> torch.Tensor:
+        """Serve one request batch (N, H, W, C) -> logits."""
+        from repro_torch.runtime.pipeline import clamp_tile_config
+
+        x = x.to(self.device) if isinstance(x, torch.Tensor) \
+            else self._to_device(x)
+        gcfg = clamp_tile_config(
+            dataclasses.replace(self.graph_cfg, dispatch="batch_fused"),
+            x.shape[1], x.shape[2])
+        out, trace = self._run_batch(x, gcfg)
+        self._m_requests.inc()
+        self._m_images.inc(int(x.shape[0]))
+        with self._lock:
+            self._absorb_trace(trace)
+        return out
+
+    # -- continuous batching ------------------------------------------------
+
+    def submit(self, x, *, deadline_s: float | None = None) -> DcnRequest:
+        """Enqueue a request (thread-safe): one image (H, W, C) or a batch
+        (n, H, W, C) matching the engine's plane. ``deadline_s``
+        (relative, engine clock) fails the request if it is still queued
+        past the deadline or its step completes past it. With
+        ``max_queue`` set, an overfilling submit follows ``queue_policy``:
+        ``block`` waits, ``reject`` raises :class:`QueueFullError`,
+        ``shed-oldest`` fails the request(s) owning the oldest images."""
+        x = np.asarray(x)
+        if x.ndim == 3:
+            x = x[None]
+        g = self.net_graph
+        if x.ndim != 4 or x.shape[1:] != (g.in_h, g.in_w, g.in_c):
+            raise ValueError(
+                f"request images must be (n, {g.in_h}, {g.in_w}, "
+                f"{g.in_c}); got {x.shape}")
+        if x.shape[0] == 0:
+            raise ValueError(
+                "empty request: a serving request needs at least one "
+                "image")
+        if not bool(np.isfinite(x).all()):
+            # NaN/Inf would decode into junk clipped-floor coords and
+            # poison the schedule cache with a shared junk digest.
+            raise ValueError(
+                "request images must be finite: NaN/Inf values poison "
+                "the quantized-coords schedule-cache digest")
+        if deadline_s is not None and deadline_s <= 0:
+            raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
+        n_img = int(x.shape[0])
+        with self._queue_room:
+            if self.max_queue is not None and n_img > self.max_queue:
+                self._m_rejected.inc()
+                raise QueueFullError(
+                    f"request of {n_img} images exceeds max_queue="
+                    f"{self.max_queue}")
+            if self.max_queue is not None:
+                if self.queue_policy == "reject":
+                    if len(self._queue) + n_img > self.max_queue:
+                        self._m_rejected.inc()
+                        raise QueueFullError(
+                            f"queue full ({len(self._queue)}/"
+                            f"{self.max_queue} images queued)")
+                elif self.queue_policy == "shed-oldest":
+                    while len(self._queue) + n_img > self.max_queue:
+                        victim = self._queue[0][0]
+                        self._m_shed.inc()
+                        self._fail_locked(
+                            victim,
+                            RequestFailedError(
+                                victim.rid,
+                                cause=QueueFullError(
+                                    f"request {victim.rid} shed: queue "
+                                    "full, policy shed-oldest")),
+                            self._clock())
+                else:  # block
+                    while len(self._queue) + n_img > self.max_queue:
+                        self._queue_room.wait()
+            req = DcnRequest(rid=next(self._rid), x=x,
+                             submit_s=self._clock(), out=[None] * n_img)
+            if deadline_s is not None:
+                req.deadline = req.submit_s + deadline_s
+            self._m_requests.inc()
+            for j in range(n_img):
+                self._queue.append((req, j))
+        self.tracer.instant("serve.submit", rid=req.rid,
+                            images=req.n_images)
+        return req
+
+    @property
+    def queue_depth(self) -> int:
+        """Images waiting for a slot (not yet admitted)."""
+        with self._lock:
+            return len(self._queue)
+
+    def step(self) -> list[DcnRequest]:
+        """One continuous-batching serving step: refill free slots from
+        the queue in submit order (expired requests fail at admission),
+        then serve all occupied slots with one ``batch_fused`` grid per
+        layer segment. Returns the requests that resolved this step —
+        finished or failed, each exactly once."""
+        tr = self.tracer
+        finished: list[DcnRequest] = []
+        with tr.span("serve.admit", queue_depth=self.queue_depth):
+            with self._lock:
+                now = self._clock()
+                for i in range(self.n_slots):
+                    if self._slots[i] is not None:
+                        continue
+                    while self._queue:
+                        req, j = self._queue.popleft()
+                        self._queue_room.notify_all()
+                        if req.done:
+                            continue   # failed/shed while queued
+                        if req.deadline is not None and now > req.deadline:
+                            if self._fail_locked(
+                                    req, DeadlineExceededError(
+                                        req.rid, deadline=req.deadline),
+                                    now):
+                                finished.append(req)
+                            continue
+                        self._slots[i] = (req, j)
+                        break
+                occupied = [(i, s[0], s[1])
+                            for i, s in enumerate(self._slots)
+                            if s is not None]
+        if not occupied:
+            return finished
+        step_id = self._m_steps.count
+        error: Exception | None = None
+        outs, trace = None, None
+        with tr.timed("serve.step", step=step_id,
+                      width=len(occupied)) as ssp:
+            x = self._to_device(np.stack([req.x[j]
+                                          for _, req, j in occupied]))
+            try:
+                logits, trace = self._run_batch(x, self._step_cfg)
+                outs = logits.cpu().numpy()
+            except Exception as e:   # resolve the step's requests with it
+                error = e
+            ssp.set(dispatches=trace.kernel_dispatches if trace else 0,
+                    dram_bytes=trace.total_dram_bytes if trace else 0,
+                    failed=error is not None)
+        now = self._clock()
+        with self._lock:
+            self._m_steps.inc()
+            self._m_images.inc(len(occupied))
+            if trace is not None:
+                self._absorb_trace(trace)
+            for k, (i, req, j) in enumerate(occupied):
+                self._slots[i] = None
+                if req.done:
+                    continue   # a step-mate image already failed it
+                if error is not None:
+                    if self._fail_locked(
+                            req, RequestFailedError(req.rid, cause=error),
+                            now):
+                        finished.append(req)
+                    continue
+                req.out[j] = outs[k]
+                if req.deadline is not None and now > req.deadline:
+                    if self._fail_locked(
+                            req, DeadlineExceededError(
+                                req.rid, deadline=req.deadline), now):
+                        finished.append(req)
+                    continue
+                if all(o is not None for o in req.out):
+                    req.done = True
+                    req.finish_s = now
+                    self.latency.add(now - req.submit_s)
+                    finished.append(req)
+        return finished
+
+    def drain(self, max_steps: int = 10_000) -> list[DcnRequest]:
+        """Serve until queue and slots are empty. Returns every request
+        that resolved during the drain, each exactly once; raises
+        :class:`DrainTimeout` if ``max_steps`` runs out with work left."""
+        finished: list[DcnRequest] = []
+        with self.tracer.span("serve.drain") as sp:
+            for _ in range(max_steps):
+                finished.extend(self.step())
+                with self._lock:
+                    idle = (not self._queue
+                            and all(s is None for s in self._slots))
+                if idle:
+                    sp.set(finished=len(finished))
+                    return finished
+            with self._lock:
+                stuck = sorted(
+                    {req.rid for req, _ in self._queue}
+                    | {s[0].rid for s in self._slots if s is not None})
+            sp.set(finished=len(finished), stuck=len(stuck))
+        if stuck:
+            raise DrainTimeout(stuck, finished=finished)
+        return finished
+
+    @property
+    def stats(self) -> dict[str, Any]:
+        """Serving counters, read under the engine lock in one instant."""
+        with self._lock:
+            info = self.cache.info()
+            total = info["hits"] + info["misses"]
+            return {
+                "requests": self.requests,
+                "images": self.images,
+                "schedule_cache_hits": info["hits"],
+                "schedule_cache_misses": info["misses"],
+                "schedule_cache_hit_rate": (info["hits"] / total
+                                            if total else 0.0),
+                "schedule_cache_size": info["size"],
+                "image_hits": info["image_hits"],
+                "image_lookups": info["image_lookups"],
+                "image_hit_rate": (info["image_hits"]
+                                   / info["image_lookups"]
+                                   if info["image_lookups"] else 0.0),
+                "batch_assemblies": info["batch_assemblies"],
+                "kernel_dispatches": self.kernel_dispatches,
+                "dispatches_per_batch": (self.kernel_dispatches
+                                         / self.requests
+                                         if self.requests else 0.0),
+                "host_overlap_frac": self.overlap.host_overlap_frac,
+                "schedule_backend": self.graph_cfg.schedule_backend,
+                "dispatch": self._step_cfg.dispatch,
+                "schedule_s": self.overlap.schedule_s,
+                "schedule_device_frac": self.overlap.schedule_device_frac,
+                "slots": self.n_slots,
+                "queue_depth": len(self._queue),
+                "steps": self.steps,
+                "host_schedule_builds": self.host_schedule_builds,
+                "latency": self.latency.summary(),
+                "max_queue": self.max_queue,
+                "queue_policy": self.queue_policy,
+                "requests_failed": self._m_failed.count,
+                "deadline_expired": self._m_deadline.count,
+                "queue_rejected": self._m_rejected.count,
+                "queue_shed": self._m_shed.count,
+                "device": str(self.device),
+            }
+
+    def metrics_snapshot(self) -> dict[str, Any]:
+        """Registry counters/histograms plus gauges synced at call time —
+        every value ``stats`` reports under a stable name."""
+        m = self.metrics
+        with self._lock:
+            self.cache.publish(m, prefix="schedule_cache")
+            m.gauge("serving.queue_depth").set(len(self._queue))
+            m.gauge("serving.slots").set(self.n_slots)
+            m.gauge("serving.host_schedule_builds").set(
+                self.host_schedule_builds)
+            req = self._m_requests.count
+            m.gauge("serving.dispatches_per_batch").set(
+                self._m_dispatches.count / req if req else 0.0)
+            m.gauge("serving.host_overlap_frac").set(
+                self.overlap.host_overlap_frac)
+            m.gauge("serving.schedule_s").set(self.overlap.schedule_s)
+            m.gauge("serving.schedule_device_frac").set(
+                self.overlap.schedule_device_frac)
+        return m.snapshot()
