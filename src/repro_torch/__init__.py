@@ -9,10 +9,14 @@ plain torch version instead.
 
 core/      deform reference, TDT, Algorithm-1 host scheduler, simulator,
            fusion planner
-kernels/   the batch-fused BLI(+)conv, TDT and greedy scheduler kernels
-runtime/   graph IR, batch-fused graph executor, packing, cache, traces
+kernels/   the fused BLI(+)conv (batch, schedule, tile), standalone BLI,
+           TDT and greedy scheduler kernels; ops (bli_pallas,
+           deformable_conv2d_pallas)
+runtime/   graph IR, graph executor (batch_fused / batched / per_tile),
+           dcn_pipeline, packing, cache, traces
 models/    VGG19 / SegNet DCN configurations
-serving/   continuous-batching DcnServingEngine
+serving/   continuous-batching DcnServingEngine with request isolation
+testing/   deterministic fault injection
 obs/       spans, metrics registry, Chrome-trace export
 convert    params_from_jax: carry JAX-package parameters across
 """

@@ -9,7 +9,9 @@ the on-chip input buffer uses FIFO replacement.
 
 ``schedule_arrays_device`` runs the same selection on the card through the
 greedy CUDA kernel (``repro_torch.kernels.dcn_schedule``) and emits the
-schedule directly as dispatch arrays, bit-exact with the host loop.
+schedule directly as dispatch arrays, bit-exact with the host loop;
+``schedule_tiles(..., backend="device")`` runs it and assembles the
+classic ``TileSchedule`` on the host (the per-image executors).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
+import torch
 
 from repro_torch.kernels.dcn_schedule import (dispatch_arrays_from_klass,
                                               greedy_schedule_arrays)
@@ -106,6 +109,12 @@ class FifoBuffer:
         return oc
 
 
+def _to_numpy(a) -> np.ndarray:
+    if hasattr(a, "detach"):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
 def _ids_of(vec: np.ndarray) -> list[int]:
     return np.flatnonzero(vec).tolist()
 
@@ -127,10 +136,18 @@ def input_tile_scheduling(B: np.ndarray, curr_id: int, next_id: int,
     return _ids_of(loaded_vec) + _ids_of(seq_load_vec) + _ids_of(last_load_vec)
 
 
-def schedule_tiles(B, buffer_tiles: int) -> TileSchedule:
-    """Full Algorithm 1 on the host (numpy). B: (n_out, n_in) bool TDT;
-    buffer_tiles: M, the on-chip input-buffer capacity in tiles."""
-    B = np.asarray(B, dtype=bool)
+def schedule_tiles(B, buffer_tiles: int, backend: str = "host", *,
+                   device=None) -> TileSchedule:
+    """Full Algorithm 1. B: (n_out, n_in) bool TDT; buffer_tiles: M, the
+    on-chip input-buffer capacity in tiles. ``backend="host"`` runs the
+    numpy loop below; ``"device"`` the greedy kernel on ``device`` (B's
+    own device when B is a tensor), bit-exact with the host loop (see
+    :func:`schedule_tiles_device`)."""
+    if backend == "device":
+        return schedule_tiles_device(B, buffer_tiles, device=device)
+    if backend != "host":
+        raise ValueError(f"unknown schedule backend: {backend!r}")
+    B = _to_numpy(B).astype(bool)
     n_out, n_in = B.shape
     os_mask = B.any(axis=1)
     buf = FifoBuffer(buffer_tiles)
@@ -159,20 +176,51 @@ def schedule_tiles(B, buffer_tiles: int) -> TileSchedule:
     return TileSchedule(oid=oid, iid=iid, reuse_overlap=overlaps)
 
 
+def assemble_device_schedule(oid_seq, klass, overlap) -> TileSchedule:
+    """A ``TileSchedule`` from the greedy kernel's dense outputs.
+
+    oid_seq: (n_out,) int32 — scheduled tile per step, -1 once every
+             dependent tile is done (a contiguous suffix).
+    klass:   (n_out, n_in) int32 — per-step input priority class
+             (0 loaded / 1 sequential / 2 shared-with-last / 3 non-dep);
+             the load order is ids(0) ++ ids(1) ++ ids(2), each
+             ascending, exactly ``input_tile_scheduling``'s classes.
+    overlap: (n_out,) int32 — per-step reuse overlap.
+
+    O(total deps) host bookkeeping; the selection ran on the device.
+    """
+    oid_seq = _to_numpy(oid_seq).reshape(-1)
+    klass = _to_numpy(klass)
+    overlap = _to_numpy(overlap).reshape(-1)
+    n_sched = int((oid_seq >= 0).sum())
+    iid = [np.flatnonzero(klass[t] == 0).tolist()
+           + np.flatnonzero(klass[t] == 1).tolist()
+           + np.flatnonzero(klass[t] == 2).tolist()
+           for t in range(n_sched)]
+    host_schedule_builds.bump()
+    return TileSchedule(oid=oid_seq[:n_sched].tolist(), iid=iid,
+                        reuse_overlap=overlap[1:n_sched].tolist())
+
+
+def schedule_tiles_device(B, buffer_tiles: int, *,
+                          device=None) -> TileSchedule:
+    """Algorithm 1 through the greedy kernel, assembled on the host —
+    bit-exact with :func:`schedule_tiles` (same first tile, first-max
+    ties, priority classes and FIFO residency). ``device`` places a
+    numpy ``B``; a tensor stays where it is."""
+    bt = torch.as_tensor(B, device=device)
+    oid_seq, klass, ovl = greedy_schedule_arrays(bt, int(buffer_tiles))
+    return assemble_device_schedule(oid_seq, klass, ovl)
+
+
 def sequential_schedule(B: np.ndarray) -> TileSchedule:
     """Ablation baseline 'W/ bit vector + W/O scheduling': output tiles in
     id order, each loading its dependent input tiles in ascending order."""
-    B = np.asarray(B, dtype=bool)
+    B = _to_numpy(B).astype(bool)
     oid = [o for o in range(B.shape[0]) if B[o].any()]
     iid = [_ids_of(B[o]) for o in oid]
     host_schedule_builds.bump()
     return TileSchedule(oid=oid, iid=iid)
-
-
-def _to_numpy(a) -> np.ndarray:
-    if hasattr(a, "detach"):
-        return a.detach().cpu().numpy()
-    return np.asarray(a)
 
 
 @dataclass

@@ -32,10 +32,18 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # c_void_p, ints as c_int). Each returns cudaGetLastError() as an int.
 _SIGNATURES = {
     "dcn_fused_batch_launch": [_P] * 9 + [_I] * 8 + [_P],
+    "dcn_fused_schedule_launch": [_P] * 8 + [_I] * 8 + [_P],
+    "dcn_fused_tile_launch": [_P] * 6 + [_I] * 6 + [_P],
+    "bli_gather_launch": [_P] * 4 + [_I] * 4 + [_P],
     "tdt_from_coords_launch": [_P, _P] + [_I] * 13 + [_P],
     "greedy_schedule_launch": [_P] * 5 + [_I] * 4 + [_P],
     "greedy_schedule_smem_bytes": [_I, _I, _I],
 }
+
+class KernelError(RuntimeError):
+    """A kernel that did not build, load or launch. Not a fault of one
+    request: the serving engine never isolates it, it re-raises."""
+
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -46,7 +54,7 @@ def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+    raise KernelError("nvcc not found: the CUDA kernels build only on a "
                        "machine with the CUDA toolkit")
 
 
@@ -78,7 +86,7 @@ def _compile(nvcc: str, sources: list[Path], out_dir: Path) -> Path:
     global build_log
     build_log = "\n".join(logs)
     if failed:
-        raise RuntimeError(f"nvcc failed for {failed}:\n{build_log}")
+        raise KernelError(f"nvcc failed for {failed}:\n{build_log}")
     lib = out_dir / "librepro_torch_kernels.so"
     tmp = out_dir / f".{lib.name}.{os.getpid()}"
     link = subprocess.run(
@@ -86,7 +94,7 @@ def _compile(nvcc: str, sources: list[Path], out_dir: Path) -> Path:
          *[str(o) for _, o, _ in procs], "-lcudart"],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode != 0:
-        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        raise KernelError(f"nvcc link failed:\n{link.stdout}")
     os.replace(tmp, lib)
     return lib
 
@@ -99,7 +107,7 @@ def load() -> ctypes.CDLL:
             return _lib
         sources = sorted(_CSRC.glob("*.cu"))
         if not sources:
-            raise RuntimeError(f"no CUDA sources under {_CSRC}")
+            raise KernelError(f"no CUDA sources under {_CSRC}")
         out_dir = _BUILD_ROOT / _digest(sources)
         lib_path = out_dir / "librepro_torch_kernels.so"
         if not lib_path.exists():
@@ -114,6 +122,7 @@ def load() -> ctypes.CDLL:
 
 
 def check(err: int, what: str) -> None:
-    """Raise if a C entry point reported a CUDA error."""
+    """Raise :class:`KernelError` if a C entry point reported a CUDA
+    error."""
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+        raise KernelError(f"{what}: CUDA error {err} at launch")

@@ -6,10 +6,15 @@ replacement proceeds from the output layer toward the input layer.
 
 ``dcn_net_apply`` selects an execution ``backend``:
 
-  * ``"dense"`` — the reference path (``core.deform``), the counterpart of
-                  the JAX package's ``"xla"`` backend;
-  * ``"graph"`` — the network-graph executor with cross-layer tile fusion
-                  (``runtime.fused_exec``), batch-fused dispatch.
+  * ``"dense"``    — the reference path (``core.deform``), the counterpart
+                     of the JAX package's ``"xla"`` backend;
+  * ``"pallas"``   — each DCN layer through the fused tile kernel, the
+                     whole plane as one tile (``kernels.ops``; the name is
+                     the JAX package's);
+  * ``"pipeline"`` — each DCN layer through the tile-pipeline executor
+                     (``runtime.pipeline.dcn_pipeline``);
+  * ``"graph"``    — the network-graph executor with cross-layer tile
+                     fusion (``runtime.fused_exec``).
 """
 
 from __future__ import annotations
@@ -24,9 +29,11 @@ import torch.nn.functional as F
 from repro_torch._device import resolve_device
 from repro_torch.core.deform import conv2d, deformable_conv2d, \
     init_deformable_conv
+from repro_torch.kernels.ops import deformable_conv2d_pallas
 from repro_torch.runtime.fused_exec import GraphConfig, run_graph
 from repro_torch.runtime.graph import build_graph
-from repro_torch.runtime.pipeline import clamp_tile_config
+from repro_torch.runtime.pipeline import (PipelineConfig, clamp_tile_config,
+                                          dcn_pipeline)
 
 # (channels, n_convs) per VGG19 stage; maxpool after each stage.
 _VGG19_STAGES = ((64, 2), (128, 2), (256, 4), (512, 4), (512, 4))
@@ -109,10 +116,14 @@ def _pool_positions(cfg: DcnNetConfig) -> set[int]:
 
 
 def dcn_net_apply(params, cfg: DcnNetConfig, x: torch.Tensor, *,
-                  backend: str = "dense", graph: GraphConfig | None = None):
+                  backend: str = "dense",
+                  pipeline: PipelineConfig | None = None,
+                  graph: GraphConfig | None = None):
     """x: (N, H, W, C) on the params' device. Returns logits (N, classes)
-    for vgg19 or per-pixel logits (N, H', W', classes) for segnet."""
-    if backend not in ("dense", "graph"):
+    for vgg19 or per-pixel logits (N, H', W', classes) for segnet.
+    ``pipeline`` configures the ``"pipeline"`` backend, ``graph`` the
+    ``"graph"`` backend."""
+    if backend not in ("dense", "pallas", "pipeline", "graph"):
         raise ValueError(f"unknown backend: {backend!r}")
     decoder = cfg.name == "segnet"
     if backend == "graph":
@@ -128,7 +139,20 @@ def dcn_net_apply(params, cfg: DcnNetConfig, x: torch.Tensor, *,
     applied_pools: set[int] = set()
     for i, (_, _, deform) in enumerate(plan):
         p = params["convs"][i]
-        if deform:
+        if deform and backend == "pipeline":
+            pcfg = pipeline or PipelineConfig(
+                tile=max(2, min(8, x.shape[1] // 2, x.shape[2] // 2)))
+            # The requested tile is an upper bound: deep-stage planes
+            # shrink below it, so clamp per layer.
+            y = dcn_pipeline(x, p, variant=cfg.variant,
+                             max_displacement=cfg.max_displacement,
+                             config=clamp_tile_config(pcfg, x.shape[1],
+                                                      x.shape[2]))
+        elif deform and backend == "pallas":
+            y = deformable_conv2d_pallas(
+                x, p, variant=cfg.variant,
+                max_displacement=cfg.max_displacement)
+        elif deform:
             y = deformable_conv2d(x, p, variant=cfg.variant,
                                   max_displacement=cfg.max_displacement)
         else:

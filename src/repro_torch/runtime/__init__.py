@@ -1,2 +1,3 @@
-"""Graph IR, batch-fused graph executor, packing, schedule cache and
+"""Graph IR, graph executor (batch_fused / batched / per_tile), the
+tile-pipeline executor ``dcn_pipeline``, packing, schedule cache and
 execution traces."""

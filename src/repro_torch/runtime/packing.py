@@ -1,26 +1,32 @@
-"""Tile packing for the batch-fused executor.
+"""Tile packing for the tile-pipeline and graph executors.
 
-The fused kernel (``kernels.dcn_fused.dcn_fused_batch``) consumes every
-image's input tiles ``(N*T_in, tp, C)`` plus per-output-pixel ``(idx,
-coeff)`` tensors whose indices are PLANE-GLOBAL packed addresses
-``tile_id * tile_pixels + offset`` — the software analogue of the paper's
-address converter (Eq. 4). The kernel localises them against each dep
-slot's tile, so the packing never depends on a schedule.
+The fused kernels (``kernels.dcn_fused``) consume input tiles plus
+per-output-pixel ``(idx, coeff)`` tensors whose indices address a packed
+buffer — the software analogue of the paper's on-chip input buffer and
+address converter (Eq. 4). Two address forms:
+
+* slot-local (per-image ``batched`` and ``per_tile`` dispatch):
+  :func:`build_neighbour_tables` decodes each neighbour's (tile, offset)
+  once per image on the host, and :func:`pack_output_tile` /
+  :func:`pack_schedule_tiles` rewrite them into ``slot(tile) * tp +
+  offset`` for a schedule's dep-slot assignment (numpy, like the JAX
+  package's packing);
+* plane-global (``batch_fused``): :func:`pack_plane_operands` emits
+  ``tile_id * tp + offset`` for every tile in plane order; the kernel
+  localises them against each dep slot's tile, so the packing never
+  depends on a schedule and stays on the tensors' device.
 
 Shapes that do not divide by the tile size are handled by padding the
 plane up to ``rows*th x cols*tw``: sampling coordinates are clamped
 in-range upstream, so padded pixels are never addressed, and padded
 *output* pixels carry ``coeff = 0`` and are discarded on scatter.
-
-All functions are tensor ops on the inputs' device; with the device
-scheduling backend the whole prepass after the coords digest stays on
-the card.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -53,6 +59,112 @@ def tiles_to_plane(y_tiles: torch.Tensor, grid: TileGrid, h: int,
     y = y.permute(*range(n), n, n + 2, n + 1, n + 3, n + 4)
     y = y.reshape(*lead, grid.rows * grid.th, grid.cols * grid.tw, c)
     return y[..., :h, :w, :]
+
+
+class NeighbourTables(NamedTuple):
+    """Per-pixel BLI neighbour data in host memory (one image).
+
+    All arrays are (H, W, KK, 4) over the 4 integer-grid neighbours in the
+    order (r0,c0) (r0,c1) (r1,c0) (r1,c1) — matching Eq. 5 / the kernels.
+    """
+
+    tile_id: np.ndarray   # int32 input-tile id of each neighbour
+    offset: np.ndarray    # int32 raster offset of the neighbour in its tile
+    coeff: np.ndarray     # float32 BLI coefficients (eta, theta, mu, gamma)
+
+
+def build_neighbour_tables(coords: torch.Tensor, grid: TileGrid
+                           ) -> NeighbourTables:
+    """coords (H, W, KK, 2) float -> host-side neighbour tables, with the
+    clipping and coefficient rules of ``core.deform.bilinear_sample``."""
+    floor_rc, coeffs = bli_coefficients(coords.detach().cpu())
+    floor_rc = floor_rc.numpy()
+    r0 = np.clip(floor_rc[..., 0], 0, grid.h - 1)
+    c0 = np.clip(floor_rc[..., 1], 0, grid.w - 1)
+    r1 = np.clip(r0 + 1, 0, grid.h - 1)
+    c1 = np.clip(c0 + 1, 0, grid.w - 1)
+    nb_r = np.stack([r0, r0, r1, r1], axis=-1)
+    nb_c = np.stack([c0, c1, c0, c1], axis=-1)
+    tile_id = (nb_r // grid.th) * grid.cols + (nb_c // grid.tw)
+    offset = (nb_r % grid.th) * grid.tw + (nb_c % grid.tw)
+    return NeighbourTables(tile_id.astype(np.int32),
+                           offset.astype(np.int32),
+                           coeffs.numpy().astype(np.float32))
+
+
+def pack_output_tile(nb: NeighbourTables, grid: TileGrid, out_tile: int,
+                     dep_tiles: list[int], p_pad: int
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """The kernel's (idx, coeff) operands for one output tile.
+
+    Rewrites each neighbour's (tile_id, offset) into an address in the
+    packed buffer that concatenates ``dep_tiles`` in load order: ``slot *
+    tile_pixels + offset``. Output pixels beyond the real plane get
+    ``coeff = 0`` and address 0. Returns idx (p_pad, KK, 4) int32 and
+    coeff (p_pad, KK, 4) float32.
+    """
+    th, tw, cols = grid.th, grid.tw, grid.cols
+    tp = th * tw
+    kk = nb.coeff.shape[2]
+
+    slot = np.zeros(grid.num_tiles, np.int32)
+    slot[np.asarray(dep_tiles, np.int64)] = np.arange(len(dep_tiles),
+                                                      dtype=np.int32)
+    tr, tc = divmod(out_tile, cols)
+    rr = np.arange(tr * th, (tr + 1) * th)
+    cc = np.arange(tc * tw, (tc + 1) * tw)
+    valid = (rr[:, None] < grid.h) & (cc[None, :] < grid.w)    # (th, tw)
+    rr_c = np.minimum(rr, grid.h - 1)
+    cc_c = np.minimum(cc, grid.w - 1)
+
+    t_ids = nb.tile_id[rr_c][:, cc_c]                          # (th,tw,KK,4)
+    offs = nb.offset[rr_c][:, cc_c]
+    cfs = nb.coeff[rr_c][:, cc_c] * valid[..., None, None]
+    # TDT guarantee: every neighbour tile of a real pixel of ``out_tile``
+    # is in ``dep_tiles``.
+    idx = slot[t_ids] * tp + offs
+    idx = np.where(valid[..., None, None], idx, 0).astype(np.int32)
+
+    idx = idx.reshape(tp, kk, 4)
+    cfs = cfs.reshape(tp, kk, 4).astype(np.float32)
+    if p_pad != tp:
+        idx = np.pad(idx, ((0, p_pad - tp), (0, 0), (0, 0)))
+        cfs = np.pad(cfs, ((0, p_pad - tp), (0, 0), (0, 0)))
+    return idx, cfs
+
+
+def pack_schedule_tiles(nb: NeighbourTables, grid: TileGrid, out_tiles,
+                        dep_lists, p_pad: int, k_pad: int
+                        ) -> tuple[np.ndarray, np.ndarray, np.ndarray,
+                                   np.ndarray]:
+    """A whole schedule's operands for ``dcn_fused_schedule``: per
+    scheduled output tile, :func:`pack_output_tile` over its dep list.
+
+      dep_tbl (T, k_pad) int32  — dep tile ids, zero-padded (the kernel
+                                  skips slots >= dep_cnt)
+      dep_cnt (T,)       int32  — true dep count; an empty dep list
+                                  leaves an all-zero row (bias only)
+      idx     (T, p_pad, KK, 4) int32
+      coeff   (T, p_pad, KK, 4) float32
+    """
+    kk = nb.coeff.shape[2]
+    t = len(out_tiles)
+    dep_tbl = np.zeros((t, k_pad), np.int32)
+    dep_cnt = np.zeros((t,), np.int32)
+    idx = np.zeros((t, p_pad, kk, 4), np.int32)
+    coeff = np.zeros((t, p_pad, kk, 4), np.float32)
+    with get_tracer().span("pack.schedule_tiles", tiles=t, k_pad=k_pad):
+        for n, (tile, deps) in enumerate(zip(out_tiles, dep_lists)):
+            deps = [int(d) for d in deps]
+            if len(deps) > k_pad:
+                raise ValueError(f"{len(deps)} deps exceed k_pad={k_pad}")
+            if not deps:
+                continue
+            idx[n], coeff[n] = pack_output_tile(nb, grid, int(tile), deps,
+                                                p_pad)
+            dep_tbl[n, :len(deps)] = deps
+            dep_cnt[n] = len(deps)
+    return dep_tbl, dep_cnt, idx, coeff
 
 
 def pack_plane_operands(coords: torch.Tensor, grid: TileGrid, p_pad: int

@@ -5,10 +5,10 @@ The trace is the executor-side counterpart of the DRAM-traffic simulator
 loads from the TDT and a FIFO buffer model, the trace records what the
 executor *actually packed and dispatched*. Replaying the recorded load
 sequence through the same ``FifoBuffer`` must reproduce the simulator's
-scheduled tile-load count exactly — ``tests/test_torch_serving.py`` and
-``chip_smoke.py`` assert it for the cross-layer fused groups
-(``GroupTrace`` / ``NetworkTrace``). The per-layer pipeline's
-``PipelineTrace`` comes with the tile-pipeline slice.
+scheduled tile-load count exactly — ``tests/test_torch_*.py`` and
+``chip_smoke.py`` assert it for the per-layer pipeline
+(``PipelineTrace``) and the cross-layer fused groups (``GroupTrace`` /
+``NetworkTrace``).
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ class ImageTrace:
     # kernel calls + halo convs). Per-tile dispatch pays one per schedule
     # entry; batched grid dispatch pays one per layer segment; batch-fused
     # dispatches are shared by the whole batch and counted ONCE on the
-    # enclosing NetworkTrace (``batch_dispatches``), so this
+    # enclosing PipelineTrace/NetworkTrace (``batch_dispatches``), so this
     # stays 0 for "batch_fused" images.
     kernel_dispatches: int = 0
     dispatch: str = "per_tile"   # "per_tile" | "batched" | "batch_fused"
@@ -210,6 +210,61 @@ class OverlapSpans:
         if self.schedule_s <= 0:
             return 0.0
         return min(1.0, self.schedule_device_s / self.schedule_s)
+
+
+@dataclass
+class PipelineTrace:
+    """Per-image traces of one ``dcn_pipeline`` call."""
+
+    images: list[ImageTrace] = field(default_factory=list)
+    overlap: OverlapSpans = field(default_factory=OverlapSpans)
+    # Batch-fused dispatches: kernel calls shared by the WHOLE batch
+    # (one per layer segment), counted here instead of per image.
+    batch_dispatches: int = 0
+    # Batch-axis scale-out: mesh shards the dispatch ran over, and the
+    # measured byte volume of the single logits all-gather (0 when
+    # single-device). Collective traffic, so NOT part of the per-image
+    # DRAM model the simulator cross-checks.
+    shards: int = 1
+    allgather_bytes: int = 0
+
+    @property
+    def packed_bytes(self) -> int:
+        return sum(im.packed_bytes for im in self.images)
+
+    @property
+    def kernel_dispatches(self) -> int:
+        return (self.batch_dispatches
+                + sum(im.kernel_dispatches for im in self.images))
+
+    @property
+    def dispatches_per_batch(self) -> int:
+        """Host-issued dispatches of this call — for batch-fused mode the
+        whole call is one batch, so this equals ``kernel_dispatches``."""
+        return self.kernel_dispatches
+
+    @property
+    def host_overlap_frac(self) -> float:
+        return self.overlap.host_overlap_frac
+
+    @property
+    def schedule_device_frac(self) -> float:
+        return self.overlap.schedule_device_frac
+
+    @property
+    def packed_tile_loads(self) -> int:
+        return sum(im.packed_tile_loads for im in self.images)
+
+    @property
+    def schedule_cache_hits(self) -> int:
+        return sum(im.schedule_cache_hit is True for im in self.images)
+
+    @property
+    def schedule_cache_misses(self) -> int:
+        return sum(im.schedule_cache_hit is False for im in self.images)
+
+    def fifo_loads(self, buffer_tiles: int | None = None) -> int:
+        return sum(im.fifo_replay(buffer_tiles).loads for im in self.images)
 
 
 # ---------------------------------------------------------------------------

@@ -12,9 +12,18 @@ bounded with ``block``/``reject``/``shed-oldest`` backpressure. ``stats``
 and ``metrics_snapshot()`` expose the cache hit rate, dispatch and
 overlap counters and submit->result latency percentiles.
 
-A step whose execution raises resolves each of its requests with a
-``RequestFailedError`` carrying the cause. The retry/degrade isolation
-ladder of the JAX package is not ported yet.
+Requests are isolated: a failed ``batch_fused`` step retries once with
+the offending slot evicted (when the fault names its image), then
+degrades to per-image ``batched`` dispatch, so one poisoned image never
+takes down its step-mates. A failing request resolves with
+``DcnRequest.error`` set (``result()`` raises the typed
+``RequestFailedError``) and is returned exactly once; the failure
+counters (``requests_failed``, ``deadline_expired``, ``queue_rejected``,
+``queue_shed``, ``step_retries``, ``degraded_steps``,
+``watchdog_failovers``) appear in ``stats`` and ``metrics_snapshot()``.
+A kernel that does not build or launch, or a CUDA error, is not a fault
+of one request: it propagates out of ``step()`` instead of being
+isolated, so the ladder never hides a broken device path.
 """
 
 from __future__ import annotations
@@ -30,9 +39,14 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.kernels._build import KernelError
 from repro_torch.obs import MetricsRegistry, Tracer, get_tracer
 from repro_torch.serving.errors import (DeadlineExceededError, DrainTimeout,
                                         QueueFullError, RequestFailedError)
+
+# Device-level failures: never isolated per request (see module doc).
+_DEVICE_ERRORS = (KernelError,) + tuple(
+    e for e in (getattr(torch, "AcceleratorError", None),) if e is not None)
 
 
 @dataclasses.dataclass
@@ -87,6 +101,9 @@ class DcnServingEngine:
       queued images into free slots and serves ALL occupied slots with
       one ``batch_fused`` grid per layer segment. ``submit`` is
       thread-safe; ``step``/``drain`` are driven by one serving loop.
+
+    ``faults`` threads a fault injector (``repro_torch.testing``) into the
+    executor config, for resilience tests.
     """
 
     def __init__(self, params, cfg, *, graph=None, cache_size: int = 256,
@@ -95,13 +112,15 @@ class DcnServingEngine:
                  tracer: Tracer | None = None,
                  max_queue: int | None = None,
                  queue_policy: str = "block",
+                 faults=None,
                  device="cuda"):
         from repro_torch.core.scheduler import host_schedule_builds
         from repro_torch.models.dcn_models import DcnNetConfig
         from repro_torch.runtime.cache import ScheduleCache
         from repro_torch.runtime.fused_exec import GraphConfig
         from repro_torch.runtime.graph import build_graph
-        from repro_torch.runtime.pipeline import clamp_tile_config
+        from repro_torch.runtime.pipeline import (clamp_tile_config,
+                                                  staging_watchdog_failovers)
         from repro_torch.runtime.trace import LatencyStats, OverlapSpans
 
         if not isinstance(cfg, DcnNetConfig):
@@ -124,6 +143,9 @@ class DcnServingEngine:
         self.params = params
         self.cfg = cfg
         self.graph_cfg = graph or GraphConfig()
+        if faults is not None:
+            self.graph_cfg = dataclasses.replace(self.graph_cfg,
+                                                 faults=faults)
         self.net_graph = build_graph(cfg)
         self.cache = ScheduleCache(maxsize=cache_size)
         self.overlap = OverlapSpans()
@@ -151,9 +173,17 @@ class DcnServingEngine:
         self._m_shed = self.metrics.counter(
             "serving.queue_shed",
             help="queued requests evicted by policy 'shed-oldest'")
-        # Process-wide counter: the engine reports its own delta.
+        self._m_retries = self.metrics.counter(
+            "serving.step_retries",
+            help="batch_fused steps retried after an execution fault")
+        self._m_degraded = self.metrics.counter(
+            "serving.degraded_steps",
+            help="steps degraded to per-image batched dispatch")
+        # Process-wide counters: the engine reports its own deltas.
         self._host_builds = host_schedule_builds
         self._host_builds0 = host_schedule_builds.count
+        self._watchdog = staging_watchdog_failovers
+        self._watchdog0 = staging_watchdog_failovers.count
         self.n_slots = int(slots)
         self.max_queue = None if max_queue is None else int(max_queue)
         self.queue_policy = queue_policy
@@ -172,6 +202,11 @@ class DcnServingEngine:
         self._step_cfg = clamp_tile_config(
             dataclasses.replace(self.graph_cfg, dispatch="batch_fused"),
             cfg.img_size, cfg.img_size)
+        # Degraded mode: per-image batched dispatch, serial staging — a
+        # fault in one image's dispatch cannot touch another's.
+        self._degraded_cfg = dataclasses.replace(
+            self._step_cfg, dispatch="batched", staging_depth=1)
+        self._faults = self._step_cfg.faults
 
     @property
     def requests(self) -> int:
@@ -198,6 +233,12 @@ class DcnServingEngine:
     @property
     def requests_failed(self) -> int:
         return self._m_failed.count
+
+    @property
+    def watchdog_failovers(self) -> int:
+        """Staging-watchdog failovers since this engine was constructed
+        (process-wide counter, engine-relative delta)."""
+        return self._watchdog.count - self._watchdog0
 
     def _absorb_trace(self, trace) -> None:
         """Fold one executor trace into the engine counters (caller holds
@@ -229,7 +270,7 @@ class DcnServingEngine:
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, np.float32)).to(self.device)
 
-    def _run_batch(self, x: torch.Tensor, cfg):
+    def _run_graph(self, x: torch.Tensor, cfg):
         """One executor call -> (logits on the device, trace)."""
         from repro_torch.models.dcn_models import apply_head
         from repro_torch.runtime.fused_exec import run_graph
@@ -240,6 +281,72 @@ class DcnServingEngine:
             schedule_cache=self.cache, tracer=self.tracer)
         return apply_head(self.params, self.cfg, y), trace
 
+    def _run_batch(self, images: list[np.ndarray], cfg):
+        """One executor call over a list of images -> (host logits,
+        trace)."""
+        logits, trace = self._run_graph(self._to_device(np.stack(images)),
+                                        cfg)
+        return logits.cpu().numpy(), trace
+
+    def _execute_isolated(self, images: list[np.ndarray]):
+        """Serve one step's images with request isolation.
+
+        Returns ``(outs, traces, failures, degraded)``: ``outs`` maps
+        batch position -> output, ``failures`` batch position ->
+        exception, ``traces`` the executor traces to absorb, ``degraded``
+        marks a step that fell back to per-image dispatch.
+
+        The ladder: (1) the coalesced ``batch_fused`` run; (2) on an
+        exception that names the offending image (``e.image``), retry ONCE
+        with that slot evicted; (3) on an unattributed exception or a
+        failed retry, degrade to per-image ``batched`` dispatch, capturing
+        each image's exception on its own. Device-level errors
+        (``_DEVICE_ERRORS``) are never caught here.
+        """
+        n = len(images)
+        try:
+            out, trace = self._run_batch(images, self._step_cfg)
+            return dict(enumerate(out)), [trace], {}, False
+        except _DEVICE_ERRORS:
+            raise
+        except Exception as e:   # isolation boundary: any executor fault
+            first = e
+        self._m_retries.inc()
+        self.tracer.instant("serve.step_retry", error=type(first).__name__)
+        failures: dict[int, Exception] = {}
+        bad = getattr(first, "image", None)
+        if isinstance(bad, int) and 0 <= bad < n:
+            failures[bad] = first
+            keep = [k for k in range(n) if k != bad]
+            if not keep:
+                return {}, [], failures, False
+            try:
+                out, trace = self._run_batch([images[k] for k in keep],
+                                             self._step_cfg)
+                return ({k: out[z] for z, k in enumerate(keep)}, [trace],
+                        failures, False)
+            except _DEVICE_ERRORS:
+                raise
+            except Exception:    # the retry faulted too -> degrade
+                pass
+        self._m_degraded.inc()
+        self.tracer.instant("serve.step_degraded", width=n)
+        outs: dict[int, np.ndarray] = {}
+        traces: list = []
+        for k in range(n):
+            if k in failures:
+                continue
+            try:
+                out, trace = self._run_batch([images[k]],
+                                             self._degraded_cfg)
+                outs[k] = out[0]
+                traces.append(trace)
+            except _DEVICE_ERRORS:
+                raise
+            except Exception as ek:
+                failures[k] = ek
+        return outs, traces, failures, True
+
     def infer(self, x) -> torch.Tensor:
         """Serve one request batch (N, H, W, C) -> logits."""
         from repro_torch.runtime.pipeline import clamp_tile_config
@@ -249,7 +356,7 @@ class DcnServingEngine:
         gcfg = clamp_tile_config(
             dataclasses.replace(self.graph_cfg, dispatch="batch_fused"),
             x.shape[1], x.shape[2])
-        out, trace = self._run_batch(x, gcfg)
+        out, trace = self._run_graph(x, gcfg)
         self._m_requests.inc()
         self._m_images.inc(int(x.shape[0]))
         with self._lock:
@@ -336,9 +443,14 @@ class DcnServingEngine:
         """One continuous-batching serving step: refill free slots from
         the queue in submit order (expired requests fail at admission),
         then serve all occupied slots with one ``batch_fused`` grid per
-        layer segment. Returns the requests that resolved this step —
-        finished or failed, each exactly once."""
+        layer segment, under the retry/degrade containment of
+        :meth:`_execute_isolated`. Returns the requests that resolved this
+        step — finished or failed, each exactly once."""
         tr = self.tracer
+        if self._faults is not None:
+            begin = getattr(self._faults, "begin_step", None)
+            if begin is not None:
+                begin()
         finished: list[DcnRequest] = []
         with tr.span("serve.admit", queue_depth=self.queue_depth):
             with self._lock:
@@ -366,38 +478,34 @@ class DcnServingEngine:
         if not occupied:
             return finished
         step_id = self._m_steps.count
-        error: Exception | None = None
-        outs, trace = None, None
         with tr.timed("serve.step", step=step_id,
                       width=len(occupied)) as ssp:
-            x = self._to_device(np.stack([req.x[j]
-                                          for _, req, j in occupied]))
-            try:
-                logits, trace = self._run_batch(x, self._step_cfg)
-                outs = logits.cpu().numpy()
-            except Exception as e:   # resolve the step's requests with it
-                error = e
-            ssp.set(dispatches=trace.kernel_dispatches if trace else 0,
-                    dram_bytes=trace.total_dram_bytes if trace else 0,
-                    failed=error is not None)
+            outs, traces, failures, degraded = self._execute_isolated(
+                [req.x[j] for _, req, j in occupied])
+            ssp.set(dispatches=sum(t.kernel_dispatches for t in traces),
+                    dram_bytes=sum(t.total_dram_bytes for t in traces),
+                    failures=len(failures), degraded=degraded)
         now = self._clock()
         with self._lock:
             self._m_steps.inc()
             self._m_images.inc(len(occupied))
-            if trace is not None:
-                self._absorb_trace(trace)
+            for t in traces:
+                self._absorb_trace(t)
             for k, (i, req, j) in enumerate(occupied):
                 self._slots[i] = None
                 if req.done:
                     continue   # a step-mate image already failed it
-                if error is not None:
-                    if self._fail_locked(
-                            req, RequestFailedError(req.rid, cause=error),
-                            now):
+                if k in failures:
+                    e = failures[k]
+                    err = (e if isinstance(e, RequestFailedError)
+                           else RequestFailedError(req.rid, cause=e))
+                    if self._fail_locked(req, err, now):
                         finished.append(req)
                     continue
-                req.out[j] = outs[k]
+                if k in outs:
+                    req.out[j] = outs[k]
                 if req.deadline is not None and now > req.deadline:
+                    # Mid-flight expiry: computed, but past the deadline.
                     if self._fail_locked(
                             req, DeadlineExceededError(
                                 req.rid, deadline=req.deadline), now):
@@ -473,6 +581,9 @@ class DcnServingEngine:
                 "deadline_expired": self._m_deadline.count,
                 "queue_rejected": self._m_rejected.count,
                 "queue_shed": self._m_shed.count,
+                "step_retries": self._m_retries.count,
+                "degraded_steps": self._m_degraded.count,
+                "watchdog_failovers": self.watchdog_failovers,
                 "device": str(self.device),
             }
 
@@ -486,6 +597,8 @@ class DcnServingEngine:
             m.gauge("serving.slots").set(self.n_slots)
             m.gauge("serving.host_schedule_builds").set(
                 self.host_schedule_builds)
+            m.gauge("serving.watchdog_failovers").set(
+                self.watchdog_failovers)
             req = self._m_requests.count
             m.gauge("serving.dispatches_per_batch").set(
                 self._m_dispatches.count / req if req else 0.0)

@@ -87,3 +87,78 @@ def test_fused_kernel(shape):
     want = dcn_fused_batch_plain(*ops, t_in=t)
     got = dcn_fused_batch(*(a.cuda() for a in ops), t_in=t).cpu()
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def _sched_operands(seed, t, t_in, tp, c, o, k_pad, kk=9):
+    """Schedule-kernel operands with every awkward case: addresses in
+    padding slots (>= dep_cnt), beyond k_pad*tp and negative, and a
+    dep_cnt = 0 row."""
+    rng = np.random.default_rng(seed)
+    dep = np.stack([rng.permutation(t_in)[:k_pad] if k_pad <= t_in
+                    else np.resize(rng.permutation(t_in), k_pad)
+                    for _ in range(t)]).astype(np.int32)
+    cnt = rng.integers(1, k_pad + 1, size=t).astype(np.int32)
+    cnt[-1] = 0
+    idx = rng.integers(-tp, (k_pad + 1) * tp, size=(t, tp, kk, 4))
+    return [torch.as_tensor(a) for a in (
+        rng.normal(size=(t_in, tp, c)).astype(np.float32), dep, cnt,
+        idx.astype(np.int32),
+        rng.uniform(size=(t, tp, kk, 4)).astype(np.float32),
+        (rng.normal(size=(kk, c, o)) / np.sqrt(kk * c)).astype(np.float32),
+        rng.normal(size=(o,)).astype(np.float32))]
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 16, 8, 8, 4), (5, 9, 4, 5, 7, 8),
+                                   (4, 4, 64, 512, 512, 4)])
+def test_schedule_kernel(shape):
+    from repro_torch.kernels.dcn_fused import (dcn_fused_schedule,
+                                               dcn_fused_schedule_plain)
+
+    ops = _sched_operands(1, *shape)
+    want = dcn_fused_schedule_plain(*ops)
+    got = dcn_fused_schedule(*(a.cuda() for a in ops)).cpu()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert torch.equal(got[-1], ops[-1].expand_as(got[-1]).contiguous())
+    empty = dcn_fused_schedule(*(a[:0].cuda() if i in (1, 2, 3, 4) else
+                                 a.cuda() for i, a in enumerate(ops)))
+    assert empty.shape == (0, shape[2], shape[4])
+
+
+@pytest.mark.parametrize("shape", [(1, 40, 16, 6, 5), (3, 256, 64, 8, 8),
+                                   (1, 196, 256, 512, 512)])
+def test_tile_kernel(shape):
+    from repro_torch.kernels.dcn_fused import (dcn_fused_tile,
+                                               dcn_fused_tile_plain)
+
+    n, s, p, c, o = shape
+    rng = np.random.default_rng(2)
+    ops = [torch.as_tensor(a) for a in (
+        rng.normal(size=(n, s, c)).astype(np.float32),
+        rng.integers(-2, s + 3, size=(n, p, 9, 4)).astype(np.int32),
+        rng.uniform(size=(n, p, 9, 4)).astype(np.float32),
+        (rng.normal(size=(9, c, o)) / np.sqrt(9 * c)).astype(np.float32),
+        rng.normal(size=(o,)).astype(np.float32))]
+    want = dcn_fused_tile_plain(*ops)
+    got = dcn_fused_tile(*(a.cuda() for a in ops)).cpu()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    one = dcn_fused_tile(*(a[0].cuda() if i < 3 else a.cuda()
+                           for i, a in enumerate(ops))).cpu()
+    assert float((one - want[0]).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+
+
+@pytest.mark.parametrize("shape", [(1, 20, 16, 8), (2, 196, 1792, 512),
+                                   (1, 9, 8, 6)])
+def test_bli_kernel(shape):
+    from repro_torch.kernels.dcn_bli import bli_tile_matmul, bli_tile_plain
+
+    n, s, p, c = shape
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.normal(size=(n, s, c)).astype(np.float32))
+    idx = torch.as_tensor(rng.integers(-1, s + 2, size=(n, p, 4))
+                          .astype(np.int32))
+    cf = torch.as_tensor(rng.uniform(size=(n, p, 4)).astype(np.float32))
+    want = bli_tile_plain(x, idx, cf)
+    got = bli_tile_matmul(x.cuda(), idx.cuda(), cf.cuda(), block_p=p,
+                          block_c=c).cpu()
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())

@@ -253,3 +253,207 @@ class TestGlue:
         got = tdt_dispatch_arrays(torch.as_tensor(b), k_pad)
         for g_, w_ in zip(got, want):
             np.testing.assert_array_equal(g_.numpy(), np.asarray(w_))
+
+
+# ---------------------------------------------------------------------------
+# Kernels #4 (schedule), #5 (tile) and #6 (BLI): plain versions vs JAX
+# ---------------------------------------------------------------------------
+
+from repro.kernels import dcn_bli as j_bli  # noqa: E402
+from repro_torch.kernels.dcn_bli import bli_tile_matmul  # noqa: E402
+from repro_torch.kernels.dcn_fused import (dcn_fused_schedule,  # noqa: E402
+                                           dcn_fused_tile)
+
+
+def _sched_case(seed, t, t_in, tp, c, o, k_pad, p=None, lo=0, hi=None):
+    """Schedule operands: per row distinct deps in [0, T_in); dep_cnt in
+    [1, k_pad] with the last row 0; addresses drawn from [lo, hi) — by
+    default every slot, padding slots included."""
+    rng = np.random.default_rng(seed)
+    p = p or tp
+    hi = k_pad * tp if hi is None else hi
+    dep = np.stack([np.resize(rng.permutation(t_in), k_pad)
+                    for _ in range(t)]).astype(np.int32)
+    cnt = rng.integers(1, k_pad + 1, size=t).astype(np.int32)
+    cnt[-1] = 0
+    return (rng.normal(size=(t_in, tp, c)).astype(np.float32), dep, cnt,
+            rng.integers(lo, hi, size=(t, p, 9, 4)).astype(np.int32),
+            rng.uniform(size=(t, p, 9, 4)).astype(np.float32),
+            (rng.normal(size=(9, c, o)) / np.sqrt(9 * c)).astype(np.float32),
+            rng.normal(size=(o,)).astype(np.float32))
+
+
+def _jax_sched(ops, block_p=128):
+    return np.asarray(j_fused._dcn_fused_schedule_jit(
+        *(jnp.asarray(a) for a in ops), block_p=block_p, interpret=True))
+
+
+class TestFusedSchedule:
+    @pytest.mark.parametrize("t,t_in,tp,c,o,k_pad,p", [
+        (4, 4, 16, 8, 8, 4, None),    # a 2x2 grid, every slot live
+        (5, 9, 15, 5, 7, 8, None),    # rectangular 3x5 tiles, k_pad > T_in
+        (3, 6, 12, 6, 4, 4, 16),      # p_pad > tp: padded pixel rows
+    ])
+    def test_plain_matches_jax(self, t, t_in, tp, c, o, k_pad, p):
+        ops = _sched_case(t + tp, t, t_in, tp, c, o, k_pad, p)
+        got = dcn_fused_schedule(*(torch.as_tensor(a) for a in ops))
+        np.testing.assert_allclose(got.numpy(), _jax_sched(ops),
+                                   rtol=1e-5, atol=1e-5)
+        # dep_cnt = 0 row (the last): bias only, addresses ignored.
+        np.testing.assert_array_equal(got[-1].numpy(),
+                                      np.broadcast_to(ops[-1], got[-1].shape))
+
+    def test_out_of_range_addresses_contribute_zero(self):
+        ops = _sched_case(9, 3, 5, 16, 6, 6, 4, lo=-16, hi=6 * 16)
+        got = dcn_fused_schedule(*(torch.as_tensor(a) for a in ops))
+        np.testing.assert_allclose(got.numpy(), _jax_sched(ops),
+                                   rtol=1e-5, atol=1e-5)
+
+    def test_packer_operands_match_jax(self, sched_case):
+        ops = sched_case
+        got = dcn_fused_schedule(*(torch.as_tensor(a) for a in ops))
+        np.testing.assert_allclose(got.numpy(), _jax_sched(ops),
+                                   rtol=1e-5, atol=1e-5)
+
+    def test_empty_schedule(self):
+        ops = [torch.as_tensor(a) for a in _sched_case(1, 2, 4, 16, 8, 8, 4)]
+        for i in (1, 2, 3, 4):
+            ops[i] = ops[i][:0]
+        got = dcn_fused_schedule(*ops)
+        assert got.shape == (0, 16, 8)
+        want = _jax_sched([a.numpy() for a in ops])
+        assert want.shape == got.shape
+
+    def test_rejects_bad_operands(self):
+        ops = [torch.as_tensor(a) for a in _sched_case(1, 2, 4, 12, 8, 8, 4)]
+        with pytest.raises(ValueError, match="must tile"):
+            dcn_fused_schedule(*ops, block_p=8)
+        with pytest.raises(ValueError, match="must tile"):
+            _jax_sched([a.numpy() for a in ops], block_p=8)
+        bad = list(ops)
+        bad[2] = ops[2][:1]
+        with pytest.raises(ValueError, match="dep_cnt"):
+            dcn_fused_schedule(*bad)
+        bad = list(ops)
+        bad[0] = ops[0].double()
+        with pytest.raises(ValueError, match="float32"):
+            dcn_fused_schedule(*bad)
+
+
+@pytest.fixture(scope="module")
+def sched_case():
+    """One image's schedule operands from the JAX per-image packers."""
+    from repro.core.scheduler import schedule_tiles
+    from repro.core.tiles import tdt_from_coords
+    from repro.runtime.packing import (build_neighbour_tables,
+                                       pack_schedule_tiles)
+
+    h, w, c, o = 11, 10, 6, 5
+    grid = JGrid(h, w, 4, 3)
+    co = jnp.asarray(_coords(21, h, w))
+    b = np.asarray(tdt_from_coords(co, grid, grid))
+    sched = schedule_tiles(b, 3)
+    oid, deps, cnt = sched.dense()
+    dep_tbl, dep_cnt, idx, coeff = pack_schedule_tiles(
+        build_neighbour_tables(co, grid), grid, oid,
+        [d[:k] for d, k in zip(deps, cnt)], 16, deps.shape[1])
+    rng = np.random.default_rng(4)
+    return (rng.normal(size=(grid.num_tiles, 12, c)).astype(np.float32),
+            dep_tbl, dep_cnt, idx, coeff,
+            rng.normal(size=(9, c, o)).astype(np.float32),
+            rng.normal(size=(o,)).astype(np.float32))
+
+
+def _tile_case(seed, n, s, p, c, o, lo=0, hi=None):
+    rng = np.random.default_rng(seed)
+    hi = s if hi is None else hi
+    return (rng.normal(size=(n, s, c)).astype(np.float32),
+            rng.integers(lo, hi, size=(n, p, 9, 4)).astype(np.int32),
+            rng.uniform(size=(n, p, 9, 4)).astype(np.float32),
+            (rng.normal(size=(9, c, o)) / np.sqrt(9 * c)).astype(np.float32),
+            rng.normal(size=(o,)).astype(np.float32))
+
+
+def _jax_tile(x, idx, coeff, w, b, block_p=128):
+    return np.asarray(j_fused._dcn_fused_tile_jit(
+        *(jnp.asarray(a) for a in (x, idx, coeff, w, b)), block_p=block_p,
+        interpret=True))
+
+
+class TestFusedTile:
+    @pytest.mark.parametrize("n,s,p,c,o,lo,hi", [
+        (1, 64, 16, 8, 8, 0, None),      # one tile, in-range addresses
+        (3, 48, 32, 5, 7, -3, 52),       # a batch, out-of-range indices
+        (2, 40, 24, 6, 4, 0, None),      # P not a power of two
+    ])
+    def test_plain_matches_jax(self, n, s, p, c, o, lo, hi):
+        x, idx, coeff, w, b = _tile_case(s + p, n, s, p, c, o, lo, hi)
+        got = dcn_fused_tile(*(torch.as_tensor(a)
+                               for a in (x, idx, coeff, w, b)))
+        assert got.shape == (n, p, o)
+        for i in range(n):
+            np.testing.assert_allclose(
+                got[i].numpy(), _jax_tile(x[i], idx[i], coeff[i], w, b),
+                rtol=1e-5, atol=1e-5)
+        one = dcn_fused_tile(*(torch.as_tensor(a) for a in
+                               (x[0], idx[0], coeff[0], w, b)))
+        np.testing.assert_array_equal(one.numpy(), got[0].numpy())
+
+    def test_rejects_bad_operands(self):
+        x, idx, coeff, w, b = (torch.as_tensor(a)
+                               for a in _tile_case(1, 1, 16, 12, 4, 4))
+        with pytest.raises(ValueError, match="must tile"):
+            dcn_fused_tile(x, idx, coeff, w, b, block_p=8)
+        with pytest.raises(ValueError, match="must tile"):
+            _jax_tile(x[0].numpy(), idx[0].numpy(), coeff[0].numpy(),
+                      w.numpy(), b.numpy(), block_p=8)
+        with pytest.raises(ValueError, match="does not match"):
+            dcn_fused_tile(x, idx[0], coeff[0], w, b)
+
+
+class TestBli:
+    @pytest.mark.parametrize("n,s,p,c,lo,hi,bp,bc", [
+        (1, 20, 16, 8, 0, 20, 128, 128),     # in range, whole blocks
+        (2, 30, 64, 16, -2, 33, 32, 8),      # out of range, several blocks
+        (1, 196, 256, 128, 0, 196, 128, 128),  # the 14x14 plane, KK=1
+    ])
+    def test_plain_matches_jax(self, n, s, p, c, lo, hi, bp, bc):
+        rng = np.random.default_rng(s + p)
+        x = rng.normal(size=(n, s, c)).astype(np.float32)
+        idx = rng.integers(lo, hi, size=(n, p, 4)).astype(np.int32)
+        cf = rng.uniform(size=(n, p, 4)).astype(np.float32)
+        got = bli_tile_matmul(torch.as_tensor(x), torch.as_tensor(idx),
+                              torch.as_tensor(cf), block_p=bp, block_c=bc)
+        for i in range(n):
+            want = np.asarray(j_bli.bli_tile_matmul(
+                jnp.asarray(x[i]), jnp.asarray(idx[i]), jnp.asarray(cf[i]),
+                block_p=bp, block_c=bc, interpret=True))
+            np.testing.assert_allclose(got[i].numpy(), want, rtol=1e-5,
+                                       atol=1e-5)
+
+    def test_gather_reference_matches_jax(self):
+        from repro_torch.kernels.dcn_bli import bli_gather_reference
+
+        rng = np.random.default_rng(5)
+        x = rng.normal(size=(20, 6)).astype(np.float32)
+        idx = rng.integers(0, 20, size=(9, 4)).astype(np.int32)
+        cf = rng.uniform(size=(9, 4)).astype(np.float32)
+        want = np.asarray(j_bli.bli_gather_reference(
+            jnp.asarray(x), jnp.asarray(idx), jnp.asarray(cf)))
+        got = bli_gather_reference(torch.as_tensor(x), torch.as_tensor(idx),
+                                   torch.as_tensor(cf))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+    def test_rejects_untiled_shapes(self):
+        x = torch.zeros((20, 12))
+        idx = torch.zeros((10, 4), dtype=torch.int32)
+        cf = torch.zeros((10, 4))
+        with pytest.raises(ValueError, match="must tile"):
+            bli_tile_matmul(x, idx, cf, block_p=8)
+        with pytest.raises(ValueError, match="must tile"):
+            bli_tile_matmul(x, idx, cf, block_c=8)
+        with pytest.raises(ValueError, match="must tile"):
+            j_bli.bli_tile_matmul(jnp.zeros((20, 12)),
+                                  jnp.zeros((10, 4), jnp.int32),
+                                  jnp.zeros((10, 4)), block_c=8,
+                                  interpret=True)

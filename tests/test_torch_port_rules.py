@@ -26,7 +26,9 @@ def test_package_imports_with_jax_blocked():
         "import repro_torch, repro_torch.serving, repro_torch.convert\n"
         "import repro_torch.models.dcn_models, repro_torch.core.simulator\n"
         "import repro_torch.kernels.dcn_fused, repro_torch.obs.export\n"
-        "import repro_torch.kernels._build\n"
+        "import repro_torch.kernels._build, repro_torch.kernels.ops\n"
+        "import repro_torch.kernels.dcn_bli, repro_torch.testing\n"
+        "import repro_torch.runtime.pipeline\n"
         "print('ok')\n")
     src = str(PKG.parent)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -25,7 +25,7 @@ from repro_torch.core.simulator import simulate_network
 from repro_torch.models.dcn_models import (DcnNetConfig, dcn_net_apply,
                                            init_dcn_net)
 from repro_torch.runtime.fused_exec import (GraphConfig, network_sim_specs,
-                                            run_graph, run_graph_dense)
+                                            run_graph_dense)
 from repro_torch.runtime.graph import build_graph
 from repro_torch.serving import (DcnServingEngine, DeadlineExceededError,
                                  QueueFullError)
@@ -138,13 +138,16 @@ def test_dense_model_and_graph_match(port_params, jax_case):
     assert y.shape == (2, 1, 1, 64)
 
 
-def test_other_dispatch_modes_name_the_later_slice(port_params):
+def test_other_dispatch_modes_name_the_later_slice(port_params, jax_case):
+    """The per-image modes, ported by the tile-pipeline slice, serve the
+    same logits as the engine; an unknown mode is still refused."""
     cfg = DcnNetConfig(**CFG)
-    x = torch.zeros((1, 16, 16, 3))
+    x = torch.as_tensor(jax_case[1][:2])
+    want = jax_case[2][:2]
     for mode in ("batched", "per_tile"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            run_graph(port_params["convs"], build_graph(cfg), x,
-                      config=GraphConfig(tile=4, dispatch=mode))
+        got = dcn_net_apply(port_params, cfg, x, backend="graph",
+                            graph=GraphConfig(tile=4, dispatch=mode))
+        assert np.abs(got.numpy() - want).max() <= 1e-4 * np.abs(want).max()
     with pytest.raises(ValueError, match="unknown dispatch"):
         GraphConfig(dispatch="bogus")
 
