@@ -37,7 +37,24 @@ Phases, each fatal on failure:
               ``ops.bli_pallas`` vs ``core.deform.bilinear_sample``;
 4.  profile — one more step under ``torch.profiler``: wall, device busy
               time and idle share, and the top device activities and host
-              operators.
+              operators;
+5.  lm-kernels — hold the flash-attention kernel (#7) against its plain
+              version at Qwen3-1.7B prefill shapes, Gemma-2-27B local-layer
+              shapes (D=144, window 4096, soft-cap 50) and a ragged
+              Sq < Skv case, and the split-KV decode kernel (#8) at Qwen3
+              decode shapes (32k cache, ragged lengths) and a Gemma-2
+              window + soft-cap case, each within 1e-4 * max|ref|; #8 at two
+              split counts within 1e-5 * max|ref|; time kernel, plain
+              version and ``scaled_dot_product_attention``;
+6.  lm-prefill — Qwen3-1.7B ``full()`` (random weights from the seed,
+              float32): ``lm_prefill`` with ``use_flash=True`` on 4 x 2048
+              tokens, one #7 launch per layer, last-position logits within
+              1e-3 * max|ref| of the ``_sdpa`` path; prefill tokens/s;
+7.  lm-serve — ``DecodeEngine(batch=4, max_len=512)`` on the same params
+              serves 8 greedy requests (prompts of 16-256 tokens, 32 new
+              tokens each), one #8 launch per layer and step; two requests
+              cross-checked against ``lm_prefill``; decode tokens/s, step
+              and request latency; 4 more steps under ``torch.profiler``.
 
 Each path is driven with every kernel's launch count set to 0 just
 before it and read just after. The last lines are the card's name and
@@ -69,6 +86,23 @@ PEAK_SXM = (67e12, 3.35e12)
 FUSED_RTOL = 1e-4     # kernel vs plain: float32 sums in another order
 BLI_RTOL = 1e-6       # BLI kernel vs plain / reference: four-term sums
 LOGIT_RTOL = 1e-3     # served vs dense: 16 layers of reordered sums
+ATTN_RTOL = 1e-4      # #7 / #8 vs plain: float32 sums in another order
+SPLIT_RTOL = 1e-5     # #8 at two split counts: the combine is exact
+# Shapes of the LM phases: (name, B, Sq, Skv, Hq, Hkv, D, options) for #7,
+# (name, B, S, Hq, Hkv, D, options) for #8; the first case of each is the
+# one timed and reported.
+LM_SIZES = dict(
+    arch="qwen3-1.7b", smoke=False,
+    flash=[("Qwen3-1.7B prefill", 2, 4096, 4096, 16, 8, 128, {}),
+           ("Gemma-2-27B local layer", 1, 6144, 6144, 32, 16, 144,
+            dict(window=4096, softcap=50.0)),
+           ("ragged Sq < Skv", 2, 1000, 3000, 16, 8, 128, {})],
+    decode=[("Qwen3-1.7B decode", 8, 32768, 16, 8, 128, {}),
+            ("Gemma-2-27B window + soft-cap", 4, 8192, 32, 16, 144,
+             dict(window=4096, softcap=50.0))],
+    prefill_batch=4, prefill_len=2048,
+    serve_batch=4, serve_max_len=512, requests=8, prompt_len=(16, 256),
+    max_new=32, cross_checked=2)
 # Device cycles the stream sleeps before each timed window, so the host
 # enqueues the window's launches while the device is still busy and the
 # events time the device work, not the host's launch overhead.
@@ -197,6 +231,277 @@ def profile_step(eng, batch, card: str) -> None:
               f"x{e.count:<5d} {e.key[:90]}")
 
 
+def live_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    """(query, key) pairs the flash mask leaves visible."""
+    import numpy as np
+    qi = np.arange(sq, dtype=np.int64) + (skv - sq)
+    hi = np.minimum(qi + 1, skv) if causal else np.full(sq, skv)
+    lo = np.maximum(qi - window + 1, 0) if window is not None else 0
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def sdpa_yardstick(q, k, v, **kw):
+    """``scaled_dot_product_attention`` on (B, H, S, D) operands with the
+    kv heads grouped (``enable_gqa``): the library yardstick only, the
+    port never calls it."""
+    import torch.nn.functional as F
+    return lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                                  **kw)
+
+
+def lm_phases(dev, sizes, card, kernels, launches, reset_counts) -> None:
+    """Phases 5-7: the LM kernels held against their plain versions, the
+    Qwen3-1.7B prefill through #7, and ``DecodeEngine`` through #8. Fills
+    ``kernels`` and ``launches`` for #7 / #8."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models import lm
+    from repro_torch.models.params import param_bytes
+    from repro_torch.serving import DecodeEngine, Request
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    rng = np.random.default_rng(SEED + 5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def hold(what, got, ref, rtol):
+        sync()
+        d, sc = rel_err(got, ref)
+        if not torch.isfinite(got).all() or not d <= rtol * sc:
+            fail(f"{what}: max|d|={d} > {rtol}*{sc} (or not finite)")
+        return d, sc
+
+    # -- phase 5: #7 and #8 against their plain versions ---------------------
+    for i, (name, b, sq, skv, hq, hkv, d, opts) in enumerate(sizes["flash"]):
+        q, k, v = randn(b, sq, hq, d), randn(b, skv, hkv, d), \
+            randn(b, skv, hkv, d)
+        plain = lambda: fa.flash_attention_plain(q, k, v, scale=d ** -0.5,
+                                                 **opts)
+        err, sc = hold(f"flash_attention at {name}",
+                       fa.flash_attention(q, k, v, **opts), plain(),
+                       ATTN_RTOL)
+        print(f"[lm-kernels] flash_attention at {name} (B={b} Sq={sq} "
+              f"Skv={skv} Hq={hq} Hkv={hkv} D={d} {opts or 'causal'}): "
+              f"max|d| {err:.3e} (limit {ATTN_RTOL}*{sc:.3f})")
+        if i == 0:
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib = sdpa_yardstick(qt, kt, vt, is_causal=True)
+            live = live_pairs(sq, skv, True, opts.get("window"))
+            kernels["flash_attention"] = dict(
+                route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:27",
+                max_abs_err=err,
+                ms=cuda_time_ms(lambda: fa.flash_attention(q, k, v, **opts),
+                                5),
+                plain_ms=cuda_time_ms(plain, 2, warmup=1),
+                library_ms=cuda_time_ms(lib, 5),
+                flops=4 * b * hq * live * d,
+                bytes=4 * (2 * q.numel() + k.numel() + v.numel()),
+                shape=f"{name} B={b} S={sq} Hq={hq} Hkv={hkv} D={d}, causal "
+                      f"(live share {live / (sq * skv):.4f})")
+            del qt, kt, vt, lib
+        del q, k, v
+    for i, (name, b, s, hq, hkv, d, opts) in enumerate(sizes["decode"]):
+        q, kc, vc = randn(b, hq, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
+        lens_np = rng.integers(1, s + 1, size=b).astype(np.int32)
+        lens = torch.as_tensor(lens_np, device=dev)
+        plain = lambda: fd.flash_decode_plain(q, kc, vc, lens,
+                                              scale=d ** -0.5, **opts)
+        ref = plain()
+        got = fd.flash_decode(q, kc, vc, lens, **opts)
+        err, sc = hold(f"flash_decode at {name}", got, ref, ATTN_RTOL)
+        print(f"[lm-kernels] flash_decode at {name} (B={b} S={s} Hq={hq} "
+              f"Hkv={hkv} D={d} {opts}, lengths {lens_np.tolist()}): max|d| "
+              f"{err:.3e} (limit {ATTN_RTOL}*{sc:.3f})")
+        if i == 0:
+            n_def = fd.default_splits(b, hkv, s)
+            other = fd.flash_decode(q, kc, vc, lens, num_splits=64, **opts)
+            ds, _ = hold(f"flash_decode at {n_def} vs 64 splits", other, got,
+                         SPLIT_RTOL)
+            print(f"[lm-kernels] flash_decode at {n_def} (default) vs 64 "
+                  f"splits: max|d| {ds:.3e} (limit {SPLIT_RTOL}*{sc:.3f})")
+            visible = int(np.minimum(lens_np, s).sum())
+            qt = q[:, :, None]
+            kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
+            mask = (torch.arange(s, device=dev)[None, :]
+                    < lens[:, None])[:, None, None, :]
+            lib = sdpa_yardstick(qt, kt, vt, attn_mask=mask)
+            kernels["flash_decode"] = dict(
+                route="cuda", source="src/repro_torch/csrc/flash_decode.cu",
+                replaces="src/repro/kernels/flash_decode.py:28",
+                max_abs_err=err,
+                ms=cuda_time_ms(lambda: fd.flash_decode(q, kc, vc, lens,
+                                                        **opts), 20),
+                plain_ms=cuda_time_ms(plain, 5),
+                library_ms=cuda_time_ms(lib, 20),
+                flops=4 * visible * hq * d,
+                bytes=4 * (2 * visible * hkv * d + 2 * q.numel()) + 4 * b,
+                shape=f"{name} B={b} S={s} Hq={hq} Hkv={hkv} D={d}, "
+                      f"{visible} visible keys, {n_def} splits")
+            del kt, vt, lib, mask
+        del q, kc, vc, ref, got
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- phase 6: Qwen3-1.7B prefill through #7 ------------------------------
+    cfg = configs.get_config(sizes["arch"], smoke=sizes["smoke"])
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, SEED, device=dev)
+    sync()
+    print(f"[lm-prefill] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x "
+          f"{cfg.head_dim}, vocab {cfg.vocab}: "
+          f"{param_bytes(params) / 1e9:.2f} GB of float32 params built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    pb, plen = sizes["prefill_batch"], sizes["prefill_len"]
+    prng = np.random.default_rng(SEED + 6)
+    toks = torch.as_tensor(prng.integers(0, cfg.vocab, size=(pb, plen))
+                           .astype(np.int32), device=dev)
+    cfg_flash = dataclasses.replace(cfg, use_flash=True)
+    lm.lm_prefill(params, cfg_flash, {"tokens": toks[:, :64]})   # warm-up
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits = lm.lm_prefill(params, cfg_flash, {"tokens": toks})
+    sync()
+    wall = time.perf_counter() - t0
+    n7 = fa.flash_attention.launches
+    if n7 != cfg.n_layers:
+        fail(f"prefill launched flash_attention {n7} times, expected one "
+             f"per layer ({cfg.n_layers})")
+    launches["flash_attention"] = n7
+    t0 = time.perf_counter()
+    ref = lm.lm_prefill(params, cfg, {"tokens": toks})
+    sync()
+    wall_ref = time.perf_counter() - t0
+    if tuple(logits.shape) != (pb, cfg.n_codebooks, cfg.vocab):
+        fail(f"prefill logits {tuple(logits.shape)}")
+    d, sc = hold("prefill logits (flash vs _sdpa path)", logits, ref,
+                 LOGIT_RTOL)
+    print(f"[lm-prefill] {card}: {pb} x {plen} tokens through "
+          f"{n7} flash_attention launches in {wall * 1e3:.1f} ms = "
+          f"{pb * plen / wall:.0f} prefill tokens/s (_sdpa path "
+          f"{wall_ref * 1e3:.1f} ms); last-position logits finite, max|d| "
+          f"{d:.3e} (limit {LOGIT_RTOL}*{sc:.3f})")
+    del logits, ref
+
+    # -- phase 7: DecodeEngine through #8 ------------------------------------
+    def engine():
+        return DecodeEngine(params, cfg, batch=sizes["serve_batch"],
+                            max_len=sizes["serve_max_len"], device=dev)
+
+    warm = engine()
+    warm.submit(Request(rid=-1, prompt=[1, 2], max_new=2))
+    warm.run()
+    del warm
+    eng = engine()
+    srng = np.random.default_rng(SEED + 7)
+    lo, hi = sizes["prompt_len"]
+    reqs = []
+    for rid in range(sizes["requests"]):
+        plen_r = int(srng.integers(lo, hi + 1))
+        reqs.append(Request(rid=rid, max_new=sizes["max_new"],
+                            prompt=srng.integers(0, cfg.vocab, size=plen_r)
+                            .tolist()))
+        eng.submit(reqs[-1])
+    reset_counts()
+    step_s, finish_s = [], {}
+    t0 = time.perf_counter()
+    while len(step_s) < 100_000:
+        ts = time.perf_counter()
+        active = eng.step()
+        now = time.perf_counter()
+        step_s.append(now - ts)
+        for r in eng.finished:
+            finish_s.setdefault(r.rid, now - t0)
+        if active == 0 and not eng.queue:
+            break
+    sync()
+    wall = time.perf_counter() - t0
+    n8 = fd.flash_decode.launches
+    if n8 != cfg.n_layers * eng.steps:
+        fail(f"serving launched flash_decode {n8} times in {eng.steps} "
+             f"steps, expected {cfg.n_layers} per step")
+    launches["flash_decode"] = n8
+    bad = [r.rid for r in reqs if not r.done or len(r.out) != r.max_new]
+    if bad:
+        fail(f"requests {bad} did not finish with max_new tokens")
+    gaps = []
+    for r in reqs[:sizes["cross_checked"]]:
+        for j in (0, r.max_new - 1):
+            seq = torch.as_tensor([r.prompt + r.out[:j]], dtype=torch.int32,
+                                  device=dev)
+            lg = lm.lm_prefill(params, cfg_flash, {"tokens": seq})[0, 0]
+            top = torch.topk(lg, 2).values
+            gap = float(top[0] - top[1])
+            tol = 1e-3 * float(lg.abs().max())
+            pred = int(torch.argmax(lg))
+            gaps.append((r.rid, j, pred == r.out[j], gap))
+            if pred != r.out[j] and gap > tol:
+                fail(f"request {r.rid} token {j}: decode gave {r.out[j]}, "
+                     f"prefill argmax {pred} with top-2 gap {gap} > {tol}")
+    n_tok = sum(len(r.out) for r in reqs)
+    lat = np.asarray(sorted(finish_s[r.rid] for r in reqs))
+    st = np.asarray(step_s[:eng.steps])
+    print(f"[lm-serve] {card}: {len(reqs)} requests (prompts "
+          f"{[len(r.prompt) for r in reqs]}) served in {eng.steps} steps of "
+          f"batch {sizes['serve_batch']} with {n8} flash_decode launches; "
+          f"{n_tok} new tokens in {wall:.2f} s = {n_tok / wall:.1f} decode "
+          f"tokens/s ({eng.steps * sizes['serve_batch'] / wall:.1f} slot-"
+          f"tokens/s incl. the prompts); step latency p50 "
+          f"{np.percentile(st, 50) * 1e3:.2f} ms p99 "
+          f"{np.percentile(st, 99) * 1e3:.2f} ms; request latency p50 "
+          f"{np.percentile(lat, 50):.2f} s p99 {np.percentile(lat, 99):.2f} s")
+    print("[lm-serve] decode vs prefill argmax (rid, j, equal, top-2 gap): "
+          + ", ".join(f"({a}, {b}, {c}, {g:.4g})" for a, b, c, g in gaps))
+    if dev.type == "cuda":
+        profile_decode(eng, card)
+    del params, eng
+
+
+def profile_decode(eng, card: str, steps: int = 4) -> None:
+    """``steps`` decode steps of one more request under ``torch.profiler``:
+    wall per step, device busy time and idle share, the top device
+    activities and the top host operators by self time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import Request
+
+    eng.submit(Request(rid=10**6, prompt=[1] * (steps + 1), max_new=1))
+    eng.step()                                   # admit, warm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us, by_name = device_busy(prof.events())
+    if busy_us <= 0:
+        fail("the profiler recorded no device activity in a decode step")
+    print(f"[lm-profile] {card}: {steps} decode steps of batch {eng.batch}: "
+          f"wall {wall_us / steps / 1e3:.2f} ms per step, device busy "
+          f"{busy_us / steps / 1e3:.2f} ms (idle "
+          f"{100 * (1 - busy_us / wall_us):.1f} %)")
+    for name, d in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]:
+        print(f"  device {sum(d) / steps / 1e3:8.3f} ms/step "
+              f"x{len(d) // steps:<5d} {name[:80]}")
+    for e in sorted(prof.key_averages(),
+                    key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
+        print(f"  host   {e.self_cpu_time_total / steps / 1e3:8.3f} ms/step "
+              f"x{e.count // steps:<5d} {e.key[:80]}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -214,6 +519,8 @@ def main() -> int:
     from repro_torch.kernels import dcn_bli as kb
     from repro_torch.kernels import dcn_fused as kf
     from repro_torch.kernels import dcn_schedule as ks
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ops
     from repro_torch.models.dcn_models import (DcnNetConfig, apply_head,
                                                dcn_net_apply, init_dcn_net)
@@ -244,7 +551,9 @@ def main() -> int:
                 "greedy_schedule_arrays": ks.greedy_schedule_arrays,
                 "dcn_fused_schedule": kf.dcn_fused_schedule,
                 "dcn_fused_tile": kf.dcn_fused_tile,
-                "bli_tile_matmul": kb.bli_tile_matmul}
+                "bli_tile_matmul": kb.bli_tile_matmul,
+                "flash_attention": fa.flash_attention,
+                "flash_decode": fd.flash_decode}
     launches = {}
 
     def reset_counts():
@@ -750,6 +1059,10 @@ def main() -> int:
     # -- phase 4: where one serving step's time goes -------------------------
     profile_step(eng, images[12:16], card)
     no_ladder("profiled step", eng)
+    del eng, host_eng, e_t, e_u
+
+    # -- phases 5-7: the LM serving slice -------------------------------------
+    lm_phases(dev, LM_SIZES, card, kernels, launches, reset_counts)
 
     out_k = []
     for name in wrappers:

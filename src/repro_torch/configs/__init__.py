@@ -1,0 +1,47 @@
+"""Config registry: ``--arch <id>`` resolution for the assigned
+architectures (the same ids as the JAX package).
+
+The LM slice of the port runs the dense-attention archs; the others
+(MLA, MoE, Mamba, xLSTM and cross-attention blocks) raise
+``NotImplementedError`` until their blocks are ported.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import (SHAPES, SMOKE_SHAPES, ShapeCell,
+                                      cell_supported)
+
+_ARCH_MODULES = {
+    "xlstm-1.3b": None,
+    "llama-3.2-vision-11b": None,
+    "musicgen-medium": "repro_torch.configs.musicgen_medium",
+    "deepseek-v3-671b": None,
+    "granite-moe-3b-a800m": None,
+    "qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
+    "gemma2-27b": "repro_torch.configs.gemma2_27b",
+    "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
+    "smollm-360m": "repro_torch.configs.smollm_360m",
+    "jamba-v0.1-52b": None,
+}
+
+ARCHS = tuple(_ARCH_MODULES)
+SUPPORTED_ARCHS = tuple(a for a, m in _ARCH_MODULES.items() if m)
+
+
+def get_config(arch: str, smoke: bool = False):
+    """Resolve an --arch id to its ModelConfig."""
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; choose from {ARCHS}")
+    module = _ARCH_MODULES[arch]
+    if module is None:
+        raise NotImplementedError(
+            f"{arch}: its blocks are not ported yet (ROADMAP.md §1, the "
+            f"MLA/MoE/Mamba/xLSTM/cross-attention item)")
+    mod = importlib.import_module(module)
+    return mod.smoke() if smoke else mod.full()
+
+
+__all__ = ["ARCHS", "SHAPES", "SMOKE_SHAPES", "SUPPORTED_ARCHS", "ShapeCell",
+           "cell_supported", "get_config"]

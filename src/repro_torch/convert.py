@@ -1,11 +1,14 @@
-"""Carry parameters of the JAX package's DCN models across to the port.
+"""Carry parameters of the JAX package's models across to the port.
 
 The JAX package's ``init_dcn_net`` returns a tree of ``DeformableConvParams``
 (attributes ``w_off``, ``b_off``, ``w``, ``b``) and ``{"w", "b"}`` dicts.
 The caller converts its leaves to numpy (``jax.tree.map(np.asarray,
 params)``) and passes the tree here; this module never imports JAX. The
 layouts (HWIO weights) are the same on both sides, so the port computes
-the same function on the converted parameters.
+the same function on the converted parameters. :func:`lm_params_from_jax`
+does the same for the JAX package's ``init_lm`` tree (nested dicts and
+lists, the layer stack as leading-dimension leaves under
+``"stack"/"b{j}"``), whose layout the port keeps.
 """
 
 from __future__ import annotations
@@ -43,3 +46,17 @@ def params_from_jax(tree: dict[str, Any], device="cuda") -> dict[str, Any]:
         else:
             out[name] = {k: _tensor(v, dev) for k, v in value.items()}
     return out
+
+
+def _tree_to_torch(tree, dev: torch.device):
+    if isinstance(tree, dict):
+        return {k: _tree_to_torch(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to_torch(v, dev) for v in tree]
+    return _tensor(tree, dev)
+
+
+def lm_params_from_jax(tree: dict[str, Any], device="cuda") -> dict[str, Any]:
+    """JAX-package LM params (``init_lm``) with numpy leaves -> the port's
+    params on ``device``; both then compute the same function."""
+    return _tree_to_torch(tree, resolve_device(device))

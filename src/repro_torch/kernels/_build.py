@@ -27,9 +27,10 @@ _BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argument types (pointers and the stream as
-# c_void_p, ints as c_int). Each returns cudaGetLastError() as an int.
+# c_void_p, ints as c_int, floats as c_float). Each returns
+# cudaGetLastError() as an int.
 _SIGNATURES = {
     "dcn_fused_batch_launch": [_P] * 9 + [_I] * 8 + [_P],
     "dcn_fused_schedule_launch": [_P] * 8 + [_I] * 8 + [_P],
@@ -38,6 +39,9 @@ _SIGNATURES = {
     "tdt_from_coords_launch": [_P, _P] + [_I] * 13 + [_P],
     "greedy_schedule_launch": [_P] * 5 + [_I] * 4 + [_P],
     "greedy_schedule_smem_bytes": [_I, _I, _I],
+    "flash_attention_launch": [_P] * 4 + [_I] * 8 + [_F, _F, _P],
+    "flash_decode_launch": [_P] * 6 + [_I] * 7 + [_F, _F, _P],
+    "flash_decode_combine_launch": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 class KernelError(RuntimeError):

@@ -1,1 +1,1 @@
-"""The paper's DCN benchmark networks."""
+"""The paper's DCN benchmark networks and the LM serving models."""

@@ -1,0 +1,114 @@
+"""Language model for serving: embeddings, layer stack, heads, prefill and
+the decode step.
+
+Entry points:
+
+  init_lm(cfg, seed, device=)                 params (``device="meta"``:
+                                              shapes only)
+  lm_prefill(params, cfg, batch)              last-position logits
+  init_cache(cfg, batch, max_len, ...)        the decode cache
+  lm_decode_step(params, cfg, cache, token, pos) -> (logits, cache)
+
+Multi-codebook tokens (musicgen), tied embeddings, ``emb_scale``,
+``logits_scale`` and the final soft-cap follow the JAX package. The tied
+logits product (d_model x vocab) is a ``torch.matmul``, as the JAX package
+leaves it to XLA. Training (``lm_loss``), multi-token prediction and the
+cross-attention cache are not ported yet (ROADMAP.md §1).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.models.layers import make_norm
+from repro_torch.models.params import Maker, make_generator
+from repro_torch.models.transformer import (ModelConfig, apply_layers_decode,
+                                            apply_layers_train,
+                                            check_supported,
+                                            init_layer_caches, init_layers)
+
+
+def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda",
+            dtype=torch.float32):
+    """Random params of ``cfg`` from ``seed`` on ``device``."""
+    check_supported(cfg)
+    dev = torch.device(device)
+    if dev.type != "meta":
+        dev = resolve_device(device)
+    mk = Maker(make_generator(seed, dev), device=dev, dtype=dtype)
+    init_norm, _ = make_norm(cfg.norm)
+    p: dict[str, Any] = {
+        "embed": mk((cfg.n_codebooks, cfg.vocab, cfg.d_model),
+                    (None, "vocab", "embed"), init="normal", scale=0.02),
+        "layers": init_layers(mk, cfg),
+        "final_norm": init_norm(mk, cfg.d_model),
+    }
+    if not cfg.tie_embeddings:
+        p["head"] = mk((cfg.n_codebooks, cfg.d_model, cfg.vocab),
+                       (None, "embed", "vocab"), init="fan_in")
+    return p
+
+
+def _embed(p, cfg: ModelConfig, tokens):
+    """tokens: (B, S) int or (B, S, n_cb) -> (B, S, D)."""
+    table = p["embed"]
+    tokens = tokens.long()
+    if cfg.n_codebooks == 1:
+        if tokens.dim() == 3:
+            tokens = tokens[..., 0]
+        x = table[0][tokens]
+    else:
+        x = sum(table[c][tokens[..., c]] for c in range(cfg.n_codebooks))
+    if cfg.emb_scale:
+        x = x * math.sqrt(cfg.d_model)
+    return x
+
+
+def _logits(p, cfg: ModelConfig, x):
+    """x: (..., D) -> (..., n_cb, V) fp32."""
+    if cfg.tie_embeddings:
+        heads = [p["embed"][c].t() for c in range(cfg.n_codebooks)]
+    else:
+        heads = [p["head"][c] for c in range(cfg.n_codebooks)]
+    logits = torch.stack([torch.matmul(x, w.to(x.dtype)) for w in heads],
+                         dim=-2).float()
+    if cfg.logits_scale is not None:
+        logits = logits / cfg.logits_scale
+    if cfg.final_softcap is not None:
+        logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
+    return logits
+
+
+def lm_prefill(p, cfg: ModelConfig, batch):
+    """Forward the full prompt ``batch["tokens"]`` (B, S[, n_cb]) and return
+    the last position's logits (B, n_cb, V). With ``cfg.use_flash`` every
+    attention layer runs the flash kernel."""
+    check_supported(cfg)
+    x = _embed(p, cfg, batch["tokens"])
+    x = apply_layers_train(p["layers"], cfg, x)
+    _, norm = make_norm(cfg.norm)
+    x = norm(p["final_norm"], x[:, -1])
+    return _logits(p, cfg, x)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               dtype=torch.bfloat16, device="cuda"):
+    return init_layer_caches(cfg, batch, max_len, dtype=dtype,
+                             device=resolve_device(device))
+
+
+def lm_decode_step(p, cfg: ModelConfig, cache, token, pos):
+    """One decode step; ``cache`` is updated in place.
+
+    token: (B, 1) or (B, 1, n_cb) int; pos: (B,) int current position.
+    -> (logits (B, n_cb, V) fp32, cache)
+    """
+    x = _embed(p, cfg, token)
+    x, cache = apply_layers_decode(p["layers"], cfg, x, cache, pos)
+    _, norm = make_norm(cfg.norm)
+    x = norm(p["final_norm"], x[:, -1])
+    return _logits(p, cfg, x), cache

@@ -1,0 +1,238 @@
+"""Block assembly and the layer stack.
+
+A model is ``prefix`` blocks followed by ``n_repeats`` copies of a
+``pattern`` super-block (gemma-2's period 2: [local, global]). Pattern
+parameters are stacked along a leading layer dimension under
+``"stack"/"b{j}"``, as in the JAX package, and the JAX ``lax.scan`` over
+that dimension is a Python loop over the layer index ``r`` here. The decode
+cache mirrors the parameter tree and is updated in place.
+
+This slice runs attention blocks with dense (or no) MLPs; the other block
+kinds (MLA, Mamba, mLSTM / sLSTM), MoE MLPs and cross-attention raise
+``NotImplementedError`` (ROADMAP.md §1, the MLA/MoE/Mamba/xLSTM/
+cross-attention item). ``remat`` does nothing in inference and is
+ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.models.layers import (AttnConfig, MlpConfig,
+                                       attention_decode, attention_train,
+                                       init_attention, init_kv_cache,
+                                       init_mlp, make_norm, mlp)
+from repro_torch.models.params import Maker, stacked
+
+_ROADMAP_ITEM = ("ROADMAP.md §1, the MLA/MoE/Mamba/xLSTM/cross-attention "
+                 "item")
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSpec:
+    kind: str = "attn"          # attn | mla | mamba | mlstm | slstm
+    mlp: str = "dense"          # dense | moe | none
+    window: int | None = None   # sliding-window attention
+    cross: bool = False         # cross-attention (kv from encoder states)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """The JAX package's ``ModelConfig`` field for field. The MoE, MLA,
+    Mamba and xLSTM sub-configs are opaque here (not ported yet)."""
+
+    name: str
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    pattern: tuple[BlockSpec, ...]
+    n_repeats: int
+    prefix: tuple[BlockSpec, ...] = ()
+    norm: str = "rms"                    # rms | layer
+    mlp_kind: str = "swiglu"
+    rope_theta: float = 10000.0
+    rope_fraction: float = 1.0
+    qk_norm: bool = False
+    qk_scale: float | None = None
+    attn_softcap: float | None = None
+    final_softcap: float | None = None
+    sandwich_norm: bool = False          # gemma-2 post-norms
+    emb_scale: bool = False              # gemma: x *= sqrt(d)
+    logits_scale: float | None = None    # granite
+    moe: Any = None
+    mla: Any = None
+    mamba: Any = None
+    xlstm_cfg: Any = None
+    n_codebooks: int = 1                 # musicgen: 4
+    d_cross: int | None = None           # llama-vision encoder width
+    n_cross_tokens: int = 0
+    mtp: bool = False                    # deepseek multi-token prediction
+    mtp_weight: float = 0.3
+    aux_weight: float = 0.01
+    tie_embeddings: bool = False
+    remat: str = "none"                  # none | full | dots
+    scan_layers: bool = True
+    sub_quadratic: bool = False          # long_500k-capable decode
+    use_flash: bool = False              # flash kernel on the prefill path
+    attn_impl: str = "ref"               # "ref" | "chunked" (online softmax)
+    attn_chunk: int = 2048
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.prefix) + self.n_repeats * len(self.pattern)
+
+    def attn_cfg(self, spec: BlockSpec) -> AttnConfig:
+        return AttnConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads, head_dim=self.head_dim,
+            rope_theta=self.rope_theta, rope_fraction=self.rope_fraction,
+            qk_norm=self.qk_norm, window=spec.window,
+            attn_softcap=self.attn_softcap, cross=spec.cross,
+            d_cross=self.d_cross, qk_scale=self.qk_scale,
+            impl=self.attn_impl, chunk=self.attn_chunk)
+
+
+def _check_spec(cfg: ModelConfig, spec: BlockSpec) -> None:
+    if spec.kind != "attn" or spec.mlp not in ("dense", "none") \
+            or spec.cross:
+        raise NotImplementedError(
+            f"{cfg.name}: block {spec} is not ported yet ({_ROADMAP_ITEM})")
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a block this slice does not run."""
+    for spec in cfg.prefix + cfg.pattern:
+        _check_spec(cfg, spec)
+    if cfg.mtp:
+        raise NotImplementedError(
+            f"{cfg.name}: multi-token prediction is not ported yet "
+            f"({_ROADMAP_ITEM})")
+
+
+def _mlp_cfg(cfg: ModelConfig) -> MlpConfig:
+    return MlpConfig(cfg.d_model, cfg.d_ff, cfg.mlp_kind)
+
+
+# ---------------------------------------------------------------------------
+# One block
+# ---------------------------------------------------------------------------
+
+def init_block(mk: Maker, cfg: ModelConfig, spec: BlockSpec):
+    _check_spec(cfg, spec)
+    init_norm, _ = make_norm(cfg.norm)
+    p: dict[str, Any] = {"norm1": init_norm(mk, cfg.d_model),
+                         "attn": init_attention(mk, cfg.attn_cfg(spec))}
+    if cfg.sandwich_norm:
+        p["post1"] = init_norm(mk, cfg.d_model)
+    if spec.mlp == "dense":
+        p["norm2"] = init_norm(mk, cfg.d_model)
+        p["mlp"] = init_mlp(mk, _mlp_cfg(cfg))
+        if cfg.sandwich_norm:
+            p["post2"] = init_norm(mk, cfg.d_model)
+    return p
+
+
+def _mlp_residual(p, cfg: ModelConfig, spec: BlockSpec, x):
+    if spec.mlp != "dense":
+        return x
+    _, norm = make_norm(cfg.norm)
+    y = mlp(p["mlp"], _mlp_cfg(cfg), norm(p["norm2"], x))
+    if cfg.sandwich_norm:
+        y = norm(p["post2"], y)
+    return x + y
+
+
+def block_train(p, cfg: ModelConfig, spec: BlockSpec, x):
+    """Full-sequence forward of one block (inference only: no aux loss)."""
+    _, norm = make_norm(cfg.norm)
+    y = attention_train(p["attn"], cfg.attn_cfg(spec), norm(p["norm1"], x),
+                        use_flash=cfg.use_flash)
+    if cfg.sandwich_norm:
+        y = norm(p["post1"], y)
+    return _mlp_residual(p, cfg, spec, x + y)
+
+
+def block_decode(p, cfg: ModelConfig, spec: BlockSpec, x, cache, pos):
+    """Single-token step; ``cache`` is updated in place. -> (x, cache)."""
+    _, norm = make_norm(cfg.norm)
+    y, _ = attention_decode(p["attn"], cfg.attn_cfg(spec),
+                            norm(p["norm1"], x), cache["mix"], pos)
+    if cfg.sandwich_norm:
+        y = norm(p["post1"], y)
+    return _mlp_residual(p, cfg, spec, x + y), cache
+
+
+def init_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int,
+                     max_len: int, *, dtype=torch.bfloat16, device="cpu",
+                     lead=()):
+    _check_spec(cfg, spec)
+    return {"mix": init_kv_cache(cfg.attn_cfg(spec), batch, max_len,
+                                 dtype=dtype, device=device, lead=lead)}
+
+
+# ---------------------------------------------------------------------------
+# Layer stack
+# ---------------------------------------------------------------------------
+
+def init_layers(mk: Maker, cfg: ModelConfig):
+    check_supported(cfg)
+    p: dict[str, Any] = {}
+    if cfg.prefix:
+        p["prefix"] = [init_block(mk, cfg, s) for s in cfg.prefix]
+    if cfg.n_repeats:
+        p["stack"] = {
+            f"b{j}": stacked(cfg.n_repeats,
+                             lambda m, _s=s: init_block(m, cfg, _s), mk)
+            for j, s in enumerate(cfg.pattern)}
+    return p
+
+
+def layer_slice(tree, r: int):
+    """Layer ``r`` of a stacked tree: views, so writes reach the stack."""
+    if isinstance(tree, dict):
+        return {k: layer_slice(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+def apply_layers_train(p, cfg: ModelConfig, x):
+    for i, spec in enumerate(cfg.prefix):
+        x = block_train(p["prefix"][i], cfg, spec, x)
+    for r in range(cfg.n_repeats):
+        for j, spec in enumerate(cfg.pattern):
+            x = block_train(layer_slice(p["stack"][f"b{j}"], r), cfg, spec, x)
+    return x
+
+
+def apply_layers_decode(p, cfg: ModelConfig, x, cache, pos):
+    """One token through every layer; ``cache`` is updated in place."""
+    for i, spec in enumerate(cfg.prefix):
+        x, _ = block_decode(p["prefix"][i], cfg, spec, x,
+                            cache["prefix"][i], pos)
+    for r in range(cfg.n_repeats):
+        for j, spec in enumerate(cfg.pattern):
+            x, _ = block_decode(layer_slice(p["stack"][f"b{j}"], r), cfg,
+                                spec, x,
+                                layer_slice(cache["stack"][f"b{j}"], r), pos)
+    return x, cache
+
+
+def init_layer_caches(cfg: ModelConfig, batch: int, max_len: int, *,
+                      dtype=torch.bfloat16, device="cpu"):
+    check_supported(cfg)
+    kw = dict(dtype=dtype, device=device)
+    cache: dict[str, Any] = {}
+    if cfg.prefix:
+        cache["prefix"] = [init_block_cache(cfg, s, batch, max_len, **kw)
+                           for s in cfg.prefix]
+    if cfg.n_repeats:
+        cache["stack"] = {
+            f"b{j}": init_block_cache(cfg, s, batch, max_len,
+                                      lead=(cfg.n_repeats,), **kw)
+            for j, s in enumerate(cfg.pattern)}
+    return cache

@@ -1,4 +1,15 @@
-"""DCN vision serving over the graph executor.
+"""Serving engines: LM decode batching and DCN vision serving over the
+graph executor.
+
+``DecodeEngine`` keeps a fixed pool of ``batch`` cache slots; requests are
+admitted into free slots (continuous batching), ``step()`` decodes one
+token for every slot in one ``lm_decode_step`` call (every attention layer
+one launch of the split-KV decode kernel on a card), and finished slots
+(EOS, ``max_new`` or ``max_len``) are released and refilled. Per-slot
+positions make the batch ragged-safe: each slot attends only to its own
+``pos`` prefix. Prefill here is incremental (the prompt is fed token by
+token through the decode step), as in the JAX package; the batched
+full-sequence prefill is ``models.lm.lm_prefill``.
 
 ``DcnServingEngine`` serves the paper's DCN networks through the
 network-graph executor with a per-engine schedule cache: replayed requests
@@ -40,6 +51,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.kernels._build import KernelError
+from repro_torch.models import lm
 from repro_torch.obs import MetricsRegistry, Tracer, get_tracer
 from repro_torch.serving.errors import (DeadlineExceededError, DrainTimeout,
                                         QueueFullError, RequestFailedError)
@@ -47,6 +59,154 @@ from repro_torch.serving.errors import (DeadlineExceededError, DrainTimeout,
 # Device-level failures: never isolated per request (see module doc).
 _DEVICE_ERRORS = (KernelError,) + tuple(
     e for e in (getattr(torch, "AcceleratorError", None),) if e is not None)
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: list[int]
+    max_new: int = 16
+    temperature: float = 0.0
+    out: list[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class DecodeEngine:
+    """Continuous-batching LM decoding over ``batch`` cache slots.
+
+    ``params`` must already lie on ``device`` (``"cuda"`` by default).
+    Every step runs all ``batch`` slots: a free or finished slot decodes
+    into the void at its stale position and writes its cache row there,
+    exactly as the JAX package's jitted step does. Sampling at
+    ``temperature > 0`` draws from the engine's own ``torch.Generator``
+    seeded with ``rng_seed``; its draws differ from ``jax.random``'s, so
+    only greedy (temperature 0) tokens match the JAX engine. ``mesh`` is
+    accepted only as ``None`` until the scale-out work (ROADMAP.md §1).
+    ``steps`` counts the decode steps run.
+    """
+
+    def __init__(self, params, cfg, *, batch: int, max_len: int, mesh=None,
+                 cache_dtype=torch.float32, eos_id: int | None = None,
+                 rng_seed: int = 0, device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "DecodeEngine(mesh=...) is not ported yet (ROADMAP.md §1, "
+                "scale-out)")
+        self.device = resolve_device(device)
+        self.params = params
+        self.cfg = cfg
+        self.batch = batch
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.cache = lm.init_cache(cfg, batch, max_len, dtype=cache_dtype,
+                                   device=self.device)
+        self.slots: list[Request | None] = [None] * batch
+        self.pos = np.zeros((batch,), np.int32)
+        self.pending_tok = np.zeros(
+            (batch, 1, cfg.n_codebooks) if cfg.n_codebooks > 1 else (batch, 1),
+            np.int32)
+        self.active = np.zeros((batch,), bool)
+        self.queue: list[Request] = []
+        self.finished: list[Request] = []
+        self.steps = 0
+        # submit() may be called from any producer thread; the lock covers
+        # every queue mutation.
+        self._lock = threading.Lock()
+        self._gen = torch.Generator().manual_seed(rng_seed)
+
+    def submit(self, req: Request):
+        if not req.prompt:
+            raise ValueError(
+                f"request {req.rid}: empty prompt — decoding needs at "
+                "least one prompt token to seed the first step")
+        with self._lock:
+            self.queue.append(req)
+
+    def _admit(self):
+        with self._lock:
+            for i in range(self.batch):
+                if self.slots[i] is None and self.queue:
+                    req = self.queue.pop(0)
+                    self.slots[i] = req
+                    self.pos[i] = 0
+                    self.pending_tok[i] = req.prompt[0]
+                    self.active[i] = True
+
+    def _sample(self, logits, temperature) -> np.ndarray:
+        """Next-token sampling; ``temperature`` is a scalar or a per-slot
+        (B,) vector — 0 means greedy argmax for that slot."""
+        t = np.atleast_1d(np.asarray(temperature, np.float32))
+        greedy = torch.argmax(logits, dim=-1).cpu().numpy()
+        if not (t > 0).any():
+            return greedy
+        safe = torch.as_tensor(np.where(t > 0, t, 1.0))
+        scaled = logits.float().cpu() / safe.reshape(-1, 1)
+        sampled = torch.multinomial(torch.softmax(scaled, dim=-1), 1,
+                                    generator=self._gen)[:, 0].numpy()
+        return np.where(t > 0, sampled, greedy)
+
+    def step(self) -> int:
+        """One decode step over all slots. Returns #active."""
+        self._admit()
+        if not self.active.any():
+            return 0
+        tok = torch.as_tensor(self.pending_tok).to(self.device)
+        pos = torch.as_tensor(self.pos).to(self.device)
+        logits, self.cache = lm.lm_decode_step(self.params, self.cfg,
+                                                     self.cache, tok, pos)
+        self.steps += 1
+
+        # Sampled at each slot's OWN request temperature (inactive slots
+        # decode greedily into the void).
+        temps = np.zeros((self.batch,), np.float32)
+        for i, req in enumerate(self.slots):
+            if req is not None and self.active[i]:
+                temps[i] = req.temperature
+        next_tok = self._sample(logits[:, 0], temps)
+        for i in range(self.batch):
+            req = self.slots[i]
+            if req is None or not self.active[i]:
+                continue
+            self.pos[i] += 1
+            in_prompt = self.pos[i] < len(req.prompt)
+            if in_prompt:
+                nxt = req.prompt[self.pos[i]]
+            else:
+                nxt = next_tok[i]
+                req.out.append(int(np.asarray(nxt).reshape(-1)[0]))
+            self.pending_tok[i] = nxt
+            hit_eos = (self.eos_id is not None and not in_prompt
+                       and int(np.asarray(nxt).reshape(-1)[0]) == self.eos_id)
+            if (len(req.out) >= req.max_new or hit_eos
+                    or self.pos[i] >= self.max_len - 1):
+                req.done = True
+                self.finished.append(req)
+                self.slots[i] = None
+                self.active[i] = False
+        return int(self.active.sum())
+
+    def run(self, max_steps: int = 10_000) -> list[Request]:
+        """Decode until idle. Raises :class:`DrainTimeout` (stuck rids +
+        what did finish) if ``max_steps`` is exhausted with requests
+        still queued or mid-decode — silently returning would drop
+        them."""
+        for _ in range(max_steps):
+            active = self.step()
+            with self._lock:
+                queued = bool(self.queue)
+            if active == 0 and not queued:
+                return self.finished
+        with self._lock:
+            stuck = ([r.rid for r in self.slots if r is not None]
+                     + [r.rid for r in self.queue])
+        if stuck:
+            raise DrainTimeout(stuck, finished=self.finished)
+        return self.finished
+
+
+# ---------------------------------------------------------------------------
+# DCN graph-backend serving
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass

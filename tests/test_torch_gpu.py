@@ -162,3 +162,68 @@ def test_bli_kernel(shape):
     got = bli_tile_matmul(x.cuda(), idx.cuda(), cf.cuda(), block_p=p,
                           block_c=c).cpu()
     assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+# Flash attention (#7): (B, Sq, Skv, Hq, Hkv, D, options). Within
+# 1e-4 * max|ref| of the plain version (float32 sums in another order).
+FLASH_GPU_CASES = [
+    (2, 128, 128, 4, 4, 64, {}),
+    (1, 200, 200, 16, 8, 128, {}),
+    (1, 77, 300, 8, 2, 128, {}),                       # ragged Sq < Skv
+    (2, 1, 90, 4, 2, 64, {}),
+    (1, 300, 300, 4, 2, 144, dict(window=64, softcap=50.0)),
+    (1, 150, 150, 4, 2, 144, dict(window=17)),
+    (1, 130, 130, 4, 4, 64, dict(softcap=5.0)),
+    (1, 64, 140, 4, 2, 20, dict(causal=False)),
+    (1, 100, 60, 4, 2, 32, {}),                        # Sq > Skv: empty rows
+]
+
+
+@pytest.mark.parametrize("case", range(len(FLASH_GPU_CASES)))
+def test_flash_attention_kernel(case):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    b, sq, skv, hq, hkv, d, opts = FLASH_GPU_CASES[case]
+    rng = np.random.default_rng(20 + case)
+    q, k, v = (torch.as_tensor(rng.normal(size=s).astype(np.float32))
+               for s in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+    want = flash_attention_plain(q, k, v, scale=d ** -0.5, **opts)
+    got = flash_attention(q.cuda(), k.cuda(), v.cuda(), **opts).cpu()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def _decode_operands(seed, b, s, hq, hkv, d, lengths):
+    rng = np.random.default_rng(seed)
+    q, kc, vc = (torch.as_tensor(rng.normal(size=sh).astype(np.float32))
+                 for sh in ((b, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    return q, kc, vc, torch.as_tensor(np.asarray(lengths, np.int32))
+
+
+@pytest.mark.parametrize("opts", [{}, dict(window=100), dict(softcap=30.0),
+                                  dict(window=40, softcap=50.0)])
+@pytest.mark.parametrize("dims", [(4, 512, 16, 8, 128), (2, 700, 32, 16, 144),
+                                  (3, 300, 15, 5, 64)])
+def test_flash_decode_kernel(dims, opts):
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+
+    b, s, hq, hkv, d = dims
+    lengths = [1, s, s // 3, s + 5][:b]                # s + 5 counts as s
+    ops = _decode_operands(7, b, s, hq, hkv, d, lengths)
+    want = flash_decode_plain(*ops, scale=d ** -0.5, **opts)
+    got = flash_decode(*(t.cuda() for t in ops), **opts).cpu()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_flash_decode_split_invariance():
+    """The split-KV reduction is exact: the split count moves only the
+    float32 summation order (1e-5 * max|out|)."""
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    ops = [t.cuda() for t in _decode_operands(9, 3, 2048, 16, 8, 128,
+                                              [2048, 1000, 5])]
+    outs = [flash_decode(*ops, num_splits=n) for n in (1, 3, 16, 64)]
+    scale = float(outs[0].abs().max())
+    for o in outs[1:]:
+        assert float((o - outs[0]).abs().max()) <= 1e-5 * scale
