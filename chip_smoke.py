@@ -152,15 +152,28 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 @contextlib.contextmanager
-def recording(module, name: str, store: list):
+def recording(module, name: str, store: list, keep=None):
     """Stand a recording shim in for ``module.name`` (a kernel wrapper as
     its caller looks it up): each call's arguments go to ``store`` and the
-    wrapper itself, launch counter included, runs unchanged."""
+    wrapper itself, launch counter included, runs unchanged. With
+    ``keep``, only the calls for which ``keep()`` holds when they return
+    are stored, as ``(args, kwargs, result)`` with every tensor copied, so
+    that a caller that later writes an operand in place (a decode step
+    writes its cache) does not change what was stored."""
     orig = getattr(module, name)
 
+    def copy(x):
+        return x.clone() if hasattr(x, "clone") else x
+
     def shim(*a, **k):
-        store.append((a, k))
-        return orig(*a, **k)
+        if keep is None:
+            store.append((a, k))
+            return orig(*a, **k)
+        out = orig(*a, **k)
+        if keep():
+            store.append(([copy(x) for x in a],
+                          {n: copy(x) for n, x in k.items()}, copy(out)))
+        return out
 
     setattr(module, name, shim)
     try:
@@ -249,9 +262,10 @@ def sdpa_yardstick(q, k, v, **kw):
                                                   **kw)
 
 
-def lm_phases(dev, sizes, card, kernels, launches, reset_counts) -> None:
+def lm_phases(card, kernels, launches, reset_counts) -> None:
     """Phases 5-7: the LM kernels held against their plain versions, the
-    Qwen3-1.7B prefill through #7, and ``DecodeEngine`` through #8. Fills
+    Qwen3-1.7B prefill through #7, and ``DecodeEngine`` through #8, each
+    kernel also held on the operands the main path gave it. Fills
     ``kernels`` and ``launches`` for #7 / #8."""
     import numpy as np
     import torch
@@ -259,14 +273,11 @@ def lm_phases(dev, sizes, card, kernels, launches, reset_counts) -> None:
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
-    from repro_torch.models import lm
+    from repro_torch.models import layers, lm
     from repro_torch.models.params import param_bytes
     from repro_torch.serving import DecodeEngine, Request
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-
+    dev, sizes, sync = torch.device("cuda"), LM_SIZES, torch.cuda.synchronize
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     rng = np.random.default_rng(SEED + 5)
 
@@ -349,8 +360,14 @@ def lm_phases(dev, sizes, card, kernels, launches, reset_counts) -> None:
                       f"{visible} visible keys, {n_def} splits")
             del kt, vt, lib, mask
         del q, kc, vc, ref, got
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+
+    def hold_captured(what, calls, plain):
+        """Hold each captured ``(args, kwargs, result)`` of the main path
+        against ``plain`` on the same operands."""
+        for a, k, out in calls:
+            k = dict(k, scale=k.get("scale") or a[0].shape[-1] ** -0.5)
+            yield hold(what, out, plain(*a, **k), ATTN_RTOL)
 
     # -- phase 6: Qwen3-1.7B prefill through #7 ------------------------------
     cfg = configs.get_config(sizes["arch"], smoke=sizes["smoke"])
@@ -369,9 +386,13 @@ def lm_phases(dev, sizes, card, kernels, launches, reset_counts) -> None:
     cfg_flash = dataclasses.replace(cfg, use_flash=True)
     lm.lm_prefill(params, cfg_flash, {"tokens": toks[:, :64]})   # warm-up
     sync()
+    # The first and the last layer's #7 call of the timed run are kept.
+    held7 = []
     reset_counts()
     t0 = time.perf_counter()
-    logits = lm.lm_prefill(params, cfg_flash, {"tokens": toks})
+    with recording(layers, "flash_attention", held7, keep=lambda: (
+            fa.flash_attention.launches in (1, cfg.n_layers))):
+        logits = lm.lm_prefill(params, cfg_flash, {"tokens": toks})
     sync()
     wall = time.perf_counter() - t0
     n7 = fa.flash_attention.launches
@@ -393,6 +414,20 @@ def lm_phases(dev, sizes, card, kernels, launches, reset_counts) -> None:
           f"{wall_ref * 1e3:.1f} ms); last-position logits finite, max|d| "
           f"{d:.3e} (limit {LOGIT_RTOL}*{sc:.3f})")
     del logits, ref
+    if len(held7) != 2:
+        fail(f"kept {len(held7)} prefill calls of flash_attention, not 2")
+    for layer, (a, k, _), (d, sc) in zip(
+            (0, cfg.n_layers - 1), held7, hold_captured(
+                "flash_attention on the prefill's operands", held7,
+                fa.flash_attention_plain)):
+        print(f"[lm-prefill] flash_attention on the prefill's operands at "
+              f"layer {layer} (q {tuple(a[0].shape)}, k {tuple(a[1].shape)}, {k}) vs "
+              f"plain: max|d| {d:.3e} (limit {ATTN_RTOL}*{sc:.3f})")
+    del held7
+    torch.cuda.empty_cache()
+    profile_lm(f"prefill call of {pb} x {plen} tokens",
+               lambda: lm.lm_prefill(params, cfg_flash, {"tokens": toks}), 1,
+               card, "flash_kernel")
 
     # -- phase 7: DecodeEngine through #8 ------------------------------------
     def engine():
@@ -413,18 +448,32 @@ def lm_phases(dev, sizes, card, kernels, launches, reset_counts) -> None:
                             prompt=srng.integers(0, cfg.vocab, size=plen_r)
                             .tolist()))
         eng.submit(reqs[-1])
+    # The first and the last layer's #8 call are kept at the first step,
+    # step 64, and the first later step with a free slot at a stale
+    # position (it decodes into the void and still writes its cache row).
+    held8, kept_steps, stale = [], [0, 64], []
+
+    def keep8():
+        layer = (fd.flash_decode.launches - 1) % cfg.n_layers
+        if len(kept_steps) == 2 and layer == 0 and eng.steps > 64 and (
+                ~eng.active & (eng.pos > 0)).any():
+            kept_steps.append(eng.steps)
+            stale.extend(np.flatnonzero(~eng.active).tolist())
+        return layer in (0, cfg.n_layers - 1) and eng.steps in kept_steps
+
     reset_counts()
     step_s, finish_s = [], {}
     t0 = time.perf_counter()
-    while len(step_s) < 100_000:
-        ts = time.perf_counter()
-        active = eng.step()
-        now = time.perf_counter()
-        step_s.append(now - ts)
-        for r in eng.finished:
-            finish_s.setdefault(r.rid, now - t0)
-        if active == 0 and not eng.queue:
-            break
+    with recording(layers, "flash_decode", held8, keep=keep8):
+        while len(step_s) < 100_000:
+            ts = time.perf_counter()
+            active = eng.step()
+            now = time.perf_counter()
+            step_s.append(now - ts)
+            for r in eng.finished:
+                finish_s.setdefault(r.rid, now - t0)
+            if active == 0 and not eng.queue:
+                break
     sync()
     wall = time.perf_counter() - t0
     n8 = fd.flash_decode.launches
@@ -435,6 +484,20 @@ def lm_phases(dev, sizes, card, kernels, launches, reset_counts) -> None:
     bad = [r.rid for r in reqs if not r.done or len(r.out) != r.max_new]
     if bad:
         fail(f"requests {bad} did not finish with max_new tokens")
+    if len(kept_steps) != 3 or len(held8) != 6:
+        fail(f"kept {len(held8)} decode calls of flash_decode at steps "
+             f"{kept_steps}, not 6 at 3 steps with a stale slot among them")
+    n_split = fd.default_splits(sizes["serve_batch"], cfg.n_kv_heads,
+                                sizes["serve_max_len"])
+    for i, (d, sc) in enumerate(hold_captured(
+            "flash_decode on the serving operands", held8,
+            fd.flash_decode_plain)):
+        print(f"[lm-serve] flash_decode at step {kept_steps[i // 2]}, layer "
+              f"{(0, cfg.n_layers - 1)[i % 2]} ({n_split} splits, lengths "
+              f"{held8[i][0][3].tolist()}"
+              f"{f', free slots {stale} at stale lengths' if i >= 4 else ''}"
+              f") vs plain: max|d| {d:.3e} (limit {ATTN_RTOL}*{sc:.3f})")
+    del held8
     gaps = []
     for r in reqs[:sizes["cross_checked"]]:
         for j in (0, r.max_new - 1):
@@ -463,43 +526,44 @@ def lm_phases(dev, sizes, card, kernels, launches, reset_counts) -> None:
           f"{np.percentile(lat, 50):.2f} s p99 {np.percentile(lat, 99):.2f} s")
     print("[lm-serve] decode vs prefill argmax (rid, j, equal, top-2 gap): "
           + ", ".join(f"({a}, {b}, {c}, {g:.4g})" for a, b, c, g in gaps))
-    if dev.type == "cuda":
-        profile_decode(eng, card)
+    steps = 4
+    eng.submit(Request(rid=10**6, prompt=[1] * (steps + 1), max_new=1))
+    eng.step()                                   # admit, warm
+    profile_lm(f"decode steps of batch {eng.batch}", eng.step, steps, card,
+               "decode_")
     del params, eng
 
 
-def profile_decode(eng, card: str, steps: int = 4) -> None:
-    """``steps`` decode steps of one more request under ``torch.profiler``:
-    wall per step, device busy time and idle share, the top device
+def profile_lm(what: str, fn, n: int, card: str, kernel: str) -> None:
+    """``n`` calls of ``fn`` under ``torch.profiler``: wall and device busy
+    time per call, the device's idle share, the share of the busy time in
+    the device activities whose name holds ``kernel``, the top device
     activities and the top host operators by self time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serving import Request
-
-    eng.submit(Request(rid=10**6, prompt=[1] * (steps + 1), max_new=1))
-    eng.step()                                   # admit, warm
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     busy_us, by_name = device_busy(prof.events())
     if busy_us <= 0:
-        fail("the profiler recorded no device activity in a decode step")
-    print(f"[lm-profile] {card}: {steps} decode steps of batch {eng.batch}: "
-          f"wall {wall_us / steps / 1e3:.2f} ms per step, device busy "
-          f"{busy_us / steps / 1e3:.2f} ms (idle "
-          f"{100 * (1 - busy_us / wall_us):.1f} %)")
+        fail(f"the profiler recorded no device activity in a {what}")
+    mine = sum(sum(d) for name, d in by_name.items() if kernel in name)
+    print(f"[lm-profile] {card}: {n} {what}: wall {wall_us / n / 1e3:.2f} ms "
+          f"per call, device busy {busy_us / n / 1e3:.2f} ms (idle "
+          f"{100 * (1 - busy_us / wall_us):.1f} %), of which {kernel}* "
+          f"{mine / n / 1e3:.3f} ms ({100 * mine / busy_us:.1f} %)")
     for name, d in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]:
-        print(f"  device {sum(d) / steps / 1e3:8.3f} ms/step "
-              f"x{len(d) // steps:<5d} {name[:80]}")
+        print(f"  device {sum(d) / n / 1e3:8.3f} ms/call "
+              f"x{len(d) // n:<5d} {name[:80]}")
     for e in sorted(prof.key_averages(),
                     key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
-        print(f"  host   {e.self_cpu_time_total / steps / 1e3:8.3f} ms/step "
-              f"x{e.count // steps:<5d} {e.key[:80]}")
+        print(f"  host   {e.self_cpu_time_total / n / 1e3:8.3f} ms/call "
+              f"x{e.count // n:<5d} {e.key[:80]}")
 
 
 def main() -> int:
@@ -1062,7 +1126,7 @@ def main() -> int:
     del eng, host_eng, e_t, e_u
 
     # -- phases 5-7: the LM serving slice -------------------------------------
-    lm_phases(dev, LM_SIZES, card, kernels, launches, reset_counts)
+    lm_phases(card, kernels, launches, reset_counts)
 
     out_k = []
     for name in wrappers:

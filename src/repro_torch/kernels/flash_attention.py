@@ -29,6 +29,9 @@ NEG_INF = -1e30
 # window at all. ``softcap=None`` goes as 0, which no valid cap takes.
 NO_WINDOW = 2**31 - 1
 MAX_HEAD_DIM = 256
+# ceil(D / 16) values csrc/flash_attention.cu is instantiated for: the
+# configs' head dims 16, 20, 64, 128 and 144.
+KERNEL_COLUMNS = (1, 2, 4, 8, 9)
 
 
 def _check_options(window, softcap) -> None:
@@ -91,9 +94,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale)
-    if d % 4 or d > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} must be a multiple of 4 and at most "
-                         f"{MAX_HEAD_DIM} for the CUDA kernel")
+    if d % 4 or -(-d // 16) not in KERNEL_COLUMNS:
+        raise ValueError(f"head_dim {d} must be a multiple of 4 with "
+                         f"ceil(head_dim / 16) in {KERNEL_COLUMNS} for the "
+                         f"CUDA kernel")
     from repro_torch.kernels import _build
 
     lib = _build.load()
