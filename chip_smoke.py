@@ -15,8 +15,11 @@ Phases, each fatal on failure:
               plain torch version on those operands (the fused kernels
               within 1e-4 * max|ref|, the BLI kernel within 1e-6 *
               max|ref|, the TDT and greedy kernels bit-exact, the greedy
-              kernel also against the numpy ``schedule_tiles``) and time
-              kernel, plain version and library call;
+              kernel also against the numpy ``schedule_tiles``; the
+              split-C kernels #4 and #5 also at their default split
+              against ``n_split = 1`` within 1e-5 * max|ref|, each call's
+              grid printed) and time kernel, plain version and library
+              call;
 3.  serve   — drive ``DcnServingEngine`` (slots=4, tile 8, device
               scheduling) with 8 requests of 1-2 images, one replayed;
               every request must resolve with finite logits that match the
@@ -68,6 +71,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -78,16 +82,17 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 SEED = 0
 N_BATCH = 4
-# fp32 CUDA-core peak (FLOP/s) and memory rate (B/s) by card name, from
-# NVIDIA's data sheets; the SXM part is the default.
-PEAKS = {"PCIe": (51e12, 2.0e12), "NVL": (60e12, 3.9e12),
-         "H200": (67e12, 4.8e12)}
-PEAK_SXM = (67e12, 3.35e12)
+# FP32 CUDA-core peak and dense TF32 tensor-core peak (FLOP/s) and memory
+# rate (B/s) by card name, from NVIDIA's data sheets; the SXM part is the
+# default.
+PEAKS = {"PCIe": (51e12, 378e12, 2.0e12), "NVL": (60e12, 417.5e12, 3.9e12),
+         "H200": (67e12, 495e12, 4.8e12)}
+PEAK_SXM = (67e12, 495e12, 3.35e12)
 FUSED_RTOL = 1e-4     # kernel vs plain: float32 sums in another order
 BLI_RTOL = 1e-6       # BLI kernel vs plain / reference: four-term sums
 LOGIT_RTOL = 1e-3     # served vs dense: 16 layers of reordered sums
 ATTN_RTOL = 1e-4      # #7 / #8 vs plain: float32 sums in another order
-SPLIT_RTOL = 1e-5     # #8 at two split counts: the combine is exact
+SPLIT_RTOL = 1e-5     # #4 / #5 / #8 at two split counts: exact combines
 # Shapes of the LM phases: (name, B, Sq, Skv, Hq, Hkv, D, options) for #7,
 # (name, B, S, Hq, Hkv, D, options) for #8; the first case of each is the
 # one timed and reported.
@@ -315,7 +320,7 @@ def lm_phases(card, kernels, launches, reset_counts) -> None:
                                 5),
                 plain_ms=cuda_time_ms(plain, 2, warmup=1),
                 library_ms=cuda_time_ms(lib, 5),
-                flops=4 * b * hq * live * d,
+                ops=dict(fp32=4 * b * hq * live * d),
                 bytes=4 * (2 * q.numel() + k.numel() + v.numel()),
                 shape=f"{name} B={b} S={sq} Hq={hq} Hkv={hkv} D={d}, causal "
                       f"(live share {live / (sq * skv):.4f})")
@@ -354,7 +359,7 @@ def lm_phases(card, kernels, launches, reset_counts) -> None:
                                                         **opts), 20),
                 plain_ms=cuda_time_ms(plain, 5),
                 library_ms=cuda_time_ms(lib, 20),
-                flops=4 * visible * hq * d,
+                ops=dict(fp32=4 * visible * hq * d),
                 bytes=4 * (2 * visible * hkv * d + 2 * q.numel()) + 4 * b,
                 shape=f"{name} B={b} S={s} Hq={hq} Hkv={hkv} D={d}, "
                       f"{visible} visible keys, {n_def} splits")
@@ -606,10 +611,30 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    peak_flops, peak_bw = next(
+    peak_fp32, peak_tf32, peak_bw = next(
         (v for k, v in PEAKS.items() if k in kind), PEAK_SXM)
-    print(f"card: {card}; peaks used for bounds: {peak_flops / 1e12:g} "
-          f"TFLOP/s fp32, {peak_bw / 1e12:g} TB/s")
+    # Operation rates by the units a kernel's work runs on: FP32 on the
+    # CUDA cores; the 3xTF32 contraction of #4 / #5 at a third of the
+    # dense TF32 tensor-core rate (three TF32 products per FP32 product).
+    rates = {"fp32": (peak_fp32, f"FP32 {peak_fp32 / 1e12:g} TFLOP/s"),
+             "3xtf32": (peak_tf32 / 3, f"3xTF32 {peak_tf32 / 3e12:.4g} "
+                        f"TFLOP/s (TF32 {peak_tf32 / 1e12:g} / 3)")}
+    print(f"card: {card}; peaks used for bounds: {peak_fp32 / 1e12:g} "
+          f"TFLOP/s fp32, {peak_tf32 / 1e12:g} TFLOP/s tf32 dense, "
+          f"{peak_bw / 1e12:g} TB/s")
+
+    def bound_of(ops: dict, nbytes: int) -> dict:
+        """The least time of a call: the larger of its bytes over the
+        memory rate and, over the units it runs on, its operations over
+        their rate; with what bounds it and at which rate."""
+        unit = max(ops, key=lambda u: ops[u] / rates[u][0])
+        ops_ms = ops[unit] / rates[unit][0] * 1e3
+        bytes_ms = nbytes / peak_bw * 1e3
+        if ops_ms > bytes_ms:
+            return dict(bound_ms=ops_ms, bound_by="operations",
+                        bound_rate=rates[unit][1])
+        return dict(bound_ms=bytes_ms, bound_by="bytes",
+                    bound_rate=f"memory {peak_bw / 1e12:g} TB/s")
     wrappers = {"dcn_fused_batch": kf.dcn_fused_batch,
                 "tdt_from_coords_device": ks.tdt_from_coords_device,
                 "greedy_schedule_arrays": ks.greedy_schedule_arrays,
@@ -723,8 +748,13 @@ def main() -> int:
         fail(f"prepass did not reach every kernel: "
              f"{ {k: len(v) for k, v in captured.items()} }")
 
-    def fused_flops(live_px, kk, c_in, c_out):
-        return 2 * live_px * kk * c_in * c_out + 8 * live_px * kk * c_in
+    def fused_ops(live_px, kk, c_in, c_out, contraction):
+        """Operations of a fused call by unit: the BLI (8 per tap and
+        channel) on FP32, the contraction on ``contraction``'s units."""
+        bli, mm = 8 * live_px * kk * c_in, 2 * live_px * kk * c_in * c_out
+        if contraction == "fp32":
+            return dict(fp32=bli + mm)
+        return {"fp32": bli, contraction: mm}
 
     def nbytes_of(tensors, out_numel):
         return sum(t.numel() * t.element_size() for t in tensors) \
@@ -741,16 +771,30 @@ def main() -> int:
     def hold_fused(name, calls, fn, plain, rtol):
         """Every captured call of ``fn`` against ``plain`` (which takes the
         call's tensors and, for #1, its ``t_in``); returns the first
-        call's error."""
+        call's error. For the split-C kernels (#4, #5) each call's grid
+        and ``n_split`` are printed, and its default split is also held
+        against ``n_split = 1`` within ``SPLIT_RTOL * max|ref|``."""
         errs = []
-        for a, k in calls:
-            d, sc = rel_err(fn(*a, **k),
-                            plain(*a, **{n: v for n, v in k.items()
-                                         if n == "t_in"}))
+        for i, (a, k) in enumerate(calls):
+            got = fn(*a, **k)
+            d, sc = rel_err(got, plain(*a, **{n: v for n, v in k.items()
+                                              if n == "t_in"}))
             torch.cuda.synchronize()
             if not d <= rtol * sc:
                 fail(f"{name}: max|d|={d} > {rtol}*{sc}")
             errs.append(d)
+            if not hasattr(fn, "last_grid"):
+                continue
+            grid = fn.last_grid
+            ds, _ = rel_err(got, fn(*a, **k, n_split=1))
+            if not ds <= SPLIT_RTOL * sc:
+                fail(f"{name}: n_split={grid[3]} vs 1: max|d|={ds} > "
+                     f"{SPLIT_RTOL}*{sc}")
+            print(f"[kernels] {name} call {i}: grid (rows, pixel blocks, "
+                  f"O blocks, n_split) = {grid}, {math.prod(grid)} blocks; "
+                  f"max|d| vs plain {d:.3e} (limit {rtol}*{sc:.3f}), "
+                  f"n_split={grid[3]} vs 1 {ds:.3e} (limit "
+                  f"{SPLIT_RTOL}*{sc:.3f})")
         return errs[0]
 
     kernels = {}
@@ -770,7 +814,7 @@ def main() -> int:
         ms=cuda_time_ms(lambda: kf.dcn_fused_batch(*a, **k), 50),
         plain_ms=cuda_time_ms(lambda: kf.dcn_fused_batch_plain(*a, **k), 5),
         library_ms=contraction(g_rows * p_pix, w),
-        flops=fused_flops(live * p_pix, kk, c_in, c_out),
+        ops=fused_ops(live * p_pix, kk, c_in, c_out, "fp32"),
         bytes=nbytes_of(a, g_rows * p_pix * c_out),
         shape=f"G={g_rows} P={p_pix} KK={kk} C={c_in} O={c_out} "
               f"k_pad={dep.shape[1]} live_rows={live}")
@@ -800,7 +844,7 @@ def main() -> int:
         replaces="src/repro/kernels/dcn_schedule.py:62", max_abs_err=0.0,
         ms=cuda_time_ms(tdt_launch, 200),
         plain_ms=cuda_time_ms(lambda: ks.tdt_plain(coords, gin, gout), 20),
-        library_ms=None, flops=0,
+        library_ms=None, ops=dict(fp32=0),
         bytes=coords.numel() * 4 + gout.num_tiles * gin.num_tiles,
         shape=f"coords {tuple(coords.shape)} -> "
               f"({gout.num_tiles}, {gin.num_tiles}), preallocated output")
@@ -830,7 +874,7 @@ def main() -> int:
         replaces="src/repro/kernels/dcn_schedule.py:142", max_abs_err=0.0,
         ms=cuda_time_ms(lambda: ks.greedy_schedule_arrays(bt, m), 10),
         plain_ms=cuda_time_ms(lambda: ks.greedy_plain(bt, m), 1, warmup=1),
-        library_ms=None, flops=0,
+        library_ms=None, ops=dict(fp32=0),
         bytes=n_out * n_in * (1 + 4) + 8 * n_out,
         shape=f"TDT ({n_out}, {n_in}), m={m}")
 
@@ -848,7 +892,7 @@ def main() -> int:
         ms=cuda_time_ms(lambda: kf.dcn_fused_schedule(*a4, **k4), 50),
         plain_ms=cuda_time_ms(lambda: kf.dcn_fused_schedule_plain(*a4), 5),
         library_ms=contraction(t4 * p4, w4),
-        flops=fused_flops(live4 * p4, *w4.shape),
+        ops=fused_ops(live4 * p4, *w4.shape, "3xtf32"),
         bytes=nbytes_of(a4, t4 * p4 * w4.shape[2]),
         shape=f"T={t4} T_in={x4.shape[0]} tp={x4.shape[1]} P={p4} "
               f"KK={w4.shape[0]} C={w4.shape[1]} O={w4.shape[2]} "
@@ -868,9 +912,8 @@ def main() -> int:
         ms=cuda_time_ms(lambda: kf.dcn_fused_tile(*a5, **k5), 50),
         plain_ms=cuda_time_ms(lambda: kf.dcn_fused_tile_plain(*a5), 5),
         library_ms=contraction(idx5.shape[-3], w5),
-        bound_ms=max(fused_flops(live5, *w5.shape) / peak_flops,
-                     nbytes_of(a5, idx5.shape[-3] * w5.shape[2])
-                     / peak_bw) * 1e3,
+        **bound_of(fused_ops(live5, *w5.shape, "3xtf32"),
+                   nbytes_of(a5, idx5.shape[-3] * w5.shape[2])),
         shape=f"S={x5.shape[-2]} P={idx5.shape[-3]} live={live5} "
               f"KK={w5.shape[0]} C={w5.shape[1]} O={w5.shape[2]}")
 
@@ -890,7 +933,7 @@ def main() -> int:
         plain_ms=cuda_time_ms(lambda: kb.bli_tile_plain(*a6), 20),
         library_ms=cuda_time_ms(lambda: torch.nn.functional.embedding_bag(
             i_bag, w_bag, per_sample_weights=c_bag, mode="sum"), 200),
-        flops=8 * live6 * c6,
+        ops=dict(fp32=8 * live6 * c6),
         bytes=nbytes_of(a6, n6 * p6 * c6),
         shape=f"S={x6.shape[1]} P={p6} (live {live6}) C={c6}")
     print(f"[kernels] all {sum(len(v) for v in captured.values())} captured "
@@ -899,7 +942,8 @@ def main() -> int:
           f"greedy bit-exact, greedy also == numpy schedule_tiles)")
     print(f"[kernel] {card}: dcn_fused_tile on the whole plane "
           f"({plane_tile['shape']}): {plane_tile['ms']:.4f} ms (bound "
-          f"{plane_tile['bound_ms']:.4f} ms by operations, plain "
+          f"{plane_tile['bound_ms']:.4f} ms by {plane_tile['bound_by']} at "
+          f"{plane_tile['bound_rate']}, plain "
           f"{plane_tile['plain_ms']:.4f} ms, library "
           f"{plane_tile['library_ms']:.4f} ms), max|d| "
           f"{plane_tile['err']:.3e}")
@@ -1096,7 +1140,7 @@ def main() -> int:
         ms=cuda_time_ms(lambda: kf.dcn_fused_tile(*a5t, **k5t), 50),
         plain_ms=cuda_time_ms(lambda: kf.dcn_fused_tile_plain(*a5t), 5),
         library_ms=contraction(idx5t.shape[0], w5t),
-        flops=fused_flops(live5t, *w5t.shape),
+        ops=fused_ops(live5t, *w5t.shape, "3xtf32"),
         bytes=nbytes_of(a5t, idx5t.shape[0] * w5t.shape[2]),
         shape=f"S={x5t.shape[0]} P={idx5t.shape[0]} live={live5t} "
               f"KK={w5t.shape[0]} C={w5t.shape[1]} O={w5t.shape[2]}")
@@ -1131,15 +1175,13 @@ def main() -> int:
     out_k = []
     for name in wrappers:
         kd = kernels[name]
-        compute_ms = kd.pop("flops") / peak_flops * 1e3
-        bytes_ms = kd.pop("bytes") / peak_bw * 1e3
-        kd["bound_ms"] = max(compute_ms, bytes_ms)
-        kd["bound_by"] = "operations" if compute_ms > bytes_ms else "bytes"
+        kd.update(bound_of(kd.pop("ops"), kd.pop("bytes")))
         kd["launches"] = launches[name]
         shape = kd.pop("shape")
         lib_ms = kd["library_ms"]
         print(f"[kernel] {card}: {name} at {shape}: {kd['ms']:.4f} ms "
-              f"(bound {kd['bound_ms']:.6f} ms by {kd['bound_by']}, plain "
+              f"(bound {kd['bound_ms']:.6f} ms by {kd['bound_by']} at "
+              f"{kd['bound_rate']}, plain "
               f"{kd['plain_ms']:.4f} ms, library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}), "
               f"{kd['launches']} launches on its path")

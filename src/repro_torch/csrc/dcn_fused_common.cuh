@@ -1,4 +1,4 @@
-// Shared body of the fused BLI(+)conv kernels (paper §IV-D fusion).
+// Body of the batch-fused BLI(+)conv kernel #1 (paper §IV-D fusion).
 //
 // For grid row g (one output tile) and output pixel p:
 //
@@ -6,21 +6,14 @@
 //   patch[p, kk, c] = sum_j coeff_j * x[src(idx_j), c]
 //
 // over the 4 BLI neighbours j, where src() turns a packed address into an
-// x row, or rejects it (the neighbour then contributes zero). Three
-// addressing modes, fixed at compile time:
+// x row, or rejects it (the neighbour then contributes zero):
 //
 //   ADDR_BATCH  (#1, dcn_fused_batch) plane-global addresses
 //               a = tile * tp + offset of the row's image; a neighbour
 //               counts iff its tile is one of the row's dep_cnt[g] deps
 //               dep[g, :]; x row = img * t_in * tp + a.
-//   ADDR_SCHED  (#4, dcn_fused_schedule) slot-local addresses
-//               a = k * tp + offset; a neighbour counts iff k < dep_cnt[g]
-//               and dep[g, k] is a tile of x; x row = dep[g, k] * tp +
-//               offset.
-//   ADDR_TILE   (#5, dcn_fused_tile) halo-local addresses a in [0, S) of
-//               image g's (S, C) halo buffer, S = tp; x row = g * S + a.
 //
-// A row with dep_cnt = 0 writes b. The TPU kernels keep the whole (bp*KK,
+// A row with dep_cnt = 0 writes b. The TPU kernel keeps the whole (bp*KK,
 // C) f32 patch in VMEM (1.18 MB at bp = 64, C = 512); a Hopper block has
 // at most 227 KB of shared memory, so the patch is built and consumed in
 // chunks of BC input channels. A block owns (grid row, BP-pixel block,
@@ -28,7 +21,9 @@
 // lives (an x row or nothing), then per channel chunk gathers the
 // deformed patch chunk into shared memory, stages the matching rows of w,
 // and accumulates a 4x4 register tile per thread over KK*BC rows. The
-// deformed intermediate never leaves the SM. wgmma/TMA are later work.
+// deformed intermediate never leaves the SM. #4 and #5 moved to the
+// split-C tensor-core body of dcn_fused_split.cuh; #1 moves there next,
+// and this body then goes.
 
 #pragma once
 
@@ -42,7 +37,8 @@ constexpr int BO = 64;    // output channels per block
 constexpr int BC = 16;    // input channels per shared-memory chunk
 constexpr int NT = 256;   // threads: 16 (pixels) x 16 (channels), 4x4 each
 
-enum Addr { ADDR_BATCH = 0, ADDR_SCHED = 1, ADDR_TILE = 2 };
+// One addressing mode is left; dcn_fused_batch.cu names it.
+enum Addr { ADDR_BATCH = 0 };
 
 template <int MODE>
 __global__ void __launch_bounds__(NT)
@@ -58,13 +54,13 @@ dcn_fused_kernel(const float* __restrict__ x, const int* __restrict__ row_id,
   float* Ws = As + KK * BC * BP;                   // [KK*BC][BO]
   long long* src = (long long*)(Ws + KK * BC * BO);  // [KK*BP][4]
   float* cf = (float*)(src + KK * BP * 4);         // [KK*BP][4]
-  unsigned* depmask = (unsigned*)(cf + KK * BP * 4);  // ADDR_BATCH only
+  unsigned* depmask = (unsigned*)(cf + KK * BP * 4);  // [t_in / 32]
 
   const int g = blockIdx.x;
   const int p0 = blockIdx.y * BP, o0 = blockIdx.z * BO;
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
-  const int cnt = MODE == ADDR_TILE ? 1 : dep_cnt[g];
+  const int cnt = dep_cnt[g];
 
   if (cnt == 0) {            // padding row: bias only
     for (int e = tid; e < BP * BO; e += NT) {
@@ -74,24 +70,20 @@ dcn_fused_kernel(const float* __restrict__ x, const int* __restrict__ row_id,
     return;
   }
 
-  long long img_base = 0;
-  if (MODE == ADDR_BATCH) {
-    // Membership of a tile in the row's dep list, as a bitmask.
-    const int mw = (t_in + 31) >> 5;
-    for (int i = tid; i < mw; i += NT) depmask[i] = 0u;
-    __syncthreads();
-    for (int k = tid; k < cnt; k += NT) {
-      const int dl = dep[(size_t)g * k_pad + k] % t_in;
-      atomicOr(&depmask[dl >> 5], 1u << (dl & 31));
-    }
-    __syncthreads();
-    // Every dep of a row belongs to one image: x rows of that image
-    // start at img * t_in * tp, and a plane-global address a is row
-    // base + a.
-    img_base = (long long)(dep[(size_t)g * k_pad] / t_in) * t_in * tp;
+  // Membership of a tile in the row's dep list, as a bitmask.
+  const int mw = (t_in + 31) >> 5;
+  for (int i = tid; i < mw; i += NT) depmask[i] = 0u;
+  __syncthreads();
+  for (int k = tid; k < cnt; k += NT) {
+    const int dl = dep[(size_t)g * k_pad + k] % t_in;
+    atomicOr(&depmask[dl >> 5], 1u << (dl & 31));
   }
-  const int row = MODE == ADDR_BATCH ? row_id[g] : g;
-  const int live = cnt < k_pad ? cnt : k_pad;
+  __syncthreads();
+  // Every dep of a row belongs to one image: x rows of that image start
+  // at img * t_in * tp, and a plane-global address a is row base + a.
+  const long long img_base =
+      (long long)(dep[(size_t)g * k_pad] / t_in) * t_in * tp;
+  const int row = row_id[g];
   for (int q = tid; q < KK * BP; q += NT) {
     const int kk = q / BP, p = p0 + q % BP;
     for (int j = 0; j < 4; ++j) {
@@ -100,20 +92,10 @@ dcn_fused_kernel(const float* __restrict__ x, const int* __restrict__ row_id,
       if (p < P) {
         const size_t off = (((size_t)row * P + p) * KK + kk) * 4 + j;
         const int a = idx[off];
-        if (MODE == ADDR_BATCH) {
-          const int tile = a / tp;
-          if (a >= 0 && tile < t_in &&
-              ((depmask[tile >> 5] >> (tile & 31)) & 1u))
-            s = img_base + a;
-        } else if (MODE == ADDR_SCHED) {
-          const int k = a / tp;
-          if (a >= 0 && k < live) {
-            const int d = dep[(size_t)g * k_pad + k];
-            if (d >= 0 && d < t_in) s = (long long)d * tp + (a - k * tp);
-          }
-        } else {
-          if (a >= 0 && a < tp) s = (long long)g * tp + a;
-        }
+        const int tile = a / tp;
+        if (a >= 0 && tile < t_in &&
+            ((depmask[tile >> 5] >> (tile & 31)) & 1u))
+          s = img_base + a;
         if (s >= 0) c = coeff[off];
       }
       src[q * 4 + j] = s;
@@ -198,14 +180,14 @@ dcn_fused_kernel(const float* __restrict__ x, const int* __restrict__ row_id,
   }
 }
 
-// Launch one mode over G grid rows; returns cudaGetLastError().
+// Launch #1 over G grid rows; returns cudaGetLastError().
 template <int MODE>
 int dcn_fused_launch(const void* x, const void* row_id, const void* dep,
                      const void* dep_cnt, const void* idx, const void* coeff,
                      const void* w, const void* b, void* out, int G,
                      int k_pad, int t_in, int tp, int P, int KK, int C,
                      int O, void* stream) {
-  const int mask_words = MODE == ADDR_BATCH ? (t_in + 31) / 32 : 0;
+  const int mask_words = (t_in + 31) / 32;
   const int smem = 4 * KK * BC * (BP + BO) + KK * BP * 4 * (8 + 4) +
                    4 * mask_words;
   cudaError_t err = cudaFuncSetAttribute(

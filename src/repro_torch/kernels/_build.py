@@ -33,8 +33,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # cudaGetLastError() as an int.
 _SIGNATURES = {
     "dcn_fused_batch_launch": [_P] * 9 + [_I] * 8 + [_P],
-    "dcn_fused_schedule_launch": [_P] * 8 + [_I] * 8 + [_P],
-    "dcn_fused_tile_launch": [_P] * 6 + [_I] * 6 + [_P],
+    "dcn_fused_schedule_launch": [_P] * 9 + [_I] * 10 + [_P],
+    "dcn_fused_tile_launch": [_P] * 7 + [_I] * 8 + [_P],
     "bli_gather_launch": [_P] * 4 + [_I] * 4 + [_P],
     "tdt_from_coords_launch": [_P, _P] + [_I] * 13 + [_P],
     "greedy_schedule_launch": [_P] * 5 + [_I] * 4 + [_P],

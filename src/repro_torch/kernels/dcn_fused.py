@@ -1,16 +1,18 @@
 """Fused BLI(+)conv kernels (paper §IV-D fusion).
 
 The deformed-feature tensor is K*K times the input feature map; the
-paper's fusion keeps it on chip. Three entry points, one CUDA body
-(``csrc/dcn_fused_common.cuh``) with three addressing modes: per output
-row, gather the deformed patch chunk by chunk in shared memory and
-contract it with the main-conv weights, so the intermediate never
-reaches device memory.
+paper's fusion keeps it on chip. Three entry points: per output row,
+gather the deformed patch chunk by chunk in shared memory and contract it
+with the main-conv weights, so the intermediate never reaches device
+memory. #1 runs the FP32 body of ``csrc/dcn_fused_common.cuh``; #4 and #5
+run the split-C tensor-core body of ``csrc/dcn_fused_split.cuh``, whose C
+reduction is cut into :func:`fused_splits` slices (a second pass adds
+them) so that a call of a few rows still fills the card.
 
 * :func:`dcn_fused_batch` — the concatenated Algorithm-1 schedules of a
   whole batch in ONE launch (``batch_fused``; ``csrc/dcn_fused_batch.cu``),
   plane-global addresses localised against each row's dep tiles;
-* :func:`dcn_fused_schedule` — one image's schedule in one launch
+* :func:`dcn_fused_schedule` — one image's schedule in one call
   (``batched`` and the serving engine's degraded step;
   ``csrc/dcn_fused_schedule.cu``), slot-local addresses ``k*tp + offset``;
 * :func:`dcn_fused_tile` — one output tile with its packed halo resident
@@ -21,8 +23,10 @@ For a CPU tensor each wrapper runs its plain torch version, which repeats
 the TPU kernel's dataflow (batch and schedule: per dep slot, localise the
 addresses, 4-hot gather, accumulate the patch in float32; tile: the 4-hot
 rows against ``iota(S)`` as a masked gather; then the contraction with
-``w``); for a CUDA tensor it launches the kernel or raises. Each wrapper counts its launches
-in a plain-integer ``launches`` attribute.
+``w``); for a CUDA tensor it launches the kernel or raises. Each wrapper
+counts its calls that launched in a plain-integer ``launches`` attribute
+(a split-C call launches its combine pass too); #4 and #5 also record the
+grid of their last launch in ``last_grid``.
 """
 
 from __future__ import annotations
@@ -100,6 +104,75 @@ def _check_block(p: int, block_p: int) -> None:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# Launch shape of the split-C body (#4 and #5)
+# ---------------------------------------------------------------------------
+
+# Tile of csrc/dcn_fused_split.cuh (BP, BO, BC there): a block owns 64
+# output pixels x 128 output channels of one row and walks its slice of
+# the C reduction in chunks of 16 input channels.
+SPLIT_BP, SPLIT_BO, SPLIT_BC = 64, 128, 16
+# SMs of an H100 SXM, for callers without a card (tests, planning).
+H100_SMS = 132
+
+
+def fused_splits(rows: int, p: int, o: int, c: int,
+                 sm_count: int = H100_SMS) -> int:
+    """Slices of the C reduction for one split-C call: 1 when the
+    (row, pixel block, output-channel block) grid already fills two waves
+    of ``sm_count`` blocks; else about enough slices to fill them, each of
+    the same whole number of ``SPLIT_BC``-channel chunks, never more
+    slices than chunks."""
+    base = rows * math.ceil(p / SPLIT_BP) * math.ceil(o / SPLIT_BO)
+    chunks = max(1, math.ceil(c / SPLIT_BC))
+    if base == 0 or base >= 2 * sm_count:
+        return 1
+    want = min(chunks, math.ceil(2 * sm_count / base))
+    return math.ceil(chunks / math.ceil(chunks / want))
+
+
+def split_channels(c: int, n_split: int) -> tuple[int, int]:
+    """``(n_split, channels per slice)`` for a requested ``n_split``:
+    slices of whole chunks, none empty (so at most the chunk count)."""
+    chunks = max(1, math.ceil(c / SPLIT_BC))
+    if not 1 <= n_split <= chunks:
+        raise ValueError(f"n_split {n_split} must be in [1, {chunks}] for "
+                         f"C={c} ({SPLIT_BC}-channel chunks)")
+    per = math.ceil(chunks / n_split)
+    return math.ceil(chunks / per), per * SPLIT_BC
+
+
+def fused_grid(rows: int, p: int, o: int, n_split: int
+               ) -> tuple[int, int, int, int]:
+    """(rows, pixel blocks, output-channel blocks, n_split): the blocks of
+    the first pass of a split-C call are their product."""
+    return (rows, math.ceil(p / SPLIT_BP), math.ceil(o / SPLIT_BO), n_split)
+
+
+def _launch_split(fn, entry: str, out: torch.Tensor, rows: int,
+                  pointers: tuple, ints: tuple, n_split: int | None,
+                  c: int) -> None:
+    """Both passes of a split-C call into ``out`` (rows, ..., P, O): C entry
+    point ``entry`` takes ``pointers``, the workspace, ``out``, ``ints``,
+    ``n_split`` and the channels per slice, and the stream. Picks
+    ``n_split`` by :func:`fused_splits` unless given, allocates the
+    workspace, launches, checks, and records the grid on ``fn.last_grid``."""
+    from repro_torch.kernels import _build
+
+    lib = _build.load()
+    p, o = out.shape[-2], out.shape[-1]
+    if n_split is None:
+        n_split = fused_splits(rows, p, o, c, torch.cuda.get_device_properties(
+            out.device).multi_processor_count)
+    n_split, c_split = split_channels(c, n_split)
+    ws = (torch.empty((n_split, rows, p, o), dtype=torch.float32,
+                      device=out.device) if n_split > 1 else out)
+    err = getattr(lib, entry)(*pointers, ws.data_ptr(), out.data_ptr(),
+                              *ints, n_split, c_split, _stream(out))
+    _build.check(err, entry)
+    fn.last_grid = fused_grid(rows, p, o, n_split)
 
 
 def dcn_fused_batch(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff, w, b,
@@ -185,7 +258,8 @@ def dcn_fused_schedule_plain(x_tiles, dep_tbl, dep_cnt, idx, coeff, w,
 
 
 def dcn_fused_schedule(x_tiles, dep_tbl, dep_cnt, idx, coeff, w, b, *,
-                       block_p: int = 128) -> torch.Tensor:
+                       block_p: int = 128,
+                       n_split: int | None = None) -> torch.Tensor:
     """Fused Eq. 2+3 over one image's whole tile schedule -> (T, P, C_out).
 
     x_tiles (T_in, tp, C) f32 — every input tile of the plane;
@@ -195,6 +269,8 @@ def dcn_fused_schedule(x_tiles, dep_tbl, dep_cnt, idx, coeff, w, b, *,
     w (KK, C, O); b (O,). Row t is scheduled tile t's output; the caller
     scatters rows by its schedule order. ``block_p`` keeps the TPU
     kernel's pixel-block contract: P must tile by ``min(block_p, P)``.
+    ``n_split`` (CUDA only) overrides :func:`fused_splits`; the result
+    does not depend on it beyond float32 summation order.
     """
     dev = _check_operands(dict(x_tiles=x_tiles, coeff=coeff, w=w, b=b),
                           dict(dep_tbl=dep_tbl, dep_cnt=dep_cnt, idx=idx))
@@ -214,21 +290,19 @@ def dcn_fused_schedule(x_tiles, dep_tbl, dep_cnt, idx, coeff, w, b, *,
         if dev.type == "cpu":
             return dcn_fused_schedule_plain(x_tiles, dep_tbl, dep_cnt, idx,
                                             coeff, w, b)
-        from repro_torch.kernels import _build
-
-        lib = _build.load()
         out = torch.empty((t, p, o), dtype=torch.float32, device=dev)
-        err = lib.dcn_fused_schedule_launch(
-            x_tiles.data_ptr(), dep_tbl.data_ptr(), dep_cnt.data_ptr(),
-            idx.data_ptr(), coeff.data_ptr(), w.data_ptr(), b.data_ptr(),
-            out.data_ptr(), t, dep_tbl.shape[1], t_in, tp, p, idx.shape[2],
-            c, o, _stream(x_tiles))
-        _build.check(err, "dcn_fused_schedule_launch")
+        _launch_split(
+            dcn_fused_schedule, "dcn_fused_schedule_launch", out, t,
+            (x_tiles.data_ptr(), dep_tbl.data_ptr(), dep_cnt.data_ptr(),
+             idx.data_ptr(), coeff.data_ptr(), w.data_ptr(), b.data_ptr()),
+            (t, dep_tbl.shape[1], t_in, tp, p, idx.shape[2], c, o), n_split,
+            c)
         dcn_fused_schedule.launches += 1
         return out
 
 
 dcn_fused_schedule.launches = 0
+dcn_fused_schedule.last_grid = None
 
 
 # ---------------------------------------------------------------------------
@@ -255,14 +329,15 @@ def dcn_fused_tile_plain(x_tile, idx, coeff, w, b) -> torch.Tensor:
     return (out + b.float()).to(x_tile.dtype).reshape(*lead, p, o)
 
 
-def dcn_fused_tile(x_tile, idx, coeff, w, b, *,
-                   block_p: int = 128) -> torch.Tensor:
+def dcn_fused_tile(x_tile, idx, coeff, w, b, *, block_p: int = 128,
+                   n_split: int | None = None) -> torch.Tensor:
     """Fused Eq. 2+3 on one tile -> (..., P, C_out).
 
     x_tile (..., S, C) f32 — the packed halo buffer; idx/coeff (..., P, KK,
     4) — addresses into ``[0, S)`` and BLI coefficients; w (KK, C, O);
     b (O,). Leading dimensions are a batch of independent tiles (JAX's
-    ``vmap`` over images), all in one launch.
+    ``vmap`` over images), all in one launch. ``n_split`` as for
+    :func:`dcn_fused_schedule`.
     """
     dev = _check_operands(dict(x_tile=x_tile, coeff=coeff, w=w, b=b),
                           dict(idx=idx))
@@ -279,19 +354,17 @@ def dcn_fused_tile(x_tile, idx, coeff, w, b, *,
                            c_out=int(o)):
         if dev.type == "cpu":
             return dcn_fused_tile_plain(x_tile, idx, coeff, w, b)
-        from repro_torch.kernels import _build
-
-        lib = _build.load()
         out = torch.empty((*lead, p, o), dtype=torch.float32, device=dev)
         if n == 0 or p == 0:
             return out
-        err = lib.dcn_fused_tile_launch(
-            x_tile.data_ptr(), idx.data_ptr(), coeff.data_ptr(),
-            w.data_ptr(), b.data_ptr(), out.data_ptr(), n, s, p,
-            idx.shape[-2], c, o, _stream(x_tile))
-        _build.check(err, "dcn_fused_tile_launch")
+        _launch_split(
+            dcn_fused_tile, "dcn_fused_tile_launch", out, n,
+            (x_tile.data_ptr(), idx.data_ptr(), coeff.data_ptr(),
+             w.data_ptr(), b.data_ptr()),
+            (n, s, p, idx.shape[-2], c, o), n_split, c)
         dcn_fused_tile.launches += 1
         return out
 
 
 dcn_fused_tile.launches = 0
+dcn_fused_tile.last_grid = None

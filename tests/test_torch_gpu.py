@@ -6,6 +6,8 @@ runs on a machine that has only the port:
     python -m pytest tests/test_torch_gpu.py -q -m gpu
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -145,6 +147,100 @@ def test_tile_kernel(shape):
                            for i, a in enumerate(ops))).cpu()
     assert float((one - want[0]).abs().max()) <= 1e-4 * float(
         want.abs().max())
+
+
+def _hold_splits(fn, args, c, want):
+    """``fn`` (#4 or #5) at n_split = 1, the default, 3 (an uneven cut
+    where C has more than 3 chunks) and the chunk count: each within
+    1e-4 * max|ref| of the plain version and within 1e-5 * max|ref| of
+    n_split = 1; a second run of the default is bitwise equal. Returns the
+    outputs by requested split (None = default)."""
+    from repro_torch.kernels.dcn_fused import SPLIT_BC
+
+    chunks = math.ceil(c / SPLIT_BC)
+    outs = {n: fn(*args, n_split=n)
+            for n in dict.fromkeys((1, None, min(3, chunks), chunks))}
+    assert torch.equal(fn(*args), outs[None])
+    scale = float(want.abs().max())
+    for got in outs.values():
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+        assert float((got - outs[1]).abs().max()) <= 1e-5 * scale
+    return outs
+
+
+# (T, T_in, tp = P, C, O, k_pad): full width, then C not a multiple of the
+# 16-channel chunk (nor of 4) with O not a multiple of the 128-channel
+# tile and P not a multiple of the 64-pixel tile, then 7 chunks (no split
+# count but 1 and 7 divides them) with O not a multiple of 4, then deps
+# of 1600 rows, too many to keep two chunks of in shared memory (the
+# gather path).
+SPLIT_SCHED_SHAPES = [(4, 4, 64, 512, 512, 4), (3, 6, 100, 37, 200, 4),
+                      (5, 9, 40, 100, 130, 8), (3, 20, 100, 24, 72, 16)]
+
+
+@pytest.mark.parametrize("shape", SPLIT_SCHED_SHAPES)
+def test_schedule_kernel_split(shape):
+    """#4 under every split: the plain version, split invariance, bitwise
+    reruns, and a dep_cnt = 0 row that is exactly b (the bias is added
+    once, not once a slice)."""
+    from repro_torch.kernels.dcn_fused import (dcn_fused_schedule,
+                                               dcn_fused_schedule_plain)
+
+    ops = _sched_operands(5, *shape)
+    want = dcn_fused_schedule_plain(*ops)
+    outs = _hold_splits(dcn_fused_schedule, [a.cuda() for a in ops],
+                        shape[3], want)
+    bias = ops[-1].expand(shape[2], shape[4]).cuda()
+    for got in outs.values():
+        assert torch.equal(got[-1], bias)
+
+
+# (N, S, P, C, O): a per_tile tile and the whole plane at full width, then
+# the awkward shapes of SPLIT_SCHED_SHAPES, then a 1600-row halo (the
+# gather path).
+SPLIT_TILE_SHAPES = [(1, 256, 64, 512, 512), (1, 196, 256, 512, 512),
+                     (2, 150, 100, 37, 200), (3, 50, 40, 100, 130),
+                     (2, 1600, 64, 48, 136)]
+
+
+@pytest.mark.parametrize("shape", SPLIT_TILE_SHAPES)
+def test_tile_kernel_split(shape):
+    """#5 under every split: the plain version, split invariance and
+    bitwise reruns."""
+    from repro_torch.kernels.dcn_fused import (dcn_fused_tile,
+                                               dcn_fused_tile_plain)
+
+    n, s, p, c, o = shape
+    rng = np.random.default_rng(6)
+    ops = [torch.as_tensor(a) for a in (
+        rng.normal(size=(n, s, c)).astype(np.float32),
+        rng.integers(-2, s + 3, size=(n, p, 9, 4)).astype(np.int32),
+        rng.uniform(size=(n, p, 9, 4)).astype(np.float32),
+        (rng.normal(size=(9, c, o)) / np.sqrt(9 * c)).astype(np.float32),
+        rng.normal(size=(o,)).astype(np.float32))]
+    _hold_splits(dcn_fused_tile, [a.cuda() for a in ops], c,
+                 dcn_fused_tile_plain(*ops))
+
+
+def test_split_launch_grid():
+    """The launched grid is the policy's at the three full-width shapes
+    (#5 per tile, #5 whole plane, #4)."""
+    from repro_torch.kernels.dcn_fused import (dcn_fused_schedule,
+                                               dcn_fused_tile, fused_grid,
+                                               fused_splits)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n, s, p in ((1, 256, 64), (1, 196, 256)):
+        x = torch.zeros((n, s, 512), device="cuda")
+        idx = torch.zeros((n, p, 9, 4), dtype=torch.int32, device="cuda")
+        dcn_fused_tile(x, idx, idx.float(), torch.zeros((9, 512, 512),
+                       device="cuda"), torch.zeros(512, device="cuda"))
+        assert dcn_fused_tile.last_grid == fused_grid(
+            n, p, 512, fused_splits(n, p, 512, 512, sms))
+    ops = [a.cuda() for a in _sched_operands(5, *SPLIT_SCHED_SHAPES[0])]
+    dcn_fused_schedule(*ops)
+    assert dcn_fused_schedule.last_grid == fused_grid(
+        4, 64, 512, fused_splits(4, 64, 512, 512, sms))
 
 
 @pytest.mark.parametrize("shape", [(1, 20, 16, 8), (2, 196, 1792, 512),

@@ -13,6 +13,8 @@ The CUDA kernels themselves are held against these plain versions on the
 card (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -409,6 +411,71 @@ class TestFusedTile:
                       w.numpy(), b.numpy(), block_p=8)
         with pytest.raises(ValueError, match="does not match"):
             dcn_fused_tile(x, idx[0], coeff[0], w, b)
+
+
+
+# ---------------------------------------------------------------------------
+# Launch policy of the split-C body behind #4 and #5 (plain Python)
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import dcn_fused as kf  # noqa: E402
+
+# (rows, P, O, C) over one-row tiles, schedules, whole planes, ragged
+# channel and pixel counts, and grids that fill the card without a split.
+SPLIT_SHAPES = [(1, 64, 512, 512), (1, 256, 512, 512), (4, 64, 512, 512),
+                (16, 64, 512, 512), (3, 100, 200, 37), (1, 40, 5, 7),
+                (2, 196, 130, 100), (70, 64, 512, 512), (264, 64, 128, 64),
+                (1, 64, 64, 3), (9, 128, 256, 1000)]
+
+
+class TestSplitPolicy:
+    @pytest.mark.parametrize("rows,p,o,c", [(264, 64, 128, 512),
+                                            (70, 64, 512, 512),
+                                            (33, 256, 256, 512),
+                                            (300, 1, 1, 4096)])
+    def test_no_split_when_the_grid_fills_two_waves(self, rows, p, o, c):
+        blocks = math.prod(kf.fused_grid(rows, p, o, 1))
+        assert blocks >= 2 * kf.H100_SMS
+        assert kf.fused_splits(rows, p, o, c) == 1
+
+    @pytest.mark.parametrize("rows,p,o,c", SPLIT_SHAPES)
+    def test_slices_are_whole_chunks_and_never_exceed_them(self, rows, p, o,
+                                                           c):
+        chunks = math.ceil(c / kf.SPLIT_BC)
+        n = kf.fused_splits(rows, p, o, c)
+        assert 1 <= n <= chunks
+        for want in {1, n, chunks}:
+            got, c_split = kf.split_channels(c, want)
+            assert got <= want and c_split % kf.SPLIT_BC == 0
+            # every slice holds at least one channel, together all C
+            assert (got - 1) * c_split < c <= got * c_split
+        assert kf.split_channels(c, n)[0] == n
+
+    @pytest.mark.parametrize("sms", [66, 114, 132])
+    def test_split_fills_about_two_waves(self, sms):
+        for rows, p, o, c in SPLIT_SHAPES:
+            base = math.prod(kf.fused_grid(rows, p, o, 1))
+            n = kf.fused_splits(rows, p, o, c, sms)
+            chunks = math.ceil(c / kf.SPLIT_BC)
+            if base < 2 * sms and n < chunks:
+                # one slice fewer per block would overshoot the target
+                per = math.ceil(chunks / n)
+                assert per == 1 or base * math.ceil(chunks / (per - 1)) \
+                    >= 2 * sms
+
+    @pytest.mark.parametrize("shape,grid", [
+        ((1, 64, 512, 512), (1, 1, 4, 32)),     # #5 per tile, 128 blocks
+        ((1, 256, 512, 512), (1, 4, 4, 16)),    # #5 whole plane, 256 blocks
+        ((4, 64, 512, 512), (4, 1, 4, 16)),     # #4 schedule, 256 blocks
+    ])
+    def test_grids_quoted_in_perf(self, shape, grid):
+        rows, p, o, c = shape
+        assert kf.fused_grid(rows, p, o, kf.fused_splits(*shape)) == grid
+
+    @pytest.mark.parametrize("n", [0, 33, -1])
+    def test_rejects_out_of_range_split(self, n):
+        with pytest.raises(ValueError, match="n_split"):
+            kf.split_channels(512, n)
 
 
 class TestBli:
