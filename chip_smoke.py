@@ -16,10 +16,10 @@ Phases, each fatal on failure:
               within 1e-4 * max|ref|, the BLI kernel within 1e-6 *
               max|ref|, the TDT and greedy kernels bit-exact, the greedy
               kernel also against the numpy ``schedule_tiles``; the
-              split-C kernels #4 and #5 also at their default split
+              split-C kernels #1, #4 and #5 also at their default split
               against ``n_split = 1`` within 1e-5 * max|ref|, each call's
               grid printed) and time kernel, plain version and library
-              call;
+              call (#1 also at other split counts);
 3.  serve   — drive ``DcnServingEngine`` (slots=4, tile 8, device
               scheduling) with 8 requests of 1-2 images, one replayed;
               every request must resolve with finite logits that match the
@@ -56,8 +56,11 @@ Phases, each fatal on failure:
 7.  lm-serve — ``DecodeEngine(batch=4, max_len=512)`` on the same params
               serves 8 greedy requests (prompts of 16-256 tokens, 32 new
               tokens each), one #8 launch per layer and step; two requests
-              cross-checked against ``lm_prefill``; decode tokens/s, step
-              and request latency; 4 more steps under ``torch.profiler``.
+              cross-checked against ``lm_prefill``; #8 held against its
+              plain version on operands kept from the run and timed on
+              those of a late step (its serving shape); decode tokens/s,
+              step and request latency; 4 more steps under
+              ``torch.profiler``.
 
 Each path is driven with every kernel's launch count set to 0 just
 before it and read just after. The last lines are the card's name and
@@ -92,7 +95,7 @@ FUSED_RTOL = 1e-4     # kernel vs plain: float32 sums in another order
 BLI_RTOL = 1e-6       # BLI kernel vs plain / reference: four-term sums
 LOGIT_RTOL = 1e-3     # served vs dense: 16 layers of reordered sums
 ATTN_RTOL = 1e-4      # #7 / #8 vs plain: float32 sums in another order
-SPLIT_RTOL = 1e-5     # #4 / #5 / #8 at two split counts: exact combines
+SPLIT_RTOL = 1e-5     # #1 / #4 / #5 / #8 at two split counts: exact combines
 # Shapes of the LM phases: (name, B, Sq, Skv, Hq, Hkv, D, options) for #7,
 # (name, B, S, Hq, Hkv, D, options) for #8; the first case of each is the
 # one timed and reported.
@@ -326,6 +329,7 @@ def lm_phases(card, kernels, launches, reset_counts) -> None:
                       f"(live share {live / (sq * skv):.4f})")
             del qt, kt, vt, lib
         del q, k, v
+    long_cache = {}
     for i, (name, b, s, hq, hkv, d, opts) in enumerate(sizes["decode"]):
         q, kc, vc = randn(b, hq, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
         lens_np = rng.integers(1, s + 1, size=b).astype(np.int32)
@@ -335,25 +339,29 @@ def lm_phases(card, kernels, launches, reset_counts) -> None:
         ref = plain()
         got = fd.flash_decode(q, kc, vc, lens, **opts)
         err, sc = hold(f"flash_decode at {name}", got, ref, ATTN_RTOL)
+        per_seq = [len(r) for r in fd.split_ranges(
+            lens_np.tolist(), s, fd.default_splits(b, hkv, s), hkv,
+            opts.get("window"))]
         print(f"[lm-kernels] flash_decode at {name} (B={b} S={s} Hq={hq} "
-              f"Hkv={hkv} D={d} {opts}, lengths {lens_np.tolist()}): max|d| "
-              f"{err:.3e} (limit {ATTN_RTOL}*{sc:.3f})")
+              f"Hkv={hkv} D={d} {opts}, lengths {lens_np.tolist()}, splits "
+              f"{per_seq}): max|d| {err:.3e} (limit {ATTN_RTOL}*{sc:.3f})")
         if i == 0:
             n_def = fd.default_splits(b, hkv, s)
             other = fd.flash_decode(q, kc, vc, lens, num_splits=64, **opts)
-            ds, _ = hold(f"flash_decode at {n_def} vs 64 splits", other, got,
-                         SPLIT_RTOL)
-            print(f"[lm-kernels] flash_decode at {n_def} (default) vs 64 "
-                  f"splits: max|d| {ds:.3e} (limit {SPLIT_RTOL}*{sc:.3f})")
+            ds, _ = hold("flash_decode at the default split vs 64 splits",
+                         other, got, SPLIT_RTOL)
+            print(f"[lm-kernels] flash_decode at the default split (at most "
+                  f"{n_def} a sequence) vs num_splits=64: max|d| {ds:.3e} "
+                  f"(limit {SPLIT_RTOL}*{sc:.3f})")
             visible = int(np.minimum(lens_np, s).sum())
             qt = q[:, :, None]
             kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
             mask = (torch.arange(s, device=dev)[None, :]
                     < lens[:, None])[:, None, None, :]
             lib = sdpa_yardstick(qt, kt, vt, attn_mask=mask)
-            kernels["flash_decode"] = dict(
-                route="cuda", source="src/repro_torch/csrc/flash_decode.cu",
-                replaces="src/repro/kernels/flash_decode.py:28",
+            # The long-cache shape; the serving shape (phase 7) is the
+            # one the kernel's line reports.
+            long_cache[name] = dict(
                 max_abs_err=err,
                 ms=cuda_time_ms(lambda: fd.flash_decode(q, kc, vc, lens,
                                                         **opts), 20),
@@ -362,7 +370,8 @@ def lm_phases(card, kernels, launches, reset_counts) -> None:
                 ops=dict(fp32=4 * visible * hq * d),
                 bytes=4 * (2 * visible * hkv * d + 2 * q.numel()) + 4 * b,
                 shape=f"{name} B={b} S={s} Hq={hq} Hkv={hkv} D={d}, "
-                      f"{visible} visible keys, {n_def} splits")
+                      f"{visible} visible keys, at most {n_def} splits a "
+                      f"sequence")
             del kt, vt, lib, mask
         del q, kc, vc, ref, got
     torch.cuda.empty_cache()
@@ -494,15 +503,50 @@ def lm_phases(card, kernels, launches, reset_counts) -> None:
              f"{kept_steps}, not 6 at 3 steps with a stale slot among them")
     n_split = fd.default_splits(sizes["serve_batch"], cfg.n_kv_heads,
                                 sizes["serve_max_len"])
+    err8 = 0.0
     for i, (d, sc) in enumerate(hold_captured(
             "flash_decode on the serving operands", held8,
             fd.flash_decode_plain)):
+        lens = held8[i][0][3].tolist()
+        per_seq = [len(r) for r in fd.split_ranges(
+            lens, sizes["serve_max_len"], n_split, cfg.n_kv_heads,
+            held8[i][1].get("window"))]
+        err8 = max(err8, d)
         print(f"[lm-serve] flash_decode at step {kept_steps[i // 2]}, layer "
-              f"{(0, cfg.n_layers - 1)[i % 2]} ({n_split} splits, lengths "
-              f"{held8[i][0][3].tolist()}"
+              f"{(0, cfg.n_layers - 1)[i % 2]} (lengths {lens}, splits "
+              f"{per_seq} of at most {n_split}"
               f"{f', free slots {stale} at stale lengths' if i >= 4 else ''}"
               f") vs plain: max|d| {d:.3e} (limit {ATTN_RTOL}*{sc:.3f})")
-    del held8
+    # Timed at the serving shape: layer 0 of the last kept step.
+    a8, k8, _ = held8[4]
+    k8 = dict(k8, scale=k8.get("scale") or a8[0].shape[-1] ** -0.5)
+    q8, kc8, vc8, lens8 = a8
+    b8, s8, hkv8, d8 = kc8.shape
+    vis8 = sum(hi - lo for seq in fd.split_ranges(
+        lens8.tolist(), s8, n_split, hkv8, k8.get("window"))
+        for lo, hi in seq)
+    ki8 = torch.arange(s8, device=dev)[None, :]
+    mask8 = ki8 < lens8[:, None].long()
+    if k8.get("window") is not None:
+        mask8 &= ki8 > lens8[:, None].long() - 1 - k8["window"]
+    kt8, vt8 = (t.transpose(1, 2).contiguous() for t in (kc8, vc8))
+    lib8 = sdpa_yardstick(q8[:, :, None], kt8, vt8,
+                          attn_mask=mask8[:, None, None, :],
+                          scale=k8["scale"])
+    kernels["flash_decode"] = dict(
+        route="cuda", source="src/repro_torch/csrc/flash_decode.cu",
+        replaces="src/repro/kernels/flash_decode.py:28", max_abs_err=err8,
+        ms=cuda_time_ms(lambda: fd.flash_decode(*a8, **k8), 200),
+        plain_ms=cuda_time_ms(lambda: fd.flash_decode_plain(*a8, **k8), 50),
+        library_ms=cuda_time_ms(lib8, 200),
+        ops=dict(fp32=4 * vis8 * q8.shape[1] * d8),
+        bytes=4 * (2 * vis8 * hkv8 * d8 + 2 * q8.numel()) + 4 * b8,
+        shape=f"serving step {kept_steps[2]} layer 0, B={b8} S={s8} "
+              f"Hq={q8.shape[1]} Hkv={hkv8} D={d8}, lengths "
+              f"{lens8.tolist()}, {vis8} visible keys, at most {n_split} "
+              f"splits a sequence",
+        long_cache=long_cache)
+    del held8, a8, kt8, vt8, lib8
     gaps = []
     for r in reqs[:sizes["cross_checked"]]:
         for j in (0, r.max_new - 1):
@@ -614,7 +658,7 @@ def main() -> int:
     peak_fp32, peak_tf32, peak_bw = next(
         (v for k, v in PEAKS.items() if k in kind), PEAK_SXM)
     # Operation rates by the units a kernel's work runs on: FP32 on the
-    # CUDA cores; the 3xTF32 contraction of #4 / #5 at a third of the
+    # CUDA cores; the 3xTF32 contraction of #1 / #4 / #5 at a third of the
     # dense TF32 tensor-core rate (three TF32 products per FP32 product).
     rates = {"fp32": (peak_fp32, f"FP32 {peak_fp32 / 1e12:g} TFLOP/s"),
              "3xtf32": (peak_tf32 / 3, f"3xTF32 {peak_tf32 / 3e12:.4g} "
@@ -771,9 +815,9 @@ def main() -> int:
     def hold_fused(name, calls, fn, plain, rtol):
         """Every captured call of ``fn`` against ``plain`` (which takes the
         call's tensors and, for #1, its ``t_in``); returns the first
-        call's error. For the split-C kernels (#4, #5) each call's grid
-        and ``n_split`` are printed, and its default split is also held
-        against ``n_split = 1`` within ``SPLIT_RTOL * max|ref|``."""
+        call's error. For the split-C kernels (#1, #4, #5) each call's
+        grid and ``n_split`` are printed, and its default split is also
+        held against ``n_split = 1`` within ``SPLIT_RTOL * max|ref|``."""
         errs = []
         for i, (a, k) in enumerate(calls):
             got = fn(*a, **k)
@@ -807,14 +851,28 @@ def main() -> int:
     g_rows, p_pix = row.shape[0], idx.shape[1]
     kk, c_in, c_out = w.shape
     live = int((cnt > 0).sum())
+    ms1 = cuda_time_ms(lambda: kf.dcn_fused_batch(*a, **k), 50)
+    grid1 = kf.dcn_fused_batch.last_grid
+    # The default grid against others: one that fits a single wave of two
+    # blocks an SM, and a finer cut.
+    by_split = {grid1[3]: ms1}
+    for n in (4, 5, 8):
+        if n not in by_split:
+            by_split[n] = cuda_time_ms(
+                lambda: kf.dcn_fused_batch(*a, **k, n_split=n), 50)
+    print(f"[kernels] {card}: dcn_fused_batch by n_split (default "
+          f"{grid1[3]}, grid {grid1}): " + ", ".join(
+              f"{n} -> {math.prod(kf.fused_grid(g_rows, p_pix, c_out, n))} "
+              f"blocks {t:.4f} ms" for n, t in sorted(by_split.items())))
     kernels["dcn_fused_batch"] = dict(
-        route="cuda", source="src/repro_torch/csrc/dcn_fused_batch.cu",
+        route="cuda", source="src/repro_torch/csrc/dcn_fused_split.cuh",
         replaces="src/repro/kernels/dcn_fused.py:249",
-        max_abs_err=err,
-        ms=cuda_time_ms(lambda: kf.dcn_fused_batch(*a, **k), 50),
+        max_abs_err=err, ms=ms1,
         plain_ms=cuda_time_ms(lambda: kf.dcn_fused_batch_plain(*a, **k), 5),
         library_ms=contraction(g_rows * p_pix, w),
-        ops=fused_ops(live * p_pix, kk, c_in, c_out, "fp32"),
+        grid=list(grid1),
+        ms_by_split={str(n): t for n, t in sorted(by_split.items())},
+        ops=fused_ops(live * p_pix, kk, c_in, c_out, "3xtf32"),
         bytes=nbytes_of(a, g_rows * p_pix * c_out),
         shape=f"G={g_rows} P={p_pix} KK={kk} C={c_in} O={c_out} "
               f"k_pad={dep.shape[1]} live_rows={live}")
@@ -1176,6 +1234,13 @@ def main() -> int:
     for name in wrappers:
         kd = kernels[name]
         kd.update(bound_of(kd.pop("ops"), kd.pop("bytes")))
+        for shape_name, extra in kd.get("long_cache", {}).items():
+            extra.update(bound_of(extra.pop("ops"), extra.pop("bytes")))
+            print(f"[kernel] {card}: {name} at {extra.pop('shape')}: "
+                  f"{extra['ms']:.4f} ms (bound {extra['bound_ms']:.6f} ms "
+                  f"by {extra['bound_by']} at {extra['bound_rate']}, plain "
+                  f"{extra['plain_ms']:.4f} ms, library "
+                  f"{extra['library_ms']:.4f} ms)")
         kd["launches"] = launches[name]
         shape = kd.pop("shape")
         lib_ms = kd["library_ms"]

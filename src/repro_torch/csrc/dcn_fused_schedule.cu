@@ -45,8 +45,8 @@ extern "C" int dcn_fused_schedule_launch(
     int T, int k_pad, int t_in, int tp, int P, int KK, int C, int O,
     int n_split, int c_split, void* stream) {
   return split::split_launch<split::ADDR_SCHED>(
-      x, dep_tbl, dep_cnt, idx, coeff, w, b, ws, out, T, k_pad, t_in, tp, P,
-      KK, C, O, n_split, c_split, stream);
+      x, nullptr, dep_tbl, dep_cnt, idx, coeff, w, b, ws, out, T, k_pad,
+      t_in, t_in, tp, P, KK, C, O, n_split, c_split, stream);
 }
 
 extern "C" int dcn_fused_tile_launch(const void* x, const void* idx,
@@ -56,6 +56,6 @@ extern "C" int dcn_fused_tile_launch(const void* x, const void* idx,
                                      int O, int n_split, int c_split,
                                      void* stream) {
   return split::split_launch<split::ADDR_TILE>(
-      x, nullptr, nullptr, idx, coeff, w, b, ws, out, N, 1, 1, S, P, KK, C,
-      O, n_split, c_split, stream);
+      x, nullptr, nullptr, nullptr, idx, coeff, w, b, ws, out, N, 1, 1, 1, S,
+      P, KK, C, O, n_split, c_split, stream);
 }

@@ -1,31 +1,44 @@
 // Split-C fused BLI(+)conv body for Hopper (paper §IV-D fusion), the body
-// of #4 dcn_fused_schedule and #5 dcn_fused_tile (dcn_fused_schedule.cu).
+// of #1 dcn_fused_batch (dcn_fused_batch.cu), #4 dcn_fused_schedule and #5
+// dcn_fused_tile (dcn_fused_schedule.cu).
 //
 // For grid row g (one output tile) and output pixel p:
 //
 //   out[g, p, :] = b + sum_{kk, c} patch[p, kk, c] * w[kk, c, :]
 //   patch[p, kk, c] = sum_j coeff_j * x[src(idx_j), c]
 //
-// over the 4 BLI neighbours j. Two addressing modes, fixed at compile
+// over the 4 BLI neighbours j. Three addressing modes, fixed at compile
 // time (the TPU kernels' rules, unchanged):
 //
+//   ADDR_BATCH  (#1) plane-global a = tile * tp + offset, idx and coeff
+//               rows read through row_id[g]; a neighbour counts iff a
+//               slot k < dep_cnt[g] holds a tile of x with dep[g, k] %
+//               t_in == a / tp (a row's deps are distinct tiles of one
+//               image, so one slot at most); x row = dep[g, k] * tp +
+//               a % tp. A dep_cnt = 0 row writes b.
 //   ADDR_SCHED  (#4) slot-local a = k * tp + offset; a neighbour counts
 //               iff k < dep_cnt[g] and dep[g, k] is a tile of x; x row =
 //               dep[g, k] * tp + offset. A dep_cnt = 0 row writes b.
 //   ADDR_TILE   (#5) halo-local a in [0, S) of image g's (S, C) halo
 //               buffer, S = tp; x row = g * S + a.
 //
+// BATCH and SCHED share the resident-halo path: each neighbour is
+// resolved to its dep slot k once, when the block's tables are built, so
+// the stages interpolate from the chunk of slot k's tile in shared memory
+// whichever mode put it there.
+//
 // Bound. At the shapes of the VGG19-3 DCN layers (C = O = 512, KK = 9,
-// 64-256 output pixels per row) a call is 0.3-1.2 GFLOP against 9.4 MB of
+// 64-256 output pixels per row) a call is 0.3-4.8 GFLOP against 9.4 MB of
 // weights. With the contraction on the tensor cores in 3xTF32 (three TF32
 // products per FP32 product, 495 / 3 = 165 TFLOP/s) the least time is set
 // by the weight bytes (~2.8 us at 3.35 TB/s) for one row and by the
-// operations for four. What held the FP32 body of dcn_fused_common.cuh to
-// ~0.77 ms was neither: 8-32 blocks on 132 SMs, each serialising gather,
-// weight staging and FMA behind barriers, and every O-block re-gathering
-// the same deformed patch. What holds this body is the serial per-stage
-// work of one block (copy issue, interpolation from shared memory, one
-// barrier), not the tensor cores, which idle most of a stage.
+// operations for four or more. What held the FP32 body that came before
+// it to ~0.77 ms was neither: 8-128 blocks on 132 SMs, each serialising
+// gather, weight staging and FMA behind barriers, and every O-block
+// re-gathering the same deformed patch. What holds this body is the
+// serial per-stage work of one block (copy issue, interpolation from
+// shared memory, one barrier), not the tensor cores, which idle most of a
+// stage.
 //
 // Design:
 // * Fill the card. The C reduction is cut into n_split slices of whole
@@ -37,12 +50,12 @@
 //   bitwise equal. With n_split = 1 the first kernel writes out + b.
 // * Keep the halo resident, as the TPU kernels keep it in VMEM, one
 //   16-channel chunk at a time: the chunk of the tile's halo (TILE: its S
-//   rows) or of the row's live dep tiles (SCHED: up to k_pad * tp rows) is
-//   copied once into shared memory, double-buffered by chunk, and each of
-//   the KK taps interpolates its 4 neighbours from there. A halo too large
-//   for two chunks in a block's shared memory takes the gather path: each
-//   thread copies its pixel's 4 neighbours of each stage from device
-//   memory into a ring and interpolates what it copied.
+//   rows) or of the row's live dep tiles (BATCH, SCHED: up to k_pad * tp
+//   rows) is copied once into shared memory, double-buffered by chunk, and
+//   each of the KK taps interpolates its 4 neighbours from there. A halo
+//   too large for two chunks in a block's shared memory takes the gather
+//   path: each thread copies its pixel's 4 neighbours of each stage from
+//   device memory into a ring and interpolates what it copied.
 // * Overlap loads with math. The K loop runs over stages (one tap kk, one
 //   chunk). A stage's w slice [BC][BO] is copied with 16-byte cp.async
 //   into a 3-deep ring two stages ahead; stage s's wgmmas run
@@ -83,7 +96,7 @@ static_assert(NT == 4 * BP && BC == 16 && BO == 2 * 64 && BP == 64 &&
                   BC * BO % (4 * NT) == 0,
               "the thread maps below assume this tile");
 
-enum Addr { ADDR_SCHED = 1, ADDR_TILE = 2 };
+enum Addr { ADDR_SCHED = 1, ADDR_TILE = 2, ADDR_BATCH = 3 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
@@ -177,24 +190,26 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 
 template <int MODE, bool HALO>
 __global__ void __launch_bounds__(NT, 2)
-split_kernel(const float* __restrict__ x, const int* __restrict__ dep,
-             const int* __restrict__ dep_cnt, const int* __restrict__ idx,
-             const float* __restrict__ coeff, const float* __restrict__ w,
-             const float* __restrict__ b, float* __restrict__ ws,
-             float* __restrict__ out, int rows, int k_pad, int t_in, int tp,
-             int P, int KK, int C, int O, int c_split) {
+split_kernel(const float* __restrict__ x, const int* __restrict__ row_id,
+             const int* __restrict__ dep, const int* __restrict__ dep_cnt,
+             const int* __restrict__ idx, const float* __restrict__ coeff,
+             const float* __restrict__ w, const float* __restrict__ b,
+             float* __restrict__ ws, float* __restrict__ out, int rows,
+             int k_pad, int n_x, int t_in, int tp, int P, int KK, int C,
+             int O, int c_split) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* Bh = (float*)smem;                  // [2][PATCH] patch, TF32 high
   float* Bl = Bh + 2 * PATCH;                // [2][PATCH] patch, residual
   float* Wr = Bl + 2 * PATCH;                // [RING][BC][WS] w slices
   // HALO: [2][S_h][HS], a chunk of the row's halo (TILE) or of its dep
-  // tiles (SCHED), double-buffered by chunk; else [RING][4][4][BP][4], the
-  // neighbours of each stage gathered from device memory.
+  // tiles (BATCH, SCHED), double-buffered by chunk; else
+  // [RING][4][4][BP][4], the neighbours of each stage gathered from device
+  // memory.
   const int S_h = MODE == ADDR_TILE ? tp : k_pad * tp;
   float* Xr = Wr + RING * BC * WS;
   int* src = (int*)(Xr + (HALO ? 2 * S_h * HS : RING * 16 * BP * 4));
   float* cf = (float*)(src + BP * KK * 4);   // [BP][KK][4]
-  int* deps = (int*)(cf + BP * KK * 4);      // [k_pad] (ADDR_SCHED)
+  int* deps = (int*)(cf + BP * KK * 4);      // [k_pad] (BATCH, SCHED)
 
   const int g = blockIdx.x, p0 = blockIdx.y * BP;
   const int n_ob = (O + BO - 1) / BO;
@@ -255,18 +270,19 @@ split_kernel(const float* __restrict__ x, const int* __restrict__ dep,
   };
 
   // The block's idx and coeff rows are contiguous in device memory: copy
-  // them (and a schedule row's deps) into shared memory in one go, while
-  // the w slices of the first RING - 1 stages fly, then resolve in place
-  // where each (pixel, kk, neighbour) lives: its row in the halo (HALO) or
-  // in x, or -1.
-  const size_t t0 = ((size_t)g * P + p0) * KK * 4;
+  // them (and the row's deps) into shared memory in one go, while the w
+  // slices of the first RING - 1 stages fly, then resolve in place where
+  // each (pixel, kk, neighbour) lives: its row in the halo (HALO) or in x,
+  // or -1.
+  const size_t t0 =
+      ((size_t)(MODE == ADDR_BATCH ? row_id[g] : g) * P + p0) * KK * 4;
   const int n_tab = min(BP, P - p0) * KK * 4;
   for (int e = tid; e < BP * KK * 4; e += NT) {
     const bool ok = e < n_tab;
     cp_async4(src + e, ok ? (const void*)(idx + t0 + e) : idx, ok ? 4 : 0);
     cp_async4(cf + e, ok ? coeff + t0 + e : coeff, ok ? 4 : 0);
   }
-  if (MODE == ADDR_SCHED)
+  if (MODE != ADDR_TILE)
     for (int k = tid; k < k_pad; k += NT)
       cp_async4(deps + k, dep + (size_t)g * k_pad + k, 4);
   cp_async_commit();
@@ -283,11 +299,23 @@ split_kernel(const float* __restrict__ x, const int* __restrict__ dep,
     const int a = src[e];
     int s = -1;
     if (e < n_tab) {
-      if (MODE == ADDR_SCHED) {
+      if (MODE == ADDR_BATCH) {
+        // The slot of the row's dep tile that holds the neighbour.
+        if (a >= 0) {
+          const int tile = a / tp;
+          for (int k = 0; k < live; ++k) {
+            const int d = deps[k];
+            if (d >= 0 && d < n_x && d % t_in == tile) {
+              s = HALO ? k * tp + (a - tile * tp) : d * tp + (a - tile * tp);
+              break;
+            }
+          }
+        }
+      } else if (MODE == ADDR_SCHED) {
         const int k = a / tp;
         if (a >= 0 && k < live) {
           const int d = deps[k];
-          if (d >= 0 && d < t_in) s = HALO ? a : d * tp + (a - k * tp);
+          if (d >= 0 && d < n_x) s = HALO ? a : d * tp + (a - k * tp);
         }
       } else {
         if (a >= 0 && a < tp) s = HALO ? a : g * tp + a;
@@ -338,7 +366,7 @@ split_kernel(const float* __restrict__ x, const int* __restrict__ dep,
         for (int k = 0; k < live; ++k) {
           const int d = deps[k];
           copy_rows(dst + k * tp * HS, (size_t)max(d, 0) * tp, tp, c0,
-                    d >= 0 && d < t_in);
+                    d >= 0 && d < n_x);
         }
       }
       return;
@@ -535,38 +563,40 @@ split_combine(const float* __restrict__ ws, const int* __restrict__ dep_cnt,
 
 template <int MODE, bool HALO>
 cudaError_t launch_main(int smem, dim3 grid, cudaStream_t stream,
-                        const void* x, const void* dep, const void* dep_cnt,
-                        const void* idx, const void* coeff, const void* w,
-                        const void* b, void* ws, void* out, int rows,
-                        int k_pad, int t_in, int tp, int P, int KK, int C,
-                        int O, int c_split) {
+                        const void* x, const void* row_id, const void* dep,
+                        const void* dep_cnt, const void* idx,
+                        const void* coeff, const void* w, const void* b,
+                        void* ws, void* out, int rows, int k_pad, int n_x,
+                        int t_in, int tp, int P, int KK, int C, int O,
+                        int c_split) {
   const cudaError_t err = cudaFuncSetAttribute(
       split_kernel<MODE, HALO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
   split_kernel<MODE, HALO><<<grid, NT, smem, stream>>>(
-      (const float*)x, (const int*)dep, (const int*)dep_cnt,
-      (const int*)idx, (const float*)coeff, (const float*)w,
-      (const float*)b, (float*)ws, (float*)out, rows, k_pad, t_in, tp, P,
-      KK, C, O, c_split);
+      (const float*)x, (const int*)row_id, (const int*)dep,
+      (const int*)dep_cnt, (const int*)idx, (const float*)coeff,
+      (const float*)w, (const float*)b, (float*)ws, (float*)out, rows, k_pad,
+      n_x, t_in, tp, P, KK, C, O, c_split);
   return cudaGetLastError();
 }
 
 // Launch both passes over `rows` grid rows on `stream`; returns the first
 // cudaGetLastError() that is not cudaSuccess. `ws` holds (n_split, rows,
-// P, O) floats when n_split > 1; `c_split` channels per slice. The halo
-// path runs when two chunks of the halo (TILE: S rows; SCHED: k_pad * tp)
-// fit a block's shared memory, else the gather path.
+// P, O) floats when n_split > 1; `c_split` channels per slice; `n_x`
+// tiles of tp rows in x (BATCH, SCHED); `row_id` only for BATCH. The halo
+// path runs when two chunks of the halo (TILE: S rows; BATCH, SCHED:
+// k_pad * tp) fit a block's shared memory, else the gather path.
 template <int MODE>
-int split_launch(const void* x, const void* dep, const void* dep_cnt,
-                 const void* idx, const void* coeff, const void* w,
-                 const void* b, void* ws, void* out, int rows, int k_pad,
-                 int t_in, int tp, int P, int KK, int C, int O, int n_split,
-                 int c_split, void* stream) {
+int split_launch(const void* x, const void* row_id, const void* dep,
+                 const void* dep_cnt, const void* idx, const void* coeff,
+                 const void* w, const void* b, void* ws, void* out, int rows,
+                 int k_pad, int n_x, int t_in, int tp, int P, int KK, int C,
+                 int O, int n_split, int c_split, void* stream) {
   const long long s_h = MODE == ADDR_TILE ? tp : (long long)k_pad * tp;
   const long long fixed = 4 * (4 * PATCH + RING * BC * WS) +
                           KK * BP * 4 * 8 +
-                          (MODE == ADDR_SCHED ? 4 * k_pad : 0);
+                          (MODE != ADDR_TILE ? 4 * k_pad : 0);
   const long long halo = fixed + 4 * 2 * s_h * HS;
   int dev = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -578,13 +608,14 @@ int split_launch(const void* x, const void* dep, const void* dep_cnt,
   const dim3 grid(rows, (P + BP - 1) / BP, n_ob * n_split);
   const cudaStream_t st = (cudaStream_t)stream;
   err = halo <= limit
-            ? launch_main<MODE, true>((int)halo, grid, st, x, dep, dep_cnt,
-                                      idx, coeff, w, b, ws, out, rows, k_pad,
-                                      t_in, tp, P, KK, C, O, c_split)
+            ? launch_main<MODE, true>((int)halo, grid, st, x, row_id, dep,
+                                      dep_cnt, idx, coeff, w, b, ws, out,
+                                      rows, k_pad, n_x, t_in, tp, P, KK, C,
+                                      O, c_split)
             : launch_main<MODE, false>(
-                  (int)(fixed + 4 * RING * 16 * BP * 4), grid, st, x, dep,
-                  dep_cnt, idx, coeff, w, b, ws, out, rows, k_pad, t_in, tp,
-                  P, KK, C, O, c_split);
+                  (int)(fixed + 4 * RING * 16 * BP * 4), grid, st, x, row_id,
+                  dep, dep_cnt, idx, coeff, w, b, ws, out, rows, k_pad, n_x,
+                  t_in, tp, P, KK, C, O, c_split);
   if (err != cudaSuccess || n_split == 1) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(rows * P, (O + COMBINE_NT - 1) / COMBINE_NT);
@@ -597,7 +628,7 @@ int split_launch(const void* x, const void* dep, const void* dep_cnt,
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(
       &cfg, split_combine, (const float*)ws,
-      MODE == ADDR_SCHED ? (const int*)dep_cnt : nullptr, (const float*)b,
+      MODE != ADDR_TILE ? (const int*)dep_cnt : nullptr, (const float*)b,
       (float*)out, rows, P, O, n_split);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

@@ -12,237 +12,447 @@
 // Bound: bytes. Each visible key row of K and V is read once and used for
 // 2 * g * D multiply-adds: ~g / 4 FLOP per byte, far below the FP32 ridge
 // (~20). At the Qwen3-1.7B decode (8 kv heads, D = 128, g = 2) the call
-// moves the valid prefixes of both caches; q and out are noise.
+// moves the visible keys of both caches; q and out are noise. The card's
+// 3.35 TB/s needs ~25 GB/s from each SM, i.e. tens of KB in flight per SM
+// at all times.
 //
-// Design. The TPU carried (m, l, acc) through a sequential grid over KV
-// blocks; here the KV axis of each (sequence, kv head) is cut into
-// `splits` equal chunks, one block each, so B * Hkv * splits blocks fill
-// the 132 SMs even at batch 4. A block serves all g query heads of its kv
-// head, so every K/V byte is read from device memory once, not g times.
-// It streams 64-key K/V tiles through shared memory (rows padded to D + 4
-// floats), takes the g x 64 scores one thread per (head, key), runs the
-// online softmax per head with one warp per head, and accumulates P.V one
-// thread per (head, column). A chunk that holds no visible key returns at
-// once. The partial (m, l, acc) of each split go to scratch that the
-// wrapper allocates; a second kernel combines them per (sequence, q head)
-// against the global max, in split order, skipping the empty splits
-// (a reduction across blocks needs a second pass). Only the float32
-// summation order depends on the split count.
+// Design.
+// * Split the visible keys, not the capacity. Each (sequence, kv head)
+//   cuts its own visible range [max(0, len - w), min(len, S)) into
+//   n = clamp(visible / keys, 1, splits) near-equal runs of whole TK-key
+//   tiles, where keys = max(64, Hkv * (visible keys of the batch) /
+//   target), rounded up to whole tiles: about `target` blocks of equal
+//   work for the whole call, none with fewer than `keys` keys unless it is
+//   its sequence's only one (`split_of`; the wrapper's `split_ranges` is
+//   the same rule in Python). The grid is (B * Hkv, splits), `splits` an
+//   upper limit from shapes; blocks past their sequence's n return at
+//   once, after the busy ones. Every block reads `lengths` on the device:
+//   the host never waits.
+// * One block per (kv head, split) serves all g query heads, so every
+//   K/V byte is read from device memory once.
+// * Overlap loads with math, with no block barrier per tile. Each of the
+//   NW warps owns the block's tiles w, w + NW, ... and streams them
+//   through its own RING-deep shared-memory ring with 16-byte
+//   cp.async.cg, RING - 1 tiles ahead of the one it scores: ~128 KB in
+//   flight per SM. A tile costs the warp two __syncwarp()s. Lane (key k =
+//   lane % 8, part p = lane / 8) scores key k over the float4 columns p,
+//   p + 4, ... of every head (rows padded so the 8 keys of a phase hit
+//   distinct banks), scores are kept in base 2 for exp2f, the running max
+//   moves on three shuffles a head, each lane keeps its own key's share of
+//   the running sum until the end, and P.V accumulates in registers, lane
+//   l owning columns l and l + 32.
+// * One launch. The warps' states are merged in warp order; with n = 1
+//   the block writes out. Else it writes its (m, l, acc) to scratch, and
+//   the last block of the (sequence, kv head) to finish — an atomic
+//   ticket, which that block resets to 0 — merges the n splits in split
+//   order. Two runs are bitwise equal, and nothing is left for the host to
+//   clear; only the float32 summation order depends on the split count.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int NT = 128;
-constexpr int NW = NT / 32;
-constexpr int TK = 64;
+constexpr int TK = 8;          // keys of one warp stage (the key tile)
+constexpr int RING = 3;        // stages of each warp's ring
+constexpr int MIN_KEYS = 64;   // fewest keys of a split that is not alone
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-// Visible keys of split `sp` of a sequence of length `len`: [a, e).
-struct Range {
-  long long a, e;
-};
-
-__device__ __forceinline__ Range split_range(int len, int S, int chunk,
-                                             int sp, int window) {
+__device__ __forceinline__ long long visible(int len, int S, int window) {
   const long long hi = min((long long)len, (long long)S);
   const long long lo = max(0LL, (long long)len - (long long)window);
-  const long long start = (long long)sp * chunk;
-  const long long end = min((long long)S, start + chunk);
-  return {max(start, lo), min(end, hi)};
+  return max(0LL, hi - lo);
 }
 
-__global__ void __launch_bounds__(NT)
-decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const int* __restrict__ lengths,
-                    float* __restrict__ part_ml, float* __restrict__ part_acc,
-                    int B, int S, int Hq, int Hkv, int D, int splits,
-                    int chunk, int window, float scale, float softcap) {
-  const int sp = blockIdx.x, bk = blockIdx.y;
-  const int b = bk / Hkv, hk = bk % Hkv, g = Hq / Hkv;
-  const Range r = split_range(lengths[b], S, chunk, sp, window);
-  if (r.a >= r.e) return;  // nothing visible in this chunk
+// Split `sp` of a sequence: its keys [a, e) and the sequence's split
+// count n (0 when it has no visible key); `keys` is the batch's key count
+// a split aims at.
+struct Split {
+  long long a, e;
+  int n;
+};
+
+__device__ __forceinline__ Split split_of(int len, int S, int window,
+                                          int splits, long long keys,
+                                          int sp) {
+  const long long lo = max(0LL, (long long)len - (long long)window);
+  const long long nv = visible(len, S, window);
+  const int n =
+      nv > 0 ? (int)min((long long)splits, max(1LL, nv / keys)) : 0;
+  const long long nt = (nv + TK - 1) / TK;
+  const int ne = max(n, 1);
+  return {lo + TK * (nt * sp / ne),
+          min(lo + nv, lo + TK * (nt * (sp + 1) / ne)), n};
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Row stride of a ring tile (floats): D + 4 or D + 8, whichever makes it
+// an odd number of 16-byte words, so the 8 rows read by a phase of 8
+// lanes fall in distinct banks.
+__host__ __device__ __forceinline__ int row_stride(int D) {
+  return D + ((D / 4) % 2 ? 8 : 4);
+}
+
+// G: query heads a block holds in registers (g <= G; heads g.. are
+// zero). NW: warps a block.
+template <int G, int NW>
+__global__ void __launch_bounds__(32 * NW)
+decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const int* __restrict__ lengths,
+              float* __restrict__ part_ml, float* __restrict__ part_acc,
+              int* __restrict__ ticket, float* __restrict__ out, int B,
+              int S, int Hq, int Hkv, int D, int splits, int target,
+              int window, float scale, float softcap) {
+  constexpr int NT = 32 * NW;
+  const int pair = blockIdx.x, sp = blockIdx.y;
+  const int b = pair / Hkv, hk = pair - b * Hkv, g = Hq / Hkv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long bh0 = (long long)b * Hq + (long long)hk * g;
+  // q's g * D / 4 float4s, loaded while the split is worked out.
+  constexpr int QV = (G * 64 + NT - 1) / NT;
+  float4 qv[QV];
+#pragma unroll
+  for (int j = 0; j < QV; ++j) {
+    const int e = tid + j * NT;
+    qv[j] = e < g * D / 4 ? reinterpret_cast<const float4*>(q + bh0 * D)[e]
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  // The batch's visible keys (every warp sums them), hence the keys a
+  // split aims at, hence this block's keys.
+  long long total = 0;
+  for (int i = lane; i < B; i += 32)
+    total += visible(lengths[i], S, window);
+#pragma unroll
+  for (int o = 16; o >= 1; o >>= 1)
+    total += __shfl_xor_sync(0xffffffffu, total, o);
+  const long long keys =
+      (max((long long)MIN_KEYS, (total * Hkv + target - 1) / target) + TK -
+       1) / TK * TK;
+  const Split r = split_of(lengths[b], S, window, splits, keys, sp);
+  const int ne = max(r.n, 1);
+  if (sp >= ne) return;
 
   extern __shared__ float4 smem4[];
-  const int ld = D + 4, d4 = D / 4;
-  float* Ks = reinterpret_cast<float*>(smem4);  // TK x ld
-  float* Vs = Ks + TK * ld;                      // TK x ld
-  float* Qs = Vs + TK * ld;                      // g x D, scaled
-  float* Acc = Qs + g * D;                       // g x D
-  float* Ps = Acc + g * D;                       // g x TK
-  float* Ms = Ps + g * TK;                       // g: running max
-  float* Ls = Ms + g;                            // g: running sum
-  float* As = Ls + g;                            // g: this tile's rescale
+  __shared__ int last;
+  const int ld = row_stride(D), d4 = D / 4;
+  float* Qs = reinterpret_cast<float*>(smem4);  // [G][D], q * scale
+  float* rings = Qs + G * D;                     // [NW][RING][2][TK][ld]
+  float* ring = rings + warp * RING * 2 * TK * ld;
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const long long kstride = (long long)Hkv * D;
-  const float* qb = q + ((long long)b * Hq + (long long)hk * g) * D;
-  const float* kb = k + ((long long)b * S * Hkv + hk) * D;
-  const float* vb = v + ((long long)b * S * Hkv + hk) * D;
-
-  for (int e = tid; e < g * D; e += NT) {
-    Qs[e] = qb[e] * scale;
-    Acc[e] = 0.f;
+  const long long base = ((long long)b * S * Hkv + hk) * D;
+  // Scores are kept in base 2 (times log2(e)) for exp2f: Qs holds
+  // q * scale * log2(e), or q * scale under a soft-cap, whose tanh is
+  // taken in base e.
+  const float qscale = softcap > 0.f ? scale : scale * LOG2E;
+#pragma unroll
+  for (int j = 0; j < QV; ++j) {
+    const int e = tid + j * NT;
+    if (e < G * D / 4)
+      reinterpret_cast<float4*>(Qs)[e] =
+          make_float4(qv[j].x * qscale, qv[j].y * qscale, qv[j].z * qscale,
+                      qv[j].w * qscale);
   }
-  for (int h = tid; h < g; h += NT) {
-    Ms[h] = NEG_INF;
-    Ls[h] = 0.f;
-  }
 
-  for (long long t0 = r.a; t0 < r.e; t0 += TK) {
-    const int n = (int)min((long long)TK, r.e - t0);
-    __syncthreads();  // the previous tile's readers are done
-    for (int e = tid; e < n * d4; e += NT) {
-      const int t = e / d4, c = e % d4;
-      const long long row = (t0 + t) * kstride;
-      *reinterpret_cast<float4*>(Ks + t * ld + 4 * c) =
-          __ldg(reinterpret_cast<const float4*>(kb + row) + c);
-      *reinterpret_cast<float4*>(Vs + t * ld + 4 * c) =
-          __ldg(reinterpret_cast<const float4*>(vb + row) + c);
-    }
-    __syncthreads();
-
-    for (int e = tid; e < g * TK; e += NT) {
-      const int h = e / TK, t = e % TK;
-      float s = NEG_INF;
-      if (t < n) {
-        const float4* qr = reinterpret_cast<const float4*>(Qs + h * D);
-        const float4* kr = reinterpret_cast<const float4*>(Ks + t * ld);
-        float acc = 0.f;
-        for (int c = 0; c < d4; ++c) {
-          const float4 x = qr[c], y = kr[c];
-          acc = fmaf(x.x, y.x, acc);
-          acc = fmaf(x.y, y.y, acc);
-          acc = fmaf(x.z, y.z, acc);
-          acc = fmaf(x.w, y.w, acc);
+  // This warp's tiles: t = warp + NW * i of the split's nt tiles.
+  const int nt = (int)((max(0LL, r.e - r.a) + TK - 1) / TK);
+  const int mine = nt > warp ? (nt - warp + NW - 1) / NW : 0;
+  // Copy the K and V rows of tile i into ring slot i % RING, lane l
+  // columns l and l + 32 (zeros for keys past the split's end); always
+  // one commit group.
+  auto issue = [&](int i) {
+    if (i < mine) {
+      const long long t0 = r.a + (long long)(warp + NW * i) * TK;
+      const int nk = (int)min((long long)TK, r.e - t0);
+      float* dst = ring + (i % RING) * 2 * TK * ld;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = lane + 32 * j;
+        if (c < d4) {
+          const float* ks = k + base + t0 * kstride + 4 * c;
+          const float* vs = v + base + t0 * kstride + 4 * c;
+#pragma unroll
+          for (int t = 0; t < TK; ++t) {
+            const bool ok = t < nk;
+            cp_async16(dst + t * ld + 4 * c, ok ? ks + t * kstride : k,
+                       ok ? 16 : 0);
+            cp_async16(dst + (TK + t) * ld + 4 * c,
+                       ok ? vs + t * kstride : k, ok ? 16 : 0);
+          }
         }
-        s = softcap > 0.f ? tanhf(acc / softcap) * softcap : acc;
-      }
-      Ps[h * TK + t] = s;
-    }
-    __syncthreads();
-
-    for (int h = warp; h < g; h += NW) {
-      float mx = NEG_INF;
-      for (int t = lane; t < n; t += 32) mx = fmaxf(mx, Ps[h * TK + t]);
-#pragma unroll
-      for (int o = 16; o >= 1; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = Ms[h], m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int t = lane; t < TK; t += 32) {
-        const float p = t < n ? expf(Ps[h * TK + t] - m_new) : 0.f;
-        Ps[h * TK + t] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int o = 16; o >= 1; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        As[h] = alpha;
-        Ls[h] = Ls[h] * alpha + sum;
-        Ms[h] = m_new;
       }
     }
-    __syncthreads();
+    cp_async_commit();
+  };
+  for (int i = 0; i < RING - 1; ++i) issue(i);
+  __syncthreads();  // Qs
 
-    for (int e = tid; e < g * D; e += NT) {
-      const int h = e / D, d = e % D;
-      const float* pr = Ps + h * TK;
-      float acc = Acc[e] * As[h];
-      for (int t = 0; t < n; ++t) acc = fmaf(pr[t], Vs[t * ld + d], acc);
-      Acc[e] = acc;
+  const int kq = lane & 7, pq = lane >> 3;
+  // m: running max (all lanes); l: this lane's key's share of the running
+  // sum, summed over the 8 keys at the end; acc: columns lane, lane + 32.
+  float m[G], l[G];
+  float4 acc[G][2];
+#pragma unroll
+  for (int h = 0; h < G; ++h) {
+    m[h] = NEG_INF;
+    l[h] = 0.f;
+    acc[h][0] = acc[h][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int i = 0; i < mine; ++i) {
+    issue(i + RING - 1);
+    cp_async_wait<RING - 1>();  // this lane's copies of tile i landed
+    __syncwarp();               // ... and every lane's
+    const float* Ks = ring + (i % RING) * 2 * TK * ld;
+    const float* Vs = Ks + TK * ld;
+
+    // Scores of key kq: partial dots over columns pq, pq + 4, ... (two
+    // sums, even and odd float4s, to halve the chain), then summed over
+    // the 4 parts.
+    float s[G], s2[G];
+#pragma unroll
+    for (int h = 0; h < G; ++h) s[h] = s2[h] = 0.f;
+    const float* kr = Ks + kq * ld;
+#pragma unroll 2
+    for (int c = pq; c < d4; c += 8) {
+      const float4 x = *reinterpret_cast<const float4*>(kr + 4 * c);
+#pragma unroll
+      for (int h = 0; h < G; ++h) {
+        const float4 y =
+            *reinterpret_cast<const float4*>(Qs + h * D + 4 * c);
+        s[h] = fmaf(x.x, y.x, s[h]);
+        s[h] = fmaf(x.y, y.y, s[h]);
+        s[h] = fmaf(x.z, y.z, s[h]);
+        s[h] = fmaf(x.w, y.w, s[h]);
+      }
+      if (c + 4 < d4) {
+        const float4 z = *reinterpret_cast<const float4*>(kr + 4 * c + 16);
+#pragma unroll
+        for (int h = 0; h < G; ++h) {
+          const float4 y =
+              *reinterpret_cast<const float4*>(Qs + h * D + 4 * c + 16);
+          s2[h] = fmaf(z.x, y.x, s2[h]);
+          s2[h] = fmaf(z.y, y.y, s2[h]);
+          s2[h] = fmaf(z.z, y.z, s2[h]);
+          s2[h] = fmaf(z.w, y.w, s2[h]);
+        }
+      }
+    }
+    const bool valid = r.a + (long long)(warp + NW * i) * TK + kq < r.e;
+    float p[G];
+#pragma unroll
+    for (int h = 0; h < G; ++h) {
+      float x = s[h] + s2[h];
+      x += __shfl_xor_sync(0xffffffffu, x, 8);
+      x += __shfl_xor_sync(0xffffffffu, x, 16);
+      if (softcap > 0.f) x = tanhf(x / softcap) * (softcap * LOG2E);
+      x = valid ? x : NEG_INF;
+      float mt = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 4));
+      const float mn = fmaxf(m[h], mt);
+      p[h] = valid ? exp2f(x - mn) : 0.f;
+      const float alpha = exp2f(m[h] - mn);
+      l[h] = l[h] * alpha + p[h];
+      m[h] = mn;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        acc[h][j].x *= alpha;
+        acc[h][j].y *= alpha;
+        acc[h][j].z *= alpha;
+        acc[h][j].w *= alpha;
+      }
+    }
+    // P.V: key t's probabilities come from lane t.
+#pragma unroll
+    for (int t = 0; t < TK; ++t) {
+      float pt[G];
+#pragma unroll
+      for (int h = 0; h < G; ++h) pt[h] = __shfl_sync(0xffffffffu, p[h], t);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = lane + 32 * j;
+        if (c < d4) {
+          const float4 y =
+              *reinterpret_cast<const float4*>(Vs + t * ld + 4 * c);
+#pragma unroll
+          for (int h = 0; h < G; ++h) {
+            acc[h][j].x = fmaf(pt[h], y.x, acc[h][j].x);
+            acc[h][j].y = fmaf(pt[h], y.y, acc[h][j].y);
+            acc[h][j].z = fmaf(pt[h], y.z, acc[h][j].z);
+            acc[h][j].w = fmaf(pt[h], y.w, acc[h][j].w);
+          }
+        }
+      }
+    }
+    __syncwarp();  // tile i read: its slot may be refilled
+  }
+#pragma unroll
+  for (int h = 0; h < G; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 4);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every ring drained and read
+
+  // Merge the warps in warp order: their states go to shared memory.
+  float* Wa = rings;              // [NW][G][D]
+  float* Wm = Wa + NW * G * D;    // [NW][G]
+  float* Wl = Wm + NW * G;        // [NW][G]
+#pragma unroll
+  for (int h = 0; h < G; ++h) {
+    if (lane == 0) {
+      Wm[warp * G + h] = m[h];
+      Wl[warp * G + h] = l[h];
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = lane + 32 * j;
+      if (c < d4)
+        *reinterpret_cast<float4*>(Wa + (warp * G + h) * D + 4 * c) =
+            acc[h][j];
     }
   }
   __syncthreads();
-
-  // Partial state of q heads hk * g .. hk * g + g - 1 for this split.
-  const long long bh0 = (long long)b * Hq + (long long)hk * g;
   const long long n_rows = (long long)B * Hq;
-  for (int h = tid; h < g; h += NT) {
-    part_ml[(bh0 + h) * splits + sp] = Ms[h];
-    part_ml[(n_rows + bh0 + h) * splits + sp] = Ls[h];
-  }
   for (int e = tid; e < g * D; e += NT) {
-    const int h = e / D, d = e % D;
-    part_acc[((bh0 + h) * splits + sp) * D + d] = Acc[e];
-  }
-}
-
-__global__ void __launch_bounds__(NT)
-decode_combine_kernel(const int* __restrict__ lengths,
-                      const float* __restrict__ part_ml,
-                      const float* __restrict__ part_acc,
-                      float* __restrict__ out, int B, int S, int Hq, int D,
-                      int splits, int chunk, int window) {
-  const long long bh = blockIdx.x, n_rows = (long long)B * Hq;
-  const int len = lengths[bh / Hq];
-  const float* m = part_ml + bh * splits;
-  const float* l = part_ml + (n_rows + bh) * splits;
-  float mx = NEG_INF;
-  for (int sp = 0; sp < splits; ++sp) {
-    const Range r = split_range(len, S, chunk, sp, window);
-    if (r.a < r.e) mx = fmaxf(mx, m[sp]);
-  }
-  float den = 0.f;
-  for (int sp = 0; sp < splits; ++sp) {
-    const Range r = split_range(len, S, chunk, sp, window);
-    if (r.a < r.e) den += l[sp] * expf(m[sp] - mx);
-  }
-  den = fmaxf(den, 1e-30f);
-  for (int d = threadIdx.x; d < D; d += NT) {
-    float acc = 0.f;
-    for (int sp = 0; sp < splits; ++sp) {
-      const Range r = split_range(len, S, chunk, sp, window);
-      if (r.a < r.e)
-        acc += part_acc[(bh * splits + sp) * D + d] * expf(m[sp] - mx);
+    const int h = e / D, d = e - h * D;
+    float mx = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, Wm[w * G + h]);
+    float den = 0.f, num = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float f = exp2f(Wm[w * G + h] - mx);
+      den += Wl[w * G + h] * f;
+      num += Wa[(w * G + h) * D + d] * f;
     }
-    out[bh * D + d] = acc / den;
+    if (ne == 1) {
+      out[(bh0 + h) * D + d] = num / fmaxf(den, 1e-30f);
+    } else {
+      part_acc[((bh0 + h) * splits + sp) * D + d] = num;
+      if (d == 0) {
+        part_ml[(bh0 + h) * splits + sp] = mx;
+        part_ml[(n_rows + bh0 + h) * splits + sp] = den;
+      }
+    }
   }
+  if (ne == 1) return;
+
+  // The last of the sequence's n blocks to get here merges the splits.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(ticket + pair, 1) == ne - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int e = tid; e < g * D; e += NT) {
+    const int h = e / D, d = e - h * D;
+    const float* pm = part_ml + (bh0 + h) * splits;
+    const float* pl = part_ml + (n_rows + bh0 + h) * splits;
+    const float* pa = part_acc + (bh0 + h) * splits * D + d;
+    // One pass in split order, the running max rescaling the sums.
+    float mx = NEG_INF, den = 0.f, num = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < ne; ++i) {
+      const float mi = __ldcg(pm + i), li = __ldcg(pl + i);
+      const float ai = __ldcg(pa + (long long)i * D);
+      const float mn = fmaxf(mx, mi);
+      const float fo = exp2f(mx - mn), fi = exp2f(mi - mn);
+      den = den * fo + li * fi;
+      num = num * fo + ai * fi;
+      mx = mn;
+    }
+    out[(bh0 + h) * D + d] = num / fmaxf(den, 1e-30f);
+  }
+  if (tid == 0) ticket[pair] = 0;
 }
 
-int chunk_of(int S, int splits) { return (S + splits - 1) / splits; }
+template <int G, int NW>
+cudaError_t launch(size_t smem, dim3 grid, cudaStream_t stream,
+                   const void* q, const void* k, const void* v,
+                   const void* lengths, void* part, void* ticket, void* out,
+                   int B, int S, int Hq, int Hkv, int D, int splits,
+                   int target, int window, float scale, float softcap) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      decode_kernel<G, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  float* ml = static_cast<float*>(part);
+  float* acc = ml + (size_t)2 * B * Hq * splits;
+  decode_kernel<G, NW><<<grid, 32 * NW, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(lengths), ml, acc,
+      static_cast<int*>(ticket), static_cast<float*>(out), B, S, Hq, Hkv, D,
+      splits, target, window, scale, softcap);
+  return cudaGetLastError();
+}
+
+// Eight warps a block where their rings fit an SM's shared memory
+// (D <= 128), else four.
+template <int G>
+cudaError_t launch_g(dim3 grid, cudaStream_t st, const void* q,
+                     const void* k, const void* v, const void* lengths,
+                     void* part, void* ticket, void* out, int B, int S,
+                     int Hq, int Hkv, int D, int splits, int target,
+                     int window, float scale, float softcap) {
+  const size_t ring = (size_t)RING * 2 * TK * row_stride(D);
+  if (D <= 128)
+    return launch<G, 8>(sizeof(float) * (G * D + 8 * ring), grid, st, q, k,
+                        v, lengths, part, ticket, out, B, S, Hq, Hkv, D,
+                        splits, target, window, scale, softcap);
+  return launch<G, 4>(sizeof(float) * (G * D + 4 * ring), grid, st, q, k, v,
+                      lengths, part, ticket, out, B, S, Hq, Hkv, D, splits,
+                      target, window, scale, softcap);
+}
 
 }  // namespace
 
+// `part` holds (2 + D) * B * Hq * splits floats of per-split state;
+// `ticket` B * Hkv ints that are 0 on entry and are 0 again on exit;
+// `target` the blocks of equal work the split rule aims at (INT32_MAX: a
+// split of 64 keys, each sequence taking up to `splits` of them).
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* lengths,
-                                   void* part_ml, void* part_acc, int B,
-                                   int S, int Hq, int Hkv, int D, int splits,
-                                   int window, float scale, float softcap,
+                                   void* part, void* ticket, void* out,
+                                   int B, int S, int Hq, int Hkv, int D,
+                                   int splits, int target, int window,
+                                   float scale, float softcap,
                                    void* stream) {
-  if (D % 4 || D < 4 || D > 256 || Hkv < 1 || Hq % Hkv || splits < 1)
+  if (D % 4 || D < 4 || D > 256 || Hkv < 1 || Hq % Hkv || Hq / Hkv > 8 ||
+      splits < 1 || splits > 65535 || target < 1)
     return (int)cudaErrorInvalidValue;
   const int g = Hq / Hkv;
-  const size_t smem =
-      sizeof(float) * ((size_t)2 * TK * (D + 4) + 2 * g * D + g * TK + 3 * g);
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(splits, B * Hkv);
-  decode_split_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int*>(lengths),
-      static_cast<float*>(part_ml), static_cast<float*>(part_acc), B, S, Hq,
-      Hkv, D, splits, chunk_of(S, splits), window, scale, softcap);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int flash_decode_combine_launch(const void* lengths,
-                                           const void* part_ml,
-                                           const void* part_acc, void* out,
-                                           int B, int S, int Hq, int D,
-                                           int splits, int window,
-                                           void* stream) {
-  if (splits < 1) return (int)cudaErrorInvalidValue;
-  decode_combine_kernel<<<B * Hq, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(lengths), static_cast<const float*>(part_ml),
-      static_cast<const float*>(part_acc), static_cast<float*>(out), B, S, Hq,
-      D, splits, chunk_of(S, splits), window);
-  return (int)cudaGetLastError();
+  const dim3 grid(B * Hkv, splits);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (g == 1)
+    err = launch_g<1>(grid, st, q, k, v, lengths, part, ticket, out, B, S,
+                      Hq, Hkv, D, splits, target, window, scale, softcap);
+  else if (g == 2)
+    err = launch_g<2>(grid, st, q, k, v, lengths, part, ticket, out, B, S,
+                      Hq, Hkv, D, splits, target, window, scale, softcap);
+  else if (g <= 4)
+    err = launch_g<4>(grid, st, q, k, v, lengths, part, ticket, out, B, S,
+                      Hq, Hkv, D, splits, target, window, scale, softcap);
+  else
+    err = launch_g<8>(grid, st, q, k, v, lengths, part, ticket, out, B, S,
+                      Hq, Hkv, D, splits, target, window, scale, softcap);
+  return (int)err;
 }

@@ -32,7 +32,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # c_void_p, ints as c_int, floats as c_float). Each returns
 # cudaGetLastError() as an int.
 _SIGNATURES = {
-    "dcn_fused_batch_launch": [_P] * 9 + [_I] * 8 + [_P],
+    "dcn_fused_batch_launch": [_P] * 10 + [_I] * 11 + [_P],
     "dcn_fused_schedule_launch": [_P] * 9 + [_I] * 10 + [_P],
     "dcn_fused_tile_launch": [_P] * 7 + [_I] * 8 + [_P],
     "bli_gather_launch": [_P] * 4 + [_I] * 4 + [_P],
@@ -40,8 +40,7 @@ _SIGNATURES = {
     "greedy_schedule_launch": [_P] * 5 + [_I] * 4 + [_P],
     "greedy_schedule_smem_bytes": [_I, _I, _I],
     "flash_attention_launch": [_P] * 4 + [_I] * 8 + [_F, _F, _P],
-    "flash_decode_launch": [_P] * 6 + [_I] * 7 + [_F, _F, _P],
-    "flash_decode_combine_launch": [_P] * 4 + [_I] * 6 + [_P],
+    "flash_decode_launch": [_P] * 7 + [_I] * 8 + [_F, _F, _P],
 }
 
 class KernelError(RuntimeError):

@@ -4,10 +4,10 @@ The deformed-feature tensor is K*K times the input feature map; the
 paper's fusion keeps it on chip. Three entry points: per output row,
 gather the deformed patch chunk by chunk in shared memory and contract it
 with the main-conv weights, so the intermediate never reaches device
-memory. #1 runs the FP32 body of ``csrc/dcn_fused_common.cuh``; #4 and #5
-run the split-C tensor-core body of ``csrc/dcn_fused_split.cuh``, whose C
-reduction is cut into :func:`fused_splits` slices (a second pass adds
-them) so that a call of a few rows still fills the card.
+memory. All three run the split-C tensor-core body of
+``csrc/dcn_fused_split.cuh``, whose C reduction is cut into
+:func:`fused_splits` slices (a second pass adds them) so that a call of a
+few rows still fills the card.
 
 * :func:`dcn_fused_batch` — the concatenated Algorithm-1 schedules of a
   whole batch in ONE launch (``batch_fused``; ``csrc/dcn_fused_batch.cu``),
@@ -25,8 +25,8 @@ addresses, 4-hot gather, accumulate the patch in float32; tile: the 4-hot
 rows against ``iota(S)`` as a masked gather; then the contraction with
 ``w``); for a CUDA tensor it launches the kernel or raises. Each wrapper
 counts its calls that launched in a plain-integer ``launches`` attribute
-(a split-C call launches its combine pass too); #4 and #5 also record the
-grid of their last launch in ``last_grid``.
+(a split-C call launches its combine pass too) and records the grid of
+its last launch in ``last_grid``.
 """
 
 from __future__ import annotations
@@ -107,7 +107,7 @@ def _stream(t: torch.Tensor) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Launch shape of the split-C body (#4 and #5)
+# Launch shape of the split-C body (#1, #4 and #5)
 # ---------------------------------------------------------------------------
 
 # Tile of csrc/dcn_fused_split.cuh (BP, BO, BC there): a block owns 64
@@ -121,15 +121,17 @@ H100_SMS = 132
 def fused_splits(rows: int, p: int, o: int, c: int,
                  sm_count: int = H100_SMS) -> int:
     """Slices of the C reduction for one split-C call: 1 when the
-    (row, pixel block, output-channel block) grid already fills two waves
-    of ``sm_count`` blocks; else about enough slices to fill them, each of
-    the same whole number of ``SPLIT_BC``-channel chunks, never more
-    slices than chunks."""
+    (row, pixel block, output-channel block) grid already fills one wave
+    of two blocks on each of ``sm_count`` SMs; else the most slices that
+    still fit that wave, each of the same whole number of
+    ``SPLIT_BC``-channel chunks, never more slices than chunks. (A wave
+    and a bit more runs as two: on an H100, #1's 320 blocks took 0.157 ms
+    where 256 took 0.124.)"""
     base = rows * math.ceil(p / SPLIT_BP) * math.ceil(o / SPLIT_BO)
     chunks = max(1, math.ceil(c / SPLIT_BC))
     if base == 0 or base >= 2 * sm_count:
         return 1
-    want = min(chunks, math.ceil(2 * sm_count / base))
+    want = min(chunks, 2 * sm_count // base)
     return math.ceil(chunks / math.ceil(chunks / want))
 
 
@@ -176,7 +178,8 @@ def _launch_split(fn, entry: str, out: torch.Tensor, rows: int,
 
 
 def dcn_fused_batch(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff, w, b,
-                    *, t_in: int) -> torch.Tensor:
+                    *, t_in: int, n_split: int | None = None
+                    ) -> torch.Tensor:
     """Fused Eq. 2+3 over a whole batch's schedules -> (G, P, C_out).
 
     x_tiles (N*T_in, tp, C) f32 — every image's input tiles;
@@ -185,6 +188,7 @@ def dcn_fused_batch(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff, w, b,
     order; dep_cnt (G,) i32 — true dep count (0 = padding row, output b);
     idx/coeff (N*T_out, P, KK, 4) — plane-global addresses
     ``tile*tp + offset`` and BLI coefficients; w (KK, C, O); b (O,).
+    ``n_split`` as for :func:`dcn_fused_schedule`.
     """
     dev = _check_operands(dict(x_tiles=x_tiles, coeff=coeff, w=w, b=b),
                           dict(row_id=row_id, dep_glb=dep_glb,
@@ -206,24 +210,22 @@ def dcn_fused_batch(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff, w, b,
         if dev.type == "cpu":
             return dcn_fused_batch_plain(x_tiles, row_id, dep_glb, dep_cnt,
                                          idx, coeff, w, b, t_in=t_in)
-        from repro_torch.kernels import _build
-
-        lib = _build.load()
         out = torch.empty((g, p, o), dtype=torch.float32, device=dev)
-        if g == 0:
+        if g == 0 or p == 0:
             return out
-        err = lib.dcn_fused_batch_launch(
-            x_tiles.data_ptr(), row_id.data_ptr(), dep_glb.data_ptr(),
-            dep_cnt.data_ptr(), idx.data_ptr(), coeff.data_ptr(),
-            w.data_ptr(), b.data_ptr(), out.data_ptr(), g,
-            dep_glb.shape[1], t_in, tp, p, idx.shape[2], c, o,
-            _stream(x_tiles))
-        _build.check(err, "dcn_fused_batch_launch")
+        _launch_split(
+            dcn_fused_batch, "dcn_fused_batch_launch", out, g,
+            (x_tiles.data_ptr(), row_id.data_ptr(), dep_glb.data_ptr(),
+             dep_cnt.data_ptr(), idx.data_ptr(), coeff.data_ptr(),
+             w.data_ptr(), b.data_ptr()),
+            (g, dep_glb.shape[1], nt_in, t_in, tp, p, idx.shape[2], c, o),
+            n_split, c)
         dcn_fused_batch.launches += 1
         return out
 
 
 dcn_fused_batch.launches = 0
+dcn_fused_batch.last_grid = None
 
 
 # ---------------------------------------------------------------------------

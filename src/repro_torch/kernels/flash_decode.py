@@ -10,11 +10,13 @@ q (B, Hq, D) against caches k, v (B, S, Hkv, D) with valid prefix
 
 which is the TPU kernel's function (``_decode_kernel``) and equals the
 decode path's ``_sdpa`` with ``kv_valid_len = pos + 1``. For a CUDA tensor
-the wrapper launches the two kernels of ``csrc/flash_decode.cu`` (the
-split pass, then the pass that combines the splits) or raises, and counts
-the pair as one launch in ``flash_decode.launches``; for a CPU tensor it
-runs
-:func:`flash_decode_plain`.
+the wrapper launches the kernel of ``csrc/flash_decode.cu`` (one launch:
+the last block of each sequence and kv head merges its splits) or raises,
+and counts it in ``flash_decode.launches``; for a CPU tensor it runs
+:func:`flash_decode_plain`. Each sequence's visible keys are cut into
+splits on the device by the rule of :func:`split_ranges`, under the upper
+limit :func:`default_splits` (or ``num_splits``): the wrapper reads
+nothing back from the card.
 """
 
 from __future__ import annotations
@@ -23,15 +25,26 @@ import math
 
 import torch
 
-from repro_torch.kernels.dcn_fused import _check_operands, _stream
+from repro_torch.kernels.dcn_fused import H100_SMS, _check_operands, _stream
 from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM, NEG_INF,
                                                  NO_WINDOW, _check_gqa,
                                                  _check_options)
 
-# Blocks the split pass aims to have in flight: three resident blocks on
-# each of the H100's 132 SMs.
-_TARGET_BLOCKS = 3 * 132
+# Blocks of equal work the kernel's split rule aims at, per SM; the
+# grid's upper limit on splits lets one sequence take twice its even share.
+_BLOCKS_PER_SM = 4
+# Fewest keys of a split that is not its sequence's only one, and the key
+# tile (one warp stage of csrc/flash_decode.cu) whose whole multiples the
+# splits are cut in.
 _MIN_SPLIT_KEYS = 64
+KEY_TILE = 8
+# The kernel's `target` under an explicit split count: 64 keys a split.
+_NO_TARGET = 2**31 - 1
+# Query heads per kv head the kernel holds in registers, at most.
+MAX_GROUP = 8
+# Per (device, stream): the kernel's zeroed tickets, one per (sequence,
+# kv head); every launch leaves them zero again.
+_TICKETS: dict = {}
 
 
 def flash_decode_plain(q, k_cache, v_cache, lengths, *,
@@ -59,12 +72,62 @@ def flash_decode_plain(q, k_cache, v_cache, lengths, *,
     return out.reshape(b, hq, d)
 
 
-def default_splits(batch: int, kv_heads: int, s_len: int) -> int:
-    """KV splits per (sequence, kv head) that put about ``_TARGET_BLOCKS``
-    blocks on the card, with at least ``_MIN_SPLIT_KEYS`` keys a split."""
+def default_splits(batch: int, kv_heads: int, s_len: int,
+                   sm_count: int = H100_SMS) -> int:
+    """Upper limit on the KV splits per (sequence, kv head), from shapes
+    alone: twice a sequence's even share of ``_BLOCKS_PER_SM * sm_count``
+    blocks, never more than a full cache of ``_MIN_SPLIT_KEYS``-key
+    splits."""
     pairs = max(batch * kv_heads, 1)
-    return max(1, min(math.ceil(_TARGET_BLOCKS / pairs),
+    return max(1, min(math.ceil(2 * _BLOCKS_PER_SM * sm_count / pairs),
                       math.ceil(s_len / _MIN_SPLIT_KEYS)))
+
+
+def split_ranges(lengths, s_len: int, splits: int, kv_heads: int,
+                 window: int | None = None,
+                 target: int | None = _BLOCKS_PER_SM * H100_SMS
+                 ) -> list[list[tuple[int, int]]]:
+    """Per sequence, the key ranges ``[a, e)`` the kernel gives its splits.
+
+    A sequence's visible keys ``[max(0, length - window), min(length,
+    s_len))`` (as :func:`flash_decode_plain` masks them) are cut into
+    ``clamp(visible // keys, 1, splits)`` near-equal runs of whole
+    ``KEY_TILE``-key tiles, the last one ending at the range's end; none
+    when no key is visible. ``keys`` is ``kv_heads`` times the batch's
+    visible keys over ``target`` blocks, at least ``_MIN_SPLIT_KEYS``,
+    rounded up to whole tiles; with ``target=None`` (an explicit
+    ``num_splits``) it is ``_MIN_SPLIT_KEYS``. The kernel's ``split_of``
+    is this rule."""
+    vis = []
+    for length in lengths:
+        lo = max(0, length - window) if window is not None else 0
+        vis.append((lo, max(0, min(length, s_len) - lo)))
+    total = sum(n for _, n in vis)
+    keys = _MIN_SPLIT_KEYS
+    if target is not None:
+        keys = max(keys, -(-total * kv_heads // target))
+    keys = -(-keys // KEY_TILE) * KEY_TILE
+    out = []
+    for lo, n_vis in vis:
+        if n_vis == 0:
+            out.append([])
+            continue
+        n = min(splits, max(1, n_vis // keys))
+        n_t = -(-n_vis // KEY_TILE)
+        out.append([(lo + KEY_TILE * (n_t * i // n),
+                     min(lo + n_vis, lo + KEY_TILE * (n_t * (i + 1) // n)))
+                    for i in range(n)])
+    return out
+
+
+def _tickets(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 tickets for launches on ``stream``."""
+    key = (dev.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 64), dtype=torch.int32, device=dev)
+        _TICKETS[key] = t
+    return t
 
 
 def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
@@ -72,8 +135,11 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
                  num_splits: int | None = None) -> torch.Tensor:
     """(B, Hq, D) float32 attention output of the new token; see the
     module doc. ``lengths`` is int32; a length past S counts as S.
-    ``num_splits`` (CUDA only) overrides :func:`default_splits`; the result
-    does not depend on it beyond float32 summation order."""
+    ``num_splits`` (CUDA only) overrides the split rule: each sequence
+    takes ``min(num_splits, visible keys // 64)`` splits (at least one), in
+    place of its share of the batch under :func:`default_splits`. The
+    result does not depend on the splits beyond float32 summation
+    order."""
     dev = _check_operands(dict(q=q, k_cache=k_cache, v_cache=v_cache),
                           dict(lengths=lengths))
     if (q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape
@@ -96,32 +162,37 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
     if d % 4 or d > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d} must be a multiple of 4 and at most "
                          f"{MAX_HEAD_DIM} for the CUDA kernel")
-    splits = num_splits or default_splits(b, hkv, s_len)
-    if not 1 <= splits <= max(s_len, 1):
-        raise ValueError(f"num_splits {splits} must be in [1, S={s_len}]")
+    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
+        raise ValueError("q and the k/v caches must start on 16-byte "
+                         "boundaries for the CUDA kernel")
+    if hq // hkv > MAX_GROUP:
+        raise ValueError(f"{hq // hkv} query heads per kv head: the CUDA "
+                         f"kernel takes at most {MAX_GROUP}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = num_splits or default_splits(b, hkv, s_len, sms)
+    if not 1 <= splits <= min(max(s_len, 1), 65535):
+        raise ValueError(f"num_splits {splits} must be in [1, S={s_len}] "
+                         f"and at most 65535")
     from repro_torch.kernels import _build
 
     lib = _build.load()
     out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    # Per-split partial state (m, l, acc) for the combine pass.
-    part_ml = torch.empty((2, b * hq, splits), dtype=torch.float32,
-                          device=dev)
-    part_acc = torch.empty((b * hq, splits, d), dtype=torch.float32,
-                           device=dev)
-    win = NO_WINDOW if window is None else int(window)
+    # Per-split state (m, l, acc) of the sequences that take more than one
+    # split, merged by their last block.
+    part = torch.empty(b * hq * splits * (2 + d), dtype=torch.float32,
+                       device=dev)
     stream = _stream(q)
     err = lib.flash_decode_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(), b,
-        s_len, hq, hkv, d, splits, win, scale,
+        lengths.data_ptr(), part.data_ptr(),
+        _tickets(dev, stream, b * hkv).data_ptr(), out.data_ptr(), b, s_len,
+        hq, hkv, d, splits,
+        _BLOCKS_PER_SM * sms if num_splits is None else _NO_TARGET,
+        NO_WINDOW if window is None else int(window), scale,
         0.0 if softcap is None else float(softcap), stream)
     _build.check(err, "flash_decode_launch")
-    err = lib.flash_decode_combine_launch(
-        lengths.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
-        out.data_ptr(), b, s_len, hq, d, splits, win, stream)
-    _build.check(err, "flash_decode_combine_launch")
     flash_decode.launches += 1
     return out
 

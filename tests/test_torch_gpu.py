@@ -91,6 +91,54 @@ def test_fused_kernel(shape):
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
+def _batch_operands(seed, n, t, tp, c, o, k_pad, kk=9):
+    """Batch-fused operands of ``n`` images in one call, rows shuffled
+    across images, with addresses outside the image's plane (negative and
+    past its last tile) and a last row of dep_cnt = 0."""
+    ops = _fused_operands(seed, n, t, tp, c, o, k_pad, kk)
+    rng = np.random.default_rng(seed + 100)
+    ops[3][-1] = 0
+    ops[4] = torch.as_tensor(rng.integers(-tp, (t + 1) * tp,
+                                          size=ops[4].shape).astype(np.int32))
+    return ops
+
+
+# (N, T, tp = P, C, O, k_pad): full width (4 images), then C not a multiple
+# of the 16-channel chunk (nor of 4) with O not a multiple of the
+# 128-channel tile and P not a multiple of the 64-pixel tile, then 7
+# chunks with O not a multiple of 4, then deps of 1600 rows (the gather
+# path).
+SPLIT_BATCH_SHAPES = [(4, 4, 64, 512, 512, 4), (3, 6, 100, 37, 200, 4),
+                      (2, 9, 40, 100, 130, 8), (2, 20, 100, 24, 72, 16)]
+
+
+@pytest.mark.parametrize("shape", SPLIT_BATCH_SHAPES)
+def test_batch_kernel_split(shape):
+    """#1 on the split-C body: the plain version at n_split = 1, the
+    default and 32 (or the chunk count), split invariance, bitwise
+    reruns, a dep_cnt = 0 row that is exactly b, and the launched grid."""
+    from repro_torch.kernels.dcn_fused import (SPLIT_BC, fused_grid,
+                                               fused_splits)
+
+    n, t, tp, c, o, _ = shape
+    ops = _batch_operands(8, *shape)
+    want = dcn_fused_batch_plain(*ops, t_in=t)
+    args = [a.cuda() for a in ops]
+    scale = float(want.abs().max())
+    outs = {}
+    for split in (1, None, min(32, math.ceil(c / SPLIT_BC))):
+        outs[split] = dcn_fused_batch(*args, t_in=t, n_split=split)
+        got = outs[split]
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+        assert float((got - outs[1]).abs().max()) <= 1e-5 * scale
+        assert torch.equal(got[-1], args[-1].expand(tp, o))
+    assert torch.equal(dcn_fused_batch(*args, t_in=t), outs[None])
+    g = n * t
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert dcn_fused_batch.last_grid == fused_grid(
+        g, tp, o, fused_splits(g, tp, o, c, sms))
+
+
 def _sched_operands(seed, t, t_in, tp, c, o, k_pad, kk=9):
     """Schedule-kernel operands with every awkward case: addresses in
     padding slots (>= dep_cnt), beyond k_pad*tp and negative, and a
@@ -323,3 +371,36 @@ def test_flash_decode_split_invariance():
     scale = float(outs[0].abs().max())
     for o in outs[1:]:
         assert float((o - outs[0]).abs().max()) <= 1e-5 * scale
+
+
+# Ragged decode lengths: none visible, one key, around the 64-key split
+# floor, the whole cache and past it.
+RAGGED_LENGTHS = [0, 1, 63, 64, 65, 512, 600]
+
+
+@pytest.mark.parametrize("opts", [{}, dict(window=100), dict(softcap=30.0),
+                                  dict(window=40, softcap=50.0)])
+@pytest.mark.parametrize("lengths", [RAGGED_LENGTHS, [1, 17, 64, 40]])
+def test_flash_decode_ragged_splits(lengths, opts):
+    """#8 on ragged lengths (and on a batch whose lengths are all <= 64,
+    the serving shape's first steps): the plain version within 1e-4 *
+    max|ref|, 1 vs the default vs 64 splits within 1e-5 * max|ref|, and
+    bitwise-equal reruns (the tickets are left at zero)."""
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+
+    b, s, hq, hkv, d = len(lengths), 512, 16, 8, 128
+    ops = _decode_operands(11, b, s, hq, hkv, d, lengths)
+    want = flash_decode_plain(*ops, scale=d ** -0.5, **opts)
+    args = [t.cuda() for t in ops]
+    outs = {n: flash_decode(*args, num_splits=n, **opts)
+            for n in (1, None, 64)}
+    scale = float(want.abs().max())
+    for got in outs.values():
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+        assert float((got - outs[1]).abs().max()) <= 1e-5 * scale
+    for i, n in enumerate(lengths):
+        if n <= 0:
+            assert not outs[None][i].any()
+    assert torch.equal(flash_decode(*args, **opts), outs[None])
+    assert torch.equal(flash_decode(*args, num_splits=64, **opts), outs[64])

@@ -27,6 +27,7 @@ from repro.core.tiles import tdt_standard_conv as j_tdt_standard_conv
 from repro.kernels import dcn_fused as j_fused
 from repro.kernels import dcn_schedule as j_sched
 from repro_torch.core.tiles import TileGrid, tdt_standard_conv
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels.dcn_fused import (dcn_fused_batch,
                                            dcn_fused_batch_plain)
 from repro_torch.kernels.dcn_schedule import (dispatch_arrays_from_klass,
@@ -457,16 +458,20 @@ class TestSplitPolicy:
             base = math.prod(kf.fused_grid(rows, p, o, 1))
             n = kf.fused_splits(rows, p, o, c, sms)
             chunks = math.ceil(c / kf.SPLIT_BC)
-            if base < 2 * sms and n < chunks:
-                # one slice fewer per block would overshoot the target
-                per = math.ceil(chunks / n)
-                assert per == 1 or base * math.ceil(chunks / (per - 1)) \
-                    >= 2 * sms
+            if base < 2 * sms:
+                # the grid fits one wave of two blocks an SM ...
+                assert base * n <= 2 * sms
+                if n < chunks:
+                    # ... and one slice fewer per block would overshoot it
+                    per = math.ceil(chunks / n)
+                    assert per == 1 or base * math.ceil(
+                        chunks / (per - 1)) > 2 * sms
 
     @pytest.mark.parametrize("shape,grid", [
         ((1, 64, 512, 512), (1, 1, 4, 32)),     # #5 per tile, 128 blocks
         ((1, 256, 512, 512), (1, 4, 4, 16)),    # #5 whole plane, 256 blocks
         ((4, 64, 512, 512), (4, 1, 4, 16)),     # #4 schedule, 256 blocks
+        ((16, 64, 512, 512), (16, 1, 4, 4)),    # #1 batch of 4, 256 blocks
     ])
     def test_grids_quoted_in_perf(self, shape, grid):
         rows, p, o, c = shape
@@ -476,6 +481,100 @@ class TestSplitPolicy:
     def test_rejects_out_of_range_split(self, n):
         with pytest.raises(ValueError, match="n_split"):
             kf.split_channels(512, n)
+
+
+def _visible(length, s_len, window):
+    """Keys that ``flash_decode_plain`` leaves visible, by its own mask."""
+    ki = np.arange(s_len)
+    mask = ki < length
+    if window is not None:
+        mask &= ki > length - 1 - window
+    return np.flatnonzero(mask)
+
+
+DECODE_LENGTHS = [-3, 0, 1, 7, 63, 64, 65, 127, 128, 130, 300, 511, 512,
+                  513, 900]
+
+
+class TestDecodeSplitRanges:
+    """The rule by which the decode kernel (#8) cuts each sequence's
+    visible keys into splits (``split_ranges``; the kernel's ``split_of``
+    computes the same on the card)."""
+
+    @pytest.mark.parametrize("window", [None, 1, 17, 100, 600])
+    @pytest.mark.parametrize("splits", [1, 3, 8, 64])
+    def test_ranges_partition_the_visible_keys(self, splits, window):
+        s_len = 512
+        for length in DECODE_LENGTHS:
+            (got,) = fd.split_ranges([length], s_len, splits, 8, window)
+            vis = _visible(length, s_len, window)
+            keys = np.concatenate([np.arange(a, e) for a, e in got]
+                                  + [np.zeros(0, np.int64)])
+            np.testing.assert_array_equal(keys, vis)   # exact, in order
+            if vis.size == 0:
+                assert got == []
+                continue
+            assert 1 <= len(got) <= splits
+            assert all(e > a for a, e in got)         # none empty
+            if len(got) > 1:
+                assert min(e - a for a, e in got) >= fd._MIN_SPLIT_KEYS
+            # whole key tiles from the range's start, near-equal
+            lo = got[0][0]
+            assert all((a - lo) % fd.KEY_TILE == 0 for a, _ in got)
+            tiles = [-(-(e - a) // fd.KEY_TILE) for a, e in got]
+            assert max(tiles) - min(tiles) <= 1
+
+    @pytest.mark.parametrize("length,window,want", [
+        (130, None, 2), (127, None, 1), (512, None, 8), (900, None, 8),
+        (900, 600, 3), (900, 300, 0), (512, 100, 1), (512, 128, 2),
+        (0, None, 0)])
+    def test_split_count_follows_the_visible_keys(self, length, window,
+                                                  want):
+        """Splits come from the visible keys (64 a split at least), not
+        from the cache's capacity."""
+        (got,) = fd.split_ranges([length], 512, 8, 8, window)
+        assert len(got) == want
+
+    @pytest.mark.parametrize("lengths,window", [
+        ([21981, 26379, 743, 26475, 15364, 16887, 20652, 9366], None),
+        ([8025, 442, 2277, 3141], 4096),
+        ([32768, 1, 1, 1, 1, 1, 1, 1], None),
+        ([275, 112, 168, 109], None)])
+    def test_splits_share_the_batch_evenly(self, lengths, window):
+        """Across the batch every split that is not its sequence's only
+        one holds between ``keys`` and about twice ``keys`` keys, and the
+        blocks number about the target (the serving shape: every split at
+        the 64-key floor)."""
+        s_len, hkv, target = 32768, 8, 528
+        cap = fd.default_splits(len(lengths), hkv, s_len)
+        ranges = fd.split_ranges(lengths, s_len, cap, hkv, window, target)
+        visible = sum(e - a for seq in ranges for a, e in seq)
+        keys = max(fd._MIN_SPLIT_KEYS, -(-visible * hkv // target))
+        keys = -(-keys // fd.KEY_TILE) * fd.KEY_TILE
+        blocks = hkv * sum(map(len, ranges))
+        assert blocks <= max(target, hkv * len(lengths))
+        for seq in ranges:
+            if len(seq) > 1:
+                sizes = [e - a for a, e in seq]
+                assert min(sizes) >= keys
+                if len(seq) < cap:     # the upper limit did not bind
+                    assert max(sizes) < 2 * keys + fd.KEY_TILE
+
+    @pytest.mark.parametrize("splits", [1, 5, 64])
+    def test_explicit_split_count(self, splits):
+        """``num_splits`` (``target=None``): each sequence takes
+        ``min(splits, visible // 64)`` splits, at least one."""
+        lengths = [21981, 26379, 743, 26475, 0, 64, 127, 5000]
+        ranges = fd.split_ranges(lengths, 32768, splits, 8, target=None)
+        assert [len(r) for r in ranges] == [
+            min(splits, max(1, n // 64)) if n else 0 for n in lengths]
+
+    @pytest.mark.parametrize("b,hkv,s_len,want", [
+        (4, 8, 512, 8), (8, 8, 32768, 17), (1, 1, 100, 2),
+        (64, 16, 4096, 2)])
+    def test_default_splits_is_an_upper_limit_from_shapes(self, b, hkv,
+                                                          s_len, want):
+        assert fd.default_splits(b, hkv, s_len) == want
 
 
 class TestBli:
