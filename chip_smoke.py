@@ -19,14 +19,16 @@ Phases, each fatal on failure:
               split-C kernels #1, #4 and #5 also at their default split
               against ``n_split = 1`` within 1e-5 * max|ref|, each call's
               grid printed) and time kernel, plain version and library
-              call (#1 also at other split counts);
+              call (#1 also at other split counts; #3 in phase 3);
 3.  serve   — drive ``DcnServingEngine`` (slots=4, tile 8, device
               scheduling) with 8 requests of 1-2 images, one replayed;
               every request must resolve with finite logits that match the
               dense reference, every kernel must have launched, no host
               schedule may be built, no step may retry or degrade, a
               host-scheduled engine must produce identical trace records,
-              and every step's trace must equal the DRAM simulator;
+              and every step's trace must equal the DRAM simulator; the
+              greedy kernel (#3) is timed on each TDT shape the run
+              launched it on, and charged by its launches per shape;
 3b. faults  — the same engine with an injected fault: an image-tagged
               dispatch fault fails exactly its request while its
               step-mates resolve through the evicted retry; an untagged
@@ -48,7 +50,9 @@ Phases, each fatal on failure:
               decode shapes (32k cache, ragged lengths) and a Gemma-2
               window + soft-cap case, each within 1e-4 * max|ref|; #8 at two
               split counts within 1e-5 * max|ref|; time kernel, plain
-              version and ``scaled_dot_product_attention``;
+              version and ``scaled_dot_product_attention`` (#7 at the
+              prefill's 4 x 2048 and at 2 x 4096, its bound at the 3xTF32
+              rate of its tensor-core products with the FP32 one beside);
 6.  lm-prefill — Qwen3-1.7B ``full()`` (random weights from the seed,
               float32): ``lm_prefill`` with ``use_flash=True`` on 4 x 2048
               tokens, one #7 launch per layer, last-position logits within
@@ -98,10 +102,13 @@ ATTN_RTOL = 1e-4      # #7 / #8 vs plain: float32 sums in another order
 SPLIT_RTOL = 1e-5     # #1 / #4 / #5 / #8 at two split counts: exact combines
 # Shapes of the LM phases: (name, B, Sq, Skv, Hq, Hkv, D, options) for #7,
 # (name, B, S, Hq, Hkv, D, options) for #8; the first case of each is the
-# one timed and reported.
+# one timed and reported (#7's first at the shape phase 6 launches it), the
+# second #7 case and the first #8 case are timed too and reported under
+# their own key ("long_seq", "long_cache").
 LM_SIZES = dict(
     arch="qwen3-1.7b", smoke=False,
-    flash=[("Qwen3-1.7B prefill", 2, 4096, 4096, 16, 8, 128, {}),
+    flash=[("Qwen3-1.7B prefill", 4, 2048, 2048, 16, 8, 128, {}),
+           ("Qwen3-1.7B long prefill", 2, 4096, 4096, 16, 8, 128, {}),
            ("Gemma-2-27B local layer", 1, 6144, 6144, 32, 16, 144,
             dict(window=4096, softcap=50.0)),
            ("ragged Sq < Skv", 2, 1000, 3000, 16, 8, 128, {})],
@@ -308,25 +315,38 @@ def lm_phases(card, kernels, launches, reset_counts) -> None:
         err, sc = hold(f"flash_attention at {name}",
                        fa.flash_attention(q, k, v, **opts), plain(),
                        ATTN_RTOL)
+        tiles = fa.tile_config(d)
+        grid = (-(-sq // tiles["block_q"]), b * hq)
         print(f"[lm-kernels] flash_attention at {name} (B={b} Sq={sq} "
-              f"Skv={skv} Hq={hq} Hkv={hkv} D={d} {opts or 'causal'}): "
-              f"max|d| {err:.3e} (limit {ATTN_RTOL}*{sc:.3f})")
-        if i == 0:
+              f"Skv={skv} Hq={hq} Hkv={hkv} D={d} {opts or 'causal'}; grid "
+              f"{grid}, {tiles}): max|d| {err:.3e} (limit "
+              f"{ATTN_RTOL}*{sc:.3f})")
+        if i < 2:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             lib = sdpa_yardstick(qt, kt, vt, is_causal=True)
             live = live_pairs(sq, skv, True, opts.get("window"))
-            kernels["flash_attention"] = dict(
-                route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention.py:27",
+            # Both products run in 3xTF32 on the tensor cores; the FP32
+            # CUDA-core bound of the same work is kept beside it.
+            flops = 4 * b * hq * live * d
+            timed = dict(
                 max_abs_err=err,
                 ms=cuda_time_ms(lambda: fa.flash_attention(q, k, v, **opts),
-                                5),
+                                10),
                 plain_ms=cuda_time_ms(plain, 2, warmup=1),
                 library_ms=cuda_time_ms(lib, 5),
-                ops=dict(fp32=4 * b * hq * live * d),
+                ops={"3xtf32": flops}, fp32_ops=flops,
                 bytes=4 * (2 * q.numel() + k.numel() + v.numel()),
                 shape=f"{name} B={b} S={sq} Hq={hq} Hkv={hkv} D={d}, causal "
-                      f"(live share {live / (sq * skv):.4f})")
+                      f"(live share {live / (sq * skv):.4f}), grid {grid}, "
+                      f"{tiles['block_q']} x {tiles['block_k']} tiles")
+            if i == 0:
+                kernels["flash_attention"] = dict(
+                    route="cuda",
+                    source="src/repro_torch/csrc/flash_attention.cu",
+                    replaces="src/repro/kernels/flash_attention.py:27",
+                    **timed)
+            else:
+                kernels["flash_attention"]["long_seq"] = {name: timed}
             del qt, kt, vt, lib
         del q, k, v
     long_cache = {}
@@ -908,7 +928,8 @@ def main() -> int:
               f"({gout.num_tiles}, {gin.num_tiles}), preallocated output")
 
     # (3) greedy Algorithm 1: every captured table against the plain
-    # version and the numpy host loop; timed on the largest.
+    # version and the numpy host loop; timed per table shape on the serving
+    # path (phase 3).
     for bt, m in (c for c, _ in captured["greedy"]):
         outs_k = ks.greedy_schedule_arrays(bt, m)
         outs_p = ks.greedy_plain(bt, m)
@@ -924,17 +945,13 @@ def main() -> int:
                 (host_s.oid, host_s.iid, host_s.reuse_overlap):
             fail(f"greedy kernel differs from schedule_tiles on "
                  f"{tuple(bt.shape)}")
-    bt, m = max((c for c, _ in captured["greedy"]),
-                key=lambda e: e[0].numel())
-    n_out, n_in = bt.shape
+    held3 = sorted({tuple(c[0].shape) for c, _ in captured["greedy"]})
+    print(f"[kernels] greedy_schedule_arrays held bit-exact on the TDT "
+          f"shapes {held3}")
     kernels["greedy_schedule_arrays"] = dict(
         route="cuda", source="src/repro_torch/csrc/dcn_schedule.cu",
         replaces="src/repro/kernels/dcn_schedule.py:142", max_abs_err=0.0,
-        ms=cuda_time_ms(lambda: ks.greedy_schedule_arrays(bt, m), 10),
-        plain_ms=cuda_time_ms(lambda: ks.greedy_plain(bt, m), 1, warmup=1),
-        library_ms=None, ops=dict(fp32=0),
-        bytes=n_out * n_in * (1 + 4) + 8 * n_out,
-        shape=f"TDT ({n_out}, {n_in}), m={m}")
+        library_ms=None, ops=dict(fp32=0))
 
     # (4) one image's schedule, first DCN group of the batched prepass.
     a4, k4 = captured["sched"][0]
@@ -994,6 +1011,45 @@ def main() -> int:
         ops=dict(fp32=8 * live6 * c6),
         bytes=nbytes_of(a6, n6 * p6 * c6),
         shape=f"S={x6.shape[1]} P={p6} (live {live6}) C={c6}")
+    def greedy_record(calls):
+        """#3 on the serving path: each distinct (table shape, m) timed
+        once, its launches counted; the kernel's line carries the
+        launch-weighted mean per launch, and the per-shape times and their
+        sum over the launches (what the path spends in #3)."""
+        shapes = {}
+        for (bt, m), _ in calls:
+            key = (tuple(bt.shape), m)
+            shapes.setdefault(key, [bt, m, 0])[2] += 1
+        rows = []
+        for (shape, m), (bt, _, n) in sorted(shapes.items()):
+            rows.append(dict(
+                shape=list(shape), m=m, launches=n,
+                ms=cuda_time_ms(lambda: ks.greedy_schedule_arrays(bt, m),
+                                10),
+                plain_ms=cuda_time_ms(lambda: ks.greedy_plain(bt, m), 1,
+                                      warmup=1),
+                bytes=shape[0] * shape[1] * (1 + 4) + 8 * shape[0]))
+            rows[-1]["bound_ms"] = rows[-1]["bytes"] / peak_bw * 1e3
+        n = sum(r["launches"] for r in rows)
+
+        def mean(key):
+            return sum(r["launches"] * r[key] for r in rows) / n
+        kernels["greedy_schedule_arrays"].update(
+            ms=mean("ms"), plain_ms=mean("plain_ms"),
+            bytes=int(mean("bytes")),
+            charged_ms=sum(r["launches"] * r["ms"] for r in rows),
+            by_shape=rows,
+            shape=f"{len(rows)} TDT shapes on the serving path, "
+                  f"launch-weighted mean")
+        for r in rows:
+            print(f"[serve] greedy_schedule_arrays at TDT {tuple(r['shape'])}"
+                  f", m={r['m']}: {r['launches']} launches x "
+                  f"{r['ms']:.4f} ms (bound {r['bound_ms']:.6f} ms by "
+                  f"bytes, plain {r['plain_ms']:.2f} ms)")
+        print(f"[serve] greedy_schedule_arrays: {n} launches, "
+              f"{kernels['greedy_schedule_arrays']['charged_ms']:.3f} ms in "
+              f"all")
+
     print(f"[kernels] all {sum(len(v) for v in captured.values())} captured "
           f"calls agree with their plain versions (fused kernels within "
           f"{FUSED_RTOL}*max|ref|, BLI within {BLI_RTOL}*max|ref|, TDT and "
@@ -1037,10 +1093,13 @@ def main() -> int:
 
     eng = make_engine("device")
     builds0 = eng.host_schedule_builds
+    served_greedy = []
     reset_counts()
-    reqs, traces, wall = serve(eng)
+    with recording(sched_mod, "greedy_schedule_arrays", served_greedy):
+        reqs, traces, wall = serve(eng)
     read_counts("dcn_fused_batch", "tdt_from_coords_device",
                 "greedy_schedule_arrays")
+    greedy_record(served_greedy)
     builds = eng.host_schedule_builds - builds0
     steps = len(traces)
     no_ladder("serve", eng)
@@ -1230,23 +1289,31 @@ def main() -> int:
     # -- phases 5-7: the LM serving slice -------------------------------------
     lm_phases(card, kernels, launches, reset_counts)
 
+    def bounds(kd):
+        kd.update(bound_of(kd.pop("ops"), kd.pop("bytes")))
+        if "fp32_ops" in kd:   # the same work on the FP32 CUDA cores
+            kd["bound_fp32_ms"] = kd.pop("fp32_ops") / peak_fp32 * 1e3
+        return "" if "bound_fp32_ms" not in kd else \
+            f" (FP32 bound {kd['bound_fp32_ms']:.4f} ms)"
+
     out_k = []
     for name in wrappers:
         kd = kernels[name]
-        kd.update(bound_of(kd.pop("ops"), kd.pop("bytes")))
-        for shape_name, extra in kd.get("long_cache", {}).items():
-            extra.update(bound_of(extra.pop("ops"), extra.pop("bytes")))
+        fp32_note = bounds(kd)
+        for shape_name, extra in {**kd.get("long_cache", {}),
+                                  **kd.get("long_seq", {})}.items():
+            note = bounds(extra)
             print(f"[kernel] {card}: {name} at {extra.pop('shape')}: "
                   f"{extra['ms']:.4f} ms (bound {extra['bound_ms']:.6f} ms "
-                  f"by {extra['bound_by']} at {extra['bound_rate']}, plain "
-                  f"{extra['plain_ms']:.4f} ms, library "
+                  f"by {extra['bound_by']} at {extra['bound_rate']}{note}, "
+                  f"plain {extra['plain_ms']:.4f} ms, library "
                   f"{extra['library_ms']:.4f} ms)")
         kd["launches"] = launches[name]
         shape = kd.pop("shape")
         lib_ms = kd["library_ms"]
         print(f"[kernel] {card}: {name} at {shape}: {kd['ms']:.4f} ms "
               f"(bound {kd['bound_ms']:.6f} ms by {kd['bound_by']} at "
-              f"{kd['bound_rate']}, plain "
+              f"{kd['bound_rate']}{fp32_note}, plain "
               f"{kd['plain_ms']:.4f} ms, library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}), "
               f"{kd['launches']} launches on its path")

@@ -77,11 +77,12 @@
 
 #pragma once
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "wgmma_tf32.cuh"
 
 namespace {
 namespace split {
+
+using namespace tc;
 
 constexpr int BP = 64;        // output pixels per block (wgmma N)
 constexpr int BO = 128;       // output channels per block (2 x wgmma M)
@@ -98,47 +99,12 @@ static_assert(NT == 4 * BP && BC == 16 && BO == 2 * 64 && BP == 64 &&
 
 enum Addr { ADDR_SCHED = 1, ADDR_TILE = 2, ADDR_BATCH = 3 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// x ~ hi + lo: hi is x rounded to TF32's 10 mantissa bits (half an ulp
-// added, the low 13 bits cleared), lo = x - hi exactly; the tensor core
-// reads only lo's top 10 mantissa bits, so hi + lo keeps ~21 bits of x.
-// Two integer operations and one FADD (cvt.rna.tf32.f32 costs more).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
 // Shared-memory matrix descriptor of one k-step of a stage's patch: the
 // K-major, unswizzled canonical layout of 8-pixel x 16-byte core matrices,
 // LBO = 128 bytes to the next 4 channels, SBO = 512 bytes to the next 8
 // pixels (a stage's 16 channels are 4 core matrices along K).
 __device__ __forceinline__ uint64_t patch_desc(const float* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
-         ((uint64_t)(512 >> 4) << 32);
+  return smem_desc(p, 128, 512);
 }
 
 // D (64 output channels x 64 pixels) = A (64 x 8, registers) * B (8 x 64,
@@ -160,32 +126,6 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32],
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
         "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// An empty asm that claims to read and write the registers: orders their
-// uses after the preceding volatile asm (a wgmma wait).
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 template <int MODE, bool HALO>
@@ -423,7 +363,7 @@ split_kernel(const float* __restrict__ x, const int* __restrict__ row_id,
     const int at = buf * PATCH + ((warp * 4 + q) * 8 + (lane & 7)) * 4;
     *(uint4*)(Bh + at) = hi;
     *(uint4*)(Bl + at) = lo;
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_async_smem();
   };
   int kk_x = 0, c_x = c_lo;  // next stage to gather
   for (int i = 0; i < RING - 1; ++i) {

@@ -11,230 +11,606 @@
 //
 // Bound: operations. 4 * D FLOP per live (query, key) pair against
 // 4 * D * 4 bytes per row of q, k, v and out: at the Qwen3-1.7B prefill
-// (S = 2048-4096, D = 128, causal) the work is ~500-1000x the bytes, far
-// above the FP32 ridge of ~20 FLOP per byte. No tensor cores: TF32 would
-// break the 1e-4 bound the port holds the kernel to (wgmma is later work).
+// (S = 2048-4096, D = 128, causal) the work is ~500-1000x the bytes. Both
+// products run on the tensor cores in 3xTF32 (x = hi + lo, hi * hi + hi *
+// lo + lo * hi, FP32 accumulation; dense TF32 495 / 3 = 165 TFLOP/s), which
+// keeps the 1e-4 bound that plain TF32 would break.
 //
-// Design. One block of 256 threads per (batch * q head, 64-row query
-// tile); the TPU's sequential KV grid axis becomes a loop inside the block
-// over 64-row K/V tiles staged in shared memory (rows padded to D + 4
-// floats so the 16-byte loads of a quarter warp hit distinct banks). Each
-// thread owns 4 query rows (ty + 16 i) by 4 keys (tx + 16 j) of the score
-// tile, and the same 4 rows by ceil(D / 16) output columns of the
-// accumulator, so the online-softmax state (m, l, acc) stays in registers
-// and a row's max and sum are shuffles over its 16 lanes. P goes through
-// shared memory (over the spent K tile) into the P.V product. KV tiles the
-// causal or window mask removes entirely are never visited: exact, as
-// their p is 0. Query tiles launch heaviest first (causal rows near the end
-// see the most keys). Nothing assumes a power of two: the kernel is
-// instantiated for ceil(D / 16) in {1, 2, 4, 8, 9}, the head dims of the
-// configs (16 and 20 at smoke size, 64, 128, 144 at full width); any other
-// D returns cudaErrorInvalidValue, and another instantiation serves it.
+// Design:
+// * One block per (batch * q head, BQ-row query tile), one warpgroup per
+//   64 query rows: BQ = 128 (two warpgroups sharing each K/V tile) where
+//   the shared memory holds it, else 64 (the wrapper's `tile_config`).
+//   The TPU's sequential KV grid axis is a loop over 32-key tiles.
+// * Loads: one thread asks the TMA unit for the next tile's K and V rows
+//   (a 4-d tensor map each; zeros past Skv and D; rows padded to DP + 4
+//   floats) as soon as the current tile has left the landing buffers, so
+//   the copy flies under the current tile's products (per-thread cp.async
+//   copies, tried first, cost more issue time than the products).
+// * A split pass moves the landed tile into the K-major unswizzled
+//   canonical layouts wgmma reads (8-row x 16-byte core matrices; D zero-
+//   padded to DP, a multiple of 16), as TF32 high part and residual: K
+//   [32 keys][DP], V transposed to V^T [DP][32 keys] (TF32 wgmma takes no
+//   transposed operand), both free of bank conflicts. q * scale is split
+//   once per block; the high part of its first QR 8-dim steps also stays
+//   in registers as the A fragment of Q K^T.
+// * S = Q K^T: wgmma m64n32k8, 3 x DP / 8 instructions a tile, from zero.
+//   Softmax in registers, scores in base 2 (log2 e folded into q's scale,
+//   or into the soft-cap; exp2 on the SFU), masks only on edge tiles;
+//   tiles the causal or window mask removes for all of a warpgroup's rows
+//   are skipped (exact: their p is 0).
+// * O += P V: wgmma m64nDPk8 with A (P hi / lo) from the registers that
+//   hold S. The accumulator gives a thread columns {2t, 2t + 1} of each
+//   8-key group and the A fragment wants {t, t + 4}; the keys of each
+//   group are stored permuted in V^T (key 2j + h at position 4h + j) so
+//   that the registers are the fragment as they stand (the order of a
+//   sum's terms is free). Each tile's P V starts from zero and is added
+//   to the FP32 total with round-to-nearest: the tensor cores' own
+//   accumulation truncates, and carried over long caches it drifts past
+//   the 1e-4 bound.
+// * Query tiles launch heaviest first (causal rows near the end see the
+//   most keys).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
+#include "wgmma_tf32.cuh"
 
 namespace {
 
-constexpr int NT = 256;
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int PLD = BK + 1;  // P row stride (floats): rows ty, ty+1 differ
-constexpr float NEG_INF = -1e30f;
-static_assert(BQ == BK, "load_tile copies BQ rows for every tile");
+using namespace tc;
 
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+constexpr int BK = 32;        // keys per tile (wgmma N of Q K^T)
+constexpr int WG = 128;       // threads of a warpgroup, 64 query rows
+constexpr int MAX_DP = 144;
+constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// S (64 rows x 32 keys) = A (64 x 8) * B (8 x 32) + (scale_d ? S : 0),
+// both operands in shared memory.
+__device__ __forceinline__ void wgmma_qk(float (&d)[16], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// Copy BQ rows (row r at src + r * stride) of D floats into smem rows
-// of stride ld, zero-filling rows at or past `valid`, times `mul`.
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long long stride, int valid,
-                                          int D, int ld, float mul) {
-  const int d4 = D / 4;
-  for (int e = threadIdx.x; e < BQ * d4; e += NT) {
-    const int r = e / d4, c = e % d4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < valid) {
-      x = __ldg(reinterpret_cast<const float4*>(src + r * stride) + c);
-      x.x *= mul;
-      x.y *= mul;
-      x.z *= mul;
-      x.w *= mul;
-    }
-    *reinterpret_cast<float4*>(dst + r * ld + 4 * c) = x;
+// The same with A from registers.
+__device__ __forceinline__ void wgmma_qk(float (&d)[16],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, "
+      "1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+#define ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define ACC8(i) ACC4(i), ACC4(i + 4)
+#define PV_IN \
+  "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
+
+// O (64 rows x DP) = A (64 x 8 keys, registers) * B (8 x DP, V^T in shared
+// memory) + (scale_d ? O : 0).
+template <int DP>
+__device__ __forceinline__ void wgmma_pv(float (&d)[DP / 2],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  static_assert(DP % 16 == 0 && DP >= 16 && DP <= MAX_DP, "head dim");
+  if constexpr (DP == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : ACC8(0)
+        : PV_IN);
+  } else if constexpr (DP == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : ACC8(0), ACC8(8)
+        : PV_IN);
+  } else if constexpr (DP == 48) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23"
+        "}, {%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+        : ACC8(0), ACC8(8), ACC8(16)
+        : PV_IN);
+  } else if constexpr (DP == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+        : PV_IN);
+  } else if constexpr (DP == 80) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39"
+        "}, {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+        : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32)
+        : PV_IN);
+  } else if constexpr (DP == 96) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47"
+        "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+        : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32),
+          ACC8(40)
+        : PV_IN);
+  } else if constexpr (DP == 112) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55"
+        "}, {%56, %57, %58, %59}, %60, p, 1, 1;\n}\n"
+        : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32),
+          ACC8(40), ACC8(48)
+        : PV_IN);
+  } else if constexpr (DP == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32),
+          ACC8(40), ACC8(48), ACC8(56)
+        : PV_IN);
+  } else if constexpr (DP == 144) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %77, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n144k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71"
+        "}, {%72, %73, %74, %75}, %76, p, 1, 1;\n}\n"
+        : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32),
+          ACC8(40), ACC8(48), ACC8(56), ACC8(64)
+        : PV_IN);
   }
 }
 
-template <int NC>  // output columns per thread: ceil(D / 16)
-__global__ void __launch_bounds__(NT, 2)
-flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ out, int Sq,
+#undef PV_IN
+#undef ACC8
+#undef ACC4
+
+// Warpgroups a block for head dim DP: two (128 query rows) where their
+// shared memory fits a block's 232,448 bytes, else one. The wrapper's
+// `tile_config` applies the same rule.
+__host__ __device__ constexpr int smem_bytes(int dp, int nwg) {
+  return 4 * (2 * 64 * nwg * dp + 4 * BK * dp + 2 * BK * (dp + 4)) + 8;
+}
+__host__ __device__ constexpr int warpgroups(int dp) {
+  return smem_bytes(dp, 2) <= 232448 ? 2 : 1;
+}
+
+// 2^x on the SFU (ex2.approx.ftz: ~2 ulp; a result below 2^-126 is 0,
+// which beside the row's largest p = 1 changes no float32 sum).
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+// TMA copy of one (DP + 4) x 1 x BK x 1 box of the 4-d tensor map (dims
+// d, kv head, key, batch) at (0, hk, k0, b) into dst: BK rows of DP + 4
+// floats, zeros where d >= D or key >= Skv; completes on `bar`.
+__device__ __forceinline__ void tma_rows(float* dst, const CUtensorMap* map,
+                                         int hk, int k0, int b,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(hk), "r"(k0), "r"(b),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+template <int DP>
+__global__ void __launch_bounds__(2 * WG, 1)
+flash_kernel(const __grid_constant__ CUtensorMap k_map,
+             const __grid_constant__ CUtensorMap v_map,
+             const float* __restrict__ q, float* __restrict__ out, int Sq,
              int Skv, int Hq, int Hkv, int D, int causal, int window,
              float scale, float softcap) {
-  extern __shared__ float4 smem4[];
-  const int ld = D + 4;
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + BQ * ld;
-  float* Ps = Ks;  // P overwrites the K tile once the scores are taken
-  const int ks_len = BK * ld > BQ * PLD ? BK * ld : BQ * PLD;
-  float* Vs = Ks + ks_len;
+  constexpr int TILE = BK * DP;   // floats of one K or V^T tile
+  constexpr int LD = DP + 4;      // row stride of the landed tiles
+  constexpr int NT = WG * warpgroups(DP), NW = NT / 32, BQ = 64 * NT / WG;
+  extern __shared__ __align__(128) float smem[];
+  float* Qh = smem;             // [BQ][DP] q * scale, TF32 high part
+  float* Ql = Qh + BQ * DP;     // its residual
+  float* Kh = Ql + BQ * DP;     // [BK][DP] K tile, high part
+  float* Kl = Kh + TILE;        //          and residual
+  float* Vh = Kl + TILE;        // [DP][BK] V^T tile, high part
+  float* Vl = Vh + TILE;        //          and residual
+  float* Ks = Vl + TILE;        // [BK][LD] next K tile as landed
+  float* Vs = Ks + BK * LD;     // [BK][LD] next V tile as landed
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + BK * LD);
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = tid / WG;
+  const int wi = warp & 3, gq = lane >> 2, tq = lane & 3;
   const int bh = blockIdx.y, b = bh / Hq, h = bh % Hq;
   const int hk = h / (Hq / Hkv);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tile first
-  const long long qstride = (long long)Hq * D, kstride = (long long)Hkv * D;
+  const long long qstride = (long long)Hq * D;
   const float* qb = q + ((long long)b * Sq * Hq + h) * D;
-  const float* kb = k + ((long long)b * Skv * Hkv + hk) * D;
-  const float* vb = v + ((long long)b * Skv * Hkv + hk) * D;
   float* ob = out + ((long long)b * Sq * Hq + h) * D;
 
-  // Keys any real row of this tile can see.
+  // Keys any real row of the block can see, and of this warpgroup.
   const long long off = (long long)Skv - Sq;
   const int q_rows = min(BQ, Sq - q0);
   long long k_hi = Skv;
   if (causal) k_hi = min(k_hi, q0 + q_rows - 1 + off + 1);
   const long long k_lo = max(0LL, q0 + off - (long long)window + 1);
+  const int w0 = q0 + 64 * wg, w_rows = min(64, q_rows - 64 * wg);
+  long long wk_hi = w_rows > 0 ? Skv : 0;
+  if (causal && w_rows > 0) wk_hi = min(wk_hi, w0 + w_rows - 1 + off + 1);
+  const long long wk_lo = max(0LL, w0 + off - (long long)window + 1);
+  const int kt0 = (int)(k_lo / BK) * BK;
+  const int n_tiles = k_lo < k_hi ? (int)((k_hi - kt0 + BK - 1) / BK) : 0;
 
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  // One thread asks the TMA unit for tile t's K and V rows; `full` counts
+  // their bytes.
+  auto fetch = [&](int k0) {
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+            smem_u32(full)),
+        "r"(2 * BK * LD * 4)
+        : "memory");
+    tma_rows(Ks, &k_map, hk, k0, b, full);
+    tma_rows(Vs, &v_map, hk, k0, b, full);
+  };
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                     smem_u32(full)));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (n_tiles > 0) fetch(kt0);
   }
 
-  if (k_lo < k_hi) {
-    load_tile(Qs, qb + q0 * qstride, qstride, q_rows, D, ld, scale);
-    for (int k0 = (int)(k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
-      load_tile(Ks, kb + k0 * kstride, kstride, Skv - k0, D, ld, 1.f);
-      load_tile(Vs, vb + k0 * kstride, kstride, Skv - k0, D, ld, 1.f);
-      __syncthreads();
+  // q * scale (times log2 e without a soft-cap: scores in base 2), split,
+  // in the canonical layout while the first tile flies.
+  const float qscale = softcap > 0.f ? scale : scale * LOG2E;
+#pragma unroll 4
+  for (int e = tid; e < BQ * DP / 4; e += NT) {
+    const int r8 = e & 7, c = (e >> 3) % (DP / 4);
+    const int r = 8 * ((e >> 3) / (DP / 4)) + r8;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < q_rows && 4 * c < D)
+      x = __ldg(reinterpret_cast<const float4*>(
+          qb + (long long)(q0 + r) * qstride + 4 * c));
+    uint4 hi, lo;
+    split_tf32(x.x * qscale, hi.x, lo.x);
+    split_tf32(x.y * qscale, hi.y, lo.y);
+    split_tf32(x.z * qscale, hi.z, lo.z);
+    split_tf32(x.w * qscale, hi.w, lo.w);
+    const int at = ((r >> 3) * (DP / 4) + c) * 32 + r8 * 4;
+    *reinterpret_cast<uint4*>(Qh + at) = hi;
+    *reinterpret_cast<uint4*>(Ql + at) = lo;
+  }
+  __syncthreads();  // the barrier's init, before anyone waits on it
 
-      float s[4][4];
+  // Warpgroup wg owns query rows w0 .. w0 + 63; lane (gq, tq) of warp wi
+  // holds rows 16 wi + gq (+ 8) of S (keys 8j + 2tq (+ 1)) and of O
+  // (dims 8j + 2tq (+ 1)).
+  float acc[DP / 2], o[DP / 2], s[16];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < DP / 2; ++i) acc[i] = o[i] = 0.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-      for (int d = 0; d < D; d += 4) {
-        float4 qa[4], kv[4];
+  for (int i = 0; i < 16; ++i) s[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  // The high part of q's first QR k-steps stays in registers as the A
+  // fragment of Q K^T (lane (gq, tq) of warp wi: rows 16 wi + gq (+ 8),
+  // dims tq (+ 4) of each 8-dim step), so the tensor cores read it from
+  // shared memory once per block instead of twice per tile; as many steps
+  // as the registers hold beside the accumulators.
+  constexpr int QR = DP <= 128 ? (DP / 8 < 8 ? DP / 8 : 8) : 4;
+  uint32_t qa[QR][4];
+  {
+    const float* qw = Qh + wg * 64 * DP + (2 * wi * (DP / 4)) * 32 + gq * 4;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          qa[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * ld + d);
+    for (int ks = 0; ks < QR; ++ks)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          kv[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * ld + d);
+      for (int u = 0; u < 4; ++u)  // (row + 8 (u & 1), dim tq + 4 (u >> 1))
+        qa[ks][u] = __float_as_uint(
+            qw[(u & 1) * (DP / 4) * 32 + (2 * ks + (u >> 1)) * 32 + tq]);
+  }
+  const uint64_t dq_h = smem_desc(Qh + wg * 64 * DP, 128, DP * 32);
+  const uint64_t dq_l = smem_desc(Ql + wg * 64 * DP, 128, DP * 32);
+  const uint64_t dk_l = smem_desc(Kl, 128, DP * 32);
+  const uint64_t dv_l = smem_desc(Vl, 128, BK * 32);
+  const float cap2 = softcap * LOG2E;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = kt0 + t * BK;
+    mbar_wait(full, t & 1);
+    __syncthreads();  // tile t landed; every thread is done with t - 1
+    // Split the landed tile into TF32 high and low parts, in the canonical
+    // layouts. K: thread (r % 8, c % 4) of a warp item (r / 8, c / 4) moves
+    // dims 4c .. 4c + 3 of key r to core matrix (r / 8, c), row r % 8. V^T:
+    // lane d % 32 of a warp item (d / 32, 8-key group, h) moves dim d of
+    // keys 2j + h, j < 4, of the group to core matrix (d / 8, 2 group + h),
+    // row d % 8 (positions 4h + j hold key 2j + h). Reads and writes are
+    // free of bank conflicts (rows LD = DP + 4 floats apart).
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+    for (int it = warp; it < BK / 8 * DP / 16; it += NW) {
+      const int r = 8 * (it % (BK / 8)) + (lane & 7);
+      const int c = 4 * (it / (BK / 8)) + (lane >> 3);
+      const float4 x = *reinterpret_cast<const float4*>(Ks + r * LD + 4 * c);
+      uint4 hi, lo;
+      split_tf32(x.x, hi.x, lo.x);
+      split_tf32(x.y, hi.y, lo.y);
+      split_tf32(x.z, hi.z, lo.z);
+      split_tf32(x.w, hi.w, lo.w);
+      const int at = ((r >> 3) * (DP / 4) + c) * 32 + (r & 7) * 4;
+      *reinterpret_cast<uint4*>(Kh + at) = hi;
+      *reinterpret_cast<uint4*>(Kl + at) = lo;
+    }
 #pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = dot4(qa[i], kv[j], s[i][j]);
+    for (int it = warp; it < (DP + 31) / 32 * BK / 4; it += NW) {
+      const int d = 32 * (it / (BK / 4)) + lane, g2 = it % (BK / 4);
+      if (DP % 32 == 0 || d < DP) {
+        const float* src = Vs + (8 * (g2 >> 1) + (g2 & 1)) * LD + d;
+        uint4 hi, lo;
+        split_tf32(src[0], hi.x, lo.x);
+        split_tf32(src[2 * LD], hi.y, lo.y);
+        split_tf32(src[4 * LD], hi.z, lo.z);
+        split_tf32(src[6 * LD], hi.w, lo.w);
+        const int at = ((d >> 3) * (BK / 4) + g2) * 32 + (d & 7) * 4;
+        *reinterpret_cast<uint4*>(Vh + at) = hi;
+        *reinterpret_cast<uint4*>(Vl + at) = lo;
       }
+    }
+    fence_async_smem();  // the split tile: to wgmma
+    __syncthreads();     // and the landing buffers are free
+    if (tid == 0 && t + 1 < n_tiles) {
+      fence_async_smem();  // their reads above before the TMA's writes
+      fetch(k0 + BK);
+    }
 
+    if (k0 < wk_hi && k0 + BK > wk_lo) {
+      // S = Q K^T in 3xTF32, small terms first, from zero.
+      const uint64_t dk_h = smem_desc(Kh, 128, DP * 32);
+      wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const long long qi = q0 + ty + 16 * i + off;
-        bool ok[4];
+      for (int ks = 0; ks < DP / 8; ++ks) {  // 8 dims = 256 bytes = 16 units
+        wgmma_qk(s, dq_l + 16 * ks, dk_h + 16 * ks, ks);
+        if (ks < QR) {
+          wgmma_qk(s, qa[ks < QR ? ks : 0], dk_l + 16 * ks, 1);
+          wgmma_qk(s, qa[ks < QR ? ks : 0], dk_h + 16 * ks, 1);
+        } else {
+          wgmma_qk(s, dq_h + 16 * ks, dk_l + 16 * ks, 1);
+          wgmma_qk(s, dq_h + 16 * ks, dk_h + 16 * ks, 1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(s);
+#pragma unroll
+      for (int ks = 0; ks < QR; ++ks) fence_regs(qa[ks]);
+
+      // Online softmax over the tile, in base 2. Masks only where some
+      // (row, key) of the warpgroup's real rows is masked.
+      const bool edge =
+          !(k0 + BK <= Skv && (!causal || k0 + BK - 1 <= w0 + off) &&
+            w0 + w_rows - 1 + off - k0 < window);
+      float alpha[2];
+      uint32_t ph[BK / 8][4], pl[BK / 8][4];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const long long qi = w0 + 16 * wi + gq + 8 * hh + off;
+        bool ok[BK / 4];
         float mx = NEG_INF;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const long long ki = k0 + tx + 16 * j;
-          ok[j] = ki < Skv && (!causal || qi >= ki) && qi - ki < window;
-          float x = s[i][j];
-          if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-          s[i][j] = ok[j] ? x : NEG_INF;
-          mx = fmaxf(mx, s[i][j]);
-        }
+        for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-        for (int o = 8; o >= 1; o >>= 1)
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-        const float m_new = fmaxf(m[i], mx);
-        const float alpha = expf(m[i] - m_new);
+          for (int u = 0; u < 2; ++u) {
+            float x = s[4 * j + 2 * hh + u];
+            if (softcap > 0.f) x = tanhf(x / softcap) * cap2;
+            const long long ki = k0 + 8 * j + 2 * tq + u;
+            ok[2 * j + u] = !edge || (ki < Skv && (!causal || qi >= ki) &&
+                                      qi - ki < window);
+            x = ok[2 * j + u] ? x : NEG_INF;
+            s[4 * j + 2 * hh + u] = x;
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[hh], mx);
+        alpha[hh] = exp2_fast(m[hh] - m_new);
         float ps = 0.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-          ps += s[i][j];
-        }
-        l[i] = l[i] * alpha + ps;  // this thread's share of the row sum
+        for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-        m[i] = m_new;
-      }
-      __syncthreads();  // every thread is done with the K tile
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          Ps[(ty + 16 * i) * PLD + tx + 16 * j] = s[i][j];
-      __syncthreads();
-
-      for (int kk = 0; kk < BK; ++kk) {
-        float p[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * PLD + kk];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int d = tx + 16 * c;
-          if (d < D) {
-            const float x = Vs[kk * ld + d];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], x, acc[i][c]);
+          for (int u = 0; u < 2; ++u) {
+            const float x = s[4 * j + 2 * hh + u] - m_new;
+            const float p = ok[2 * j + u] ? exp2_fast(x) : 0.f;
+            ps += p;
+            // A fragment: (row, key 2tq + u) is column tq + 4u of the
+            // permuted group, register 2u + hh.
+            split_tf32(p, ph[j][2 * u + hh], pl[j][2 * u + hh]);
           }
-        }
+        l[hh] = l[hh] * alpha[hh] + ps;  // this thread's share of the row
+        m[hh] = m_new;
       }
-      __syncthreads();  // before the next tile overwrites K, V and P
+
+      // O += P V in 3xTF32: this tile's products from zero, then added.
+      const uint64_t dv_h = smem_desc(Vh, 128, BK * 32);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {  // 8 keys = 256 bytes = 16 units
+        wgmma_pv<DP>(o, pl[j], dv_h + 16 * j, j);
+        wgmma_pv<DP>(o, ph[j], dv_l + 16 * j, 1);
+        wgmma_pv<DP>(o, ph[j], dv_h + 16 * j, 1);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      wgmma_wait();
+      // The asynchronous wgmmas read ph, pl and write o until the wait.
+      fence_regs(o);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        fence_regs(ph[j]);
+        fence_regs(pl[j]);
+      }
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) acc[i] += o[i];
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float li = l[i];
-#pragma unroll
-    for (int o = 8; o >= 1; o >>= 1)
-      li += __shfl_xor_sync(0xffffffffu, li, o);
-    const int r = ty + 16 * i;
-    if (r < q_rows) {
+  for (int hh = 0; hh < 2; ++hh) {
+    float li = l[hh];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const int r = 16 * wi + gq + 8 * hh;
+    if (r < w_rows) {
       const float den = fmaxf(li, 1e-30f);
+      float* orow = ob + (long long)(w0 + r) * qstride;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int d = tx + 16 * c;
-        if (d < D) ob[(q0 + r) * qstride + d] = acc[i][c] / den;
+      for (int j = 0; j < DP / 8; ++j) {
+        const int c = 8 * j + 2 * tq;
+        if (c < D)
+          *reinterpret_cast<float2*>(orow + c) = make_float2(
+              acc[4 * j + 2 * hh] / den, acc[4 * j + 2 * hh + 1] / den);
       }
     }
   }
 }
 
-template <int NC>
+// The 4-d tensor map (d, kv head, key, batch) of k or v (B, Skv, Hkv, D)
+// whose box is the (DP + 4) x 1 x BK x 1 tile the kernel lands.
+cudaError_t rows_map(CUtensorMap* map, const void* x, int B, int Skv,
+                     int Hkv, int D, int dp) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode), 12000,
+        cudaEnableDefault, &found);
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
+      encode = nullptr;
+      return err != cudaSuccess ? err : cudaErrorSymbolNotFound;
+    }
+  }
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv,
+                              (cuuint64_t)Skv, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {4ull * D, 4ull * D * Hkv,
+                                 4ull * D * Hkv * Skv};
+  const cuuint32_t box[4] = {(cuuint32_t)dp + 4, 1, BK, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(x), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int DP>
 int launch(const float* q, const float* k, const float* v, float* out, int B,
            int Sq, int Skv, int Hq, int Hkv, int D, int causal, int window,
-           float scale, float softcap, cudaStream_t stream) {
-  const int ld = D + 4;
-  const int ks_len = BK * ld > BQ * PLD ? BK * ld : BQ * PLD;
-  const size_t smem = sizeof(float) * (size_t)(BQ * ld + ks_len + BK * ld);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+           int block_q, float scale, float softcap, cudaStream_t stream) {
+  if (block_q != 64 * warpgroups(DP)) return (int)cudaErrorInvalidValue;
+  const int smem = smem_bytes(DP, warpgroups(DP));
+  CUtensorMap k_map, v_map;
+  cudaError_t err = rows_map(&k_map, k, B, Skv, Hkv, D, DP);
+  if (err == cudaSuccess) err = rows_map(&v_map, v, B, Skv, Hkv, D, DP);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        flash_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + BQ - 1) / BQ, B * Hq);
-  flash_kernel<NC><<<grid, NT, smem, stream>>>(
-      q, k, v, out, Sq, Skv, Hq, Hkv, D, causal, window, scale, softcap);
+  const dim3 grid((Sq + block_q - 1) / block_q, B * Hq);
+  flash_kernel<DP><<<grid, WG * warpgroups(DP), smem, stream>>>(
+      k_map, v_map, q, out, Sq, Skv, Hq, Hkv, D, causal, window, scale,
+      softcap);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// block_q: the query rows of a block (64 a warpgroup) that the wrapper's
+// `tile_config` gives for D, checked against the kernel's own rule.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B,
                                       int Sq, int Skv, int Hq, int Hkv, int D,
-                                      int causal, int window, float scale,
-                                      float softcap, void* stream) {
-  if (D % 4 || D < 4 || Hkv < 1 || Hq % Hkv)
+                                      int causal, int window, int block_q,
+                                      float scale, float softcap,
+                                      void* stream) {
+  if (D % 4 || D < 4 || D > MAX_DP || Hkv < 1 || Hq % Hkv ||
+      (block_q != 64 && block_q != 128))
     return (int)cudaErrorInvalidValue;
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
@@ -243,10 +619,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FLASH_CASE(n)                                                      \
   case n:                                                                  \
-    return launch<n>(qf, kf, vf, of, B, Sq, Skv, Hq, Hkv, D, causal, window, \
-                     scale, softcap, st);
+    return launch<16 * n>(qf, kf, vf, of, B, Sq, Skv, Hq, Hkv, D, causal,  \
+                          window, block_q, scale, softcap, st);
   switch ((D + 15) / 16) {
-    FLASH_CASE(1) FLASH_CASE(2) FLASH_CASE(4) FLASH_CASE(8) FLASH_CASE(9)
+    FLASH_CASE(1) FLASH_CASE(2) FLASH_CASE(3) FLASH_CASE(4) FLASH_CASE(5)
+    FLASH_CASE(6) FLASH_CASE(7) FLASH_CASE(8) FLASH_CASE(9)
   }
 #undef FLASH_CASE
   return (int)cudaErrorInvalidValue;

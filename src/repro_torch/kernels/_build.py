@@ -39,7 +39,7 @@ _SIGNATURES = {
     "tdt_from_coords_launch": [_P, _P] + [_I] * 13 + [_P],
     "greedy_schedule_launch": [_P] * 5 + [_I] * 4 + [_P],
     "greedy_schedule_smem_bytes": [_I, _I, _I],
-    "flash_attention_launch": [_P] * 4 + [_I] * 8 + [_F, _F, _P],
+    "flash_attention_launch": [_P] * 4 + [_I] * 9 + [_F, _F, _P],
     "flash_decode_launch": [_P] * 7 + [_I] * 8 + [_F, _F, _P],
 }
 

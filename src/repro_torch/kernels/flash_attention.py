@@ -14,7 +14,8 @@ visible key gives 0. For a CUDA tensor the wrapper launches the kernel in
 ``csrc/flash_attention.cu`` or raises, and counts the launch in
 ``flash_attention.launches``; for a CPU tensor it runs
 :func:`flash_attention_plain`, the masked full-softmax form with the same
-conventions.
+conventions. The kernel takes head dims that are multiples of 4 up to
+144, with the tiles :func:`tile_config` gives; a larger one raises.
 """
 
 from __future__ import annotations
@@ -29,9 +30,34 @@ NEG_INF = -1e30
 # window at all. ``softcap=None`` goes as 0, which no valid cap takes.
 NO_WINDOW = 2**31 - 1
 MAX_HEAD_DIM = 256
-# ceil(D / 16) values csrc/flash_attention.cu is instantiated for: the
-# configs' head dims 16, 20, 64, 128 and 144.
-KERNEL_COLUMNS = (1, 2, 4, 8, 9)
+# Head dims the CUDA kernel takes: multiples of 4 up to 144 (the configs'
+# largest, Gemma-2's), zero-padded to a multiple of 16 in shared memory.
+MAX_KERNEL_HEAD_DIM = 144
+BLOCK_K = 32                    # keys per K/V tile of the kernel
+SMEM_LIMIT = 232_448            # shared memory a block may use on Hopper
+
+
+def tile_config(d: int) -> dict:
+    """The CUDA kernel's tiles for head dim ``d``: ``dp`` (d padded to a
+    multiple of 16), ``block_q`` query rows a block (one warpgroup of 128
+    threads per 64 rows: 128 where the shared memory holds it, else 64),
+    ``block_k`` keys a tile, ``threads`` and ``smem_bytes``: q's TF32 high
+    and low parts, the current K and V^T tiles' high and low parts, the
+    next K and V tiles as they land (rows of ``dp + 4`` floats) and their
+    mbarrier, ``4 * (2 * block_q * dp + 4 * block_k * dp + 2 * block_k *
+    (dp + 4)) + 8``."""
+    if d % 4 or not 4 <= d <= MAX_KERNEL_HEAD_DIM:
+        raise ValueError(f"head_dim {d} must be a multiple of 4 in [4, "
+                         f"{MAX_KERNEL_HEAD_DIM}] for the CUDA kernel")
+    dp = -(-d // 16) * 16
+
+    def smem(block_q):
+        return 4 * (2 * block_q * dp + 4 * BLOCK_K * dp
+                    + 2 * BLOCK_K * (dp + 4)) + 8
+
+    block_q = 128 if smem(128) <= SMEM_LIMIT else 64
+    return dict(dp=dp, block_q=block_q, block_k=BLOCK_K,
+                threads=2 * block_q, smem_bytes=smem(block_q))
 
 
 def _check_options(window, softcap) -> None:
@@ -94,10 +120,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale)
-    if d % 4 or -(-d // 16) not in KERNEL_COLUMNS:
-        raise ValueError(f"head_dim {d} must be a multiple of 4 with "
-                         f"ceil(head_dim / 16) in {KERNEL_COLUMNS} for the "
-                         f"CUDA kernel")
+    tiles = tile_config(d)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must be 16-byte aligned for the CUDA "
+                         "kernel")
     from repro_torch.kernels import _build
 
     lib = _build.load()
@@ -107,7 +133,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv,
         hq, hkv, d, int(causal), NO_WINDOW if window is None else int(window),
-        scale, 0.0 if softcap is None else float(softcap), _stream(q))
+        tiles["block_q"], scale, 0.0 if softcap is None else float(softcap),
+        _stream(q))
     _build.check(err, "flash_attention_launch")
     flash_attention.launches += 1
     return out

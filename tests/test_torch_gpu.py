@@ -320,6 +320,21 @@ FLASH_GPU_CASES = [
     (1, 130, 130, 4, 4, 64, dict(softcap=5.0)),
     (1, 64, 140, 4, 2, 20, dict(causal=False)),
     (1, 100, 60, 4, 2, 32, {}),                        # Sq > Skv: empty rows
+    # Head dims off the configs' (zero-padded to a multiple of 16).
+    (1, 96, 96, 4, 2, 8, {}),
+    (1, 100, 100, 4, 2, 36, dict(window=30)),
+    (2, 70, 70, 4, 4, 72, dict(softcap=20.0)),
+    (1, 90, 150, 4, 1, 100, {}),
+    # Lengths around the 32-key tile and the 64-row warpgroup.
+    (1, 63, 63, 4, 2, 128, {}),
+    (1, 64, 64, 4, 2, 64, {}),
+    (1, 65, 65, 4, 2, 144, {}),
+    (1, 127, 127, 4, 2, 128, dict(window=40)),
+    (2, 129, 129, 4, 2, 128, {}),
+    # Query heads per kv head.
+    (1, 100, 100, 4, 4, 128, {}),
+    (1, 100, 100, 8, 2, 64, {}),
+    (1, 100, 100, 16, 2, 128, dict(softcap=30.0)),
 ]
 
 
@@ -335,6 +350,18 @@ def test_flash_attention_kernel(case):
     want = flash_attention_plain(q, k, v, scale=d ** -0.5, **opts)
     got = flash_attention(q.cuda(), k.cuda(), v.cuda(), **opts).cpu()
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_flash_attention_kernel_reruns_bitwise():
+    """#7 sums in a fixed order (no atomics): a rerun is bitwise equal."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    rng = np.random.default_rng(40)
+    q, k, v = (torch.as_tensor(rng.normal(size=s).astype(np.float32)).cuda()
+               for s in ((2, 300, 16, 128), (2, 300, 8, 128),
+                         (2, 300, 8, 128)))
+    first = flash_attention(q, k, v)
+    assert torch.equal(flash_attention(q, k, v), first)
 
 
 def _decode_operands(seed, b, s, hq, hkv, d, lengths):

@@ -36,7 +36,9 @@ from repro.serving import DecodeEngine as JEngine
 from repro.serving import Request as JRequest
 from repro_torch import configs
 from repro_torch.convert import lm_params_from_jax
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (MAX_KERNEL_HEAD_DIM,
+                                                 flash_attention,
+                                                 tile_config)
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.models import layers, lm
 from repro_torch.models.params import leaves
@@ -108,6 +110,37 @@ def test_flash_decode_plain_matches_jax(kwargs):
     _close(got, want, 1e-5)
 
 
+def test_flash_decode_plain_matches_jax_past_the_cache():
+    """A length past S counts as S. The JAX kernel agrees wherever its
+    ``block_k`` divides S (it pads no keys then); the port does not copy
+    the padded keys it attends otherwise."""
+    b, s, hq, hkv, d = 3, 40, 4, 2, 16
+    rng = np.random.default_rng(9)
+    q, kc, vc = (_normal(rng, b, hq, d), _normal(rng, b, s, hkv, d),
+                 _normal(rng, b, s, hkv, d))
+    lengths = np.array([60, 41, 25], np.int32)
+    want = j_decode(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                    jnp.asarray(lengths), interpret=True, block_k=20)
+    got = flash_decode(torch.as_tensor(q), torch.as_tensor(kc),
+                       torch.as_tensor(vc), torch.as_tensor(lengths))
+    _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("d", range(4, MAX_KERNEL_HEAD_DIM + 1, 4))
+def test_flash_tile_config_fits_shared_memory(d):
+    """The CUDA kernel's tiles for every head dim it takes fit a block's
+    232,448 bytes of shared memory, with two warpgroups a block up to
+    D = 128."""
+    t = tile_config(d)
+    assert t["dp"] % 16 == 0 and d <= t["dp"] < d + 16
+    dp, bq, bk = t["dp"], t["block_q"], t["block_k"]
+    assert t["smem_bytes"] == 4 * (2 * bq * dp + 4 * bk * dp
+                                   + 2 * bk * (dp + 4)) + 8
+    assert t["smem_bytes"] <= 232_448
+    assert bq == (128 if d <= 128 else 64)
+    assert t["threads"] == 2 * bq
+
+
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     q = torch.zeros(1, 4, 2, 16)
     with pytest.raises(ValueError, match="float32"):
@@ -118,6 +151,9 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
         flash_attention(q, q, q, window=0)
     with pytest.raises(ValueError, match="int32"):
         flash_decode(q[:, 0], q, q, torch.zeros(1, dtype=torch.int64))
+    for d in (6, MAX_KERNEL_HEAD_DIM + 4):
+        with pytest.raises(ValueError, match="head_dim"):
+            tile_config(d)
 
 
 # -- attention entry points ---------------------------------------------------
