@@ -14,35 +14,43 @@ Phases, each fatal on failure:
               ``ops.bli_pallas``), then hold each CUDA kernel against its
               plain torch version on those operands (the fused kernels
               within 1e-4 * max|ref|, the BLI kernel within 1e-6 *
-              max|ref|, the TDT and greedy kernels bit-exact, the greedy
-              kernel also against the numpy ``schedule_tiles``; the
+              max|ref|, the TDT, greedy and group scheduling kernels
+              bit-exact; the group kernel on every group of the
+              batch-fused prepass and on every composite table of the
+              batched one, up to (784, 784), also against the per-image
+              greedy chain and the numpy ``schedule_tiles``, as is the
+              greedy kernel; #2, #3 and the group kernel timed by their
+              bare launches into preallocated outputs, their wrappers
+              apart, the group kernel beside an empty kernel's launch; the
               split-C kernels #1, #4 and #5 also at their default split
               against ``n_split = 1`` within 1e-5 * max|ref|, each call's
               grid printed) and time kernel, plain version and library
-              call (#1 also at other split counts; #3 in phase 3);
+              call (#1 also at other split counts);
 3.  serve   — drive ``DcnServingEngine`` (slots=4, tile 8, device
               scheduling) with 8 requests of 1-2 images, one replayed;
               every request must resolve with finite logits that match the
-              dense reference, every kernel must have launched, no host
-              schedule may be built, no step may retry or degrade, a
+              dense reference, every kernel must have launched (the group
+              scheduling kernel at most once per fused group and step), no
+              host schedule may be built, no step may retry or degrade, a
               host-scheduled engine must produce identical trace records,
               and every step's trace must equal the DRAM simulator; the
-              greedy kernel (#3) is timed on each TDT shape the run
-              launched it on, and charged by its launches per shape;
+              group kernel is timed on each call shape of the run and
+              charged by its launches;
 3b. faults  — the same engine with an injected fault: an image-tagged
               dispatch fault fails exactly its request while its
               step-mates resolve through the evicted retry; an untagged
               one degrades the step to per-image ``batched`` dispatch
               through the schedule kernel, whose outputs must match the
               dense reference and ``infer()``; every trace equals the
-              simulator;
+              simulator; the per-image TDT (#2) and greedy (#3) launches
+              of that step are counted, #3 timed per table shape;
 3c. modes   — ``run_graph(dispatch="per_tile")`` on one image through the
               tile kernel (logits vs dense, trace == simulator), the
               ``"pallas"`` and ``"pipeline"`` model backends vs dense, and
               ``ops.bli_pallas`` vs ``core.deform.bilinear_sample``;
 4.  profile — one more step under ``torch.profiler``: wall, device busy
-              time and idle share, and the top device activities and host
-              operators;
+              time and idle share, ``cudaLaunchKernel`` and copy calls, and
+              the top device activities and host operators;
 5.  lm-kernels — hold the flash-attention kernel (#7) against its plain
               version at Qwen3-1.7B prefill shapes, Gemma-2-27B local-layer
               shapes (D=144, window 4096, soft-cap 50) and a ragged
@@ -251,6 +259,10 @@ def profile_step(eng, batch, card: str) -> None:
           f"{tr.overlap.prepass_s * 1e3:.1f} ms of which the execute "
           f"loop waited {tr.overlap.prepass_wait_s * 1e3:.1f} ms, "
           f"schedule build {tr.overlap.schedule_s * 1e3:.1f} ms")
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.key.startswith(("cudaLaunch", "cudaMemcpy"))}
+    print(f"[profile] host runtime calls in the step: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(calls.items())))
     for name, d in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]:
         print(f"  device {sum(d) / 1e3:8.2f} ms x{len(d):<5d} {name[:90]}")
     for e in sorted(prof.key_averages(),
@@ -626,6 +638,10 @@ def profile_lm(what: str, fn, n: int, card: str, kernel: str) -> None:
           f"per call, device busy {busy_us / n / 1e3:.2f} ms (idle "
           f"{100 * (1 - busy_us / wall_us):.1f} %), of which {kernel}* "
           f"{mine / n / 1e3:.3f} ms ({100 * mine / busy_us:.1f} %)")
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.key.startswith(("cudaLaunch", "cudaMemcpy"))}
+    print(f"[profile] host runtime calls in the step: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(calls.items())))
     for name, d in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]:
         print(f"  device {sum(d) / n / 1e3:8.3f} ms/call "
               f"x{len(d) // n:<5d} {name[:80]}")
@@ -648,6 +664,7 @@ def main() -> int:
                                          offsets_to_coords,
                                          randomize_offset_conv)
     from repro_torch.core.simulator import simulate_network
+    from repro_torch.core.tiles import TileGrid, compose_tdt_chain
     from repro_torch.kernels import _build
     from repro_torch.kernels import dcn_bli as kb
     from repro_torch.kernels import dcn_fused as kf
@@ -702,6 +719,7 @@ def main() -> int:
     wrappers = {"dcn_fused_batch": kf.dcn_fused_batch,
                 "tdt_from_coords_device": ks.tdt_from_coords_device,
                 "greedy_schedule_arrays": ks.greedy_schedule_arrays,
+                "schedule_group_batch": ks.schedule_group_batch,
                 "dcn_fused_schedule": kf.dcn_fused_schedule,
                 "dcn_fused_tile": kf.dcn_fused_tile,
                 "bli_tile_matmul": kb.bli_tile_matmul,
@@ -785,20 +803,24 @@ def main() -> int:
                 plane, node, params["convs"][node.param_idx], None)
 
     # -- phase 2: kernels against their plain versions -----------------------
-    captured = {k: [] for k in ("fused", "tdt", "greedy", "sched",
+    captured = {k: [] for k in ("fused", "group", "tdt", "greedy", "sched",
                                 "plane_tile", "bli")}
     with contextlib.ExitStack() as stack:
         stack.enter_context(recording(fx, "dcn_fused_batch",
                                       captured["fused"]))
-        stack.enter_context(recording(fx, "tdt_from_coords_device",
-                                      captured["tdt"]))
-        stack.enter_context(recording(sched_mod, "greedy_schedule_arrays",
-                                      captured["greedy"]))
+        stack.enter_context(recording(fx, "schedule_group_batch",
+                                      captured["group"]))
         xb = torch.as_tensor(images[:N_BATCH], device=dev)
         fx.run_graph(params["convs"], graph, xb,
                      config=fx.GraphConfig(tile=8, schedule_backend="device"),
                      schedule_cache=ScheduleCache())
-    with recording(fx, "dcn_fused_schedule", captured["sched"]):
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(recording(fx, "dcn_fused_schedule",
+                                      captured["sched"]))
+        stack.enter_context(recording(fx, "tdt_from_coords_device",
+                                      captured["tdt"]))
+        stack.enter_context(recording(sched_mod, "greedy_schedule_arrays",
+                                      captured["greedy"]))
         fx.run_graph(params["convs"], graph, xb[:1],
                      config=fx.GraphConfig(tile=8, dispatch="batched",
                                            schedule_backend="device"),
@@ -897,8 +919,9 @@ def main() -> int:
         shape=f"G={g_rows} P={p_pix} KK={kk} C={c_in} O={c_out} "
               f"k_pad={dep.shape[1]} live_rows={live}")
 
-    # (2) TDT, every captured DCN layer image; timed on the first by its
-    # own launch into a preallocated table (no wrapper host work).
+    # (2) TDT, every DCN layer image of the batched prepass; timed on the
+    # first by its bare launch into a preallocated table, and through its
+    # wrapper.
     for coords, gin, gout in (c for c, _ in captured["tdt"]):
         t_k = ks.tdt_from_coords_device(coords, gin, gout)
         t_p = ks.tdt_plain(coords, gin, gout)
@@ -908,50 +931,121 @@ def main() -> int:
     coords, gin, gout = captured["tdt"][0][0]
     tdt_out = torch.empty((gout.num_tiles, gin.num_tiles), dtype=torch.bool,
                           device=dev)
-    h_, w_, kk_, _ = coords.shape
-    tdt_args = (coords.data_ptr(), tdt_out.data_ptr(), h_, w_, kk_, gout.th,
-                gout.tw, gout.cols, gout.num_tiles, gin.h, gin.w, gin.th,
-                gin.tw, gin.cols, gin.num_tiles,
-                torch.cuda.current_stream().cuda_stream)
-
-    def tdt_launch():
-        _build.check(lib.tdt_from_coords_launch(*tdt_args), "tdt launch")
-
     kernels["tdt_from_coords_device"] = dict(
         route="cuda", source="src/repro_torch/csrc/dcn_schedule.cu",
         replaces="src/repro/kernels/dcn_schedule.py:62", max_abs_err=0.0,
-        ms=cuda_time_ms(tdt_launch, 200),
+        ms=cuda_time_ms(ks.plan_tdt(coords, gin, gout, tdt_out).launch, 200),
+        wrapper_ms=cuda_time_ms(
+            lambda: ks.tdt_from_coords_device(coords, gin, gout), 200),
         plain_ms=cuda_time_ms(lambda: ks.tdt_plain(coords, gin, gout), 20),
         library_ms=None, ops=dict(fp32=0),
         bytes=coords.numel() * 4 + gout.num_tiles * gin.num_tiles,
         shape=f"coords {tuple(coords.shape)} -> "
-              f"({gout.num_tiles}, {gin.num_tiles}), preallocated output")
+              f"({gout.num_tiles}, {gin.num_tiles}), bare launch into a "
+              f"preallocated table")
 
-    # (3) greedy Algorithm 1: every captured table against the plain
-    # version and the numpy host loop; timed per table shape on the serving
-    # path (phase 3).
+    def hold_schedule(what, im, comp, m, k_pad):
+        """One image's schedule from the group kernel against the
+        per-image chain (greedy_schedule_arrays, then
+        dispatch_arrays_from_klass) and the numpy schedule_tiles on its
+        composite ``comp``."""
+        oid_k, klass_k, ovl_k = ks.greedy_schedule_arrays(
+            torch.as_tensor(comp, device=dev), m)
+        chain = ks.dispatch_arrays_from_klass(oid_k, klass_k, k_pad) \
+            + (ovl_k.reshape(-1),)
+        if not all(torch.equal(u, v) for u, v in zip(
+                (im.oid, im.dep_tbl, im.dep_cnt, im.overlap), chain)):
+            fail(f"{what}: the group kernel differs from the per-image "
+                 f"greedy_schedule_arrays chain")
+        host_s = sched_mod.schedule_tiles(comp, m)
+        dev_s = sched_mod.DeviceSchedule(im.oid, im.dep_tbl, im.dep_cnt,
+                                         im.overlap).to_host()
+        if (dev_s.oid, dev_s.iid, dev_s.reuse_overlap) != \
+                (host_s.oid, host_s.iid, host_s.reuse_overlap):
+            fail(f"{what}: the group kernel differs from schedule_tiles")
+
+    def hold_group(what, a, k):
+        """One schedule_group_batch call against its plain version, every
+        output of every listed image bit-exact, and each image's schedule
+        against the per-image chain and schedule_tiles."""
+        got = ks.schedule_group_batch(*a, **k)
+        want = ks.schedule_group_batch_plain(*a, **k)
+        for j in range(len(got.images)):
+            im = got.image(j)
+            if not all(torch.equal(u, v) for u, v in zip(
+                    im.tensors(), want.image(j).tensors())):
+                fail(f"{what}: schedule_group_batch differs from its plain "
+                     f"version (image {got.images[j]})")
+            comp = compose_tdt_chain([b.cpu().numpy() for b in im.tdt])
+            hold_schedule(f"{what} image {got.images[j]}", im, comp, a[3],
+                          a[4])
+        return got
+
+    # (3) greedy Algorithm 1 over every composite table of the batched
+    # prepass, (784, 784) included: against the plain version and the
+    # numpy host loop, and through the group kernel as a given table.
     for bt, m in (c for c, _ in captured["greedy"]):
         outs_k = ks.greedy_schedule_arrays(bt, m)
         outs_p = ks.greedy_plain(bt, m)
         if not all(torch.equal(u, v) for u, v in zip(outs_k, outs_p)):
             fail(f"greedy kernel differs from its plain version on "
                  f"{tuple(bt.shape)}")
-        oid, dep_tbl, dcnt = ks.dispatch_arrays_from_klass(
-            outs_k[0], outs_k[1], sched_mod.pow2_pad(bt.shape[1]))
-        dev_s = sched_mod.DeviceSchedule(oid, dep_tbl, dcnt,
-                                         outs_k[2].reshape(-1)).to_host()
-        host_s = sched_mod.schedule_tiles(bt.cpu().numpy(), m)
-        if (dev_s.oid, dev_s.iid, dev_s.reuse_overlap) != \
-                (host_s.oid, host_s.iid, host_s.reuse_overlap):
-            fail(f"greedy kernel differs from schedule_tiles on "
-                 f"{tuple(bt.shape)}")
+        t = bt.shape[0]
+        hold_group(f"schedule_group_batch on the table {tuple(bt.shape)}",
+                   ([bt[None].contiguous()], [0], TileGrid(t, 1, 1, 1), m,
+                    sched_mod.pow2_pad(t)), {})
     held3 = sorted({tuple(c[0].shape) for c, _ in captured["greedy"]})
-    print(f"[kernels] greedy_schedule_arrays held bit-exact on the TDT "
-          f"shapes {held3}")
+    print(f"[kernels] greedy_schedule_arrays and schedule_group_batch held "
+          f"bit-exact (plain version, per-image chain, schedule_tiles) on "
+          f"the TDT shapes {held3}")
     kernels["greedy_schedule_arrays"] = dict(
         route="cuda", source="src/repro_torch/csrc/dcn_schedule.cu",
         replaces="src/repro/kernels/dcn_schedule.py:142", max_abs_err=0.0,
         library_ms=None, ops=dict(fp32=0))
+
+    # (2 + 3) the group kernel on every group of the 4-image batch-fused
+    # prepass; timed at the serving shape (4 images, 14x14 -> (4, 4)).
+    shapes = set()
+    serving = None
+    for a, k in captured["group"]:
+        layers, imgs, grid_g = a[0], a[1], a[2]
+        desc = (len(imgs), grid_g.num_tiles,
+                tuple("conv" if isinstance(x, int) else tuple(x.shape[3:4])
+                      for x in layers))
+        shapes.add(desc)
+        hold_group(f"schedule_group_batch {desc}", a, k)
+        if serving is None and len(imgs) == N_BATCH and any(
+                torch.is_tensor(x) for x in layers):
+            serving = (a, k)
+    if serving is None:
+        fail("the batch-fused prepass made no 4-image DCN group call")
+    print(f"[kernels] schedule_group_batch held bit-exact on all "
+          f"{len(captured['group'])} group calls of the batch-fused "
+          f"prepass (images, tiles, layers): {sorted(shapes, key=str)}")
+    a_g, k_g = serving
+    out_g = ks.schedule_group_batch(*a_g, **k_g)
+    call_g = ks.plan_group(a_g[0], out_g, a_g[2], a_g[3])
+    coords_g = [x for x in a_g[0] if torch.is_tensor(x)]
+    kernels["schedule_group_batch"] = dict(
+        route="cuda", source="src/repro_torch/csrc/dcn_schedule.cu",
+        replaces="src/repro/kernels/dcn_schedule.py:62 + :142 (one launch)",
+        max_abs_err=0.0,
+        ms=cuda_time_ms(call_g.launch, 200),
+        wrapper_ms=cuda_time_ms(lambda: ks.schedule_group_batch(*a_g, **k_g),
+                                200),
+        launch_floor_ms=cuda_time_ms(
+            lambda: _build.check(lib.empty_launch(
+                torch.cuda.current_stream().cuda_stream), "empty launch"),
+            200),
+        plain_ms=cuda_time_ms(
+            lambda: ks.schedule_group_batch_plain(*a_g, **k_g), 3),
+        library_ms=None, ops=dict(fp32=0),
+        bytes=sum(x[0].numel() * 4 * len(a_g[1]) for x in coords_g)
+        + out_g.buf.numel() * 4,
+        shape=f"{len(a_g[1])} images, coords "
+              f"{[tuple(x.shape[1:]) for x in coords_g]} -> "
+              f"({a_g[2].num_tiles}, {a_g[2].num_tiles}), m={a_g[3]}, bare "
+              f"launch into preallocated outputs")
 
     # (4) one image's schedule, first DCN group of the batched prepass.
     a4, k4 = captured["sched"][0]
@@ -1011,9 +1105,10 @@ def main() -> int:
         ops=dict(fp32=8 * live6 * c6),
         bytes=nbytes_of(a6, n6 * p6 * c6),
         shape=f"S={x6.shape[1]} P={p6} (live {live6}) C={c6}")
-    def greedy_record(calls):
-        """#3 on the serving path: each distinct (table shape, m) timed
-        once, its launches counted; the kernel's line carries the
+    def greedy_record(calls, where):
+        """#3 on its path: each distinct (table shape, m) timed once by its
+        bare launch into preallocated outputs (and through its wrapper),
+        its launches counted; the kernel's line carries the
         launch-weighted mean per launch, and the per-shape times and their
         sum over the launches (what the path spends in #3)."""
         shapes = {}
@@ -1022,10 +1117,14 @@ def main() -> int:
             shapes.setdefault(key, [bt, m, 0])[2] += 1
         rows = []
         for (shape, m), (bt, _, n) in sorted(shapes.items()):
+            outs = (torch.empty((shape[0], 1), dtype=torch.int32, device=dev),
+                    torch.empty(shape, dtype=torch.int32, device=dev),
+                    torch.empty((shape[0], 1), dtype=torch.int32, device=dev))
             rows.append(dict(
                 shape=list(shape), m=m, launches=n,
-                ms=cuda_time_ms(lambda: ks.greedy_schedule_arrays(bt, m),
-                                10),
+                ms=cuda_time_ms(ks.plan_greedy(bt, m, *outs).launch, 10),
+                wrapper_ms=cuda_time_ms(
+                    lambda: ks.greedy_schedule_arrays(bt, m), 10),
                 plain_ms=cuda_time_ms(lambda: ks.greedy_plain(bt, m), 1,
                                       warmup=1),
                 bytes=shape[0] * shape[1] * (1 + 4) + 8 * shape[0]))
@@ -1035,25 +1134,62 @@ def main() -> int:
         def mean(key):
             return sum(r["launches"] * r[key] for r in rows) / n
         kernels["greedy_schedule_arrays"].update(
-            ms=mean("ms"), plain_ms=mean("plain_ms"),
-            bytes=int(mean("bytes")),
+            ms=mean("ms"), wrapper_ms=mean("wrapper_ms"),
+            plain_ms=mean("plain_ms"), bytes=int(mean("bytes")),
             charged_ms=sum(r["launches"] * r["ms"] for r in rows),
             by_shape=rows,
-            shape=f"{len(rows)} TDT shapes on the serving path, "
-                  f"launch-weighted mean")
+            shape=f"{len(rows)} TDT shapes on {where}, launch-weighted mean "
+                  f"of bare launches")
         for r in rows:
-            print(f"[serve] greedy_schedule_arrays at TDT {tuple(r['shape'])}"
-                  f", m={r['m']}: {r['launches']} launches x "
-                  f"{r['ms']:.4f} ms (bound {r['bound_ms']:.6f} ms by "
-                  f"bytes, plain {r['plain_ms']:.2f} ms)")
-        print(f"[serve] greedy_schedule_arrays: {n} launches, "
+            print(f"[{where}] greedy_schedule_arrays at TDT "
+                  f"{tuple(r['shape'])}, m={r['m']}: {r['launches']} launches "
+                  f"x {r['ms']:.4f} ms (wrapper {r['wrapper_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.6f} ms by bytes, plain "
+                  f"{r['plain_ms']:.2f} ms)")
+        print(f"[{where}] greedy_schedule_arrays: {n} launches, "
               f"{kernels['greedy_schedule_arrays']['charged_ms']:.3f} ms in "
               f"all")
 
+    def group_record(calls, steps, n_groups):
+        """The group kernel on the serving path: each distinct call shape
+        (listed images, tiles, layers, m) timed once by its bare launch,
+        charged by its calls; at most one launch per group and step."""
+        n = launches["schedule_group_batch"]
+        if n != len(calls) or n > n_groups * steps:
+            fail(f"schedule_group_batch: {n} launches ({len(calls)} calls) "
+                 f"for {n_groups} groups x {steps} steps")
+        shapes = {}
+        for a, k in calls:
+            key = (len(a[1]), a[2].num_tiles, a[3],
+                   tuple("conv" if isinstance(x, int) else "dcn"
+                         for x in a[0]))
+            shapes.setdefault(key, [a, k, 0])[2] += 1
+        rows = []
+        for key, (a, k, cnt) in sorted(shapes.items(), key=str):
+            out = ks.schedule_group_batch(*a, **k)
+            rows.append(dict(images=key[0], tiles=key[1], m=key[2],
+                             layers=list(key[3]), calls=cnt,
+                             ms=cuda_time_ms(ks.plan_group(
+                                 a[0], out, a[2], a[3]).launch, 50)))
+        charged = sum(r["calls"] * r["ms"] for r in rows)
+        kernels["schedule_group_batch"].update(by_shape=rows,
+                                               charged_ms=charged)
+        for r in rows:
+            print(f"[serve] schedule_group_batch, {r['images']} images x "
+                  f"({r['tiles']}, {r['tiles']}) tiles, m={r['m']}, layers "
+                  f"{r['layers']}: {r['calls']} launches x {r['ms']:.4f} ms")
+        kd = kernels["schedule_group_batch"]
+        print(f"[serve] {card}: schedule_group_batch: {n} launches in "
+              f"{steps} steps ({n_groups} fused groups), {charged:.4f} ms "
+              f"charged; {kd['ms']:.4f} ms a call at the serving shape "
+              f"({kd['shape']}), wrapper {kd['wrapper_ms']:.4f} ms, launch "
+              f"floor {kd['launch_floor_ms']:.4f} ms")
+
     print(f"[kernels] all {sum(len(v) for v in captured.values())} captured "
           f"calls agree with their plain versions (fused kernels within "
-          f"{FUSED_RTOL}*max|ref|, BLI within {BLI_RTOL}*max|ref|, TDT and "
-          f"greedy bit-exact, greedy also == numpy schedule_tiles)")
+          f"{FUSED_RTOL}*max|ref|, BLI within {BLI_RTOL}*max|ref|, TDT, "
+          f"greedy and group kernel bit-exact, greedy and group also == "
+          f"numpy schedule_tiles)")
     print(f"[kernel] {card}: dcn_fused_tile on the whole plane "
           f"({plane_tile['shape']}): {plane_tile['ms']:.4f} ms (bound "
           f"{plane_tile['bound_ms']:.4f} ms by {plane_tile['bound_by']} at "
@@ -1093,15 +1229,15 @@ def main() -> int:
 
     eng = make_engine("device")
     builds0 = eng.host_schedule_builds
-    served_greedy = []
+    served_groups = []
     reset_counts()
-    with recording(sched_mod, "greedy_schedule_arrays", served_greedy):
+    with recording(fx, "schedule_group_batch", served_groups):
         reqs, traces, wall = serve(eng)
-    read_counts("dcn_fused_batch", "tdt_from_coords_device",
-                "greedy_schedule_arrays")
-    greedy_record(served_greedy)
+    read_counts("dcn_fused_batch", "schedule_group_batch")
     builds = eng.host_schedule_builds - builds0
     steps = len(traces)
+    group_record(served_groups, steps,
+                 len({g.group for t in traces for g in t.groups}))
     no_ladder("serve", eng)
     if builds != 0:
         fail(f"{builds} host schedule builds on the device-scheduled path")
@@ -1201,10 +1337,14 @@ def main() -> int:
     # batched dispatch through the schedule kernel.
     deg_ids = [4, 5, 6, 7]
     reset_counts()
-    e_u, inj_u, rq_u, wall_u = fault_run(
-        deg_ids, kinds=("dispatch",), rate=1.0, max_fires=1,
-        tag_image=False, seed=7)
-    deg_counts = read_counts("dcn_fused_schedule")
+    deg_greedy = []
+    with recording(sched_mod, "greedy_schedule_arrays", deg_greedy):
+        e_u, inj_u, rq_u, wall_u = fault_run(
+            deg_ids, kinds=("dispatch",), rate=1.0, max_fires=1,
+            tag_image=False, seed=7)
+    deg_counts = read_counts("dcn_fused_schedule", "tdt_from_coords_device",
+                             "greedy_schedule_arrays")
+    greedy_record(deg_greedy, "faults")
     st = e_u.stats
     if (inj_u.fired["dispatch"] != 1 or any(r.failed for r in rq_u)
             or st["degraded_steps"] < 1 or st["step_retries"] != 1):
@@ -1225,7 +1365,10 @@ def main() -> int:
           f"per-image batched dispatch ({st['degraded_steps']} degraded, "
           f"{st['step_retries']} retried) in {wall_u * 1e3:.1f} ms; "
           f"dcn_fused_schedule launched {deg_counts['dcn_fused_schedule']} "
-          f"times; {len(rq_u)} requests served, max rel. deviation from "
+          f"times, tdt_from_coords_device "
+          f"{deg_counts['tdt_from_coords_device']}, greedy_schedule_arrays "
+          f"{deg_counts['greedy_schedule_arrays']}; {len(rq_u)} requests "
+          f"served, max rel. deviation from "
           f"dense and infer() {worst_u:.3e}; traces == simulator")
 
     # -- phase 3c: per_tile dispatch, the pallas/pipeline backends, BLI ------

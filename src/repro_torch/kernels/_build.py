@@ -36,9 +36,11 @@ _SIGNATURES = {
     "dcn_fused_schedule_launch": [_P] * 9 + [_I] * 10 + [_P],
     "dcn_fused_tile_launch": [_P] * 7 + [_I] * 8 + [_P],
     "bli_gather_launch": [_P] * 4 + [_I] * 4 + [_P],
-    "tdt_from_coords_launch": [_P, _P] + [_I] * 13 + [_P],
-    "greedy_schedule_launch": [_P] * 5 + [_I] * 4 + [_P],
-    "greedy_schedule_smem_bytes": [_I, _I, _I],
+    "schedule_group_launch": [_P, _P],
+    "schedule_group_smem_bytes": [_I] * 4,
+    "schedule_group_scratch_words": [_I] * 3,
+    "schedule_args_size": [],
+    "empty_launch": [_P],
     "flash_attention_launch": [_P] * 4 + [_I] * 9 + [_F, _F, _P],
     "flash_decode_launch": [_P] * 7 + [_I] * 8 + [_F, _F, _P],
 }

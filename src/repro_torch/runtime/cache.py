@@ -31,8 +31,9 @@ def coords_digest(coords: Any, grid: TileGrid) -> str:
     determined by these), so the digest is an exact schedule key. The
     digest strings equal the JAX package's on the same coordinates.
 
-    A tensor on the card is copied to the host here: one sync per image
-    and DCN layer, paid even by the device scheduling backend.
+    A tensor on the card is copied to the host here, a sync; the
+    batch-fused prepass passes one host copy of each DCN layer's whole
+    batch instead.
     """
     c = (coords.detach().cpu().numpy() if hasattr(coords, "detach")
          else np.asarray(coords))
@@ -113,6 +114,12 @@ class ScheduleCache:
         value = build()
         self.put(key, value)
         return value, False
+
+    def note_repeat(self) -> None:
+        """Count a lookup served by the value an earlier miss of the same
+        batch is building, as ``get_or_build`` would count its hit."""
+        with self._lock:
+            self.hits += 1
 
     def note_batch_assembly(self, image_hits: int,
                             images: int = 0) -> None:

@@ -15,8 +15,10 @@ Three dispatch modes (``GraphConfig.dispatch``):
     are built in dense dispatch form (cached by quantized coords), and
     ONE dispatch per layer segment runs the whole batch: the batch-fused
     BLI(+)conv kernel for DCN layers, one batched dense conv for standard
-    layers. With ``schedule_backend="device"`` the TDT and Algorithm 1
-    run as CUDA kernels and their arrays feed the dispatch directly.
+    layers. With ``schedule_backend="device"`` the TDTs, the composite
+    and Algorithm 1 of all of a group's cache misses run as ONE kernel
+    launch (``schedule_group_batch``) whose arrays feed the dispatch
+    directly.
     Segment s+1's prepass runs on a staging thread while segment s
     executes.
   * ``"batched"`` — per image: a host prepass (dense stage-1 chain, TDTs,
@@ -47,15 +49,15 @@ import torch.nn.functional as F
 from repro_torch.core.deform import conv2d, deformable_conv2d, \
     offsets_to_coords
 from repro_torch.core.scheduler import (DeviceSchedule, TileSchedule,
-                                        pow2_pad, schedule_arrays_device,
-                                        schedule_tiles, sequential_schedule)
+                                        pow2_pad, schedule_tiles,
+                                        sequential_schedule)
 from repro_torch.core.tiles import (TileGrid, compose_tdt_chain,
-                                    compose_tdt_chain_device,
                                     tdt_from_coords, tdt_standard_conv)
 from repro_torch.kernels.dcn_fused import (dcn_fused_batch,
                                            dcn_fused_schedule,
                                            dcn_fused_tile)
-from repro_torch.kernels.dcn_schedule import (tdt_dispatch_arrays,
+from repro_torch.kernels.dcn_schedule import (schedule_group_batch,
+                                              tdt_dispatch_arrays,
                                               tdt_from_coords_device)
 from repro_torch.obs import Tracer, get_tracer, use_tracer
 from repro_torch.runtime.cache import (ScheduleCache, chain_digest,
@@ -682,30 +684,22 @@ def _group_batch_prepass(
         if needs_plane[j]:
             plane = _advance_dense_batch(plane, node, p, max_displacement)
 
-    def build_bundle(i: int) -> _ImageGroupSched:
+    def host_bundle(i: int) -> _ImageGroupSched:
         b_layers: list = []
         with tr.span("prepass.tdt", backend=cfg.schedule_backend, image=i):
             for j, node in enumerate(group.nodes):
                 if coords_layers[j] is None:
-                    B = tdt_standard_conv(grid, grid, node.kernel_size)
-                    b_layers.append(torch.as_tensor(B, device=dev)
-                                    if device else B)
-                elif device:
-                    b_layers.append(tdt_from_coords_device(
-                        coords_layers[j][i], grid, grid))
+                    b_layers.append(tdt_standard_conv(grid, grid,
+                                                      node.kernel_size))
                 else:
                     b_layers.append(tdt_from_coords(
                         coords_layers[j][i].cpu(), grid, grid).numpy())
-        if device:
-            comp = compose_tdt_chain_device(b_layers)
-            ds = schedule_arrays_device(comp, m, k_pad=k_pad)
+        comp = compose_tdt_chain(b_layers)
+        if cfg.schedule == "alg1":
+            sched = schedule_tiles(comp, m)
         else:
-            comp = compose_tdt_chain(b_layers)
-            if cfg.schedule == "alg1":
-                sched = schedule_tiles(comp, m)
-            else:
-                sched = sequential_schedule(comp)
-            ds = DeviceSchedule.from_host(sched, t_out)
+            sched = sequential_schedule(comp)
+        ds = DeviceSchedule.from_host(sched, t_out)
         exec_scheds: list = []
         for j, node in enumerate(group.nodes):
             if not isinstance(node, DeformNode):
@@ -727,28 +721,72 @@ def _group_batch_prepass(
                     ar, dep_j, cnt_j, torch.zeros_like(ar)))
         return _ImageGroupSched(b_layers, exec_scheds, ds)
 
-    bundles, hits = [], []
+    def device_bundles(images: list[int]) -> list[_ImageGroupSched]:
+        """ONE scheduling launch for every listed image of the group."""
+        with tr.span("prepass.tdt", backend=cfg.schedule_backend,
+                     images=len(images)):
+            out = schedule_group_batch(
+                [node.kernel_size if c is None else c
+                 for node, c in zip(group.nodes, coords_layers)],
+                images, grid, m, k_pad, device=dev)
+        bundles = []
+        for k in range(len(images)):
+            im = out.image(k, own=len(images) > 1)
+            bundles.append(_ImageGroupSched(
+                im.tdt,
+                [DeviceSchedule(*e) if e is not None else None
+                 for e in im.exec],
+                DeviceSchedule(im.oid, im.dep_tbl, im.dep_cnt, im.overlap)))
+        return bundles
+
+    # Cache keys from one host copy of each DCN layer's coordinates.
+    keys: list = [None] * n
+    if cache is not None:
+        host = [None if c is None else c.cpu().numpy()
+                for c in coords_layers]
+        digests = [[conv_digest(node.kernel_size, grid) if h is None
+                    else coords_digest(h[i], grid)
+                    for node, h in zip(group.nodes, host)]
+                   for i in range(n)]
+
+    bundles: list = [None] * n
+    hits: list = [None] * n
     with tr.timed("prepass.schedule", backend=cfg.schedule_backend,
                   batch=n) as ssp:
+        # Device backend: misses are resolved first and built together;
+        # a repeat of a miss counts as the hit get_or_build would see.
+        first: dict = {}                  # key -> the image building it
         for i in range(n):
             if cfg.faults is not None:
                 cfg.faults.check("prepass", image=i)
             if cache is None:
-                bundles.append(build_bundle(i))
-                hits.append(None)
-                continue
-            digests = []
-            for j, node in enumerate(group.nodes):
-                if coords_layers[j] is None:
-                    digests.append(conv_digest(node.kernel_size, grid))
+                if device:
+                    first[i] = i
                 else:
-                    digests.append(coords_digest(coords_layers[j][i], grid))
-            key = schedule_cache_key(chain_digest(digests, grid), grid, m,
-                                     cfg, "dense")
-            bundle, hit = cache.get_or_build(key,
-                                             lambda i=i: build_bundle(i))
-            bundles.append(bundle)
-            hits.append(hit)
+                    bundles[i] = host_bundle(i)
+                continue
+            keys[i] = schedule_cache_key(chain_digest(digests[i], grid),
+                                         grid, m, cfg, "dense")
+            if not device:
+                bundles[i], hits[i] = cache.get_or_build(
+                    keys[i], lambda i=i: host_bundle(i))
+            elif keys[i] in first:
+                cache.note_repeat()
+                hits[i] = True
+            else:
+                bundles[i] = cache.get(keys[i])
+                hits[i] = bundles[i] is not None
+                if not hits[i]:
+                    first[keys[i]] = i
+        if first:
+            for (key, i), bundle in zip(first.items(),
+                                        device_bundles(list(first.values()))):
+                bundles[i] = bundle
+                if cache is not None:
+                    cache.put(key, bundle)
+            for i in range(n):
+                if bundles[i] is None:
+                    bundles[i] = bundles[first[keys[i]]]
         ssp.set(hits=sum(bool(h) for h in hits))
     schedule_s = ssp.dur
     if cache is not None:

@@ -191,6 +191,7 @@ class TestOps:
     ("per_tile", "host", 4, None),
     ("per_tile", "device", (3, 5), None),
     ("per_tile", "host", 4, 6),     # a 6-tile buffer forces recomputes
+    ("batch_fused", "device", 4, None),    # one schedule launch a group
 ])
 def test_executor_matches_jax(net_case, dispatch, backend, tile, inter):
     convs, _, graph, x = net_case

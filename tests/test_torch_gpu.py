@@ -17,6 +17,8 @@ from repro_torch.kernels.dcn_fused import (dcn_fused_batch,
                                            dcn_fused_batch_plain)
 from repro_torch.kernels.dcn_schedule import (greedy_plain,
                                               greedy_schedule_arrays,
+                                              schedule_group_batch,
+                                              schedule_group_batch_plain,
                                               tdt_from_coords_device,
                                               tdt_plain)
 
@@ -61,6 +63,95 @@ def test_greedy_kernel(which, m):
     got = greedy_schedule_arrays(bt.cuda(), m)
     for g_, w_ in zip(got, greedy_plain(bt, m)):
         assert torch.equal(g_.cpu(), w_)
+
+
+@pytest.mark.parametrize("m", [1, 784])
+def test_greedy_kernel_scratch_path(m):
+    """The 784-tile table with its bit rows in global scratch, and in
+    shared memory, against the plain version; a rerun is bitwise equal."""
+    bt = torch.as_tensor(_tables()[5])
+    want = greedy_plain(bt, m)
+    for in_smem in (False, True, False):
+        got = greedy_schedule_arrays(bt.cuda(), m, tables_in_smem=in_smem)
+        for g_, w_ in zip(got, want):
+            assert torch.equal(g_.cpu(), w_)
+
+
+def test_tdt_and_greedy_rerun_bitwise():
+    co = _coords(3, 56, 56).cuda()
+    g = TileGrid(56, 56, 8, 8)
+    a, b = tdt_from_coords_device(co, g, g), tdt_from_coords_device(co, g, g)
+    assert torch.equal(a, b)
+    x, y = greedy_schedule_arrays(a, 5), greedy_schedule_arrays(a, 5)
+    assert all(torch.equal(u, v) for u, v in zip(x, y))
+
+
+def _group_case(name):
+    """(layers on the CPU, grid, images, m, forced table placement):
+    the warp body (<= 32 tiles) and the block body at (49, 49),
+    (196, 196) and (784, 784), the last also with global scratch."""
+    plane, tile, specs, n, images, m, in_smem = {
+        "serving shape": (14, 8, ["dcn"], 4, [0, 1, 2, 3], 4, None),
+        "ragged chain, skips": (13, 4, [3, "dcn", "dcn"], 3, [2, 0], 3, None),
+        "many images": (14, 8, [3, "dcn"], 280, list(range(280)), 2, None),
+        "49 tiles": (56, 8, ["dcn"], 2, [0, 1], 4, None),
+        "49 tiles, padded suffix": (56, 8, ["table"], 2, [1], 7, None),
+        "196 tiles chain": (112, 8, [3, "dcn", 3], 2, [1, 0], 16, None),
+        "196 tiles scratch": (112, 8, ["dcn", "dcn"], 1, [0], 9, False),
+        "784 tiles": (224, 8, [3, "dcn"], 1, [0], 64, None),
+        "784 tiles scratch": (224, 8, [3, "dcn"], 1, [0], 64, False),
+    }[name]
+    rng = np.random.default_rng(len(name))
+    grid = TileGrid(plane, plane, tile, tile)
+    t = grid.num_tiles
+    layers = []
+    for spec in specs:
+        if spec == "dcn":
+            layers.append(torch.stack([_coords(int(rng.integers(1 << 30)),
+                                               plane, plane)
+                                       for _ in range(n)]))
+        elif spec == "table":
+            b = rng.random((n, t, t)) < 0.1
+            b[:, 1::4] = False
+            layers.append(torch.as_tensor(b))
+        else:
+            layers.append(spec)
+    return layers, grid, images, m, in_smem
+
+
+GROUP_CASES = ["serving shape", "ragged chain, skips", "many images",
+               "49 tiles", "49 tiles, padded suffix", "196 tiles chain",
+               "196 tiles scratch", "784 tiles", "784 tiles scratch"]
+
+
+@pytest.mark.parametrize("name", GROUP_CASES)
+def test_group_kernel(name):
+    """``schedule_group_batch`` against its plain version, every output of
+    every listed image bit-exact; a rerun is bitwise equal."""
+    layers, grid, images, m, in_smem = _group_case(name)
+    k_pad = 1 << (grid.num_tiles - 1).bit_length()
+    want = schedule_group_batch_plain(layers, images, grid, m, k_pad)
+    cuda = [lay.cuda() if torch.is_tensor(lay) else lay for lay in layers]
+    runs = [schedule_group_batch(cuda, images, grid, m, k_pad,
+                                 device="cuda", tables_in_smem=in_smem)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for k in range(len(images)):
+        w = want.image(k).tensors()
+        for got in runs:
+            g = got.image(k, own=True).tensors()
+            assert len(g) == len(w)
+            for a, b in zip(g, w):
+                assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+def test_group_kernel_counts_one_launch():
+    layers, grid, images, m, _ = _group_case("ragged chain, skips")
+    cuda = [lay.cuda() if torch.is_tensor(lay) else lay for lay in layers]
+    n0 = schedule_group_batch.launches
+    schedule_group_batch(cuda, images, grid, m, 16)
+    schedule_group_batch(cuda, [], grid, m, 16)        # nothing listed
+    assert schedule_group_batch.launches == n0 + 1
 
 
 def _fused_operands(seed, n, t, tp, c, o, k_pad, kk=9):
