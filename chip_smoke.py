@@ -14,7 +14,8 @@ Phases, each fatal on failure:
               ``ops.bli_pallas``), then hold each CUDA kernel against its
               plain torch version on those operands (the fused kernels
               within 1e-4 * max|ref|, the BLI kernel within 1e-6 *
-              max|ref|, the TDT, greedy and group scheduling kernels
+              max|ref| in float32 and 2**-7 * max|ref| in bfloat16, the
+              TDT, greedy and group scheduling kernels
               bit-exact; the group kernel on every group of the
               batch-fused prepass and on every composite table of the
               batched one, up to (784, 784), also against the per-image
@@ -25,7 +26,12 @@ Phases, each fatal on failure:
               split-C kernels #1, #4 and #5 also at their default split
               against ``n_split = 1`` within 1e-5 * max|ref|, each call's
               grid printed) and time kernel, plain version and library
-              call (#1 also at other split counts);
+              call (#1 also at other split counts; the BLI kernel #6 at
+              the serving shape and at a serving step's four images, each
+              in float32 and bfloat16, and on a 56x56x256 plane, each
+              beside an empty kernel's launch, a zero_ of its output, and
+              its device time from torch.profiler with a cold and a warm
+              L2);
 3.  serve   — drive ``DcnServingEngine`` (slots=4, tile 8, device
               scheduling) with 8 requests of 1-2 images, one replayed;
               every request must resolve with finite logits that match the
@@ -105,6 +111,7 @@ PEAKS = {"PCIe": (51e12, 378e12, 2.0e12), "NVL": (60e12, 417.5e12, 3.9e12),
 PEAK_SXM = (67e12, 495e12, 3.35e12)
 FUSED_RTOL = 1e-4     # kernel vs plain: float32 sums in another order
 BLI_RTOL = 1e-6       # BLI kernel vs plain / reference: four-term sums
+BLI_BF16_RTOL = 2**-7  # bf16 #6 vs plain: one bf16 ulp at the largest output
 LOGIT_RTOL = 1e-3     # served vs dense: 16 layers of reordered sums
 ATTN_RTOL = 1e-4      # #7 / #8 vs plain: float32 sums in another order
 SPLIT_RTOL = 1e-5     # #1 / #4 / #5 / #8 at two split counts: exact combines
@@ -149,11 +156,13 @@ def card_line() -> str:
 _FLUSH = []
 
 
-def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
+def cuda_time_ms(fn, iters: int, warmup: int = 2, cold: bool = True
+                 ) -> float:
     """Mean device time of ``fn`` over ``iters`` calls, each timed by CUDA
     events after a write of 128 MB that evicts the 50 MB L2 cache — the
-    serving path finds its operands cold — and a device sleep that lets
-    the host enqueue the window before the device reaches it."""
+    serving path finds its operands cold — (skipped when not ``cold``) and
+    a device sleep that lets the host enqueue the window before the device
+    reaches it."""
     import torch
     if not _FLUSH:
         _FLUSH.append(torch.empty(32 << 20, dtype=torch.float32,
@@ -162,7 +171,8 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
         fn()
     events = []
     for _ in range(iters):
-        _FLUSH[0].zero_()
+        if cold:
+            _FLUSH[0].zero_()
         torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -742,6 +752,10 @@ def main() -> int:
     # -- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
     lib = _build.load()
+
+    def empty_launch():
+        _build.check(lib.empty_launch(
+            torch.cuda.current_stream().cuda_stream), "empty launch")
     print(f"[build] kernels built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
     for line in _build.build_log.splitlines():
@@ -782,25 +796,31 @@ def main() -> int:
                 fail(f"{what}: trace DRAM {tr.total_dram_bytes} != "
                      f"simulator {sim.total_dram_bytes}")
 
-    # The first DCN layer's input plane (image 0, dense chain) and params.
-    plane = torch.as_tensor(images[:1], device=dev)
-    for node in graph.nodes:
-        if isinstance(node, DeformNode):
-            p_dcn = params["convs"][node.param_idx]
-            off = conv2d(plane, p_dcn.w_off, p_dcn.b_off)
-            dcn_coords = offsets_to_coords(off, 3, cfg.variant)
-            dcn_in = plane.contiguous()
-            print(f"[model] VGG19-{cfg.n_deform} DCN-II {cfg.img_size}x"
-                  f"{cfg.img_size} width {cfg.width_mult}, "
-                  f"{cfg.num_classes} classes; first DCN layer "
-                  f"{node.h}x{node.w}x{node.c_in}: mean |offset| = "
-                  f"{float(off.abs().mean()):.4f} px")
-            break
-        if isinstance(node, (PoolNode, UpsampleNode)):
-            plane = fx.apply_boundary_batch(plane, node)
-        else:
-            plane = fx._advance_dense_batch(
-                plane, node, params["convs"][node.param_idx], None)
+    def first_dcn_plane(x_np):
+        """The first DCN layer's input planes (dense chain), sampling
+        coordinates, params and node for the images ``x_np``."""
+        plane = torch.as_tensor(x_np, device=dev)
+        for node in graph.nodes:
+            if isinstance(node, DeformNode):
+                p = params["convs"][node.param_idx]
+                off = conv2d(plane, p.w_off, p.b_off)
+                return (plane.contiguous(),
+                        offsets_to_coords(off, 3, cfg.variant), p, node, off)
+            if isinstance(node, (PoolNode, UpsampleNode)):
+                plane = fx.apply_boundary_batch(plane, node)
+            else:
+                plane = fx._advance_dense_batch(
+                    plane, node, params["convs"][node.param_idx], None)
+        fail("the model has no DCN layer")
+
+    # The first DCN layer's input plane (image 0) and params; and the
+    # planes of a serving step's four images (for #6 at N = 4).
+    dcn_in, dcn_coords, p_dcn, node, off = first_dcn_plane(images[:1])
+    dcn_in4, dcn_coords4 = first_dcn_plane(images[:N_BATCH])[:2]
+    print(f"[model] VGG19-{cfg.n_deform} DCN-II {cfg.img_size}x"
+          f"{cfg.img_size} width {cfg.width_mult}, {cfg.num_classes} "
+          f"classes; first DCN layer {node.h}x{node.w}x{node.c_in}: mean "
+          f"|offset| = {float(off.abs().mean()):.4f} px")
 
     # -- phase 2: kernels against their plain versions -----------------------
     captured = {k: [] for k in ("fused", "group", "tdt", "greedy", "sched",
@@ -829,6 +849,7 @@ def main() -> int:
         ops.deformable_conv2d_pallas(dcn_in, p_dcn)
     with recording(ops, "bli_tile_matmul", captured["bli"]):
         ops.bli_pallas(dcn_in, dcn_coords)
+        ops.bli_pallas(dcn_in4, dcn_coords4)
     torch.cuda.synchronize()
     if not all(captured.values()):
         fail(f"prepass did not reach every kernel: "
@@ -1033,10 +1054,7 @@ def main() -> int:
         ms=cuda_time_ms(call_g.launch, 200),
         wrapper_ms=cuda_time_ms(lambda: ks.schedule_group_batch(*a_g, **k_g),
                                 200),
-        launch_floor_ms=cuda_time_ms(
-            lambda: _build.check(lib.empty_launch(
-                torch.cuda.current_stream().cuda_stream), "empty launch"),
-            200),
+        launch_floor_ms=cuda_time_ms(empty_launch, 200),
         plain_ms=cuda_time_ms(
             lambda: ks.schedule_group_batch_plain(*a_g, **k_g), 3),
         library_ms=None, ops=dict(fp32=0),
@@ -1086,25 +1104,101 @@ def main() -> int:
         shape=f"S={x5.shape[-2]} P={idx5.shape[-3]} live={live5} "
               f"KK={w5.shape[0]} C={w5.shape[1]} O={w5.shape[2]}")
 
-    # (6) standalone BLI at the 14x14x512 DCN layer.
-    a6, k6 = captured["bli"][0]
-    x6, idx6, cf6 = a6
-    d6, s6 = rel_err(kb.bli_tile_matmul(*a6, **k6), kb.bli_tile_plain(*a6))
-    if not d6 <= BLI_RTOL * s6:
-        fail(f"bli_tile_matmul: max|d|={d6} > {BLI_RTOL}*{s6}")
-    n6, p6, c6 = x6.shape[0], idx6.shape[1], x6.shape[2]
-    live6 = int((cf6 != 0).any(-1).sum())
-    w_bag, i_bag, c_bag = x6[0], idx6[0].long(), cf6[0]
+    # (6) standalone BLI at the 14x14x512 DCN layer: the captured calls of
+    # one image (the serving shape, the main entry) and of a serving
+    # step's four, each in float32 and in bfloat16 (the same planes
+    # rounded); and a random 56x56x256 plane (S = 3136), far larger than
+    # the 14x14 one. Each is held against the plain version and rerun
+    # bitwise, and timed beside an empty kernel (launch_floor_ms), with
+    # its own device time from torch.profiler (device_ms), the plain
+    # version and embedding_bag over the same bags.
+    floor_ms = cuda_time_ms(empty_launch, 200)
+
+    def bli_device_ms(a, n=20, cold=True):
+        """Mean device duration of the BLI kernel over ``n`` calls (each
+        after the L2 flush unless not ``cold``), as torch.profiler
+        records it."""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            cuda_time_ms(lambda: kb.bli_tile_matmul(*a), n, warmup=0,
+                         cold=cold)
+        _, by_name = device_busy(prof.events())
+        d = [t for name, ts in by_name.items() if "bli_kernel" in name
+             for t in ts]
+        if len(d) != n:
+            fail(f"the profiler saw {len(d)} BLI kernels in {n} calls")
+        return sum(d) / n / 1e3
+
+    def bli_record(what, a):
+        """#6 on the operands ``a``: held, rerun, timed."""
+        x, idx, cf = a
+        n, s, c = x.shape
+        p = idx.shape[1]
+        got = kb.bli_tile_matmul(*a)
+        plan = kb.bli_tile_matmul.last_plan
+        d, sc = rel_err(got.float(), kb.bli_tile_plain(*a).float())
+        tol = BLI_RTOL if x.dtype == torch.float32 else BLI_BF16_RTOL
+        if not d <= tol * sc:
+            fail(f"bli_tile_matmul {what}: max|d|={d} > {tol}*{sc}")
+        if not torch.equal(kb.bli_tile_matmul(*a), got):
+            fail(f"bli_tile_matmul {what}: a rerun differs")
+        live = int((cf != 0).any(-1).sum())
+        rec = dict(max_abs_err=d, ms=cuda_time_ms(
+            lambda: kb.bli_tile_matmul(*a), 200), launch_floor_ms=floor_ms,
+            write_ms=cuda_time_ms(torch.empty_like(got).zero_, 200),
+            device_ms=bli_device_ms(a),
+            device_warm_ms=bli_device_ms(a, cold=False),
+            plain_ms=cuda_time_ms(lambda: kb.bli_tile_plain(*a), 20),
+            library_ms=None, plan=plan._asdict(), ops=dict(fp32=8 * live * c),
+            bytes=sum(t.numel() * t.element_size() for t in a)
+            + n * p * c * x.element_size(),
+            shape=f"{what}: N={n} S={s} P={p} (live {live}) C={c} "
+                  f"{str(x.dtype).removeprefix('torch.')}, grid {plan.grid}, "
+                  f"{plan.rows} rows a block")
+        if bool(((idx >= 0) & (idx < s)).all()):
+            bags = (idx.long() + s * torch.arange(n, device=dev)[:, None,
+                                                              None])
+            bags, table = bags.reshape(-1, 4), x.reshape(n * s, c)
+            weights = cf.reshape(-1, 4).to(x.dtype)
+            rec["library_ms"] = cuda_time_ms(
+                lambda: torch.nn.functional.embedding_bag(
+                    bags, table, per_sample_weights=weights, mode="sum"),
+                200)
+        b = bound_of(rec["ops"], rec["bytes"])
+        print(f"[kernels] {card}: bli_tile_matmul {rec['shape']}: "
+              f"{rec['ms']:.4f} ms (launch floor {floor_ms:.4f}, zero_ of "
+              f"the output {rec['write_ms']:.4f}; device "
+              f"{rec['device_ms']:.4f} = "
+              f"{100 * b['bound_ms'] / rec['device_ms']:.1f} % of the "
+              f"{b['bound_ms']:.4f} ms {b['bound_by']} bound, "
+              f"{rec['device_warm_ms']:.4f} with a warm L2), plain "
+              f"{rec['plain_ms']:.4f}, embedding_bag "
+              f"{'none' if rec['library_ms'] is None else round(rec['library_ms'], 4)}"
+              f"; max|d| {d:.3e} (limit {tol}*{sc:.3f})")
+        return rec
+
+    a6, _ = captured["bli"][0]
+    a6x4, _ = captured["bli"][1]
+    bf = torch.bfloat16
+    rng6 = np.random.default_rng(SEED + 6)
+    big = (torch.as_tensor(rng6.normal(size=(1, 3136, 256)).astype(
+               np.float32), device=dev),
+           torch.as_tensor(rng6.integers(0, 3136, size=(1, 1024, 4)).astype(
+               np.int32), device=dev),
+           torch.as_tensor(rng6.uniform(size=(1, 1024, 4)).astype(
+               np.float32), device=dev))
     kernels["bli_tile_matmul"] = dict(
         route="cuda", source="src/repro_torch/csrc/dcn_bli.cu",
-        replaces="src/repro/kernels/dcn_bli.py:32", max_abs_err=d6,
-        ms=cuda_time_ms(lambda: kb.bli_tile_matmul(*a6, **k6), 200),
-        plain_ms=cuda_time_ms(lambda: kb.bli_tile_plain(*a6), 20),
-        library_ms=cuda_time_ms(lambda: torch.nn.functional.embedding_bag(
-            i_bag, w_bag, per_sample_weights=c_bag, mode="sum"), 200),
-        ops=dict(fp32=8 * live6 * c6),
-        bytes=nbytes_of(a6, n6 * p6 * c6),
-        shape=f"S={x6.shape[1]} P={p6} (live {live6}) C={c6}")
+        replaces="src/repro/kernels/dcn_bli.py:32",
+        **bli_record("serving shape", a6),
+        shapes={
+            "N=1 bf16": bli_record("serving shape", (a6[0].to(bf), *a6[1:])),
+            "N=4 f32": bli_record("serving step", a6x4),
+            "N=4 bf16": bli_record("serving step",
+                                   (a6x4[0].to(bf), *a6x4[1:])),
+            "S=3136 f32": bli_record("56x56x256 plane", big)})
+
     def greedy_record(calls, where):
         """#3 on its path: each distinct (table shape, m) timed once by its
         bare launch into preallocated outputs (and through its wrapper),
@@ -1444,7 +1538,8 @@ def main() -> int:
         kd = kernels[name]
         fp32_note = bounds(kd)
         for shape_name, extra in {**kd.get("long_cache", {}),
-                                  **kd.get("long_seq", {})}.items():
+                                  **kd.get("long_seq", {}),
+                                  **kd.get("shapes", {})}.items():
             note = bounds(extra)
             print(f"[kernel] {card}: {name} at {extra.pop('shape')}: "
                   f"{extra['ms']:.4f} ms (bound {extra['bound_ms']:.6f} ms "

@@ -35,7 +35,7 @@ _SIGNATURES = {
     "dcn_fused_batch_launch": [_P] * 10 + [_I] * 11 + [_P],
     "dcn_fused_schedule_launch": [_P] * 9 + [_I] * 10 + [_P],
     "dcn_fused_tile_launch": [_P] * 7 + [_I] * 8 + [_P],
-    "bli_gather_launch": [_P] * 4 + [_I] * 4 + [_P],
+    "bli_gather_launch": [_P] * 4 + [_I] * 9 + [_P],
     "schedule_group_launch": [_P, _P],
     "schedule_group_smem_bytes": [_I] * 4,
     "schedule_group_scratch_words": [_I] * 3,

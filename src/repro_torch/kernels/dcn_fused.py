@@ -65,8 +65,10 @@ def dcn_fused_batch_plain(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff, w,
     return (out + b.float()).to(x_tiles.dtype)
 
 
-def _check_operands(floats: dict, ints: dict) -> torch.device:
-    """Common operand checks: one device, contiguous, float32 / int32."""
+def _check_operands(floats: dict, ints: dict,
+                    dtypes: tuple = (torch.float32,)) -> torch.device:
+    """Common operand checks: one device, contiguous, each float operand
+    of one of ``dtypes`` (float32 unless the kernel takes more), int32."""
     dev = next(iter(floats.values())).device
     for name, t in {**floats, **ints}.items():
         if t.device != dev:
@@ -74,9 +76,12 @@ def _check_operands(floats: dict, ints: dict) -> torch.device:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     for name, t in floats.items():
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32 (bf16 is not ported "
-                             f"yet), got {t.dtype}")
+        if t.dtype not in dtypes:
+            names = " or ".join(str(d).removeprefix("torch.")
+                                for d in dtypes)
+            note = ("" if torch.bfloat16 in dtypes
+                    else " (bf16 is not ported yet for this kernel)")
+            raise ValueError(f"{name} must be {names}{note}, got {t.dtype}")
     for name, t in ints.items():
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")

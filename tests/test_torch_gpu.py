@@ -382,21 +382,51 @@ def test_split_launch_grid():
         4, 64, 512, fused_splits(4, 64, 512, 512, sms))
 
 
-@pytest.mark.parametrize("shape", [(1, 20, 16, 8), (2, 196, 1792, 512),
-                                   (1, 9, 8, 6)])
-def test_bli_kernel(shape):
-    from repro_torch.kernels.dcn_bli import bli_tile_matmul, bli_tile_plain
+# The BLI kernel (#6): (N, S, P, C, index range beyond [0, S)). Held to
+# its plain version within 1e-6 * max|ref| in float32 and 2**-7 * max|ref|
+# (one bf16 ulp at the largest output) in bfloat16, and bitwise equal to
+# itself on a rerun.
+BLI_GPU_CASES = [
+    (1, 20, 16, 8, 2),
+    (2, 196, 1792, 512, 2),
+    (4, 196, 1792, 512, 2),      # a serving step
+    (1, 3136, 1024, 256, 2),     # a 56x56 plane
+    (1, 9, 8, 6, 2),             # rows not 16-byte aligned
+    (2, 30, 64, 20, 2),          # 20 bf16: not aligned
+    (1, 40, 2048, 64, 60),       # most indices out of range
+    (1, 64, 8192, 256, 2),       # long P over few rows of x
+]
 
-    n, s, p, c = shape
-    rng = np.random.default_rng(3)
+
+def _bli_case(n, s, p, c, spill, dtype):
+    rng = np.random.default_rng(n + s + p + c)
     x = torch.as_tensor(rng.normal(size=(n, s, c)).astype(np.float32))
-    idx = torch.as_tensor(rng.integers(-1, s + 2, size=(n, p, 4))
+    idx = torch.as_tensor(rng.integers(-spill, s + spill, size=(n, p, 4))
                           .astype(np.int32))
     cf = torch.as_tensor(rng.uniform(size=(n, p, 4)).astype(np.float32))
-    want = bli_tile_plain(x, idx, cf)
-    got = bli_tile_matmul(x.cuda(), idx.cuda(), cf.cuda(), block_p=p,
-                          block_c=c).cpu()
-    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    return x.to(dtype), idx, cf
+
+
+def _hold_bli(got, want, dtype):
+    tol = 1e-6 if dtype == torch.float32 else 2**-7
+    assert got.dtype == dtype
+    assert float((got.float().cpu() - want).abs().max()) <= \
+        tol * float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BLI_GPU_CASES)
+def test_bli_kernel(shape, dtype):
+    from repro_torch.kernels.dcn_bli import bli_tile_matmul, bli_tile_plain
+
+    n, s, p, c, spill = shape
+    x, idx, cf = _bli_case(n, s, p, c, spill, dtype)
+    ops = (x.cuda(), idx.cuda(), cf.cuda())
+    launches = bli_tile_matmul.launches
+    got = bli_tile_matmul(*ops, block_p=p, block_c=c)
+    assert bli_tile_matmul.launches == launches + 1
+    _hold_bli(got, bli_tile_plain(x, idx, cf).float(), dtype)
+    assert torch.equal(bli_tile_matmul(*ops, block_p=p, block_c=c), got)
 
 
 # Flash attention (#7): (B, Sq, Skv, Hq, Hkv, D, options). Within

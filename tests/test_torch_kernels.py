@@ -578,24 +578,58 @@ class TestDecodeSplitRanges:
 
 
 class TestBli:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     @pytest.mark.parametrize("n,s,p,c,lo,hi,bp,bc", [
         (1, 20, 16, 8, 0, 20, 128, 128),     # in range, whole blocks
         (2, 30, 64, 16, -2, 33, 32, 8),      # out of range, several blocks
         (1, 196, 256, 128, 0, 196, 128, 128),  # the 14x14 plane, KK=1
     ])
-    def test_plain_matches_jax(self, n, s, p, c, lo, hi, bp, bc):
+    def test_plain_matches_jax(self, n, s, p, c, lo, hi, bp, bc, dtype):
+        """float32 within 1e-5; bfloat16 (the same f32 inputs rounded to
+        bf16 in both frameworks, f32 sums rounded once) within one bf16
+        ulp at the largest output, 2**-7 * max|ref|: the TPU kernel sums
+        the four terms in column order, the port in j order, and the two
+        f32 sums may round to neighbouring bf16 values."""
         rng = np.random.default_rng(s + p)
         x = rng.normal(size=(n, s, c)).astype(np.float32)
         idx = rng.integers(lo, hi, size=(n, p, 4)).astype(np.int32)
         cf = rng.uniform(size=(n, p, 4)).astype(np.float32)
-        got = bli_tile_matmul(torch.as_tensor(x), torch.as_tensor(idx),
-                              torch.as_tensor(cf), block_p=bp, block_c=bc)
+        got = bli_tile_matmul(torch.as_tensor(x).to(getattr(torch, dtype)),
+                              torch.as_tensor(idx), torch.as_tensor(cf),
+                              block_p=bp, block_c=bc)
+        assert got.dtype == getattr(torch, dtype)
         for i in range(n):
             want = np.asarray(j_bli.bli_tile_matmul(
-                jnp.asarray(x[i]), jnp.asarray(idx[i]), jnp.asarray(cf[i]),
-                block_p=bp, block_c=bc, interpret=True))
-            np.testing.assert_allclose(got[i].numpy(), want, rtol=1e-5,
-                                       atol=1e-5)
+                jnp.asarray(x[i], dtype=getattr(jnp, dtype)),
+                jnp.asarray(idx[i]), jnp.asarray(cf[i]),
+                block_p=bp, block_c=bc, interpret=True)).astype(np.float32)
+            g = got[i].float().numpy()
+            if dtype == "float32":
+                np.testing.assert_allclose(g, want, rtol=1e-5, atol=1e-5)
+            else:
+                assert np.abs(g - want).max() <= 2**-7 * np.abs(want).max()
+
+    @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+    def test_rejects_other_dtypes(self, dtype):
+        x = torch.zeros((20, 8), dtype=dtype)
+        idx = torch.zeros((16, 4), dtype=torch.int32)
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            bli_tile_matmul(x, idx, torch.zeros((16, 4)))
+        with pytest.raises(ValueError, match="coeff must be float32"):
+            bli_tile_matmul(torch.zeros((20, 8)), idx,
+                            torch.zeros((16, 4), dtype=dtype))
+
+    @pytest.mark.parametrize("h,w", [(6, 8), (7, 5), (1, 3)])
+    def test_parity_planes_equal_jax(self, h, w):
+        from repro_torch.kernels.dcn_bli import parity_planes
+
+        x = np.random.default_rng(h * w).normal(size=(h, w, 3)).astype(
+            np.float32)
+        got = parity_planes(torch.as_tensor(x))
+        want = j_bli.parity_planes(jnp.asarray(x))
+        assert len(got) == len(want) == 4
+        for g, w_ in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
 
     def test_gather_reference_matches_jax(self):
         from repro_torch.kernels.dcn_bli import bli_gather_reference
@@ -623,3 +657,76 @@ class TestBli:
                                   jnp.zeros((10, 4), jnp.int32),
                                   jnp.zeros((10, 4)), block_c=8,
                                   interpret=True)
+
+
+class TestBliPlan:
+    """The launch shape of the BLI kernel (``dcn_bli.bli_plan``), plain
+    Python: what the CUDA kernel is given on the card."""
+
+    @pytest.mark.parametrize("n,elem,grid,rows", [
+        (1, 4, (32, 16, 1), 56),    # serving shape, f32
+        (1, 2, (64, 8, 1), 28),     # bf16: 64-channel slices
+        (4, 4, (8, 16, 4), 224),    # a serving step's four images
+        (4, 2, (16, 8, 4), 112),
+    ])
+    def test_serving_shapes_fill_one_wave(self, n, elem, grid, rows):
+        from repro_torch.kernels.dcn_bli import BLI_BLOCKS_PER_SM, bli_plan
+
+        plan = bli_plan(n, 1792, 196, 512, elem)
+        assert (plan.vec, plan.lw) == (True, 8)
+        assert plan.grid == grid and plan.rows == rows
+        assert math.prod(grid) <= BLI_BLOCKS_PER_SM * kf.H100_SMS
+        assert plan.rows * plan.grid[0] >= 1792 and plan.rows % 4 == 0
+
+    @pytest.mark.parametrize("n,p,s,c,elem", [
+        (1, 1792, 196, 512, 4), (4, 1792, 196, 512, 4), (4, 1792, 196, 512, 2),
+        (2, 1792, 196, 512, 4), (1, 8192, 196, 256, 4), (1, 4096, 49, 64, 2),
+        (8, 1024, 400, 128, 4), (1, 1024, 3136, 256, 4), (3, 64, 9, 8, 4)])
+    def test_row_chunks_cover_every_row_once(self, n, p, s, c, elem):
+        from repro_torch.kernels.dcn_bli import BLI_BLOCKS_PER_SM, bli_plan
+
+        plan = bli_plan(n, p, s, c, elem)
+        assert plan.rows * plan.grid[0] >= p > plan.rows * (plan.grid[0] - 1)
+        assert plan.rows % (32 // plan.lw) == 0
+        assert plan.grid[1] * plan.lw * 16 == c * elem and plan.grid[2] == n
+        assert math.prod(plan.grid) <= BLI_BLOCKS_PER_SM * kf.H100_SMS
+
+    def test_large_plane_moves_16_byte_words(self):
+        from repro_torch.kernels.dcn_bli import bli_plan
+
+        for elem in (4, 2):
+            plan = bli_plan(1, 1024, 3136, 256, elem)
+            assert plan.vec and plan.lw == 8
+            assert plan.grid == ({4: 64, 2: 128}[elem], 2 * elem, 1)
+        assert bli_plan(1, 16, 0, 8, 4).grid == (1, 1, 1)
+
+    @pytest.mark.parametrize("c,elem,lw", [(6, 4, 2), (6, 2, 2), (9, 2, 1),
+                                           (12, 2, 4), (20, 2, 4)])
+    def test_unaligned_rows_gather_elements(self, c, elem, lw):
+        from repro_torch.kernels.dcn_bli import bli_plan
+
+        plan = bli_plan(1, 1024, 9, c, elem)
+        assert (plan.vec, plan.lw) == (False, lw)
+        assert plan.grid[1] * plan.lw == c
+        assert not bli_plan(1, 1024, 9, 8, 4, aligned=False).vec
+
+
+@pytest.mark.parametrize("which", ["dcn_fused_batch", "dcn_fused_schedule",
+                                   "dcn_fused_tile", "flash_attention",
+                                   "flash_decode"])
+def test_other_kernels_still_refuse_bf16(which):
+    """bf16 is ported for the BLI kernel (#6) only; #1, #4, #5, #7 and #8
+    raise on it, saying so."""
+    from repro_torch.kernels import flash_attention as fa
+
+    h = torch.zeros((2, 4, 4), dtype=torch.bfloat16)
+    i = torch.zeros((2, 4), dtype=torch.int32)
+    call = {"dcn_fused_batch": lambda: kf.dcn_fused_batch(
+                h, i, i, i, i, h, h, h, t_in=1),
+            "dcn_fused_schedule": lambda: kf.dcn_fused_schedule(
+                h, i, i, i, h, h, h),
+            "dcn_fused_tile": lambda: kf.dcn_fused_tile(h, i, h, h, h),
+            "flash_attention": lambda: fa.flash_attention(h, h, h),
+            "flash_decode": lambda: fd.flash_decode(h, h, h, i)}[which]
+    with pytest.raises(ValueError, match="bf16 is not ported yet"):
+        call()
