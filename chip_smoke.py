@@ -54,6 +54,19 @@ Phases, each fatal on failure:
               tile kernel (logits vs dense, trace == simulator), the
               ``"pallas"`` and ``"pipeline"`` model backends vs dense, and
               ``ops.bli_pallas`` vs ``core.deform.bilinear_sample``;
+3d. tune    — an engine with ``autotune="offline"`` (FIFO of 6 tiles, the
+              default search budget, plans in a temporary directory)
+              searches its plan (search time, evaluations, the tuned
+              groups and tiles, tuned <= greedy simulated DRAM) and serves
+              phase 3's requests through it: logits vs dense, every step on
+              the plan's grids and equal to the simulator, no retry, no
+              degraded step; executed DRAM beside a greedy engine at the
+              same FIFO depth; a ``cached-only`` engine serves the plan
+              from the cache with no search; #1 and the group kernel are
+              held against their plain versions on every tuned call shape
+              and timed; an untagged fault degrades a tuned step, which
+              replays the plan through #4, #2 and #3 and matches
+              ``infer()``; images/s beside phase 3's;
 4.  profile — one more step under ``torch.profiler``: wall, device busy
               time and idle share, ``cudaLaunchKernel`` and copy calls, and
               the top device activities and host operators;
@@ -96,6 +109,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -686,10 +700,12 @@ def main() -> int:
                                                dcn_net_apply, init_dcn_net)
     from repro_torch.runtime import fused_exec as fx
     from repro_torch.runtime.cache import ScheduleCache
-    from repro_torch.runtime.graph import (DeformNode, PoolNode,
-                                           UpsampleNode, build_graph)
+    from repro_torch.runtime.graph import (DeformNode, FusedGroup, PoolNode,
+                                           UpsampleNode, build_graph,
+                                           partition_graph_cached)
     from repro_torch.serving import DcnServingEngine, RequestFailedError
     from repro_torch.testing import FaultError, FaultInjector
+    from repro_torch.tuning import PlanCache
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -741,12 +757,12 @@ def main() -> int:
         for fn in wrappers.values():
             fn.launches = 0
 
-    def read_counts(*names):
+    def read_counts(*names, into=launches):
         got = {n: wrappers[n].launches for n in names}
         for name, n in got.items():
             if n <= 0:
                 fail(f"{name} was not launched on its path")
-        launches.update(got)
+        into.update(got)
         return got
 
     # -- phase 1: build ------------------------------------------------------
@@ -1295,10 +1311,11 @@ def main() -> int:
     # -- phase 3: the main path ---------------------------------------------
     requests = [[0], [1, 2], [3], [4, 5], [6], [0], [7, 8], [9]]
 
-    def make_engine(backend):
+    def make_engine(backend, **graph_kw):
         eng = DcnServingEngine(
             params, cfg, slots=4, device=dev,
-            graph=fx.GraphConfig(tile=8, schedule_backend=backend))
+            graph=fx.GraphConfig(tile=8, schedule_backend=backend,
+                                 **graph_kw))
         eng.submit(images[10:12])          # warm-up: cuDNN, conv schedules
         eng.drain()
         return eng
@@ -1377,11 +1394,11 @@ def main() -> int:
           f"schedule-cache image hit rate {stats['image_hit_rate']:.3f}")
 
     # -- phase 3b: fault-tolerant serving, the degraded step -----------------
-    def fault_engine(**plan):
+    def fault_engine(graph=None, **plan):
         inj = FaultInjector(**plan)
         e = DcnServingEngine(
             params, cfg, slots=4, device=dev, faults=inj,
-            graph=fx.GraphConfig(tile=8, schedule_backend="device"))
+            graph=graph or fx.GraphConfig(tile=8, schedule_backend="device"))
         seen = []
         absorb = e._absorb_trace
 
@@ -1392,8 +1409,8 @@ def main() -> int:
         e._absorb_trace = keep
         return e, inj, seen
 
-    def fault_run(ids, **plan):
-        e, inj, seen = fault_engine(**plan)
+    def fault_run(ids, graph=None, **plan):
+        e, inj, seen = fault_engine(graph, **plan)
         rq = [e.submit(images[i]) for i in ids]
         t0 = time.perf_counter()
         done = e.drain()
@@ -1517,6 +1534,267 @@ def main() -> int:
         fail(f"bli_pallas vs bilinear_sample: max|d|={d} > {BLI_RTOL}*{sc}")
     print(f"[modes] bli_pallas {tuple(deformed.shape)} vs bilinear_sample: "
           f"max|d| {d:.3e} (limit {BLI_RTOL}*{sc:.3f})")
+
+    # -- phase 3d: the autotuned plan on the serving path --------------------
+    # The README's autotuning setting: a bounded FIFO of 6 tiles, so the
+    # tuner has halo reloads to trade. The default search budget (128
+    # simulator evaluations) is kept.
+    ips = {"phase 3 (greedy, FIFO = all tiles)": [n_img / wall]}
+    with tempfile.TemporaryDirectory(prefix="plans-") as plan_dir:
+        tuned_kw = dict(buffer_tiles=6, autotune="offline",
+                        plan_cache_dir=plan_dir)
+        # The warm-up's group calls are kept too: standard-conv groups
+        # are scheduled once, by it, and hit the schedule cache after.
+        t_group_warm = []
+        t0 = time.perf_counter()
+        with recording(fx, "schedule_group_batch", t_group_warm):
+            eng_t = make_engine("device", **tuned_kw)
+        build_s = time.perf_counter() - t0
+        plan = eng_t.tuned_plan
+        if plan is None or eng_t.stats["autotune_search_s"] <= 0:
+            fail("the offline engine resolved no plan by a search")
+        if not plan.dram_bytes <= plan.greedy_dram_bytes:
+            fail(f"tuned plan {plan.dram_bytes} B > greedy "
+                 f"{plan.greedy_dram_bytes} B")
+        greedy_segs = [sg for sg in partition_graph_cached(
+            graph, eng_t._step_cfg.onchip_budget_bytes)
+            if isinstance(sg, FusedGroup)]
+        greedy_spans = []
+        for sg in greedy_segs:
+            first = graph.nodes.index(sg.nodes[0])
+            greedy_spans.append((first, first + sg.n_layers))
+        plan_tiles = []
+        for g in plan.groups:
+            nd = graph.nodes[g.start]
+            plan_tiles.append((min(g.tile_h, nd.h), min(g.tile_w, nd.w)))
+        print(f"[tune] {card}: search {plan.search_s:.3f} s over "
+              f"{plan.candidates} simulator evaluations (budget "
+              f"{eng_t._step_cfg.autotune_budget}), engine built in "
+              f"{build_s:.2f} s (search and 2-image warm-up); simulated "
+              f"DRAM {plan.dram_bytes} B tuned vs {plan.greedy_dram_bytes} B "
+              f"greedy ({plan.dram_bytes - plan.greedy_dram_bytes:+d} B an "
+              f"image)")
+        for g, tl in zip(plan.groups, plan_tiles):
+            nd = graph.nodes[g.start]
+            moved = ("" if ((g.start, g.stop) in greedy_spans
+                            and tl == (min(8, nd.h), min(8, nd.w)))
+                     else "  <- differs from greedy")
+            kinds = "".join("D" if isinstance(graph.nodes[i], DeformNode)
+                            else "C" for i in range(g.start, g.stop))
+            print(f"  group nodes [{g.start}, {g.stop}) {kinds} at "
+                  f"{nd.h}x{nd.w}x{nd.c_in}: tile {tl[0]}x{tl[1]} "
+                  f"({TileGrid(nd.h, nd.w, *tl).num_tiles} tiles){moved}")
+
+        # Serve phase 3's requests through the tuned plan.
+        t_fused, t_group = [], []
+        builds0 = eng_t.host_schedule_builds
+        tuned_launches = {}
+        reset_counts()
+        with recording(fx, "dcn_fused_batch", t_fused), \
+                recording(fx, "schedule_group_batch", t_group):
+            reqs_t, traces_t, wall_t = serve(eng_t)
+        read_counts("dcn_fused_batch", "schedule_group_batch",
+                    into=tuned_launches)
+        no_ladder("tuned serve", eng_t)
+        if eng_t.host_schedule_builds != builds0:
+            fail("host schedule builds on the tuned device-scheduled path")
+        worst_t = max(check_logits(f"tuned request {r.rid}", r.result(),
+                                   dense_logits(images[ids]))
+                      for r, ids in zip(reqs_t, requests))
+        check_sim("tuned serve", traces_t)
+        for tr in traces_t:
+            got = [(g.grid.th, g.grid.tw) for g in tr.groups if g.image == 0]
+            if got != plan_tiles:
+                fail(f"a tuned step ran the grids {got}, the plan says "
+                     f"{plan_tiles}")
+        n_groups_t = len(plan.groups)
+        if tuned_launches["schedule_group_batch"] > n_groups_t * len(
+                traces_t):
+            fail(f"schedule_group_batch launched "
+                 f"{tuned_launches['schedule_group_batch']} times for "
+                 f"{n_groups_t} groups x {len(traces_t)} steps")
+        ips["tuned (FIFO 6)"] = [n_img / wall_t]
+        print(f"[tune] {len(reqs_t)} requests in {len(traces_t)} steps "
+              f"through the tuned plan: logits finite, max|served - dense| "
+              f"/ max|dense| = {worst_t:.3e} (limit {LOGIT_RTOL}); every "
+              f"step ran the plan's grids and equals the DRAM simulator; no "
+              f"retry, no degraded step, no host schedule build; "
+              f"dcn_fused_batch {tuned_launches['dcn_fused_batch']} "
+              f"launches, schedule_group_batch "
+              f"{tuned_launches['schedule_group_batch']}")
+
+        # The executed (trace) DRAM bytes beside a greedy engine at the
+        # same FIFO depth: bytes, not a speed.
+        eng_g6 = make_engine("device", buffer_tiles=6)
+        reqs_g6, traces_g6, wall_g6 = serve(eng_g6)
+        no_ladder("greedy FIFO-6 serve", eng_g6)
+        check_sim("greedy FIFO-6 serve", traces_g6)
+        ips["greedy (FIFO 6)"] = [n_img / wall_g6]
+        dram_t = sum(tr.total_dram_bytes for tr in traces_t)
+        dram_g = sum(tr.total_dram_bytes for tr in traces_g6)
+        print(f"[tune] executed DRAM of the {n_img} images (trace == "
+              f"simulator): tuned {dram_t} B, greedy at FIFO 6 {dram_g} B "
+              f"({dram_t - dram_g:+d} B, "
+              f"{100 * (dram_t - dram_g) / dram_g:+.3f} %)")
+
+        def host_split(traces, wall_s):
+            ms = [sum(getattr(tr.overlap, f) for tr in traces) * 1e3
+                  for f in ("prepass_s", "prepass_wait_s", "schedule_s")]
+            return (f"wall {wall_s * 1e3:.1f} ms, host prepass {ms[0]:.1f} "
+                    f"ms (waited on {ms[1]:.1f}), schedule build "
+                    f"{ms[2]:.1f} ms")
+        print(f"[tune] {card}: serving the {n_img} images, tuned: "
+              f"{host_split(traces_t, wall_t)}; greedy at FIFO 6: "
+              f"{host_split(traces_g6, wall_g6)}")
+        del eng_g6, reqs_g6, traces_g6
+
+        # A second engine serves the plan from the cache, searching
+        # nothing; a fresh cache over the directory reads it from disk.
+        eng_c = DcnServingEngine(
+            params, cfg, slots=4, device=dev,
+            graph=fx.GraphConfig(tile=8, schedule_backend="device",
+                                 **dict(tuned_kw, autotune="cached-only")))
+        st_c = eng_c.stats
+        if (st_c["plan_cache_hits"] < 1 or st_c["autotune_search_s"] != 0
+                or eng_c.tuned_plan != plan):
+            fail(f"cached-only engine: hits {st_c['plan_cache_hits']}, "
+                 f"search {st_c['autotune_search_s']} s, same plan "
+                 f"{eng_c.tuned_plan == plan}")
+        disk = PlanCache(cache_dir=plan_dir)
+        if disk.get(plan.key) != plan or disk.disk_hits != 1:
+            fail("the plan file does not read back from disk")
+        print(f"[tune] cached-only engine: {st_c['plan_cache_hits']} plan "
+              f"cache hit, search 0 s, the same plan; a fresh cache reads "
+              f"it back from {len(os.listdir(plan_dir))} file(s)")
+        del eng_c
+
+        # Two more serving runs for images/s, in turns after the two
+        # above (tuned, greedy, greedy, tuned), each on a fresh engine
+        # with its own schedule cache, warmed up on two other images.
+        for name, mode in (("greedy (FIFO 6)", "off"),
+                           ("tuned (FIFO 6)", "cached-only")):
+            e_turn = make_engine("device", **dict(tuned_kw, autotune=mode))
+            _, _, w_turn = serve(e_turn)
+            no_ladder(f"{name} serve", e_turn)
+            ips[name].append(n_img / w_turn)
+            del e_turn
+
+        # #1 and the group launch at every call shape of the tuned run,
+        # held against their plain versions and timed beside phase 3's
+        # tile-8 numbers.
+        err_t = hold_fused("dcn_fused_batch (tuned run)", t_fused,
+                           kf.dcn_fused_batch, kf.dcn_fused_batch_plain,
+                           FUSED_RTOL)
+        fused_rows = {}
+        for a, k in t_fused:
+            key = (a[1].shape[0], a[4].shape[1], a[6].shape[1],
+                   a[6].shape[2], a[2].shape[1])
+            if key in fused_rows:
+                fused_rows[key]["calls"] += 1
+                continue
+            kk_t, c_t, o_t = a[6].shape
+            live_t = int((a[3] > 0).sum())
+            row = dict(
+                shape=f"G={key[0]} P={key[1]} KK={kk_t} C={c_t} O={o_t} "
+                      f"k_pad={key[4]} live_rows={live_t}", calls=1,
+                ms=cuda_time_ms(lambda: kf.dcn_fused_batch(*a, **k), 50),
+                plain_ms=cuda_time_ms(
+                    lambda: kf.dcn_fused_batch_plain(*a, **k), 5),
+                library_ms=contraction(key[0] * key[1], a[6]),
+                **bound_of(fused_ops(live_t * key[1], kk_t, c_t, o_t,
+                                     "3xtf32"),
+                           nbytes_of(a, key[0] * key[1] * o_t)))
+            fused_rows[key] = row
+        for row in fused_rows.values():
+            print(f"[tune] {card}: dcn_fused_batch at {row['shape']}: "
+                  f"{row['calls']} launches x {row['ms']:.4f} ms (bound "
+                  f"{row['bound_ms']:.4f} ms by {row['bound_by']}, plain "
+                  f"{row['plain_ms']:.4f} ms, library "
+                  f"{row['library_ms']:.4f} ms); tile-8 serving shape "
+                  f"{kernels['dcn_fused_batch']['ms']:.4f} ms")
+        kernels["dcn_fused_batch"]["tuned"] = dict(
+            launches=tuned_launches["dcn_fused_batch"], max_abs_err=err_t,
+            by_shape=list(fused_rows.values()))
+        group_rows = {}
+        for run, calls in (("warm_up_calls", t_group_warm),
+                           ("calls", t_group)):
+            for a, k in calls:
+                key = (len(a[1]), a[2].num_tiles, a[2].th, a[2].tw, a[3],
+                       tuple("conv" if isinstance(x, int) else "dcn"
+                             for x in a[0]))
+                if key not in group_rows:
+                    hold_group(f"schedule_group_batch (tuned run) {key}", a,
+                               k)
+                    out = ks.schedule_group_batch(*a, **k)
+                    group_rows[key] = dict(
+                        images=key[0], tiles=key[1], tile=[key[2], key[3]],
+                        m=key[4], layers=list(key[5]), calls=0,
+                        warm_up_calls=0, ms=cuda_time_ms(ks.plan_group(
+                            a[0], out, a[2], a[3]).launch, 50))
+                group_rows[key][run] += 1
+        tile8 = {(r["images"], r["tiles"], tuple(r["layers"])): r["ms"]
+                 for r in kernels["schedule_group_batch"]["by_shape"]}
+        for r in group_rows.values():
+            was = tile8.get((r["images"], r["tiles"], tuple(r["layers"])))
+            print(f"[tune] {card}: schedule_group_batch, {r['images']} "
+                  f"images x {r['tiles']} tiles of {r['tile'][0]}x"
+                  f"{r['tile'][1]}, m={r['m']}, layers {r['layers']}: "
+                  f"{r['calls']} launches in the served run, "
+                  f"{r['warm_up_calls']} in the warm-up, x {r['ms']:.4f} ms "
+                  f"(held bit-exact; tile-8 run at this table size: "
+                  f"{'none' if was is None else f'{was:.4f} ms'})")
+        kernels["schedule_group_batch"]["tuned"] = dict(
+            launches=tuned_launches["schedule_group_batch"],
+            charged_ms=sum(r["calls"] * r["ms"]
+                           for r in group_rows.values()),
+            by_shape=list(group_rows.values()))
+
+        # An untagged dispatch fault on the tuned engine: the degraded
+        # step replays the tuned plan per image through #4, #2 and #3.
+        reset_counts()
+        e_tu, inj_tu, rq_tu, wall_tu = fault_run(
+            deg_ids, graph=fx.GraphConfig(tile=8, schedule_backend="device",
+                                          **tuned_kw),
+            kinds=("dispatch",), rate=1.0, max_fires=1, tag_image=False,
+            seed=7)
+        deg_t = read_counts("dcn_fused_schedule", "tdt_from_coords_device",
+                            "greedy_schedule_arrays", into={})
+        st = e_tu.stats
+        if (inj_tu.fired["dispatch"] != 1 or any(r.failed for r in rq_tu)
+                or st["degraded_steps"] < 1 or e_tu.tuned_plan != plan):
+            fail(f"tuned untagged fault: fired {inj_tu.fired}, failed "
+                 f"{[r.rid for r in rq_tu if r.failed]}, stats {st}")
+        deg_grids = [(g.grid.th, g.grid.tw) for g in e_tu.last_trace.groups
+                     if g.image == 0]
+        if (any(g.dispatch != "batched" for g in e_tu.last_trace.groups)
+                or deg_grids != plan_tiles):
+            fail(f"the tuned degraded step ran grids {deg_grids}, the plan "
+                 f"says {plan_tiles}")
+        worst_tu = 0.0
+        for r, i in zip(rq_tu, deg_ids):
+            out = r.result()
+            worst_tu = max(worst_tu,
+                           check_logits(f"tuned degraded request {r.rid}",
+                                        out, dense_logits(images[i:i + 1])),
+                           check_logits(f"tuned degraded request {r.rid} vs "
+                                        f"infer()", out,
+                                        e_tu.infer(images[i:i + 1])
+                                        .cpu().numpy()))
+        for name, n in deg_t.items():
+            kernels[name]["tuned"] = dict(degraded_step_launches=n)
+        print(f"[tune] untagged dispatch fault on the tuned engine: the "
+              f"step degraded to batched dispatch on the plan's grids in "
+              f"{wall_tu * 1e3:.1f} ms; dcn_fused_schedule "
+              f"{deg_t['dcn_fused_schedule']} launches, "
+              f"tdt_from_coords_device {deg_t['tdt_from_coords_device']}, "
+              f"greedy_schedule_arrays {deg_t['greedy_schedule_arrays']}; "
+              f"max rel. deviation from dense and infer() {worst_tu:.3e}")
+        del eng_t, e_tu, reqs_t, traces_t, t_fused, t_group, t_group_warm
+    print(f"[tune] {card}: images/s (8 requests, {n_img} images, slots 4, "
+          f"tile 8, device scheduling; runs in turns tuned, greedy, "
+          f"greedy, tuned): " + ", ".join(
+              f"{k} {' / '.join(f'{v:.3f}' for v in vs)}"
+              for k, vs in ips.items()))
 
     # -- phase 4: where one serving step's time goes -------------------------
     profile_step(eng, images[12:16], card)

@@ -49,6 +49,12 @@ class TileGrid(NamedTuple):
         return self.th * self.tw * channels * dtype_bytes
 
 
+def make_square_grid(h: int, w: int, tiles_per_side: int) -> TileGrid:
+    """Paper-style "divided into n x n tiles" constructor (e.g. 5x5)."""
+    return TileGrid(h, w, math.ceil(h / tiles_per_side),
+                    math.ceil(w / tiles_per_side))
+
+
 def neighbour_tiles(coords: torch.Tensor, grid: TileGrid) -> torch.Tensor:
     """Input-tile id of each of the 4 BLI neighbours of every coordinate:
     coords (..., 2) float -> (..., 4) int64."""
@@ -75,6 +81,33 @@ def tdt_from_coords(coords: torch.Tensor, in_grid: TileGrid,
                     dtype=torch.bool, device=dev)
     b[out_tile.reshape(-1), in_tile.reshape(-1)] = True
     return b
+
+
+def per_pixel_input_tiles(coords: torch.Tensor, in_grid: TileGrid
+                          ) -> torch.Tensor:
+    """(H, W, KK, 4) int32 input-tile id per neighbour per tap per pixel."""
+    return neighbour_tiles(coords, in_grid).int()
+
+
+def access_histogram(coords: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Per-input-feature utilisation counts (paper Fig. 3a): how many
+    (output position, tap, neighbour) accesses touch each input feature
+    location -> (h, w) int32."""
+    r0 = torch.floor(coords[..., 0]).long().clamp(0, h - 1)
+    c0 = torch.floor(coords[..., 1]).long().clamp(0, w - 1)
+    r1 = (r0 + 1).clamp(0, h - 1)
+    c1 = (c0 + 1).clamp(0, w - 1)
+    idx = torch.stack([r0 * w + c0, r0 * w + c1, r1 * w + c0, r1 * w + c1])
+    counts = torch.bincount(idx.reshape(-1), minlength=h * w)
+    return counts.int().reshape(h, w)
+
+
+def tile_access_histogram(coords: torch.Tensor, in_grid: TileGrid
+                          ) -> torch.Tensor:
+    """Per-input-tile utilisation counts (paper Fig. 3b) -> (T,) int32."""
+    tiles = neighbour_tiles(coords, in_grid)
+    return torch.bincount(tiles.reshape(-1),
+                          minlength=in_grid.num_tiles).int()
 
 
 def tdt_standard_conv(in_grid: TileGrid, out_grid: TileGrid,

@@ -112,6 +112,17 @@ class GraphConfig:
     # staged prepass that misses it triggers failover to synchronous
     # prepass for the rest of the run (see pipeline.run_staged).
     watchdog_s: float | None = None
+    # Simulator-guided plan autotuning (repro_torch.tuning): "off" =
+    # greedy partition at the default tile; "offline" = search (once per
+    # plan key, cached) for the best cuts + per-group tile shapes;
+    # "cached-only" = use a cached plan if present, never search (for
+    # replicas that must not pay search latency).
+    autotune: str = "off"
+    # Directory for the persistent TunedPlan store; None = in-memory
+    # only (the plan still survives across engines in this process).
+    plan_cache_dir: str | None = None
+    # Max simulator evaluations the search may pay per plan.
+    autotune_budget: int = 128
     # Fault injector (repro_torch.testing.FaultInjector) — tests only,
     # excluded from config equality.
     faults: Any = dataclasses.field(default=None, compare=False)
@@ -188,7 +199,12 @@ def _advance_dense_batch(planes: torch.Tensor, node, p,
 
 
 def _segment_grid(seg: FusedGroup, th: int, tw: int) -> TileGrid:
-    """Tile grid of one fused group, clamped to the group's plane."""
+    """Tile grid of one fused group: the group's autotuned tile shape
+    when the plan set one, the config default otherwise — either way
+    clamped to the group's plane (interior groups sit at lower
+    resolution than the input)."""
+    if seg.tile_hw is not None:
+        th, tw = seg.tile_hw
     return TileGrid(seg.h, seg.w, min(th, seg.h), min(tw, seg.w))
 
 
@@ -998,7 +1014,8 @@ def run_graph(convs: list, graph: NetGraph, x: torch.Tensor, *,
               max_displacement: float | None = None,
               return_trace: bool = False,
               schedule_cache: ScheduleCache | None = None,
-              tracer: Tracer | None = None):
+              tracer: Tracer | None = None,
+              tuned_plan="auto"):
     """Execute a backbone graph over a batch: (N,H,W,C) -> (N,H',W',C').
 
     ``convs`` is the per-node parameter list (``params["convs"]``):
@@ -1008,6 +1025,14 @@ def run_graph(convs: list, graph: NetGraph, x: torch.Tensor, *,
     also returns the :class:`NetworkTrace` of the executed DRAM traffic.
     ``schedule_cache`` overrides the process-wide cache (serving engines
     pass their own); ``tracer`` routes span tracing.
+
+    With ``config.autotune`` enabled the partition and per-group tile
+    shapes come from the simulator-guided tuner (``repro_torch.tuning``):
+    ``tuned_plan="auto"`` resolves through the plan cache per the config
+    knobs; pass a ``TunedPlan`` (or None for explicitly-greedy) to skip
+    resolution — the serving engine resolves once at construction and
+    replays the same plan on every step. Executed traces stay exactly
+    equal to the DRAM simulator under any tuned plan.
     """
     cfg = config or GraphConfig()
     if tuple(x.shape[1:]) != (graph.in_h, graph.in_w, graph.in_c):
@@ -1033,8 +1058,26 @@ def run_graph(convs: list, graph: NetGraph, x: torch.Tensor, *,
         y = torch.zeros((0, h, w, c), dtype=x.dtype, device=x.device)
         return (y, trace) if return_trace else y
 
+    # "auto": resolve per cfg.autotune (cache-through; "offline" may pay
+    # a search on first use). Callers that already hold a plan — the
+    # serving engine resolves once at construction — pass it (or None
+    # for explicitly-greedy) so the hot path never re-resolves.
+    if tuned_plan == "auto":
+        tuned_plan = None
+        if cfg.autotune != "off":
+            from repro_torch.tuning import resolve_tuned_plan
+            tuned_plan = resolve_tuned_plan(
+                convs, graph, autotune=cfg.autotune,
+                onchip_budget_bytes=cfg.onchip_budget_bytes,
+                dtype_bytes=x.element_size(), tile_hw=cfg.tile_hw,
+                buffer_tiles=cfg.buffer_tiles, schedule=cfg.schedule,
+                batch=n, budget=cfg.autotune_budget,
+                plan_cache_dir=cfg.plan_cache_dir,
+                max_displacement=max_displacement, tracer=tr)
     segments = partition_graph_cached(graph, cfg.onchip_budget_bytes,
-                                      dtype_bytes=x.element_size())
+                                      dtype_bytes=x.element_size(),
+                                      autotune=cfg.autotune,
+                                      tuned=tuned_plan)
     if cfg.dispatch == "batch_fused":
         with use_tracer(tr):
             y = _run_graph_batch_fused(convs, segments, x, cfg, cache,

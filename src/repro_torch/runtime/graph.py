@@ -24,7 +24,8 @@ import dataclasses
 import functools
 from typing import TYPE_CHECKING, Union
 
-from repro_torch.core.fusion import GroupPlan, LayerShape, plan_fused_groups
+from repro_torch.core.fusion import (GroupPlan, LayerShape, plan_fused_groups,
+                                     plan_network)
 from repro_torch.obs import get_tracer
 
 if TYPE_CHECKING:  # avoid a cycle: models.dcn_models imports fused_exec
@@ -144,6 +145,9 @@ class FusedGroup:
 
     nodes: tuple[LayerNode, ...]
     plan: GroupPlan           # per-layer FusionPlans + modeled DRAM saving
+    # Autotuned (tile_h, tile_w) override for this group's schedules and
+    # dispatches; None -> the executor config's default tile applies.
+    tile_hw: tuple[int, int] | None = None
 
     @property
     def h(self) -> int:
@@ -262,16 +266,80 @@ def partition_graph(graph: NetGraph, onchip_budget_bytes: int,
     return segments
 
 
+def partition_graph_tuned(graph: NetGraph, tuned,
+                          onchip_budget_bytes: int,
+                          dtype_bytes: int = 4) -> list[Segment]:
+    """Cut the backbone along an autotuned plan's explicit cut points.
+
+    ``tuned`` is a ``repro_torch.tuning.TunedPlan``: its groups name
+    graph-node index spans ``[start, stop)`` plus the tile shape each
+    group's schedules use (carried on ``FusedGroup.tile_hw``). The
+    spans must exactly tile the layer-node indices without crossing a
+    boundary node — anything else is a stale or foreign plan and
+    raises instead of silently mis-executing.
+    """
+    layer_idx = [i for i, n in enumerate(graph.nodes)
+                 if isinstance(n, (ConvNode, DeformNode))]
+    covered = [i for g in tuned.groups for i in range(g.start, g.stop)]
+    if covered != layer_idx:
+        raise ValueError(
+            "tuned plan does not tile this graph's layer nodes "
+            f"(plan covers {covered[:8]}..., graph has "
+            f"{layer_idx[:8]}...)")
+
+    segments: list[Segment] = []
+    groups = iter(tuned.groups)
+    with get_tracer().span("prepass.partition", nodes=len(graph.nodes),
+                           tuned=True) as sp:
+        i = 0
+        while i < len(graph.nodes):
+            node = graph.nodes[i]
+            if isinstance(node, (PoolNode, UpsampleNode)):
+                segments.append(node)
+                i += 1
+                continue
+            g = next(groups)
+            run = graph.nodes[g.start:g.stop]
+            shapes = [LayerShape(n.h, n.w, n.c_in, n.c_out,
+                                 n.kernel_size, dtype_bytes)
+                      for n in run]
+            plans = tuple(plan_network(shapes, onchip_budget_bytes))
+            saved = sum(2 * n.h * n.w * n.c_out * dtype_bytes
+                        for n in run[:-1])
+            gp = GroupPlan(0, len(run), plans, saved)
+            segments.append(FusedGroup(tuple(run), gp,
+                                       tile_hw=(g.tile_h, g.tile_w)))
+            i = g.stop
+        sp.set(segments=len(segments))
+    return segments
+
+
 @functools.lru_cache(maxsize=64)
 def _partition_cached(graph: NetGraph, onchip_budget_bytes: int,
-                      dtype_bytes: int) -> tuple[Segment, ...]:
+                      dtype_bytes: int, autotune: str,
+                      tuned) -> tuple[Segment, ...]:
+    if tuned is not None:
+        return tuple(partition_graph_tuned(graph, tuned,
+                                           onchip_budget_bytes,
+                                           dtype_bytes))
     return tuple(partition_graph(graph, onchip_budget_bytes, dtype_bytes))
 
 
 def partition_graph_cached(graph: NetGraph, onchip_budget_bytes: int,
-                           dtype_bytes: int = 4) -> list[Segment]:
-    """Memoized :func:`partition_graph` for serving hot paths: the graph
-    (frozen nodes), budget and dtype are the full key, so the planner
-    sweep runs once per deployment instead of once per step."""
+                           dtype_bytes: int = 4, autotune: str = "off",
+                           tuned=None) -> list[Segment]:
+    """Memoized :func:`partition_graph` for serving hot paths.
+
+    ``NetGraph`` is a frozen dataclass of frozen nodes and a
+    ``TunedPlan`` is all-tuple, so the full key — graph, budget,
+    dtype, autotune mode, tuned plan — is hashable and the planner
+    sweep (greedy or tuned) runs once per distinct deployment instead
+    of once per request step. Every input that can change the plan is
+    part of the memo key: a tuned run is never served a stale greedy
+    partition (or the other way round), and two different tuned plans
+    never collide. Segments are frozen; sharing them across calls is
+    safe.
+    """
     return list(_partition_cached(graph, int(onchip_budget_bytes),
-                                  int(dtype_bytes)))
+                                  int(dtype_bytes), str(autotune),
+                                  tuned))

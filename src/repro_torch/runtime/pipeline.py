@@ -141,7 +141,8 @@ def run_staged(n: int, prepass, execute, depth: int, overlap,
 
 def validate_dispatch_config(cfg) -> None:
     """Shared ``__post_init__`` checks of the executor configs: tile
-    sides, dispatch mode, schedule backend, staging depth and watchdog."""
+    sides, dispatch mode, schedule backend, staging depth, watchdog and
+    the autotune mode and budget."""
     cfg.tile_hw                          # validates tile sides
     if cfg.dispatch not in DISPATCH_MODES:
         raise ValueError(f"unknown dispatch mode: {cfg.dispatch!r}")
@@ -156,6 +157,13 @@ def validate_dispatch_config(cfg) -> None:
     if cfg.watchdog_s is not None and cfg.watchdog_s <= 0:
         raise ValueError(
             f"watchdog_s must be > 0 (or None), got {cfg.watchdog_s}")
+    if cfg.autotune not in ("off", "offline", "cached-only"):
+        raise ValueError(
+            f"autotune must be 'off', 'offline' or 'cached-only', "
+            f"got {cfg.autotune!r}")
+    if cfg.autotune_budget < 1:
+        raise ValueError(
+            f"autotune_budget must be >= 1, got {cfg.autotune_budget}")
 
 
 def clamp_tile_config(cfg, h: int, w: int):
@@ -192,6 +200,14 @@ class PipelineConfig:
     # wait on a staged prepass, after which the run fails over to
     # synchronous prepass.
     watchdog_s: float | None = None
+    # Simulator-guided tile autotuning (repro_torch.tuning): "off" = use
+    # the configured tile; "offline" = search once per layer geometry for
+    # the (tile_h, tile_w) with the least simulated DRAM traffic and
+    # cache the winner; "cached-only" = use a cached winner, never
+    # search. plan_cache_dir persists winners across processes.
+    autotune: str = "off"
+    plan_cache_dir: str | None = None
+    autotune_budget: int = 128
     # Fault injector (repro_torch.testing.FaultInjector) — tests only,
     # excluded from config equality.
     faults: Any = dataclasses.field(default=None, compare=False)
@@ -511,6 +527,21 @@ def dcn_pipeline(x: torch.Tensor, params: DeformableConvParams, *,
         y = torch.zeros(tuple(x.shape[:3]) + (c_out,), dtype=x.dtype,
                         device=x.device)
         return (y, trace) if return_trace else y
+    if cfg.autotune != "off":
+        # Single layer, nothing to cut: the search degenerates to the
+        # tile shape with the least simulated DRAM (first image's coords
+        # as the representative input; winner cached per layer
+        # geometry, so later batches skip straight to it).
+        from repro_torch.tuning import resolve_tuned_tile
+        tt = resolve_tuned_tile(
+            coords[0], h, w, c_in=int(x.shape[-1]), c_out=int(c_out),
+            kernel_size=kernel_size, autotune=cfg.autotune,
+            dtype_bytes=x.element_size(), tile_hw=(th, tw),
+            buffer_tiles=cfg.buffer_tiles, schedule=cfg.schedule,
+            budget=cfg.autotune_budget,
+            plan_cache_dir=cfg.plan_cache_dir, tracer=tr)
+        if tt is not None:
+            th, tw = tt
     grid = TileGrid(h, w, th, tw)
     tp = grid.th * grid.tw
     m = grid.num_tiles if cfg.buffer_tiles is None else cfg.buffer_tiles

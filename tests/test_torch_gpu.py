@@ -154,6 +154,71 @@ def test_group_kernel_counts_one_launch():
     assert schedule_group_batch.launches == n0 + 1
 
 
+# Tile shapes the tuner can give a 14x14 DCN group (tile sides {1, 2, 4,
+# 8, 14}): P = 1, 2, 14, 28 and 196 pixels a tile, the last padded to 256
+# as the executor pads it; 196 and 98 tiles run the group kernel's block
+# body, 14, 7 and 1 its warp body.
+TUNED_TILES = [(1, 1), (1, 2), (1, 14), (2, 14), (14, 14)]
+
+
+def _tuned_group(th, tw, n=4, m=6):
+    """A 14x14 DCN group of ``n`` images at tile (th, tw): its layer
+    coords, grid, images, FIFO depth and dispatch k_pad, as the
+    batch-fused prepass hands them to the group kernel."""
+    grid = TileGrid(14, 14, th, tw)
+    coords = torch.stack([_coords(100 + 7 * i, 14, 14, spread=3.0)
+                          for i in range(n)])
+    return [coords], grid, list(range(n)), m, \
+        1 << (grid.num_tiles - 1).bit_length()
+
+
+@pytest.mark.parametrize("th,tw", TUNED_TILES)
+def test_group_kernel_tuned_grid(th, tw):
+    layers, grid, images, m, k_pad = _tuned_group(th, tw)
+    want = schedule_group_batch_plain(layers, images, grid, m, k_pad)
+    got = schedule_group_batch([layers[0].cuda()], images, grid, m, k_pad,
+                               device="cuda")
+    torch.cuda.synchronize()
+    for k in range(len(images)):
+        for a, b in zip(got.image(k, own=True).tensors(),
+                        want.image(k).tensors()):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("th,tw", TUNED_TILES)
+def test_batch_kernel_tuned_tile(th, tw):
+    """#1 on the operands the batch-fused path packs for a 14x14x512 DCN
+    layer of 4 images at tile (th, tw): the plain version within 1e-4 *
+    max|ref|, a bitwise rerun."""
+    from repro_torch.core.scheduler import DeviceSchedule
+    from repro_torch.runtime.packing import (pack_batch_schedules,
+                                             pack_plane_operands)
+
+    layers, grid, images, m, k_pad = _tuned_group(th, tw)
+    n, t, tp = len(images), grid.num_tiles, th * tw
+    p_pad = tp if tp % min(128, tp) == 0 else -(-tp // 128) * 128
+    out = schedule_group_batch_plain(layers, images, grid, m, k_pad)
+    batch = pack_batch_schedules(
+        [DeviceSchedule(*out.image(k).exec[0]) for k in range(n)], t, t,
+        "cpu")
+    idx, coeff = pack_plane_operands(layers[0], grid, p_pad)
+    rng = np.random.default_rng(th * 16 + tw)
+    ops = [torch.as_tensor(rng.normal(size=(n * t, tp, 512))
+                           .astype(np.float32)),
+           batch.row_id, batch.dep_glb, batch.dep_cnt,
+           idx.reshape(n * t, p_pad, 9, 4), coeff.reshape(n * t, p_pad, 9, 4),
+           torch.as_tensor((rng.normal(size=(9, 512, 512)) / 68)
+                           .astype(np.float32)),
+           torch.as_tensor(rng.normal(size=(512,)).astype(np.float32))]
+    want = dcn_fused_batch_plain(*ops, t_in=t)
+    args = [a.contiguous().cuda() for a in ops]
+    got = dcn_fused_batch(*args, t_in=t)
+    assert got.shape == (batch.row_id.shape[0], p_pad, 512)
+    assert float((got.cpu() - want).abs().max()) <= \
+        1e-4 * float(want.abs().max())
+    assert torch.equal(dcn_fused_batch(*args, t_in=t), got)
+
+
 def _fused_operands(seed, n, t, tp, c, o, k_pad, kk=9):
     rng = np.random.default_rng(seed)
     g = n * t

@@ -35,7 +35,9 @@ def test_package_imports_with_jax_blocked():
         "import repro_torch.kernels.dcn_fused, repro_torch.obs.export\n"
         "import repro_torch.kernels._build, repro_torch.kernels.ops\n"
         "import repro_torch.kernels.dcn_bli, repro_torch.testing\n"
-        "import repro_torch.runtime.pipeline\n"
+        "import repro_torch.runtime.pipeline, repro_torch.runtime\n"
+        "import repro_torch.tuning, repro_torch.core\n"
+        "from repro_torch.core import simulate_group, make_square_grid\n"
         "import repro_torch.models.lm, repro_torch.configs\n"
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.flash_decode\n"
