@@ -732,20 +732,27 @@ long long large_smem_bytes(int n_out, int n_in, int chain, int in_smem) {
          (in_smem ? 4LL * table_words(n_out, n_in, chain) : 0);
 }
 
+// Dynamic smem limit set, per device and body: a function attribute
+// holds for the current device only.
+constexpr int kMaxDevices = 64;
 std::mutex attr_mu;
-long long attr_bytes[4] = {0, 0, 0, 0};   // dynamic smem limit set, per body
+long long attr_bytes[kMaxDevices][4] = {};
 
 template <bool kSmem, int kPer>
 int launch_large(const SchedArgs& a, long long smem, cudaStream_t st,
                  int slot) {
   {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
     std::lock_guard<std::mutex> g(attr_mu);
-    if (smem > attr_bytes[slot]) {
-      const cudaError_t err = cudaFuncSetAttribute(
+    if (smem > attr_bytes[dev][slot]) {
+      err = cudaFuncSetAttribute(
           schedule_large_kernel<kSmem, kPer>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return (int)err;
-      attr_bytes[slot] = smem;
+      attr_bytes[dev][slot] = smem;
     }
   }
   schedule_large_kernel<kSmem, kPer>

@@ -129,10 +129,12 @@ def bli_tile_matmul(x_tile, idx, coeff, *, block_p: int = 128,
                     aligned=x_tile.data_ptr() % 16 == 0,
                     sm_count=torch.cuda.get_device_properties(
                         dev).multi_processor_count)
-    err = lib.bli_gather_launch(
-        x_tile.data_ptr(), idx.data_ptr(), coeff.data_ptr(), out.data_ptr(),
-        n, p, s, c, int(x_tile.dtype == torch.bfloat16), int(plan.vec),
-        plan.lw, plan.rows, plan.grid[0], _stream(x_tile))
+    with torch.cuda.device(dev):
+        err = lib.bli_gather_launch(
+            x_tile.data_ptr(), idx.data_ptr(), coeff.data_ptr(),
+            out.data_ptr(), n, p, s, c, int(x_tile.dtype == torch.bfloat16),
+            int(plan.vec), plan.lw, plan.rows, plan.grid[0],
+            _stream(x_tile))
     _build.check(err, "bli_gather_launch")
     bli_tile_matmul.launches += 1
     bli_tile_matmul.last_plan = plan

@@ -19,6 +19,11 @@ few rows still fills the card.
   (``per_tile`` and ``ops.deformable_conv2d_pallas``; same source),
   addresses into ``[0, S)``, a leading batch dimension as grid rows.
 
+:func:`dcn_fused_batch_sharded` is no kernel of its own: it runs
+:func:`dcn_fused_batch` once per shard of a batch, each on its shard's
+device of a :class:`~repro_torch.launch.mesh.DeviceMesh` (the TPU
+package's ``shard_map`` of the batch kernel).
+
 For a CPU tensor each wrapper runs its plain torch version, which repeats
 the TPU kernel's dataflow (batch and schedule: per dep slot, localise the
 addresses, 4-hot gather, accumulate the patch in float32; tile: the 4-hot
@@ -40,7 +45,13 @@ from repro_torch.obs import get_tracer
 
 def dcn_fused_batch_plain(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff, w,
                           b, *, t_in: int) -> torch.Tensor:
-    """Plain torch version of the batch-fused kernel -> (G, P, C_out)."""
+    """Plain torch version of the batch-fused kernel -> (G, P, C_out).
+
+    Each grid row is contracted with ``w`` on its own, so a row's result
+    does not depend on the other rows of the call: the sharded run, which
+    calls this per shard, gives the single-device result bitwise (one
+    matrix product over all rows would not — a BLAS picks its kernel,
+    and so its summation order, by the row count)."""
     nt_in, tp, c = x_tiles.shape
     g = row_id.shape[0]
     _, p, kk, _ = idx.shape
@@ -61,7 +72,9 @@ def dcn_fused_batch_plain(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff, w,
         src = local.clamp(0, tp - 1).reshape(g, -1)        # (G, P*KK*4)
         vals = tile[gi[:, None], src].reshape(g, p, kk, 4, c)
         acc += ((cf * live)[..., None] * vals).sum(dim=3)
-    out = acc.reshape(g, p, kk * c) @ w.float().reshape(kk * c, o)
+    w2 = w.float().reshape(kk * c, o)
+    out = torch.stack([a.reshape(p, kk * c) @ w2 for a in acc]) if g else \
+        acc.new_zeros((0, p, o))
     return (out + b.float()).to(x_tiles.dtype)
 
 
@@ -176,10 +189,55 @@ def _launch_split(fn, entry: str, out: torch.Tensor, rows: int,
     n_split, c_split = split_channels(c, n_split)
     ws = (torch.empty((n_split, rows, p, o), dtype=torch.float32,
                       device=out.device) if n_split > 1 else out)
-    err = getattr(lib, entry)(*pointers, ws.data_ptr(), out.data_ptr(),
-                              *ints, n_split, c_split, _stream(out))
+    # The C side sizes and launches on the current device: make it the
+    # operands' own.
+    with torch.cuda.device(out.device):
+        err = getattr(lib, entry)(*pointers, ws.data_ptr(), out.data_ptr(),
+                                  *ints, n_split, c_split, _stream(out))
     _build.check(err, entry)
     fn.last_grid = fused_grid(rows, p, o, n_split)
+
+
+def _check_batch(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff, w, b,
+                 t_in: int) -> torch.device:
+    dev = _check_operands(dict(x_tiles=x_tiles, coeff=coeff, w=w, b=b),
+                          dict(row_id=row_id, dep_glb=dep_glb,
+                               dep_cnt=dep_cnt, idx=idx))
+    nt_in, tp, c = x_tiles.shape
+    g = row_id.shape[0]
+    if nt_in % t_in:
+        raise ValueError(f"x_tiles rows {nt_in} not a multiple of "
+                         f"t_in={t_in}")
+    if (dep_glb.dim() != 2 or dep_glb.shape[0] != g
+            or tuple(dep_cnt.shape) != (g,)):
+        raise ValueError("dep_glb must be (G, k_pad) and dep_cnt (G,)")
+    if idx.dim() != 4:
+        raise ValueError("idx and coeff must both be (rows, P, KK, 4)")
+    _check_conv(idx, coeff, w, b, c)
+    return dev
+
+
+def _batch_call(dev, x_tiles, row_id, dep_glb, dep_cnt, idx, coeff, w, b,
+                t_in: int, n_split: int | None) -> torch.Tensor:
+    """#1 on checked operands: the plain version on the CPU, else one
+    launch on ``dev`` (counted on :func:`dcn_fused_batch`)."""
+    if dev.type == "cpu":
+        return dcn_fused_batch_plain(x_tiles, row_id, dep_glb, dep_cnt, idx,
+                                     coeff, w, b, t_in=t_in)
+    nt_in, tp, c = x_tiles.shape
+    g, p, o = row_id.shape[0], idx.shape[1], w.shape[2]
+    out = torch.empty((g, p, o), dtype=torch.float32, device=dev)
+    if g == 0 or p == 0:
+        return out
+    _launch_split(
+        dcn_fused_batch, "dcn_fused_batch_launch", out, g,
+        (x_tiles.data_ptr(), row_id.data_ptr(), dep_glb.data_ptr(),
+         dep_cnt.data_ptr(), idx.data_ptr(), coeff.data_ptr(),
+         w.data_ptr(), b.data_ptr()),
+        (g, dep_glb.shape[1], nt_in, t_in, tp, p, idx.shape[2], c, o),
+        n_split, c)
+    dcn_fused_batch.launches += 1
+    return out
 
 
 def dcn_fused_batch(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff, w, b,
@@ -195,42 +253,130 @@ def dcn_fused_batch(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff, w, b,
     ``tile*tp + offset`` and BLI coefficients; w (KK, C, O); b (O,).
     ``n_split`` as for :func:`dcn_fused_schedule`.
     """
-    dev = _check_operands(dict(x_tiles=x_tiles, coeff=coeff, w=w, b=b),
-                          dict(row_id=row_id, dep_glb=dep_glb,
-                               dep_cnt=dep_cnt, idx=idx))
-    nt_in, tp, c = x_tiles.shape
-    g = row_id.shape[0]
-    if nt_in % t_in:
-        raise ValueError(f"x_tiles rows {nt_in} not a multiple of "
-                         f"t_in={t_in}")
-    if (dep_glb.dim() != 2 or dep_glb.shape[0] != g
-            or tuple(dep_cnt.shape) != (g,)):
-        raise ValueError("dep_glb must be (G, k_pad) and dep_cnt (G,)")
-    if idx.dim() != 4:
-        raise ValueError("idx and coeff must both be (rows, P, KK, 4)")
-    _check_conv(idx, coeff, w, b, c)
-    p, o = idx.shape[1], w.shape[2]
-    with get_tracer().span("dispatch.batch_fused", grid_rows=int(g),
-                           c_out=int(o)):
-        if dev.type == "cpu":
-            return dcn_fused_batch_plain(x_tiles, row_id, dep_glb, dep_cnt,
-                                         idx, coeff, w, b, t_in=t_in)
-        out = torch.empty((g, p, o), dtype=torch.float32, device=dev)
-        if g == 0 or p == 0:
-            return out
-        _launch_split(
-            dcn_fused_batch, "dcn_fused_batch_launch", out, g,
-            (x_tiles.data_ptr(), row_id.data_ptr(), dep_glb.data_ptr(),
-             dep_cnt.data_ptr(), idx.data_ptr(), coeff.data_ptr(),
-             w.data_ptr(), b.data_ptr()),
-            (g, dep_glb.shape[1], nt_in, t_in, tp, p, idx.shape[2], c, o),
-            n_split, c)
-        dcn_fused_batch.launches += 1
-        return out
+    dev = _check_batch(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff, w, b,
+                       t_in)
+    with get_tracer().span("dispatch.batch_fused",
+                           grid_rows=int(row_id.shape[0]),
+                           c_out=int(w.shape[2])):
+        return _batch_call(dev, x_tiles, row_id, dep_glb, dep_cnt, idx,
+                           coeff, w, b, t_in, n_split)
 
 
 dcn_fused_batch.launches = 0
 dcn_fused_batch.last_grid = None
+
+
+# ---------------------------------------------------------------------------
+# The batch grid per device shard (the TPU package's `shard_map` of #1)
+# ---------------------------------------------------------------------------
+
+
+def _shard_extents(rows: int, sizes) -> list[int]:
+    """Real leading rows of each shard's slab of ``rows`` (n_max *
+    rows_per_image): ``sizes[s]`` images' rows."""
+    n_max = max(sizes)
+    if n_max == 0:
+        return [0] * len(sizes)
+    if rows % n_max:
+        raise ValueError(f"slab of {rows} rows does not hold {n_max} "
+                         f"images evenly")
+    return [k * (rows // n_max) for k in sizes]
+
+
+def _sharded_operands(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff, mesh,
+                      sizes) -> int:
+    d = mesh.shape["data"]
+    for name, arr in (("x_tiles", x_tiles), ("row_id", row_id),
+                      ("dep_glb", dep_glb), ("dep_cnt", dep_cnt),
+                      ("idx", idx), ("coeff", coeff)):
+        if arr.shape[0] != d:
+            raise ValueError(
+                f"{name} leading dim {arr.shape[0]} != mesh 'data' axis "
+                f"size {d}")
+    if len(sizes) != d or min(sizes) < 0:
+        raise ValueError(f"sizes {list(sizes)} must give one image count "
+                         f">= 0 per shard of {d}")
+    return d
+
+
+def dcn_fused_batch_sharded_plain(x_tiles, row_id, dep_glb, dep_cnt, idx,
+                                  coeff, w, b, *, t_in: int
+                                  ) -> torch.Tensor:
+    """Plain torch version of :func:`dcn_fused_batch_sharded`:
+    :func:`dcn_fused_batch_plain` over each shard's whole slab, on the
+    operands' device -> (D, G_loc, P, C_out)."""
+    return torch.stack([
+        dcn_fused_batch_plain(x_tiles[s], row_id[s], dep_glb[s], dep_cnt[s],
+                              idx[s], coeff[s], w, b, t_in=t_in)
+        for s in range(x_tiles.shape[0])])
+
+
+def dcn_fused_batch_sharded(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff,
+                            w, b, *, mesh, t_in: int, sizes
+                            ) -> torch.Tensor:
+    """Fused Eq. 2+3 over per-device shards of a batch's schedules ->
+    (D, G_loc, P, C_out) on ``x_tiles``' device; shard ``s`` runs #1 on
+    ``mesh.devices[s]``.
+
+    Every operand but the weights carries a leading shard axis of size
+    D = ``mesh.shape["data"]``, as :func:`runtime.shard.stack_rows` and
+    :func:`runtime.shard.shard_batch_schedules` lay it out: x_tiles (D,
+    N_loc*T_in, tp, C), row_id / dep_cnt (D, G_loc), dep_glb (D, G_loc,
+    k_pad), idx / coeff (D, N_loc*T_out, P, KK, 4), all shard-local ids.
+    ``w`` and ``b`` lie on the caller's device and are copied to each
+    other device once per mesh (``mesh.replica``).
+
+    ``sizes`` (images per shard, ``ShardPlan.sizes``) trims each slab to
+    its real images: shard ``s`` copies and launches only its first
+    ``sizes[s]`` images' rows, and a shard of no image launches nothing.
+    The rows it leaves are cross-shard padding (``dep_cnt = 0``), whose
+    output is ``b`` as the kernel writes it. All shards' launches are
+    issued before any result is copied back.
+
+    On CUDA every shard takes the split the single-device call over the
+    same rows would take, ``fused_splits(sum of real rows, ...)``, so each
+    row sums its C slices in the same order as the unsharded run: the
+    result is bitwise the single-device one.
+    """
+    d = _sharded_operands(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff,
+                          mesh, sizes)
+    if x_tiles.dim() != 4 or row_id.dim() != 2 or idx.dim() != 5:
+        raise ValueError("x_tiles must be (D, N*T_in, tp, C), row_id "
+                         "(D, G) and idx/coeff (D, rows, P, KK, 4)")
+    home = x_tiles.device
+    g_loc, p, o = row_id.shape[1], idx.shape[2], w.shape[2]
+    rows = _shard_extents(g_loc, sizes)
+    xs = _shard_extents(x_tiles.shape[1], sizes)
+    ixs = _shard_extents(idx.shape[1], sizes)
+    n_split = None
+    if home.type == "cuda" and sum(rows) and p:
+        c = x_tiles.shape[3]
+        dev0 = mesh.devices[next(s for s in range(d) if rows[s])]
+        n_split = fused_splits(
+            sum(rows), p, o, c,
+            torch.cuda.get_device_properties(dev0).multi_processor_count)
+    with get_tracer().span("dispatch.batch_fused_sharded", shards=int(d),
+                           grid_rows=int(d * g_loc), c_out=int(o)):
+        done = []
+        for s, dev in enumerate(mesh.devices):
+            if not rows[s]:
+                continue
+            ops = [t.to(dev, non_blocking=True) for t in (
+                x_tiles[s, :xs[s]], row_id[s, :rows[s]],
+                dep_glb[s, :rows[s]], dep_cnt[s, :rows[s]],
+                idx[s, :ixs[s]], coeff[s, :ixs[s]])]
+            wd, bd = mesh.replica(w, dev), mesh.replica(b, dev)
+            sdev = _check_batch(*ops, wd, bd, t_in)
+            done.append((s, _batch_call(sdev, *ops, wd, bd, t_in, n_split)))
+            if sdev.type == "cuda" and p:    # _batch_call launched #1
+                dcn_fused_batch_sharded.launches += 1
+        out = b.to(torch.float32).expand(d, g_loc, p, o).clone()
+        for s, y in done:
+            out[s, :rows[s]] = y.to(home, non_blocking=True)
+        return out
+
+
+dcn_fused_batch_sharded.launches = 0
 
 
 # ---------------------------------------------------------------------------

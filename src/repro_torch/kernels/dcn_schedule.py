@@ -236,9 +236,10 @@ class _Call:
     def launch(self) -> None:
         from repro_torch.kernels import _build
 
-        err = _lib().schedule_group_launch(
-            ctypes.addressof(self.args),
-            torch.cuda.current_stream(self.device).cuda_stream)
+        with torch.cuda.device(self.device):
+            err = _lib().schedule_group_launch(
+                ctypes.addressof(self.args),
+                torch.cuda.current_stream(self.device).cuda_stream)
         _build.check(err, "schedule_group_launch")
 
 

@@ -130,11 +130,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
     out = torch.empty((b, sq, hq, d), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv,
-        hq, hkv, d, int(causal), NO_WINDOW if window is None else int(window),
-        tiles["block_q"], scale, 0.0 if softcap is None else float(softcap),
-        _stream(q))
+    with torch.cuda.device(dev):
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            skv, hq, hkv, d, int(causal),
+            NO_WINDOW if window is None else int(window), tiles["block_q"],
+            scale, 0.0 if softcap is None else float(softcap), _stream(q))
     _build.check(err, "flash_attention_launch")
     flash_attention.launches += 1
     return out

@@ -184,14 +184,15 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
     part = torch.empty(b * hq * splits * (2 + d), dtype=torch.float32,
                        device=dev)
     stream = _stream(q)
-    err = lib.flash_decode_launch(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), part.data_ptr(),
-        _tickets(dev, stream, b * hkv).data_ptr(), out.data_ptr(), b, s_len,
-        hq, hkv, d, splits,
-        _BLOCKS_PER_SM * sms if num_splits is None else _NO_TARGET,
-        NO_WINDOW if window is None else int(window), scale,
-        0.0 if softcap is None else float(softcap), stream)
+    tickets = _tickets(dev, stream, b * hkv)
+    with torch.cuda.device(dev):
+        err = lib.flash_decode_launch(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            lengths.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+            out.data_ptr(), b, s_len, hq, hkv, d, splits,
+            _BLOCKS_PER_SM * sms if num_splits is None else _NO_TARGET,
+            NO_WINDOW if window is None else int(window), scale,
+            0.0 if softcap is None else float(softcap), stream)
     _build.check(err, "flash_decode_launch")
     flash_decode.launches += 1
     return out

@@ -17,7 +17,8 @@ backbone (runtime.graph) is partitioned into cross-layer fused groups —
 greedily, or along an autotuned plan (``repro_torch.tuning``); each group
 runs ONE Algorithm-1 schedule over a composite TDT chained through its
 layers, in the ``batch_fused`` (the serving path), ``batched`` or
-``per_tile`` dispatch mode (runtime.fused_exec). Schedules are memoized
+``per_tile`` dispatch mode (runtime.fused_exec). ``batch_fused`` can
+shard the batch axis over the devices of a mesh (runtime.shard). Schedules are memoized
 in an LRU keyed on quantized coordinates (runtime.cache).
 
 Executors emit traces (runtime.trace) whose byte counts equal the
@@ -58,6 +59,11 @@ from repro_torch.runtime.pipeline import (
     clamp_tile_config,
     dcn_pipeline,
 )
+from repro_torch.runtime.shard import (
+    ShardPlan,
+    plan_batch_shards,
+    resolve_shard_mesh,
+)
 from repro_torch.runtime.trace import (
     GroupTrace,
     ImageTrace,
@@ -82,6 +88,9 @@ __all__ = [
     "dcn_pipeline",
     "ScheduleCache",
     "default_schedule_cache",
+    "ShardPlan",
+    "plan_batch_shards",
+    "resolve_shard_mesh",
     "GraphConfig",
     "TileBuffer",
     "clamp_tile_config",

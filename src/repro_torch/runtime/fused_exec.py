@@ -54,6 +54,7 @@ from repro_torch.core.scheduler import (DeviceSchedule, TileSchedule,
 from repro_torch.core.tiles import (TileGrid, compose_tdt_chain,
                                     tdt_from_coords, tdt_standard_conv)
 from repro_torch.kernels.dcn_fused import (dcn_fused_batch,
+                                           dcn_fused_batch_sharded,
                                            dcn_fused_schedule,
                                            dcn_fused_tile)
 from repro_torch.kernels.dcn_schedule import (schedule_group_batch,
@@ -75,6 +76,10 @@ from repro_torch.runtime.packing import (build_neighbour_tables,
                                          tiles_to_plane)
 from repro_torch.runtime.pipeline import (schedule_cache_key, run_staged,
                                           validate_dispatch_config)
+from repro_torch.runtime.shard import (ShardPlan, allgather_nbytes,
+                                       plan_batch_shards, resolve_shard_mesh,
+                                       scatter_shard_rows,
+                                       shard_batch_schedules, stack_rows)
 from repro_torch.runtime.trace import (GroupTrace, LayerBufferStats,
                                        NetworkTrace, TileRecord)
 
@@ -112,6 +117,13 @@ class GraphConfig:
     # staged prepass that misses it triggers failover to synchronous
     # prepass for the rest of the run (see pipeline.run_staged).
     watchdog_s: float | None = None
+    # Batch-axis scale-out (batch_fused only): a
+    # repro_torch.launch.mesh.DeviceMesh, or data_parallel=D (a mesh over
+    # the first D CUDA devices, built at run time). Each mesh device runs
+    # the concatenated schedules of its local images; one process drives
+    # every device, and the logits gather once on the caller's device.
+    mesh: Any = None
+    data_parallel: int | None = None
     # Simulator-guided plan autotuning (repro_torch.tuning): "off" =
     # greedy partition at the default tile; "offline" = search (once per
     # plan key, cached) for the best cuts + per-group tile shapes;
@@ -635,11 +647,13 @@ class _ImageGroupSched:
 
 @dataclasses.dataclass
 class _BatchLayerOps:
-    """One DCN layer's batch-fused operands (whole batch)."""
+    """One DCN layer's batch-fused operands (whole batch; shard-stacked
+    when a plan shards the batch)."""
 
-    batch: Any                            # packing.BatchDispatch
-    idx: torch.Tensor                     # (N*T, p_pad, KK, 4) int32
-    coeff: torch.Tensor                   # (N*T, p_pad, KK, 4) float32
+    batch: Any                            # packing.BatchDispatch | None
+    idx: torch.Tensor                     # (N*T, p_pad, KK, 4) int32, or
+    coeff: torch.Tensor                   #   (D, n_max*T, ...) per shard
+    shard: Any = None                     # shard.ShardedDispatch | None
 
 
 @dataclasses.dataclass
@@ -666,11 +680,13 @@ def _group_batch_prepass(
     cache: ScheduleCache | None,
     need_out_plane: bool,
     tracer: Tracer | None = None,
+    plan: ShardPlan | None = None,
 ) -> tuple[_BatchGroupArtifacts, torch.Tensor]:
     """Batch-level prepass for one group: the stage-1 chain runs batched,
     per-image composite schedules are built in dense form (cached —
     partial batch hits skip scheduling for the hit images), and the
-    per-layer operands are concatenated with per-image base offsets."""
+    per-layer operands are concatenated with per-image base offsets (per
+    shard, with a shard ``plan``: each shard keeps its own padding)."""
     tr = tracer if tracer is not None else get_tracer()
     n = planes.shape[0]
     dev = planes.device
@@ -818,11 +834,19 @@ def _group_batch_prepass(
                 continue
             kk = node.kernel_size ** 2
             idx, coeff = pack_plane_operands(coords_layers[j], grid, p_pad)
+            idx = idx.reshape(n * t_out, p_pad, kk, 4)
+            coeff = coeff.reshape(n * t_out, p_pad, kk, 4)
             scheds = [bundles[i].exec_scheds[j] for i in range(n)]
-            layer_ops.append(_BatchLayerOps(
-                pack_batch_schedules(scheds, t_out, t_out, dev),
-                idx.reshape(n * t_out, p_pad, kk, 4),
-                coeff.reshape(n * t_out, p_pad, kk, 4)))
+            if plan is None:
+                layer_ops.append(_BatchLayerOps(
+                    pack_batch_schedules(scheds, t_out, t_out, dev), idx,
+                    coeff))
+            else:
+                layer_ops.append(_BatchLayerOps(
+                    None, stack_rows(idx, plan, t_out),
+                    stack_rows(coeff, plan, t_out),
+                    shard=shard_batch_schedules(scheds, t_out, t_out, plan,
+                                                dev)))
 
     art = _BatchGroupArtifacts(
         grid=grid, m=m, bundles=bundles, cache_hits=hits,
@@ -833,14 +857,20 @@ def _group_batch_prepass(
 
 def _exec_group_batch_fused(planes: torch.Tensor, group: FusedGroup,
                             convs: list, cfg: GraphConfig,
-                            art: _BatchGroupArtifacts
+                            art: _BatchGroupArtifacts, mesh=None,
+                            plan: ShardPlan | None = None
                             ) -> tuple[torch.Tensor, int]:
     """Execute one fused group for the whole batch: ONE dispatch per
     layer segment (the batch-fused kernel for DCN layers, one batched
-    dense conv for standard layers)."""
+    dense conv for standard layers). With ``mesh``/``plan`` each DCN
+    segment stacks its tile rows into per-shard slabs, runs the kernel
+    once per shard on the shard's device, and scatters and unstacks the
+    result; conv segments and plane assembly run on the TRUE batch on
+    the caller's device with the single-device shapes, so the sharded
+    result is bitwise the unsharded one."""
     n = planes.shape[0]
     if cfg.faults is not None:
-        cfg.faults.check("dispatch", images=n)
+        cfg.faults.check("dispatch", images=plan.n if plan else n)
     grid = art.grid
     h, w = grid.h, grid.w
     tp = grid.th * grid.tw
@@ -858,14 +888,26 @@ def _exec_group_batch_fused(planes: torch.Tensor, group: FusedGroup,
             ops = art.layer_ops[j]
             kk = node.kernel_size ** 2
             w2 = p.w.reshape(kk, node.c_in, node.c_out)
-            y = dcn_fused_batch(
-                flat, ops.batch.row_id, ops.batch.dep_glb,
-                ops.batch.dep_cnt, ops.idx, ops.coeff, w2, p.b,
-                t_in=t)[:, :tp]
+            if plan is not None:
+                sh = ops.shard
+                y = dcn_fused_batch_sharded(
+                    stack_rows(flat, plan, t), sh.row_id, sh.dep_glb,
+                    sh.dep_cnt, ops.idx, ops.coeff, w2, p.b, mesh=mesh,
+                    t_in=t, sizes=plan.sizes)[:, :, :tp]
+                oid = sh.oid
+            else:
+                y = dcn_fused_batch(
+                    flat, ops.batch.row_id, ops.batch.dep_glb,
+                    ops.batch.dep_cnt, ops.idx, ops.coeff, w2, p.b,
+                    t_in=t)[:, :tp]
+                oid = ops.batch.oid
             if node.relu:
                 y = torch.relu(y)
-            y = y * masks[ops.batch.oid.clamp_min(0).long()]
-            if j == last:
+            y = y * masks[oid.clamp_min(0).long()]
+            if plan is not None:
+                # Shard rows back to (image, tile) order, per shard.
+                flat = scatter_shard_rows(y, sh, plan, t).contiguous()
+            elif j == last:
                 # Scatter scheduled rows back to (image, tile) order;
                 # ragged-padding rows all land in a dropped dump row, so
                 # their duplicate indices never touch a kept row.
@@ -936,13 +978,22 @@ def _run_graph_batch_fused(convs: list, segments: list[Segment],
                            cache: ScheduleCache | None,
                            max_displacement: float | None,
                            trace: NetworkTrace, return_trace: bool,
-                           tracer: Tracer) -> torch.Tensor:
+                           tracer: Tracer, mesh=None,
+                           shard_sizes=None) -> torch.Tensor:
     """Batch-fused graph execution: the staging unit is a SEGMENT of the
     whole batch — segment s+1's batch prepass overlaps segment s's
-    execution on the staging thread."""
+    execution on the staging thread.
+
+    With a ``mesh`` every DCN segment runs the kernel once per shard of
+    the batch (``shard_sizes`` images each, else the near-even split);
+    the prepass chain and the dense segments stay on the true batch, so
+    schedules, traces and numerics are the single-device run's. The
+    modeled collective is the one gather of the output planes."""
     n = x.shape[0]
     th, tw = cfg.tile_hw
     itemsize = x.element_size()
+    plan = (plan_batch_shards(n, mesh.shape["data"], shard_sizes)
+            if mesh is not None else None)
 
     deform_after = _deform_after(segments)
 
@@ -972,7 +1023,8 @@ def _run_graph_batch_fused(convs: list, segments: list[Segment],
                  else cfg.buffer_tiles)
             art, plane = _group_batch_prepass(
                 plane_in, seg, convs, grid, m, cfg, max_displacement,
-                cache, need_out_plane=deform_after[s], tracer=tracer)
+                cache, need_out_plane=deform_after[s], tracer=tracer,
+                plan=plan)
         with pre_lock:
             if pre_state["epoch"] == s:
                 pre_state["plane"] = plane
@@ -990,7 +1042,7 @@ def _run_graph_batch_fused(convs: list, segments: list[Segment],
             trace.boundary_bytes += n * boundary_bytes(seg, itemsize)
             return None
         planes, dispatches = _exec_group_batch_fused(
-            exec_state["plane"], seg, convs, cfg, art)
+            exec_state["plane"], seg, convs, cfg, art, mesh=mesh, plan=plan)
         exec_state["plane"] = planes
         trace.batch_dispatches += dispatches
         trace.overlap.schedule_s += art.schedule_s
@@ -1006,7 +1058,14 @@ def _run_graph_batch_fused(convs: list, segments: list[Segment],
                faults=cfg.faults)
     pending.sort(key=lambda g: (g.image, g.group))
     trace.groups.extend(pending)
-    return exec_state["plane"]
+    out = exec_state["plane"]
+    if plan is not None:
+        # Each shard keeps its rows until the output planes, which cross
+        # to the caller once; the per-segment gathers of this single
+        # controller are not modeled traffic.
+        trace.shards = plan.n_shards
+        trace.allgather_bytes += allgather_nbytes(out)
+    return out
 
 
 def run_graph(convs: list, graph: NetGraph, x: torch.Tensor, *,
@@ -1015,6 +1074,7 @@ def run_graph(convs: list, graph: NetGraph, x: torch.Tensor, *,
               return_trace: bool = False,
               schedule_cache: ScheduleCache | None = None,
               tracer: Tracer | None = None,
+              shard_sizes=None,
               tuned_plan="auto"):
     """Execute a backbone graph over a batch: (N,H,W,C) -> (N,H',W',C').
 
@@ -1025,6 +1085,12 @@ def run_graph(convs: list, graph: NetGraph, x: torch.Tensor, *,
     also returns the :class:`NetworkTrace` of the executed DRAM traffic.
     ``schedule_cache`` overrides the process-wide cache (serving engines
     pass their own); ``tracer`` routes span tracing.
+
+    With ``config.mesh`` / ``config.data_parallel`` (batch_fused only) the
+    batch shards over the mesh's "data" axis; ``shard_sizes`` pins the
+    images of each shard (the serving engine's replica placement — must
+    sum to N, zeros allowed). The result is bitwise the single-device
+    run's, and traces do not depend on the placement.
 
     With ``config.autotune`` enabled the partition and per-group tile
     shapes come from the simulator-guided tuner (``repro_torch.tuning``):
@@ -1078,11 +1144,17 @@ def run_graph(convs: list, graph: NetGraph, x: torch.Tensor, *,
                                       dtype_bytes=x.element_size(),
                                       autotune=cfg.autotune,
                                       tuned=tuned_plan)
+    mesh = resolve_shard_mesh(cfg.mesh, cfg.data_parallel)
+    if shard_sizes is not None and mesh is None:
+        raise ValueError(
+            "shard_sizes= requires a sharded config (mesh= or "
+            "data_parallel= with a data axis > 1)")
     if cfg.dispatch == "batch_fused":
         with use_tracer(tr):
             y = _run_graph_batch_fused(convs, segments, x, cfg, cache,
                                        max_displacement, trace,
-                                       return_trace, tr)
+                                       return_trace, tr, mesh=mesh,
+                                       shard_sizes=shard_sizes)
         return (y, trace) if return_trace else y
 
     def prepass(i: int):

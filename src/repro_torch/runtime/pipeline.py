@@ -41,6 +41,7 @@ from repro_torch.core.scheduler import (DeviceSchedule, TileSchedule,
                                         schedule_tiles, sequential_schedule)
 from repro_torch.core.tiles import TileGrid, tdt_from_coords
 from repro_torch.kernels.dcn_fused import (dcn_fused_batch,
+                                           dcn_fused_batch_sharded,
                                            dcn_fused_schedule,
                                            dcn_fused_tile)
 from repro_torch.kernels.dcn_schedule import tdt_from_coords_device
@@ -55,6 +56,10 @@ from repro_torch.runtime.packing import (NeighbourTables,
                                          pack_plane_operands,
                                          pack_schedule_tiles, plane_to_tiles,
                                          tiles_to_plane)
+from repro_torch.runtime.shard import (ShardPlan, allgather_nbytes,
+                                       plan_batch_shards, resolve_shard_mesh,
+                                       scatter_shard_rows,
+                                       shard_batch_schedules, stack_rows)
 from repro_torch.runtime.trace import ImageTrace, PipelineTrace, TileRecord
 
 DISPATCH_MODES = ("batched", "per_tile", "batch_fused")
@@ -141,8 +146,8 @@ def run_staged(n: int, prepass, execute, depth: int, overlap,
 
 def validate_dispatch_config(cfg) -> None:
     """Shared ``__post_init__`` checks of the executor configs: tile
-    sides, dispatch mode, schedule backend, staging depth, watchdog and
-    the autotune mode and budget."""
+    sides, dispatch mode, schedule backend, staging depth, watchdog,
+    sharding (``batch_fused`` only) and the autotune mode and budget."""
     cfg.tile_hw                          # validates tile sides
     if cfg.dispatch not in DISPATCH_MODES:
         raise ValueError(f"unknown dispatch mode: {cfg.dispatch!r}")
@@ -157,6 +162,14 @@ def validate_dispatch_config(cfg) -> None:
     if cfg.watchdog_s is not None and cfg.watchdog_s <= 0:
         raise ValueError(
             f"watchdog_s must be > 0 (or None), got {cfg.watchdog_s}")
+    dp = cfg.data_parallel
+    if dp is not None and dp < 1:
+        raise ValueError(f"data_parallel must be >= 1, got {dp}")
+    if ((cfg.mesh is not None or (dp or 1) > 1)
+            and cfg.dispatch != "batch_fused"):
+        raise ValueError(
+            "mesh=/data_parallel= sharding only applies to "
+            f"dispatch='batch_fused', got dispatch={cfg.dispatch!r}")
     if cfg.autotune not in ("off", "offline", "cached-only"):
         raise ValueError(
             f"autotune must be 'off', 'offline' or 'cached-only', "
@@ -200,6 +213,12 @@ class PipelineConfig:
     # wait on a staged prepass, after which the run fails over to
     # synchronous prepass.
     watchdog_s: float | None = None
+    # Batch-axis scale-out (batch_fused only): a
+    # repro_torch.launch.mesh.DeviceMesh, or data_parallel=D (a mesh over
+    # the first D CUDA devices, built at run time). Each mesh device runs
+    # the concatenated schedules of its local images.
+    mesh: Any = None
+    data_parallel: int | None = None
     # Simulator-guided tile autotuning (repro_torch.tuning): "off" = use
     # the configured tile; "offline" = search once per layer geometry for
     # the (tile_h, tile_w) with the least simulated DRAM traffic and
@@ -393,19 +412,23 @@ class _BatchArtifacts:
 
     scheds: list[DeviceSchedule]
     cache_hits: list[bool | None]
-    batch: Any                    # packing.BatchDispatch
+    batch: Any                    # packing.BatchDispatch (None if sharded)
     idx: torch.Tensor             # (N*T, p_pad, KK, 4) plane-global
     coeff: torch.Tensor           # (N*T, p_pad, KK, 4)
     schedule_s: float = 0.0
     schedule_device_s: float = 0.0
+    shard: Any = None             # shard.ShardedDispatch when sharded
 
 
 def _pipeline_batch_prepass(coords: torch.Tensor, grid: TileGrid, m: int,
                             p_pad: int, cfg: PipelineConfig,
-                            tracer: Tracer | None = None) -> _BatchArtifacts:
+                            tracer: Tracer | None = None,
+                            plan: ShardPlan | None = None) -> _BatchArtifacts:
     """Whole-batch prepass: per-image dense schedules (cached; a partial
     batch hit skips scheduling for the hit images) concatenated into one
-    batch grid, plus the plane-ordered packed operands."""
+    batch grid, plus the plane-ordered packed operands. With a shard
+    ``plan`` the schedules concatenate per shard instead (each shard
+    keeps its own ragged padding)."""
     tr = tracer if tracer is not None else get_tracer()
     n = coords.shape[0]
     cache = default_schedule_cache() if cfg.use_schedule_cache else None
@@ -418,8 +441,12 @@ def _pipeline_batch_prepass(coords: torch.Tensor, grid: TileGrid, m: int,
             ds, hit = build_dense_schedule(coords[i], grid, m, cfg, cache)
             scheds.append(ds)
             hits.append(hit)
-        batch = pack_batch_schedules(scheds, grid.num_tiles, grid.num_tiles,
-                                     coords.device)
+        if plan is None:
+            batch, shard = pack_batch_schedules(
+                scheds, grid.num_tiles, grid.num_tiles, coords.device), None
+        else:
+            batch, shard = None, shard_batch_schedules(
+                scheds, grid.num_tiles, grid.num_tiles, plan, coords.device)
     schedule_s = ssp.dur
     if cache is not None:
         cache.note_batch_assembly(sum(bool(h) for h in hits),
@@ -433,14 +460,15 @@ def _pipeline_batch_prepass(coords: torch.Tensor, grid: TileGrid, m: int,
         idx=idx.reshape(n * grid.num_tiles, p_pad, kk, 4),
         coeff=coeff.reshape(n * grid.num_tiles, p_pad, kk, 4),
         schedule_s=schedule_s,
-        schedule_device_s=schedule_s if device else 0.0)
+        schedule_device_s=schedule_s if device else 0.0, shard=shard)
 
 
 def _pipeline_batch_exec(x: torch.Tensor, art: _BatchArtifacts,
                          w2: torch.Tensor, b: torch.Tensor,
                          cfg: PipelineConfig, grid: TileGrid, m: int,
-                         trace: PipelineTrace,
-                         return_trace: bool) -> torch.Tensor:
+                         trace: PipelineTrace, return_trace: bool,
+                         mesh=None, plan: ShardPlan | None = None
+                         ) -> torch.Tensor:
     n, h, w, c = x.shape
     tp = grid.th * grid.tw
     t = grid.num_tiles
@@ -448,17 +476,28 @@ def _pipeline_batch_exec(x: torch.Tensor, art: _BatchArtifacts,
     if cfg.faults is not None:
         cfg.faults.check("dispatch", images=n)
     x_tiles = plane_to_tiles(x, grid).reshape(n * t, tp, c).contiguous()
-    y_rows = dcn_fused_batch(x_tiles, art.batch.row_id, art.batch.dep_glb,
-                             art.batch.dep_cnt, art.idx, art.coeff, w2, b,
-                             t_in=t)[:, :tp]
-    # Scatter valid rows back to (image, tile) order; ragged-padding rows
-    # land in a dump row that is dropped.
-    target = torch.where(art.batch.oid >= 0, art.batch.row_id,
-                         torch.full_like(art.batch.row_id, n * t)).long()
-    y_all = torch.zeros((n * t + 1, tp, c_out), dtype=x.dtype,
-                        device=x.device)
-    y_all[target] = y_rows.to(x.dtype)
-    y = tiles_to_plane(y_all[:-1].reshape(n, t, tp, c_out), grid, h, w)
+    if plan is None:
+        y_rows = dcn_fused_batch(x_tiles, art.batch.row_id,
+                                 art.batch.dep_glb, art.batch.dep_cnt,
+                                 art.idx, art.coeff, w2, b, t_in=t)[:, :tp]
+        # Scatter valid rows back to (image, tile) order; ragged-padding
+        # rows land in a dump row that is dropped.
+        target = torch.where(art.batch.oid >= 0, art.batch.row_id,
+                             torch.full_like(art.batch.row_id, n * t)).long()
+        y_all = torch.zeros((n * t + 1, tp, c_out), dtype=x.dtype,
+                            device=x.device)
+        y_all[target] = y_rows.to(x.dtype)
+        y_flat = y_all[:-1]
+    else:
+        sh = art.shard
+        y_rows = dcn_fused_batch_sharded(
+            stack_rows(x_tiles, plan, t), sh.row_id, sh.dep_glb, sh.dep_cnt,
+            stack_rows(art.idx, plan, t), stack_rows(art.coeff, plan, t),
+            w2, b, mesh=mesh, t_in=t, sizes=plan.sizes)[:, :, :tp]
+        y_flat = scatter_shard_rows(y_rows.to(x.dtype), sh, plan, t)
+        trace.allgather_bytes += allgather_nbytes(y_flat)
+        trace.shards = plan.n_shards
+    y = tiles_to_plane(y_flat.reshape(n, t, tp, c_out), grid, h, w)
 
     trace.batch_dispatches += 1
     tile_bytes = tp * c * x.element_size()
@@ -549,17 +588,22 @@ def dcn_pipeline(x: torch.Tensor, params: DeformableConvParams, *,
     p_pad = tp if tp % bp == 0 else round_up(tp, cfg.block_p)
 
     if cfg.dispatch == "batch_fused":
-        # One batch-level prepass replaces the per-image staging loop.
+        # One batch-level prepass replaces the per-image staging loop: the
+        # whole batch's schedules concatenate into ONE kernel dispatch (one
+        # per shard when a mesh shards the batch axis).
+        mesh = resolve_shard_mesh(cfg.mesh, cfg.data_parallel)
+        plan = (plan_batch_shards(n, mesh.shape["data"])
+                if mesh is not None else None)
         with tr.timed("prepass", batch=n) as psp:
             art = _pipeline_batch_prepass(coords, grid, m, p_pad, cfg,
-                                          tracer=tr)
+                                          tracer=tr, plan=plan)
         trace.overlap.add_span(psp)
         trace.overlap.prepass_wait_s += psp.dur
         trace.overlap.schedule_s += art.schedule_s
         trace.overlap.schedule_device_s += art.schedule_device_s
         with use_tracer(tr):
             y = _pipeline_batch_exec(x, art, w2, b, cfg, grid, m, trace,
-                                     return_trace)
+                                     return_trace, mesh=mesh, plan=plan)
         return (y, trace) if return_trace else y
 
     def prepass(i: int) -> _ImageArtifacts:

@@ -35,6 +35,14 @@ counters (``requests_failed``, ``deadline_expired``, ``queue_rejected``,
 A kernel that does not build or launch, or a CUDA error, is not a fault
 of one request: it propagates out of ``step()`` instead of being
 isolated, so the ladder never hides a broken device path.
+
+With a sharded graph config (``mesh=`` / ``data_parallel=``) the engine
+is replica-aware: its slots partition contiguously over the mesh's data
+replicas, admission refills the replica with the most free slots, and
+each step passes its per-replica occupancy to ``run_graph(shard_sizes=)``
+so that shard placement is slot placement. ``stats`` reports
+``replicas``, ``per_replica`` images / dispatches / DRAM bytes and
+``allgather_bytes``.
 """
 
 from __future__ import annotations
@@ -81,7 +89,8 @@ class DecodeEngine:
     ``temperature > 0`` draws from the engine's own ``torch.Generator``
     seeded with ``rng_seed``; its draws differ from ``jax.random``'s, so
     only greedy (temperature 0) tokens match the JAX engine. ``mesh`` is
-    accepted only as ``None`` until the scale-out work (ROADMAP.md §1).
+    accepted only as ``None`` until tensor parallelism is ported
+    (ROADMAP.md §1).
     ``steps`` counts the decode steps run.
     """
 
@@ -91,7 +100,7 @@ class DecodeEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "DecodeEngine(mesh=...) is not ported yet (ROADMAP.md §1, "
-                "scale-out)")
+                "tensor parallelism)")
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -209,6 +218,15 @@ class DecodeEngine:
 # ---------------------------------------------------------------------------
 
 
+def _image_dram(trace) -> dict[int, int]:
+    """Modeled DRAM bytes of each image of a ``NetworkTrace`` (its groups;
+    the trace's total adds the boundary planes)."""
+    per_img: dict[int, int] = {}
+    for gt in trace.groups:
+        per_img[gt.image] = per_img.get(gt.image, 0) + gt.total_dram_bytes
+    return per_img
+
+
 @dataclasses.dataclass
 class DcnRequest:
     """One vision serving request: a small batch of images.
@@ -263,7 +281,9 @@ class DcnServingEngine:
       thread-safe; ``step``/``drain`` are driven by one serving loop.
 
     ``faults`` threads a fault injector (``repro_torch.testing``) into the
-    executor config, for resilience tests.
+    executor config, for resilience tests. A ``graph`` config with a
+    ``mesh`` (or ``data_parallel``) shards every step's batch over the
+    mesh's data replicas; ``slots`` must give each replica one slot.
     """
 
     def __init__(self, params, cfg, *, graph=None, cache_size: int = 256,
@@ -362,10 +382,46 @@ class DcnServingEngine:
         self._step_cfg = clamp_tile_config(
             dataclasses.replace(self.graph_cfg, dispatch="batch_fused"),
             cfg.img_size, cfg.img_size)
+        # Scale-out: the mesh is resolved once, so every step (and its
+        # weight copies to other devices) reuses it; the slot pool
+        # partitions contiguously over the mesh's data replicas.
+        from repro_torch.runtime.shard import (plan_batch_shards,
+                                               resolve_shard_mesh)
+        mesh = resolve_shard_mesh(self._step_cfg.mesh,
+                                  self._step_cfg.data_parallel)
+        if mesh is not None:
+            self._step_cfg = dataclasses.replace(self._step_cfg, mesh=mesh,
+                                                 data_parallel=None)
+        self.replicas = mesh.shape["data"] if mesh is not None else 1
+        if self.replicas > self.n_slots:
+            raise ValueError(
+                f"slots={self.n_slots} cannot cover {self.replicas} data "
+                f"replicas — every replica needs at least one slot (raise "
+                f"slots= or shrink the mesh)")
+        self._slot_replica = [
+            r for r, (a, b) in enumerate(
+                plan_batch_shards(self.n_slots, self.replicas).spans)
+            for _ in range(b - a)]
+        self._m_replica = [
+            {"images": self.metrics.counter(
+                 f"serving.replica{r}.images",
+                 help=f"images served on data replica {r}"),
+             "dispatches": self.metrics.counter(
+                 f"serving.replica{r}.dispatches",
+                 help=f"kernel dispatches executed on replica {r}"),
+             "dram_bytes": self.metrics.counter(
+                 f"serving.replica{r}.dram_bytes",
+                 help=f"modeled DRAM bytes of replica {r}'s images")}
+            for r in range(self.replicas)]
+        self._m_allgather = self.metrics.counter(
+            "serving.allgather_bytes",
+            help="output gather traffic of sharded steps")
         # Degraded mode: per-image batched dispatch, serial staging — a
-        # fault in one image's dispatch cannot touch another's.
+        # fault in one image's dispatch cannot touch another's. Sharding
+        # is cleared: "batched" rejects mesh=/data_parallel=.
         self._degraded_cfg = dataclasses.replace(
-            self._step_cfg, dispatch="batched", staging_depth=1)
+            self._step_cfg, dispatch="batched", staging_depth=1, mesh=None,
+            data_parallel=None)
         self._faults = self._step_cfg.faults
         # Plan autotuning: resolve the tuned plan ONCE at construction — a
         # cache hit (memory or plan_cache_dir disk) is free, an "offline"
@@ -444,6 +500,7 @@ class DcnServingEngine:
         """Fold one executor trace into the engine counters (caller holds
         ``self._lock``)."""
         self._m_dispatches.inc(trace.kernel_dispatches)
+        self._m_allgather.inc(trace.allgather_bytes)
         self.overlap.merge(trace.overlap)
         self.last_trace = trace
 
@@ -470,7 +527,7 @@ class DcnServingEngine:
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, np.float32)).to(self.device)
 
-    def _run_graph(self, x: torch.Tensor, cfg):
+    def _run_graph(self, x: torch.Tensor, cfg, shard_sizes=None):
         """One executor call -> (logits on the device, trace)."""
         from repro_torch.models.dcn_models import apply_head
         from repro_torch.runtime.fused_exec import run_graph
@@ -479,23 +536,34 @@ class DcnServingEngine:
             self.params["convs"], self.net_graph, x, config=cfg,
             max_displacement=self.cfg.max_displacement, return_trace=True,
             schedule_cache=self.cache, tracer=self.tracer,
-            tuned_plan=self.tuned_plan)
+            shard_sizes=shard_sizes, tuned_plan=self.tuned_plan)
         return apply_head(self.params, self.cfg, y), trace
 
-    def _run_batch(self, images: list[np.ndarray], cfg):
+    def _run_batch(self, images: list[np.ndarray], cfg, shard_sizes=None):
         """One executor call over a list of images -> (host logits,
         trace)."""
         logits, trace = self._run_graph(self._to_device(np.stack(images)),
-                                        cfg)
+                                        cfg, shard_sizes)
         return logits.cpu().numpy(), trace
 
-    def _execute_isolated(self, images: list[np.ndarray]):
+    def _shard_sizes(self, repl: list[int] | None):
+        """Per-replica image counts of one step's batch (None when the
+        engine is unsharded). ``repl`` is slot-ordered, and slots map to
+        replicas contiguously, so the batch is shard-contiguous."""
+        if repl is None or self.replicas <= 1:
+            return None
+        return [repl.count(r) for r in range(self.replicas)]
+
+    def _execute_isolated(self, images: list[np.ndarray],
+                          repl: list[int] | None = None):
         """Serve one step's images with request isolation.
 
         Returns ``(outs, traces, failures, degraded)``: ``outs`` maps
         batch position -> output, ``failures`` batch position ->
         exception, ``traces`` the executor traces to absorb, ``degraded``
-        marks a step that fell back to per-image dispatch.
+        marks a step that fell back to per-image dispatch. ``repl`` is
+        each position's replica on a sharded engine: it sets
+        ``shard_sizes``, the evicted retry's included.
 
         The ladder: (1) the coalesced ``batch_fused`` run; (2) on an
         exception that names the offending image (``e.image``), retry ONCE
@@ -506,7 +574,8 @@ class DcnServingEngine:
         """
         n = len(images)
         try:
-            out, trace = self._run_batch(images, self._step_cfg)
+            out, trace = self._run_batch(images, self._step_cfg,
+                                         self._shard_sizes(repl))
             return dict(enumerate(out)), [trace], {}, False
         except _DEVICE_ERRORS:
             raise
@@ -522,8 +591,10 @@ class DcnServingEngine:
             if not keep:
                 return {}, [], failures, False
             try:
-                out, trace = self._run_batch([images[k] for k in keep],
-                                             self._step_cfg)
+                out, trace = self._run_batch(
+                    [images[k] for k in keep], self._step_cfg,
+                    self._shard_sizes(None if repl is None
+                                      else [repl[k] for k in keep]))
                 return ({k: out[z] for z, k in enumerate(keep)}, [trace],
                         failures, False)
             except _DEVICE_ERRORS:
@@ -640,11 +711,52 @@ class DcnServingEngine:
         with self._lock:
             return len(self._queue)
 
+    def _admission_order(self) -> list[int]:
+        """Free slots in admission order (caller holds the lock).
+
+        Unsharded engines refill lowest-slot-first. Sharded engines
+        repeatedly take the replica with the MOST free slots (ties to the
+        lowest replica), so step batches stay balanced over the replicas
+        and the fullest shard — which sets the slab — stays small."""
+        free = [i for i in range(self.n_slots) if self._slots[i] is None]
+        if self.replicas <= 1:
+            return free
+        by_r: list[list[int]] = [[] for _ in range(self.replicas)]
+        for i in free:
+            by_r[self._slot_replica[i]].append(i)
+        order: list[int] = []
+        while True:
+            r = max(range(self.replicas), key=lambda q: len(by_r[q]))
+            if not by_r[r]:
+                return order
+            order.append(by_r[r].pop(0))
+
+    def _attribute_replicas(self, repl: list[int], traces, image_dram,
+                            failures) -> None:
+        """Per-replica serving counters for one step (caller holds the
+        lock). Images count by slot placement; every replica that served
+        an image ran each of the step's dispatches on its own shard; a
+        clean coalesced step's per-image DRAM (``image_dram``, one dict a
+        trace) comes from its trace's per-image groups (a retried or
+        degraded step moves batch positions, so its DRAM stays in the
+        engine-wide counters)."""
+        dispatches = sum(t.kernel_dispatches for t in traces)
+        for k, r in enumerate(repl):
+            if k not in failures:
+                self._m_replica[r]["images"].inc()
+        for r in sorted(set(repl)):
+            self._m_replica[r]["dispatches"].inc(dispatches)
+        if len(traces) == 1 and not failures:
+            for k, r in enumerate(repl):
+                self._m_replica[r]["dram_bytes"].inc(
+                    image_dram[0].get(k, 0))
+
     def step(self) -> list[DcnRequest]:
         """One continuous-batching serving step: refill free slots from
-        the queue in submit order (expired requests fail at admission),
-        then serve all occupied slots with one ``batch_fused`` grid per
-        layer segment, under the retry/degrade containment of
+        the queue in submit order (expired requests fail at admission;
+        a sharded engine fills the replica with the most free slots
+        first), then serve all occupied slots with one ``batch_fused``
+        grid per layer segment, under the retry/degrade containment of
         :meth:`_execute_isolated`. Returns the requests that resolved this
         step — finished or failed, each exactly once."""
         tr = self.tracer
@@ -656,9 +768,7 @@ class DcnServingEngine:
         with tr.span("serve.admit", queue_depth=self.queue_depth):
             with self._lock:
                 now = self._clock()
-                for i in range(self.n_slots):
-                    if self._slots[i] is not None:
-                        continue
+                for i in self._admission_order():
                     while self._queue:
                         req, j = self._queue.popleft()
                         self._queue_room.notify_all()
@@ -679,12 +789,18 @@ class DcnServingEngine:
         if not occupied:
             return finished
         step_id = self._m_steps.count
+        # Slot-ordered, and slots map to replicas contiguously, so the
+        # step's batch is shard-contiguous.
+        repl = [self._slot_replica[i] for i, _, _ in occupied]
         with tr.timed("serve.step", step=step_id,
                       width=len(occupied)) as ssp:
             outs, traces, failures, degraded = self._execute_isolated(
-                [req.x[j] for _, req, j in occupied])
+                [req.x[j] for _, req, j in occupied], repl)
+            # Each group's DRAM is a FIFO replay: replay once, per image.
+            image_dram = [_image_dram(t) for t in traces]
             ssp.set(dispatches=sum(t.kernel_dispatches for t in traces),
-                    dram_bytes=sum(t.total_dram_bytes for t in traces),
+                    dram_bytes=sum(sum(d.values()) + t.boundary_bytes
+                                   for d, t in zip(image_dram, traces)),
                     failures=len(failures), degraded=degraded)
         now = self._clock()
         with self._lock:
@@ -692,6 +808,7 @@ class DcnServingEngine:
             self._m_images.inc(len(occupied))
             for t in traces:
                 self._absorb_trace(t)
+            self._attribute_replicas(repl, traces, image_dram, failures)
             for k, (i, req, j) in enumerate(occupied):
                 self._slots[i] = None
                 if req.done:
@@ -772,6 +889,13 @@ class DcnServingEngine:
                 "schedule_s": self.overlap.schedule_s,
                 "schedule_device_frac": self.overlap.schedule_device_frac,
                 "slots": self.n_slots,
+                "replicas": self.replicas,
+                "per_replica": [
+                    {"images": c["images"].count,
+                     "dispatches": c["dispatches"].count,
+                     "dram_bytes": c["dram_bytes"].count}
+                    for c in self._m_replica],
+                "allgather_bytes": self._m_allgather.count,
                 "queue_depth": len(self._queue),
                 "steps": self.steps,
                 "host_schedule_builds": self.host_schedule_builds,

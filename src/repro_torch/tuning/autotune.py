@@ -37,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.core.deform import conv2d, offsets_to_coords
 from repro_torch.core.fusion import LayerShape, fused_tile_bytes, \
     plan_fused_groups
@@ -58,19 +59,21 @@ _TILE_SIDES = (1, 2, 4, 8, 16, 32)
 _MAX_TILES = 1024
 
 
-def representative_input(graph, seed: int = 0, device="cpu",
+def representative_input(graph, seed: int = 0, device="cuda",
                          dtype=torch.float32) -> torch.Tensor:
     """Deterministic input the tuner scores on: (1, H, W, C) standard
     normal from a ``torch.Generator`` seeded with ``seed``, drawn on the
-    host and moved to ``device``. Plans must be a pure function of the
-    cache key, so the tuner never peeks at live traffic — a seeded image
-    stands in for it (offset convs are the real net's; only the pixels
-    are synthetic). It is not the JAX package's image: the two RNGs
-    differ."""
+    host and moved to ``device`` (the card by default, like every entry
+    point; ``device="cpu"`` asks for the host). Plans must be a pure
+    function of the cache key, so the tuner never peeks at live traffic —
+    a seeded image stands in for it (offset convs are the real net's;
+    only the pixels are synthetic). It is not the JAX package's image: the
+    two RNGs differ."""
+    dev = resolve_device(device)
     gen = torch.Generator().manual_seed(int(seed))
     x = torch.randn((1, graph.in_h, graph.in_w, graph.in_c),
                     generator=gen, dtype=dtype)
-    return x.to(device)
+    return x.to(dev)
 
 
 def _params_device(convs) -> torch.device:

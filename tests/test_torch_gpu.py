@@ -617,3 +617,115 @@ def test_flash_decode_ragged_splits(lengths, opts):
             assert not outs[None][i].any()
     assert torch.equal(flash_decode(*args, **opts), outs[None])
     assert torch.equal(flash_decode(*args, num_splits=64, **opts), outs[64])
+
+
+# ---------------------------------------------------------------------------
+# Scale-out: #1 per shard of a device mesh, and launches on another card
+# ---------------------------------------------------------------------------
+
+
+def _serving_layer_operands(n=4, seed=3):
+    """#1's operands for a 14x14x512 DCN layer of ``n`` images at the
+    serving tile 8 (4 tiles, P = 64), as the batch-fused prepass packs
+    them: the per-image schedules and the packed idx/coeff."""
+    from repro_torch.core.scheduler import DeviceSchedule
+    from repro_torch.runtime.packing import pack_plane_operands
+
+    grid = TileGrid(14, 14, 8, 8)
+    t = grid.num_tiles
+    coords = torch.stack([_coords(seed + 7 * i, 14, 14, spread=3.0)
+                          for i in range(n)])
+    out = schedule_group_batch_plain([coords], list(range(n)), grid, 4, 4)
+    scheds = [DeviceSchedule(*out.image(k).exec[0]) for k in range(n)]
+    idx, coeff = pack_plane_operands(coords, grid, 64)
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.normal(size=(n * t, 64, 512)).astype(np.float32))
+    w = torch.as_tensor((rng.normal(size=(9, 512, 512)) / 68)
+                        .astype(np.float32))
+    b = torch.as_tensor(rng.normal(size=(512,)).astype(np.float32))
+    return (scheds, t, x, idx.reshape(n * t, 64, 9, 4),
+            coeff.reshape(n * t, 64, 9, 4), w, b)
+
+
+def _sharded_vs_single(mesh, sizes):
+    """#1 over ``mesh`` with ``sizes`` images a shard, scattered back to
+    (image, tile) rows, and the single call's rows on cuda:0."""
+    from repro_torch.kernels.dcn_fused import dcn_fused_batch_sharded
+    from repro_torch.runtime.packing import pack_batch_schedules
+    from repro_torch.runtime.shard import (plan_batch_shards,
+                                           scatter_shard_rows,
+                                           shard_batch_schedules, stack_rows)
+
+    scheds, t, x, idx, coeff, w, b = _serving_layer_operands(sum(sizes))
+    n = sum(sizes)
+    dev = torch.device("cuda", 0)
+    x, idx, coeff, w, b = (a.to(dev) for a in (x, idx, coeff, w, b))
+    bd = pack_batch_schedules(scheds, t, t, dev)
+    y0 = dcn_fused_batch(x, bd.row_id, bd.dep_glb, bd.dep_cnt, idx, coeff,
+                         w, b, t_in=t)
+    target = torch.where(bd.oid >= 0, bd.row_id,
+                         torch.full_like(bd.row_id, n * t)).long()
+    want = torch.zeros((n * t + 1, 64, 512), device=dev)
+    want[target] = y0
+    plan = plan_batch_shards(n, len(sizes), sizes)
+    sh = shard_batch_schedules(scheds, t, t, plan, dev)
+    n0 = dcn_fused_batch_sharded.launches
+    y = dcn_fused_batch_sharded(
+        stack_rows(x, plan, t), sh.row_id, sh.dep_glb, sh.dep_cnt,
+        stack_rows(idx, plan, t), stack_rows(coeff, plan, t), w, b,
+        mesh=mesh, t_in=t, sizes=plan.sizes)
+    assert dcn_fused_batch_sharded.launches - n0 == sum(s > 0 for s in sizes)
+    got = scatter_shard_rows(y, sh, plan, t)
+    torch.cuda.synchronize()
+    return got, want[:-1]
+
+
+@pytest.mark.parametrize("sizes", [[2, 1, 0, 1], [1, 1, 1, 1], [4, 0, 0, 0]])
+def test_sharded_batch_kernel_equals_unsharded(sizes):
+    """#1 once per non-empty shard of DeviceMesh.on("cuda:0", data=4),
+    its split pinned to the single call's: bitwise the single call."""
+    from repro_torch.launch.mesh import DeviceMesh
+
+    got, want = _sharded_vs_single(DeviceMesh.on("cuda:0", data=4), sizes)
+    assert torch.equal(got, want)
+
+
+def test_kernels_launch_on_their_operands_device():
+    """With cuda:0 current, #1, the group launch (warp body and block
+    body, whose shared-memory attribute is set per device) and #8 on
+    cuda:1 match their plain versions; #1 sharded over two cards is
+    bitwise the single call. Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices")
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    from repro_torch.launch.mesh import make_host_mesh
+
+    one = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        ops = _batch_operands(8, 4, 4, 64, 512, 512, 4)
+        want = dcn_fused_batch_plain(*ops, t_in=4)
+        got = dcn_fused_batch(*(a.to(one) for a in ops), t_in=4)
+        assert got.device == one
+        assert float((got.cpu() - want).abs().max()) <= \
+            1e-4 * float(want.abs().max())
+        for name in ("serving shape", "196 tiles chain"):
+            layers, grid, images, m, in_smem = _group_case(name)
+            k_pad = 1 << (grid.num_tiles - 1).bit_length()
+            ref = schedule_group_batch_plain(layers, images, grid, m, k_pad)
+            out = schedule_group_batch(
+                [lay.to(one) if torch.is_tensor(lay) else lay
+                 for lay in layers], images, grid, m, k_pad, device=one)
+            for k in range(len(images)):
+                for a, b in zip(out.image(k, own=True).tensors(),
+                                ref.image(k).tensors()):
+                    assert torch.equal(a.cpu(), b), name
+        dops = _decode_operands(7, 4, 512, 16, 8, 128, [1, 512, 170, 300])
+        want = flash_decode_plain(*dops, scale=128 ** -0.5)
+        got = flash_decode(*(t.to(one) for t in dops)).cpu()
+        assert float((got - want).abs().max()) <= \
+            1e-4 * float(want.abs().max())
+        got, want = _sharded_vs_single(
+            make_host_mesh(data=min(4, torch.cuda.device_count())),
+            [1] * min(4, torch.cuda.device_count()))
+        assert torch.equal(got, want)

@@ -41,7 +41,8 @@ def test_package_imports_with_jax_blocked():
         "import repro_torch.models.lm, repro_torch.configs\n"
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.flash_decode\n"
-        "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.launch.mesh\n"
+        "import repro_torch.runtime.shard\n"
         "from repro_torch import configs\n"
         "for arch in configs.SUPPORTED_ARCHS:\n"
         "    configs.get_config(arch, smoke=True)\n"
@@ -91,6 +92,13 @@ def test_cuda_entry_points_raise_without_a_card():
     params = init_dcn_net(0, cfg, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         DcnServingEngine(params, cfg)
+    from repro_torch.runtime.graph import build_graph
+    from repro_torch.tuning import representative_input
+    with pytest.raises(RuntimeError, match="cuda"):
+        representative_input(build_graph(cfg))
+    from repro_torch.launch.mesh import DeviceMesh
+    with pytest.raises(RuntimeError, match="cuda"):
+        DeviceMesh.on("cuda", data=2)
     lm_cfg = configs.get_config("qwen3-1.7b", smoke=True)
     with pytest.raises(RuntimeError, match="cuda"):
         lm.init_lm(lm_cfg)

@@ -265,10 +265,12 @@ class TestSearch:
 
     def test_representative_input_is_seeded(self, vgg):
         g = vgg["graph_t"]
-        a = t_tuning.representative_input(g, seed=3)
+        a = t_tuning.representative_input(g, seed=3, device="cpu")
         assert tuple(a.shape) == (1, g.in_h, g.in_w, g.in_c)
-        assert torch.equal(a, t_tuning.representative_input(g, seed=3))
-        assert not torch.equal(a, t_tuning.representative_input(g, seed=4))
+        assert torch.equal(a, t_tuning.representative_input(g, seed=3,
+                                                            device="cpu"))
+        assert not torch.equal(a, t_tuning.representative_input(
+            g, seed=4, device="cpu"))
 
 
 class TestPlanFiles:
@@ -423,7 +425,7 @@ def test_offline_run_graph_resolves_through_the_cache(chain, tmp_path):
     dense, and the executed DRAM equals the plan's score on the tuner's
     own input."""
     convs, graph = chain["tparams"]["convs"], chain["graph_t"]
-    x = t_tuning.representative_input(graph)
+    x = t_tuning.representative_input(graph, device="cpu")
     cfg = GraphConfig(tile=TILE, buffer_tiles=BUFFER, autotune="offline",
                       autotune_budget=96, plan_cache_dir=str(tmp_path),
                       onchip_budget_bytes=CHAIN_BUDGET)
@@ -622,11 +624,10 @@ class TestServing:
 
 def test_exports_match_jax():
     """The port's ``core``, ``runtime`` and ``tuning`` export the JAX
-    package's names, less the training slice's fused_deformable_conv2d,
-    the sharding helpers (scale-out) and the Pallas ``interpret``
-    resolver, which has no CUDA counterpart."""
-    left_out = {"fused_deformable_conv2d", "ShardPlan", "plan_batch_shards",
-                "resolve_shard_mesh", "resolve_interpret"}
+    package's names, less the training slice's fused_deformable_conv2d
+    and the Pallas ``interpret`` resolver, which has no CUDA
+    counterpart."""
+    left_out = {"fused_deformable_conv2d", "resolve_interpret"}
     for t_mod, j_mod in ((t_core, j_core), (t_runtime, j_runtime),
                          (t_tuning, j_tuning)):
         want = {n for n in (getattr(j_mod, "__all__", None)
