@@ -105,7 +105,34 @@ Phases, each fatal on failure:
               plain version on operands kept from the run and timed on
               those of a late step (its serving shape); decode tokens/s,
               step and request latency; 4 more steps under
-              ``torch.profiler``.
+              ``torch.profiler``;
+8.  dcn-train — the phase-3 network's training configuration
+              (``get_dcn_config("vgg19", 3)``: DCN-II, 224x224, 1000
+              classes) from ``init_dcn_net``, batch 16 of ``image_batch``:
+              step 0's loss and gradients with ``fused=True`` (the
+              checkpointed ``fused_deformable_conv2d``) held against
+              ``fused=False`` within 1e-5 norm-wise per tensor (with
+              torch's deterministic kernels; the default atomic
+              backward's gap, unfused against itself too, is printed); 5
+              AdamW
+              steps each way (finite losses, every parameter with a
+              gradient moved), p50 step time, images/s and peak memory of
+              each; one fused step under ``torch.profiler``; no kernel
+              wrapper launched; the ``graph`` backend refuses a gradient
+              (the wrappers' grad guard); then the example configuration
+              of ``examples/train_dcn_torch.py`` (VGG19-3 at 32x32, width
+              0.25, 4 classes, batch 16, lr 3e-4) for 300 steps with a
+              checkpoint every 100: the mean loss of the last 50 steps
+              below 0.35, the last checkpoint equal to the trained params;
+9.  lm-train — Qwen3-1.7B ``full()`` (28 layers, float32 params and AdamW
+              state, ``remat="dots"``) for 3 ``build_train_step`` steps of
+              B=1 x S=512 ``token_batch`` tokens: finite losses, step
+              time, tokens/s and peak memory beside the reckoned p + g +
+              m + v; one step profiled; the remat policies ``none``,
+              ``full`` and ``dots`` timed one step each with their peak;
+              no kernel wrapper launched; then on the ``smoke()``
+              config a run resumed from its step-2 checkpoint gives the
+              unbroken run's step-3 loss.
 
 Each path is driven with every kernel's launch count set to 0 just
 before it and read just after. The last lines are the card's name and
@@ -161,6 +188,11 @@ LM_SIZES = dict(
     prefill_batch=4, prefill_len=2048,
     serve_batch=4, serve_max_len=512, requests=8, prompt_len=(16, 256),
     max_new=32, cross_checked=2)
+# Phase 8 / 9: training sizes.
+TRAIN_SIZES = dict(dcn_batch=16, dcn_steps=5, example_steps=300,
+                   example_tail=50, example_limit=0.35, lm_arch="qwen3-1.7b",
+                   lm_batch=1, lm_seq=512, lm_steps=3)
+GRAD_RTOL = 1e-5      # fused vs unfused gradients, norm-wise per tensor
 # Device cycles the stream sleeps before each timed window, so the host
 # enqueues the window's launches while the device is still busy and the
 # events time the device work, not the host's launch overhead.
@@ -687,6 +719,353 @@ def profile_lm(what: str, fn, n: int, card: str, kernel: str) -> None:
                     key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
         print(f"  host   {e.self_cpu_time_total / n / 1e3:8.3f} ms/call "
               f"x{e.count // n:<5d} {e.key[:80]}")
+
+
+def tf32_line() -> str:
+    import torch
+    return (f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
+            f" cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}"
+            f" cudnn.benchmark={torch.backends.cudnn.benchmark}"
+            f" cudnn.deterministic={torch.backends.cudnn.deterministic}")
+
+
+def profile_train(what: str, fn, card: str) -> None:
+    """One training step under ``torch.profiler``: wall, device busy time
+    and idle share, and the top device activities by time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us, by_name = device_busy(prof.events())
+    if busy_us <= 0:
+        fail(f"the profiler recorded no device activity in a {what}")
+    print(f"[train-profile] {card}: one {what}: wall {wall_us / 1e3:.2f} ms, "
+          f"device busy {busy_us / 1e3:.2f} ms (idle "
+          f"{100 * (1 - busy_us / wall_us):.1f} %, busy share "
+          f"{100 * busy_us / wall_us:.1f} %)")
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.key.startswith(("cudaLaunch", "cudaMemcpy"))}
+    print("[train-profile] host runtime calls in the step: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(calls.items())))
+    for name, d in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]:
+        print(f"  device {sum(d) / 1e3:8.3f} ms x{len(d):<5d} "
+              f"{100 * sum(d) / busy_us:5.1f} % {name[:80]}")
+
+
+def no_kernel_launched(what: str, wrappers: dict) -> None:
+    launched = {n: fn.launches for n, fn in wrappers.items() if fn.launches}
+    if launched:
+        fail(f"{what} launched hand-written kernels {launched}; training "
+             f"has no kernel with a backward")
+
+
+def dcn_train_phase(card: str, wrappers: dict) -> None:
+    """Phase 8: DCN training at the paper's ImageNet size, fused against
+    unfused, then the example configuration to convergence."""
+    import numpy as np
+    import torch
+
+    from repro_torch import checkpoint
+    from repro_torch._tree import (flatten_with_names, tree_leaves,
+                                   tree_map, tree_unflatten, value_and_grad)
+    from repro_torch.configs import get_dcn_config
+    from repro_torch.data import DataConfig, image_batch
+    from repro_torch.launch.train import (dcn_loss, dcn_train_loop,
+                                          dcn_train_step)
+    from repro_torch.models.dcn_models import (DcnNetConfig, dcn_net_apply,
+                                               init_dcn_net)
+    from repro_torch.optim import AdamWConfig, init_opt_state
+
+    dev, sync, sz = torch.device("cuda"), torch.cuda.synchronize, TRAIN_SIZES
+    print(f"[dcn-train] settings in force: {tf32_line()}")
+    cfg = get_dcn_config("vgg19", 3)
+    params0 = init_dcn_net(SEED, cfg, device=dev)
+    ocfg = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=300,
+                       weight_decay=0.01)
+    dcfg = DataConfig(seed=SEED, global_batch=sz["dcn_batch"])
+    batches = []
+    for s in range(sz["dcn_steps"]):
+        b = image_batch(dcfg, s, img=cfg.img_size, classes=cfg.num_classes)
+        batches.append((torch.as_tensor(b["images"], device=dev),
+                        torch.as_tensor(b["labels"], device=dev)))
+    x0, y0 = batches[0]
+
+    for w in wrappers.values():
+        w.launches = 0
+
+    def grads(fused):
+        return value_and_grad(
+            lambda p: dcn_loss(p, cfg, x0, y0, fused=fused), params0)
+
+    def worst_gap(ga, gb):
+        return max(float((a - b).norm()) / max(float(b.norm()), 1e-30)
+                   for a, b in zip(tree_leaves(ga), tree_leaves(gb)))
+
+    # The noise floor: by default the gathers' backward adds with
+    # atomics, so even two unfused runs differ; the first conv's weight
+    # gradient, a sum over 16 x 224 x 224 positions that largely cancels,
+    # shows it most.
+    (_, gu1), (_, gu2), (_, gf1) = grads(False), grads(False), grads(True)
+    sync()
+    print(f"[dcn-train] {card}: default (atomic) backward: worst norm-wise "
+          f"gap over the gradient tensors: unfused vs unfused "
+          f"{worst_gap(gu1, gu2):.3e}, fused vs unfused "
+          f"{worst_gap(gf1, gu1):.3e}")
+    del gu1, gu2, gf1
+    # Step 0: loss and gradients, fused against unfused, each backward
+    # with its deterministic kernels, so only the fusion can differ.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        (lf, gf), (lu, gu) = grads(True), grads(False)
+        sync()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if not (torch.isfinite(lf) and abs(float(lf) - float(lu))
+            <= GRAD_RTOL * abs(float(lu))):
+        fail(f"step-0 loss fused {float(lf)} vs unfused {float(lu)}")
+    worst = 0.0
+    for (name, g), w in zip(flatten_with_names(gf), tree_leaves(gu)):
+        ref = float(w.norm())
+        d = float((g - w).norm())
+        if not (torch.isfinite(g).all() and d <= GRAD_RTOL * ref):
+            fail(f"step-0 gradient {name}: |fused - unfused| {d} > "
+                 f"{GRAD_RTOL} * {ref}")
+        worst = max(worst, d / ref if ref else 0.0)
+    n_leaves = len(tree_leaves(gu))
+    exact = all(torch.equal(a, b) for a, b in zip(tree_leaves(gf),
+                                                  tree_leaves(gu)))
+    print(f"[dcn-train] {card}: {cfg.name}-{cfg.n_deform} {cfg.variant} "
+          f"{cfg.img_size}x{cfg.img_size}, {cfg.num_classes} classes, batch "
+          f"{sz['dcn_batch']}, deterministic backward: step-0 loss fused "
+          f"{float(lf):.6f} unfused {float(lu):.6f}; {n_leaves} gradient "
+          f"tensors, worst norm-wise |fused - unfused| / |unfused| "
+          f"{worst:.3e} (limit {GRAD_RTOL}), bitwise equal: {exact}")
+    zero_grad = [n for (n, g) in flatten_with_names(gu) if not g.abs().max()]
+    del gf, gu
+
+    # What the forward keeps for the backward: the memory a loss holds
+    # until its backward runs.
+    held = {}
+    for fused in (True, False):
+        leaves = [t.detach().requires_grad_(True)
+                  for t in tree_leaves(params0)]
+        sync()
+        before = torch.cuda.memory_allocated()
+        loss = dcn_loss(tree_unflatten(params0, leaves), cfg, x0, y0,
+                        fused=fused)
+        sync()
+        held[fused] = torch.cuda.memory_allocated() - before
+        del loss, leaves
+    print(f"[dcn-train] {card}: memory the forward keeps for the backward: "
+          f"fused {held[True] / 2**30:.3f} GiB, unfused "
+          f"{held[False] / 2**30:.3f} GiB")
+
+    results = {}
+    for fused in (True, False):
+        params = tree_map(torch.clone, params0)
+        opt = init_opt_state(params, ocfg)
+        first = tree_map(torch.clone, params)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times, losses = [], []
+        for x, y in batches:
+            sync()
+            t0 = time.perf_counter()
+            params, opt, loss = dcn_train_step(params, opt, x, y, cfg, ocfg,
+                                               fused=fused)
+            losses.append(float(loss))
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"dcn training losses {losses} (fused={fused})")
+        stuck = [n for (n, a), b in zip(flatten_with_names(first),
+                                        tree_leaves(params))
+                 if n not in zero_grad and torch.equal(a, b)]
+        if stuck:
+            fail(f"parameters with a gradient did not move: {stuck}")
+        p50 = float(np.percentile(times, 50))
+        results[fused] = (p50, peak, base)
+        print(f"[dcn-train] {card}: fused={fused}: {len(times)} AdamW steps, "
+              f"losses {[round(v, 4) for v in losses]}, step p50 "
+              f"{p50 * 1e3:.2f} ms (all {[round(t * 1e3, 2) for t in times]})"
+              f" = {sz['dcn_batch'] / p50:.1f} images/s; peak allocated "
+              f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above "
+              f"the {base / 2**30:.3f} GiB held before the steps)")
+        if fused:
+            profile_train(f"fused DCN training step of {sz['dcn_batch']} "
+                          f"images", lambda: dcn_train_step(
+                              params, opt, x0, y0, cfg, ocfg), card)
+        del params, opt, first
+    (pf, mf, bf), (pu, mu, bu) = results[True], results[False]
+    print(f"[dcn-train] {card}: fused / unfused step p50 {pf / pu:.3f}, peak "
+          f"above the held tensors {(mf - bf) / 2**30:.3f} / "
+          f"{(mu - bu) / 2**30:.3f} GiB")
+    no_kernel_launched("DCN training", wrappers)
+
+    # The grad guard: the kernel backends and #1's wrapper refuse to
+    # differentiate, and launch nothing.
+    for backend in ("graph", "pallas"):
+        try:
+            value_and_grad(lambda p: dcn_net_apply(
+                p, cfg, x0[:1], backend=backend).sum(), params0)
+        except ValueError as e:
+            if "forward-only" not in str(e):
+                raise
+        else:
+            fail(f"backend={backend!r} returned a result under autograd")
+    from repro_torch.kernels.dcn_fused import dcn_fused_batch
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)
+    w_req = torch.zeros((1, 16, 4), device=dev, requires_grad=True)
+    try:
+        dcn_fused_batch(torch.zeros((2, 4, 16), device=dev), i32(0, 1),
+                        i32([0], [1]), i32(1, 1),
+                        torch.zeros((2, 2, 1, 4), dtype=torch.int32,
+                                    device=dev),
+                        torch.zeros((2, 2, 1, 4), device=dev), w_req,
+                        torch.zeros(4, device=dev), t_in=2)
+    except ValueError as e:
+        if "requires grad" not in str(e):
+            raise
+        print(f"[dcn-train] grad guard: backend='graph' and 'pallas' refuse "
+              f"a gradient; dcn_fused_batch on the card refuses: {e}")
+    else:
+        fail("dcn_fused_batch took an operand that requires grad")
+    no_kernel_launched("the grad-guard check", wrappers)
+    del params0, batches, x0, y0
+    torch.cuda.empty_cache()
+
+    # The example configuration, to convergence.
+    ex = DcnNetConfig("vgg19", 3, "dcn2", img_size=32, width_mult=0.25,
+                      num_classes=4)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        params, opt, losses = dcn_train_loop(
+            ex, steps=sz["example_steps"], batch=16, lr=3e-4, ckpt_dir=d,
+            ckpt_every=100, verbose=False, device=dev)
+        wall = time.perf_counter() - t0
+        steps = checkpoint.completed_steps(d)
+        back = checkpoint.restore(d, steps[-1], {"params": params,
+                                                 "opt": opt}, device=dev)
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(back), tree_leaves({"params": params, "opt": opt})))
+    tail = float(np.mean(losses[-sz["example_tail"]:]))
+    print(f"[dcn-train] {card}: example config (32x32, width 0.25, 4 "
+          f"classes, batch 16): {len(losses)} steps in {wall:.2f} s "
+          f"({len(losses) / wall:.1f} steps/s with data made on the host), "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.6f}, mean of the last "
+          f"{sz['example_tail']} {tail:.6f} (limit {sz['example_limit']}); "
+          f"checkpoints at {steps}, the last equal to the trained state: "
+          f"{same}")
+    if not all(math.isfinite(v) for v in losses) or \
+            not tail < sz["example_limit"]:
+        fail(f"the example did not train: last-{sz['example_tail']} mean "
+             f"{tail}")
+    if steps != list(range(100, sz["example_steps"] + 1, 100)) or not same:
+        fail(f"example checkpoints {steps}, last equal to the state: {same}")
+
+
+def lm_train_phase(card: str, wrappers: dict) -> None:
+    """Phase 9: Qwen3-1.7B training steps at full width, then the resume
+    check on its smoke config."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, token_batch
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import lm
+    from repro_torch.models.params import param_bytes
+    from repro_torch.optim import AdamWConfig, init_opt_state
+
+    dev, sync, sz = torch.device("cuda"), torch.cuda.synchronize, TRAIN_SIZES
+    torch.cuda.empty_cache()
+    cfg = configs.get_config(sz["lm_arch"])
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = lm.init_lm(cfg, SEED, device=dev)
+    ocfg = AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=sz["lm_steps"])
+    opt = init_opt_state(params, ocfg)
+    pb = param_bytes(params)
+    print(f"[lm-train] {card}: {cfg.name} {cfg.n_layers} layers, float32 "
+          f"params {pb / 1e9:.2f} GB and AdamW m + v {2 * pb / 1e9:.2f} GB; "
+          f"with the gradients p + g + m + v = {4 * pb / 1e9:.2f} GB before "
+          f"activations; remat={cfg.remat!r}; {tf32_line()}")
+    step = build_train_step(cfg, ocfg)
+    dcfg = DataConfig(seed=SEED, vocab=cfg.vocab, seq=sz["lm_seq"],
+                      global_batch=sz["lm_batch"])
+    for w in wrappers.values():
+        w.launches = 0
+    times, losses = [], []
+    for s in range(sz["lm_steps"]):
+        batch = token_batch(dcfg, s)
+        sync()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    no_kernel_launched("LM training", wrappers)
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"LM training losses {losses}")
+    toks = sz["lm_batch"] * sz["lm_seq"]
+    warm = times[1:] or times
+    print(f"[lm-train] {card}: {len(times)} steps of {sz['lm_batch']} x "
+          f"{sz['lm_seq']} tokens: losses {[round(v, 4) for v in losses]}, "
+          f"step times {[round(t * 1e3, 1) for t in times]} ms; after the "
+          f"first, mean {np.mean(warm) * 1e3:.1f} ms = "
+          f"{toks / np.mean(warm):.0f} training tokens/s; peak allocated "
+          f"{(peak - base) / 1e9:.2f} GB ({(peak - base) / pb:.2f} x the "
+          f"params)")
+    profile_train(f"Qwen3-1.7B training step of {toks} tokens",
+                  lambda: step(params, opt, token_batch(dcfg, 0)), card)
+    # The other remat policies on the same state: two steps each, the
+    # second timed, with its peak.
+    for remat in ("none", "full", "dots"):
+        rstep = build_train_step(dc.replace(cfg, remat=remat), ocfg)
+        for s in range(2):
+            batch = token_batch(dcfg, sz["lm_steps"] + s)
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params, opt, m = rstep(params, opt, batch)
+            loss = float(m["loss"])
+            dt = time.perf_counter() - t0
+        if not math.isfinite(loss):
+            fail(f"LM training loss {loss} with remat={remat!r}")
+        print(f"[lm-train] {card}: remat={remat!r}: step {dt * 1e3:.1f} ms "
+              f"= {toks / dt:.0f} training tokens/s, peak allocated "
+              f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB")
+    no_kernel_launched("LM training", wrappers)
+    del params, opt, step, rstep
+    torch.cuda.empty_cache()
+
+    # Resume: a run restarted from its step-2 checkpoint gives the
+    # unbroken run's step-3 loss.
+    small = configs.get_config(sz["lm_arch"], smoke=True)
+    shape = configs.ShapeCell("resume", "train", 64, 4)
+    kw = dict(opt_cfg=AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=3),
+              ckpt_every=2, verbose=False, device=dev)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _, _, whole = train_loop(small, shape, steps=3, **kw)
+        with tempfile.TemporaryDirectory() as d:
+            train_loop(small, shape, steps=2, ckpt_dir=d, **kw)
+            _, _, rest = train_loop(small, shape, steps=3, ckpt_dir=d, **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"[lm-train] {card}: {small.name}: unbroken losses {whole}; "
+          f"resumed from the step-2 checkpoint: step-3 loss {rest}")
+    if rest != whole[2:]:
+        fail(f"resumed step-3 loss {rest} != unbroken {whole[2:]}")
 
 
 def main() -> int:
@@ -2006,6 +2385,11 @@ def main() -> int:
 
     # -- phases 5-7: the LM serving slice -------------------------------------
     lm_phases(card, kernels, launches, reset_counts)
+    torch.cuda.empty_cache()
+
+    # -- phases 8-9: training (no hand-written kernel has a backward) --------
+    dcn_train_phase(card, wrappers)
+    lm_train_phase(card, wrappers)
 
     def bounds(kd):
         kd.update(bound_of(kd.pop("ops"), kd.pop("bytes")))

@@ -16,13 +16,18 @@ kernels/   the fused BLI(+)conv (batch, schedule, tile), standalone BLI,
 runtime/   graph IR, graph executor (batch_fused / batched / per_tile),
            dcn_pipeline, packing, cache, traces
 models/    VGG19 / SegNet DCN configurations; the LM (params, layers,
-           transformer, lm: prefill and the decode step)
-configs/   --arch registry of the LM configurations
+           transformer, lm: the loss, prefill and the decode step)
+configs/   --arch registry of the LM configurations; get_dcn_config
+optim/     AdamW over param trees, cosine schedule, clipping; int8 codec
+checkpoint/ atomic keep-N async checkpoints in the JAX package's format
+data/      synthetic token and image batches, prefetch
 serving/   continuous-batching DcnServingEngine with request isolation;
            continuous-batching LM DecodeEngine
-launch/    serve: the LM serving command line
+launch/    serve: the LM serving command line; steps/train: the LM train
+           step and trainer, the DCN trainer; elastic: preemption and
+           stragglers; mesh
 testing/   deterministic fault injection
 obs/       spans, metrics registry, Chrome-trace export
-convert    params_from_jax, lm_params_from_jax: carry JAX-package
-           parameters across
+convert    params_from_jax, lm_params_from_jax, opt_state_from_jax: carry
+           JAX-package parameters and optimizer state across
 """

@@ -1,5 +1,6 @@
 """Config registry: ``--arch <id>`` resolution for the assigned
-architectures (the same ids as the JAX package).
+architectures (the same ids as the JAX package), plus the paper's own
+VGG19/SegNet deformable networks (``get_dcn_config``).
 
 The LM slice of the port runs the dense-attention archs; the others
 (MLA, MoE, Mamba, xLSTM and cross-attention blocks) raise
@@ -12,6 +13,7 @@ import importlib
 
 from repro_torch.configs.base import (SHAPES, SMOKE_SHAPES, ShapeCell,
                                       cell_supported)
+from repro_torch.models.dcn_models import DcnNetConfig
 
 _ARCH_MODULES = {
     "xlstm-1.3b": None,
@@ -43,5 +45,15 @@ def get_config(arch: str, smoke: bool = False):
     return mod.smoke() if smoke else mod.full()
 
 
+# The paper's own networks (Table III), selectable like any other arch.
+def get_dcn_config(name: str, n_deform: int, variant: str = "dcn2",
+                   smoke: bool = False) -> DcnNetConfig:
+    if smoke:
+        return DcnNetConfig(name=name, n_deform=n_deform, variant=variant,
+                            img_size=32, width_mult=0.125, num_classes=10)
+    return DcnNetConfig(name=name, n_deform=n_deform, variant=variant,
+                        img_size=224, num_classes=1000)
+
+
 __all__ = ["ARCHS", "SHAPES", "SMOKE_SHAPES", "SUPPORTED_ARCHS", "ShapeCell",
-           "cell_supported", "get_config"]
+           "cell_supported", "get_config", "get_dcn_config"]

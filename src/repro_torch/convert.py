@@ -8,7 +8,10 @@ layouts (HWIO weights) are the same on both sides, so the port computes
 the same function on the converted parameters. :func:`lm_params_from_jax`
 does the same for the JAX package's ``init_lm`` tree (nested dicts and
 lists, the layer stack as leading-dimension leaves under
-``"stack"/"b{j}"``), whose layout the port keeps.
+``"stack"/"b{j}"``), whose layout the port keeps, and
+:func:`opt_state_from_jax` for the JAX ``init_opt_state`` / ``adamw_update``
+state ``{"step", "m", "v"}`` of either model. bfloat16 leaves (numpy's
+``ml_dtypes`` bfloat16) arrive as torch bfloat16.
 """
 
 from __future__ import annotations
@@ -23,7 +26,11 @@ from repro_torch.core.deform import DeformableConvParams
 
 
 def _tensor(a, dev: torch.device) -> torch.Tensor:
-    return torch.as_tensor(np.array(a, copy=True)).to(dev).contiguous()
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(dev).contiguous()
+    return torch.as_tensor(a).to(dev).contiguous()
 
 
 def params_from_jax(tree: dict[str, Any], device="cuda") -> dict[str, Any]:
@@ -60,3 +67,15 @@ def lm_params_from_jax(tree: dict[str, Any], device="cuda") -> dict[str, Any]:
     """JAX-package LM params (``init_lm``) with numpy leaves -> the port's
     params on ``device``; both then compute the same function."""
     return _tree_to_torch(tree, resolve_device(device))
+
+
+def opt_state_from_jax(state: dict[str, Any], device="cuda") -> dict:
+    """The JAX package's AdamW state with numpy leaves -> the port's
+    (``step`` an int32 scalar tensor; ``m`` and ``v`` in the params'
+    structure, DCN or LM) on ``device``."""
+    dev = resolve_device(device)
+    moments = params_from_jax if "convs" in state["m"] \
+        else lm_params_from_jax
+    return {"step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=dev),
+            "m": moments(state["m"], dev), "v": moments(state["v"], dev)}

@@ -15,8 +15,8 @@ import importlib
 
 _EXPORTS = {
     "deform": ("DeformableConvParams", "bilinear_sample", "bli_coefficients",
-               "conv2d", "deformable_conv2d", "init_deformable_conv",
-               "offsets_to_coords"),
+               "conv2d", "deformable_conv2d", "fused_deformable_conv2d",
+               "init_deformable_conv", "offsets_to_coords"),
     "fusion": ("FusionMode", "FusionPlan", "GroupPlan", "LayerShape",
                "plan_fused_groups", "plan_fusion", "plan_network"),
     "scheduler": ("FifoBuffer", "TileSchedule", "assemble_device_schedule",

@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 class DeformableConvParams(NamedTuple):
@@ -120,10 +121,20 @@ def offsets_to_coords(offsets: torch.Tensor, kernel_size: int, variant: str,
     else:
         off = offsets.reshape(n, h, w, kk2, 2)               # (N,H,W,KK,2)
     if max_displacement is not None:
-        off = off.clamp(-max_displacement, max_displacement)
+        off = clip(off, -max_displacement, max_displacement)
     coords = centre[None, :, :, None, :] + taps[None, None, None] + off
     hi = torch.tensor([h - 1, w - 1], dtype=dtype, device=dev)
-    return torch.minimum(coords.clamp_min(0.0), hi)
+    return clip(coords, 0.0, hi)
+
+
+def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """``jnp.clip``: the values of ``clamp``, and its gradient too, which
+    ``max``/``min`` split in half where ``x`` equals a bound (``clamp``
+    passes all of it). A deformable layer starts from zero offsets, where
+    many coordinates sit exactly on the plane's edge."""
+    lo, hi = (torch.as_tensor(v, dtype=x.dtype, device=x.device)
+              for v in (lo, hi))
+    return torch.minimum(torch.maximum(x, lo), hi)
 
 
 def bli_coefficients(coords: torch.Tensor):
@@ -181,3 +192,22 @@ def deformable_conv2d(x: torch.Tensor, params: DeformableConvParams,
     if return_coords:
         return y, coords
     return y
+
+
+def fused_deformable_conv2d(x: torch.Tensor, params: DeformableConvParams,
+                            kernel_size: int = 3, variant: str = "dcn2",
+                            max_displacement: float | None = None
+                            ) -> torch.Tensor:
+    """Stage-fused variant (paper §IV-D) for training: the same function
+    as :func:`deformable_conv2d`, under ``torch.utils.checkpoint`` with
+    nothing saved but the inputs, so the deformed-feature tensor — K*K
+    times the input — is recomputed in the backward pass instead of kept
+    in device memory (the JAX package's ``jax.checkpoint`` with
+    ``nothing_saveable``)."""
+
+    def stage23(x, w_off, b_off, w, b):
+        return deformable_conv2d(
+            x, DeformableConvParams(w_off, b_off, w, b), kernel_size,
+            variant, max_displacement)
+
+    return checkpoint(stage23, x, *params, use_reentrant=False)

@@ -81,8 +81,18 @@ def dcn_fused_batch_plain(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff, w,
 def _check_operands(floats: dict, ints: dict,
                     dtypes: tuple = (torch.float32,)) -> torch.device:
     """Common operand checks: one device, contiguous, each float operand
-    of one of ``dtypes`` (float32 unless the kernel takes more), int32."""
+    of one of ``dtypes`` (float32 unless the kernel takes more), int32,
+    and no float operand that requires grad while grad mode is on: no
+    kernel has a backward (in the JAX package neither), and a result
+    written through a raw pointer would silently cut the graph."""
     dev = next(iter(floats.values())).device
+    if torch.is_grad_enabled():
+        for name, t in floats.items():
+            if t.requires_grad:
+                raise ValueError(
+                    f"{name} requires grad: the kernel has no backward; "
+                    f"train through the dense path, or call it under "
+                    f"torch.no_grad() with detached operands")
     for name, t in {**floats, **ints}.items():
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, expected {dev}")

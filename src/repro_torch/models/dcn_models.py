@@ -7,7 +7,9 @@ replacement proceeds from the output layer toward the input layer.
 ``dcn_net_apply`` selects an execution ``backend``:
 
   * ``"dense"``    — the reference path (``core.deform``), the counterpart
-                     of the JAX package's ``"xla"`` backend;
+                     of the JAX package's ``"xla"`` backend; the only
+                     differentiable one (``fused`` picks the checkpointed
+                     ``fused_deformable_conv2d`` for training);
   * ``"pallas"``   — each DCN layer through the fused tile kernel, the
                      whole plane as one tile (``kernels.ops``; the name is
                      the JAX package's);
@@ -15,6 +17,10 @@ replacement proceeds from the output layer toward the input layer.
                      (``runtime.pipeline.dcn_pipeline``);
   * ``"graph"``    — the network-graph executor with cross-layer tile
                      fusion (``runtime.fused_exec``).
+
+The kernel backends are forward-only: ``dcn_net_apply`` refuses them when
+an operand requires grad under grad mode, as each kernel wrapper does.
+``layer_shapes`` feeds the traffic simulator and the fusion planner.
 """
 
 from __future__ import annotations
@@ -27,8 +33,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch._device import resolve_device
-from repro_torch.core.deform import conv2d, deformable_conv2d, \
-    init_deformable_conv
+from repro_torch._tree import tree_leaves
+from repro_torch.core.deform import (conv2d, deformable_conv2d,
+                                     fused_deformable_conv2d,
+                                     init_deformable_conv)
+from repro_torch.core.fusion import LayerShape
 from repro_torch.kernels.ops import deformable_conv2d_pallas
 from repro_torch.runtime.fused_exec import GraphConfig, run_graph
 from repro_torch.runtime.graph import build_graph
@@ -116,15 +125,22 @@ def _pool_positions(cfg: DcnNetConfig) -> set[int]:
 
 
 def dcn_net_apply(params, cfg: DcnNetConfig, x: torch.Tensor, *,
-                  backend: str = "dense",
+                  backend: str = "dense", fused: bool = True,
                   pipeline: PipelineConfig | None = None,
                   graph: GraphConfig | None = None):
     """x: (N, H, W, C) on the params' device. Returns logits (N, classes)
     for vgg19 or per-pixel logits (N, H', W', classes) for segnet.
-    ``pipeline`` configures the ``"pipeline"`` backend, ``graph`` the
-    ``"graph"`` backend."""
+    ``fused`` selects ``fused_deformable_conv2d`` (else
+    ``deformable_conv2d``) on the ``"dense"`` backend, the same function
+    either way; ``pipeline`` configures the ``"pipeline"`` backend,
+    ``graph`` the ``"graph"`` backend."""
     if backend not in ("dense", "pallas", "pipeline", "graph"):
         raise ValueError(f"unknown backend: {backend!r}")
+    if backend != "dense" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in [x, *tree_leaves(params)]):
+        raise ValueError(f"backend {backend!r} is forward-only: an operand "
+                         f"requires grad and its kernels have no backward; "
+                         f"train with backend='dense'")
     decoder = cfg.name == "segnet"
     if backend == "graph":
         gcfg = clamp_tile_config(graph or GraphConfig(), x.shape[1],
@@ -153,8 +169,9 @@ def dcn_net_apply(params, cfg: DcnNetConfig, x: torch.Tensor, *,
                 x, p, variant=cfg.variant,
                 max_displacement=cfg.max_displacement)
         elif deform:
-            y = deformable_conv2d(x, p, variant=cfg.variant,
-                                  max_displacement=cfg.max_displacement)
+            fn = fused_deformable_conv2d if fused else deformable_conv2d
+            y = fn(x, p, variant=cfg.variant,
+                   max_displacement=cfg.max_displacement)
         else:
             y = conv2d(x, p["w"], p["b"])
         x = torch.relu(y)
@@ -174,3 +191,25 @@ def apply_head(params, cfg: DcnNetConfig, x: torch.Tensor) -> torch.Tensor:
         x = x.mean(dim=(1, 2))
         return x @ params["fc"]["w"] + params["fc"]["b"]
     return conv2d(x, params["seg_head"]["w"], params["seg_head"]["b"])
+
+
+def layer_shapes(cfg: DcnNetConfig) -> list[LayerShape]:
+    """Deformable-layer shapes for the traffic/energy benchmarks, with the
+    paper's 8-bit feature size (dtype_bytes=1)."""
+    decoder = cfg.name == "segnet"
+    plan = cfg.stage_plan(decoder)
+    pools = _pool_positions(cfg)
+    n_enc = sum(n for _, n in _VGG19_STAGES)
+    hw = cfg.img_size
+    applied_pools: set[int] = set()
+    out = []
+    for i, (ci, co, deform) in enumerate(plan):
+        if deform:
+            out.append(LayerShape(h=hw, w=hw, c_in=ci, c_out=co,
+                                  kernel_size=3, dtype_bytes=1))
+        if i < n_enc and i in pools and hw >= 2:
+            hw = hw // 2
+            applied_pools.add(i)
+        elif decoder and i >= n_enc and (2 * n_enc - 1 - i) in applied_pools:
+            hw *= 2
+    return out

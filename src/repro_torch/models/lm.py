@@ -1,10 +1,11 @@
-"""Language model for serving: embeddings, layer stack, heads, prefill and
-the decode step.
+"""Language model: embeddings, layer stack, heads, the training loss,
+prefill and the decode step.
 
 Entry points:
 
   init_lm(cfg, seed, device=)                 params (``device="meta"``:
                                               shapes only)
+  lm_loss(params, cfg, batch)                 -> (loss, metrics)
   lm_prefill(params, cfg, batch)              last-position logits
   init_cache(cfg, batch, max_len, ...)        the decode cache
   lm_decode_step(params, cfg, cache, token, pos) -> (logits, cache)
@@ -12,7 +13,7 @@ Entry points:
 Multi-codebook tokens (musicgen), tied embeddings, ``emb_scale``,
 ``logits_scale`` and the final soft-cap follow the JAX package. The tied
 logits product (d_model x vocab) is a ``torch.matmul``, as the JAX package
-leaves it to XLA. Training (``lm_loss``), multi-token prediction and the
+leaves it to XLA. Multi-token prediction, the MoE auxiliary loss and the
 cross-attention cache are not ported yet (ROADMAP.md §1).
 """
 
@@ -83,13 +84,43 @@ def _logits(p, cfg: ModelConfig, x):
     return logits
 
 
+def _xent(logits, labels):
+    """logits (..., V) fp32, labels (...) int -> mean cross-entropy."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None].long(),
+                                dim=-1)[..., 0]
+    return torch.mean(lse - gold)
+
+
+def lm_loss(p, cfg: ModelConfig, batch):
+    """batch: {"tokens": (B, S+1[, n_cb]) int}. -> (loss, {"ce", "aux",
+    "loss"}): next-token cross-entropy averaged over all positions (and
+    codebooks), plus the auxiliary term of the layer stack."""
+    check_supported(cfg)
+    tokens = batch["tokens"]
+    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    x, aux = apply_layers_train(p["layers"], cfg, _embed(p, cfg, inputs))
+    _, norm = make_norm(cfg.norm)
+    logits = _logits(p, cfg, norm(p["final_norm"], x))   # (B, S, n_cb, V)
+    if cfg.n_codebooks == 1:
+        lab = labels if labels.dim() == 2 else labels[..., 0]
+        loss = _xent(logits[..., 0, :], lab)
+    else:
+        loss = _xent(logits, labels)                     # labels (B,S,n_cb)
+    metrics = {"ce": loss, "aux": aux}
+    if cfg.moe is not None:
+        loss = loss + cfg.aux_weight * aux
+    metrics["loss"] = loss
+    return loss, metrics
+
+
 def lm_prefill(p, cfg: ModelConfig, batch):
     """Forward the full prompt ``batch["tokens"]`` (B, S[, n_cb]) and return
     the last position's logits (B, n_cb, V). With ``cfg.use_flash`` every
     attention layer runs the flash kernel."""
     check_supported(cfg)
     x = _embed(p, cfg, batch["tokens"])
-    x = apply_layers_train(p["layers"], cfg, x)
+    x, _ = apply_layers_train(p["layers"], cfg, x)
     _, norm = make_norm(cfg.norm)
     x = norm(p["final_norm"], x[:, -1])
     return _logits(p, cfg, x)

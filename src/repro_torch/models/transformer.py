@@ -10,16 +10,25 @@ cache mirrors the parameter tree and is updated in place.
 This slice runs attention blocks with dense (or no) MLPs; the other block
 kinds (MLA, Mamba, mLSTM / sLSTM), MoE MLPs and cross-attention raise
 ``NotImplementedError`` (ROADMAP.md §1, the MLA/MoE/Mamba/xLSTM/
-cross-attention item). ``remat`` does nothing in inference and is
-ignored.
+cross-attention item).
+
+``remat`` applies to training (grad mode on) per layer or per pattern
+super-block, as in the JAX package: ``"full"`` recomputes everything in
+the backward pass (``torch.utils.checkpoint`` with only the inputs kept),
+``"dots"`` keeps the matmul outputs (``aten.mm`` / ``aten.bmm``) and
+recomputes the rest, ``"none"`` keeps all activations. All three give the
+same gradients. Inference ignores it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models.layers import (AttnConfig, MlpConfig,
                                        attention_decode, attention_train,
@@ -193,20 +202,57 @@ def init_layers(mk: Maker, cfg: ModelConfig):
     return p
 
 
-def layer_slice(tree, r: int):
-    """Layer ``r`` of a stacked tree: views, so writes reach the stack."""
+def layer_slices(tree) -> list:
+    """Every layer of a stacked tree, as views, so writes reach the
+    stack. One ``unbind`` a leaf: its backward stacks the layers'
+    gradients once, where a slice a layer would add a zero-filled
+    stack-sized gradient per layer."""
     if isinstance(tree, dict):
-        return {k: layer_slice(v, r) for k, v in tree.items()}
-    return tree[r]
+        per = {k: layer_slices(v) for k, v in tree.items()}
+        n = len(next(iter(per.values())))
+        return [{k: per[k][r] for k in tree} for r in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn(x)`` under the activation-checkpoint policy ``cfg.remat``."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {} if cfg.remat == "full" else dict(context_fn=functools.partial(
+        create_selective_checkpoint_contexts, _save_dots))
+    return lambda x: checkpoint(fn, x, use_reentrant=False, **kw)
 
 
 def apply_layers_train(p, cfg: ModelConfig, x):
+    """Full-sequence forward of every layer -> (x, aux). ``aux`` is the
+    JAX package's auxiliary loss term, a float32 zero for the dense blocks
+    the port runs (MoE's load-balancing term is not ported)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, spec in enumerate(cfg.prefix):
-        x = block_train(p["prefix"][i], cfg, spec, x)
-    for r in range(cfg.n_repeats):
+        x = _remat(cfg, functools.partial(block_train, p["prefix"][i], cfg,
+                                          spec))(x)
+
+    stack = [layer_slices(p["stack"][f"b{j}"])
+             for j in range(len(cfg.pattern))] if cfg.n_repeats else []
+
+    def superblock(x, r):
         for j, spec in enumerate(cfg.pattern):
-            x = block_train(layer_slice(p["stack"][f"b{j}"], r), cfg, spec, x)
-    return x
+            x = block_train(stack[j][r], cfg, spec, x)
+        return x
+
+    for r in range(cfg.n_repeats):
+        x = _remat(cfg, functools.partial(superblock, r=r))(x)
+    return x, aux
 
 
 def apply_layers_decode(p, cfg: ModelConfig, x, cache, pos):
@@ -214,11 +260,13 @@ def apply_layers_decode(p, cfg: ModelConfig, x, cache, pos):
     for i, spec in enumerate(cfg.prefix):
         x, _ = block_decode(p["prefix"][i], cfg, spec, x,
                             cache["prefix"][i], pos)
+    layers = [(layer_slices(p["stack"][f"b{j}"]),
+               layer_slices(cache["stack"][f"b{j}"]))
+              for j in range(len(cfg.pattern))] if cfg.n_repeats else []
     for r in range(cfg.n_repeats):
         for j, spec in enumerate(cfg.pattern):
-            x, _ = block_decode(layer_slice(p["stack"][f"b{j}"], r), cfg,
-                                spec, x,
-                                layer_slice(cache["stack"][f"b{j}"], r), pos)
+            x, _ = block_decode(layers[j][0][r], cfg, spec, x,
+                                layers[j][1][r], pos)
     return x, cache
 
 

@@ -377,6 +377,10 @@ class DcnServingEngine:
         self.latency = LatencyStats()
         self.metrics.register("serving.latency_s", self.latency)
         self.last_trace = None
+        self.last_step_faulted = False
+        # One entry a step while the tracer is enabled: step id, width,
+        # dispatch and DRAM accounting and the step's dispatch spans.
+        self.timeline: list[dict] = []
         # The step config pins the coalesced dispatch mode to
         # batch_fused and is clamped once: serving images share a plane.
         self._step_cfg = clamp_tile_config(
@@ -792,16 +796,35 @@ class DcnServingEngine:
         # Slot-ordered, and slots map to replicas contiguously, so the
         # step's batch is shard-contiguous.
         repl = [self._slot_replica[i] for i, _, _ in occupied]
+        hits0 = self.cache.info()["image_hits"] if tr.enabled else 0
+        mark = len(tr) if tr.enabled else 0
         with tr.timed("serve.step", step=step_id,
                       width=len(occupied)) as ssp:
             outs, traces, failures, degraded = self._execute_isolated(
                 [req.x[j] for _, req, j in occupied], repl)
             # Each group's DRAM is a FIFO replay: replay once, per image.
             image_dram = [_image_dram(t) for t in traces]
-            ssp.set(dispatches=sum(t.kernel_dispatches for t in traces),
-                    dram_bytes=sum(sum(d.values()) + t.boundary_bytes
-                                   for d, t in zip(image_dram, traces)),
+            dispatches = sum(t.kernel_dispatches for t in traces)
+            dram = sum(sum(d.values()) + t.boundary_bytes
+                       for d, t in zip(image_dram, traces))
+            ssp.set(dispatches=dispatches, dram_bytes=dram,
                     failures=len(failures), degraded=degraded)
+        if tr.enabled:
+            self.timeline.append({
+                "step": step_id,
+                "width": len(occupied),
+                "wall_s": ssp.dur,
+                "dispatches": dispatches,
+                "dram_bytes": dram,
+                "failures": len(failures),
+                "degraded": degraded,
+                "image_hits": self.cache.info()["image_hits"] - hits0,
+                "schedule_backend": self._step_cfg.schedule_backend,
+                "dispatch_spans": [
+                    {"name": s.name, "dur_s": s.dur, **s.attrs}
+                    for s in tr.spans_since(mark)
+                    if s.name.startswith("dispatch.")],
+            })
         now = self._clock()
         with self._lock:
             self._m_steps.inc()
@@ -809,6 +832,7 @@ class DcnServingEngine:
             for t in traces:
                 self._absorb_trace(t)
             self._attribute_replicas(repl, traces, image_dram, failures)
+            self.last_step_faulted = bool(failures)
             for k, (i, req, j) in enumerate(occupied):
                 self._slots[i] = None
                 if req.done:

@@ -729,3 +729,98 @@ def test_kernels_launch_on_their_operands_device():
             make_host_mesh(data=min(4, torch.cuda.device_count())),
             [1] * min(4, torch.cuda.device_count()))
         assert torch.equal(got, want)
+
+
+def _guarded_calls(dev):
+    """(wrapper, float operands, call) for #1, #4-#8 on tiny operands on
+    ``dev``; the grad guard runs before any shape check or launch."""
+    from repro_torch.kernels import dcn_bli, dcn_fused
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    g = torch.Generator().manual_seed(0)
+    f = lambda *s: torch.randn(s, generator=g).to(dev)
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)
+    idx = torch.zeros((2, 2, 1, 4), dtype=torch.int32, device=dev)
+    conv = dict(coeff=f(2, 2, 1, 4), w=f(1, 16, 4), b=f(4))
+    return [
+        (dcn_fused.dcn_fused_batch, dict(x_tiles=f(2, 4, 16), **conv),
+         lambda o: dcn_fused.dcn_fused_batch(
+             o["x_tiles"], i32(0, 1), i32([0], [1]), i32(1, 1), idx,
+             o["coeff"], o["w"], o["b"], t_in=2)),
+        (dcn_fused.dcn_fused_schedule, dict(x_tiles=f(2, 4, 16), **conv),
+         lambda o: dcn_fused.dcn_fused_schedule(
+             o["x_tiles"], i32([0], [1]), i32(1, 1), idx, o["coeff"],
+             o["w"], o["b"])),
+        (dcn_fused.dcn_fused_tile, dict(x_tile=f(4, 16), coeff=f(2, 1, 4),
+                                        w=conv["w"], b=conv["b"]),
+         lambda o: dcn_fused.dcn_fused_tile(o["x_tile"], idx[0], o["coeff"],
+                                            o["w"], o["b"])),
+        (dcn_bli.bli_tile_matmul, dict(x_tile=f(4, 16), coeff=f(2, 4)),
+         lambda o: dcn_bli.bli_tile_matmul(
+             o["x_tile"], torch.zeros((2, 4), dtype=torch.int32, device=dev),
+             o["coeff"])),
+        (fa.flash_attention, dict(q=f(1, 4, 2, 16), k=f(1, 4, 2, 16),
+                                  v=f(1, 4, 2, 16)),
+         lambda o: fa.flash_attention(o["q"], o["k"], o["v"])),
+        (fd.flash_decode, dict(q=f(1, 2, 16), k_cache=f(1, 64, 2, 16),
+                               v_cache=f(1, 64, 2, 16)),
+         lambda o: fd.flash_decode(o["q"], o["k_cache"], o["v_cache"],
+                                   i32(3))),
+    ]
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_kernel_wrappers_refuse_grad_on_the_card(case):
+    """#1, #4-#8 refuse a CUDA operand that requires grad while grad
+    mode is on, as their plain versions do on the CPU, and launch
+    nothing."""
+    fn, ops, call = _guarded_calls(torch.device("cuda"))[case]
+    for k in ops:
+        bad = dict(ops, **{k: ops[k].clone().requires_grad_(True)})
+        n = fn.launches
+        with pytest.raises(ValueError, match=f"{k} requires grad"):
+            call(bad)
+        assert fn.launches == n
+
+
+def test_fused_dcn_train_step_on_the_card():
+    """Two AdamW steps of a small VGG19-2 DCN-II classifier with params
+    and optimizer state on the card: the fused (checkpointed) step gives
+    the unfused step's loss and gradients within 1e-5 norm-wise, losses
+    are finite, and every parameter with a gradient moves."""
+    from repro_torch._tree import tree_leaves, value_and_grad
+    from repro_torch.core.deform import randomize_offset_conv
+    from repro_torch.data import DataConfig, image_batch
+    from repro_torch.launch.train import dcn_loss, dcn_train_step
+    from repro_torch.models.dcn_models import DcnNetConfig, init_dcn_net
+    from repro_torch.optim import AdamWConfig, init_opt_state
+
+    cfg = DcnNetConfig("vgg19", 2, "dcn2", img_size=32, width_mult=0.125,
+                       num_classes=4)
+    dev = torch.device("cuda")
+    params = init_dcn_net(0, cfg, device=dev)
+    gen = torch.Generator().manual_seed(1)
+    params["convs"] = [randomize_offset_conv(p, gen, 1.0 / p.w.shape[2])
+                       if hasattr(p, "w_off") else p
+                       for p in params["convs"]]
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    opt = init_opt_state(params, ocfg)
+    assert all(t.device.type == "cuda"
+               for t in tree_leaves({"p": params, "o": opt}))
+    b = image_batch(DataConfig(seed=2, global_batch=4), 0, img=32, classes=4)
+    x = torch.as_tensor(b["images"], device=dev)
+    y = torch.as_tensor(b["labels"], device=dev)
+    (lf, gf), (lu, gu) = (value_and_grad(
+        lambda p: dcn_loss(p, cfg, x, y, fused=fused), params)
+        for fused in (True, False))
+    assert abs(float(lf) - float(lu)) <= 1e-5 * abs(float(lu))
+    for a, w in zip(tree_leaves(gf), tree_leaves(gu)):
+        assert float((a - w).norm()) <= 1e-5 * max(float(w.norm()), 1e-30)
+    before = [t.clone() for t in tree_leaves(params)]
+    for _ in range(2):
+        params, opt, loss = dcn_train_step(params, opt, x, y, cfg, ocfg)
+        assert torch.isfinite(loss)
+    for t0, t1, g in zip(before, tree_leaves(params), tree_leaves(gu)):
+        if g.abs().max() > 0:
+            assert not torch.equal(t0, t1)
+    assert int(opt["step"]) == 2

@@ -43,6 +43,12 @@ def test_package_imports_with_jax_blocked():
         "import repro_torch.kernels.flash_decode\n"
         "import repro_torch.launch.serve, repro_torch.launch.mesh\n"
         "import repro_torch.runtime.shard\n"
+        "import repro_torch.optim, repro_torch.checkpoint, repro_torch.data\n"
+        "import repro_torch.launch.steps, repro_torch.launch.train\n"
+        "import repro_torch.launch.elastic, repro_torch._tree\n"
+        "from repro_torch.core import fused_deformable_conv2d\n"
+        "from repro_torch.configs import get_dcn_config\n"
+        "from repro_torch.models.dcn_models import layer_shapes\n"
         "from repro_torch import configs\n"
         "for arch in configs.SUPPORTED_ARCHS:\n"
         "    configs.get_config(arch, smoke=True)\n"
@@ -107,6 +113,17 @@ def test_cuda_entry_points_raise_without_a_card():
     lm_params = lm.init_lm(lm_cfg, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         DecodeEngine(lm_params, lm_cfg, batch=1, max_len=8)
+    from repro_torch import checkpoint
+    from repro_torch.launch.train import dcn_train_loop, train_loop
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_loop(lm_cfg, configs.ShapeCell("t", "train", 8, 1), steps=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        dcn_train_loop(cfg, steps=1)
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save(d, 1, {"w": params["fc"]["w"]})
+        with pytest.raises(RuntimeError, match="cuda"):
+            checkpoint.restore(d, 1, {"w": params["fc"]["w"]})
 
 
 def _c_kind(arg: str) -> str:

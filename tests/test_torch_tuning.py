@@ -624,10 +624,9 @@ class TestServing:
 
 def test_exports_match_jax():
     """The port's ``core``, ``runtime`` and ``tuning`` export the JAX
-    package's names, less the training slice's fused_deformable_conv2d
-    and the Pallas ``interpret`` resolver, which has no CUDA
-    counterpart."""
-    left_out = {"fused_deformable_conv2d", "resolve_interpret"}
+    package's names, less the Pallas ``interpret`` resolver, which has no
+    CUDA counterpart."""
+    left_out = {"resolve_interpret"}
     for t_mod, j_mod in ((t_core, j_core), (t_runtime, j_runtime),
                          (t_tuning, j_tuning)):
         want = {n for n in (getattr(j_mod, "__all__", None)
