@@ -132,7 +132,28 @@ Phases, each fatal on failure:
               ``full`` and ``dots`` timed one step each with their peak;
               no kernel wrapper launched; then on the ``smoke()``
               config a run resumed from its step-2 checkpoint gives the
-              unbroken run's step-3 loss.
+              unbroken run's step-3 loss;
+10. lm-moe — 10a: granite-moe-3b-a800m ``full()`` (32 layers, d_model
+              1536, 24/8 heads x 64, 40 experts padded to 48, top-8,
+              expert d_ff 512, vocab 49,155 tied; random float32 weights
+              from the seed, ``param_count`` 3,903,166,464): phase 6's
+              prefill (4 x 2048, one #7 launch a layer, logits vs the
+              ``_sdpa`` path) and phase 7's serving (one #8 launch a layer
+              and step, two requests cross-checked against the prefill
+              argmax), #7 held and timed on layer 0's prefill operands, #8
+              on a late step's; one decode step profiled, and one MoE layer
+              at decode timed beside its expert products and the bound of
+              reading every expert's weights. 10b: deepseek-v3-671b at
+              full width with its depth cut to one dense MLA layer and one
+              MLA + MoE layer (256 routed + 1 shared experts, top-8
+              sigmoid) plus the MTP block (14,630,393,088 params; the
+              whole model, 671,712,677,376, counted on ``meta``): prefill
+              1 x 512, a 64-token prompt fed token by token through
+              ``lm_decode_step`` (absorbed MLA over a float32 latent cache)
+              against ``lm_prefill`` within 1e-3 * max|ref|, and
+              ``DecodeEngine`` serving 2 requests of 8 new tokens; no
+              kernel wrapper launches on this path. Peak memory of each
+              part is printed.
 
 Each path is driven with every kernel's launch count set to 0 just
 before it and read just after. The last lines are the card's name and
@@ -188,6 +209,14 @@ LM_SIZES = dict(
     prefill_batch=4, prefill_len=2048,
     serve_batch=4, serve_max_len=512, requests=8, prompt_len=(16, 256),
     max_new=32, cross_checked=2)
+# Phase 10: the MoE / MLA configurations (full widths), their parameter
+# counts, and deepseek's prefill, MLA check and served requests.
+MOE_SIZES = dict(granite="granite-moe-3b-a800m", granite_params=3_903_166_464,
+                 deepseek="deepseek-v3-671b",
+                 deepseek_params=671_712_677_376,
+                 deepseek_cut_params=14_630_393_088, ds_prefill=(1, 512),
+                 ds_check_len=64, ds_requests=2, ds_prompt_len=(16, 32),
+                 ds_max_new=8, ds_max_len=64)
 # Phase 8 / 9: training sizes.
 TRAIN_SIZES = dict(dcn_batch=16, dcn_steps=5, example_steps=300,
                    example_tail=50, example_limit=0.35, lm_arch="qwen3-1.7b",
@@ -359,6 +388,258 @@ def sdpa_yardstick(q, k, v, **kw):
                                                   **kw)
 
 
+def hold(what, got, ref, rtol):
+    """Fail unless ``got`` is finite and within ``rtol * max|ref|`` of
+    ``ref``; -> (max|got - ref|, max|ref|)."""
+    import torch
+    torch.cuda.synchronize()
+    d, sc = rel_err(got, ref)
+    if not torch.isfinite(got).all() or not d <= rtol * sc:
+        fail(f"{what}: max|d|={d} > {rtol}*{sc} (or not finite)")
+    return d, sc
+
+
+def hold_captured(what, calls, plain):
+    """Hold each captured ``(args, kwargs, result)`` of a path against
+    ``plain`` on the same operands."""
+    for a, k, out in calls:
+        k = dict(k, scale=k.get("scale") or a[0].shape[-1] ** -0.5)
+        yield hold(what, out, plain(*a, **k), ATTN_RTOL)
+
+
+def time_flash(q, k, v, opts, err, name) -> dict:
+    """#7 on (q, k, v), its plain version and the SDPA yardstick, timed;
+    the work and bytes its bound is computed from."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    tiles = fa.tile_config(d)
+    grid = (-(-sq // tiles["block_q"]), b * hq)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib = sdpa_yardstick(qt, kt, vt, is_causal=True)
+    live = live_pairs(sq, skv, True, opts.get("window"))
+    # Both products run in 3xTF32 on the tensor cores; the FP32 CUDA-core
+    # bound of the same work is kept beside it.
+    flops = 4 * b * hq * live * d
+    return dict(
+        max_abs_err=err,
+        ms=cuda_time_ms(lambda: fa.flash_attention(q, k, v, **opts), 10),
+        plain_ms=cuda_time_ms(lambda: fa.flash_attention_plain(
+            q, k, v, scale=d ** -0.5, **opts), 2, warmup=1),
+        library_ms=cuda_time_ms(lib, 5),
+        ops={"3xtf32": flops}, fp32_ops=flops,
+        bytes=4 * (2 * q.numel() + k.numel() + v.numel()),
+        shape=f"{name} B={b} S={sq} Hq={hq} Hkv={hkv} D={d}, causal "
+              f"(live share {live / (sq * skv):.4f}), grid {grid}, "
+              f"{tiles['block_q']} x {tiles['block_k']} tiles")
+
+
+def prefill_through_flash(card, tag, params, cfg, toks, reset_counts):
+    """``lm_prefill`` of ``toks`` with ``use_flash``: one #7 launch a
+    layer, last-position logits within LOGIT_RTOL of the ``_sdpa`` path,
+    the first and the last layer's #7 operands held against the plain
+    version. -> (#7 launches, [(args, kwargs, out)] of those two calls)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers, lm
+
+    sync = torch.cuda.synchronize
+    pb, plen = toks.shape
+    cfg_flash = dataclasses.replace(cfg, use_flash=True)
+    lm.lm_prefill(params, cfg_flash, {"tokens": toks[:, :64]})   # warm-up
+    sync()
+    held7 = []
+    reset_counts()
+    t0 = time.perf_counter()
+    with recording(layers, "flash_attention", held7, keep=lambda: (
+            fa.flash_attention.launches in (1, cfg.n_layers))):
+        logits = lm.lm_prefill(params, cfg_flash, {"tokens": toks})
+    sync()
+    wall = time.perf_counter() - t0
+    n7 = fa.flash_attention.launches
+    if n7 != cfg.n_layers:
+        fail(f"prefill launched flash_attention {n7} times, expected one "
+             f"per layer ({cfg.n_layers})")
+    t0 = time.perf_counter()
+    ref = lm.lm_prefill(params, cfg, {"tokens": toks})
+    sync()
+    wall_ref = time.perf_counter() - t0
+    if tuple(logits.shape) != (pb, cfg.n_codebooks, cfg.vocab):
+        fail(f"prefill logits {tuple(logits.shape)}")
+    d, sc = hold("prefill logits (flash vs _sdpa path)", logits, ref,
+                 LOGIT_RTOL)
+    print(f"[{tag}] {card}: {pb} x {plen} tokens through "
+          f"{n7} flash_attention launches in {wall * 1e3:.1f} ms = "
+          f"{pb * plen / wall:.0f} prefill tokens/s (_sdpa path "
+          f"{wall_ref * 1e3:.1f} ms); last-position logits finite, max|d| "
+          f"{d:.3e} (limit {LOGIT_RTOL}*{sc:.3f})")
+    del logits, ref
+    if len(held7) != 2:
+        fail(f"kept {len(held7)} prefill calls of flash_attention, not 2")
+    for layer, (a, k, _), (d, sc) in zip(
+            (0, cfg.n_layers - 1), held7, hold_captured(
+                "flash_attention on the prefill's operands", held7,
+                fa.flash_attention_plain)):
+        print(f"[{tag}] flash_attention on the prefill's operands at "
+              f"layer {layer} (q {tuple(a[0].shape)}, k "
+              f"{tuple(a[1].shape)}, {k}) vs plain: max|d| {d:.3e} (limit "
+              f"{ATTN_RTOL}*{sc:.3f})")
+    torch.cuda.empty_cache()
+    return n7, held7
+
+
+def serve_through_decode(card, tag, params, cfg, reset_counts):
+    """``DecodeEngine(batch, max_len)`` of LM_SIZES serving its greedy
+    requests: one #8 launch a layer and step, every request finished,
+    #8 held against its plain version on the first and the last layer's
+    operands at step 0, step 64 and a later step with a free slot at a
+    stale position, two requests' first and last tokens cross-checked
+    against the prefill argmax; decode tokens/s, step and request latency.
+    -> (#8 timed at the serving shape, #8 launches, the engine, the step
+    latencies in s)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models import layers, lm
+    from repro_torch.serving import DecodeEngine, Request
+
+    dev, sizes = torch.device("cuda"), LM_SIZES
+    cfg_flash = dataclasses.replace(cfg, use_flash=True)
+
+    def engine():
+        return DecodeEngine(params, cfg, batch=sizes["serve_batch"],
+                            max_len=sizes["serve_max_len"], device=dev)
+
+    warm = engine()
+    warm.submit(Request(rid=-1, prompt=[1, 2], max_new=2))
+    warm.run()
+    del warm
+    eng = engine()
+    srng = np.random.default_rng(SEED + 7)
+    lo, hi = sizes["prompt_len"]
+    reqs = []
+    for rid in range(sizes["requests"]):
+        plen_r = int(srng.integers(lo, hi + 1))
+        reqs.append(Request(rid=rid, max_new=sizes["max_new"],
+                            prompt=srng.integers(0, cfg.vocab, size=plen_r)
+                            .tolist()))
+        eng.submit(reqs[-1])
+    # The first and the last layer's #8 call are kept at the first step,
+    # step 64, and the first later step with a free slot at a stale
+    # position (it decodes into the void and still writes its cache row).
+    held8, kept_steps, stale = [], [0, 64], []
+
+    def keep8():
+        layer = (fd.flash_decode.launches - 1) % cfg.n_layers
+        if len(kept_steps) == 2 and layer == 0 and eng.steps > 64 and (
+                ~eng.active & (eng.pos > 0)).any():
+            kept_steps.append(eng.steps)
+            stale.extend(np.flatnonzero(~eng.active).tolist())
+        return layer in (0, cfg.n_layers - 1) and eng.steps in kept_steps
+
+    reset_counts()
+    step_s, finish_s = [], {}
+    t0 = time.perf_counter()
+    with recording(layers, "flash_decode", held8, keep=keep8):
+        while len(step_s) < 100_000:
+            ts = time.perf_counter()
+            active = eng.step()
+            now = time.perf_counter()
+            step_s.append(now - ts)
+            for r in eng.finished:
+                finish_s.setdefault(r.rid, now - t0)
+            if active == 0 and not eng.queue:
+                break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n8 = fd.flash_decode.launches
+    if n8 != cfg.n_layers * eng.steps:
+        fail(f"serving launched flash_decode {n8} times in {eng.steps} "
+             f"steps, expected {cfg.n_layers} per step")
+    bad = [r.rid for r in reqs if not r.done or len(r.out) != r.max_new]
+    if bad:
+        fail(f"requests {bad} did not finish with max_new tokens")
+    if len(kept_steps) != 3 or len(held8) != 6:
+        fail(f"kept {len(held8)} decode calls of flash_decode at steps "
+             f"{kept_steps}, not 6 at 3 steps with a stale slot among them")
+    n_split = fd.default_splits(sizes["serve_batch"], cfg.n_kv_heads,
+                                sizes["serve_max_len"])
+    err8 = 0.0
+    for i, (d, sc) in enumerate(hold_captured(
+            "flash_decode on the serving operands", held8,
+            fd.flash_decode_plain)):
+        lens = held8[i][0][3].tolist()
+        per_seq = [len(r) for r in fd.split_ranges(
+            lens, sizes["serve_max_len"], n_split, cfg.n_kv_heads,
+            held8[i][1].get("window"))]
+        err8 = max(err8, d)
+        print(f"[{tag}] flash_decode at step {kept_steps[i // 2]}, layer "
+              f"{(0, cfg.n_layers - 1)[i % 2]} (lengths {lens}, splits "
+              f"{per_seq} of at most {n_split}"
+              f"{f', free slots {stale} at stale lengths' if i >= 4 else ''}"
+              f") vs plain: max|d| {d:.3e} (limit {ATTN_RTOL}*{sc:.3f})")
+    # Timed at the serving shape: layer 0 of the last kept step.
+    a8, k8, _ = held8[4]
+    k8 = dict(k8, scale=k8.get("scale") or a8[0].shape[-1] ** -0.5)
+    q8, kc8, vc8, lens8 = a8
+    b8, s8, hkv8, d8 = kc8.shape
+    vis8 = sum(hi - lo for seq in fd.split_ranges(
+        lens8.tolist(), s8, n_split, hkv8, k8.get("window"))
+        for lo, hi in seq)
+    ki8 = torch.arange(s8, device=dev)[None, :]
+    mask8 = ki8 < lens8[:, None].long()
+    if k8.get("window") is not None:
+        mask8 &= ki8 > lens8[:, None].long() - 1 - k8["window"]
+    kt8, vt8 = (t.transpose(1, 2).contiguous() for t in (kc8, vc8))
+    lib8 = sdpa_yardstick(q8[:, :, None], kt8, vt8,
+                          attn_mask=mask8[:, None, None, :],
+                          scale=k8["scale"])
+    timed8 = dict(
+        max_abs_err=err8,
+        ms=cuda_time_ms(lambda: fd.flash_decode(*a8, **k8), 200),
+        plain_ms=cuda_time_ms(lambda: fd.flash_decode_plain(*a8, **k8), 50),
+        library_ms=cuda_time_ms(lib8, 200),
+        ops=dict(fp32=4 * vis8 * q8.shape[1] * d8),
+        bytes=4 * (2 * vis8 * hkv8 * d8 + 2 * q8.numel()) + 4 * b8,
+        shape=f"serving step {kept_steps[2]} layer 0, B={b8} S={s8} "
+              f"Hq={q8.shape[1]} Hkv={hkv8} D={d8}, lengths "
+              f"{lens8.tolist()}, {vis8} visible keys, at most {n_split} "
+              f"splits a sequence")
+    del held8, a8, kt8, vt8, lib8
+    gaps = []
+    for r in reqs[:sizes["cross_checked"]]:
+        for j in (0, r.max_new - 1):
+            seq = torch.as_tensor([r.prompt + r.out[:j]], dtype=torch.int32,
+                                  device=dev)
+            lg = lm.lm_prefill(params, cfg_flash, {"tokens": seq})[0, 0]
+            top = torch.topk(lg, 2).values
+            gap = float(top[0] - top[1])
+            tol = 1e-3 * float(lg.abs().max())
+            pred = int(torch.argmax(lg))
+            gaps.append((r.rid, j, pred == r.out[j], gap))
+            if pred != r.out[j] and gap > tol:
+                fail(f"request {r.rid} token {j}: decode gave {r.out[j]}, "
+                     f"prefill argmax {pred} with top-2 gap {gap} > {tol}")
+    n_tok = sum(len(r.out) for r in reqs)
+    lat = np.asarray(sorted(finish_s[r.rid] for r in reqs))
+    st = np.asarray(step_s[:eng.steps])
+    print(f"[{tag}] {card}: {len(reqs)} requests (prompts "
+          f"{[len(r.prompt) for r in reqs]}) served in {eng.steps} steps of "
+          f"batch {sizes['serve_batch']} with {n8} flash_decode launches; "
+          f"{n_tok} new tokens in {wall:.2f} s = {n_tok / wall:.1f} decode "
+          f"tokens/s ({eng.steps * sizes['serve_batch'] / wall:.1f} slot-"
+          f"tokens/s incl. the prompts); step latency p50 "
+          f"{np.percentile(st, 50) * 1e3:.2f} ms p99 "
+          f"{np.percentile(st, 99) * 1e3:.2f} ms; request latency p50 "
+          f"{np.percentile(lat, 50):.2f} s p99 {np.percentile(lat, 99):.2f} s")
+    print(f"[{tag}] decode vs prefill argmax (rid, j, equal, top-2 gap): "
+          + ", ".join(f"({a}, {b}, {c}, {g:.4g})" for a, b, c, g in gaps))
+    return timed8, n8, eng, st
+
+
 def lm_phases(card, kernels, launches, reset_counts) -> None:
     """Phases 5-7: the LM kernels held against their plain versions, the
     Qwen3-1.7B prefill through #7, and ``DecodeEngine`` through #8, each
@@ -370,9 +651,9 @@ def lm_phases(card, kernels, launches, reset_counts) -> None:
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
-    from repro_torch.models import layers, lm
+    from repro_torch.models import lm
     from repro_torch.models.params import param_bytes
-    from repro_torch.serving import DecodeEngine, Request
+    from repro_torch.serving import Request
 
     dev, sizes, sync = torch.device("cuda"), LM_SIZES, torch.cuda.synchronize
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
@@ -381,55 +662,29 @@ def lm_phases(card, kernels, launches, reset_counts) -> None:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    def hold(what, got, ref, rtol):
-        sync()
-        d, sc = rel_err(got, ref)
-        if not torch.isfinite(got).all() or not d <= rtol * sc:
-            fail(f"{what}: max|d|={d} > {rtol}*{sc} (or not finite)")
-        return d, sc
-
     # -- phase 5: #7 and #8 against their plain versions ---------------------
     for i, (name, b, sq, skv, hq, hkv, d, opts) in enumerate(sizes["flash"]):
         q, k, v = randn(b, sq, hq, d), randn(b, skv, hkv, d), \
             randn(b, skv, hkv, d)
-        plain = lambda: fa.flash_attention_plain(q, k, v, scale=d ** -0.5,
-                                                 **opts)
         err, sc = hold(f"flash_attention at {name}",
-                       fa.flash_attention(q, k, v, **opts), plain(),
-                       ATTN_RTOL)
+                       fa.flash_attention(q, k, v, **opts),
+                       fa.flash_attention_plain(q, k, v, scale=d ** -0.5,
+                                                **opts), ATTN_RTOL)
         tiles = fa.tile_config(d)
         grid = (-(-sq // tiles["block_q"]), b * hq)
         print(f"[lm-kernels] flash_attention at {name} (B={b} Sq={sq} "
               f"Skv={skv} Hq={hq} Hkv={hkv} D={d} {opts or 'causal'}; grid "
               f"{grid}, {tiles}): max|d| {err:.3e} (limit "
               f"{ATTN_RTOL}*{sc:.3f})")
-        if i < 2:
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            lib = sdpa_yardstick(qt, kt, vt, is_causal=True)
-            live = live_pairs(sq, skv, True, opts.get("window"))
-            # Both products run in 3xTF32 on the tensor cores; the FP32
-            # CUDA-core bound of the same work is kept beside it.
-            flops = 4 * b * hq * live * d
-            timed = dict(
-                max_abs_err=err,
-                ms=cuda_time_ms(lambda: fa.flash_attention(q, k, v, **opts),
-                                10),
-                plain_ms=cuda_time_ms(plain, 2, warmup=1),
-                library_ms=cuda_time_ms(lib, 5),
-                ops={"3xtf32": flops}, fp32_ops=flops,
-                bytes=4 * (2 * q.numel() + k.numel() + v.numel()),
-                shape=f"{name} B={b} S={sq} Hq={hq} Hkv={hkv} D={d}, causal "
-                      f"(live share {live / (sq * skv):.4f}), grid {grid}, "
-                      f"{tiles['block_q']} x {tiles['block_k']} tiles")
-            if i == 0:
-                kernels["flash_attention"] = dict(
-                    route="cuda",
-                    source="src/repro_torch/csrc/flash_attention.cu",
-                    replaces="src/repro/kernels/flash_attention.py:27",
-                    **timed)
-            else:
-                kernels["flash_attention"]["long_seq"] = {name: timed}
-            del qt, kt, vt, lib
+        if i == 0:
+            kernels["flash_attention"] = dict(
+                route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:27",
+                **time_flash(q, k, v, opts, err, name))
+        elif i == 1:
+            kernels["flash_attention"]["long_seq"] = {
+                name: time_flash(q, k, v, opts, err, name)}
         del q, k, v
     long_cache = {}
     for i, (name, b, s, hq, hkv, d, opts) in enumerate(sizes["decode"]):
@@ -478,13 +733,6 @@ def lm_phases(card, kernels, launches, reset_counts) -> None:
         del q, kc, vc, ref, got
     torch.cuda.empty_cache()
 
-    def hold_captured(what, calls, plain):
-        """Hold each captured ``(args, kwargs, result)`` of the main path
-        against ``plain`` on the same operands."""
-        for a, k, out in calls:
-            k = dict(k, scale=k.get("scale") or a[0].shape[-1] ** -0.5)
-            yield hold(what, out, plain(*a, **k), ATTN_RTOL)
-
     # -- phase 6: Qwen3-1.7B prefill through #7 ------------------------------
     cfg = configs.get_config(sizes["arch"], smoke=sizes["smoke"])
     t0 = time.perf_counter()
@@ -495,188 +743,25 @@ def lm_phases(card, kernels, launches, reset_counts) -> None:
           f"{cfg.head_dim}, vocab {cfg.vocab}: "
           f"{param_bytes(params) / 1e9:.2f} GB of float32 params built in "
           f"{time.perf_counter() - t0:.2f} s")
-    pb, plen = sizes["prefill_batch"], sizes["prefill_len"]
     prng = np.random.default_rng(SEED + 6)
-    toks = torch.as_tensor(prng.integers(0, cfg.vocab, size=(pb, plen))
-                           .astype(np.int32), device=dev)
-    cfg_flash = dataclasses.replace(cfg, use_flash=True)
-    lm.lm_prefill(params, cfg_flash, {"tokens": toks[:, :64]})   # warm-up
-    sync()
-    # The first and the last layer's #7 call of the timed run are kept.
-    held7 = []
-    reset_counts()
-    t0 = time.perf_counter()
-    with recording(layers, "flash_attention", held7, keep=lambda: (
-            fa.flash_attention.launches in (1, cfg.n_layers))):
-        logits = lm.lm_prefill(params, cfg_flash, {"tokens": toks})
-    sync()
-    wall = time.perf_counter() - t0
-    n7 = fa.flash_attention.launches
-    if n7 != cfg.n_layers:
-        fail(f"prefill launched flash_attention {n7} times, expected one "
-             f"per layer ({cfg.n_layers})")
-    launches["flash_attention"] = n7
-    t0 = time.perf_counter()
-    ref = lm.lm_prefill(params, cfg, {"tokens": toks})
-    sync()
-    wall_ref = time.perf_counter() - t0
-    if tuple(logits.shape) != (pb, cfg.n_codebooks, cfg.vocab):
-        fail(f"prefill logits {tuple(logits.shape)}")
-    d, sc = hold("prefill logits (flash vs _sdpa path)", logits, ref,
-                 LOGIT_RTOL)
-    print(f"[lm-prefill] {card}: {pb} x {plen} tokens through "
-          f"{n7} flash_attention launches in {wall * 1e3:.1f} ms = "
-          f"{pb * plen / wall:.0f} prefill tokens/s (_sdpa path "
-          f"{wall_ref * 1e3:.1f} ms); last-position logits finite, max|d| "
-          f"{d:.3e} (limit {LOGIT_RTOL}*{sc:.3f})")
-    del logits, ref
-    if len(held7) != 2:
-        fail(f"kept {len(held7)} prefill calls of flash_attention, not 2")
-    for layer, (a, k, _), (d, sc) in zip(
-            (0, cfg.n_layers - 1), held7, hold_captured(
-                "flash_attention on the prefill's operands", held7,
-                fa.flash_attention_plain)):
-        print(f"[lm-prefill] flash_attention on the prefill's operands at "
-              f"layer {layer} (q {tuple(a[0].shape)}, k {tuple(a[1].shape)}, {k}) vs "
-              f"plain: max|d| {d:.3e} (limit {ATTN_RTOL}*{sc:.3f})")
+    toks = torch.as_tensor(prng.integers(
+        0, cfg.vocab, size=(sizes["prefill_batch"], sizes["prefill_len"]))
+        .astype(np.int32), device=dev)
+    launches["flash_attention"], held7 = prefill_through_flash(
+        card, "lm-prefill", params, cfg, toks, reset_counts)
     del held7
-    torch.cuda.empty_cache()
-    profile_lm(f"prefill call of {pb} x {plen} tokens",
-               lambda: lm.lm_prefill(params, cfg_flash, {"tokens": toks}), 1,
+    profile_lm(f"prefill call of {toks.shape[0]} x {toks.shape[1]} tokens",
+               lambda: lm.lm_prefill(params, dataclasses.replace(
+                   cfg, use_flash=True), {"tokens": toks}), 1,
                card, "flash_kernel")
 
     # -- phase 7: DecodeEngine through #8 ------------------------------------
-    def engine():
-        return DecodeEngine(params, cfg, batch=sizes["serve_batch"],
-                            max_len=sizes["serve_max_len"], device=dev)
-
-    warm = engine()
-    warm.submit(Request(rid=-1, prompt=[1, 2], max_new=2))
-    warm.run()
-    del warm
-    eng = engine()
-    srng = np.random.default_rng(SEED + 7)
-    lo, hi = sizes["prompt_len"]
-    reqs = []
-    for rid in range(sizes["requests"]):
-        plen_r = int(srng.integers(lo, hi + 1))
-        reqs.append(Request(rid=rid, max_new=sizes["max_new"],
-                            prompt=srng.integers(0, cfg.vocab, size=plen_r)
-                            .tolist()))
-        eng.submit(reqs[-1])
-    # The first and the last layer's #8 call are kept at the first step,
-    # step 64, and the first later step with a free slot at a stale
-    # position (it decodes into the void and still writes its cache row).
-    held8, kept_steps, stale = [], [0, 64], []
-
-    def keep8():
-        layer = (fd.flash_decode.launches - 1) % cfg.n_layers
-        if len(kept_steps) == 2 and layer == 0 and eng.steps > 64 and (
-                ~eng.active & (eng.pos > 0)).any():
-            kept_steps.append(eng.steps)
-            stale.extend(np.flatnonzero(~eng.active).tolist())
-        return layer in (0, cfg.n_layers - 1) and eng.steps in kept_steps
-
-    reset_counts()
-    step_s, finish_s = [], {}
-    t0 = time.perf_counter()
-    with recording(layers, "flash_decode", held8, keep=keep8):
-        while len(step_s) < 100_000:
-            ts = time.perf_counter()
-            active = eng.step()
-            now = time.perf_counter()
-            step_s.append(now - ts)
-            for r in eng.finished:
-                finish_s.setdefault(r.rid, now - t0)
-            if active == 0 and not eng.queue:
-                break
-    sync()
-    wall = time.perf_counter() - t0
-    n8 = fd.flash_decode.launches
-    if n8 != cfg.n_layers * eng.steps:
-        fail(f"serving launched flash_decode {n8} times in {eng.steps} "
-             f"steps, expected {cfg.n_layers} per step")
-    launches["flash_decode"] = n8
-    bad = [r.rid for r in reqs if not r.done or len(r.out) != r.max_new]
-    if bad:
-        fail(f"requests {bad} did not finish with max_new tokens")
-    if len(kept_steps) != 3 or len(held8) != 6:
-        fail(f"kept {len(held8)} decode calls of flash_decode at steps "
-             f"{kept_steps}, not 6 at 3 steps with a stale slot among them")
-    n_split = fd.default_splits(sizes["serve_batch"], cfg.n_kv_heads,
-                                sizes["serve_max_len"])
-    err8 = 0.0
-    for i, (d, sc) in enumerate(hold_captured(
-            "flash_decode on the serving operands", held8,
-            fd.flash_decode_plain)):
-        lens = held8[i][0][3].tolist()
-        per_seq = [len(r) for r in fd.split_ranges(
-            lens, sizes["serve_max_len"], n_split, cfg.n_kv_heads,
-            held8[i][1].get("window"))]
-        err8 = max(err8, d)
-        print(f"[lm-serve] flash_decode at step {kept_steps[i // 2]}, layer "
-              f"{(0, cfg.n_layers - 1)[i % 2]} (lengths {lens}, splits "
-              f"{per_seq} of at most {n_split}"
-              f"{f', free slots {stale} at stale lengths' if i >= 4 else ''}"
-              f") vs plain: max|d| {d:.3e} (limit {ATTN_RTOL}*{sc:.3f})")
-    # Timed at the serving shape: layer 0 of the last kept step.
-    a8, k8, _ = held8[4]
-    k8 = dict(k8, scale=k8.get("scale") or a8[0].shape[-1] ** -0.5)
-    q8, kc8, vc8, lens8 = a8
-    b8, s8, hkv8, d8 = kc8.shape
-    vis8 = sum(hi - lo for seq in fd.split_ranges(
-        lens8.tolist(), s8, n_split, hkv8, k8.get("window"))
-        for lo, hi in seq)
-    ki8 = torch.arange(s8, device=dev)[None, :]
-    mask8 = ki8 < lens8[:, None].long()
-    if k8.get("window") is not None:
-        mask8 &= ki8 > lens8[:, None].long() - 1 - k8["window"]
-    kt8, vt8 = (t.transpose(1, 2).contiguous() for t in (kc8, vc8))
-    lib8 = sdpa_yardstick(q8[:, :, None], kt8, vt8,
-                          attn_mask=mask8[:, None, None, :],
-                          scale=k8["scale"])
+    timed8, launches["flash_decode"], eng, _ = serve_through_decode(
+        card, "lm-serve", params, cfg, reset_counts)
     kernels["flash_decode"] = dict(
         route="cuda", source="src/repro_torch/csrc/flash_decode.cu",
-        replaces="src/repro/kernels/flash_decode.py:28", max_abs_err=err8,
-        ms=cuda_time_ms(lambda: fd.flash_decode(*a8, **k8), 200),
-        plain_ms=cuda_time_ms(lambda: fd.flash_decode_plain(*a8, **k8), 50),
-        library_ms=cuda_time_ms(lib8, 200),
-        ops=dict(fp32=4 * vis8 * q8.shape[1] * d8),
-        bytes=4 * (2 * vis8 * hkv8 * d8 + 2 * q8.numel()) + 4 * b8,
-        shape=f"serving step {kept_steps[2]} layer 0, B={b8} S={s8} "
-              f"Hq={q8.shape[1]} Hkv={hkv8} D={d8}, lengths "
-              f"{lens8.tolist()}, {vis8} visible keys, at most {n_split} "
-              f"splits a sequence",
+        replaces="src/repro/kernels/flash_decode.py:28", **timed8,
         long_cache=long_cache)
-    del held8, a8, kt8, vt8, lib8
-    gaps = []
-    for r in reqs[:sizes["cross_checked"]]:
-        for j in (0, r.max_new - 1):
-            seq = torch.as_tensor([r.prompt + r.out[:j]], dtype=torch.int32,
-                                  device=dev)
-            lg = lm.lm_prefill(params, cfg_flash, {"tokens": seq})[0, 0]
-            top = torch.topk(lg, 2).values
-            gap = float(top[0] - top[1])
-            tol = 1e-3 * float(lg.abs().max())
-            pred = int(torch.argmax(lg))
-            gaps.append((r.rid, j, pred == r.out[j], gap))
-            if pred != r.out[j] and gap > tol:
-                fail(f"request {r.rid} token {j}: decode gave {r.out[j]}, "
-                     f"prefill argmax {pred} with top-2 gap {gap} > {tol}")
-    n_tok = sum(len(r.out) for r in reqs)
-    lat = np.asarray(sorted(finish_s[r.rid] for r in reqs))
-    st = np.asarray(step_s[:eng.steps])
-    print(f"[lm-serve] {card}: {len(reqs)} requests (prompts "
-          f"{[len(r.prompt) for r in reqs]}) served in {eng.steps} steps of "
-          f"batch {sizes['serve_batch']} with {n8} flash_decode launches; "
-          f"{n_tok} new tokens in {wall:.2f} s = {n_tok / wall:.1f} decode "
-          f"tokens/s ({eng.steps * sizes['serve_batch'] / wall:.1f} slot-"
-          f"tokens/s incl. the prompts); step latency p50 "
-          f"{np.percentile(st, 50) * 1e3:.2f} ms p99 "
-          f"{np.percentile(st, 99) * 1e3:.2f} ms; request latency p50 "
-          f"{np.percentile(lat, 50):.2f} s p99 {np.percentile(lat, 99):.2f} s")
-    print("[lm-serve] decode vs prefill argmax (rid, j, equal, top-2 gap): "
-          + ", ".join(f"({a}, {b}, {c}, {g:.4g})" for a, b, c, g in gaps))
     steps = 4
     eng.submit(Request(rid=10**6, prompt=[1] * (steps + 1), max_new=1))
     eng.step()                                   # admit, warm
@@ -1066,6 +1151,203 @@ def lm_train_phase(card: str, wrappers: dict) -> None:
           f"resumed from the step-2 checkpoint: step-3 loss {rest}")
     if rest != whole[2:]:
         fail(f"resumed step-3 loss {rest} != unbroken {whole[2:]}")
+
+
+def moe_phases(card, kernels, wrappers, reset_counts, peak_bw) -> None:
+    """Phase 10: granite-moe-3b-a800m ``full()`` served through #7 / #8
+    (10a), and deepseek-v3-671b at full width with its depth cut (10b),
+    whose MLA path runs no hand-written kernel. Adds the granite shapes to
+    #7's and #8's ``shapes``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm, moe, transformer
+    from repro_torch.models.params import param_bytes, param_count
+    from repro_torch.serving import DecodeEngine, Request
+
+    dev, sync, sz = torch.device("cuda"), torch.cuda.synchronize, MOE_SIZES
+
+    def counted(cfg, want):
+        n = param_count(lm.init_lm(cfg, device="meta"))
+        if n != want:
+            fail(f"{cfg.name}: param_count {n:,} on meta, expected {want:,}")
+        return n
+
+    def peak(part):
+        print(f"[lm-moe] {part}: max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # -- 10a: granite-moe-3b-a800m full() through #7 and #8 ------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get_config(sz["granite"])
+    n = counted(cfg, sz["granite_params"])
+    params = lm.init_lm(cfg, SEED, device=dev)
+    m = cfg.moe
+    print(f"[lm-moe] {cfg.name} full(): {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x "
+          f"{cfg.head_dim}, {m.n_experts} experts padded to "
+          f"{m.n_experts_padded} (ep {m.ep}), top-{m.top_k}, expert d_ff "
+          f"{m.d_ff}, vocab {cfg.vocab} tied, logits_scale "
+          f"{cfg.logits_scale}: param_count {n:,} = "
+          f"{param_bytes(params) / 1e9:.2f} GB of float32 params from seed "
+          f"{SEED}")
+    prng = np.random.default_rng(SEED + 6)
+    toks = torch.as_tensor(prng.integers(
+        0, cfg.vocab, size=(LM_SIZES["prefill_batch"],
+                            LM_SIZES["prefill_len"])).astype(np.int32),
+        device=dev)
+    n7, held7 = prefill_through_flash(card, "lm-moe", params, cfg, toks,
+                                      reset_counts)
+    (q, k, v, *_), kw, _ = held7[0]
+    del held7
+    opts = {o: kw[o] for o in ("window", "softcap") if kw.get(o) is not None}
+    name = f"{cfg.name} prefill"
+    err, sc = hold(f"flash_attention at {name}",
+                   fa.flash_attention(q, k, v, **opts),
+                   fa.flash_attention_plain(q, k, v, scale=q.shape[-1] ** -0.5,
+                                            **opts), ATTN_RTOL)
+    print(f"[lm-moe] flash_attention at {name} (layer 0's operands, q "
+          f"{tuple(q.shape)}, k {tuple(k.shape)}) vs plain: max|d| "
+          f"{err:.3e} (limit {ATTN_RTOL}*{sc:.3f})")
+    kernels["flash_attention"].setdefault("shapes", {})[name] = dict(
+        time_flash(q, k, v, opts, err, name), launches=n7)
+    del q, k, v
+    peak("10a prefill")
+    profile_lm(f"{cfg.name} prefill call of {toks.shape[0]} x "
+               f"{toks.shape[1]} tokens", lambda: lm.lm_prefill(
+                   params, dataclasses.replace(cfg, use_flash=True),
+                   {"tokens": toks}), 1, card, "flash_kernel")
+
+    timed8, n8, eng, step_s = serve_through_decode(card, "lm-moe", params,
+                                                   cfg, reset_counts)
+    kernels["flash_decode"].setdefault("shapes", {})[
+        f"{cfg.name} decode"] = dict(timed8, launches=n8)
+    # One more step, profiled, after one that keeps layer 0's MoE input.
+    held_moe = []
+    eng.submit(Request(rid=10**6, prompt=[1, 2], max_new=1))
+    with recording(transformer, "moe_apply", held_moe,
+                   keep=lambda: not held_moe):
+        eng.step()
+    profile_lm(f"{cfg.name} decode step of batch {eng.batch}", eng.step, 1,
+               card, "decode_")
+    (p_l, mcfg, h), _, _ = held_moe[0]
+    t = h.shape[0] * h.shape[1]
+    cap = moe.capacity(mcfg, t)
+    e, d, f = mcfg.n_experts_padded, mcfg.d_model, mcfg.d_ff
+    slots = torch.randn(e, cap, d, device=dev)
+    t_moe = cuda_time_ms(lambda: moe.moe_apply(p_l, mcfg, h), 20)
+    t_ffn = cuda_time_ms(lambda: moe._expert_ffn(
+        slots, p_l["w_gate"], p_l["w_up"], p_l["w_down"]), 20)
+    w_bytes = 3 * e * d * f * 4
+    bound = w_bytes / peak_bw * 1e3
+    print(f"[lm-moe] {card}: one MoE layer at decode (T={t}, cap {cap}, "
+          f"{e} x {cap} slots), CUDA events: moe_apply {t_moe:.4f} ms, of "
+          f"which the expert einsums (_expert_ffn) {t_ffn:.4f} ms "
+          f"({100 * t_ffn / t_moe:.1f} %) and routing + dispatch + combine "
+          f"{t_moe - t_ffn:.4f} ms ({100 * (1 - t_ffn / t_moe):.1f} %); "
+          f"every expert's weights are read: {w_bytes / 1e6:.1f} MB a layer "
+          f"(bound {bound:.4f} ms at {peak_bw / 1e12:g} TB/s), "
+          f"{cfg.n_layers * w_bytes / 1e9:.2f} GB a step (bound "
+          f"{cfg.n_layers * bound:.3f} ms); {cfg.n_layers} layers x "
+          f"moe_apply = {cfg.n_layers * t_moe:.2f} ms a step; the served "
+          f"step's p50 {np.percentile(step_s, 50) * 1e3:.2f} ms")
+    peak("10a decode")
+    del params, eng, held_moe, p_l, h, slots
+    torch.cuda.empty_cache()
+
+    # -- 10b: deepseek-v3-671b at full width, depth cut ----------------------
+    torch.cuda.reset_peak_memory_stats()
+    full = configs.get_config(sz["deepseek"])
+    n_full = counted(full, sz["deepseek_params"])
+    cfg = dataclasses.replace(full, prefix=full.prefix[:1], n_repeats=1)
+    n = counted(cfg, sz["deepseek_cut_params"])
+    params = lm.init_lm(cfg, SEED, device=dev)
+    m = cfg.moe
+    print(f"[lm-moe] {full.name}: full() has {full.n_layers} layers and "
+          f"{n_full:,} params ({4 * n_full / 1e12:.2f} TB in float32); cut "
+          f"to prefix[:1] + n_repeats=1 for the card's 80 GB: one dense MLA "
+          f"layer (d_ff {cfg.d_ff}) and one MLA + MoE layer ({m.n_experts} "
+          f"routed + {m.n_shared} shared experts of d_ff {m.d_ff}, top-"
+          f"{m.top_k} {m.router}, routed_scale {m.routed_scale}) plus the "
+          f"MTP block: {n:,} params = {param_bytes(params) / 1e9:.2f} GB "
+          f"float32; every width published (d_model {cfg.d_model}, "
+          f"{cfg.mla.n_heads} heads, q_lora {cfg.mla.q_lora_rank}, kv_lora "
+          f"{cfg.mla.kv_lora_rank}, vocab {cfg.vocab})")
+    reset_counts()
+    prng = np.random.default_rng(SEED + 10)
+    pb, plen = sz["ds_prefill"]
+    toks = torch.as_tensor(prng.integers(0, cfg.vocab, size=(pb, plen))
+                           .astype(np.int32), device=dev)
+    lm.lm_prefill(params, cfg, {"tokens": toks[:, :64]})         # warm-up
+    sync()
+    t0 = time.perf_counter()
+    logits = lm.lm_prefill(params, cfg, {"tokens": toks})
+    sync()
+    wall = time.perf_counter() - t0
+    if tuple(logits.shape) != (pb, 1, cfg.vocab) or \
+            not torch.isfinite(logits).all():
+        fail(f"deepseek prefill logits {tuple(logits.shape)} not finite")
+    print(f"[lm-moe] {card}: {full.name} (cut) prefill {pb} x {plen} tokens "
+          f"in {wall * 1e3:.1f} ms = {pb * plen / wall:.0f} prefill "
+          f"tokens/s; logits finite")
+    peak("10b prefill")
+    # Absorbed MLA decode against the train path: the prompt token by
+    # token through the decode step, a float32 latent cache. The MoE
+    # capacity is lifted to T slots an expert, so that the prefill drops
+    # no (token, expert) pair, as decode at T=1 never does: both paths
+    # then compute one function and the check holds MLA alone.
+    n_chk = sz["ds_check_len"]
+    chk = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts_padded / cfg.moe.top_k))
+    if moe.capacity(chk.moe, pb * n_chk) < pb * n_chk:
+        fail("the MLA check's prefill could drop routed pairs")
+    prompt = toks[:, :n_chk]
+    cache = lm.init_cache(chk, pb, n_chk, dtype=torch.float32, device=dev)
+    for i in range(n_chk):
+        got, cache = lm.lm_decode_step(
+            params, chk, cache, prompt[:, i:i + 1],
+            torch.full((pb,), i, dtype=torch.int32, device=dev))
+    d_, sc = hold("MLA decode vs prefill logits", got,
+                  lm.lm_prefill(params, chk, {"tokens": prompt}), LOGIT_RTOL)
+    ckv = cache["prefix"][0]["mix"]["ckv"]
+    print(f"[lm-moe] {full.name} (cut): {n_chk} prompt tokens one by one "
+          f"through lm_decode_step (absorbed MLA, float32 latent cache "
+          f"{tuple(ckv.shape)}) vs lm_prefill (MLA train path), "
+          f"capacity_factor {chk.moe.capacity_factor:g} (cap "
+          f"{moe.capacity(chk.moe, pb * n_chk)} for {pb * n_chk} tokens): "
+          f"last-step logits max|d| {d_:.3e} (limit {LOGIT_RTOL}*{sc:.3f})")
+    del cache, got, ckv
+    eng = DecodeEngine(params, cfg, batch=sz["ds_requests"],
+                       max_len=sz["ds_max_len"], device=dev)
+    lo, hi = sz["ds_prompt_len"]
+    reqs = [Request(rid=rid, max_new=sz["ds_max_new"], prompt=prng.integers(
+        0, cfg.vocab, size=int(prng.integers(lo, hi + 1))).tolist())
+        for rid in range(sz["ds_requests"])]
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    eng.run()
+    sync()
+    wall = time.perf_counter() - t0
+    bad = [r.rid for r in reqs if not r.done or len(r.out) != r.max_new]
+    if bad:
+        fail(f"deepseek requests {bad} did not finish with max_new tokens")
+    n_tok = sum(len(r.out) for r in reqs)
+    print(f"[lm-moe] {card}: {full.name} (cut) DecodeEngine(batch "
+          f"{eng.batch}): {len(reqs)} requests (prompts "
+          f"{[len(r.prompt) for r in reqs]}) in {eng.steps} steps, {n_tok} "
+          f"new tokens in {wall:.2f} s = {n_tok / wall:.2f} decode tokens/s "
+          f"({1e3 * wall / eng.steps:.1f} ms a step)")
+    counts = {name: w.launches for name, w in wrappers.items()}
+    if any(counts.values()):
+        fail(f"the MLA path launched hand-written kernels {counts}")
+    print(f"[lm-moe] no kernel wrapper launched on the MLA path: {counts}")
+    peak("10b decode")
+    del params, eng, logits
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2391,6 +2673,9 @@ def main() -> int:
     dcn_train_phase(card, wrappers)
     lm_train_phase(card, wrappers)
 
+    # -- phase 10: the MoE / MLA families --------------------------------------
+    moe_phases(card, kernels, wrappers, reset_counts, peak_bw)
+
     def bounds(kd):
         kd.update(bound_of(kd.pop("ops"), kd.pop("bytes")))
         if "fp32_ops" in kd:   # the same work on the FP32 CUDA cores
@@ -2406,11 +2691,13 @@ def main() -> int:
                                   **kd.get("long_seq", {}),
                                   **kd.get("shapes", {})}.items():
             note = bounds(extra)
+            runs = "" if "launches" not in extra else \
+                f", {extra['launches']} launches on its path"
             print(f"[kernel] {card}: {name} at {extra.pop('shape')}: "
                   f"{extra['ms']:.4f} ms (bound {extra['bound_ms']:.6f} ms "
                   f"by {extra['bound_by']} at {extra['bound_rate']}{note}, "
                   f"plain {extra['plain_ms']:.4f} ms, library "
-                  f"{extra['library_ms']:.4f} ms)")
+                  f"{extra['library_ms']:.4f} ms){runs}")
         kd["launches"] = launches[name]
         shape = kd.pop("shape")
         lib_ms = kd["library_ms"]

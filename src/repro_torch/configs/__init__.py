@@ -2,9 +2,9 @@
 architectures (the same ids as the JAX package), plus the paper's own
 VGG19/SegNet deformable networks (``get_dcn_config``).
 
-The LM slice of the port runs the dense-attention archs; the others
-(MLA, MoE, Mamba, xLSTM and cross-attention blocks) raise
-``NotImplementedError`` until their blocks are ported.
+The port runs the dense-attention archs and the MoE / MLA ones
+(granite-moe, deepseek-v3); the others (Mamba, xLSTM and cross-attention
+blocks) raise ``NotImplementedError`` until their blocks are ported.
 """
 
 from __future__ import annotations
@@ -19,8 +19,8 @@ _ARCH_MODULES = {
     "xlstm-1.3b": None,
     "llama-3.2-vision-11b": None,
     "musicgen-medium": "repro_torch.configs.musicgen_medium",
-    "deepseek-v3-671b": None,
-    "granite-moe-3b-a800m": None,
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
     "qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
     "gemma2-27b": "repro_torch.configs.gemma2_27b",
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
@@ -39,8 +39,8 @@ def get_config(arch: str, smoke: bool = False):
     module = _ARCH_MODULES[arch]
     if module is None:
         raise NotImplementedError(
-            f"{arch}: its blocks are not ported yet (ROADMAP.md §1, the "
-            f"MLA/MoE/Mamba/xLSTM/cross-attention item)")
+            f"{arch}: its blocks are not ported yet (ROADMAP.md §1: Mamba "
+            f"+ jamba, xLSTM, cross-attention + llama-3.2-vision)")
     mod = importlib.import_module(module)
     return mod.smoke() if smoke else mod.full()
 

@@ -8,7 +8,8 @@ layouts (HWIO weights) are the same on both sides, so the port computes
 the same function on the converted parameters. :func:`lm_params_from_jax`
 does the same for the JAX package's ``init_lm`` tree (nested dicts and
 lists, the layer stack as leading-dimension leaves under
-``"stack"/"b{j}"``), whose layout the port keeps, and
+``"stack"/"b{j}"``; MoE ``router`` / ``e_bias`` / ``shared`` leaves, MLA
+leaves and the ``"mtp"`` subtree alike), whose layout the port keeps, and
 :func:`opt_state_from_jax` for the JAX ``init_opt_state`` / ``adamw_update``
 state ``{"step", "m", "v"}`` of either model. bfloat16 leaves (numpy's
 ``ml_dtypes`` bfloat16) arrive as torch bfloat16.

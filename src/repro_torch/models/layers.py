@@ -1,8 +1,8 @@
 """Transformer building blocks of the LM serving path.
 
 Norms (RMS / LayerNorm), rotary embeddings (full and partial), GQA
-attention with qk-norm, sliding window and logit soft-cap, and dense MLPs
-(SwiGLU / GeGLU / GELU). Layouts are the JAX package's: activations
+attention with qk-norm, sliding window and logit soft-cap, DeepSeek MLA
+(multi-head latent attention), and dense MLPs (SwiGLU / GeGLU / GELU). Layouts are the JAX package's: activations
 (B, S, H, D), projection weights (d, h, k) and (h, k, d). Functions are
 ``fn(params, cfg, x, ...)`` on plain dicts of tensors.
 
@@ -15,8 +15,11 @@ Attention has two entry points:
 * :func:`attention_decode`: one new token against a KV cache, through the
   split-KV decode kernel on a card and through ``_sdpa`` on the CPU.
 
-Cross-attention and DeepSeek MLA are not ported yet (ROADMAP.md §1, the
-MLA/MoE/Mamba/xLSTM/cross-attention item).
+MLA has the same pair: :func:`mla_train` concatenates the nope and rope
+parts and runs ``sdpa_any`` (its qk dim 192 and unequal v dim are not
+shapes the flash kernel takes, and the JAX package runs no kernel there
+either); :func:`mla_decode` is the absorbed form over the latent cache, in
+plain float32 ops. Cross-attention is not ported yet (ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.models.params import Maker
 
 _NOT_PORTED = ("cross-attention is not ported yet (ROADMAP.md §1, the "
-               "MLA/MoE/Mamba/xLSTM/cross-attention item)")
+               "cross-attention + llama-3.2-vision item)")
 
 
 # ---------------------------------------------------------------------------
@@ -314,6 +317,127 @@ def attention_decode(p, cfg: AttnConfig, x, cache, pos):
         out = _sdpa(q, ck.to(x.dtype), cv.to(x.dtype), cfg, causal=True,
                     q_offset=pos, kv_valid_len=pos + 1)
     return _out_proj(out, p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek MLA (multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MlaConfig:
+    d_model: int
+    n_heads: int
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    d_nope: int = 128
+    d_rope: int = 64
+    d_v: int = 128
+    rope_theta: float = 10000.0
+
+    @property
+    def qk_dim(self):
+        return self.d_nope + self.d_rope
+
+
+def init_mla(mk: Maker, cfg: MlaConfig):
+    d, h = cfg.d_model, cfg.n_heads
+    return {
+        "wq_a": mk((d, cfg.q_lora_rank), ("embed", "q_lora"), init="fan_in"),
+        "q_a_norm": init_rmsnorm(mk, cfg.q_lora_rank),
+        "wq_b": mk((cfg.q_lora_rank, h, cfg.qk_dim),
+                   ("q_lora", "heads", "head_dim"), init="fan_in"),
+        "wkv_a": mk((d, cfg.kv_lora_rank + cfg.d_rope), ("embed", "kv_lora"),
+                    init="fan_in"),
+        "kv_a_norm": init_rmsnorm(mk, cfg.kv_lora_rank),
+        "wk_b": mk((cfg.kv_lora_rank, h, cfg.d_nope),
+                   ("kv_lora", "heads", "head_dim"), init="fan_in"),
+        "wv_b": mk((cfg.kv_lora_rank, h, cfg.d_v),
+                   ("kv_lora", "heads", "head_dim"), init="fan_in"),
+        "wo": mk((h, cfg.d_v, d), ("heads", "head_dim", "embed"),
+                 init="fan_in"),
+    }
+
+
+def _mla_qkr(p, cfg: MlaConfig, x, positions):
+    """Queries, the latent and the shared rope key of train and decode."""
+    q_a = rmsnorm(p["q_a_norm"], torch.matmul(x, p["wq_a"].to(x.dtype)))
+    q = torch.einsum("bsr,rhk->bshk", q_a, p["wq_b"].to(x.dtype))
+    q_nope, q_rope = q[..., :cfg.d_nope], q[..., cfg.d_nope:]
+    q_rope = apply_rope(q_rope, positions, theta=cfg.rope_theta)
+
+    kv_a = torch.matmul(x, p["wkv_a"].to(x.dtype))
+    c_kv = rmsnorm(p["kv_a_norm"], kv_a[..., :cfg.kv_lora_rank])
+    k_rope = kv_a[..., cfg.kv_lora_rank:][:, :, None, :]   # shared head
+    k_rope = apply_rope(k_rope, positions, theta=cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope[:, :, 0, :]
+
+
+def mla_train(p, cfg: MlaConfig, x, *, positions=None, impl: str = "ref",
+              chunk: int = 2048):
+    """Full-sequence causal MLA of x (B, S, d_model)."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkr(p, cfg, x, positions)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wk_b"].to(x.dtype))
+    v = torch.einsum("bsr,rhk->bshk", c_kv, p["wv_b"].to(x.dtype))
+
+    # q.k = q_nope.k_nope + q_rope.k_rope == concat(q).concat(k) with the
+    # shared rope key broadcast per head: the standard SDPA paths.
+    h = cfg.n_heads
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, s, h, cfg.d_rope).to(k_nope.dtype)], dim=-1)
+    acfg = AttnConfig(d_model=cfg.d_model, n_heads=h, n_kv_heads=h,
+                      head_dim=cfg.qk_dim, qk_scale=cfg.qk_dim ** -0.5,
+                      impl=impl, chunk=chunk)
+    # v has d_v dims (may differ from qk_dim): pad v to qk_dim then slice.
+    v_in = F.pad(v, (0, cfg.qk_dim - cfg.d_v)) if cfg.d_v != cfg.qk_dim \
+        else v
+    out = sdpa_any(q_full, k_full, v_in, acfg, causal=True)[..., :cfg.d_v]
+    return torch.einsum("bshv,hvd->bsd", out, p["wo"].to(x.dtype))
+
+
+def init_mla_cache(cfg: MlaConfig, batch: int, max_len: int, *,
+                   dtype=torch.bfloat16, device="cpu", lead=()):
+    """The latent and the shared rope key per token: (kv_lora_rank +
+    d_rope) floats instead of 2 * H * D (576 against 32,768 for
+    deepseek-v3)."""
+    shape = (*lead, batch, max_len, cfg.kv_lora_rank + cfg.d_rope)
+    return {"ckv": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def mla_decode(p, cfg: MlaConfig, x, cache, pos):
+    """Absorbed-matmul latent decode of x (B, 1, D) at ``pos`` (B,): the
+    attention runs in the latent space, with W_uk folded into the query and
+    W_uv into the output. The new latent row is written into
+    ``cache["ckv"]`` IN PLACE at ``pos`` (clamped to [0, Smax - 1], as
+    ``dynamic_update_slice`` clamps it) and the same dict comes back;
+    every cache row ``ki <= pos`` is attended."""
+    b = x.shape[0]
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkr(p, cfg, x, pos[:, None])
+    ckv = cache["ckv"]
+    rows = torch.arange(b, device=ckv.device)
+    at = pos.long().clamp(0, ckv.shape[1] - 1)
+    ckv[rows, at] = torch.cat([c_kv_new, k_rope_new], dim=-1)[:, 0].to(
+        ckv.dtype)
+    c_lat = ckv[..., :cfg.kv_lora_rank].float()             # (B, S, R)
+    k_rope = ckv[..., cfg.kv_lora_rank:].float()            # (B, S, dr)
+
+    q_lat = torch.einsum("bqhk,rhk->bqhr", q_nope.float(),
+                         p["wk_b"].float())                 # absorb W_uk
+    scale = cfg.qk_dim ** -0.5
+    logits = (torch.einsum("bqhr,bkr->bhqk", q_lat, c_lat)
+              + torch.einsum("bqhn,bkn->bhqk", q_rope.float(), k_rope)) \
+        * scale
+    ki = torch.arange(ckv.shape[1], device=x.device)[None, None, None, :]
+    logits = torch.where(ki <= pos.long()[:, None, None, None], logits,
+                         -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    o_lat = torch.einsum("bhqk,bkr->bqhr", probs, c_lat)    # (B, 1, H, R)
+    out = torch.einsum("bqhr,rhv->bqhv", o_lat,
+                       p["wv_b"].float()).to(x.dtype)       # absorb W_uv
+    return torch.einsum("bshv,hvd->bsd", out, p["wo"].to(x.dtype)), cache
 
 
 # ---------------------------------------------------------------------------

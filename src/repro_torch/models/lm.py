@@ -5,6 +5,7 @@ Entry points:
 
   init_lm(cfg, seed, device=)                 params (``device="meta"``:
                                               shapes only)
+  make_lm(mk, cfg)                            the same tree from any Maker
   lm_loss(params, cfg, batch)                 -> (loss, metrics)
   lm_prefill(params, cfg, batch)              last-position logits
   init_cache(cfg, batch, max_len, ...)        the decode cache
@@ -13,8 +14,10 @@ Entry points:
 Multi-codebook tokens (musicgen), tied embeddings, ``emb_scale``,
 ``logits_scale`` and the final soft-cap follow the JAX package. The tied
 logits product (d_model x vocab) is a ``torch.matmul``, as the JAX package
-leaves it to XLA. Multi-token prediction, the MoE auxiliary loss and the
-cross-attention cache are not ported yet (ROADMAP.md §1).
+leaves it to XLA. The loss adds the MoE auxiliary term and deepseek-v3's
+depth-1 multi-token prediction (MTP) as the JAX package does; serving
+never runs the MTP block, but ``init_lm`` builds it. The cross-attention
+cache is not ported yet (ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -27,20 +30,31 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.models.layers import make_norm
 from repro_torch.models.params import Maker, make_generator
-from repro_torch.models.transformer import (ModelConfig, apply_layers_decode,
-                                            apply_layers_train,
-                                            check_supported,
+from repro_torch.models.transformer import (BlockSpec, ModelConfig,
+                                            apply_layers_decode,
+                                            apply_layers_train, block_train,
+                                            check_supported, init_block,
                                             init_layer_caches, init_layers)
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda",
             dtype=torch.float32):
     """Random params of ``cfg`` from ``seed`` on ``device``."""
-    check_supported(cfg)
     dev = torch.device(device)
     if dev.type != "meta":
         dev = resolve_device(device)
-    mk = Maker(make_generator(seed, dev), device=dev, dtype=dtype)
+    return make_lm(Maker(make_generator(seed, dev), device=dev, dtype=dtype),
+                   cfg)
+
+
+def _mtp_spec(cfg: ModelConfig) -> BlockSpec:
+    return BlockSpec(kind="mla" if cfg.mla else "attn", mlp="dense")
+
+
+def make_lm(mk: Maker, cfg: ModelConfig):
+    """The LM's parameter tree, each leaf from ``mk`` (the JAX package's
+    ``init_lm(mk, cfg)``)."""
+    check_supported(cfg)
     init_norm, _ = make_norm(cfg.norm)
     p: dict[str, Any] = {
         "embed": mk((cfg.n_codebooks, cfg.vocab, cfg.d_model),
@@ -51,6 +65,14 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     if not cfg.tie_embeddings:
         p["head"] = mk((cfg.n_codebooks, cfg.d_model, cfg.vocab),
                        (None, "embed", "vocab"), init="fan_in")
+    if cfg.mtp:
+        p["mtp"] = {
+            "proj": mk((2 * cfg.d_model, cfg.d_model), ("embed", None),
+                       init="fan_in"),
+            "norm_h": init_norm(mk, cfg.d_model),
+            "norm_e": init_norm(mk, cfg.d_model),
+            "block": init_block(mk, cfg, _mtp_spec(cfg)),
+        }
     return p
 
 
@@ -94,8 +116,11 @@ def _xent(logits, labels):
 
 def lm_loss(p, cfg: ModelConfig, batch):
     """batch: {"tokens": (B, S+1[, n_cb]) int}. -> (loss, {"ce", "aux",
-    "loss"}): next-token cross-entropy averaged over all positions (and
-    codebooks), plus the auxiliary term of the layer stack."""
+    ["mtp",] "loss"}): next-token cross-entropy averaged over all positions
+    (and codebooks), plus ``aux_weight`` times the MoE blocks' auxiliary
+    term (MoE configs) and ``mtp_weight`` times the MTP loss (``cfg.mtp``:
+    the trunk state at position i with the embedding of token i+1
+    predicts token i+2)."""
     check_supported(cfg)
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
@@ -110,6 +135,19 @@ def lm_loss(p, cfg: ModelConfig, batch):
     metrics = {"ce": loss, "aux": aux}
     if cfg.moe is not None:
         loss = loss + cfg.aux_weight * aux
+
+    if cfg.mtp:
+        mtp = p["mtp"]
+        h_in = norm(mtp["norm_h"], x[:, :-1])                # (B, S-1, D)
+        e_in = norm(mtp["norm_e"], _embed(p, cfg, inputs[:, 1:]))
+        h = torch.matmul(torch.cat([h_in, e_in], -1),
+                         mtp["proj"].to(x.dtype))
+        h, _ = block_train(mtp["block"], cfg, _mtp_spec(cfg), h)
+        mtp_logits = _logits(p, cfg, norm(p["final_norm"], h))
+        lab2 = labels[:, 1:] if labels.dim() == 2 else labels[:, 1:, 0]
+        mtp_loss = _xent(mtp_logits[..., 0, :], lab2)
+        metrics["mtp"] = mtp_loss
+        loss = loss + cfg.mtp_weight * mtp_loss
     metrics["loss"] = loss
     return loss, metrics
 

@@ -7,7 +7,7 @@ JAX package's four init rules: ``normal`` (scale 0.02 unless given),
 ``ones``. Draws come from an explicit ``torch.Generator``, so the numbers
 differ from ``jax.random``: compare the two packages through
 ``repro_torch.convert.lm_params_from_jax``. ``device="meta"`` builds the
-tree without memory (shapes only). The logical ``axes`` are kept in the
+tree without memory (shapes only; :func:`abstract_params`). The logical ``axes`` are kept in the
 signature for the sharding helpers of the scale-out work and are not used
 yet.
 """
@@ -82,3 +82,13 @@ def leaves(tree):
 
 def param_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def abstract_params(fn: Callable, dtype=torch.float32):
+    """``fn(mk)``'s tree on ``device="meta"``: shapes and dtypes, no
+    memory (the JAX package's ``ShapeDtypeStruct`` tree)."""
+    return fn(Maker(device="meta", dtype=dtype))
+
+
+def param_count(tree) -> int:
+    return sum(t.numel() for t in leaves(tree))

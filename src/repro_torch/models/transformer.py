@@ -1,16 +1,18 @@
 """Block assembly and the layer stack.
 
-A model is ``prefix`` blocks followed by ``n_repeats`` copies of a
-``pattern`` super-block (gemma-2's period 2: [local, global]). Pattern
-parameters are stacked along a leading layer dimension under
-``"stack"/"b{j}"``, as in the JAX package, and the JAX ``lax.scan`` over
-that dimension is a Python loop over the layer index ``r`` here. The decode
-cache mirrors the parameter tree and is updated in place.
+A model is ``prefix`` blocks (deepseek-v3's leading dense MLA layers)
+followed by ``n_repeats`` copies of a ``pattern`` super-block (gemma-2's
+period 2: [local, global]). Pattern parameters are stacked along a leading
+layer dimension under ``"stack"/"b{j}"``, as in the JAX package, and the
+JAX ``lax.scan`` over that dimension is a Python loop over the layer index
+``r`` here. The decode cache mirrors the parameter tree and is updated in
+place.
 
-This slice runs attention blocks with dense (or no) MLPs; the other block
-kinds (MLA, Mamba, mLSTM / sLSTM), MoE MLPs and cross-attention raise
-``NotImplementedError`` (ROADMAP.md §1, the MLA/MoE/Mamba/xLSTM/
-cross-attention item).
+Blocks mix with GQA attention (``kind="attn"``) or MLA (``"mla"``), and
+end in a dense MLP, a MoE MLP (``mlp="moe"``, whose load-balancing term
+is summed into the stack's ``aux``) or none. The other block kinds
+(Mamba, mLSTM / sLSTM) and cross-attention raise ``NotImplementedError``
+(ROADMAP.md §1).
 
 ``remat`` applies to training (grad mode on) per layer or per pattern
 super-block, as in the JAX package: ``"full"`` recomputes everything in
@@ -30,14 +32,16 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.models.layers import (AttnConfig, MlpConfig,
+from repro_torch.models.layers import (AttnConfig, MlaConfig, MlpConfig,
                                        attention_decode, attention_train,
                                        init_attention, init_kv_cache,
-                                       init_mlp, make_norm, mlp)
+                                       init_mla, init_mla_cache, init_mlp,
+                                       make_norm, mla_decode, mla_train, mlp)
+from repro_torch.models.moe import MoeConfig, init_moe, moe_apply
 from repro_torch.models.params import Maker, stacked
 
-_ROADMAP_ITEM = ("ROADMAP.md §1, the MLA/MoE/Mamba/xLSTM/cross-attention "
-                 "item")
+_ROADMAP_ITEM = ("ROADMAP.md §1: Mamba + jamba, xLSTM, cross-attention + "
+                 "llama-3.2-vision")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,8 +54,8 @@ class BlockSpec:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The JAX package's ``ModelConfig`` field for field. The MoE, MLA,
-    Mamba and xLSTM sub-configs are opaque here (not ported yet)."""
+    """The JAX package's ``ModelConfig`` field for field. The Mamba and
+    xLSTM sub-configs are opaque here (not ported yet)."""
 
     name: str
     d_model: int
@@ -74,8 +78,8 @@ class ModelConfig:
     sandwich_norm: bool = False          # gemma-2 post-norms
     emb_scale: bool = False              # gemma: x *= sqrt(d)
     logits_scale: float | None = None    # granite
-    moe: Any = None
-    mla: Any = None
+    moe: MoeConfig | None = None
+    mla: MlaConfig | None = None
     mamba: Any = None
     xlstm_cfg: Any = None
     n_codebooks: int = 1                 # musicgen: 4
@@ -108,20 +112,15 @@ class ModelConfig:
 
 
 def _check_spec(cfg: ModelConfig, spec: BlockSpec) -> None:
-    if spec.kind != "attn" or spec.mlp not in ("dense", "none") \
-            or spec.cross:
+    if spec.kind not in ("attn", "mla") or spec.cross:
         raise NotImplementedError(
             f"{cfg.name}: block {spec} is not ported yet ({_ROADMAP_ITEM})")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a block this slice does not run."""
+    """Raise ``NotImplementedError`` for a block the port does not run."""
     for spec in cfg.prefix + cfg.pattern:
         _check_spec(cfg, spec)
-    if cfg.mtp:
-        raise NotImplementedError(
-            f"{cfg.name}: multi-token prediction is not ported yet "
-            f"({_ROADMAP_ITEM})")
 
 
 def _mlp_cfg(cfg: ModelConfig) -> MlpConfig:
@@ -135,33 +134,53 @@ def _mlp_cfg(cfg: ModelConfig) -> MlpConfig:
 def init_block(mk: Maker, cfg: ModelConfig, spec: BlockSpec):
     _check_spec(cfg, spec)
     init_norm, _ = make_norm(cfg.norm)
-    p: dict[str, Any] = {"norm1": init_norm(mk, cfg.d_model),
-                         "attn": init_attention(mk, cfg.attn_cfg(spec))}
+    p: dict[str, Any] = {"norm1": init_norm(mk, cfg.d_model)}
+    if spec.kind == "attn":
+        p["attn"] = init_attention(mk, cfg.attn_cfg(spec))
+    else:
+        p["attn"] = init_mla(mk, cfg.mla)
     if cfg.sandwich_norm:
         p["post1"] = init_norm(mk, cfg.d_model)
-    if spec.mlp == "dense":
+    if spec.mlp in ("dense", "moe"):
         p["norm2"] = init_norm(mk, cfg.d_model)
-        p["mlp"] = init_mlp(mk, _mlp_cfg(cfg))
+        if spec.mlp == "dense":
+            p["mlp"] = init_mlp(mk, _mlp_cfg(cfg))
+        else:
+            p["moe"] = init_moe(mk, cfg.moe)
         if cfg.sandwich_norm:
             p["post2"] = init_norm(mk, cfg.d_model)
     return p
 
 
 def _mlp_residual(p, cfg: ModelConfig, spec: BlockSpec, x):
-    if spec.mlp != "dense":
-        return x
+    """The block's MLP half -> (x, aux); aux is the MoE load-balancing
+    term, a float32 zero for the other MLPs."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if spec.mlp not in ("dense", "moe"):
+        return x, aux
     _, norm = make_norm(cfg.norm)
-    y = mlp(p["mlp"], _mlp_cfg(cfg), norm(p["norm2"], x))
+    h = norm(p["norm2"], x)
+    if spec.mlp == "dense":
+        y = mlp(p["mlp"], _mlp_cfg(cfg), h)
+    else:
+        y, aux = moe_apply(p["moe"], cfg.moe, h)
     if cfg.sandwich_norm:
         y = norm(p["post2"], y)
-    return x + y
+    return x + y, aux
+
+
+def _mix_train(p, cfg: ModelConfig, spec: BlockSpec, h):
+    if spec.kind == "attn":
+        return attention_train(p["attn"], cfg.attn_cfg(spec), h,
+                               use_flash=cfg.use_flash)
+    return mla_train(p["attn"], cfg.mla, h, impl=cfg.attn_impl,
+                     chunk=cfg.attn_chunk)
 
 
 def block_train(p, cfg: ModelConfig, spec: BlockSpec, x):
-    """Full-sequence forward of one block (inference only: no aux loss)."""
+    """Full-sequence forward of one block -> (x, aux)."""
     _, norm = make_norm(cfg.norm)
-    y = attention_train(p["attn"], cfg.attn_cfg(spec), norm(p["norm1"], x),
-                        use_flash=cfg.use_flash)
+    y = _mix_train(p, cfg, spec, norm(p["norm1"], x))
     if cfg.sandwich_norm:
         y = norm(p["post1"], y)
     return _mlp_residual(p, cfg, spec, x + y)
@@ -170,19 +189,27 @@ def block_train(p, cfg: ModelConfig, spec: BlockSpec, x):
 def block_decode(p, cfg: ModelConfig, spec: BlockSpec, x, cache, pos):
     """Single-token step; ``cache`` is updated in place. -> (x, cache)."""
     _, norm = make_norm(cfg.norm)
-    y, _ = attention_decode(p["attn"], cfg.attn_cfg(spec),
-                            norm(p["norm1"], x), cache["mix"], pos)
+    h = norm(p["norm1"], x)
+    if spec.kind == "attn":
+        y, _ = attention_decode(p["attn"], cfg.attn_cfg(spec), h,
+                                cache["mix"], pos)
+    else:
+        y, _ = mla_decode(p["attn"], cfg.mla, h, cache["mix"], pos)
     if cfg.sandwich_norm:
         y = norm(p["post1"], y)
-    return _mlp_residual(p, cfg, spec, x + y), cache
+    x, _ = _mlp_residual(p, cfg, spec, x + y)
+    return x, cache
 
 
 def init_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int,
                      max_len: int, *, dtype=torch.bfloat16, device="cpu",
                      lead=()):
     _check_spec(cfg, spec)
-    return {"mix": init_kv_cache(cfg.attn_cfg(spec), batch, max_len,
-                                 dtype=dtype, device=device, lead=lead)}
+    kw = dict(dtype=dtype, device=device, lead=lead)
+    if spec.kind == "attn":
+        return {"mix": init_kv_cache(cfg.attn_cfg(spec), batch, max_len,
+                                     **kw)}
+    return {"mix": init_mla_cache(cfg.mla, batch, max_len, **kw)}
 
 
 # ---------------------------------------------------------------------------
@@ -234,24 +261,30 @@ def _remat(cfg: ModelConfig, fn):
 
 
 def apply_layers_train(p, cfg: ModelConfig, x):
-    """Full-sequence forward of every layer -> (x, aux). ``aux`` is the
-    JAX package's auxiliary loss term, a float32 zero for the dense blocks
-    the port runs (MoE's load-balancing term is not ported)."""
+    """Full-sequence forward of every layer -> (x, aux): ``aux`` sums the
+    MoE blocks' load-balancing terms (float32), as in the JAX package."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, spec in enumerate(cfg.prefix):
-        x = _remat(cfg, functools.partial(block_train, p["prefix"][i], cfg,
-                                          spec))(x)
+        x, a = _remat(cfg, functools.partial(block_train, p["prefix"][i],
+                                             cfg, spec))(x)
+        aux = aux + a
 
     stack = [layer_slices(p["stack"][f"b{j}"])
              for j in range(len(cfg.pattern))] if cfg.n_repeats else []
 
     def superblock(x, r):
+        a_tot = torch.zeros((), dtype=torch.float32, device=x.device)
         for j, spec in enumerate(cfg.pattern):
-            x = block_train(stack[j][r], cfg, spec, x)
-        return x
+            x, a = block_train(stack[j][r], cfg, spec, x)
+            a_tot = a_tot + a
+        return x, a_tot
 
+    auxs = []
     for r in range(cfg.n_repeats):
-        x = _remat(cfg, functools.partial(superblock, r=r))(x)
+        x, a = _remat(cfg, functools.partial(superblock, r=r))(x)
+        auxs.append(a)
+    if auxs:
+        aux = aux + torch.stack(auxs).sum()
     return x, aux
 
 

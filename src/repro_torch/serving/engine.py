@@ -3,8 +3,9 @@ graph executor.
 
 ``DecodeEngine`` keeps a fixed pool of ``batch`` cache slots; requests are
 admitted into free slots (continuous batching), ``step()`` decodes one
-token for every slot in one ``lm_decode_step`` call (every attention layer
-one launch of the split-KV decode kernel on a card), and finished slots
+token for every slot in one ``lm_decode_step`` call (every GQA attention
+layer one launch of the split-KV decode kernel on a card; MLA layers keep
+a latent cache and run plain ops), and finished slots
 (EOS, ``max_new`` or ``max_len``) are released and refilled. Per-slot
 positions make the batch ragged-safe: each slot attends only to its own
 ``pos`` prefix. Prefill here is incremental (the prompt is fed token by

@@ -824,3 +824,63 @@ def test_fused_dcn_train_step_on_the_card():
         if g.abs().max() > 0:
             assert not torch.equal(t0, t1)
     assert int(opt["step"]) == 2
+
+
+def test_granite_smoke_serves_through_the_flash_kernels(monkeypatch):
+    """granite-moe smoke (MoE blocks, 2 query heads per kv head, D 16) on
+    the card: ``lm_prefill(use_flash=True)`` launches #7 once a layer and
+    a ``DecodeEngine`` run #8 once a layer and step, and both equal the
+    same model on the CPU (the plain versions) within 1e-4 * max|ref|,
+    prefill logits and every decode step's logits."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch._tree import tree_map
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models import lm
+    from repro_torch.serving import DecodeEngine, Request
+
+    cfg = dataclasses.replace(
+        configs.get_config("granite-moe-3b-a800m", smoke=True),
+        use_flash=True)
+    params = lm.init_lm(cfg, 0, device="cpu")
+    on_card = tree_map(lambda t: t.cuda(), params)
+    rng = np.random.default_rng(50)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(2, 37))
+                           .astype(np.int32))
+
+    def close(got, want):
+        got = got.cpu()
+        assert torch.isfinite(got).all()
+        assert float((got - want).abs().max()) <= \
+            1e-4 * float(want.abs().max())
+
+    flash_attention.launches = 0
+    got = lm.lm_prefill(on_card, cfg, {"tokens": toks.cuda()})
+    assert flash_attention.launches == cfg.n_layers
+    close(got, lm.lm_prefill(params, cfg, {"tokens": toks}))
+
+    prompts = [rng.integers(0, cfg.vocab, size=n).tolist() for n in (5, 2, 9)]
+    step_logits = {}
+    orig = lm.lm_decode_step
+
+    def recording(p, c, cache, token, pos):
+        logits, cache = orig(p, c, cache, token, pos)
+        step_logits.setdefault(logits.device.type, []).append(logits.cpu())
+        return logits, cache
+
+    monkeypatch.setattr(lm, "lm_decode_step", recording)
+    outs = {}
+    for p, dev in ((params, "cpu"), (on_card, "cuda")):
+        eng = DecodeEngine(p, cfg, batch=2, max_len=24, device=dev)
+        for rid, prompt in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=prompt, max_new=6))
+        flash_decode.launches = 0
+        outs[dev] = {r.rid: r.out for r in eng.run()}
+        if dev == "cuda":
+            assert flash_decode.launches == cfg.n_layers * eng.steps > 0
+    assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) == 3
+    assert len(step_logits["cuda"]) == len(step_logits["cpu"])
+    for got, want in zip(step_logits["cuda"], step_logits["cpu"]):
+        close(got, want)

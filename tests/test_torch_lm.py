@@ -9,8 +9,8 @@ parameters come from the JAX ``init_lm`` and cross through
   ``attention_decode`` against the JAX functions: 1e-5 (float32 sums in
   another order over at most a few hundred terms);
 * ``lm_prefill`` and ``lm_decode_step`` logits within 1e-4 * max|ref|
-  (two layers of float32 matmuls, norms and softmaxes), decode caches
-  within 1e-5;
+  (two or three layers of float32 matmuls, norms, softmaxes and MoE
+  combines), decode caches (GQA K/V, MLA latents) within 1e-5;
 * greedy ``DecodeEngine`` tokens equal to the JAX engine's.
 
 The CUDA kernels themselves are held against the plain versions on the
@@ -46,7 +46,7 @@ from repro_torch.launch import serve
 from repro_torch.serving import DecodeEngine, DrainTimeout, Request
 
 ARCHS = ("qwen3-1.7b", "smollm-360m", "stablelm-1.6b", "gemma2-27b",
-         "musicgen-medium")
+         "musicgen-medium", "granite-moe-3b-a800m", "deepseek-v3-671b")
 
 
 def _normal(rng, *shape):
@@ -273,7 +273,8 @@ def test_lm_prefill_and_decode_match_jax(arch):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "smollm-360m",
-                                  "musicgen-medium"])
+                                  "musicgen-medium", "granite-moe-3b-a800m",
+                                  "deepseek-v3-671b"])
 def test_decode_engine_greedy_tokens_match_jax(arch):
     jcfg, jp, cfg, tp = _model(arch, seed=40)
     rng = np.random.default_rng(41)
@@ -356,7 +357,9 @@ def test_decode_engine_sampling_and_edges():
 
 
 def test_serve_command_runs_on_the_cpu(capsys):
-    serve.main(["--arch", "stablelm-1.6b", "--device", "cpu", "--requests",
-                "3", "--max-new", "2", "--batch", "2"])
-    out = capsys.readouterr().out
-    assert "3 requests, 6 tokens" in out and "stablelm-smoke" in out
+    for arch, name in (("stablelm-1.6b", "stablelm-smoke"),
+                       ("granite-moe-3b-a800m", "granite-smoke")):
+        serve.main(["--arch", arch, "--device", "cpu", "--requests", "3",
+                    "--max-new", "2", "--batch", "2"])
+        out = capsys.readouterr().out
+        assert "3 requests, 6 tokens" in out and name in out

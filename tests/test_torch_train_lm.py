@@ -186,14 +186,14 @@ def test_prefill_unchanged_by_remat():
     assert torch.equal(got, want)
 
 
-def test_unported_blocks_keep_raising():
+@pytest.mark.parametrize("spec", [dict(kind="mamba"), dict(kind="mlstm"),
+                                  dict(kind="slstm"), dict(cross=True)])
+def test_unported_blocks_keep_raising(spec):
     from repro_torch.models.transformer import BlockSpec
     cfg = configs.get_config("qwen3-1.7b", smoke=True)
-    with pytest.raises(NotImplementedError, match="multi-token"):
-        build_train_step(dataclasses.replace(cfg, mtp=True))
     with pytest.raises(NotImplementedError, match="not ported"):
         build_train_step(dataclasses.replace(
-            cfg, pattern=(BlockSpec(mlp="moe"),)))
+            cfg, pattern=(BlockSpec(**spec),)))
 
 
 def test_train_command_runs_on_the_cpu(tmp_path, capsys):
