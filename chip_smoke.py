@@ -154,6 +154,23 @@ Phases, each fatal on failure:
               ``DecodeEngine`` serving 2 requests of 8 new tokens; no
               kernel wrapper launches on this path. Peak memory of each
               part is printed.
+11. lm-recurrent — 11a: jamba-v0.1-52b at full width with its depth cut
+              to one period (7 Mamba + 1 attention layer, 4 MoE + 4 dense
+              MLPs; 13,295,235,072 params, the whole 51,570,315,264
+              counted on ``meta``): phase 6's prefill (one #7 launch, at 4
+              query heads a kv head, D 128, held and timed there), phase
+              7's serving (one #8 launch a step, held and timed; two
+              requests against the prefill argmax with the MoE capacity
+              lifted), the decode step profiled beside the bound of its
+              weight reads. 11b: xlstm-1.3b ``full()`` whole: prefill 4 x
+              2048 with the mLSTM / sLSTM layers' time by CUDA events,
+              phase 7's serving, a decode step profiled; no kernel
+              wrapper launches on this path. For both: prompts fed token
+              by token through ``lm_decode_step`` against ``lm_prefill``
+              (a chunk boundary and a padded tail, 1e-3 * max|ref|), and
+              request 0 served again through a used slot gets the greedy
+              tokens it got in a fresh slot. Peak memory of each part is
+              printed.
 
 Each path is driven with every kernel's launch count set to 0 just
 before it and read just after. The last lines are the card's name and
@@ -217,6 +234,14 @@ MOE_SIZES = dict(granite="granite-moe-3b-a800m", granite_params=3_903_166_464,
                  deepseek_cut_params=14_630_393_088, ds_prefill=(1, 512),
                  ds_check_len=64, ds_requests=2, ds_prompt_len=(16, 32),
                  ds_max_new=8, ds_max_len=64)
+# Phase 11: the recurrent configurations (full widths), their parameter
+# counts, and the prompt lengths of the decode-vs-prefill checks (one chunk
+# boundary and a padded tail each: jamba's Mamba chunk is 256 steps,
+# xlstm's mLSTM chunk 64).
+REC_SIZES = dict(jamba="jamba-v0.1-52b", jamba_params=51_570_315_264,
+                 jamba_cut_params=13_295_235_072, xlstm="xlstm-1.3b",
+                 xlstm_params=1_916_647_760, prefill=(4, 2048),
+                 check_batch=2, check_len=dict(jamba=300, xlstm=100))
 # Phase 8 / 9: training sizes.
 TRAIN_SIZES = dict(dcn_batch=16, dcn_steps=5, example_steps=300,
                    example_tail=50, example_limit=0.35, lm_arch="qwen3-1.7b",
@@ -435,11 +460,18 @@ def time_flash(q, k, v, opts, err, name) -> dict:
               f"{tiles['block_q']} x {tiles['block_k']} tiles")
 
 
+def attn_layers(cfg) -> int:
+    """The model's GQA attention layers (one #7 / #8 launch each)."""
+    specs = cfg.prefix + cfg.pattern * cfg.n_repeats
+    return sum(s.kind == "attn" for s in specs)
+
+
 def prefill_through_flash(card, tag, params, cfg, toks, reset_counts):
-    """``lm_prefill`` of ``toks`` with ``use_flash``: one #7 launch a
-    layer, last-position logits within LOGIT_RTOL of the ``_sdpa`` path,
-    the first and the last layer's #7 operands held against the plain
-    version. -> (#7 launches, [(args, kwargs, out)] of those two calls)."""
+    """``lm_prefill`` of ``toks`` with ``use_flash``: one #7 launch an
+    attention layer, last-position logits within LOGIT_RTOL of the
+    ``_sdpa`` path, the first and the last attention layer's #7 operands
+    held against the plain version. -> (#7 launches, [(args, kwargs, out)]
+    of those calls, the prefill's wall time in s)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -447,6 +479,7 @@ def prefill_through_flash(card, tag, params, cfg, toks, reset_counts):
 
     sync = torch.cuda.synchronize
     pb, plen = toks.shape
+    n_attn = attn_layers(cfg)
     cfg_flash = dataclasses.replace(cfg, use_flash=True)
     lm.lm_prefill(params, cfg_flash, {"tokens": toks[:, :64]})   # warm-up
     sync()
@@ -454,14 +487,14 @@ def prefill_through_flash(card, tag, params, cfg, toks, reset_counts):
     reset_counts()
     t0 = time.perf_counter()
     with recording(layers, "flash_attention", held7, keep=lambda: (
-            fa.flash_attention.launches in (1, cfg.n_layers))):
+            fa.flash_attention.launches in (1, n_attn))):
         logits = lm.lm_prefill(params, cfg_flash, {"tokens": toks})
     sync()
     wall = time.perf_counter() - t0
     n7 = fa.flash_attention.launches
-    if n7 != cfg.n_layers:
+    if n7 != n_attn:
         fail(f"prefill launched flash_attention {n7} times, expected one "
-             f"per layer ({cfg.n_layers})")
+             f"per attention layer ({n_attn})")
     t0 = time.perf_counter()
     ref = lm.lm_prefill(params, cfg, {"tokens": toks})
     sync()
@@ -476,29 +509,94 @@ def prefill_through_flash(card, tag, params, cfg, toks, reset_counts):
           f"{wall_ref * 1e3:.1f} ms); last-position logits finite, max|d| "
           f"{d:.3e} (limit {LOGIT_RTOL}*{sc:.3f})")
     del logits, ref
-    if len(held7) != 2:
-        fail(f"kept {len(held7)} prefill calls of flash_attention, not 2")
+    ends = sorted({0, n_attn - 1})
+    if len(held7) != len(ends):
+        fail(f"kept {len(held7)} prefill calls of flash_attention, not "
+             f"{len(ends)}")
     for layer, (a, k, _), (d, sc) in zip(
-            (0, cfg.n_layers - 1), held7, hold_captured(
+            ends, held7, hold_captured(
                 "flash_attention on the prefill's operands", held7,
                 fa.flash_attention_plain)):
         print(f"[{tag}] flash_attention on the prefill's operands at "
-              f"layer {layer} (q {tuple(a[0].shape)}, k "
-              f"{tuple(a[1].shape)}, {k}) vs plain: max|d| {d:.3e} (limit "
-              f"{ATTN_RTOL}*{sc:.3f})")
+              f"attention layer {layer} of {n_attn} (q {tuple(a[0].shape)}, "
+              f"k {tuple(a[1].shape)}, {k}) vs plain: max|d| {d:.3e} "
+              f"(limit {ATTN_RTOL}*{sc:.3f})")
     torch.cuda.empty_cache()
-    return n7, held7
+    return n7, held7, wall
 
 
-def serve_through_decode(card, tag, params, cfg, reset_counts):
+def serving_requests(cfg):
+    """Phase 7's greedy requests (``LM_SIZES``), drawn from the seed."""
+    import numpy as np
+
+    from repro_torch.serving import Request
+
+    sizes = LM_SIZES
+    srng = np.random.default_rng(SEED + 7)
+    lo, hi = sizes["prompt_len"]
+    reqs = []
+    for rid in range(sizes["requests"]):
+        plen_r = int(srng.integers(lo, hi + 1))
+        reqs.append(Request(rid=rid, max_new=sizes["max_new"],
+                            prompt=srng.integers(0, cfg.vocab, size=plen_r)
+                            .tolist()))
+    return reqs
+
+
+def serve_timed(eng, reqs):
+    """Submit ``reqs`` and step ``eng`` until idle. -> (step latencies in
+    s, finish time of each rid in s from the start, wall s)."""
+    import torch
+
+    for r in reqs:
+        eng.submit(r)
+    step_s, finish_s = [], {}
+    t0 = time.perf_counter()
+    while len(step_s) < 100_000:
+        ts = time.perf_counter()
+        active = eng.step()
+        now = time.perf_counter()
+        step_s.append(now - ts)
+        for r in eng.finished:
+            finish_s.setdefault(r.rid, now - t0)
+        if active == 0 and not eng.queue:
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bad = [r.rid for r in reqs if not r.done or len(r.out) != r.max_new]
+    if bad:
+        fail(f"requests {bad} did not finish with max_new tokens")
+    return step_s, finish_s, wall
+
+
+def serving_line(reqs, eng, step_s, finish_s, wall) -> str:
+    """Decode tokens/s, step and request latency of one serving run."""
+    import numpy as np
+
+    n_tok = sum(len(r.out) for r in reqs)
+    lat = np.asarray(sorted(finish_s[r.rid] for r in reqs))
+    st = np.asarray(step_s[:eng.steps])
+    return (f"{len(reqs)} requests (prompts {[len(r.prompt) for r in reqs]})"
+            f" served in {eng.steps} steps of batch {eng.batch}; {n_tok} new "
+            f"tokens in {wall:.2f} s = {n_tok / wall:.1f} decode tokens/s "
+            f"({eng.steps * eng.batch / wall:.1f} slot-tokens/s incl. the "
+            f"prompts); step latency p50 {np.percentile(st, 50) * 1e3:.2f} ms"
+            f" p99 {np.percentile(st, 99) * 1e3:.2f} ms; request latency p50 "
+            f"{np.percentile(lat, 50):.2f} s p99 {np.percentile(lat, 99):.2f}"
+            f" s")
+
+
+def serve_through_decode(card, tag, params, cfg, reset_counts,
+                         check_cfg=None):
     """``DecodeEngine(batch, max_len)`` of LM_SIZES serving its greedy
-    requests: one #8 launch a layer and step, every request finished,
-    #8 held against its plain version on the first and the last layer's
-    operands at step 0, step 64 and a later step with a free slot at a
-    stale position, two requests' first and last tokens cross-checked
-    against the prefill argmax; decode tokens/s, step and request latency.
-    -> (#8 timed at the serving shape, #8 launches, the engine, the step
-    latencies in s)."""
+    requests: one #8 launch an attention layer and step, every request
+    finished, #8 held against its plain version on the first and the last
+    attention layer's operands at step 0, step 64 and a later step with a
+    free slot at a stale position, two requests' first and last tokens
+    cross-checked against the argmax of ``lm_prefill`` under
+    ``check_cfg`` (default ``cfg``); decode tokens/s, step and request
+    latency. -> (#8 timed at the serving shape, #8 launches, the engine,
+    the step latencies in s)."""
     import numpy as np
     import torch
 
@@ -507,7 +605,9 @@ def serve_through_decode(card, tag, params, cfg, reset_counts):
     from repro_torch.serving import DecodeEngine, Request
 
     dev, sizes = torch.device("cuda"), LM_SIZES
-    cfg_flash = dataclasses.replace(cfg, use_flash=True)
+    n_attn = attn_layers(cfg)
+    ends = sorted({0, n_attn - 1})
+    cfg_flash = dataclasses.replace(check_cfg or cfg, use_flash=True)
 
     def engine():
         return DecodeEngine(params, cfg, batch=sizes["serve_batch"],
@@ -518,53 +618,32 @@ def serve_through_decode(card, tag, params, cfg, reset_counts):
     warm.run()
     del warm
     eng = engine()
-    srng = np.random.default_rng(SEED + 7)
-    lo, hi = sizes["prompt_len"]
-    reqs = []
-    for rid in range(sizes["requests"]):
-        plen_r = int(srng.integers(lo, hi + 1))
-        reqs.append(Request(rid=rid, max_new=sizes["max_new"],
-                            prompt=srng.integers(0, cfg.vocab, size=plen_r)
-                            .tolist()))
-        eng.submit(reqs[-1])
-    # The first and the last layer's #8 call are kept at the first step,
-    # step 64, and the first later step with a free slot at a stale
-    # position (it decodes into the void and still writes its cache row).
+    reqs = serving_requests(cfg)
+    # The first and the last attention layer's #8 call are kept at the
+    # first step, step 64, and the first later step with a free slot at a
+    # stale position (it decodes into the void and still writes its cache
+    # row).
     held8, kept_steps, stale = [], [0, 64], []
 
     def keep8():
-        layer = (fd.flash_decode.launches - 1) % cfg.n_layers
+        layer = (fd.flash_decode.launches - 1) % n_attn
         if len(kept_steps) == 2 and layer == 0 and eng.steps > 64 and (
                 ~eng.active & (eng.pos > 0)).any():
             kept_steps.append(eng.steps)
             stale.extend(np.flatnonzero(~eng.active).tolist())
-        return layer in (0, cfg.n_layers - 1) and eng.steps in kept_steps
+        return layer in ends and eng.steps in kept_steps
 
     reset_counts()
-    step_s, finish_s = [], {}
-    t0 = time.perf_counter()
     with recording(layers, "flash_decode", held8, keep=keep8):
-        while len(step_s) < 100_000:
-            ts = time.perf_counter()
-            active = eng.step()
-            now = time.perf_counter()
-            step_s.append(now - ts)
-            for r in eng.finished:
-                finish_s.setdefault(r.rid, now - t0)
-            if active == 0 and not eng.queue:
-                break
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+        step_s, finish_s, wall = serve_timed(eng, reqs)
     n8 = fd.flash_decode.launches
-    if n8 != cfg.n_layers * eng.steps:
+    if n8 != n_attn * eng.steps:
         fail(f"serving launched flash_decode {n8} times in {eng.steps} "
-             f"steps, expected {cfg.n_layers} per step")
-    bad = [r.rid for r in reqs if not r.done or len(r.out) != r.max_new]
-    if bad:
-        fail(f"requests {bad} did not finish with max_new tokens")
-    if len(kept_steps) != 3 or len(held8) != 6:
+             f"steps, expected {n_attn} per step")
+    if len(kept_steps) != 3 or len(held8) != 3 * len(ends):
         fail(f"kept {len(held8)} decode calls of flash_decode at steps "
-             f"{kept_steps}, not 6 at 3 steps with a stale slot among them")
+             f"{kept_steps}, not {3 * len(ends)} at 3 steps with a stale "
+             f"slot among them")
     n_split = fd.default_splits(sizes["serve_batch"], cfg.n_kv_heads,
                                 sizes["serve_max_len"])
     err8 = 0.0
@@ -576,13 +655,15 @@ def serve_through_decode(card, tag, params, cfg, reset_counts):
             lens, sizes["serve_max_len"], n_split, cfg.n_kv_heads,
             held8[i][1].get("window"))]
         err8 = max(err8, d)
-        print(f"[{tag}] flash_decode at step {kept_steps[i // 2]}, layer "
-              f"{(0, cfg.n_layers - 1)[i % 2]} (lengths {lens}, splits "
-              f"{per_seq} of at most {n_split}"
-              f"{f', free slots {stale} at stale lengths' if i >= 4 else ''}"
+        at_stale = i >= 2 * len(ends)
+        print(f"[{tag}] flash_decode at step {kept_steps[i // len(ends)]}, "
+              f"attention layer {ends[i % len(ends)]} of {n_attn} (lengths "
+              f"{lens}, splits {per_seq} of at most {n_split}"
+              f"{f', free slots {stale} at stale lengths' if at_stale else ''}"
               f") vs plain: max|d| {d:.3e} (limit {ATTN_RTOL}*{sc:.3f})")
-    # Timed at the serving shape: layer 0 of the last kept step.
-    a8, k8, _ = held8[4]
+    # Timed at the serving shape: the first attention layer of the last
+    # kept step.
+    a8, k8, _ = held8[2 * len(ends)]
     k8 = dict(k8, scale=k8.get("scale") or a8[0].shape[-1] ** -0.5)
     q8, kc8, vc8, lens8 = a8
     b8, s8, hkv8, d8 = kc8.shape
@@ -604,8 +685,8 @@ def serve_through_decode(card, tag, params, cfg, reset_counts):
         library_ms=cuda_time_ms(lib8, 200),
         ops=dict(fp32=4 * vis8 * q8.shape[1] * d8),
         bytes=4 * (2 * vis8 * hkv8 * d8 + 2 * q8.numel()) + 4 * b8,
-        shape=f"serving step {kept_steps[2]} layer 0, B={b8} S={s8} "
-              f"Hq={q8.shape[1]} Hkv={hkv8} D={d8}, lengths "
+        shape=f"serving step {kept_steps[2]} attention layer 0, B={b8} "
+              f"S={s8} Hq={q8.shape[1]} Hkv={hkv8} D={d8}, lengths "
               f"{lens8.tolist()}, {vis8} visible keys, at most {n_split} "
               f"splits a sequence")
     del held8, a8, kt8, vt8, lib8
@@ -623,21 +704,12 @@ def serve_through_decode(card, tag, params, cfg, reset_counts):
             if pred != r.out[j] and gap > tol:
                 fail(f"request {r.rid} token {j}: decode gave {r.out[j]}, "
                      f"prefill argmax {pred} with top-2 gap {gap} > {tol}")
-    n_tok = sum(len(r.out) for r in reqs)
-    lat = np.asarray(sorted(finish_s[r.rid] for r in reqs))
-    st = np.asarray(step_s[:eng.steps])
-    print(f"[{tag}] {card}: {len(reqs)} requests (prompts "
-          f"{[len(r.prompt) for r in reqs]}) served in {eng.steps} steps of "
-          f"batch {sizes['serve_batch']} with {n8} flash_decode launches; "
-          f"{n_tok} new tokens in {wall:.2f} s = {n_tok / wall:.1f} decode "
-          f"tokens/s ({eng.steps * sizes['serve_batch'] / wall:.1f} slot-"
-          f"tokens/s incl. the prompts); step latency p50 "
-          f"{np.percentile(st, 50) * 1e3:.2f} ms p99 "
-          f"{np.percentile(st, 99) * 1e3:.2f} ms; request latency p50 "
-          f"{np.percentile(lat, 50):.2f} s p99 {np.percentile(lat, 99):.2f} s")
+    print(f"[{tag}] {card}: "
+          + serving_line(reqs, eng, step_s, finish_s, wall)
+          + f"; {n8} flash_decode launches")
     print(f"[{tag}] decode vs prefill argmax (rid, j, equal, top-2 gap): "
           + ", ".join(f"({a}, {b}, {c}, {g:.4g})" for a, b, c, g in gaps))
-    return timed8, n8, eng, st
+    return timed8, n8, eng, np.asarray(step_s[:eng.steps])
 
 
 def lm_phases(card, kernels, launches, reset_counts) -> None:
@@ -747,7 +819,7 @@ def lm_phases(card, kernels, launches, reset_counts) -> None:
     toks = torch.as_tensor(prng.integers(
         0, cfg.vocab, size=(sizes["prefill_batch"], sizes["prefill_len"]))
         .astype(np.int32), device=dev)
-    launches["flash_attention"], held7 = prefill_through_flash(
+    launches["flash_attention"], held7, _ = prefill_through_flash(
         card, "lm-prefill", params, cfg, toks, reset_counts)
     del held7
     profile_lm(f"prefill call of {toks.shape[0]} x {toks.shape[1]} tokens",
@@ -1199,8 +1271,8 @@ def moe_phases(card, kernels, wrappers, reset_counts, peak_bw) -> None:
         0, cfg.vocab, size=(LM_SIZES["prefill_batch"],
                             LM_SIZES["prefill_len"])).astype(np.int32),
         device=dev)
-    n7, held7 = prefill_through_flash(card, "lm-moe", params, cfg, toks,
-                                      reset_counts)
+    n7, held7, _ = prefill_through_flash(card, "lm-moe", params, cfg, toks,
+                                         reset_counts)
     (q, k, v, *_), kw, _ = held7[0]
     del held7
     opts = {o: kw[o] for o in ("window", "softcap") if kw.get(o) is not None}
@@ -1294,32 +1366,9 @@ def moe_phases(card, kernels, wrappers, reset_counts, peak_bw) -> None:
           f"in {wall * 1e3:.1f} ms = {pb * plen / wall:.0f} prefill "
           f"tokens/s; logits finite")
     peak("10b prefill")
-    # Absorbed MLA decode against the train path: the prompt token by
-    # token through the decode step, a float32 latent cache. The MoE
-    # capacity is lifted to T slots an expert, so that the prefill drops
-    # no (token, expert) pair, as decode at T=1 never does: both paths
-    # then compute one function and the check holds MLA alone.
-    n_chk = sz["ds_check_len"]
-    chk = dataclasses.replace(cfg, moe=dataclasses.replace(
-        cfg.moe, capacity_factor=cfg.moe.n_experts_padded / cfg.moe.top_k))
-    if moe.capacity(chk.moe, pb * n_chk) < pb * n_chk:
-        fail("the MLA check's prefill could drop routed pairs")
-    prompt = toks[:, :n_chk]
-    cache = lm.init_cache(chk, pb, n_chk, dtype=torch.float32, device=dev)
-    for i in range(n_chk):
-        got, cache = lm.lm_decode_step(
-            params, chk, cache, prompt[:, i:i + 1],
-            torch.full((pb,), i, dtype=torch.int32, device=dev))
-    d_, sc = hold("MLA decode vs prefill logits", got,
-                  lm.lm_prefill(params, chk, {"tokens": prompt}), LOGIT_RTOL)
-    ckv = cache["prefix"][0]["mix"]["ckv"]
-    print(f"[lm-moe] {full.name} (cut): {n_chk} prompt tokens one by one "
-          f"through lm_decode_step (absorbed MLA, float32 latent cache "
-          f"{tuple(ckv.shape)}) vs lm_prefill (MLA train path), "
-          f"capacity_factor {chk.moe.capacity_factor:g} (cap "
-          f"{moe.capacity(chk.moe, pb * n_chk)} for {pb * n_chk} tokens): "
-          f"last-step logits max|d| {d_:.3e} (limit {LOGIT_RTOL}*{sc:.3f})")
-    del cache, got, ckv
+    # Absorbed MLA decode (a float32 latent cache) against the train path;
+    # with the capacity lifted, the check holds MLA alone.
+    decode_vs_prefill("lm-moe", params, cfg, toks[:, :sz["ds_check_len"]])
     eng = DecodeEngine(params, cfg, batch=sz["ds_requests"],
                        max_len=sz["ds_max_len"], device=dev)
     lo, hi = sz["ds_prompt_len"]
@@ -1347,6 +1396,273 @@ def moe_phases(card, kernels, wrappers, reset_counts, peak_bw) -> None:
     print(f"[lm-moe] no kernel wrapper launched on the MLA path: {counts}")
     peak("10b decode")
     del params, eng, logits
+    torch.cuda.empty_cache()
+
+
+def no_drops(cfg):
+    """``cfg`` with a MoE's capacity lifted to T slots an expert, so that a
+    prefill drops no (token, expert) pair, as decode at T = B never does:
+    both then compute one function."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts_padded / cfg.moe.top_k))
+
+
+def decode_vs_prefill(tag, params, cfg, toks):
+    """The prompts ``toks`` (B, n) fed token by token through
+    ``lm_decode_step`` (float32 caches) give ``lm_prefill``'s last-position
+    logits within LOGIT_RTOL: each block's decode form (a recurrence, the
+    absorbed MLA) against its train form (chunked scans, MLA), under
+    ``no_drops``."""
+    import torch
+
+    from repro_torch.models import lm, moe
+
+    b, n = toks.shape
+    chk = no_drops(cfg)
+    if cfg.moe is not None and moe.capacity(chk.moe, b * n) < b * n:
+        fail("the decode-vs-prefill prefill could drop routed pairs")
+    cache = lm.init_cache(chk, b, n, dtype=torch.float32, device="cuda")
+    t0 = time.perf_counter()
+    for i in range(n):
+        got, cache = lm.lm_decode_step(
+            params, chk, cache, toks[:, i:i + 1],
+            torch.full((b,), i, dtype=torch.int32, device=toks.device))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d, sc = hold(f"{cfg.name}: decode vs prefill logits", got,
+                 lm.lm_prefill(params, chk, {"tokens": toks}), LOGIT_RTOL)
+    print(f"[{tag}] {cfg.name}: {b} prompts of {n} tokens one by one "
+          f"through lm_decode_step ({1e3 * wall / n:.1f} ms a step) vs "
+          f"lm_prefill (the train path)"
+          + ("" if chk is cfg else f", capacity_factor "
+             f"{chk.moe.capacity_factor:g}")
+          + f": last-position logits max|d| {d:.3e} (limit "
+          f"{LOGIT_RTOL}*{sc:.3f})")
+
+
+def slot_reuse(tag, eng, first):
+    """``first``, served again by ``eng`` after its run (so into a slot
+    other requests have used), gets the greedy tokens it got in the fresh
+    engine: the admission reset the slot's recurrent state."""
+    from repro_torch.serving import Request
+
+    again = Request(rid=10**6 + 1, prompt=list(first.prompt),
+                    max_new=first.max_new)
+    used = sorted({r.rid for r in eng.finished})
+    eng.submit(again)
+    eng.run()
+    if not again.done or again.out != first.out:
+        fail(f"{eng.cfg.name}: request {first.rid} in a used slot gave "
+             f"{again.out}, in a fresh one {first.out}")
+    print(f"[{tag}] {eng.cfg.name}: request {first.rid} served again in "
+          f"slot 0 after requests {used} used the engine's {eng.batch} "
+          f"slots: the same {len(first.out)} greedy tokens as in the fresh "
+          f"engine")
+
+
+@contextlib.contextmanager
+def event_timed(module, name, store: list):
+    """Each call of ``module.name`` in the block bracketed by CUDA events;
+    ``store`` gets the (start, end) pairs."""
+    import torch
+
+    orig = getattr(module, name)
+
+    def shim(*a, **k):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = orig(*a, **k)
+        ev[1].record()
+        store.append(ev)
+        return out
+
+    setattr(module, name, shim)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def recurrent_phases(card, kernels, wrappers, reset_counts, peak_bw) -> None:
+    """Phase 11: jamba-v0.1-52b at full width with its depth cut to one
+    period, served through #7 / #8 (11a), and xlstm-1.3b ``full()`` whole,
+    whose mLSTM / sLSTM path runs no hand-written kernel (11b). Adds
+    jamba's shapes to #7's and #8's ``shapes``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm, xlstm
+    from repro_torch.models.params import param_bytes, param_count
+    from repro_torch.serving import DecodeEngine, Request
+
+    dev, sync, sz = torch.device("cuda"), torch.cuda.synchronize, REC_SIZES
+    pb, plen = sz["prefill"]
+
+    def counted(cfg, want):
+        n = param_count(lm.init_lm(cfg, device="meta"))
+        if n != want:
+            fail(f"{cfg.name}: param_count {n:,} on meta, expected {want:,}")
+        return n
+
+    def peak(part):
+        print(f"[lm-recurrent] {part}: max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    def tokens(cfg, seed, *shape):
+        rng = np.random.default_rng(seed)
+        return torch.as_tensor(rng.integers(0, cfg.vocab, size=shape)
+                               .astype(np.int32), device=dev)
+
+    def engine(params, cfg):
+        return DecodeEngine(params, cfg, batch=LM_SIZES["serve_batch"],
+                            max_len=LM_SIZES["serve_max_len"], device=dev)
+
+    # -- 11a: jamba-v0.1-52b, one period at full width, through #7 and #8 ----
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"[lm-recurrent] memory_allocated before phase 11 "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    full = configs.get_config(sz["jamba"])
+    n_full = counted(full, sz["jamba_params"])
+    cfg = dataclasses.replace(full, n_repeats=1)
+    n = counted(cfg, sz["jamba_cut_params"])
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, SEED, device=dev)
+    sync()
+    m, mb = cfg.moe, cfg.mamba
+    print(f"[lm-recurrent] {full.name}: full() has {full.n_layers} layers "
+          f"and {n_full:,} params ({4 * n_full / 1e9:.1f} GB in float32); "
+          f"cut to n_repeats=1 for the card's 80 GB: one period of "
+          f"{cfg.n_layers} layers ({sum(s.kind == 'mamba' for s in cfg.pattern)}"
+          f" Mamba, {attn_layers(cfg)} attention; "
+          f"{sum(s.mlp == 'moe' for s in cfg.pattern)} MoE, "
+          f"{sum(s.mlp == 'dense' for s in cfg.pattern)} dense MLPs), "
+          f"{n:,} params = {param_bytes(params) / 1e9:.2f} GB float32 from "
+          f"seed {SEED} in {time.perf_counter() - t0:.1f} s; every width "
+          f"published (d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads}"
+          f" heads x {cfg.head_dim}, d_ff {cfg.d_ff}, {m.n_experts} experts "
+          f"top-{m.top_k}, Mamba d_inner {mb.d_inner} d_state {mb.d_state} "
+          f"dt_rank {mb.rank} chunk {mb.chunk_size}, vocab {cfg.vocab})")
+    toks = tokens(cfg, SEED + 11, pb, plen)
+    n7, held7, wall = prefill_through_flash(card, "lm-recurrent", params,
+                                            cfg, toks, reset_counts)
+    (q, k, v, *_), kw, _ = held7[0]
+    del held7
+    name = f"{cfg.name} prefill"
+    err, sc = hold(f"flash_attention at {name}", fa.flash_attention(q, k, v),
+                   fa.flash_attention_plain(q, k, v,
+                                            scale=q.shape[-1] ** -0.5),
+                   ATTN_RTOL)
+    print(f"[lm-recurrent] flash_attention at {name} (the attention "
+          f"layer's operands, q {tuple(q.shape)}, k {tuple(k.shape)}, group "
+          f"{q.shape[2] // k.shape[2]}) vs plain: max|d| {err:.3e} (limit "
+          f"{ATTN_RTOL}*{sc:.3f})")
+    kernels["flash_attention"].setdefault("shapes", {})[name] = dict(
+        time_flash(q, k, v, {}, err, name), launches=n7)
+    del q, k, v
+    peak("11a prefill")
+    profile_lm(f"{cfg.name} prefill call of {pb} x {plen} tokens",
+               lambda: lm.lm_prefill(params, dataclasses.replace(
+                   cfg, use_flash=True), {"tokens": toks}), 1, card,
+               "flash_kernel")
+    del toks
+    torch.cuda.empty_cache()
+
+    timed8, n8, eng, step_s = serve_through_decode(
+        card, "lm-recurrent", params, cfg, reset_counts,
+        check_cfg=no_drops(cfg))
+    kernels["flash_decode"].setdefault("shapes", {})[
+        f"{cfg.name} decode"] = dict(timed8, launches=n8)
+    w_bytes = param_bytes(params) - params["embed"].numel() * 4
+    print(f"[lm-recurrent] {card}: a {cfg.name} (cut) decode step reads "
+          f"every weight but the embedding table, all {m.n_experts} experts "
+          f"of the MoE layers included: {w_bytes / 1e9:.2f} GB, bound "
+          f"{w_bytes / peak_bw * 1e3:.2f} ms at {peak_bw / 1e12:g} TB/s; "
+          f"served step p50 {np.percentile(step_s, 50) * 1e3:.2f} ms")
+    slot_reuse("lm-recurrent", eng,
+               next(r for r in eng.finished if r.rid == 0))
+    eng.submit(Request(rid=10**6, prompt=[1, 2, 3], max_new=1))
+    eng.step()                                   # admit, warm
+    profile_lm(f"{cfg.name} decode steps of batch {eng.batch}", eng.step,
+               2, card, "decode_")
+    del eng
+    peak("11a decode")
+    decode_vs_prefill("lm-recurrent", params, cfg, tokens(
+        cfg, SEED + 12, sz["check_batch"], sz["check_len"]["jamba"]))
+    peak("11a decode vs prefill")
+    del params
+    torch.cuda.empty_cache()
+
+    # -- 11b: xlstm-1.3b full(), whole; no hand-written kernel ---------------
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get_config(sz["xlstm"])
+    n = counted(cfg, sz["xlstm_params"])
+    params = lm.init_lm(cfg, SEED, device=dev)
+    x = cfg.xlstm_cfg
+    print(f"[lm-recurrent] {cfg.name} full(), whole: {cfg.n_layers} blocks "
+          f"({sum(s.kind == 'mlstm' for s in cfg.pattern) * cfg.n_repeats} "
+          f"mLSTM, {sum(s.kind == 'slstm' for s in cfg.pattern) * cfg.n_repeats}"
+          f" sLSTM), d_model {cfg.d_model}, {x.n_heads} heads, mLSTM d_inner "
+          f"{x.d_inner} (head {x.d_head}) chunk {x.chunk_size}, vocab "
+          f"{cfg.vocab} tied: {n:,} params = {param_bytes(params) / 1e9:.2f}"
+          f" GB float32 from seed {SEED}")
+    reset_counts()
+    toks = tokens(cfg, SEED + 13, pb, plen)
+    lm.lm_prefill(params, cfg, {"tokens": toks[:, :64]})          # warm-up
+    sync()
+    spans = {"mlstm_train": [], "slstm_train": []}
+    with event_timed(xlstm, "mlstm_train", spans["mlstm_train"]), \
+            event_timed(xlstm, "slstm_train", spans["slstm_train"]):
+        t0 = time.perf_counter()
+        logits = lm.lm_prefill(params, cfg, {"tokens": toks})
+        sync()
+        wall = time.perf_counter() - t0
+    if tuple(logits.shape) != (pb, 1, cfg.vocab) or \
+            not torch.isfinite(logits).all():
+        fail(f"xlstm prefill logits {tuple(logits.shape)} not finite")
+    share = {k: sum(a.elapsed_time(b) for a, b in v) / 1e3
+             for k, v in spans.items()}
+    print(f"[lm-recurrent] {card}: {cfg.name} prefill {pb} x {plen} tokens "
+          f"in {wall * 1e3:.1f} ms = {pb * plen / wall:.0f} prefill "
+          f"tokens/s; logits finite; by CUDA events the "
+          f"{len(spans['slstm_train'])} sLSTM layers (a time loop of "
+          f"{plen} cell steps each) {share['slstm_train'] * 1e3:.1f} ms "
+          f"({100 * share['slstm_train'] / wall:.1f} %), the "
+          f"{len(spans['mlstm_train'])} mLSTM layers "
+          f"{share['mlstm_train'] * 1e3:.1f} ms "
+          f"({100 * share['mlstm_train'] / wall:.1f} %)")
+    del logits, toks
+    peak("11b prefill")
+    warm = engine(params, cfg)
+    warm.submit(Request(rid=-1, prompt=[1, 2], max_new=2))
+    warm.run()
+    del warm
+    eng = engine(params, cfg)
+    reqs = serving_requests(cfg)
+    step_s, finish_s, wall = serve_timed(eng, reqs)
+    print(f"[lm-recurrent] {card}: {cfg.name}: "
+          + serving_line(reqs, eng, step_s, finish_s, wall))
+    slot_reuse("lm-recurrent", eng, reqs[0])
+    eng.submit(Request(rid=10**6, prompt=[1, 2, 3], max_new=1))
+    eng.step()                                   # admit, warm
+    profile_lm(f"{cfg.name} decode steps of batch {eng.batch}", eng.step,
+               2, card, "elementwise")
+    del eng
+    peak("11b decode")
+    decode_vs_prefill("lm-recurrent", params, cfg, tokens(
+        cfg, SEED + 14, sz["check_batch"], sz["check_len"]["xlstm"]))
+    counts = {name: w.launches for name, w in wrappers.items()}
+    if any(counts.values()):
+        fail(f"the xLSTM path launched hand-written kernels {counts}")
+    print(f"[lm-recurrent] no kernel wrapper launched on the xLSTM path: "
+          f"{counts}")
+    peak("11b decode vs prefill")
+    del params
     torch.cuda.empty_cache()
 
 
@@ -2675,6 +2991,9 @@ def main() -> int:
 
     # -- phase 10: the MoE / MLA families --------------------------------------
     moe_phases(card, kernels, wrappers, reset_counts, peak_bw)
+
+    # -- phase 11: the recurrent families (Mamba, xLSTM) -----------------------
+    recurrent_phases(card, kernels, wrappers, reset_counts, peak_bw)
 
     def bounds(kd):
         kd.update(bound_of(kd.pop("ops"), kd.pop("bytes")))

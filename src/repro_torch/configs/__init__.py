@@ -2,9 +2,10 @@
 architectures (the same ids as the JAX package), plus the paper's own
 VGG19/SegNet deformable networks (``get_dcn_config``).
 
-The port runs the dense-attention archs and the MoE / MLA ones
-(granite-moe, deepseek-v3); the others (Mamba, xLSTM and cross-attention
-blocks) raise ``NotImplementedError`` until their blocks are ported.
+The port runs the dense-attention archs, the MoE / MLA ones
+(granite-moe, deepseek-v3) and the recurrent ones (jamba's Mamba layers,
+xlstm's mLSTM / sLSTM); llama-3.2-vision (cross-attention blocks) raises
+``NotImplementedError`` until its blocks are ported.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from repro_torch.configs.base import (SHAPES, SMOKE_SHAPES, ShapeCell,
 from repro_torch.models.dcn_models import DcnNetConfig
 
 _ARCH_MODULES = {
-    "xlstm-1.3b": None,
+    "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
     "llama-3.2-vision-11b": None,
     "musicgen-medium": "repro_torch.configs.musicgen_medium",
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
@@ -25,7 +26,7 @@ _ARCH_MODULES = {
     "gemma2-27b": "repro_torch.configs.gemma2_27b",
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
     "smollm-360m": "repro_torch.configs.smollm_360m",
-    "jamba-v0.1-52b": None,
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
 }
 
 ARCHS = tuple(_ARCH_MODULES)
@@ -39,8 +40,8 @@ def get_config(arch: str, smoke: bool = False):
     module = _ARCH_MODULES[arch]
     if module is None:
         raise NotImplementedError(
-            f"{arch}: its blocks are not ported yet (ROADMAP.md §1: Mamba "
-            f"+ jamba, xLSTM, cross-attention + llama-3.2-vision)")
+            f"{arch}: its blocks are not ported yet (ROADMAP.md §1: "
+            f"cross-attention + llama-3.2-vision)")
     mod = importlib.import_module(module)
     return mod.smoke() if smoke else mod.full()
 

@@ -16,8 +16,12 @@ Multi-codebook tokens (musicgen), tied embeddings, ``emb_scale``,
 logits product (d_model x vocab) is a ``torch.matmul``, as the JAX package
 leaves it to XLA. The loss adds the MoE auxiliary term and deepseek-v3's
 depth-1 multi-token prediction (MTP) as the JAX package does; serving
-never runs the MTP block, but ``init_lm`` builds it. The cross-attention
-cache is not ported yet (ROADMAP.md §1).
+never runs the MTP block, but ``init_lm`` builds it. The decode cache
+holds a KV cache for each attention layer, a latent cache for each MLA
+layer and O(1) recurrent state for each Mamba, mLSTM and sLSTM layer
+(``transformer.init_block_cache``); ``lm_decode_step`` updates all of
+them in place. The cross-attention cache is not ported yet (ROADMAP.md
+§1).
 """
 
 from __future__ import annotations
@@ -152,10 +156,13 @@ def lm_loss(p, cfg: ModelConfig, batch):
     return loss, metrics
 
 
+@torch.no_grad()
 def lm_prefill(p, cfg: ModelConfig, batch):
     """Forward the full prompt ``batch["tokens"]`` (B, S[, n_cb]) and return
     the last position's logits (B, n_cb, V). With ``cfg.use_flash`` every
-    attention layer runs the flash kernel."""
+    attention layer runs the flash kernel. Prefill is inference: it runs
+    under ``torch.no_grad()``, so ``cfg.remat`` and the recurrent blocks'
+    chunk checkpoints (training only) keep no activations here."""
     check_supported(cfg)
     x = _embed(p, cfg, batch["tokens"])
     x, _ = apply_layers_train(p["layers"], cfg, x)

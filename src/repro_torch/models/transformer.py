@@ -8,11 +8,17 @@ JAX ``lax.scan`` over that dimension is a Python loop over the layer index
 ``r`` here. The decode cache mirrors the parameter tree and is updated in
 place.
 
-Blocks mix with GQA attention (``kind="attn"``) or MLA (``"mla"``), and
-end in a dense MLP, a MoE MLP (``mlp="moe"``, whose load-balancing term
-is summed into the stack's ``aux``) or none. The other block kinds
-(Mamba, mLSTM / sLSTM) and cross-attention raise ``NotImplementedError``
+Blocks mix with GQA attention (``kind="attn"``), MLA (``"mla"``), Mamba
+(``"mamba"``) or xLSTM (``"mlstm"`` / ``"slstm"``), and end in a dense MLP,
+a MoE MLP (``mlp="moe"``, whose load-balancing term is summed into the
+stack's ``aux``) or none. Cross-attention raises ``NotImplementedError``
 (ROADMAP.md §1).
+
+The recurrent kinds keep O(1) state a slot instead of a KV cache, and
+their decode ignores ``pos``. :func:`reset_cache_rows` writes a slot's
+recurrent rows back to their initial values (``recurrent_init``), which a
+serving engine does when it admits a request into a used slot; attention
+and MLA caches are left alone, as ``pos`` masks them.
 
 ``remat`` applies to training (grad mode on) per layer or per pattern
 super-block, as in the JAX package: ``"full"`` recomputes everything in
@@ -32,6 +38,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.models import ssm, xlstm
 from repro_torch.models.layers import (AttnConfig, MlaConfig, MlpConfig,
                                        attention_decode, attention_train,
                                        init_attention, init_kv_cache,
@@ -40,8 +47,7 @@ from repro_torch.models.layers import (AttnConfig, MlaConfig, MlpConfig,
 from repro_torch.models.moe import MoeConfig, init_moe, moe_apply
 from repro_torch.models.params import Maker, stacked
 
-_ROADMAP_ITEM = ("ROADMAP.md §1: Mamba + jamba, xLSTM, cross-attention + "
-                 "llama-3.2-vision")
+_ROADMAP_ITEM = "ROADMAP.md §1: cross-attention + llama-3.2-vision"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,8 +60,7 @@ class BlockSpec:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The JAX package's ``ModelConfig`` field for field. The Mamba and
-    xLSTM sub-configs are opaque here (not ported yet)."""
+    """The JAX package's ``ModelConfig`` field for field."""
 
     name: str
     d_model: int
@@ -80,8 +85,8 @@ class ModelConfig:
     logits_scale: float | None = None    # granite
     moe: MoeConfig | None = None
     mla: MlaConfig | None = None
-    mamba: Any = None
-    xlstm_cfg: Any = None
+    mamba: ssm.MambaConfig | None = None
+    xlstm_cfg: xlstm.XlstmConfig | None = None
     n_codebooks: int = 1                 # musicgen: 4
     d_cross: int | None = None           # llama-vision encoder width
     n_cross_tokens: int = 0
@@ -111,8 +116,13 @@ class ModelConfig:
             impl=self.attn_impl, chunk=self.attn_chunk)
 
 
+_KINDS = ("attn", "mla", "mamba", "mlstm", "slstm")
+
+
 def _check_spec(cfg: ModelConfig, spec: BlockSpec) -> None:
-    if spec.kind not in ("attn", "mla") or spec.cross:
+    if spec.kind not in _KINDS:
+        raise ValueError(spec.kind)
+    if spec.cross:
         raise NotImplementedError(
             f"{cfg.name}: block {spec} is not ported yet ({_ROADMAP_ITEM})")
 
@@ -137,8 +147,14 @@ def init_block(mk: Maker, cfg: ModelConfig, spec: BlockSpec):
     p: dict[str, Any] = {"norm1": init_norm(mk, cfg.d_model)}
     if spec.kind == "attn":
         p["attn"] = init_attention(mk, cfg.attn_cfg(spec))
-    else:
+    elif spec.kind == "mla":
         p["attn"] = init_mla(mk, cfg.mla)
+    elif spec.kind == "mamba":
+        p["mix"] = ssm.init_mamba(mk, cfg.mamba)
+    elif spec.kind == "mlstm":
+        p["mix"] = xlstm.init_mlstm(mk, cfg.xlstm_cfg)
+    else:
+        p["mix"] = xlstm.init_slstm(mk, cfg.xlstm_cfg)
     if cfg.sandwich_norm:
         p["post1"] = init_norm(mk, cfg.d_model)
     if spec.mlp in ("dense", "moe"):
@@ -173,8 +189,14 @@ def _mix_train(p, cfg: ModelConfig, spec: BlockSpec, h):
     if spec.kind == "attn":
         return attention_train(p["attn"], cfg.attn_cfg(spec), h,
                                use_flash=cfg.use_flash)
-    return mla_train(p["attn"], cfg.mla, h, impl=cfg.attn_impl,
-                     chunk=cfg.attn_chunk)
+    if spec.kind == "mla":
+        return mla_train(p["attn"], cfg.mla, h, impl=cfg.attn_impl,
+                         chunk=cfg.attn_chunk)
+    if spec.kind == "mamba":
+        return ssm.mamba_train(p["mix"], cfg.mamba, h)
+    if spec.kind == "mlstm":
+        return xlstm.mlstm_train(p["mix"], cfg.xlstm_cfg, h)
+    return xlstm.slstm_train(p["mix"], cfg.xlstm_cfg, h)
 
 
 def block_train(p, cfg: ModelConfig, spec: BlockSpec, x):
@@ -193,8 +215,14 @@ def block_decode(p, cfg: ModelConfig, spec: BlockSpec, x, cache, pos):
     if spec.kind == "attn":
         y, _ = attention_decode(p["attn"], cfg.attn_cfg(spec), h,
                                 cache["mix"], pos)
-    else:
+    elif spec.kind == "mla":
         y, _ = mla_decode(p["attn"], cfg.mla, h, cache["mix"], pos)
+    elif spec.kind == "mamba":
+        y, _ = ssm.mamba_decode(p["mix"], cfg.mamba, h, cache["mix"])
+    elif spec.kind == "mlstm":
+        y, _ = xlstm.mlstm_decode(p["mix"], cfg.xlstm_cfg, h, cache["mix"])
+    else:
+        y, _ = xlstm.slstm_decode(p["mix"], cfg.xlstm_cfg, h, cache["mix"])
     if cfg.sandwich_norm:
         y = norm(p["post1"], y)
     x, _ = _mlp_residual(p, cfg, spec, x + y)
@@ -204,12 +232,48 @@ def block_decode(p, cfg: ModelConfig, spec: BlockSpec, x, cache, pos):
 def init_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int,
                      max_len: int, *, dtype=torch.bfloat16, device="cpu",
                      lead=()):
+    """The block's decode cache. ``dtype`` holds the attention, MLA and
+    Mamba caches; the xLSTM caches are always float32, as in the JAX
+    package."""
     _check_spec(cfg, spec)
     kw = dict(dtype=dtype, device=device, lead=lead)
     if spec.kind == "attn":
-        return {"mix": init_kv_cache(cfg.attn_cfg(spec), batch, max_len,
-                                     **kw)}
-    return {"mix": init_mla_cache(cfg.mla, batch, max_len, **kw)}
+        mix = init_kv_cache(cfg.attn_cfg(spec), batch, max_len, **kw)
+    elif spec.kind == "mla":
+        mix = init_mla_cache(cfg.mla, batch, max_len, **kw)
+    elif spec.kind == "mamba":
+        mix = ssm.init_mamba_cache(cfg.mamba, batch, **kw)
+    elif spec.kind == "mlstm":
+        mix = xlstm.init_mlstm_cache(cfg.xlstm_cfg, batch, device=device,
+                                     lead=lead)
+    else:
+        mix = xlstm.init_slstm_cache(cfg.xlstm_cfg, batch, device=device,
+                                     lead=lead)
+    return {"mix": mix}
+
+
+def recurrent_init(spec: BlockSpec) -> dict[str, float] | None:
+    """The initial value of each leaf of a recurrent block's ``"mix"``
+    cache (the values its ``init_*_cache`` builds from); None for the
+    attention and MLA kinds, whose rows ``pos`` masks."""
+    return {"mamba": ssm.CACHE_INIT, "mlstm": xlstm.MLSTM_CACHE_INIT,
+            "slstm": xlstm.SLSTM_CACHE_INIT}.get(spec.kind)
+
+
+def reset_cache_rows(cfg: ModelConfig, cache, rows) -> None:
+    """Write the initial values into the batch rows ``rows`` of every
+    recurrent cache leaf, in place (a stacked leaf's row ``i`` is
+    ``leaf[:, i]``)."""
+    rows = torch.as_tensor(rows, dtype=torch.long)
+    blocks = [(spec, c, False) for spec, c in zip(cfg.prefix,
+                                                   cache.get("prefix", []))]
+    if cfg.n_repeats:
+        blocks += [(spec, cache["stack"][f"b{j}"], True)
+                   for j, spec in enumerate(cfg.pattern)]
+    for spec, c, lead in blocks:
+        for name, value in (recurrent_init(spec) or {}).items():
+            leaf = c["mix"][name]
+            leaf.index_fill_(int(lead), rows.to(leaf.device), value)
 
 
 # ---------------------------------------------------------------------------

@@ -61,6 +61,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.kernels._build import KernelError
 from repro_torch.models import lm
+from repro_torch.models.transformer import reset_cache_rows
 from repro_torch.obs import MetricsRegistry, Tracer, get_tracer
 from repro_torch.serving.errors import (DeadlineExceededError, DrainTimeout,
                                         QueueFullError, RequestFailedError)
@@ -86,7 +87,13 @@ class DecodeEngine:
     ``params`` must already lie on ``device`` (``"cuda"`` by default).
     Every step runs all ``batch`` slots: a free or finished slot decodes
     into the void at its stale position and writes its cache row there,
-    exactly as the JAX package's jitted step does. Sampling at
+    as the JAX package's jitted step does. Admission differs from the JAX
+    engine in one way: it writes the initial values back into the slot's
+    rows of every recurrent cache (Mamba, mLSTM, sLSTM; their decode
+    ignores ``pos``), so a request never starts from the state of the
+    slot's previous occupant; the JAX engine leaves that state in place
+    (ROADMAP.md §3). Attention and MLA caches are left alone, since
+    ``pos`` masks their stale rows. Sampling at
     ``temperature > 0`` draws from the engine's own ``torch.Generator``
     seeded with ``rng_seed``; its draws differ from ``jax.random``'s, so
     only greedy (temperature 0) tokens match the JAX engine. ``mesh`` is
@@ -133,6 +140,7 @@ class DecodeEngine:
             self.queue.append(req)
 
     def _admit(self):
+        admitted = []
         with self._lock:
             for i in range(self.batch):
                 if self.slots[i] is None and self.queue:
@@ -141,6 +149,9 @@ class DecodeEngine:
                     self.pos[i] = 0
                     self.pending_tok[i] = req.prompt[0]
                     self.active[i] = True
+                    admitted.append(i)
+        if admitted:
+            reset_cache_rows(self.cfg, self.cache, admitted)
 
     def _sample(self, logits, temperature) -> np.ndarray:
         """Next-token sampling; ``temperature`` is a scalar or a per-slot

@@ -787,7 +787,10 @@ def test_fused_dcn_train_step_on_the_card():
     """Two AdamW steps of a small VGG19-2 DCN-II classifier with params
     and optimizer state on the card: the fused (checkpointed) step gives
     the unfused step's loss and gradients within 1e-5 norm-wise, losses
-    are finite, and every parameter with a gradient moves."""
+    are finite, and every parameter with a gradient moves. The gradients
+    are compared with torch's deterministic kernels, as ``chip_smoke.py``
+    phase 8 compares them: the default atomic backward differs from
+    itself by about that much, so only the fusion may differ here."""
     from repro_torch._tree import tree_leaves, value_and_grad
     from repro_torch.core.deform import randomize_offset_conv
     from repro_torch.data import DataConfig, image_batch
@@ -810,9 +813,13 @@ def test_fused_dcn_train_step_on_the_card():
     b = image_batch(DataConfig(seed=2, global_batch=4), 0, img=32, classes=4)
     x = torch.as_tensor(b["images"], device=dev)
     y = torch.as_tensor(b["labels"], device=dev)
-    (lf, gf), (lu, gu) = (value_and_grad(
-        lambda p: dcn_loss(p, cfg, x, y, fused=fused), params)
-        for fused in (True, False))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        (lf, gf), (lu, gu) = (value_and_grad(
+            lambda p: dcn_loss(p, cfg, x, y, fused=fused), params)
+            for fused in (True, False))
+    finally:
+        torch.use_deterministic_algorithms(False)
     assert abs(float(lf) - float(lu)) <= 1e-5 * abs(float(lu))
     for a, w in zip(tree_leaves(gf), tree_leaves(gu)):
         assert float((a - w).norm()) <= 1e-5 * max(float(w.norm()), 1e-30)
@@ -884,3 +891,64 @@ def test_granite_smoke_serves_through_the_flash_kernels(monkeypatch):
     assert len(step_logits["cuda"]) == len(step_logits["cpu"])
     for got, want in zip(step_logits["cuda"], step_logits["cpu"]):
         close(got, want)
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "flash_decode"])
+def test_flash_kernels_at_jambas_group_of_four(kernel):
+    """jamba's attention layer: 32 query heads over 8 kv heads (4 a kv
+    head), head dim 128. #7 at (2, 256, 32/8, 128) causal and #8 on a
+    512-slot cache at ragged lengths, each within 1e-4 * max|ref| of its
+    plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+
+    rng = np.random.default_rng(60)
+    if kernel == "flash_attention":
+        q, k, v = (torch.as_tensor(rng.normal(size=s).astype(np.float32))
+                   for s in ((2, 256, 32, 128), (2, 256, 8, 128),
+                             (2, 256, 8, 128)))
+        want = fa.flash_attention_plain(q, k, v, scale=128 ** -0.5)
+        got = fa.flash_attention(q.cuda(), k.cuda(), v.cuda()).cpu()
+    else:
+        ops = _decode_operands(61, 4, 512, 32, 8, 128, [1, 512, 170, 65])
+        want = fd.flash_decode_plain(*ops, scale=128 ** -0.5)
+        got = fd.flash_decode(*(t.cuda() for t in ops)).cpu()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-1.3b"])
+def test_recurrent_smoke_serves_on_the_card_through_a_reused_slot(arch):
+    """The recurrent smoke configs on the card: a one-slot
+    ``DecodeEngine`` serves three requests one after another through its
+    one slot, and each gets the greedy tokens a fresh engine gives it
+    alone and the same engine gives on the CPU. jamba's attention layer
+    runs #8 once a step; xlstm runs no kernel."""
+    from repro_torch import configs
+    from repro_torch._tree import tree_map
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models import lm
+    from repro_torch.serving import DecodeEngine, Request
+
+    cfg = configs.get_config(arch, smoke=True)
+    params = lm.init_lm(cfg, 0, device="cpu")
+    on_card = tree_map(lambda t: t.cuda(), params)
+    rng = np.random.default_rng(62)
+    prompts = [rng.integers(0, cfg.vocab, size=n).tolist() for n in (5, 2, 7)]
+    n_attn = sum(s.kind == "attn" for s in cfg.pattern) * cfg.n_repeats
+
+    def serve(p, dev, reqs):
+        eng = DecodeEngine(p, cfg, batch=1, max_len=24, device=dev)
+        for rid, prompt in reqs:
+            eng.submit(Request(rid=rid, prompt=prompt, max_new=6))
+        flash_decode.launches = 0
+        out = {r.rid: r.out for r in eng.run()}
+        if dev == "cuda":
+            assert flash_decode.launches == n_attn * eng.steps
+        return out
+
+    reused = serve(on_card, "cuda", list(enumerate(prompts)))
+    fresh = {}
+    for rid, prompt in enumerate(prompts):
+        fresh.update(serve(on_card, "cuda", [(rid, prompt)]))
+    assert reused == fresh and len(fresh) == 3
+    assert serve(params, "cpu", list(enumerate(prompts))) == reused

@@ -70,6 +70,24 @@ def test_no_module_imports_jax_or_the_jax_package(path):
     assert not FORBIDDEN_STRING.search(text), path
 
 
+def test_get_config_refuses_only_the_unported_arch():
+    """Every arch id resolves but llama-3.2-vision, whose cross-attention
+    blocks are the one item of the port's module queue left; its error
+    names that item alone."""
+    from repro_torch import configs
+
+    assert set(configs.ARCHS) - set(configs.SUPPORTED_ARCHS) == {
+        "llama-3.2-vision-11b"}
+    for arch in ("jamba-v0.1-52b", "xlstm-1.3b"):
+        assert configs.get_config(arch).sub_quadratic
+        assert configs.get_config(arch, smoke=True).n_layers == 8
+    with pytest.raises(NotImplementedError) as err:
+        configs.get_config("llama-3.2-vision-11b")
+    msg = str(err.value)
+    assert "cross-attention + llama-3.2-vision" in msg
+    assert "Mamba" not in msg and "xLSTM" not in msg
+
+
 @pytest.mark.parametrize("line", [
     'importlib.import_module("repro.configs.qwen3_1_7b")',
     "__import__('jax')",
