@@ -171,6 +171,26 @@ Phases, each fatal on failure:
               request 0 served again through a used slot gets the greedy
               tokens it got in a fresh slot. Peak memory of each part is
               printed.
+12. lm-cross — llama-3.2-vision-11b ``full()``, whole (40 layers, the 8
+              cross-attention layers at 3, 8, ..., 38 over 1,601 image
+              tokens of width 4096; 9,775,157,248 params, 39.1 GB float32
+              from the seed), with random float32 image states (4, 1601,
+              4096) from a seeded generator (the vision tower is a
+              stub): phase 6's prefill with the states (40 #7 launches,
+              the 8 cross layers' non-causal; the first and the last
+              cross layer's call held against the plain version, the
+              non-causal call at 4 x 2048 over 1,601 keys timed beside its
+              bounds and SDPA), phase 7's serving with the engine's cross
+              cache filled by ``build_cross_cache`` (40 #8 launches a
+              step, 8 over the 1,601-row cross cache, held and timed at
+              both shapes; two requests against the prefill argmax with
+              their slot's image), the decode step profiled beside the
+              bound of its weight and cross K/V reads, 2 prompts of 64
+              tokens fed token by token through ``lm_decode_step`` over
+              the cross cache against ``lm_prefill`` within 1e-3 *
+              max|ref|, and the same prompts under another image moving
+              the logits by more than 1e-3 * max|ref|. Peak memory of each
+              part is printed.
 
 Each path is driven with every kernel's launch count set to 0 just
 before it and read just after. The last lines are the card's name and
@@ -242,6 +262,10 @@ REC_SIZES = dict(jamba="jamba-v0.1-52b", jamba_params=51_570_315_264,
                  jamba_cut_params=13_295_235_072, xlstm="xlstm-1.3b",
                  xlstm_params=1_916_647_760, prefill=(4, 2048),
                  check_batch=2, check_len=dict(jamba=300, xlstm=100))
+# Phase 12: the cross-attention configuration (full widths, whole), its
+# parameter count, the prefill and the decode-vs-prefill prompts.
+CROSS_SIZES = dict(llama="llama-3.2-vision-11b", llama_params=9_775_157_248,
+                   prefill=(4, 2048), check=(2, 64))
 # Phase 8 / 9: training sizes.
 TRAIN_SIZES = dict(dcn_batch=16, dcn_steps=5, example_steps=300,
                    example_tail=50, example_limit=0.35, lm_arch="qwen3-1.7b",
@@ -439,11 +463,12 @@ def time_flash(q, k, v, opts, err, name) -> dict:
 
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
+    causal = opts.get("causal", True)
     tiles = fa.tile_config(d)
     grid = (-(-sq // tiles["block_q"]), b * hq)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    lib = sdpa_yardstick(qt, kt, vt, is_causal=True)
-    live = live_pairs(sq, skv, True, opts.get("window"))
+    lib = sdpa_yardstick(qt, kt, vt, is_causal=causal)
+    live = live_pairs(sq, skv, causal, opts.get("window"))
     # Both products run in 3xTF32 on the tensor cores; the FP32 CUDA-core
     # bound of the same work is kept beside it.
     flops = 4 * b * hq * live * d
@@ -455,23 +480,57 @@ def time_flash(q, k, v, opts, err, name) -> dict:
         library_ms=cuda_time_ms(lib, 5),
         ops={"3xtf32": flops}, fp32_ops=flops,
         bytes=4 * (2 * q.numel() + k.numel() + v.numel()),
-        shape=f"{name} B={b} S={sq} Hq={hq} Hkv={hkv} D={d}, causal "
-              f"(live share {live / (sq * skv):.4f}), grid {grid}, "
-              f"{tiles['block_q']} x {tiles['block_k']} tiles")
+        shape=f"{name} B={b} S={sq}"
+              f"{'' if skv == sq else f' Skv={skv}'} Hq={hq} Hkv={hkv} "
+              f"D={d}, {'causal' if causal else 'non-causal'} (live share "
+              f"{live / (sq * skv):.4f}), grid {grid}, {tiles['block_q']} x "
+              f"{tiles['block_k']} tiles")
+
+
+def attn_specs(cfg) -> list:
+    """The block specs of the model's GQA attention layers (one #7 / #8
+    launch each), cross-attention layers included, in launch order."""
+    specs = cfg.prefix + cfg.pattern * cfg.n_repeats
+    return [s for s in specs if s.kind == "attn"]
 
 
 def attn_layers(cfg) -> int:
-    """The model's GQA attention layers (one #7 / #8 launch each)."""
-    specs = cfg.prefix + cfg.pattern * cfg.n_repeats
-    return sum(s.kind == "attn" for s in specs)
+    return len(attn_specs(cfg))
 
 
-def prefill_through_flash(card, tag, params, cfg, toks, reset_counts):
-    """``lm_prefill`` of ``toks`` with ``use_flash``: one #7 launch an
-    attention layer, last-position logits within LOGIT_RTOL of the
-    ``_sdpa`` path, the first and the last attention layer's #7 operands
+def cross_layers(cfg) -> list[int]:
+    """Indices among the attention layers of the cross-attention ones."""
+    return [i for i, s in enumerate(attn_specs(cfg)) if s.cross]
+
+
+@contextlib.contextmanager
+def tallied(module, name: str, key, tally: dict):
+    """Count each call of ``module.name`` in the block under
+    ``key(args, kwargs)`` in ``tally``."""
+    orig = getattr(module, name)
+
+    def shim(*a, **k):
+        out = orig(*a, **k)
+        tally[key(a, k)] = tally.get(key(a, k), 0) + 1
+        return out
+
+    setattr(module, name, shim)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def prefill_through_flash(card, tag, params, cfg, toks, reset_counts,
+                          cross_states=None):
+    """``lm_prefill`` of ``toks`` (and ``cross_states``, the image states
+    of a cross-attention model) with ``use_flash``: one #7 launch an
+    attention layer, non-causal in each cross layer, last-position logits
+    within LOGIT_RTOL of the ``_sdpa`` path, the #7 operands of the first
+    and the last attention layer and of the first and the last cross layer
     held against the plain version. -> (#7 launches, [(args, kwargs, out)]
-    of those calls, the prefill's wall time in s)."""
+    of those calls in layer order, the prefill's wall time in s, the
+    non-causal launches)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -479,24 +538,35 @@ def prefill_through_flash(card, tag, params, cfg, toks, reset_counts):
 
     sync = torch.cuda.synchronize
     pb, plen = toks.shape
-    n_attn = attn_layers(cfg)
+    n_attn, cross = attn_layers(cfg), cross_layers(cfg)
+    ends = sorted({0, n_attn - 1, *cross[:1], *cross[-1:]})
     cfg_flash = dataclasses.replace(cfg, use_flash=True)
-    lm.lm_prefill(params, cfg_flash, {"tokens": toks[:, :64]})   # warm-up
+
+    def batch(t):
+        return {"tokens": t} if cross_states is None else \
+            {"tokens": t, "cross_states": cross_states}
+
+    lm.lm_prefill(params, cfg_flash, batch(toks[:, :64]))        # warm-up
     sync()
-    held7 = []
+    held7, modes = [], {}
     reset_counts()
     t0 = time.perf_counter()
-    with recording(layers, "flash_attention", held7, keep=lambda: (
-            fa.flash_attention.launches in (1, n_attn))):
-        logits = lm.lm_prefill(params, cfg_flash, {"tokens": toks})
+    with tallied(layers, "flash_attention",
+                 lambda _, k: "causal" if k.get("causal", True) else
+                 "non-causal", modes), \
+            recording(layers, "flash_attention", held7, keep=lambda: (
+                fa.flash_attention.launches - 1 in ends)):
+        logits = lm.lm_prefill(params, cfg_flash, batch(toks))
     sync()
     wall = time.perf_counter() - t0
     n7 = fa.flash_attention.launches
-    if n7 != n_attn:
-        fail(f"prefill launched flash_attention {n7} times, expected one "
-             f"per attention layer ({n_attn})")
+    n_nc = modes.get("non-causal", 0)
+    if n7 != n_attn or n_nc != len(cross):
+        fail(f"prefill launched flash_attention {n7} times ({modes}), "
+             f"expected one per attention layer ({n_attn}), non-causal in "
+             f"the {len(cross)} cross layers")
     t0 = time.perf_counter()
-    ref = lm.lm_prefill(params, cfg, {"tokens": toks})
+    ref = lm.lm_prefill(params, cfg, batch(toks))
     sync()
     wall_ref = time.perf_counter() - t0
     if tuple(logits.shape) != (pb, cfg.n_codebooks, cfg.vocab):
@@ -504,12 +574,12 @@ def prefill_through_flash(card, tag, params, cfg, toks, reset_counts):
     d, sc = hold("prefill logits (flash vs _sdpa path)", logits, ref,
                  LOGIT_RTOL)
     print(f"[{tag}] {card}: {pb} x {plen} tokens through "
-          f"{n7} flash_attention launches in {wall * 1e3:.1f} ms = "
+          f"{n7} flash_attention launches ({n_nc} non-causal) in "
+          f"{wall * 1e3:.1f} ms = "
           f"{pb * plen / wall:.0f} prefill tokens/s (_sdpa path "
           f"{wall_ref * 1e3:.1f} ms); last-position logits finite, max|d| "
           f"{d:.3e} (limit {LOGIT_RTOL}*{sc:.3f})")
     del logits, ref
-    ends = sorted({0, n_attn - 1})
     if len(held7) != len(ends):
         fail(f"kept {len(held7)} prefill calls of flash_attention, not "
              f"{len(ends)}")
@@ -518,11 +588,11 @@ def prefill_through_flash(card, tag, params, cfg, toks, reset_counts):
                 "flash_attention on the prefill's operands", held7,
                 fa.flash_attention_plain)):
         print(f"[{tag}] flash_attention on the prefill's operands at "
-              f"attention layer {layer} of {n_attn} (q {tuple(a[0].shape)}, "
-              f"k {tuple(a[1].shape)}, {k}) vs plain: max|d| {d:.3e} "
-              f"(limit {ATTN_RTOL}*{sc:.3f})")
+              f"{'cross' if layer in cross else 'attention'} layer {layer} "
+              f"of {n_attn} (q {tuple(a[0].shape)}, k {tuple(a[1].shape)}, "
+              f"{k}) vs plain: max|d| {d:.3e} (limit {ATTN_RTOL}*{sc:.3f})")
     torch.cuda.empty_cache()
-    return n7, held7, wall
+    return n7, held7, wall, n_nc
 
 
 def serving_requests(cfg):
@@ -586,17 +656,54 @@ def serving_line(reqs, eng, step_s, finish_s, wall) -> str:
             f" s")
 
 
+def time_decode(call, n_split, shape) -> dict:
+    """#8 on a captured ``(args, kwargs, out)`` call, its plain version and
+    the SDPA yardstick, timed; the work and bytes its bound is computed
+    from (the keys its split ranges visit)."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as fd
+
+    a8, k8, _ = call
+    k8 = dict(k8, scale=k8.get("scale") or a8[0].shape[-1] ** -0.5)
+    q8, kc8, vc8, lens8 = a8
+    b8, s8, hkv8, d8 = kc8.shape
+    vis8 = sum(hi - lo for seq in fd.split_ranges(
+        lens8.tolist(), s8, n_split, hkv8, k8.get("window"))
+        for lo, hi in seq)
+    ki8 = torch.arange(s8, device=kc8.device)[None, :]
+    mask8 = ki8 < lens8[:, None].long()
+    if k8.get("window") is not None:
+        mask8 &= ki8 > lens8[:, None].long() - 1 - k8["window"]
+    kt8, vt8 = (t.transpose(1, 2).contiguous() for t in (kc8, vc8))
+    lib8 = sdpa_yardstick(q8[:, :, None], kt8, vt8,
+                          attn_mask=mask8[:, None, None, :],
+                          scale=k8["scale"])
+    return dict(
+        ms=cuda_time_ms(lambda: fd.flash_decode(*a8, **k8), 200),
+        plain_ms=cuda_time_ms(lambda: fd.flash_decode_plain(*a8, **k8), 50),
+        library_ms=cuda_time_ms(lib8, 200),
+        ops=dict(fp32=4 * vis8 * q8.shape[1] * d8),
+        bytes=4 * (2 * vis8 * hkv8 * d8 + 2 * q8.numel()) + 4 * b8,
+        shape=f"{shape}, B={b8} S={s8} Hq={q8.shape[1]} Hkv={hkv8} D={d8}, "
+              f"lengths {lens8.tolist()}, {vis8} visible keys, at most "
+              f"{n_split} splits a sequence")
+
+
 def serve_through_decode(card, tag, params, cfg, reset_counts,
-                         check_cfg=None):
+                         check_cfg=None, cross_states=None):
     """``DecodeEngine(batch, max_len)`` of LM_SIZES serving its greedy
     requests: one #8 launch an attention layer and step, every request
     finished, #8 held against its plain version on the first and the last
-    attention layer's operands at step 0, step 64 and a later step with a
-    free slot at a stale position, two requests' first and last tokens
-    cross-checked against the argmax of ``lm_prefill`` under
-    ``check_cfg`` (default ``cfg``); decode tokens/s, step and request
-    latency. -> (#8 timed at the serving shape, #8 launches, the engine,
-    the step latencies in s)."""
+    attention layer's operands (and the first cross layer's) at step 0,
+    step 64 and a later step with a free slot at a stale position, two
+    requests' first and last tokens cross-checked against the argmax of
+    ``lm_prefill`` under ``check_cfg`` (default ``cfg``); decode tokens/s,
+    step and request latency. A cross-attention model's engine gets its
+    cross cache from ``cross_states`` (row i slot i's image), and each
+    checked request's prefill gets its slot's row. -> (#8 timed at the
+    serving shape, #8 launches, the engine, the step latencies in s, #8
+    timed at the cross shape or None)."""
     import numpy as np
     import torch
 
@@ -605,13 +712,17 @@ def serve_through_decode(card, tag, params, cfg, reset_counts,
     from repro_torch.serving import DecodeEngine, Request
 
     dev, sizes = torch.device("cuda"), LM_SIZES
-    n_attn = attn_layers(cfg)
-    ends = sorted({0, n_attn - 1})
+    n_attn, cross = attn_layers(cfg), cross_layers(cfg)
+    ends = sorted({0, n_attn - 1, *cross[:1]})
     cfg_flash = dataclasses.replace(check_cfg or cfg, use_flash=True)
 
     def engine():
-        return DecodeEngine(params, cfg, batch=sizes["serve_batch"],
-                            max_len=sizes["serve_max_len"], device=dev)
+        eng = DecodeEngine(params, cfg, batch=sizes["serve_batch"],
+                           max_len=sizes["serve_max_len"], device=dev)
+        if cross_states is not None:
+            eng.cache = lm.build_cross_cache(params, cfg, eng.cache,
+                                             cross_states)
+        return eng
 
     warm = engine()
     warm.submit(Request(rid=-1, prompt=[1, 2], max_new=2))
@@ -619,10 +730,20 @@ def serve_through_decode(card, tag, params, cfg, reset_counts,
     del warm
     eng = engine()
     reqs = serving_requests(cfg)
-    # The first and the last attention layer's #8 call are kept at the
-    # first step, step 64, and the first later step with a free slot at a
-    # stale position (it decodes into the void and still writes its cache
-    # row).
+    # The slot each request is admitted into (its image, when there is
+    # one).
+    slot_of, admit = {}, eng._admit
+
+    def admitting():
+        admit()
+        for i, r in enumerate(eng.slots):
+            if r is not None:
+                slot_of.setdefault(r.rid, i)
+
+    eng._admit = admitting
+    # The kept layers' #8 calls at the first step, step 64, and the first
+    # later step with a free slot at a stale position (it decodes into the
+    # void and still writes its cache row).
     held8, kept_steps, stale = [], [0, 64], []
 
     def keep8():
@@ -633,69 +754,66 @@ def serve_through_decode(card, tag, params, cfg, reset_counts,
             stale.extend(np.flatnonzero(~eng.active).tolist())
         return layer in ends and eng.steps in kept_steps
 
+    rows = {}
     reset_counts()
-    with recording(layers, "flash_decode", held8, keep=keep8):
+    with tallied(layers, "flash_decode", lambda a, _: a[1].shape[1], rows), \
+            recording(layers, "flash_decode", held8, keep=keep8):
         step_s, finish_s, wall = serve_timed(eng, reqs)
+    del eng._admit
     n8 = fd.flash_decode.launches
-    if n8 != n_attn * eng.steps:
+    n8_cross = rows.get(cfg.n_cross_tokens, 0) if cross else 0
+    if n8 != n_attn * eng.steps or n8_cross != len(cross) * eng.steps:
         fail(f"serving launched flash_decode {n8} times in {eng.steps} "
-             f"steps, expected {n_attn} per step")
+             f"steps (by cache rows {rows}), expected {n_attn} per step, "
+             f"{len(cross)} of them over the cross cache")
     if len(kept_steps) != 3 or len(held8) != 3 * len(ends):
         fail(f"kept {len(held8)} decode calls of flash_decode at steps "
              f"{kept_steps}, not {3 * len(ends)} at 3 steps with a stale "
              f"slot among them")
-    n_split = fd.default_splits(sizes["serve_batch"], cfg.n_kv_heads,
-                                sizes["serve_max_len"])
-    err8 = 0.0
+
+    def splits(call):
+        kc = call[0][1]
+        return fd.default_splits(kc.shape[0], kc.shape[2], kc.shape[1])
+
+    err8 = {False: 0.0, True: 0.0}
     for i, (d, sc) in enumerate(hold_captured(
             "flash_decode on the serving operands", held8,
             fd.flash_decode_plain)):
         lens = held8[i][0][3].tolist()
+        s_len, n_split = held8[i][0][1].shape[1], splits(held8[i])
         per_seq = [len(r) for r in fd.split_ranges(
-            lens, sizes["serve_max_len"], n_split, cfg.n_kv_heads,
-            held8[i][1].get("window"))]
-        err8 = max(err8, d)
+            lens, s_len, n_split, cfg.n_kv_heads, held8[i][1].get("window"))]
+        layer = ends[i % len(ends)]
+        err8[layer in cross] = max(err8[layer in cross], d)
         at_stale = i >= 2 * len(ends)
         print(f"[{tag}] flash_decode at step {kept_steps[i // len(ends)]}, "
-              f"attention layer {ends[i % len(ends)]} of {n_attn} (lengths "
-              f"{lens}, splits {per_seq} of at most {n_split}"
+              f"{'cross' if layer in cross else 'attention'} layer {layer} "
+              f"of {n_attn} ({s_len}-row cache, lengths {lens}, splits "
+              f"{per_seq} of at most {n_split}"
               f"{f', free slots {stale} at stale lengths' if at_stale else ''}"
               f") vs plain: max|d| {d:.3e} (limit {ATTN_RTOL}*{sc:.3f})")
-    # Timed at the serving shape: the first attention layer of the last
-    # kept step.
-    a8, k8, _ = held8[2 * len(ends)]
-    k8 = dict(k8, scale=k8.get("scale") or a8[0].shape[-1] ** -0.5)
-    q8, kc8, vc8, lens8 = a8
-    b8, s8, hkv8, d8 = kc8.shape
-    vis8 = sum(hi - lo for seq in fd.split_ranges(
-        lens8.tolist(), s8, n_split, hkv8, k8.get("window"))
-        for lo, hi in seq)
-    ki8 = torch.arange(s8, device=dev)[None, :]
-    mask8 = ki8 < lens8[:, None].long()
-    if k8.get("window") is not None:
-        mask8 &= ki8 > lens8[:, None].long() - 1 - k8["window"]
-    kt8, vt8 = (t.transpose(1, 2).contiguous() for t in (kc8, vc8))
-    lib8 = sdpa_yardstick(q8[:, :, None], kt8, vt8,
-                          attn_mask=mask8[:, None, None, :],
-                          scale=k8["scale"])
-    timed8 = dict(
-        max_abs_err=err8,
-        ms=cuda_time_ms(lambda: fd.flash_decode(*a8, **k8), 200),
-        plain_ms=cuda_time_ms(lambda: fd.flash_decode_plain(*a8, **k8), 50),
-        library_ms=cuda_time_ms(lib8, 200),
-        ops=dict(fp32=4 * vis8 * q8.shape[1] * d8),
-        bytes=4 * (2 * vis8 * hkv8 * d8 + 2 * q8.numel()) + 4 * b8,
-        shape=f"serving step {kept_steps[2]} attention layer 0, B={b8} "
-              f"S={s8} Hq={q8.shape[1]} Hkv={hkv8} D={d8}, lengths "
-              f"{lens8.tolist()}, {vis8} visible keys, at most {n_split} "
-              f"splits a sequence")
-    del held8, a8, kt8, vt8, lib8
+    # Timed at the serving shape: the kept layers' calls of the last kept
+    # step.
+    last = held8[2 * len(ends):]
+    timed8 = dict(max_abs_err=err8[False], **time_decode(
+        last[0], splits(last[0]),
+        f"serving step {kept_steps[2]} attention layer 0"))
+    timed_cross = None if not cross else dict(
+        max_abs_err=err8[True], launches=n8_cross, **time_decode(
+            last[ends.index(cross[0])], splits(last[ends.index(cross[0])]),
+            f"serving step {kept_steps[2]} cross layer {cross[0]} (every "
+            f"image row visible)"))
+    del held8, last
     gaps = []
     for r in reqs[:sizes["cross_checked"]]:
         for j in (0, r.max_new - 1):
             seq = torch.as_tensor([r.prompt + r.out[:j]], dtype=torch.int32,
                                   device=dev)
-            lg = lm.lm_prefill(params, cfg_flash, {"tokens": seq})[0, 0]
+            batch = {"tokens": seq}
+            if cross_states is not None:
+                slot = slot_of[r.rid]
+                batch["cross_states"] = cross_states[slot:slot + 1]
+            lg = lm.lm_prefill(params, cfg_flash, batch)[0, 0]
             top = torch.topk(lg, 2).values
             gap = float(top[0] - top[1])
             tol = 1e-3 * float(lg.abs().max())
@@ -706,10 +824,11 @@ def serve_through_decode(card, tag, params, cfg, reset_counts,
                      f"prefill argmax {pred} with top-2 gap {gap} > {tol}")
     print(f"[{tag}] {card}: "
           + serving_line(reqs, eng, step_s, finish_s, wall)
-          + f"; {n8} flash_decode launches")
+          + f"; {n8} flash_decode launches"
+          + (f" ({n8_cross} over the cross cache)" if cross else ""))
     print(f"[{tag}] decode vs prefill argmax (rid, j, equal, top-2 gap): "
           + ", ".join(f"({a}, {b}, {c}, {g:.4g})" for a, b, c, g in gaps))
-    return timed8, n8, eng, np.asarray(step_s[:eng.steps])
+    return timed8, n8, eng, np.asarray(step_s[:eng.steps]), timed_cross
 
 
 def lm_phases(card, kernels, launches, reset_counts) -> None:
@@ -819,7 +938,7 @@ def lm_phases(card, kernels, launches, reset_counts) -> None:
     toks = torch.as_tensor(prng.integers(
         0, cfg.vocab, size=(sizes["prefill_batch"], sizes["prefill_len"]))
         .astype(np.int32), device=dev)
-    launches["flash_attention"], held7, _ = prefill_through_flash(
+    launches["flash_attention"], held7, _, _ = prefill_through_flash(
         card, "lm-prefill", params, cfg, toks, reset_counts)
     del held7
     profile_lm(f"prefill call of {toks.shape[0]} x {toks.shape[1]} tokens",
@@ -828,7 +947,7 @@ def lm_phases(card, kernels, launches, reset_counts) -> None:
                card, "flash_kernel")
 
     # -- phase 7: DecodeEngine through #8 ------------------------------------
-    timed8, launches["flash_decode"], eng, _ = serve_through_decode(
+    timed8, launches["flash_decode"], eng, _, _ = serve_through_decode(
         card, "lm-serve", params, cfg, reset_counts)
     kernels["flash_decode"] = dict(
         route="cuda", source="src/repro_torch/csrc/flash_decode.cu",
@@ -1271,7 +1390,7 @@ def moe_phases(card, kernels, wrappers, reset_counts, peak_bw) -> None:
         0, cfg.vocab, size=(LM_SIZES["prefill_batch"],
                             LM_SIZES["prefill_len"])).astype(np.int32),
         device=dev)
-    n7, held7, _ = prefill_through_flash(card, "lm-moe", params, cfg, toks,
+    n7, held7, _, _ = prefill_through_flash(card, "lm-moe", params, cfg, toks,
                                          reset_counts)
     (q, k, v, *_), kw, _ = held7[0]
     del held7
@@ -1293,8 +1412,8 @@ def moe_phases(card, kernels, wrappers, reset_counts, peak_bw) -> None:
                    params, dataclasses.replace(cfg, use_flash=True),
                    {"tokens": toks}), 1, card, "flash_kernel")
 
-    timed8, n8, eng, step_s = serve_through_decode(card, "lm-moe", params,
-                                                   cfg, reset_counts)
+    timed8, n8, eng, step_s, _ = serve_through_decode(
+        card, "lm-moe", params, cfg, reset_counts)
     kernels["flash_decode"].setdefault("shapes", {})[
         f"{cfg.name} decode"] = dict(timed8, launches=n8)
     # One more step, profiled, after one that keeps layer 0's MoE input.
@@ -1409,12 +1528,13 @@ def no_drops(cfg):
         cfg.moe, capacity_factor=cfg.moe.n_experts_padded / cfg.moe.top_k))
 
 
-def decode_vs_prefill(tag, params, cfg, toks):
+def decode_vs_prefill(tag, params, cfg, toks, cross_states=None):
     """The prompts ``toks`` (B, n) fed token by token through
     ``lm_decode_step`` (float32 caches) give ``lm_prefill``'s last-position
     logits within LOGIT_RTOL: each block's decode form (a recurrence, the
-    absorbed MLA) against its train form (chunked scans, MLA), under
-    ``no_drops``."""
+    absorbed MLA, #8 over the cross cache ``build_cross_cache`` made of
+    ``cross_states``) against its train form (chunked scans, MLA, attention
+    over the states), under ``no_drops``."""
     import torch
 
     from repro_torch.models import lm, moe
@@ -1424,6 +1544,10 @@ def decode_vs_prefill(tag, params, cfg, toks):
     if cfg.moe is not None and moe.capacity(chk.moe, b * n) < b * n:
         fail("the decode-vs-prefill prefill could drop routed pairs")
     cache = lm.init_cache(chk, b, n, dtype=torch.float32, device="cuda")
+    batch = {"tokens": toks}
+    if cross_states is not None:
+        cache = lm.build_cross_cache(params, chk, cache, cross_states)
+        batch["cross_states"] = cross_states
     t0 = time.perf_counter()
     for i in range(n):
         got, cache = lm.lm_decode_step(
@@ -1432,7 +1556,7 @@ def decode_vs_prefill(tag, params, cfg, toks):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     d, sc = hold(f"{cfg.name}: decode vs prefill logits", got,
-                 lm.lm_prefill(params, chk, {"tokens": toks}), LOGIT_RTOL)
+                 lm.lm_prefill(params, chk, batch), LOGIT_RTOL)
     print(f"[{tag}] {cfg.name}: {b} prompts of {n} tokens one by one "
           f"through lm_decode_step ({1e3 * wall / n:.1f} ms a step) vs "
           f"lm_prefill (the train path)"
@@ -1549,7 +1673,7 @@ def recurrent_phases(card, kernels, wrappers, reset_counts, peak_bw) -> None:
           f"top-{m.top_k}, Mamba d_inner {mb.d_inner} d_state {mb.d_state} "
           f"dt_rank {mb.rank} chunk {mb.chunk_size}, vocab {cfg.vocab})")
     toks = tokens(cfg, SEED + 11, pb, plen)
-    n7, held7, wall = prefill_through_flash(card, "lm-recurrent", params,
+    n7, held7, wall, _ = prefill_through_flash(card, "lm-recurrent", params,
                                             cfg, toks, reset_counts)
     (q, k, v, *_), kw, _ = held7[0]
     del held7
@@ -1573,7 +1697,7 @@ def recurrent_phases(card, kernels, wrappers, reset_counts, peak_bw) -> None:
     del toks
     torch.cuda.empty_cache()
 
-    timed8, n8, eng, step_s = serve_through_decode(
+    timed8, n8, eng, step_s, _ = serve_through_decode(
         card, "lm-recurrent", params, cfg, reset_counts,
         check_cfg=no_drops(cfg))
     kernels["flash_decode"].setdefault("shapes", {})[
@@ -1663,6 +1787,134 @@ def recurrent_phases(card, kernels, wrappers, reset_counts, peak_bw) -> None:
           f"{counts}")
     peak("11b decode vs prefill")
     del params
+    torch.cuda.empty_cache()
+
+
+def cross_phase(card, kernels, reset_counts, peak_bw) -> None:
+    """Phase 12: llama-3.2-vision-11b ``full()``, whole, with random
+    float32 image states: prefill through #7 (non-causal in the 8 cross
+    layers), serving through #8 with the cross cache ``build_cross_cache``
+    filled (the cross layers over all 1,601 image rows), decode vs
+    prefill over the same states, and the logits' dependence on the
+    image. Adds the cross shapes to #7's and #8's ``shapes``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+    from repro_torch.models.params import param_bytes, param_count
+    from repro_torch.serving import Request
+
+    dev, sync, sz = torch.device("cuda"), torch.cuda.synchronize, CROSS_SIZES
+    pb, plen = sz["prefill"]
+
+    def peak(part):
+        print(f"[lm-cross] {part}: max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"[lm-cross] memory_allocated before phase 12 "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    cfg = configs.get_config(sz["llama"])
+    n = param_count(lm.init_lm(cfg, device="meta"))
+    if n != sz["llama_params"]:
+        fail(f"{cfg.name}: param_count {n:,} on meta, expected "
+             f"{sz['llama_params']:,}")
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, SEED, device=dev)
+    sync()
+    n_attn, cross = attn_layers(cfg), cross_layers(cfg)
+    print(f"[lm-cross] {cfg.name} full(), whole: {cfg.n_layers} layers, "
+          f"cross-attention at layers {cross} over {cfg.n_cross_tokens} "
+          f"image tokens of width {cfg.d_cross} (the vision tower is a "
+          f"stub: random float32 states from seed {SEED + 12}); d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab} untied: "
+          f"param_count {n:,} = {param_bytes(params) / 1e9:.2f} GB float32 "
+          f"from seed {SEED} in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+
+    def image_states(b):
+        return torch.randn((b, cfg.n_cross_tokens, cfg.d_cross),
+                           generator=gen, device=dev)
+
+    def tokens(seed, *shape):
+        rng = np.random.default_rng(seed)
+        return torch.as_tensor(rng.integers(0, cfg.vocab, size=shape)
+                               .astype(np.int32), device=dev)
+
+    states = image_states(pb)
+    toks = tokens(SEED + 12, pb, plen)
+    n7, held7, wall, n_nc = prefill_through_flash(
+        card, "lm-cross", params, cfg, toks, reset_counts,
+        cross_states=states)
+    at = sorted({0, n_attn - 1, cross[0], cross[-1]}).index(cross[0])
+    (q, k, v, *_), kw, _ = held7[at]
+    del held7
+    name = f"{cfg.name} cross-layer prefill"
+    err, sc = hold(f"flash_attention at {name}",
+                   fa.flash_attention(q, k, v, causal=False),
+                   fa.flash_attention_plain(q, k, v, causal=False,
+                                            scale=q.shape[-1] ** -0.5),
+                   ATTN_RTOL)
+    print(f"[lm-cross] flash_attention at {name} (cross layer {cross[0]}'s "
+          f"operands, {kw}, q {tuple(q.shape)} over k {tuple(k.shape)}, "
+          f"group {q.shape[2] // k.shape[2]}) vs plain: max|d| {err:.3e} "
+          f"(limit {ATTN_RTOL}*{sc:.3f})")
+    kernels["flash_attention"].setdefault("shapes", {})[name] = dict(
+        time_flash(q, k, v, {"causal": False}, err, name), launches=n_nc)
+    del q, k, v
+    peak("12 prefill")
+    profile_lm(f"{cfg.name} prefill call of {pb} x {plen} tokens",
+               lambda: lm.lm_prefill(params, dataclasses.replace(
+                   cfg, use_flash=True), {"tokens": toks,
+                                          "cross_states": states}), 1,
+               card, "flash_kernel")
+    del toks
+    torch.cuda.empty_cache()
+
+    timed8, n8, eng, step_s, timed_cross = serve_through_decode(
+        card, "lm-cross", params, cfg, reset_counts, cross_states=states)
+    shapes8 = kernels["flash_decode"].setdefault("shapes", {})
+    shapes8[f"{cfg.name} decode, self layers"] = dict(
+        timed8, launches=n8 - timed_cross["launches"])
+    shapes8[f"{cfg.name} decode, cross layers"] = timed_cross
+    cross_bytes = sum(t.numel() * t.element_size()
+                      for j, spec in enumerate(cfg.pattern) if spec.cross
+                      for t in eng.cache["stack"][f"b{j}"]["mix"].values())
+    w_bytes = param_bytes(params) - params["embed"].numel() * 4
+    print(f"[lm-cross] {card}: a {cfg.name} decode step reads every weight "
+          f"but the embedding table ({w_bytes / 1e9:.2f} GB) and the cross "
+          f"K/V ({cross_bytes / 1e9:.3f} GB): "
+          f"{(w_bytes + cross_bytes) / 1e9:.2f} GB, bound "
+          f"{(w_bytes + cross_bytes) / peak_bw * 1e3:.2f} ms at "
+          f"{peak_bw / 1e12:g} TB/s; served step p50 "
+          f"{np.percentile(step_s, 50) * 1e3:.2f} ms")
+    eng.submit(Request(rid=10**6, prompt=[1, 2, 3], max_new=1))
+    eng.step()                                   # admit, warm
+    profile_lm(f"{cfg.name} decode steps of batch {eng.batch}", eng.step,
+               2, card, "decode_")
+    del eng
+    peak("12 decode")
+
+    cb, clen = sz["check"]
+    chk, cs = tokens(SEED + 13, cb, clen), states[:cb]
+    decode_vs_prefill("lm-cross", params, cfg, chk, cross_states=cs)
+    peak("12 decode vs prefill")
+    cfg_flash = dataclasses.replace(cfg, use_flash=True)
+    a = lm.lm_prefill(params, cfg_flash, {"tokens": chk, "cross_states": cs})
+    b = lm.lm_prefill(params, cfg_flash, {"tokens": chk,
+                                          "cross_states": image_states(cb)})
+    d, sc = rel_err(b, a)
+    if not (torch.isfinite(b).all() and d > LOGIT_RTOL * sc):
+        fail(f"{cfg.name}: another image moved the logits by {d}, not more "
+             f"than {LOGIT_RTOL}*{sc}")
+    print(f"[lm-cross] {cfg.name}: the same {cb} x {clen} prompts under "
+          f"another image: last-position logits move by max|d| {d:.3e} "
+          f"(> {LOGIT_RTOL}*{sc:.3f}): the cross layers read the image")
+    del params, states, a, b
     torch.cuda.empty_cache()
 
 
@@ -2994,6 +3246,9 @@ def main() -> int:
 
     # -- phase 11: the recurrent families (Mamba, xLSTM) -----------------------
     recurrent_phases(card, kernels, wrappers, reset_counts, peak_bw)
+
+    # -- phase 12: cross-attention (llama-3.2-vision-11b) ---------------------
+    cross_phase(card, kernels, reset_counts, peak_bw)
 
     def bounds(kd):
         kd.update(bound_of(kd.pop("ops"), kd.pop("bytes")))

@@ -2,10 +2,10 @@
 architectures (the same ids as the JAX package), plus the paper's own
 VGG19/SegNet deformable networks (``get_dcn_config``).
 
-The port runs the dense-attention archs, the MoE / MLA ones
-(granite-moe, deepseek-v3) and the recurrent ones (jamba's Mamba layers,
-xlstm's mLSTM / sLSTM); llama-3.2-vision (cross-attention blocks) raises
-``NotImplementedError`` until its blocks are ported.
+The port runs every one of them: the dense-attention archs, the MoE /
+MLA ones (granite-moe, deepseek-v3), the recurrent ones (jamba's Mamba
+layers, xlstm's mLSTM / sLSTM) and llama-3.2-vision, whose cross-attention
+layers read precomputed image states (``batch["cross_states"]``).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from repro_torch.models.dcn_models import DcnNetConfig
 
 _ARCH_MODULES = {
     "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
-    "llama-3.2-vision-11b": None,
+    "llama-3.2-vision-11b": "repro_torch.configs.llama_3_2_vision_11b",
     "musicgen-medium": "repro_torch.configs.musicgen_medium",
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
     "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
@@ -30,19 +30,14 @@ _ARCH_MODULES = {
 }
 
 ARCHS = tuple(_ARCH_MODULES)
-SUPPORTED_ARCHS = tuple(a for a, m in _ARCH_MODULES.items() if m)
+SUPPORTED_ARCHS = ARCHS
 
 
 def get_config(arch: str, smoke: bool = False):
     """Resolve an --arch id to its ModelConfig."""
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; choose from {ARCHS}")
-    module = _ARCH_MODULES[arch]
-    if module is None:
-        raise NotImplementedError(
-            f"{arch}: its blocks are not ported yet (ROADMAP.md §1: "
-            f"cross-attention + llama-3.2-vision)")
-    mod = importlib.import_module(module)
+    mod = importlib.import_module(_ARCH_MODULES[arch])
     return mod.smoke() if smoke else mod.full()
 
 

@@ -5,7 +5,9 @@ decode engine on it.
 
 Serves the arch's smoke config with random weights from ``--seed``, as
 the JAX package's serve script does; prompts are drawn with numpy from
-``--seed``. Runs on the card unless ``--device cpu``.
+``--seed``. Runs on the card unless ``--device cpu``. A cross-attention
+arch (llama-3.2-vision) is served, as by the JAX script, with its cross
+cache left at zero (no image), and the script says so.
 """
 
 from __future__ import annotations
@@ -36,6 +38,10 @@ def main(argv=None):
     params = lm.init_lm(cfg, args.seed, device=args.device)
     engine = DecodeEngine(params, cfg, batch=args.batch,
                           max_len=args.max_len, device=args.device)
+    if cfg.d_cross:
+        print(f"[serve] {cfg.name}: no image states given; the cross "
+              f"layers decode against a zero cross cache (fill it with "
+              f"lm.build_cross_cache to condition on an image)")
 
     rng = np.random.default_rng(args.seed + 1)
     for rid in range(args.requests):

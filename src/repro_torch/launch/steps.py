@@ -15,7 +15,7 @@ import torch
 
 from repro_torch._tree import tree_leaves, value_and_grad
 from repro_torch.models import lm
-from repro_torch.models.transformer import ModelConfig, check_supported
+from repro_torch.models.transformer import ModelConfig
 from repro_torch.optim import AdamWConfig, adamw_update
 
 
@@ -23,12 +23,12 @@ def build_train_step(cfg: ModelConfig,
                      opt_cfg: AdamWConfig | None = None) -> Callable:
     """-> ``fn(params, opt_state, batch) -> (params, opt_state, metrics)``.
 
-    ``batch`` is ``{"tokens": (B, S+1[, n_cb])}`` (numpy or tensors; moved
-    to the params' device). ``metrics`` holds ``ce``, ``aux``, ``loss``,
-    ``lr`` and ``grad_norm`` as scalar tensors. The update is written
+    ``batch`` is ``{"tokens": (B, S+1[, n_cb])}``, with ``"cross_states"``
+    (B, S_kv, d_cross) for a cross-attention model (numpy or tensors;
+    moved to the params' device). ``metrics`` holds ``ce``, ``aux``,
+    ``loss``, ``lr`` and ``grad_norm`` as scalar tensors. The update is written
     into ``params`` and ``opt_state`` (the JAX step's donated buffers),
     which come back as the same trees."""
-    check_supported(cfg)
     opt_cfg = opt_cfg or AdamWConfig()
 
     def train_step(params, opt_state, batch):

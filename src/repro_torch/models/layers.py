@@ -15,11 +15,17 @@ Attention has two entry points:
 * :func:`attention_decode`: one new token against a KV cache, through the
   split-KV decode kernel on a card and through ``_sdpa`` on the CPU.
 
+A cross-attention layer (``cfg.cross``, llama-3.2-vision's image layers)
+takes K/V from encoder states of width ``d_cross`` and applies no rotary
+embedding. Its train form attends non-causally over every state (the
+flash kernel with ``causal=False``); its decode form reads a static cache
+of the states' K/V (``lm.build_cross_cache``) and never writes it.
+
 MLA has the same pair: :func:`mla_train` concatenates the nope and rope
 parts and runs ``sdpa_any`` (its qk dim 192 and unequal v dim are not
 shapes the flash kernel takes, and the JAX package runs no kernel there
 either); :func:`mla_decode` is the absorbed form over the latent cache, in
-plain float32 ops. Cross-attention is not ported yet (ROADMAP.md §1).
+plain float32 ops.
 """
 
 from __future__ import annotations
@@ -32,10 +38,6 @@ import torch.nn.functional as F
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.models.params import Maker
-
-_NOT_PORTED = ("cross-attention is not ported yet (ROADMAP.md §1, the "
-               "cross-attention + llama-3.2-vision item)")
-
 
 # ---------------------------------------------------------------------------
 # Config fragments
@@ -142,14 +144,13 @@ def apply_rope(x, positions, *, theta: float, fraction: float = 1.0):
 # ---------------------------------------------------------------------------
 
 def init_attention(mk: Maker, cfg: AttnConfig):
-    if cfg.cross:
-        raise NotImplementedError(_NOT_PORTED)
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    d_kv_in = cfg.d_cross if (cfg.cross and cfg.d_cross) else d
     p = {
         "wq": mk((d, hq, hd), ("embed", "heads", "head_dim"), init="fan_in"),
-        "wk": mk((d, hkv, hd), ("embed", "kv_heads", "head_dim"),
+        "wk": mk((d_kv_in, hkv, hd), ("embed", "kv_heads", "head_dim"),
                  init="fan_in"),
-        "wv": mk((d, hkv, hd), ("embed", "kv_heads", "head_dim"),
+        "wv": mk((d_kv_in, hkv, hd), ("embed", "kv_heads", "head_dim"),
                  init="fan_in"),
         "wo": mk((hq, hd, d), ("heads", "head_dim", "embed"), init="fan_in"),
     }
@@ -164,15 +165,19 @@ def _proj(x, w):
     return torch.einsum("bsd,dhk->bshk", x, w.to(x.dtype))
 
 
-def _qkv(p, cfg: AttnConfig, x, positions):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+def _qkv(p, cfg: AttnConfig, x, kv_src, positions):
+    """q from ``x``, k and v from ``kv_src``; no rotary embedding on a
+    cross layer."""
+    q = _proj(x, p["wq"])
+    k, v = _proj(kv_src, p["wk"]), _proj(kv_src, p["wv"])
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q)
         k = rmsnorm(p["k_norm"], k)
-    q = apply_rope(q, positions, theta=cfg.rope_theta,
-                   fraction=cfg.rope_fraction)
-    k = apply_rope(k, positions, theta=cfg.rope_theta,
-                   fraction=cfg.rope_fraction)
+    if not cfg.cross:
+        q = apply_rope(q, positions, theta=cfg.rope_theta,
+                       fraction=cfg.rope_fraction)
+        k = apply_rope(k, positions, theta=cfg.rope_theta,
+                       fraction=cfg.rope_fraction)
     return q, k, v
 
 
@@ -264,21 +269,27 @@ def sdpa_any(q, k, v, cfg: AttnConfig, *, causal: bool):
     return _sdpa(q, k, v, cfg, causal=causal)
 
 
-def attention_train(p, cfg: AttnConfig, x, *, positions=None,
+def attention_train(p, cfg: AttnConfig, x, *, positions=None, kv_src=None,
                     use_flash: bool = False):
-    """Full-sequence causal attention of x (B, S, d_model)."""
-    if cfg.cross:
-        raise NotImplementedError(_NOT_PORTED)
+    """Full-sequence attention of x (B, S, d_model): causal self-attention,
+    or on a cross layer non-causal attention over ``kv_src`` (B, S_kv,
+    d_cross). A cross layer without ``kv_src`` raises ``ValueError``,
+    where the JAX package would attend over ``x`` itself, later tokens
+    included."""
+    if cfg.cross and kv_src is None:
+        raise ValueError("a cross-attention layer needs its encoder states "
+                         "(kv_src / batch['cross_states'])")
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
-    q, k, v = _qkv(p, cfg, x, positions)
+    q, k, v = _qkv(p, cfg, x, x if kv_src is None else kv_src, positions)
+    causal = not cfg.cross
     if use_flash:
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=True, window=cfg.window,
+                              causal=causal, window=cfg.window,
                               softcap=cfg.attn_softcap, scale=cfg.qk_scale)
     else:
-        out = sdpa_any(q, k, v, cfg, causal=True)
+        out = sdpa_any(q, k, v, cfg, causal=causal)
     return _out_proj(out, p["wo"])
 
 
@@ -298,11 +309,17 @@ def attention_decode(p, cfg: AttnConfig, x, cache, pos):
     back. On a card the attention runs in the split-KV decode kernel with
     ``lengths = pos + 1``; on the CPU through ``_sdpa`` with
     ``q_offset=pos, kv_valid_len=pos + 1``, exactly as the JAX package.
+
+    A cross layer's cache holds the encoder states' K/V (every row valid,
+    filled by ``lm.build_cross_cache``) and is never written: the query
+    (no rotary embedding) attends to all of its rows, through the decode
+    kernel with ``lengths`` = the row count on a card, through ``_sdpa``
+    with ``causal=False, q_offset=pos`` on the CPU, as the JAX package.
     """
     if cfg.cross:
-        raise NotImplementedError(_NOT_PORTED)
+        return _cross_decode(p, cfg, x, cache, pos), cache
     b = x.shape[0]
-    q, k_new, v_new = _qkv(p, cfg, x, pos[:, None])
+    q, k_new, v_new = _qkv(p, cfg, x, x, pos[:, None])
     ck, cv = cache["k"], cache["v"]
     rows = torch.arange(b, device=ck.device)
     at = pos.long().clamp(0, ck.shape[1] - 1)
@@ -317,6 +334,27 @@ def attention_decode(p, cfg: AttnConfig, x, cache, pos):
         out = _sdpa(q, ck.to(x.dtype), cv.to(x.dtype), cfg, causal=True,
                     q_offset=pos, kv_valid_len=pos + 1)
     return _out_proj(out, p["wo"]), cache
+
+
+def _cross_decode(p, cfg: AttnConfig, x, cache, pos):
+    q = _proj(x, p["wq"])
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q)
+    ck, cv = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
+    if x.device.type == "cuda":
+        if cfg.window is not None:
+            # The kernel places the query at key lengths - 1; the JAX
+            # function places it at ``pos``, which only a window reads.
+            raise ValueError("a windowed cross-attention layer has no "
+                             "decode kernel form")
+        lengths = torch.full((x.shape[0],), ck.shape[1], dtype=torch.int32,
+                             device=x.device)
+        out = flash_decode(q[:, 0].contiguous(), ck, cv, lengths,
+                           softcap=cfg.attn_softcap,
+                           scale=cfg.qk_scale)[:, None]
+    else:
+        out = _sdpa(q, ck, cv, cfg, causal=False, q_offset=pos)
+    return _out_proj(out, p["wo"])
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ Entry points:
   lm_loss(params, cfg, batch)                 -> (loss, metrics)
   lm_prefill(params, cfg, batch)              last-position logits
   init_cache(cfg, batch, max_len, ...)        the decode cache
+  build_cross_cache(params, cfg, cache, states) the cross layers' K/V
   lm_decode_step(params, cfg, cache, token, pos) -> (logits, cache)
 
 Multi-codebook tokens (musicgen), tied embeddings, ``emb_scale``,
@@ -20,8 +21,12 @@ never runs the MTP block, but ``init_lm`` builds it. The decode cache
 holds a KV cache for each attention layer, a latent cache for each MLA
 layer and O(1) recurrent state for each Mamba, mLSTM and sLSTM layer
 (``transformer.init_block_cache``); ``lm_decode_step`` updates all of
-them in place. The cross-attention cache is not ported yet (ROADMAP.md
-§1).
+them in place. A cross-attention model (llama-3.2-vision) reads image
+states: ``lm_loss`` and ``lm_prefill`` take them as
+``batch["cross_states"]`` (B, n_cross_tokens, d_cross), and decode reads
+the cross layers' K/V of them, which ``build_cross_cache`` writes into the
+cache once and no step changes. Feed float32 states on a card: the
+kernels take float32 only.
 """
 
 from __future__ import annotations
@@ -37,8 +42,8 @@ from repro_torch.models.params import Maker, make_generator
 from repro_torch.models.transformer import (BlockSpec, ModelConfig,
                                             apply_layers_decode,
                                             apply_layers_train, block_train,
-                                            check_supported, init_block,
-                                            init_layer_caches, init_layers)
+                                            init_block, init_layer_caches,
+                                            init_layers, layer_slices)
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda",
@@ -58,7 +63,6 @@ def _mtp_spec(cfg: ModelConfig) -> BlockSpec:
 def make_lm(mk: Maker, cfg: ModelConfig):
     """The LM's parameter tree, each leaf from ``mk`` (the JAX package's
     ``init_lm(mk, cfg)``)."""
-    check_supported(cfg)
     init_norm, _ = make_norm(cfg.norm)
     p: dict[str, Any] = {
         "embed": mk((cfg.n_codebooks, cfg.vocab, cfg.d_model),
@@ -119,16 +123,17 @@ def _xent(logits, labels):
 
 
 def lm_loss(p, cfg: ModelConfig, batch):
-    """batch: {"tokens": (B, S+1[, n_cb]) int}. -> (loss, {"ce", "aux",
+    """batch: {"tokens": (B, S+1[, n_cb]) int, optional "cross_states"
+    (B, S_kv, d_cross): data, not a parameter}. -> (loss, {"ce", "aux",
     ["mtp",] "loss"}): next-token cross-entropy averaged over all positions
     (and codebooks), plus ``aux_weight`` times the MoE blocks' auxiliary
     term (MoE configs) and ``mtp_weight`` times the MTP loss (``cfg.mtp``:
     the trunk state at position i with the embedding of token i+1
     predicts token i+2)."""
-    check_supported(cfg)
-    tokens = batch["tokens"]
+    tokens, cross = batch["tokens"], batch.get("cross_states")
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
-    x, aux = apply_layers_train(p["layers"], cfg, _embed(p, cfg, inputs))
+    x, aux = apply_layers_train(p["layers"], cfg, _embed(p, cfg, inputs),
+                                cross_states=cross)
     _, norm = make_norm(cfg.norm)
     logits = _logits(p, cfg, norm(p["final_norm"], x))   # (B, S, n_cb, V)
     if cfg.n_codebooks == 1:
@@ -146,7 +151,8 @@ def lm_loss(p, cfg: ModelConfig, batch):
         e_in = norm(mtp["norm_e"], _embed(p, cfg, inputs[:, 1:]))
         h = torch.matmul(torch.cat([h_in, e_in], -1),
                          mtp["proj"].to(x.dtype))
-        h, _ = block_train(mtp["block"], cfg, _mtp_spec(cfg), h)
+        h, _ = block_train(mtp["block"], cfg, _mtp_spec(cfg), h,
+                           cross_states=cross)
         mtp_logits = _logits(p, cfg, norm(p["final_norm"], h))
         lab2 = labels[:, 1:] if labels.dim() == 2 else labels[:, 1:, 0]
         mtp_loss = _xent(mtp_logits[..., 0, :], lab2)
@@ -159,13 +165,15 @@ def lm_loss(p, cfg: ModelConfig, batch):
 @torch.no_grad()
 def lm_prefill(p, cfg: ModelConfig, batch):
     """Forward the full prompt ``batch["tokens"]`` (B, S[, n_cb]) and return
-    the last position's logits (B, n_cb, V). With ``cfg.use_flash`` every
-    attention layer runs the flash kernel. Prefill is inference: it runs
-    under ``torch.no_grad()``, so ``cfg.remat`` and the recurrent blocks'
-    chunk checkpoints (training only) keep no activations here."""
-    check_supported(cfg)
+    the last position's logits (B, n_cb, V); a cross-attention model reads
+    ``batch["cross_states"]``. With ``cfg.use_flash`` every attention layer
+    runs the flash kernel (a cross layer non-causally). Prefill is
+    inference: it runs under ``torch.no_grad()``, so ``cfg.remat`` and the
+    recurrent blocks' chunk checkpoints (training only) keep no
+    activations here."""
     x = _embed(p, cfg, batch["tokens"])
-    x, _ = apply_layers_train(p["layers"], cfg, x)
+    x, _ = apply_layers_train(p["layers"], cfg, x,
+                              cross_states=batch.get("cross_states"))
     _, norm = make_norm(cfg.norm)
     x = norm(p["final_norm"], x[:, -1])
     return _logits(p, cfg, x)
@@ -175,6 +183,32 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                dtype=torch.bfloat16, device="cuda"):
     return init_layer_caches(cfg, batch, max_len, dtype=dtype,
                              device=resolve_device(device))
+
+
+@torch.no_grad()
+def build_cross_cache(p, cfg: ModelConfig, cache, cross_states):
+    """Write each cross layer's K/V of ``cross_states`` (B, n_cross_tokens,
+    d_cross) into ``cache`` in place (cast to the cache's dtype; a stacked
+    layer through its ``layer_slices`` view) and return the cache. Row i
+    of the states is batch slot i's image; no decode step writes these
+    caches. As the JAX function, it applies no ``k_norm``."""
+    def fill(layer_p, layer_c):
+        ap = layer_p["attn"]
+        for name, w in (("k", ap["wk"]), ("v", ap["wv"])):
+            kv = torch.einsum("bsd,dhk->bshk", cross_states,
+                              w.to(cross_states.dtype))
+            layer_c["mix"][name].copy_(kv)
+
+    layers = p["layers"]
+    for i, spec in enumerate(cfg.prefix):
+        if spec.cross:
+            fill(layers["prefix"][i], cache["prefix"][i])
+    for j, spec in enumerate(cfg.pattern if cfg.n_repeats else ()):
+        if spec.cross:
+            for lp, lc in zip(layer_slices(layers["stack"][f"b{j}"]),
+                              layer_slices(cache["stack"][f"b{j}"])):
+                fill(lp, lc)
+    return cache
 
 
 def lm_decode_step(p, cfg: ModelConfig, cache, token, pos):

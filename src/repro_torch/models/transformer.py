@@ -11,14 +11,17 @@ place.
 Blocks mix with GQA attention (``kind="attn"``), MLA (``"mla"``), Mamba
 (``"mamba"``) or xLSTM (``"mlstm"`` / ``"slstm"``), and end in a dense MLP,
 a MoE MLP (``mlp="moe"``, whose load-balancing term is summed into the
-stack's ``aux``) or none. Cross-attention raises ``NotImplementedError``
-(ROADMAP.md §1).
+stack's ``aux``) or none. A cross-attention block (``cross=True``) reads
+the encoder states passed as ``cross_states=`` in the train / prefill
+path, and in decode a static cache of ``n_cross_tokens`` rows holding
+their K/V (``lm.build_cross_cache``).
 
 The recurrent kinds keep O(1) state a slot instead of a KV cache, and
 their decode ignores ``pos``. :func:`reset_cache_rows` writes a slot's
 recurrent rows back to their initial values (``recurrent_init``), which a
 serving engine does when it admits a request into a used slot; attention
-and MLA caches are left alone, as ``pos`` masks them.
+and MLA caches are left alone, as ``pos`` masks them, and so are the
+cross-attention caches, whose image belongs to the slot.
 
 ``remat`` applies to training (grad mode on) per layer or per pattern
 super-block, as in the JAX package: ``"full"`` recomputes everything in
@@ -46,9 +49,6 @@ from repro_torch.models.layers import (AttnConfig, MlaConfig, MlpConfig,
                                        make_norm, mla_decode, mla_train, mlp)
 from repro_torch.models.moe import MoeConfig, init_moe, moe_apply
 from repro_torch.models.params import Maker, stacked
-
-_ROADMAP_ITEM = "ROADMAP.md §1: cross-attention + llama-3.2-vision"
-
 
 @dataclasses.dataclass(frozen=True)
 class BlockSpec:
@@ -119,18 +119,9 @@ class ModelConfig:
 _KINDS = ("attn", "mla", "mamba", "mlstm", "slstm")
 
 
-def _check_spec(cfg: ModelConfig, spec: BlockSpec) -> None:
+def _check_spec(spec: BlockSpec) -> None:
     if spec.kind not in _KINDS:
         raise ValueError(spec.kind)
-    if spec.cross:
-        raise NotImplementedError(
-            f"{cfg.name}: block {spec} is not ported yet ({_ROADMAP_ITEM})")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a block the port does not run."""
-    for spec in cfg.prefix + cfg.pattern:
-        _check_spec(cfg, spec)
 
 
 def _mlp_cfg(cfg: ModelConfig) -> MlpConfig:
@@ -142,7 +133,7 @@ def _mlp_cfg(cfg: ModelConfig) -> MlpConfig:
 # ---------------------------------------------------------------------------
 
 def init_block(mk: Maker, cfg: ModelConfig, spec: BlockSpec):
-    _check_spec(cfg, spec)
+    _check_spec(spec)
     init_norm, _ = make_norm(cfg.norm)
     p: dict[str, Any] = {"norm1": init_norm(mk, cfg.d_model)}
     if spec.kind == "attn":
@@ -185,9 +176,10 @@ def _mlp_residual(p, cfg: ModelConfig, spec: BlockSpec, x):
     return x + y, aux
 
 
-def _mix_train(p, cfg: ModelConfig, spec: BlockSpec, h):
+def _mix_train(p, cfg: ModelConfig, spec: BlockSpec, h, cross_states):
     if spec.kind == "attn":
         return attention_train(p["attn"], cfg.attn_cfg(spec), h,
+                               kv_src=cross_states if spec.cross else None,
                                use_flash=cfg.use_flash)
     if spec.kind == "mla":
         return mla_train(p["attn"], cfg.mla, h, impl=cfg.attn_impl,
@@ -199,10 +191,13 @@ def _mix_train(p, cfg: ModelConfig, spec: BlockSpec, h):
     return xlstm.slstm_train(p["mix"], cfg.xlstm_cfg, h)
 
 
-def block_train(p, cfg: ModelConfig, spec: BlockSpec, x):
-    """Full-sequence forward of one block -> (x, aux)."""
+def block_train(p, cfg: ModelConfig, spec: BlockSpec, x, *,
+                cross_states=None):
+    """Full-sequence forward of one block -> (x, aux). A cross block
+    attends over ``cross_states`` (B, S_kv, d_cross) and raises
+    ``ValueError`` without them."""
     _, norm = make_norm(cfg.norm)
-    y = _mix_train(p, cfg, spec, norm(p["norm1"], x))
+    y = _mix_train(p, cfg, spec, norm(p["norm1"], x), cross_states)
     if cfg.sandwich_norm:
         y = norm(p["post1"], y)
     return _mlp_residual(p, cfg, spec, x + y)
@@ -234,11 +229,13 @@ def init_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int,
                      lead=()):
     """The block's decode cache. ``dtype`` holds the attention, MLA and
     Mamba caches; the xLSTM caches are always float32, as in the JAX
-    package."""
-    _check_spec(cfg, spec)
+    package. A cross block's cache has ``max(n_cross_tokens, 1)`` rows,
+    whatever ``max_len``."""
+    _check_spec(spec)
     kw = dict(dtype=dtype, device=device, lead=lead)
     if spec.kind == "attn":
-        mix = init_kv_cache(cfg.attn_cfg(spec), batch, max_len, **kw)
+        rows = max(cfg.n_cross_tokens, 1) if spec.cross else max_len
+        mix = init_kv_cache(cfg.attn_cfg(spec), batch, rows, **kw)
     elif spec.kind == "mla":
         mix = init_mla_cache(cfg.mla, batch, max_len, **kw)
     elif spec.kind == "mamba":
@@ -281,7 +278,6 @@ def reset_cache_rows(cfg: ModelConfig, cache, rows) -> None:
 # ---------------------------------------------------------------------------
 
 def init_layers(mk: Maker, cfg: ModelConfig):
-    check_supported(cfg)
     p: dict[str, Any] = {}
     if cfg.prefix:
         p["prefix"] = [init_block(mk, cfg, s) for s in cfg.prefix]
@@ -314,7 +310,9 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def _remat(cfg: ModelConfig, fn):
-    """``fn(x)`` under the activation-checkpoint policy ``cfg.remat``."""
+    """``fn(x)`` under the activation-checkpoint policy ``cfg.remat``;
+    ``fn`` binds every other input (the layer index, the cross states), so
+    that a recomputation sees the same ones."""
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
     if cfg.remat == "none" or not torch.is_grad_enabled():
@@ -324,28 +322,32 @@ def _remat(cfg: ModelConfig, fn):
     return lambda x: checkpoint(fn, x, use_reentrant=False, **kw)
 
 
-def apply_layers_train(p, cfg: ModelConfig, x):
+def apply_layers_train(p, cfg: ModelConfig, x, *, cross_states=None):
     """Full-sequence forward of every layer -> (x, aux): ``aux`` sums the
-    MoE blocks' load-balancing terms (float32), as in the JAX package."""
+    MoE blocks' load-balancing terms (float32), as in the JAX package.
+    The cross blocks attend over ``cross_states``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, spec in enumerate(cfg.prefix):
-        x, a = _remat(cfg, functools.partial(block_train, p["prefix"][i],
-                                             cfg, spec))(x)
+        x, a = _remat(cfg, functools.partial(
+            block_train, p["prefix"][i], cfg, spec,
+            cross_states=cross_states))(x)
         aux = aux + a
 
     stack = [layer_slices(p["stack"][f"b{j}"])
              for j in range(len(cfg.pattern))] if cfg.n_repeats else []
 
-    def superblock(x, r):
+    def superblock(x, r, cross_states):
         a_tot = torch.zeros((), dtype=torch.float32, device=x.device)
         for j, spec in enumerate(cfg.pattern):
-            x, a = block_train(stack[j][r], cfg, spec, x)
+            x, a = block_train(stack[j][r], cfg, spec, x,
+                               cross_states=cross_states)
             a_tot = a_tot + a
         return x, a_tot
 
     auxs = []
     for r in range(cfg.n_repeats):
-        x, a = _remat(cfg, functools.partial(superblock, r=r))(x)
+        x, a = _remat(cfg, functools.partial(
+            superblock, r=r, cross_states=cross_states))(x)
         auxs.append(a)
     if auxs:
         aux = aux + torch.stack(auxs).sum()
@@ -369,7 +371,6 @@ def apply_layers_decode(p, cfg: ModelConfig, x, cache, pos):
 
 def init_layer_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                       dtype=torch.bfloat16, device="cpu"):
-    check_supported(cfg)
     kw = dict(dtype=dtype, device=device)
     cache: dict[str, Any] = {}
     if cfg.prefix:

@@ -93,7 +93,14 @@ class DecodeEngine:
     ignores ``pos``), so a request never starts from the state of the
     slot's previous occupant; the JAX engine leaves that state in place
     (ROADMAP.md §3). Attention and MLA caches are left alone, since
-    ``pos`` masks their stale rows. Sampling at
+    ``pos`` masks their stale rows, and so are the cross-attention
+    caches. A cross-attention model (llama-3.2-vision) decodes against the
+    image K/V in ``cache``, which the engine starts at zero, as the JAX
+    engine does: the caller fills it after construction with
+    ``eng.cache = lm.build_cross_cache(params, cfg, eng.cache, states)``,
+    row i of ``states`` being slot i's image. The image belongs to the
+    slot, not to the request: admission leaves it in place, and every
+    request the slot serves sees it. Sampling at
     ``temperature > 0`` draws from the engine's own ``torch.Generator``
     seeded with ``rng_seed``; its draws differ from ``jax.random``'s, so
     only greedy (temperature 0) tokens match the JAX engine. ``mesh`` is

@@ -521,6 +521,11 @@ FLASH_GPU_CASES = [
     (1, 100, 100, 4, 4, 128, {}),
     (1, 100, 100, 8, 2, 64, {}),
     (1, 100, 100, 16, 2, 128, dict(softcap=30.0)),
+    # Non-causal over a ragged key count (cross-attention over image
+    # tokens): Sq > Skv, and Sq < Skv, at D 128 and 4 query heads a kv head.
+    (1, 300, 201, 8, 2, 128, dict(causal=False)),
+    (2, 130, 97, 32, 8, 128, dict(causal=False)),
+    (1, 77, 250, 8, 2, 128, dict(causal=False)),
 ]
 
 
@@ -570,6 +575,19 @@ def test_flash_decode_kernel(dims, opts):
     ops = _decode_operands(7, b, s, hq, hkv, d, lengths)
     want = flash_decode_plain(*ops, scale=d ** -0.5, **opts)
     got = flash_decode(*(t.cuda() for t in ops), **opts).cpu()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_flash_decode_kernel_over_a_full_cross_cache():
+    """#8 as a cross layer decodes: every row of a 201-row cache (a
+    multiple of neither the 64-key split floor nor a tile) visible in
+    every sequence, 4 query heads a kv head, D 128."""
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+
+    ops = _decode_operands(63, 4, 201, 32, 8, 128, [201] * 4)
+    want = flash_decode_plain(*ops, scale=128 ** -0.5)
+    got = flash_decode(*(t.cuda() for t in ops)).cpu()
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
@@ -952,3 +970,51 @@ def test_recurrent_smoke_serves_on_the_card_through_a_reused_slot(arch):
         fresh.update(serve(on_card, "cuda", [(rid, prompt)]))
     assert reused == fresh and len(fresh) == 3
     assert serve(params, "cpu", list(enumerate(prompts))) == reused
+
+
+def test_llama_vision_smoke_serves_on_the_card_with_its_image():
+    """llama-3.2-vision smoke on the card with float32 image states:
+    ``lm_prefill(use_flash=True)`` launches #7 once a layer (the cross
+    layer non-causally) within 1e-4 * max|ref| of the CPU, and a
+    ``DecodeEngine`` whose cross cache ``build_cross_cache`` filled runs
+    #8 once a layer and step, the cross layer included, and gives the
+    CPU engine's greedy tokens."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch._tree import tree_map
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models import lm
+    from repro_torch.serving import DecodeEngine, Request
+
+    cfg = dataclasses.replace(
+        configs.get_config("llama-3.2-vision-11b", smoke=True),
+        use_flash=True)
+    params = lm.init_lm(cfg, 0, device="cpu")
+    on_card = tree_map(lambda t: t.cuda(), params)
+    rng = np.random.default_rng(64)
+    states = torch.as_tensor(rng.normal(
+        size=(2, cfg.n_cross_tokens, cfg.d_cross)).astype(np.float32))
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(2, 37))
+                           .astype(np.int32))
+    flash_attention.launches = 0
+    got = lm.lm_prefill(on_card, cfg, {"tokens": toks.cuda(),
+                                       "cross_states": states.cuda()}).cpu()
+    assert flash_attention.launches == cfg.n_layers
+    want = lm.lm_prefill(params, cfg, {"tokens": toks,
+                                       "cross_states": states})
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+    prompts = [rng.integers(0, cfg.vocab, size=n).tolist() for n in (5, 2, 9)]
+    outs = {}
+    for p, dev in ((params, "cpu"), (on_card, "cuda")):
+        eng = DecodeEngine(p, cfg, batch=2, max_len=24, device=dev)
+        eng.cache = lm.build_cross_cache(p, cfg, eng.cache, states.to(dev))
+        for rid, prompt in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=prompt, max_new=6))
+        flash_decode.launches = 0
+        outs[dev] = {r.rid: r.out for r in eng.run()}
+        if dev == "cuda":
+            assert flash_decode.launches == cfg.n_layers * eng.steps > 0
+    assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) == 3

@@ -71,21 +71,25 @@ def test_no_module_imports_jax_or_the_jax_package(path):
 
 
 def test_get_config_refuses_only_the_unported_arch():
-    """Every arch id resolves but llama-3.2-vision, whose cross-attention
-    blocks are the one item of the port's module queue left; its error
-    names that item alone."""
+    """No arch id is left unported: every JAX arch id resolves, ``full()``
+    and ``smoke()`` alike, to the JAX package's config field for field,
+    llama-3.2-vision's cross-attention layers included."""
+    import dataclasses
+
+    from repro import configs as j_configs
     from repro_torch import configs
 
-    assert set(configs.ARCHS) - set(configs.SUPPORTED_ARCHS) == {
-        "llama-3.2-vision-11b"}
+    assert configs.ARCHS == j_configs.ARCHS == configs.SUPPORTED_ARCHS
+    for arch in configs.ARCHS:
+        for smoke in (False, True):
+            assert dataclasses.asdict(configs.get_config(arch, smoke=smoke)) \
+                == dataclasses.asdict(j_configs.get_config(arch, smoke=smoke))
+    llama = configs.get_config("llama-3.2-vision-11b")
+    assert [s.cross for s in llama.pattern] == [False] * 3 + [True, False]
+    assert (llama.d_cross, llama.n_cross_tokens) == (4096, 1601)
     for arch in ("jamba-v0.1-52b", "xlstm-1.3b"):
         assert configs.get_config(arch).sub_quadratic
         assert configs.get_config(arch, smoke=True).n_layers == 8
-    with pytest.raises(NotImplementedError) as err:
-        configs.get_config("llama-3.2-vision-11b")
-    msg = str(err.value)
-    assert "cross-attention + llama-3.2-vision" in msg
-    assert "Mamba" not in msg and "xLSTM" not in msg
 
 
 @pytest.mark.parametrize("line", [

@@ -189,24 +189,26 @@ def test_prefill_unchanged_by_remat():
 @pytest.mark.parametrize("spec", [dict(kind="mamba"), dict(kind="mlstm"),
                                   dict(kind="slstm"), dict(cross=True)])
 def test_unported_blocks_keep_raising(spec):
-    """Cross-attention is the one block kind still unported: a train step
-    over it raises. The recurrent kinds, refused here until they were
-    ported, now build a step that trains, on a smoke config that carries
-    their sub-config."""
+    """No block kind is left unported. Each kind once refused here builds
+    a step that trains, on a smoke config that carries its sub-config; a
+    cross-attention block trains on a batch with image states and raises
+    ``ValueError`` on a batch without them."""
     from repro_torch.models.transformer import BlockSpec
-    if spec.get("cross"):
-        cfg = configs.get_config("qwen3-1.7b", smoke=True)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_train_step(dataclasses.replace(
-                cfg, pattern=(BlockSpec(**spec),)))
-        return
-    arch = "jamba-v0.1-52b" if spec["kind"] == "mamba" else "xlstm-1.3b"
+    arch = {"mamba": "jamba-v0.1-52b", "mlstm": "xlstm-1.3b",
+            "slstm": "xlstm-1.3b"}.get(spec.get("kind"),
+                                        "llama-3.2-vision-11b")
     cfg = dataclasses.replace(configs.get_config(arch, smoke=True),
                               pattern=(BlockSpec(**spec),))
     params = lm.init_lm(cfg, 0, device="cpu")
-    _, _, m = build_train_step(cfg)(
-        params, optim.init_opt_state(params, optim.AdamWConfig()),
-        {"tokens": np.arange(18, dtype=np.int32).reshape(2, 9)})
+    batch = {"tokens": np.arange(18, dtype=np.int32).reshape(2, 9)}
+    step = build_train_step(cfg)
+    opt = optim.init_opt_state(params, optim.AdamWConfig())
+    if spec.get("cross"):
+        with pytest.raises(ValueError, match="encoder states"):
+            step(params, opt, batch)
+        batch["cross_states"] = np.ones((2, cfg.n_cross_tokens, cfg.d_cross),
+                                        np.float32)
+    _, _, m = step(params, opt, batch)
     assert np.isfinite(float(m["loss"]))
 
 
