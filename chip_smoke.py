@@ -191,6 +191,25 @@ Phases, each fatal on failure:
               max|ref|, and the same prompts under another image moving
               the logits by more than 1e-3 * max|ref|. Peak memory of each
               part is printed.
+13. lm-bf16 — 13a: #7's bf16 kernel (Qwen3, granite D 64, Gemma-2 window
+              + soft-cap, llama's self and cross layers) and #8 over a
+              bf16 cache under a float32 and a bf16 q (the serving shape,
+              32k, llama's 1,601-row cross cache, a window with 64 splits
+              forced) held against their plain versions (a bf16 output
+              within 2**-7 * max|ref|, a float32 one within 1e-4), rerun
+              bitwise, and timed beside the float32 kernel, the plain
+              version and SDPA in bf16; bounds at the dense bf16 rate
+              (#7) and at 2 bytes a cached value (#8). 13b:
+              llama-3.2-vision-11b ``full()``, whole, in bf16 (19.55 GB
+              from the seed) with random bf16 image states: a float32 run
+              of the same weights gives the model's own bf16 error, which
+              sets the prefill and decode limits (``BF16_LIMITS``);
+              phase 6's prefill (40 #7 launches, 8 non-causal, all on
+              bf16 operands), phase 7's serving with ``cache_dtype=
+              bfloat16`` (40 #8 launches a step, each on the engine's
+              cache tensors themselves, checked by data pointer), decode
+              vs prefill over the image, the image's effect, a profiled
+              prefill and decode step, and peak memory.
 
 Each path is driven with every kernel's launch count set to 0 just
 before it and read just after. The last lines are the card's name and
@@ -266,6 +285,39 @@ REC_SIZES = dict(jamba="jamba-v0.1-52b", jamba_params=51_570_315_264,
 # parameter count, the prefill and the decode-vs-prefill prompts.
 CROSS_SIZES = dict(llama="llama-3.2-vision-11b", llama_params=9_775_157_248,
                    prefill=(4, 2048), check=(2, 64))
+# Phase 13: bf16 serving. Kernel shapes: (name, B, Sq, Skv, Hq, Hkv, D,
+# options) for #7 on bf16 operands; (name, B, S, Hq, Hkv, D, options,
+# lengths: "full" or ragged from the seed) for #8 over a bf16 cache, each
+# under a float32 and a bf16 q.
+BF16_SIZES = dict(
+    flash=[("Qwen3-1.7B prefill", 4, 2048, 2048, 16, 8, 128, {}),
+           ("granite-moe-3b prefill", 4, 2048, 2048, 24, 8, 64, {}),
+           ("Gemma-2-27B local layer", 1, 6144, 6144, 32, 16, 144,
+            dict(window=4096, softcap=50.0)),
+           ("llama-3.2-vision self layer", 4, 2048, 2048, 32, 8, 128, {}),
+           ("llama-3.2-vision cross layer", 4, 2048, 1601, 32, 8, 128,
+            dict(causal=False))],
+    decode=[("Qwen3-1.7B serving shape", 4, 512, 16, 8, 128, {}, "ragged"),
+            ("Qwen3-1.7B 32k cache", 8, 32768, 16, 8, 128, {}, "ragged"),
+            ("llama-3.2-vision cross cache", 4, 1601, 32, 8, 128, {},
+             "full"),
+            ("Gemma-2-27B window + soft-cap, 64 splits forced", 4, 8192, 32,
+             16, 144, dict(window=4096, softcap=50.0, num_splits=64),
+             "ragged")])
+# Two bf16 ulps at the largest output: #7 / #8 with a bf16 output against
+# the plain version (both float32 inside, the output rounded once; #7 also
+# rounds P to bf16 for P V).
+BF16_RTOL = 2.0 ** -7
+# Phase 13's model-level limits (PERF.md §2, written before its first
+# run). A random-weight 40-layer model in bf16 moves its logits by a few
+# per cent of max|logits| from rounding alone, so the prefill and decode
+# limits are read from the model's own bf16 error: ``noise_factor`` times
+# the bf16 path's distance from the float32 run of the same bf16 weights
+# (never below BF16_RTOL); a token may differ from the prefill argmax only
+# within the prefill limit of its top-2 gap. ``image``: another image must
+# move the bf16 logits by more than this share of max|logits| (a cross
+# path that ignored the image would give bitwise-equal logits).
+BF16_LIMITS = dict(noise_factor=2.0, image=BF16_RTOL)
 # Phase 8 / 9: training sizes.
 TRAIN_SIZES = dict(dcn_batch=16, dcn_steps=5, example_steps=300,
                    example_tail=50, example_limit=0.35, lm_arch="qwen3-1.7b",
@@ -448,12 +500,12 @@ def hold(what, got, ref, rtol):
     return d, sc
 
 
-def hold_captured(what, calls, plain):
+def hold_captured(what, calls, plain, rtol=ATTN_RTOL):
     """Hold each captured ``(args, kwargs, result)`` of a path against
-    ``plain`` on the same operands."""
+    ``plain`` on the same operands, within ``rtol`` * max|ref|."""
     for a, k, out in calls:
         k = dict(k, scale=k.get("scale") or a[0].shape[-1] ** -0.5)
-        yield hold(what, out, plain(*a, **k), ATTN_RTOL)
+        yield hold(what, out, plain(*a, **k), rtol)
 
 
 def time_flash(q, k, v, opts, err, name) -> dict:
@@ -522,15 +574,17 @@ def tallied(module, name: str, key, tally: dict):
 
 
 def prefill_through_flash(card, tag, params, cfg, toks, reset_counts,
-                          cross_states=None):
+                          cross_states=None, logit_rtol=LOGIT_RTOL,
+                          attn_rtol=ATTN_RTOL):
     """``lm_prefill`` of ``toks`` (and ``cross_states``, the image states
     of a cross-attention model) with ``use_flash``: one #7 launch an
     attention layer, non-causal in each cross layer, last-position logits
-    within LOGIT_RTOL of the ``_sdpa`` path, the #7 operands of the first
-    and the last attention layer and of the first and the last cross layer
-    held against the plain version. -> (#7 launches, [(args, kwargs, out)]
-    of those calls in layer order, the prefill's wall time in s, the
-    non-causal launches)."""
+    within ``logit_rtol`` (a number, or a function of the ``_sdpa`` path's
+    logits that gives one) of the ``_sdpa`` path, the #7 operands of the
+    first and the last attention layer and of the first and the last cross
+    layer held against the plain version within ``attn_rtol``. -> (#7
+    launches, [(args, kwargs, out)] of those calls in layer order, the
+    prefill's wall time in s, the non-causal launches)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -571,14 +625,16 @@ def prefill_through_flash(card, tag, params, cfg, toks, reset_counts,
     wall_ref = time.perf_counter() - t0
     if tuple(logits.shape) != (pb, cfg.n_codebooks, cfg.vocab):
         fail(f"prefill logits {tuple(logits.shape)}")
+    if callable(logit_rtol):
+        logit_rtol = logit_rtol(ref)
     d, sc = hold("prefill logits (flash vs _sdpa path)", logits, ref,
-                 LOGIT_RTOL)
+                 logit_rtol)
     print(f"[{tag}] {card}: {pb} x {plen} tokens through "
           f"{n7} flash_attention launches ({n_nc} non-causal) in "
           f"{wall * 1e3:.1f} ms = "
           f"{pb * plen / wall:.0f} prefill tokens/s (_sdpa path "
           f"{wall_ref * 1e3:.1f} ms); last-position logits finite, max|d| "
-          f"{d:.3e} (limit {LOGIT_RTOL}*{sc:.3f})")
+          f"{d:.3e} (limit {logit_rtol:.4g}*{sc:.3f})")
     del logits, ref
     if len(held7) != len(ends):
         fail(f"kept {len(held7)} prefill calls of flash_attention, not "
@@ -586,11 +642,12 @@ def prefill_through_flash(card, tag, params, cfg, toks, reset_counts,
     for layer, (a, k, _), (d, sc) in zip(
             ends, held7, hold_captured(
                 "flash_attention on the prefill's operands", held7,
-                fa.flash_attention_plain)):
+                fa.flash_attention_plain, attn_rtol)):
         print(f"[{tag}] flash_attention on the prefill's operands at "
               f"{'cross' if layer in cross else 'attention'} layer {layer} "
-              f"of {n_attn} (q {tuple(a[0].shape)}, k {tuple(a[1].shape)}, "
-              f"{k}) vs plain: max|d| {d:.3e} (limit {ATTN_RTOL}*{sc:.3f})")
+              f"of {n_attn} (q {tuple(a[0].shape)} {a[0].dtype}, k "
+              f"{tuple(a[1].shape)}, {k}) vs plain: max|d| {d:.3e} (limit "
+              f"{attn_rtol:.4g}*{sc:.3f})")
     torch.cuda.empty_cache()
     return n7, held7, wall, n_nc
 
@@ -684,26 +741,58 @@ def time_decode(call, n_split, shape) -> dict:
         plain_ms=cuda_time_ms(lambda: fd.flash_decode_plain(*a8, **k8), 50),
         library_ms=cuda_time_ms(lib8, 200),
         ops=dict(fp32=4 * vis8 * q8.shape[1] * d8),
-        bytes=4 * (2 * vis8 * hkv8 * d8 + 2 * q8.numel()) + 4 * b8,
+        bytes=kc8.element_size() * 2 * vis8 * hkv8 * d8
+        + q8.element_size() * 2 * q8.numel() + 4 * b8,
         shape=f"{shape}, B={b8} S={s8} Hq={q8.shape[1]} Hkv={hkv8} D={d8}, "
               f"lengths {lens8.tolist()}, {vis8} visible keys, at most "
               f"{n_split} splits a sequence")
 
 
+def cache_kv_ptrs(cache) -> set:
+    """The data pointers of every attention layer's K and V cache in
+    ``cache``, a stacked leaf's per-layer views included: where #8 must
+    read a cache from, not from a copy."""
+    import torch
+
+    ptrs = set()
+
+    def walk(node):
+        if isinstance(node, dict):
+            if set(node) == {"k", "v"}:
+                for t in node.values():
+                    ptrs.update([t.data_ptr()] if t.dim() == 4 else
+                                [r.data_ptr() for r in torch.unbind(t, 0)])
+                return
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, list):
+            for v in node:
+                walk(v)
+
+    walk(cache)
+    return ptrs
+
+
 def serve_through_decode(card, tag, params, cfg, reset_counts,
-                         check_cfg=None, cross_states=None):
-    """``DecodeEngine(batch, max_len)`` of LM_SIZES serving its greedy
-    requests: one #8 launch an attention layer and step, every request
-    finished, #8 held against its plain version on the first and the last
-    attention layer's operands (and the first cross layer's) at step 0,
-    step 64 and a later step with a free slot at a stale position, two
+                         check_cfg=None, cross_states=None,
+                         cache_dtype=None, attn_rtol=ATTN_RTOL,
+                         gap_rtol=1e-3):
+    """``DecodeEngine(batch, max_len, cache_dtype)`` of LM_SIZES (float32
+    caches unless ``cache_dtype``) serving its greedy requests: one #8
+    launch an attention layer and step, every request finished, #8 held
+    against its plain version within ``attn_rtol`` on the first and the
+    last attention layer's operands (and the first cross layer's) at step
+    0, step 64 and a later step with a free slot at a stale position, two
     requests' first and last tokens cross-checked against the argmax of
-    ``lm_prefill`` under ``check_cfg`` (default ``cfg``); decode tokens/s,
-    step and request latency. A cross-attention model's engine gets its
-    cross cache from ``cross_states`` (row i slot i's image), and each
-    checked request's prefill gets its slot's row. -> (#8 timed at the
-    serving shape, #8 launches, the engine, the step latencies in s, #8
-    timed at the cross shape or None)."""
+    ``lm_prefill`` under ``check_cfg`` (default ``cfg``), a token allowed
+    to differ only where the prefill's top-2 gap is within ``gap_rtol`` *
+    max|logits|, and every #8 launch reading the engine's cache tensors
+    themselves (their data pointers), not a copy; decode tokens/s, step
+    and request latency. A cross-attention
+    model's engine gets its cross cache from ``cross_states`` (row i slot
+    i's image), and each checked request's prefill gets its slot's row. ->
+    (#8 timed at the serving shape, #8 launches, the engine, the step
+    latencies in s, #8 timed at the cross shape or None)."""
     import numpy as np
     import torch
 
@@ -718,7 +807,9 @@ def serve_through_decode(card, tag, params, cfg, reset_counts,
 
     def engine():
         eng = DecodeEngine(params, cfg, batch=sizes["serve_batch"],
-                           max_len=sizes["serve_max_len"], device=dev)
+                           max_len=sizes["serve_max_len"],
+                           cache_dtype=cache_dtype or torch.float32,
+                           device=dev)
         if cross_states is not None:
             eng.cache = lm.build_cross_cache(params, cfg, eng.cache,
                                              cross_states)
@@ -754,12 +845,23 @@ def serve_through_decode(card, tag, params, cfg, reset_counts,
             stale.extend(np.flatnonzero(~eng.active).tolist())
         return layer in ends and eng.steps in kept_steps
 
-    rows = {}
+    rows, stored = {}, {}
+    own = cache_kv_ptrs(eng.cache)
+
+    def storage(a, _):
+        return "cache" if {a[1].data_ptr(), a[2].data_ptr()} <= own \
+            else "copy"
+
     reset_counts()
     with tallied(layers, "flash_decode", lambda a, _: a[1].shape[1], rows), \
+            tallied(layers, "flash_decode", storage, stored), \
             recording(layers, "flash_decode", held8, keep=keep8):
         step_s, finish_s, wall = serve_timed(eng, reqs)
     del eng._admit
+    if stored != {"cache": eng.steps * n_attn}:
+        fail(f"flash_decode launches by the cache they read: {stored}, "
+             f"expected every one of {eng.steps * n_attn} on the engine's "
+             f"cache tensors, none on a copy")
     n8 = fd.flash_decode.launches
     n8_cross = rows.get(cfg.n_cross_tokens, 0) if cross else 0
     if n8 != n_attn * eng.steps or n8_cross != len(cross) * eng.steps:
@@ -778,7 +880,7 @@ def serve_through_decode(card, tag, params, cfg, reset_counts,
     err8 = {False: 0.0, True: 0.0}
     for i, (d, sc) in enumerate(hold_captured(
             "flash_decode on the serving operands", held8,
-            fd.flash_decode_plain)):
+            fd.flash_decode_plain, attn_rtol)):
         lens = held8[i][0][3].tolist()
         s_len, n_split = held8[i][0][1].shape[1], splits(held8[i])
         per_seq = [len(r) for r in fd.split_ranges(
@@ -791,7 +893,8 @@ def serve_through_decode(card, tag, params, cfg, reset_counts,
               f"of {n_attn} ({s_len}-row cache, lengths {lens}, splits "
               f"{per_seq} of at most {n_split}"
               f"{f', free slots {stale} at stale lengths' if at_stale else ''}"
-              f") vs plain: max|d| {d:.3e} (limit {ATTN_RTOL}*{sc:.3f})")
+              f") vs plain: max|d| {d:.3e} (limit {attn_rtol:.4g}*"
+              f"{sc:.3f})")
     # Timed at the serving shape: the kept layers' calls of the last kept
     # step.
     last = held8[2 * len(ends):]
@@ -816,7 +919,7 @@ def serve_through_decode(card, tag, params, cfg, reset_counts,
             lg = lm.lm_prefill(params, cfg_flash, batch)[0, 0]
             top = torch.topk(lg, 2).values
             gap = float(top[0] - top[1])
-            tol = 1e-3 * float(lg.abs().max())
+            tol = gap_rtol * float(lg.abs().max())
             pred = int(torch.argmax(lg))
             gaps.append((r.rid, j, pred == r.out[j], gap))
             if pred != r.out[j] and gap > tol:
@@ -825,7 +928,8 @@ def serve_through_decode(card, tag, params, cfg, reset_counts,
     print(f"[{tag}] {card}: "
           + serving_line(reqs, eng, step_s, finish_s, wall)
           + f"; {n8} flash_decode launches"
-          + (f" ({n8_cross} over the cross cache)" if cross else ""))
+          + (f" ({n8_cross} over the cross cache)" if cross else "")
+          + f", by the cache they read {stored}")
     print(f"[{tag}] decode vs prefill argmax (rid, j, equal, top-2 gap): "
           + ", ".join(f"({a}, {b}, {c}, {g:.4g})" for a, b, c, g in gaps))
     return timed8, n8, eng, np.asarray(step_s[:eng.steps]), timed_cross
@@ -1528,13 +1632,15 @@ def no_drops(cfg):
         cfg.moe, capacity_factor=cfg.moe.n_experts_padded / cfg.moe.top_k))
 
 
-def decode_vs_prefill(tag, params, cfg, toks, cross_states=None):
+def decode_vs_prefill(tag, params, cfg, toks, cross_states=None,
+                      cache_dtype=None, rtol=LOGIT_RTOL):
     """The prompts ``toks`` (B, n) fed token by token through
-    ``lm_decode_step`` (float32 caches) give ``lm_prefill``'s last-position
-    logits within LOGIT_RTOL: each block's decode form (a recurrence, the
-    absorbed MLA, #8 over the cross cache ``build_cross_cache`` made of
-    ``cross_states``) against its train form (chunked scans, MLA, attention
-    over the states), under ``no_drops``."""
+    ``lm_decode_step`` (float32 caches unless ``cache_dtype``) give
+    ``lm_prefill``'s last-position logits within ``rtol``: each block's
+    decode form (a recurrence, the absorbed MLA, #8 over the cross cache
+    ``build_cross_cache`` made of ``cross_states``) against its train form
+    (chunked scans, MLA, attention over the states), under
+    ``no_drops``."""
     import torch
 
     from repro_torch.models import lm, moe
@@ -1543,7 +1649,8 @@ def decode_vs_prefill(tag, params, cfg, toks, cross_states=None):
     chk = no_drops(cfg)
     if cfg.moe is not None and moe.capacity(chk.moe, b * n) < b * n:
         fail("the decode-vs-prefill prefill could drop routed pairs")
-    cache = lm.init_cache(chk, b, n, dtype=torch.float32, device="cuda")
+    cache = lm.init_cache(chk, b, n, dtype=cache_dtype or torch.float32,
+                          device="cuda")
     batch = {"tokens": toks}
     if cross_states is not None:
         cache = lm.build_cross_cache(params, chk, cache, cross_states)
@@ -1556,14 +1663,14 @@ def decode_vs_prefill(tag, params, cfg, toks, cross_states=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     d, sc = hold(f"{cfg.name}: decode vs prefill logits", got,
-                 lm.lm_prefill(params, chk, batch), LOGIT_RTOL)
+                 lm.lm_prefill(params, chk, batch), rtol)
     print(f"[{tag}] {cfg.name}: {b} prompts of {n} tokens one by one "
           f"through lm_decode_step ({1e3 * wall / n:.1f} ms a step) vs "
           f"lm_prefill (the train path)"
           + ("" if chk is cfg else f", capacity_factor "
              f"{chk.moe.capacity_factor:g}")
           + f": last-position logits max|d| {d:.3e} (limit "
-          f"{LOGIT_RTOL}*{sc:.3f})")
+          f"{rtol:.4g}*{sc:.3f})")
 
 
 def slot_reuse(tag, eng, first):
@@ -1918,6 +2025,355 @@ def cross_phase(card, kernels, reset_counts, peak_bw) -> None:
     torch.cuda.empty_cache()
 
 
+def time_flash_bf16(q, k, v, opts, err, name) -> dict:
+    """#7's bf16 kernel on bf16 (q, k, v) timed beside the float32 kernel
+    on the same values widened, the plain version and the bf16 SDPA
+    yardstick; the work and bytes of its bound (operations at the dense
+    bf16 tensor-core rate)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    causal = opts.get("causal", True)
+    tiles = fa.tile_config(d, q.dtype)
+    grid = (-(-sq // tiles["block_q"]), b * hq)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib = sdpa_yardstick(qt, kt, vt, is_causal=causal)
+    live = live_pairs(sq, skv, causal, opts.get("window"))
+    out = dict(
+        max_abs_err=err,
+        ms=cuda_time_ms(lambda: fa.flash_attention(q, k, v, **opts), 10),
+        f32_kernel_ms=cuda_time_ms(
+            lambda: fa.flash_attention(qf, kf, vf, **opts), 10),
+        plain_ms=cuda_time_ms(lambda: fa.flash_attention_plain(
+            q, k, v, scale=d ** -0.5, **opts), 2, warmup=1),
+        library_ms=cuda_time_ms(lib, 5),
+        ops={"bf16": 4 * b * hq * live * d},
+        bytes=2 * (2 * q.numel() + k.numel() + v.numel()),
+        shape=f"bf16 {name} B={b} S={sq}"
+              f"{'' if skv == sq else f' Skv={skv}'} Hq={hq} Hkv={hkv} "
+              f"D={d}, {'causal' if causal else 'non-causal'} (live share "
+              f"{live / (sq * skv):.4f}), grid {grid}, {tiles['block_q']} x "
+              f"{tiles['block_k']} tiles, {tiles['smem_bytes']} B shared")
+    del qf, kf, vf, qt, kt, vt
+    return out
+
+
+def time_decode_bf16(q, kc, vc, lens, opts, err, name) -> dict:
+    """#8 over a bf16 cache (q float32 or bf16) timed beside the same
+    kernel over the cache widened to float32, the plain version and the
+    bf16 SDPA yardstick; the bytes of its bound (the visible keys of both
+    caches at 2 bytes a value, q and the output in q's type)."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as fd
+
+    b, s, hkv, d = kc.shape
+    n_split = opts.get("num_splits") or fd.default_splits(b, hkv, s)
+    kw = {k: v for k, v in opts.items() if k != "num_splits"}
+    w = kw.get("window")
+    vis = sum(max(0, min(n, s) - (max(0, n - w) if w else 0))
+              for n in lens.tolist())
+    ki = torch.arange(s, device=kc.device)[None, :]
+    mask = ki < lens[:, None].long()
+    if kw.get("window") is not None:
+        mask &= ki > lens[:, None].long() - 1 - kw["window"]
+    kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
+    lib = sdpa_yardstick(q.to(torch.bfloat16)[:, :, None], kt, vt,
+                         attn_mask=mask[:, None, None, :],
+                         scale=d ** -0.5)
+    kf, vf = kc.float(), vc.float()
+    out = dict(
+        max_abs_err=err,
+        ms=cuda_time_ms(lambda: fd.flash_decode(q, kc, vc, lens, **opts),
+                        100),
+        f32_cache_ms=cuda_time_ms(
+            lambda: fd.flash_decode(q, kf, vf, lens, **opts), 100),
+        plain_ms=cuda_time_ms(lambda: fd.flash_decode_plain(
+            q, kc, vc, lens, scale=d ** -0.5, **kw), 20),
+        library_ms=cuda_time_ms(lib, 100),
+        ops=dict(fp32=4 * vis * q.shape[1] * d),
+        bytes=2 * 2 * vis * hkv * d + 2 * q.numel() * q.element_size()
+        + 4 * b,
+        shape=f"bf16 cache, {str(q.dtype).removeprefix('torch.')} q, "
+              f"{name}, B={b} S={s} Hq={q.shape[1]} Hkv={hkv} D={d} "
+              f"{kw or ''}, lengths {lens.tolist()[:8]}"
+              f"{'...' if b > 8 else ''}, {vis} visible keys, at most "
+              f"{n_split} splits a sequence")
+    del kt, vt, kf, vf
+    return out
+
+
+def bf16_kernels(kernels) -> None:
+    """Phase 13a: #7's bf16 kernel and #8 over bf16 caches held against
+    their plain versions on the card, at the serving path's shapes, and
+    timed (``BF16_SIZES``). Adds the ``bf16`` entries of #7 and #8."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+
+    dev, sz = torch.device("cuda"), BF16_SIZES
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    rng = np.random.default_rng(SEED + 13)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    entries7 = kernels["flash_attention"].setdefault("bf16", {})
+    for name, b, sq, skv, hq, hkv, d, opts in sz["flash"]:
+        q, k, v = randn(b, sq, hq, d), randn(b, skv, hkv, d), \
+            randn(b, skv, hkv, d)
+        fa.flash_attention.dtypes = {}
+        got = fa.flash_attention(q, k, v, **opts)
+        if got.dtype != torch.bfloat16 or fa.flash_attention.dtypes != {
+                "bfloat16": 1}:
+            fail(f"flash_attention at bf16 {name}: {got.dtype} output, "
+                 f"launches {fa.flash_attention.dtypes}")
+        err, sc = hold(f"bf16 flash_attention at {name}", got.float(),
+                       fa.flash_attention_plain(q, k, v, scale=d ** -0.5,
+                                                **opts).float(), BF16_RTOL)
+        if not torch.equal(fa.flash_attention(q, k, v, **opts), got):
+            fail(f"bf16 flash_attention at {name}: a rerun differs")
+        print(f"[lm-bf16] flash_attention bf16 at {name} (B={b} Sq={sq} "
+              f"Skv={skv} Hq={hq} Hkv={hkv} D={d} {opts or 'causal'}; "
+              f"{fa.tile_config(d, torch.bfloat16)}): max|d| {err:.3e} "
+              f"(limit {BF16_RTOL:.4g}*{sc:.3f}), rerun bitwise equal")
+        del got
+        entries7[name] = time_flash_bf16(q, k, v, opts, err, name)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    entries8 = kernels["flash_decode"].setdefault("bf16", {})
+    for name, b, s, hq, hkv, d, opts, lengths in sz["decode"]:
+        kc, vc = randn(b, s, hkv, d), randn(b, s, hkv, d)
+        lens = torch.as_tensor(
+            np.full(b, s) if lengths == "full" else
+            rng.integers(1, s + 1, size=b), dtype=torch.int32, device=dev)
+        kw = {k: v for k, v in opts.items() if k != "num_splits"}
+        for q_dtype, rtol in ((torch.float32, 1e-4),
+                              (torch.bfloat16, BF16_RTOL)):
+            q = randn(b, hq, d, dtype=q_dtype)
+            fd.flash_decode.dtypes = {}
+            got = fd.flash_decode(q, kc, vc, lens, **opts)
+            key = f"{str(q_dtype).removeprefix('torch.')}/bfloat16"
+            if got.dtype != q_dtype or fd.flash_decode.dtypes != {key: 1}:
+                fail(f"flash_decode over a bf16 cache at {name}: "
+                     f"{got.dtype} output, launches {fd.flash_decode.dtypes}")
+            err, sc = hold(f"flash_decode over a bf16 cache at {name}, "
+                           f"{q_dtype} q", got.float(),
+                           fd.flash_decode_plain(q, kc, vc, lens,
+                                                 scale=d ** -0.5,
+                                                 **kw).float(), rtol)
+            if not torch.equal(fd.flash_decode(q, kc, vc, lens, **opts),
+                               got):
+                fail(f"flash_decode over a bf16 cache at {name}: a rerun "
+                     f"differs")
+            print(f"[lm-bf16] flash_decode over a bf16 cache at {name} "
+                  f"({q_dtype} q, B={b} S={s} Hq={hq} Hkv={hkv} D={d} "
+                  f"{opts}): max|d| {err:.3e} (limit {rtol:.4g}*{sc:.3f}), "
+                  f"rerun bitwise equal")
+            entries8[f"{name}, {str(q_dtype).removeprefix('torch.')} q"] = \
+                time_decode_bf16(q, kc, vc, lens, opts, err, name)
+            del q, got
+        del kc, vc
+        torch.cuda.empty_cache()
+
+
+def bf16_phase(card, kernels, reset_counts, peak_bw) -> None:
+    """Phase 13: bf16 serving. 13a: ``bf16_kernels``. 13b:
+    llama-3.2-vision-11b ``full()``, whole, with bf16 params from the seed
+    and random bf16 image states: a float32 run of the same bf16 weights
+    sets the model's own bf16 rounding error (its noise floor); prefill
+    through #7's bf16 kernel against the bf16 ``_sdpa`` path (40 launches,
+    8 non-causal, all on bf16 operands), a ``cache_dtype=bfloat16``
+    ``DecodeEngine`` serving phase 7's requests through #8 over the bf16
+    caches themselves (no copy: data pointers checked), decode vs prefill
+    over the image, the image's effect, profiles and peak memory. The
+    limits are ``BF16_LIMITS`` (written in PERF.md before the first run)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models import lm
+    from repro_torch.models.params import param_bytes, param_count
+    from repro_torch.serving import Request
+
+    dev, sync, sz = torch.device("cuda"), torch.cuda.synchronize, CROSS_SIZES
+    pb, plen = sz["prefill"]
+    lim = BF16_LIMITS
+
+    def peak(part):
+        print(f"[lm-bf16] {part}: max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    torch.cuda.empty_cache()
+    print(f"[lm-bf16] memory_allocated before phase 13 "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    bf16_kernels(kernels)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get_config(sz["llama"])
+    cfg_flash = dataclasses.replace(cfg, use_flash=True)
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, SEED, device=dev, dtype=torch.bfloat16)
+    sync()
+    n = param_count(params)
+    leaf_types = {t.dtype for t in tree_leaves(params)}
+    if n != sz["llama_params"] or leaf_types != {torch.bfloat16}:
+        fail(f"{cfg.name}: {n:,} params of {leaf_types}, expected "
+             f"{sz['llama_params']:,} bf16")
+    n_attn, cross = attn_layers(cfg), cross_layers(cfg)
+    print(f"[lm-bf16] {cfg.name} full(), whole, in bf16: {n:,} params = "
+          f"{param_bytes(params) / 1e9:.2f} GB bf16 from seed {SEED} in "
+          f"{time.perf_counter() - t0:.1f} s; random bf16 image states "
+          f"({pb}, {cfg.n_cross_tokens}, {cfg.d_cross}) from seed "
+          f"{SEED + 14}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+
+    def image_states(b):
+        return torch.randn((b, cfg.n_cross_tokens, cfg.d_cross),
+                           generator=gen, device=dev).to(torch.bfloat16)
+
+    def tokens(seed, *shape):
+        r = np.random.default_rng(seed)
+        return torch.as_tensor(r.integers(0, cfg.vocab, size=shape)
+                               .astype(np.int32), device=dev)
+
+    states = image_states(pb)
+    toks = tokens(SEED + 14, pb, plen)
+    cb, clen = sz["check"]
+    chk, cs = tokens(SEED + 15, cb, clen), states[:cb]
+    other = image_states(cb)
+
+    # The float32 run of the same bf16 weights and states (#7's float32
+    # kernel): the exact function up to float32 rounding, against which
+    # the bf16 paths' own rounding error is read.
+    t0 = time.perf_counter()
+    p32 = tree_map(lambda t: t.float(), params)
+    ref32 = lm.lm_prefill(p32, cfg_flash, {"tokens": toks,
+                                           "cross_states": states.float()})
+    ref32_chk = lm.lm_prefill(p32, cfg_flash, {"tokens": chk,
+                                               "cross_states": cs.float()})
+    ref32_other = lm.lm_prefill(p32, cfg_flash, {
+        "tokens": chk, "cross_states": other.float()})
+    sync()
+    peak("13 float32 reference (bf16 + float32 weights)")
+    del p32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"[lm-bf16] float32 run of the same weights ({pb} x {plen} and "
+          f"the {cb} x {clen} check prompts under two images) in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def floor(tag, got, ref):
+        """The model's own bf16 error: max|got - ref| / max|ref|."""
+        e = float((got.float() - ref).abs().max() / ref.abs().max())
+        print(f"[lm-bf16] {tag} vs the float32 run: {e:.4e} of "
+              f"max|ref|")
+        return e
+
+    def prefill_limit(sdpa16):
+        eps = floor("bf16 _sdpa path prefill", sdpa16, ref32)
+        rt = max(lim["noise_factor"] * eps, BF16_RTOL)
+        print(f"[lm-bf16] prefill limit: max({lim['noise_factor']} x "
+              f"{eps:.4e}, 2^-7) = {rt:.4e} of max|ref|")
+        limits["prefill"] = rt
+        return rt
+
+    limits = {}
+    fa.flash_attention.dtypes = {}
+    n7, held7, wall, n_nc = prefill_through_flash(
+        card, "lm-bf16", params, cfg, toks, reset_counts,
+        cross_states=states, logit_rtol=prefill_limit, attn_rtol=BF16_RTOL)
+    if fa.flash_attention.dtypes != {"bfloat16": n7} or n7 != n_attn:
+        fail(f"the bf16 prefill launched flash_attention "
+             f"{fa.flash_attention.dtypes}, expected {n_attn} on bf16 "
+             f"operands")
+    if any(a[0].dtype != torch.bfloat16 for a, _, _ in held7):
+        fail("a prefill #7 call had float32 operands")
+    print(f"[lm-bf16] {card}: bf16 prefill {pb} x {plen}: {n7} #7 "
+          f"launches ({n_nc} non-causal), by operand type "
+          f"{fa.flash_attention.dtypes}; {wall * 1e3:.1f} ms = "
+          f"{pb * plen / wall:.0f} prefill tokens/s")
+    del held7
+    entries7 = kernels["flash_attention"]["bf16"]
+    entries7["llama-3.2-vision self layer"]["launches"] = n7 - n_nc
+    entries7["llama-3.2-vision cross layer"]["launches"] = n_nc
+    flash16 = lm.lm_prefill(params, cfg_flash, {"tokens": toks,
+                                                "cross_states": states})
+    floor("bf16 flash path prefill", flash16, ref32)
+    del flash16, ref32
+    peak("13 prefill")
+    profile_lm(f"{cfg.name} bf16 prefill call of {pb} x {plen} tokens",
+               lambda: lm.lm_prefill(params, cfg_flash, {
+                   "tokens": toks, "cross_states": states}), 1,
+               card, "flash_kernel")
+    del toks
+    torch.cuda.empty_cache()
+
+    fd.flash_decode.dtypes = {}
+    timed8, n8, eng, step_s, timed_cross = serve_through_decode(
+        card, "lm-bf16", params, cfg, reset_counts, cross_states=states,
+        cache_dtype=torch.bfloat16, attn_rtol=BF16_RTOL,
+        gap_rtol=limits["prefill"])
+    # The serving run's launches and the timing calls after it, by type.
+    if set(fd.flash_decode.dtypes) != {"bfloat16/bfloat16"}:
+        fail(f"bf16 serving launched flash_decode {fd.flash_decode.dtypes},"
+             f" expected every launch on a bf16 q over a bf16 cache")
+    shapes8 = kernels["flash_decode"].setdefault("bf16", {})
+    shapes8[f"{cfg.name} bf16 decode, self layers"] = dict(
+        timed8, launches=n8 - timed_cross["launches"])
+    shapes8[f"{cfg.name} bf16 decode, cross layers"] = timed_cross
+    cross_bytes = sum(t.numel() * t.element_size()
+                      for j, spec in enumerate(cfg.pattern) if spec.cross
+                      for t in eng.cache["stack"][f"b{j}"]["mix"].values())
+    w_bytes = param_bytes(params) - params["embed"].numel() * 2
+    print(f"[lm-bf16] {card}: a bf16 {cfg.name} decode step reads every "
+          f"weight but the embedding table ({w_bytes / 1e9:.2f} GB) and "
+          f"the cross K/V ({cross_bytes / 1e9:.3f} GB): "
+          f"{(w_bytes + cross_bytes) / 1e9:.2f} GB, bound "
+          f"{(w_bytes + cross_bytes) / peak_bw * 1e3:.2f} ms at "
+          f"{peak_bw / 1e12:g} TB/s; served step p50 "
+          f"{np.percentile(step_s, 50) * 1e3:.2f} ms; {n8} #8 launches "
+          f"by type {fd.flash_decode.dtypes}")
+    eng.submit(Request(rid=10**6, prompt=[1, 2, 3], max_new=1))
+    eng.step()                                   # admit, warm
+    profile_lm(f"{cfg.name} bf16 decode steps of batch {eng.batch}",
+               eng.step, 2, card, "decode_")
+    del eng
+    peak("13 decode")
+
+    flash_chk = lm.lm_prefill(params, cfg_flash, {"tokens": chk,
+                                                  "cross_states": cs})
+    eps = floor(f"bf16 flash path prefill of the {cb} x {clen} prompts",
+                flash_chk, ref32_chk)
+    rt = max(lim["noise_factor"] * eps, BF16_RTOL)
+    decode_vs_prefill("lm-bf16", params, cfg_flash, chk, cross_states=cs,
+                      cache_dtype=torch.bfloat16, rtol=rt)
+    peak("13 decode vs prefill")
+    moved = lm.lm_prefill(params, cfg_flash, {"tokens": chk,
+                                              "cross_states": other})
+    d, sc = rel_err(moved.float(), flash_chk.float())
+    d32, sc32 = rel_err(ref32_other, ref32_chk)
+    if not (torch.isfinite(moved.float()).all()
+            and d > lim["image"] * sc):
+        fail(f"{cfg.name} bf16: another image moved the logits by {d}, not "
+             f"more than {lim['image']}*{sc}")
+    print(f"[lm-bf16] {cfg.name} bf16: the same {cb} x {clen} prompts under "
+          f"another image: last-position logits move by max|d| {d:.3e} = "
+          f"{d / sc:.4f} of max|logits| (> {lim['image']:.4g}); the float32 "
+          f"run of the same weights moves by {d32 / sc32:.4f}")
+    del params, states, flash_chk, moved, ref32_chk, ref32_other
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1967,9 +2423,13 @@ def main() -> int:
     # Operation rates by the units a kernel's work runs on: FP32 on the
     # CUDA cores; the 3xTF32 contraction of #1 / #4 / #5 at a third of the
     # dense TF32 tensor-core rate (three TF32 products per FP32 product).
+    # Dense bf16 on the tensor cores is twice dense TF32 on every Hopper
+    # part (SXM 989, PCIe 756, NVL 835 TFLOP/s).
     rates = {"fp32": (peak_fp32, f"FP32 {peak_fp32 / 1e12:g} TFLOP/s"),
              "3xtf32": (peak_tf32 / 3, f"3xTF32 {peak_tf32 / 3e12:.4g} "
-                        f"TFLOP/s (TF32 {peak_tf32 / 1e12:g} / 3)")}
+                        f"TFLOP/s (TF32 {peak_tf32 / 1e12:g} / 3)"),
+             "bf16": (2 * peak_tf32, f"bf16 dense {2 * peak_tf32 / 1e12:g} "
+                      f"TFLOP/s")}
     print(f"card: {card}; peaks used for bounds: {peak_fp32 / 1e12:g} "
           f"TFLOP/s fp32, {peak_tf32 / 1e12:g} TFLOP/s tf32 dense, "
           f"{peak_bw / 1e12:g} TB/s")
@@ -2000,6 +2460,8 @@ def main() -> int:
     def reset_counts():
         for fn in wrappers.values():
             fn.launches = 0
+        fa.flash_attention.dtypes = {}
+        fd.flash_decode.dtypes = {}
 
     def read_counts(*names, into=launches):
         got = {n: wrappers[n].launches for n in names}
@@ -3250,6 +3712,9 @@ def main() -> int:
     # -- phase 12: cross-attention (llama-3.2-vision-11b) ---------------------
     cross_phase(card, kernels, reset_counts, peak_bw)
 
+    # -- phase 13: bf16 serving (#7 / #8 in bf16, llama in bf16) --------------
+    bf16_phase(card, kernels, reset_counts, peak_bw)
+
     def bounds(kd):
         kd.update(bound_of(kd.pop("ops"), kd.pop("bytes")))
         if "fp32_ops" in kd:   # the same work on the FP32 CUDA cores
@@ -3263,15 +3728,19 @@ def main() -> int:
         fp32_note = bounds(kd)
         for shape_name, extra in {**kd.get("long_cache", {}),
                                   **kd.get("long_seq", {}),
-                                  **kd.get("shapes", {})}.items():
+                                  **kd.get("shapes", {}),
+                                  **kd.get("bf16", {})}.items():
             note = bounds(extra)
             runs = "" if "launches" not in extra else \
                 f", {extra['launches']} launches on its path"
+            f32 = "".join(f", {k.removesuffix('_ms')} {extra[k]:.4f} ms"
+                          for k in ("f32_kernel_ms", "f32_cache_ms")
+                          if k in extra)
             print(f"[kernel] {card}: {name} at {extra.pop('shape')}: "
                   f"{extra['ms']:.4f} ms (bound {extra['bound_ms']:.6f} ms "
                   f"by {extra['bound_by']} at {extra['bound_rate']}{note}, "
                   f"plain {extra['plain_ms']:.4f} ms, library "
-                  f"{extra['library_ms']:.4f} ms){runs}")
+                  f"{extra['library_ms']:.4f} ms{f32}){runs}")
         kd["launches"] = launches[name]
         shape = kd.pop("shape")
         lib_ms = kd["library_ms"]

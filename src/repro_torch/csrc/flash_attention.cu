@@ -1,8 +1,9 @@
 // Flash attention (causal, GQA, sliding window, tanh soft-cap) for Hopper.
 //
 // Replaces src/repro/kernels/flash_attention.py `_flash_kernel`
-// (`flash_attention`): for q (B, Sq, Hq, D), k, v (B, Skv, Hkv, D), float32,
-// q head h reading kv head h / (Hq / Hkv),
+// (`flash_attention`): for q (B, Sq, Hq, D), k, v (B, Skv, Hkv, D), all
+// float32 (`flash_kernel`) or all bf16 (`flash_kernel_bf16`, below), q head
+// h reading kv head h / (Hq / Hkv),
 //
 //   s   = (q * scale) . k^T,  tanh(s / c) * c with a soft-cap c > 0
 //   qi  = i + (Skv - Sq),  masked unless ki < Skv, [qi >= ki], [qi - ki < w]
@@ -53,6 +54,7 @@
 #include <cuda.h>
 #include <cudaTypedefs.h>
 
+#include "wgmma_bf16.cuh"
 #include "wgmma_tf32.cuh"
 
 namespace {
@@ -263,10 +265,10 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         : "memory");
 }
 
-// TMA copy of one (DP + 4) x 1 x BK x 1 box of the 4-d tensor map (dims
-// d, kv head, key, batch) at (0, hk, k0, b) into dst: BK rows of DP + 4
-// floats, zeros where d >= D or key >= Skv; completes on `bar`.
-__device__ __forceinline__ void tma_rows(float* dst, const CUtensorMap* map,
+// TMA copy of one box of the 4-d tensor map (dims d, kv head, key, batch)
+// at (0, hk, k0, b) into dst: BK rows of DP + 4 floats (bf16: BK16 rows of
+// DP + 8 values), zeros where d >= D or key >= Skv; completes on `bar`.
+__device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map,
                                          int hk, int k0, int b,
                                          uint64_t* bar) {
   asm volatile(
@@ -550,10 +552,257 @@ flash_kernel(const __grid_constant__ CUtensorMap k_map,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 operands (`flash_kernel_bf16`): the same function with q, k, v and
+// the output in bf16, as the TPU kernel runs it on bf16 inputs (its
+// products read the bf16 values exactly; scores, softmax state and the
+// accumulator stay float32; the output is rounded once).
+//
+// Bound: operations, at the dense bf16 tensor-core rate (989 TFLOP/s),
+// twice TF32's, with half the bytes. Both products are single wgmma
+// m64nNk16 bf16 instructions with float32 accumulation (no split: bf16
+// operands are exact in bf16).
+//
+// Design, where it differs from the float32 kernel:
+// * BQ = 128 (two warpgroups) for every head dim and BK16 = 64 keys a
+//   tile: bf16 tiles take half the shared memory.
+// * The landed tile is moved into the canonical layouts as it is, with no
+//   split: K [64 keys][DP] and V^T [DP][64 keys], K-major, 16-byte core
+//   rows. q is moved once per block, unscaled (exact); the scale (times
+//   log2 e) multiplies the float32 scores.
+// * S = Q K^T: DP / 16 wgmma m64n64k16, both operands in shared memory.
+// * P is rounded to bf16 for O += P V: the accumulator of S hands a thread
+//   keys {2t, 2t + 1} and {2t + 8, 2t + 9} of each 16-key step, which is
+//   the A fragment of a bf16 wgmma as it stands (no permutation). The row
+//   sums l add the rounded p, so that the weights of a row sum to one.
+// * O is accumulated in place by the tensor cores after the rescale by
+//   alpha: a bf16 output does not see their truncating accumulation.
+// ---------------------------------------------------------------------------
+
+constexpr int BK16 = 64;      // keys per tile of the bf16 kernel
+
+__host__ __device__ constexpr int smem_bytes_bf16(int dp) {
+  return 2 * (2 * 64 * dp + 2 * BK16 * dp + 2 * BK16 * (dp + 8)) + 8;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(2 * WG, 1)
+flash_kernel_bf16(const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map,
+                  const __nv_bfloat16* __restrict__ q,
+                  __nv_bfloat16* __restrict__ out, int Sq, int Skv, int Hq,
+                  int Hkv, int D, int causal, int window, float scale,
+                  float softcap) {
+  constexpr int BK = BK16;
+  constexpr int NT = 2 * WG, NW = NT / 32, BQ = 128;
+  constexpr int LD = DP + 8;      // row stride of the landed tiles
+  extern __shared__ __align__(128) __nv_bfloat16 smem_h[];
+  __nv_bfloat16* Qc = smem_h;          // [BQ][DP] q, canonical
+  __nv_bfloat16* Kc = Qc + BQ * DP;    // [BK][DP] K tile, canonical
+  __nv_bfloat16* Vc = Kc + BK * DP;    // [DP][BK] V^T tile, canonical
+  __nv_bfloat16* Ks = Vc + BK * DP;    // [BK][LD] next K tile as landed
+  __nv_bfloat16* Vs = Ks + BK * LD;    // [BK][LD] next V tile as landed
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + BK * LD);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = tid / WG;
+  const int wi = warp & 3, gq = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.y, b = bh / Hq, h = bh % Hq;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tile first
+  const long long qstride = (long long)Hq * D;
+  const __nv_bfloat16* qb = q + ((long long)b * Sq * Hq + h) * D;
+  __nv_bfloat16* ob = out + ((long long)b * Sq * Hq + h) * D;
+
+  const long long off = (long long)Skv - Sq;
+  const int q_rows = min(BQ, Sq - q0);
+  long long k_hi = Skv;
+  if (causal) k_hi = min(k_hi, q0 + q_rows - 1 + off + 1);
+  const long long k_lo = max(0LL, q0 + off - (long long)window + 1);
+  const int w0 = q0 + 64 * wg, w_rows = min(64, q_rows - 64 * wg);
+  long long wk_hi = w_rows > 0 ? Skv : 0;
+  if (causal && w_rows > 0) wk_hi = min(wk_hi, w0 + w_rows - 1 + off + 1);
+  const long long wk_lo = max(0LL, w0 + off - (long long)window + 1);
+  const int kt0 = (int)(k_lo / BK) * BK;
+  const int n_tiles = k_lo < k_hi ? (int)((k_hi - kt0 + BK - 1) / BK) : 0;
+
+  auto fetch = [&](int k0) {
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+            smem_u32(full)),
+        "r"(2 * BK * LD * 2)
+        : "memory");
+    tma_rows(Ks, &k_map, hk, k0, b, full);
+    tma_rows(Vs, &v_map, hk, k0, b, full);
+  };
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                     smem_u32(full)));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (n_tiles > 0) fetch(kt0);
+  }
+
+  // q into the canonical layout while the first tile flies: chunk (row r,
+  // dims 8c .. 8c + 7) to core matrix (r / 8, c), row r % 8.
+#pragma unroll 4
+  for (int e = tid; e < BQ * DP / 8; e += NT) {
+    const int r8 = e & 7, c = (e >> 3) % (DP / 8);
+    const int r = 8 * ((e >> 3) / (DP / 8)) + r8;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (r < q_rows && 8 * c < D)
+      x = __ldg(reinterpret_cast<const uint4*>(
+          qb + (long long)(q0 + r) * qstride + 8 * c));
+    *reinterpret_cast<uint4*>(Qc + ((r >> 3) * (DP / 8) + c) * 64 + r8 * 8) =
+        x;
+  }
+  fence_async_smem();  // q: to wgmma
+  __syncthreads();     // and the barrier's init, before anyone waits on it
+
+  // Warpgroup wg owns query rows w0 .. w0 + 63; lane (gq, tq) of warp wi
+  // holds rows 16 wi + gq (+ 8) of S (keys 8j + 2tq (+ 1)) and of O
+  // (dims 8j + 2tq (+ 1)).
+  float o[DP / 2], s[BK / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const uint64_t dq = smem_desc(Qc + wg * 64 * DP, 128, DP * 16);
+  const uint64_t dk = smem_desc(Kc, 128, DP * 16);
+  const uint64_t dv = smem_desc(Vc, 128, BK * 16);
+  const float qscale = softcap > 0.f ? scale : scale * LOG2E;
+  const float cap2 = softcap * LOG2E;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = kt0 + t * BK;
+    mbar_wait(full, t & 1);
+    __syncthreads();  // tile t landed; every thread is done with t - 1
+    // K: chunk (key r, dims 8c ..) to core matrix (r / 8, c), row r % 8.
+    // V^T: thread (d, key group g8) gathers dim d of keys 8 g8 .. 8 g8 + 7
+    // into row d % 8 of core matrix (d / 8, g8). Rows LD = DP + 8 apart
+    // (an odd number of 16-byte words) keep the reads free of conflicts.
+#pragma unroll 2
+    for (int e = tid; e < BK * DP / 8; e += NT) {
+      const int r8 = e & 7, c = (e >> 3) % (DP / 8);
+      const int r = 8 * ((e >> 3) / (DP / 8)) + r8;
+      *reinterpret_cast<uint4*>(Kc + ((r >> 3) * (DP / 8) + c) * 64 +
+                                r8 * 8) =
+          *reinterpret_cast<const uint4*>(Ks + r * LD + 8 * c);
+    }
+#pragma unroll 2
+    for (int e = tid; e < BK * DP / 8; e += NT) {
+      const int d = e % DP, g8 = e / DP;
+      const unsigned short* src =
+          reinterpret_cast<const unsigned short*>(Vs + 8 * g8 * LD + d);
+      uint4 w;
+      w.x = src[0] | ((uint32_t)src[LD] << 16);
+      w.y = src[2 * LD] | ((uint32_t)src[3 * LD] << 16);
+      w.z = src[4 * LD] | ((uint32_t)src[5 * LD] << 16);
+      w.w = src[6 * LD] | ((uint32_t)src[7 * LD] << 16);
+      *reinterpret_cast<uint4*>(Vc + ((d >> 3) * (BK / 8) + g8) * 64 +
+                                (d & 7) * 8) = w;
+    }
+    fence_async_smem();  // the moved tile: to wgmma
+    __syncthreads();     // and the landing buffers are free
+    if (tid == 0 && t + 1 < n_tiles) {
+      fence_async_smem();  // their reads above before the TMA's writes
+      fetch(k0 + BK);
+    }
+
+    if (k0 < wk_hi && k0 + BK > wk_lo) {
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < DP / 16; ++ks)  // 16 dims = 2 core matrices
+        wgmma_bf16_n64(s, dq + 16 * ks, dk + 16 * ks, ks);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(s);
+
+      const bool edge =
+          !(k0 + BK <= Skv && (!causal || k0 + BK - 1 <= w0 + off) &&
+            w0 + w_rows - 1 + off - k0 < window);
+      float alpha[2];
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const long long qi = w0 + 16 * wi + gq + 8 * hh + off;
+        bool ok[BK / 4];
+        float mx = NEG_INF;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            float x = s[4 * j + 2 * hh + u] * qscale;
+            if (softcap > 0.f) x = tanhf(x / softcap) * cap2;
+            const long long ki = k0 + 8 * j + 2 * tq + u;
+            ok[2 * j + u] = !edge || (ki < Skv && (!causal || qi >= ki) &&
+                                      qi - ki < window);
+            x = ok[2 * j + u] ? x : NEG_INF;
+            s[4 * j + 2 * hh + u] = x;
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[hh], mx);
+        alpha[hh] = exp2_fast(m[hh] - m_new);
+        float ps = 0.f;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          const float p0 =
+              ok[2 * j] ? exp2_fast(s[4 * j + 2 * hh] - m_new) : 0.f;
+          const float p1 =
+              ok[2 * j + 1] ? exp2_fast(s[4 * j + 2 * hh + 1] - m_new) : 0.f;
+          // Keys 8j + 2tq (+ 1) of row hh: register 2 (j & 1) + hh of the
+          // A fragment of 16-key step j / 2.
+          const uint32_t w = pack_bf16(p0, p1);
+          pa[j >> 1][2 * (j & 1) + hh] = w;
+          ps += bf16_lo(w) + bf16_hi(w);
+        }
+        l[hh] = l[hh] * alpha[hh] + ps;  // this thread's share of the row
+        m[hh] = m_new;
+      }
+
+      // O = alpha O + P V, accumulated by the tensor cores.
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)  // 16 keys = 2 core matrices
+        wgmma_bf16_rs<DP>(o, pa[kk], dv + 16 * kk, 1);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
+    }
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float li = l[hh];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const int r = 16 * wi + gq + 8 * hh;
+    if (r < w_rows) {
+      const float den = fmaxf(li, 1e-30f);
+      __nv_bfloat16* orow = ob + (long long)(w0 + r) * qstride;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int c = 8 * j + 2 * tq;
+        if (c < D)
+          *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+              __floats2bfloat162_rn(o[4 * j + 2 * hh] / den,
+                                    o[4 * j + 2 * hh + 1] / den);
+      }
+    }
+  }
+}
+
 // The 4-d tensor map (d, kv head, key, batch) of k or v (B, Skv, Hkv, D)
-// whose box is the (DP + 4) x 1 x BK x 1 tile the kernel lands.
+// whose box is the tile the kernel lands: (DP + 4) x 1 x BK x 1 floats, or
+// (DP + 8) x 1 x BK16 x 1 bf16 values.
 cudaError_t rows_map(CUtensorMap* map, const void* x, int B, int Skv,
-                     int Hkv, int D, int dp) {
+                     int Hkv, int D, int dp, bool bf16) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult found;
@@ -565,17 +814,21 @@ cudaError_t rows_map(CUtensorMap* map, const void* x, int B, int Skv,
       return err != cudaSuccess ? err : cudaErrorSymbolNotFound;
     }
   }
+  const cuuint64_t elem = bf16 ? 2 : 4;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv,
                               (cuuint64_t)Skv, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {4ull * D, 4ull * D * Hkv,
-                                 4ull * D * Hkv * Skv};
-  const cuuint32_t box[4] = {(cuuint32_t)dp + 4, 1, BK, 1};
+  const cuuint64_t strides[3] = {elem * D, elem * D * Hkv,
+                                 elem * D * Hkv * Skv};
+  const cuuint32_t box[4] = {(cuuint32_t)dp + (bf16 ? 8 : 4), 1,
+                             (cuuint32_t)(bf16 ? BK16 : BK), 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(x), dims,
-      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map,
+      bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+           : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      4, const_cast<void*>(x), dims, strides, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -586,14 +839,38 @@ int launch(const float* q, const float* k, const float* v, float* out, int B,
   if (block_q != 64 * warpgroups(DP)) return (int)cudaErrorInvalidValue;
   const int smem = smem_bytes(DP, warpgroups(DP));
   CUtensorMap k_map, v_map;
-  cudaError_t err = rows_map(&k_map, k, B, Skv, Hkv, D, DP);
-  if (err == cudaSuccess) err = rows_map(&v_map, v, B, Skv, Hkv, D, DP);
+  cudaError_t err = rows_map(&k_map, k, B, Skv, Hkv, D, DP, false);
+  if (err == cudaSuccess)
+    err = rows_map(&v_map, v, B, Skv, Hkv, D, DP, false);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(
         flash_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + block_q - 1) / block_q, B * Hq);
   flash_kernel<DP><<<grid, WG * warpgroups(DP), smem, stream>>>(
+      k_map, v_map, q, out, Sq, Skv, Hq, Hkv, D, causal, window, scale,
+      softcap);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int launch_bf16(const __nv_bfloat16* q, const void* k, const void* v,
+                __nv_bfloat16* out, int B, int Sq, int Skv, int Hq, int Hkv,
+                int D, int causal, int window, int block_q, float scale,
+                float softcap, cudaStream_t stream) {
+  if (block_q != 128) return (int)cudaErrorInvalidValue;
+  const int smem = smem_bytes_bf16(DP);
+  CUtensorMap k_map, v_map;
+  cudaError_t err = rows_map(&k_map, k, B, Skv, Hkv, D, DP, true);
+  if (err == cudaSuccess)
+    err = rows_map(&v_map, v, B, Skv, Hkv, D, DP, true);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_kernel_bf16<DP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Sq + block_q - 1) / block_q, B * Hq);
+  flash_kernel_bf16<DP><<<grid, 2 * WG, smem, stream>>>(
       k_map, v_map, q, out, Sq, Skv, Hq, Hkv, D, causal, window, scale,
       softcap);
   return (int)cudaGetLastError();
@@ -621,6 +898,32 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   case n:                                                                  \
     return launch<16 * n>(qf, kf, vf, of, B, Sq, Skv, Hq, Hkv, D, causal,  \
                           window, block_q, scale, softcap, st);
+  switch ((D + 15) / 16) {
+    FLASH_CASE(1) FLASH_CASE(2) FLASH_CASE(3) FLASH_CASE(4) FLASH_CASE(5)
+    FLASH_CASE(6) FLASH_CASE(7) FLASH_CASE(8) FLASH_CASE(9)
+  }
+#undef FLASH_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The same for bf16 q, k, v and out; D a multiple of 8 (16-byte rows for
+// the TMA), block_q 128.
+extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
+                                           const void* v, void* out, int B,
+                                           int Sq, int Skv, int Hq, int Hkv,
+                                           int D, int causal, int window,
+                                           int block_q, float scale,
+                                           float softcap, void* stream) {
+  if (D % 8 || D < 8 || D > MAX_DP || Hkv < 1 || Hq % Hkv)
+    return (int)cudaErrorInvalidValue;
+  const __nv_bfloat16* qh = static_cast<const __nv_bfloat16*>(q);
+  __nv_bfloat16* oh = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FLASH_CASE(n)                                                      \
+  case n:                                                                  \
+    return launch_bf16<16 * n>(qh, k, v, oh, B, Sq, Skv, Hq, Hkv, D,       \
+                               causal, window, block_q, scale, softcap,    \
+                               st);
   switch ((D + 15) / 16) {
     FLASH_CASE(1) FLASH_CASE(2) FLASH_CASE(3) FLASH_CASE(4) FLASH_CASE(5)
     FLASH_CASE(6) FLASH_CASE(7) FLASH_CASE(8) FLASH_CASE(9)

@@ -1,13 +1,17 @@
 // Split-KV single-query decode attention for Hopper.
 //
 // Replaces src/repro/kernels/flash_decode.py `_decode_kernel`
-// (`flash_decode`): for q (B, Hq, D) and caches k, v (B, S, Hkv, D),
-// float32, q head h reading kv head h / g (g = Hq / Hkv), with valid
-// prefix len = lengths[b],
+// (`flash_decode`): for q (B, Hq, D) and caches k, v (B, S, Hkv, D), q
+// float32 or bf16 and the caches float32 or bf16 (one type for both), q
+// head h reading kv head h / g (g = Hq / Hkv), with valid prefix len =
+// lengths[b],
 //
 //   s   = (q * scale) . k^T,  tanh(s / c) * c with a soft-cap c > 0
 //   keys ki < len (and ki > len - 1 - w with a window w) are visible
 //   out = acc / max(l, 1e-30)   (a sequence with no visible key gives 0)
+//
+// in float32 (the bf16 values are widened exactly), the output in q's
+// type, rounded once.
 //
 // Bound: bytes. Each visible key row of K and V is read once and used for
 // 2 * g * D multiply-adds: ~g / 4 FLOP per byte, far below the FP32 ridge
@@ -41,6 +45,9 @@
 //   moves on three shuffles a head, each lane keeps its own key's share of
 //   the running sum until the end, and P.V accumulates in registers, lane
 //   l owning columns l and l + 32.
+// * A bf16 cache is copied as it is stored (16 bytes = 8 values a copy)
+//   and widened at the products, which halves the bytes the bound counts;
+//   q * scale, (m, l, acc) and the per-split scratch stay float32.
 // * One launch. The warps' states are merged in warp order; with n = 1
 //   the block writes out. Else it writes its (m, l, acc) to scratch, and
 //   the last block of the (sequence, kv head) to finish — an atomic
@@ -48,6 +55,7 @@
 //   order. Two runs are bitwise equal, and nothing is left for the host to
 //   clear; only the float32 summation order depends on the split count.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,11 +66,21 @@ constexpr int RING = 3;        // stages of each warp's ring
 constexpr int MIN_KEYS = 64;   // fewest keys of a split that is not alone
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ long long visible(int len, int S, int window) {
   const long long hi = min((long long)len, (long long)S);
   const long long lo = max(0LL, (long long)len - (long long)window);
   return max(0LL, hi - lo);
+}
+
+// out[i] = x in q's type (bf16: rounded to nearest).
+__device__ __forceinline__ void put(void* out, long long i, float x,
+                                    int q_bf16) {
+  if (q_bf16)
+    static_cast<bf16*>(out)[i] = __float2bfloat16_rn(x);
+  else
+    static_cast<float*>(out)[i] = x;
 }
 
 // Split `sp` of a sequence: its keys [a, e) and the sequence's split
@@ -102,23 +120,39 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Row stride of a ring tile (floats): D + 4 or D + 8, whichever makes it
-// an odd number of 16-byte words, so the 8 rows read by a phase of 8
-// lanes fall in distinct banks.
+// Row stride of a ring tile (elements of T): one or two 16-byte words past
+// the row, whichever makes it an odd number of words, so the 8 rows read
+// by a phase of lanes fall in distinct banks (float: D + 4 or D + 8).
+template <typename T>
 __host__ __device__ __forceinline__ int row_stride(int D) {
-  return D + ((D / 4) % 2 ? 8 : 4);
+  constexpr int E = 16 / sizeof(T);  // values a 16-byte word
+  const int w = D / E;
+  return E * (w + (w % 2 ? 2 : 1));
 }
 
-// G: query heads a block holds in registers (g <= G; heads g.. are
-// zero). NW: warps a block.
-template <int G, int NW>
+// Four consecutive values as float4 (bf16: widened, exactly).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(w.x << 16),
+                     __uint_as_float(w.x & 0xffff0000u),
+                     __uint_as_float(w.y << 16),
+                     __uint_as_float(w.y & 0xffff0000u));
+}
+
+// T: the caches' type. G: query heads a block holds in registers (g <= G;
+// heads g.. are zero). NW: warps a block. q and out are bf16 where
+// `q_bf16`, else float32.
+template <typename T, int G, int NW>
 __global__ void __launch_bounds__(32 * NW)
-decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const int* __restrict__ lengths,
+decode_kernel(const void* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const int* __restrict__ lengths,
               float* __restrict__ part_ml, float* __restrict__ part_acc,
-              int* __restrict__ ticket, float* __restrict__ out, int B,
+              int* __restrict__ ticket, void* __restrict__ out, int B,
               int S, int Hq, int Hkv, int D, int splits, int target,
-              int window, float scale, float softcap) {
+              int window, int q_bf16, float scale, float softcap) {
   constexpr int NT = 32 * NW;
   const int pair = blockIdx.x, sp = blockIdx.y;
   const int b = pair / Hkv, hk = pair - b * Hkv, g = Hq / Hkv;
@@ -130,8 +164,9 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < QV; ++j) {
     const int e = tid + j * NT;
-    qv[j] = e < g * D / 4 ? reinterpret_cast<const float4*>(q + bh0 * D)[e]
-                          : make_float4(0.f, 0.f, 0.f, 0.f);
+    qv[j] = e >= g * D / 4 ? make_float4(0.f, 0.f, 0.f, 0.f)
+            : q_bf16 ? load4(static_cast<const bf16*>(q) + bh0 * D + 4 * e)
+                     : load4(static_cast<const float*>(q) + bh0 * D + 4 * e);
   }
   // The batch's visible keys (every warp sums them), hence the keys a
   // split aims at, hence this block's keys.
@@ -150,10 +185,11 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   extern __shared__ float4 smem4[];
   __shared__ int last;
-  const int ld = row_stride(D), d4 = D / 4;
+  const int ld = row_stride<T>(D), d4 = D / 4;
+  constexpr int E = 16 / sizeof(T);  // values a 16-byte copy
   float* Qs = reinterpret_cast<float*>(smem4);  // [G][D], q * scale
-  float* rings = Qs + G * D;                     // [NW][RING][2][TK][ld]
-  float* ring = rings + warp * RING * 2 * TK * ld;
+  T* rings = reinterpret_cast<T*>(Qs + G * D);  // [NW][RING][2][TK][ld]
+  T* ring = rings + warp * RING * 2 * TK * ld;
 
   const long long kstride = (long long)Hkv * D;
   const long long base = ((long long)b * S * Hkv + hk) * D;
@@ -173,27 +209,27 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // This warp's tiles: t = warp + NW * i of the split's nt tiles.
   const int nt = (int)((max(0LL, r.e - r.a) + TK - 1) / TK);
   const int mine = nt > warp ? (nt - warp + NW - 1) / NW : 0;
-  // Copy the K and V rows of tile i into ring slot i % RING, lane l
-  // columns l and l + 32 (zeros for keys past the split's end); always
-  // one commit group.
+  // Copy the K and V rows of tile i into ring slot i % RING, lane l the
+  // 16-byte words l and l + 32 of each row (zeros for keys past the
+  // split's end); always one commit group.
   auto issue = [&](int i) {
     if (i < mine) {
       const long long t0 = r.a + (long long)(warp + NW * i) * TK;
       const int nk = (int)min((long long)TK, r.e - t0);
-      float* dst = ring + (i % RING) * 2 * TK * ld;
+      T* dst = ring + (i % RING) * 2 * TK * ld;
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const int c = lane + 32 * j;
-        if (c < d4) {
-          const float* ks = k + base + t0 * kstride + 4 * c;
-          const float* vs = v + base + t0 * kstride + 4 * c;
+        const int c = E * (lane + 32 * j);
+        if (c < D) {
+          const T* ks = k + base + t0 * kstride + c;
+          const T* vs = v + base + t0 * kstride + c;
 #pragma unroll
           for (int t = 0; t < TK; ++t) {
             const bool ok = t < nk;
-            cp_async16(dst + t * ld + 4 * c, ok ? ks + t * kstride : k,
+            cp_async16(dst + t * ld + c, ok ? ks + t * kstride : k,
                        ok ? 16 : 0);
-            cp_async16(dst + (TK + t) * ld + 4 * c,
-                       ok ? vs + t * kstride : k, ok ? 16 : 0);
+            cp_async16(dst + (TK + t) * ld + c, ok ? vs + t * kstride : k,
+                       ok ? 16 : 0);
           }
         }
       }
@@ -218,8 +254,8 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
     issue(i + RING - 1);
     cp_async_wait<RING - 1>();  // this lane's copies of tile i landed
     __syncwarp();               // ... and every lane's
-    const float* Ks = ring + (i % RING) * 2 * TK * ld;
-    const float* Vs = Ks + TK * ld;
+    const T* Ks = ring + (i % RING) * 2 * TK * ld;
+    const T* Vs = Ks + TK * ld;
 
     // Scores of key kq: partial dots over columns pq, pq + 4, ... (two
     // sums, even and odd float4s, to halve the chain), then summed over
@@ -227,10 +263,10 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float s[G], s2[G];
 #pragma unroll
     for (int h = 0; h < G; ++h) s[h] = s2[h] = 0.f;
-    const float* kr = Ks + kq * ld;
+    const T* kr = Ks + kq * ld;
 #pragma unroll 2
     for (int c = pq; c < d4; c += 8) {
-      const float4 x = *reinterpret_cast<const float4*>(kr + 4 * c);
+      const float4 x = load4(kr + 4 * c);
 #pragma unroll
       for (int h = 0; h < G; ++h) {
         const float4 y =
@@ -241,7 +277,7 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
         s[h] = fmaf(x.w, y.w, s[h]);
       }
       if (c + 4 < d4) {
-        const float4 z = *reinterpret_cast<const float4*>(kr + 4 * c + 16);
+        const float4 z = load4(kr + 4 * c + 16);
 #pragma unroll
         for (int h = 0; h < G; ++h) {
           const float4 y =
@@ -288,8 +324,7 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 2; ++j) {
         const int c = lane + 32 * j;
         if (c < d4) {
-          const float4 y =
-              *reinterpret_cast<const float4*>(Vs + t * ld + 4 * c);
+          const float4 y = load4(Vs + t * ld + 4 * c);
 #pragma unroll
           for (int h = 0; h < G; ++h) {
             acc[h][j].x = fmaf(pt[h], y.x, acc[h][j].x);
@@ -312,7 +347,7 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();  // every ring drained and read
 
   // Merge the warps in warp order: their states go to shared memory.
-  float* Wa = rings;              // [NW][G][D]
+  float* Wa = Qs + G * D;         // [NW][G][D], over the rings
   float* Wm = Wa + NW * G * D;    // [NW][G]
   float* Wl = Wm + NW * G;        // [NW][G]
 #pragma unroll
@@ -344,7 +379,7 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
       num += Wa[(w * G + h) * D + d] * f;
     }
     if (ne == 1) {
-      out[(bh0 + h) * D + d] = num / fmaxf(den, 1e-30f);
+      put(out, (bh0 + h) * D + d, num / fmaxf(den, 1e-30f), q_bf16);
     } else {
       part_acc[((bh0 + h) * splits + sp) * D + d] = num;
       if (d == 0) {
@@ -379,47 +414,72 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
       num = num * fo + ai * fi;
       mx = mn;
     }
-    out[(bh0 + h) * D + d] = num / fmaxf(den, 1e-30f);
+    put(out, (bh0 + h) * D + d, num / fmaxf(den, 1e-30f), q_bf16);
   }
   if (tid == 0) ticket[pair] = 0;
 }
 
-template <int G, int NW>
+template <typename T, int G, int NW>
 cudaError_t launch(size_t smem, dim3 grid, cudaStream_t stream,
                    const void* q, const void* k, const void* v,
                    const void* lengths, void* part, void* ticket, void* out,
                    int B, int S, int Hq, int Hkv, int D, int splits,
-                   int target, int window, float scale, float softcap) {
+                   int target, int window, int q_bf16, float scale,
+                   float softcap) {
   const cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<G, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      decode_kernel<T, G, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   float* ml = static_cast<float*>(part);
   float* acc = ml + (size_t)2 * B * Hq * splits;
-  decode_kernel<G, NW><<<grid, 32 * NW, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int*>(lengths), ml, acc,
-      static_cast<int*>(ticket), static_cast<float*>(out), B, S, Hq, Hkv, D,
-      splits, target, window, scale, softcap);
+  decode_kernel<T, G, NW><<<grid, 32 * NW, smem, stream>>>(
+      q, static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const int*>(lengths), ml, acc, static_cast<int*>(ticket),
+      out, B, S, Hq, Hkv, D, splits, target, window, q_bf16, scale, softcap);
   return cudaGetLastError();
 }
 
 // Eight warps a block where their rings fit an SM's shared memory
 // (D <= 128), else four.
-template <int G>
+template <typename T, int G>
 cudaError_t launch_g(dim3 grid, cudaStream_t st, const void* q,
                      const void* k, const void* v, const void* lengths,
                      void* part, void* ticket, void* out, int B, int S,
                      int Hq, int Hkv, int D, int splits, int target,
-                     int window, float scale, float softcap) {
-  const size_t ring = (size_t)RING * 2 * TK * row_stride(D);
+                     int window, int q_bf16, float scale, float softcap) {
+  const size_t ring = sizeof(T) * RING * 2 * TK * row_stride<T>(D);
+  const size_t qs = sizeof(float) * G * D;
   if (D <= 128)
-    return launch<G, 8>(sizeof(float) * (G * D + 8 * ring), grid, st, q, k,
-                        v, lengths, part, ticket, out, B, S, Hq, Hkv, D,
-                        splits, target, window, scale, softcap);
-  return launch<G, 4>(sizeof(float) * (G * D + 4 * ring), grid, st, q, k, v,
-                      lengths, part, ticket, out, B, S, Hq, Hkv, D, splits,
-                      target, window, scale, softcap);
+    return launch<T, G, 8>(qs + 8 * ring, grid, st, q, k, v, lengths, part,
+                           ticket, out, B, S, Hq, Hkv, D, splits, target,
+                           window, q_bf16, scale, softcap);
+  return launch<T, G, 4>(qs + 4 * ring, grid, st, q, k, v, lengths, part,
+                         ticket, out, B, S, Hq, Hkv, D, splits, target,
+                         window, q_bf16, scale, softcap);
+}
+
+template <typename T>
+cudaError_t launch_t(dim3 grid, cudaStream_t st, const void* q,
+                     const void* k, const void* v, const void* lengths,
+                     void* part, void* ticket, void* out, int B, int S,
+                     int Hq, int Hkv, int D, int splits, int target,
+                     int window, int q_bf16, float scale, float softcap) {
+  const int g = Hq / Hkv;
+  if (g == 1)
+    return launch_g<T, 1>(grid, st, q, k, v, lengths, part, ticket, out, B,
+                          S, Hq, Hkv, D, splits, target, window, q_bf16,
+                          scale, softcap);
+  if (g == 2)
+    return launch_g<T, 2>(grid, st, q, k, v, lengths, part, ticket, out, B,
+                          S, Hq, Hkv, D, splits, target, window, q_bf16,
+                          scale, softcap);
+  if (g <= 4)
+    return launch_g<T, 4>(grid, st, q, k, v, lengths, part, ticket, out, B,
+                          S, Hq, Hkv, D, splits, target, window, q_bf16,
+                          scale, softcap);
+  return launch_g<T, 8>(grid, st, q, k, v, lengths, part, ticket, out, B, S,
+                        Hq, Hkv, D, splits, target, window, q_bf16, scale,
+                        softcap);
 }
 
 }  // namespace
@@ -427,32 +487,27 @@ cudaError_t launch_g(dim3 grid, cudaStream_t st, const void* q,
 // `part` holds (2 + D) * B * Hq * splits floats of per-split state;
 // `ticket` B * Hkv ints that are 0 on entry and are 0 again on exit;
 // `target` the blocks of equal work the split rule aims at (INT32_MAX: a
-// split of 64 keys, each sequence taking up to `splits` of them).
+// split of 64 keys, each sequence taking up to `splits` of them). q and
+// out are bf16 where `q_bf16`, else float32; the caches bf16 where
+// `kv_bf16` (D then a multiple of 8), else float32.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* lengths,
                                    void* part, void* ticket, void* out,
                                    int B, int S, int Hq, int Hkv, int D,
                                    int splits, int target, int window,
-                                   float scale, float softcap,
-                                   void* stream) {
-  if (D % 4 || D < 4 || D > 256 || Hkv < 1 || Hq % Hkv || Hq / Hkv > 8 ||
-      splits < 1 || splits > 65535 || target < 1)
+                                   int q_bf16, int kv_bf16, float scale,
+                                   float softcap, void* stream) {
+  if (D % (kv_bf16 ? 8 : 4) || D < 4 || D > 256 || Hkv < 1 || Hq % Hkv ||
+      Hq / Hkv > 8 || splits < 1 || splits > 65535 || target < 1)
     return (int)cudaErrorInvalidValue;
-  const int g = Hq / Hkv;
   const dim3 grid(B * Hkv, splits);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (g == 1)
-    err = launch_g<1>(grid, st, q, k, v, lengths, part, ticket, out, B, S,
-                      Hq, Hkv, D, splits, target, window, scale, softcap);
-  else if (g == 2)
-    err = launch_g<2>(grid, st, q, k, v, lengths, part, ticket, out, B, S,
-                      Hq, Hkv, D, splits, target, window, scale, softcap);
-  else if (g <= 4)
-    err = launch_g<4>(grid, st, q, k, v, lengths, part, ticket, out, B, S,
-                      Hq, Hkv, D, splits, target, window, scale, softcap);
-  else
-    err = launch_g<8>(grid, st, q, k, v, lengths, part, ticket, out, B, S,
-                      Hq, Hkv, D, splits, target, window, scale, softcap);
+  const cudaError_t err =
+      kv_bf16 ? launch_t<bf16>(grid, st, q, k, v, lengths, part, ticket, out,
+                               B, S, Hq, Hkv, D, splits, target, window,
+                               q_bf16, scale, softcap)
+              : launch_t<float>(grid, st, q, k, v, lengths, part, ticket,
+                                out, B, S, Hq, Hkv, D, splits, target,
+                                window, q_bf16, scale, softcap);
   return (int)err;
 }

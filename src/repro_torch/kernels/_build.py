@@ -42,7 +42,8 @@ _SIGNATURES = {
     "schedule_args_size": [],
     "empty_launch": [_P],
     "flash_attention_launch": [_P] * 4 + [_I] * 9 + [_F, _F, _P],
-    "flash_decode_launch": [_P] * 7 + [_I] * 8 + [_F, _F, _P],
+    "flash_attention_bf16_launch": [_P] * 4 + [_I] * 9 + [_F, _F, _P],
+    "flash_decode_launch": [_P] * 7 + [_I] * 10 + [_F, _F, _P],
 }
 
 class KernelError(RuntimeError):

@@ -10,12 +10,21 @@ tanh logit soft-cap).
     out = sum_k p v / max(sum_k p, 1e-30),   p = exp(s - max s), 0 if masked
 
 which is the TPU kernel's function (``_flash_kernel``): a query row with no
-visible key gives 0. For a CUDA tensor the wrapper launches the kernel in
+visible key gives 0. As the TPU kernel, it takes float32 or bf16
+operands, computes in float32 (a bf16 value widens exactly) and returns
+``q.dtype``. For a CUDA tensor the wrapper launches a kernel of
 ``csrc/flash_attention.cu`` or raises, and counts the launch in
-``flash_attention.launches``; for a CPU tensor it runs
+``flash_attention.launches`` (and by the kernel's operand type in
+``flash_attention.dtypes``): the float32 kernel (3xTF32 products) for
+float32 operands, the bf16 kernel (bf16 wgmma, P rounded to bf16 for the
+P V product, the output rounded once) for bf16 ones. Mixed operands (a
+bf16 q over float32 k, v, or the reverse) are widened to float32, which
+is exact, and go to the float32 kernel; the output is cast to
+``q.dtype``. float16 raises. For a CPU tensor it runs
 :func:`flash_attention_plain`, the masked full-softmax form with the same
-conventions. The kernel takes head dims that are multiples of 4 up to
-144, with the tiles :func:`tile_config` gives; a larger one raises.
+conventions. The float32 kernel takes head dims that are multiples of 4
+up to 144, the bf16 kernel multiples of 8 up to 144, with the tiles
+:func:`tile_config` gives; others raise.
 """
 
 from __future__ import annotations
@@ -33,19 +42,57 @@ MAX_HEAD_DIM = 256
 # Head dims the CUDA kernel takes: multiples of 4 up to 144 (the configs'
 # largest, Gemma-2's), zero-padded to a multiple of 16 in shared memory.
 MAX_KERNEL_HEAD_DIM = 144
-BLOCK_K = 32                    # keys per K/V tile of the kernel
+BLOCK_K = 32                    # keys per K/V tile of the float32 kernel
+BLOCK_K_BF16 = 64               # and of the bf16 kernel
 SMEM_LIMIT = 232_448            # shared memory a block may use on Hopper
+# The operand types of #7 and #8 (each computes in float32).
+ATTN_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def tile_config(d: int) -> dict:
-    """The CUDA kernel's tiles for head dim ``d``: ``dp`` (d padded to a
-    multiple of 16), ``block_q`` query rows a block (one warpgroup of 128
-    threads per 64 rows: 128 where the shared memory holds it, else 64),
-    ``block_k`` keys a tile, ``threads`` and ``smem_bytes``: q's TF32 high
-    and low parts, the current K and V^T tiles' high and low parts, the
-    next K and V tiles as they land (rows of ``dp + 4`` floats) and their
-    mbarrier, ``4 * (2 * block_q * dp + 4 * block_k * dp + 2 * block_k *
-    (dp + 4)) + 8``."""
+def check_attention_dtypes(**operands) -> None:
+    """#7's and #8's operand types: each float32 or bfloat16 (float16 is
+    not ported yet), and the key and value operands (the last two) of one
+    type."""
+    for name, t in operands.items():
+        if t.dtype == torch.float16:
+            raise ValueError(f"{name} is float16: fp16 is not ported yet "
+                             f"for the attention kernels (float32 or "
+                             f"bfloat16)")
+        if t.dtype not in ATTN_DTYPES:
+            raise ValueError(f"{name} must be float32 or bfloat16, got "
+                             f"{t.dtype}")
+    (kn, k), (vn, v) = list(operands.items())[-2:]
+    if k.dtype != v.dtype:
+        raise ValueError(f"{kn} ({k.dtype}) and {vn} ({v.dtype}) must share "
+                         f"one dtype")
+
+
+def tile_config(d: int, dtype=torch.float32) -> dict:
+    """The CUDA kernel's tiles for head dim ``d`` and operand ``dtype``:
+    ``dp`` (d padded to a multiple of 16), ``block_q`` query rows a block
+    (one warpgroup of 128 threads per 64 rows), ``block_k`` keys a tile,
+    ``threads`` and ``smem_bytes``.
+
+    float32: ``block_q`` 128 where the shared memory holds it, else 64;
+    32-key tiles; q's TF32 high and low parts, the current K and V^T
+    tiles' high and low parts, the next K and V tiles as they land (rows
+    of ``dp + 4`` floats) and their mbarrier, ``4 * (2 * block_q * dp + 4
+    * block_k * dp + 2 * block_k * (dp + 4)) + 8`` bytes.
+
+    bfloat16 (``d`` a multiple of 8): ``block_q`` 128, 64-key tiles; q,
+    the current K and V^T tiles, the next K and V tiles as they land (rows
+    of ``dp + 8`` values) and the mbarrier, ``2 * (block_q * dp + 2 *
+    block_k * dp + 2 * block_k * (dp + 8)) + 8`` bytes."""
+    if dtype == torch.bfloat16:
+        if d % 8 or not 8 <= d <= MAX_KERNEL_HEAD_DIM:
+            raise ValueError(f"head_dim {d} must be a multiple of 8 in [8, "
+                             f"{MAX_KERNEL_HEAD_DIM}] for the bf16 CUDA "
+                             f"kernel")
+        dp = -(-d // 16) * 16
+        bq, bk = 128, BLOCK_K_BF16
+        return dict(dp=dp, block_q=bq, block_k=bk, threads=2 * 128,
+                    smem_bytes=2 * (bq * dp + 2 * bk * dp
+                                    + 2 * bk * (dp + 8)) + 8)
     if d % 4 or not 4 <= d <= MAX_KERNEL_HEAD_DIM:
         raise ValueError(f"head_dim {d} must be a multiple of 4 in [4, "
                          f"{MAX_KERNEL_HEAD_DIM}] for the CUDA kernel")
@@ -76,8 +123,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
                           window: int | None = None,
                           softcap: float | None = None,
                           scale: float) -> torch.Tensor:
-    """Plain torch version of the flash kernel (full masked softmax with
-    the kernel's -1e30 / max(l, 1e-30) conventions)."""
+    """Plain torch version of the flash kernel (full masked softmax in
+    float32 with the kernel's -1e30 / max(l, 1e-30) conventions), in
+    ``q.dtype``."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -96,15 +144,16 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     l = p.sum(-1).permute(0, 3, 1, 2)[..., None]          # (b, q, h, g, 1)
-    return (out / l.clamp_min(1e-30)).reshape(b, sq, hq, d)
+    return (out / l.clamp_min(1e-30)).reshape(b, sq, hq, d).to(q.dtype)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None, softcap: float | None = None,
                     scale: float | None = None) -> torch.Tensor:
-    """(B, Sq, Hq, D) float32 attention output; see the module doc.
-    ``scale`` defaults to D**-0.5."""
-    dev = _check_operands(dict(q=q, k=k, v=v), {})
+    """(B, Sq, Hq, D) attention output in ``q.dtype``; see the module
+    doc. ``scale`` defaults to D**-0.5."""
+    check_attention_dtypes(q=q, k=k, v=v)
+    dev = _check_operands(dict(q=q, k=k, v=v), {}, dtypes=ATTN_DTYPES)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q {tuple(q.shape)} must be (B, Sq, Hq, D) and "
                          f"k, v {tuple(k.shape)} / {tuple(v.shape)} equal "
@@ -120,25 +169,37 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale)
-    tiles = tile_config(d)
+    out_dtype = q.dtype
+    if q.dtype != k.dtype:      # mixed: widened exactly, the float32 kernel
+        q, k, v = q.float(), k.float(), v.float()
+    bf16 = q.dtype == torch.bfloat16
+    tiles = tile_config(d, q.dtype)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must be 16-byte aligned for the CUDA "
                          "kernel")
     from repro_torch.kernels import _build
 
     lib = _build.load()
-    out = torch.empty((b, sq, hq, d), dtype=torch.float32, device=dev)
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=dev)
     if out.numel() == 0:
-        return out
+        return out.to(out_dtype)
+    launch = (lib.flash_attention_bf16_launch if bf16
+              else lib.flash_attention_launch)
     with torch.cuda.device(dev):
-        err = lib.flash_attention_launch(
+        err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
             skv, hq, hkv, d, int(causal),
             NO_WINDOW if window is None else int(window), tiles["block_q"],
             scale, 0.0 if softcap is None else float(softcap), _stream(q))
-    _build.check(err, "flash_attention_launch")
+    _build.check(err, "flash_attention_bf16_launch" if bf16
+                 else "flash_attention_launch")
     flash_attention.launches += 1
-    return out
+    key = str(q.dtype).removeprefix("torch.")
+    flash_attention.dtypes[key] = flash_attention.dtypes.get(key, 0) + 1
+    return out.to(out_dtype)
 
 
 flash_attention.launches = 0
+# Launches by the type of the operands the kernel ran on ("float32" for
+# the float32 kernel, mixed operands included; "bfloat16").
+flash_attention.dtypes = {}

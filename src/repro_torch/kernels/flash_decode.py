@@ -9,10 +9,15 @@ q (B, Hq, D) against caches k, v (B, S, Hkv, D) with valid prefix
     out = sum_k p v / max(sum_k p, 1e-30),   p = exp(s - max s), 0 if masked
 
 which is the TPU kernel's function (``_decode_kernel``) and equals the
-decode path's ``_sdpa`` with ``kv_valid_len = pos + 1``. For a CUDA tensor
-the wrapper launches the kernel of ``csrc/flash_decode.cu`` (one launch:
-the last block of each sequence and kv head merges its splits) or raises,
-and counts it in ``flash_decode.launches``; for a CPU tensor it runs
+decode path's ``_sdpa`` with ``kv_valid_len = pos + 1``. As the TPU
+kernel, it takes q in float32 or bf16 and the caches in float32 or bf16
+(one type for both), computes in float32 and returns ``q.dtype``: a bf16
+cache under a float32 q gives the float32 result on the widened cache (the
+widening is exact). float16 raises. For a CUDA tensor the wrapper launches
+the kernel of ``csrc/flash_decode.cu`` (one launch: the last block of each
+sequence and kv head merges its splits; it reads a bf16 cache as stored)
+or raises, and counts it in ``flash_decode.launches`` (and by the types of
+q and the cache in ``flash_decode.dtypes``); for a CPU tensor it runs
 :func:`flash_decode_plain`. Each sequence's visible keys are cut into
 splits on the device by the rule of :func:`split_ranges`, under the upper
 limit :func:`default_splits` (or ``num_splits``): the wrapper reads
@@ -26,9 +31,10 @@ import math
 import torch
 
 from repro_torch.kernels.dcn_fused import H100_SMS, _check_operands, _stream
-from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM, NEG_INF,
-                                                 NO_WINDOW, _check_gqa,
-                                                 _check_options)
+from repro_torch.kernels.flash_attention import (ATTN_DTYPES, MAX_HEAD_DIM,
+                                                 NEG_INF, NO_WINDOW,
+                                                 _check_gqa, _check_options,
+                                                 check_attention_dtypes)
 
 # Blocks of equal work the kernel's split rule aims at, per SM; the
 # grid's upper limit on splits lets one sequence take twice its even share.
@@ -51,7 +57,8 @@ def flash_decode_plain(q, k_cache, v_cache, lengths, *,
                        window: int | None = None,
                        softcap: float | None = None,
                        scale: float) -> torch.Tensor:
-    """Plain torch version of the decode kernel (masked full softmax)."""
+    """Plain torch version of the decode kernel (masked full softmax in
+    float32), in ``q.dtype``."""
     b, hq, d = q.shape
     s_len, hkv = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv
@@ -69,7 +76,7 @@ def flash_decode_plain(q, k_cache, v_cache, lengths, *,
     p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
     out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
     out = out / p.sum(-1, keepdim=True).clamp_min(1e-30)
-    return out.reshape(b, hq, d)
+    return out.reshape(b, hq, d).to(q.dtype)
 
 
 def default_splits(batch: int, kv_heads: int, s_len: int,
@@ -133,15 +140,16 @@ def _tickets(dev: torch.device, stream: int, n: int) -> torch.Tensor:
 def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
                  softcap: float | None = None, scale: float | None = None,
                  num_splits: int | None = None) -> torch.Tensor:
-    """(B, Hq, D) float32 attention output of the new token; see the
-    module doc. ``lengths`` is int32; a length past S counts as S.
+    """(B, Hq, D) attention output of the new token in ``q.dtype``; see
+    the module doc. ``lengths`` is int32; a length past S counts as S.
     ``num_splits`` (CUDA only) overrides the split rule: each sequence
     takes ``min(num_splits, visible keys // 64)`` splits (at least one), in
     place of its share of the batch under :func:`default_splits`. The
     result does not depend on the splits beyond float32 summation
     order."""
+    check_attention_dtypes(q=q, k_cache=k_cache, v_cache=v_cache)
     dev = _check_operands(dict(q=q, k_cache=k_cache, v_cache=v_cache),
-                          dict(lengths=lengths))
+                          dict(lengths=lengths), dtypes=ATTN_DTYPES)
     if (q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape
             or k_cache.shape[0] != q.shape[0]
             or k_cache.shape[3] != q.shape[2]
@@ -159,9 +167,13 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
         return flash_decode_plain(q, k_cache, v_cache, lengths,
                                   window=window, softcap=softcap,
                                   scale=scale)
-    if d % 4 or d > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} must be a multiple of 4 and at most "
-                         f"{MAX_HEAD_DIM} for the CUDA kernel")
+    kv_bf16 = k_cache.dtype == torch.bfloat16
+    step = 8 if kv_bf16 else 4          # values of a 16-byte cache copy
+    if d % step or d > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} must be a multiple of {step} and at "
+                         f"most {MAX_HEAD_DIM} for the CUDA kernel over a "
+                         f"{str(k_cache.dtype).removeprefix('torch.')} "
+                         f"cache")
     if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
         raise ValueError("q and the k/v caches must start on 16-byte "
                          "boundaries for the CUDA kernel")
@@ -176,7 +188,7 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
     from repro_torch.kernels import _build
 
     lib = _build.load()
-    out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
+    out = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
     # Per-split state (m, l, acc) of the sequences that take more than one
@@ -191,11 +203,16 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
             lengths.data_ptr(), part.data_ptr(), tickets.data_ptr(),
             out.data_ptr(), b, s_len, hq, hkv, d, splits,
             _BLOCKS_PER_SM * sms if num_splits is None else _NO_TARGET,
-            NO_WINDOW if window is None else int(window), scale,
+            NO_WINDOW if window is None else int(window),
+            int(q.dtype == torch.bfloat16), int(kv_bf16), scale,
             0.0 if softcap is None else float(softcap), stream)
     _build.check(err, "flash_decode_launch")
     flash_decode.launches += 1
+    key = "/".join(str(t.dtype).removeprefix("torch.") for t in (q, k_cache))
+    flash_decode.dtypes[key] = flash_decode.dtypes.get(key, 0) + 1
     return out
 
 
 flash_decode.launches = 0
+# Launches by "q dtype/cache dtype", e.g. "float32/bfloat16".
+flash_decode.dtypes = {}

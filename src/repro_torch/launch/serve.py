@@ -8,6 +8,15 @@ the JAX package's serve script does; prompts are drawn with numpy from
 ``--seed``. Runs on the card unless ``--device cpu``. A cross-attention
 arch (llama-3.2-vision) is served, as by the JAX script, with its cross
 cache left at zero (no image), and the script says so.
+
+The script serves float32 params over a float32 cache and has no dtype
+flag, as the JAX script has none. A bf16 model is served from Python:
+``lm.init_lm(cfg, seed, dtype=torch.bfloat16)`` builds bf16 params and
+``DecodeEngine(params, cfg, ..., cache_dtype=torch.bfloat16)`` keeps bf16
+caches; on a card the flash kernels (#7 at prefill, #8 at decode) then run
+on bf16 operands, #8 reading the caches as stored. A float32 model may
+keep a bf16 cache as well (``cache_dtype=torch.bfloat16``): #8 widens it
+in the kernel, exactly.
 """
 
 from __future__ import annotations

@@ -11,9 +11,12 @@ Attention has two entry points:
 * :func:`attention_train`: full-sequence causal attention (the prefill
   path). With ``use_flash`` it goes through the flash kernel
   (``kernels.flash_attention``, CUDA on a card, its plain version on the
-  CPU); otherwise through ``_sdpa`` / ``_sdpa_chunked``.
+  CPU), whose output is in q's dtype (bf16 activations stay bf16);
+  otherwise through ``_sdpa`` / ``_sdpa_chunked``.
 * :func:`attention_decode`: one new token against a KV cache, through the
-  split-KV decode kernel on a card and through ``_sdpa`` on the CPU.
+  split-KV decode kernel on a card (handed the cache as it is stored,
+  float32 or bf16, with no copy) and through ``_sdpa`` on the CPU (the
+  cache cast to the activations' dtype first, as in the JAX package).
 
 A cross-attention layer (``cfg.cross``, llama-3.2-vision's image layers)
 takes K/V from encoder states of width ``d_cross`` and applies no rotary
@@ -307,8 +310,12 @@ def attention_decode(p, cfg: AttnConfig, x, cache, pos):
     cache IN PLACE at ``pos`` (clamped to [0, Smax - 1], as the JAX
     package's ``dynamic_update_slice`` clamps it), and the same dict comes
     back. On a card the attention runs in the split-KV decode kernel with
-    ``lengths = pos + 1``; on the CPU through ``_sdpa`` with
-    ``q_offset=pos, kv_valid_len=pos + 1``, exactly as the JAX package.
+    ``lengths = pos + 1``, over the cache tensors themselves (a bf16 cache
+    is read as stored and widened in the kernel, exactly); on the CPU
+    through ``_sdpa`` with ``q_offset=pos, kv_valid_len=pos + 1`` over the
+    cache cast to ``x.dtype``, exactly as the JAX package. The two differ
+    only where a bf16 model keeps a float32 cache: the JAX cast rounds the
+    cache to bf16, the kernel reads it whole.
 
     A cross layer's cache holds the encoder states' K/V (every row valid,
     filled by ``lm.build_cross_cache``) and is never written: the query
@@ -326,9 +333,9 @@ def attention_decode(p, cfg: AttnConfig, x, cache, pos):
     ck[rows, at] = k_new[:, 0].to(ck.dtype)
     cv[rows, at] = v_new[:, 0].to(cv.dtype)
     if x.device.type == "cuda":
-        out = flash_decode(q[:, 0].contiguous(), ck.to(x.dtype),
-                           cv.to(x.dtype), (pos + 1).to(torch.int32),
-                           window=cfg.window, softcap=cfg.attn_softcap,
+        out = flash_decode(q[:, 0].contiguous(), ck, cv,
+                           (pos + 1).to(torch.int32), window=cfg.window,
+                           softcap=cfg.attn_softcap,
                            scale=cfg.qk_scale)[:, None]
     else:
         out = _sdpa(q, ck.to(x.dtype), cv.to(x.dtype), cfg, causal=True,
@@ -340,7 +347,7 @@ def _cross_decode(p, cfg: AttnConfig, x, cache, pos):
     q = _proj(x, p["wq"])
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q)
-    ck, cv = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
+    ck, cv = cache["k"], cache["v"]
     if x.device.type == "cuda":
         if cfg.window is not None:
             # The kernel places the query at key lengths - 1; the JAX
@@ -353,7 +360,8 @@ def _cross_decode(p, cfg: AttnConfig, x, cache, pos):
                            softcap=cfg.attn_softcap,
                            scale=cfg.qk_scale)[:, None]
     else:
-        out = _sdpa(q, ck, cv, cfg, causal=False, q_offset=pos)
+        out = _sdpa(q, ck.to(x.dtype), cv.to(x.dtype), cfg, causal=False,
+                    q_offset=pos)
     return _out_proj(out, p["wo"])
 
 

@@ -25,8 +25,18 @@ them in place. A cross-attention model (llama-3.2-vision) reads image
 states: ``lm_loss`` and ``lm_prefill`` take them as
 ``batch["cross_states"]`` (B, n_cross_tokens, d_cross), and decode reads
 the cross layers' K/V of them, which ``build_cross_cache`` writes into the
-cache once and no step changes. Feed float32 states on a card: the
-kernels take float32 only.
+cache once and no step changes.
+
+A bf16 model: ``init_lm(cfg, seed, dtype=torch.bfloat16)`` builds bf16
+params (as the JAX package's ``Maker("init", key, jnp.bfloat16)``), and
+every activation then flows in bf16 as the JAX package's do (norms, rotary
+embeddings, softmaxes and the MoE combine in float32, cast back); feed
+bf16 ``cross_states`` to a bf16 model. The decode cache's dtype is
+``init_cache(dtype=)`` (bf16 by default, as in the JAX package), free of
+the params' dtype. On a card the flash kernels take float32 or bf16
+operands and return the query's dtype: a bf16 prefill runs #7 on bf16
+operands, and decode hands #8 each cache as it is stored. Logits come back
+float32.
 """
 
 from __future__ import annotations

@@ -106,7 +106,11 @@ class DecodeEngine:
     only greedy (temperature 0) tokens match the JAX engine. ``mesh`` is
     accepted only as ``None`` until tensor parallelism is ported
     (ROADMAP.md §1).
-    ``steps`` counts the decode steps run.
+    ``steps`` counts the decode steps run. ``cache_dtype`` (float32 by
+    default, as the JAX engine's) is the attention, MLA and Mamba caches'
+    dtype, free of the params' dtype: bf16 params with ``cache_dtype=
+    torch.bfloat16`` serve a bf16 model, and on a card #8 reads a bf16
+    cache as stored.
     """
 
     def __init__(self, params, cfg, *, batch: int, max_len: int, mesh=None,

@@ -638,6 +638,244 @@ def test_flash_decode_ragged_splits(lengths, opts):
 
 
 # ---------------------------------------------------------------------------
+# bf16: #7's bf16 kernel, #8 over a bf16 cache
+# ---------------------------------------------------------------------------
+
+# Two bf16 ulps at the largest output: both sides compute in float32 and
+# round the output once; the kernel also rounds P to bf16 for P V.
+BF16_RTOL = 2.0 ** -7
+
+# (B, Sq, Skv, Hq, Hkv, D, options) of #7 in bf16: head dims 64 / 128 /
+# 144, 1-4 query heads a kv head, causal, non-causal over ragged key counts
+# above and below Sq, window, soft-cap, and lengths around the 64-key tile
+# and the 64-row warpgroup.
+FLASH_BF16_CASES = [
+    (2, 200, 200, 4, 4, 64, {}),
+    (2, 300, 300, 8, 4, 128, {}),
+    (1, 129, 129, 6, 2, 144, {}),
+    (1, 257, 257, 8, 2, 128, dict(window=77)),
+    (1, 150, 150, 4, 2, 144, dict(window=33, softcap=50.0)),
+    (1, 130, 130, 4, 1, 64, dict(softcap=5.0)),
+    (1, 100, 333, 4, 2, 64, {}),                       # causal, Sq < Skv
+    (1, 300, 201, 8, 2, 128, dict(causal=False)),      # Sq > Skv
+    (2, 77, 250, 8, 2, 128, dict(causal=False)),       # Sq < Skv
+    (1, 63, 63, 4, 2, 128, {}),
+    (1, 65, 65, 4, 2, 144, {}),
+    (2, 129, 129, 4, 2, 128, dict(window=64)),
+]
+
+
+def _bf16_normal(rng, *shape):
+    return torch.as_tensor(rng.normal(size=shape).astype(np.float32)).to(
+        torch.bfloat16)
+
+
+def _within(got, want, rtol):
+    got, want = got.float().cpu(), want.float().cpu()
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= rtol * float(want.abs().max())
+
+
+@pytest.mark.parametrize("case", range(len(FLASH_BF16_CASES)))
+def test_flash_attention_bf16_kernel(case):
+    """#7 on bf16 operands: a bf16 output within two bf16 ulps of the
+    plain version's (the same values, float32 math), one launch of the
+    bf16 kernel, and a bitwise-equal rerun."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, sq, skv, hq, hkv, d, opts = FLASH_BF16_CASES[case]
+    rng = np.random.default_rng(70 + case)
+    q, k, v = (_bf16_normal(rng, *s).cuda()
+               for s in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+    want = fa.flash_attention_plain(q, k, v, scale=d ** -0.5, **opts)
+    fa.flash_attention.dtypes = {}
+    got = fa.flash_attention(q, k, v, **opts)
+    assert got.dtype == torch.bfloat16
+    assert fa.flash_attention.dtypes == {"bfloat16": 1}
+    _within(got, want, BF16_RTOL)
+    assert torch.equal(fa.flash_attention(q, k, v, **opts), got)
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_mixed_operands_widen_exactly(q_dtype):
+    """A q of one dtype over k, v of the other runs the float32 kernel on
+    the widened (exact) operands and returns q's dtype: the float32
+    kernel's bound for a float32 output, one bf16 rounding for a bf16
+    one."""
+    from repro_torch.kernels import flash_attention as fa
+
+    other = torch.bfloat16 if q_dtype == torch.float32 else torch.float32
+    rng = np.random.default_rng(90)
+    q = _bf16_normal(rng, 2, 90, 8, 128).to(q_dtype).cuda()
+    k, v = (_bf16_normal(rng, 2, 201, 2, 128).to(other).cuda()
+            for _ in range(2))
+    want = fa.flash_attention_plain(q, k, v, causal=False,
+                                    scale=128 ** -0.5)
+    fa.flash_attention.dtypes = {}
+    got = fa.flash_attention(q, k, v, causal=False)
+    assert got.dtype == q_dtype and fa.flash_attention.dtypes == {
+        "float32": 1}
+    _within(got, want, 1e-4 if q_dtype == torch.float32 else BF16_RTOL)
+
+
+def _bf16_cache_operands(seed, b, s, hq, hkv, d, lengths, q_dtype):
+    rng = np.random.default_rng(seed)
+    q = _bf16_normal(rng, b, hq, d).to(q_dtype)
+    kc, vc = (_bf16_normal(rng, b, s, hkv, d) for _ in range(2))
+    return [t.cuda() for t in (q, kc, vc, torch.as_tensor(np.asarray(
+        lengths, np.int32)))]
+
+
+@pytest.mark.parametrize("opts", [{}, dict(window=100), dict(softcap=30.0),
+                                  dict(window=40, softcap=50.0)])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_over_a_bf16_cache(q_dtype, opts):
+    """#8 reading a bf16 cache as stored, under a float32 q (the float32
+    result on the widened cache: 1e-4 * max|ref|) and a bf16 q (two bf16
+    ulps), at ragged lengths (none visible, one key, around the 64-key
+    split floor, the whole cache and past it) and 1 / default / 64
+    splits, each within the bound; a sequence with no visible key gives 0
+    and a rerun is bitwise equal."""
+    from repro_torch.kernels import flash_decode as fd
+
+    b, s, hq, hkv, d = len(RAGGED_LENGTHS), 512, 16, 8, 128
+    ops = _bf16_cache_operands(12, b, s, hq, hkv, d, RAGGED_LENGTHS, q_dtype)
+    want = fd.flash_decode_plain(*ops, scale=d ** -0.5, **opts)
+    rtol = 1e-4 if q_dtype == torch.float32 else BF16_RTOL
+    fd.flash_decode.dtypes = {}
+    outs = {n: fd.flash_decode(*ops, num_splits=n, **opts)
+            for n in (1, None, 64)}
+    key = f"{str(q_dtype).removeprefix('torch.')}/bfloat16"
+    assert fd.flash_decode.dtypes == {key: 3}
+    for got in outs.values():
+        assert got.dtype == q_dtype
+        _within(got, want, rtol)
+    for i, n in enumerate(RAGGED_LENGTHS):
+        if n <= 0:
+            assert not outs[None][i].any()
+    assert torch.equal(fd.flash_decode(*ops, **opts), outs[None])
+
+
+def test_flash_decode_bf16_cache_equals_the_upcast_cache():
+    """Over a bf16 cache, #8 under a float32 q gives the float32 kernel's
+    result on the upcast cache, up to float32 summation order (the
+    widening is exact)."""
+    from repro_torch.kernels import flash_decode as fd
+
+    q, kc, vc, lens = _bf16_cache_operands(13, 4, 1601, 32, 8, 128,
+                                           [1601] * 4, torch.float32)
+    got = fd.flash_decode(q, kc, vc, lens)
+    want = fd.flash_decode(q, kc.float(), vc.float(), lens)
+    _within(got, want, 1e-5)
+
+
+def test_attention_decode_hands_the_stored_cache_to_the_kernel(monkeypatch):
+    """On the card ``attention_decode`` (self and cross layers) hands #8
+    the cache tensors themselves, a bf16 cache under float32 activations
+    included: no ``.to(x.dtype)`` copy."""
+    from repro_torch.models import layers
+
+    seen = []
+    orig = layers.flash_decode
+
+    def recording(q, k_cache, v_cache, lengths, **kw):
+        seen.append((k_cache.data_ptr(), v_cache.data_ptr(), q.dtype,
+                     k_cache.dtype))
+        return orig(q, k_cache, v_cache, lengths, **kw)
+
+    monkeypatch.setattr(layers, "flash_decode", recording)
+    rng = np.random.default_rng(14)
+    for cross in (False, True):
+        cfg = layers.AttnConfig(d_model=64, n_heads=4, n_kv_heads=2,
+                                head_dim=16, cross=cross,
+                                d_cross=32 if cross else None)
+        d_kv = 32 if cross else 64
+        p = {"wq": rng.normal(size=(64, 4, 16)), "wk": rng.normal(
+            size=(d_kv, 2, 16)), "wv": rng.normal(size=(d_kv, 2, 16)),
+            "wo": rng.normal(size=(4, 16, 64))}
+        for x_dtype in (torch.float32, torch.bfloat16):
+            pt = {n: torch.as_tensor(a.astype(np.float32) * 0.2).to(
+                x_dtype).cuda() for n, a in p.items()}
+            cache = layers.init_kv_cache(cfg, 2, 40, dtype=torch.bfloat16,
+                                         device="cuda")
+            cache["k"].normal_()
+            cache["v"].normal_()
+            x = torch.randn(2, 1, 64, device="cuda").to(x_dtype)
+            pos = torch.tensor([3, 17], dtype=torch.int32, device="cuda")
+            seen.clear()
+            out, back = layers.attention_decode(pt, cfg, x, cache, pos)
+            assert back is cache and out.dtype == x_dtype
+            assert seen == [(cache["k"].data_ptr(), cache["v"].data_ptr(),
+                             x_dtype, torch.bfloat16)]
+
+
+def test_llama_vision_smoke_in_bf16_on_the_card():
+    """llama-3.2-vision smoke with bf16 params and bf16 image states on
+    the card: ``lm_prefill(use_flash=True)`` runs #7's bf16 kernel once a
+    layer (the cross layer non-causally), and 8 teacher-forced
+    ``lm_decode_step``s over a bf16 cache (the cross cache filled by
+    ``build_cross_cache``) run #8 once a layer and step on bf16 q and
+    cache; logits within 3e-2 * max|ref| of the same model on the CPU (the
+    plain versions; whole-model bf16 rounding, as in
+    ``tests/test_torch_bf16.py``); a ``cache_dtype=bfloat16``
+    ``DecodeEngine`` then serves three requests on the card."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch._tree import tree_map
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models import lm
+    from repro_torch.serving import DecodeEngine, Request
+
+    cfg = dataclasses.replace(
+        configs.get_config("llama-3.2-vision-11b", smoke=True),
+        use_flash=True)
+    params = lm.init_lm(cfg, 0, device="cpu", dtype=torch.bfloat16)
+    on_card = tree_map(lambda t: t.cuda(), params)
+    rng = np.random.default_rng(65)
+    states = _bf16_normal(rng, 2, cfg.n_cross_tokens, cfg.d_cross)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(2, 37))
+                           .astype(np.int32))
+    flash_attention.launches, flash_attention.dtypes = 0, {}
+    got = lm.lm_prefill(on_card, cfg, {"tokens": toks.cuda(),
+                                       "cross_states": states.cuda()})
+    assert flash_attention.launches == cfg.n_layers
+    assert flash_attention.dtypes == {"bfloat16": cfg.n_layers}
+    _within(got, lm.lm_prefill(params, cfg, {"tokens": toks,
+                                             "cross_states": states}), 3e-2)
+
+    caches = {}
+    for p, dev in ((params, "cpu"), (on_card, "cuda")):
+        c = lm.init_cache(cfg, 2, 16, dtype=torch.bfloat16, device=dev)
+        caches[dev] = lm.build_cross_cache(p, cfg, c, states.to(dev))
+    pos = np.array([0, 4], np.int32)
+    flash_decode.launches, flash_decode.dtypes = 0, {}
+    for _ in range(8):
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab, size=(2, 1))
+                              .astype(np.int32))
+        want, _ = lm.lm_decode_step(params, cfg, caches["cpu"], tok,
+                                    torch.as_tensor(pos))
+        got, _ = lm.lm_decode_step(on_card, cfg, caches["cuda"], tok.cuda(),
+                                   torch.as_tensor(pos).cuda())
+        _within(got, want, 3e-2)
+        pos = pos + 1
+    assert flash_decode.dtypes == {"bfloat16/bfloat16": 8 * cfg.n_layers}
+
+    eng = DecodeEngine(on_card, cfg, batch=2, max_len=24,
+                       cache_dtype=torch.bfloat16, device="cuda")
+    eng.cache = lm.build_cross_cache(on_card, cfg, eng.cache, states.cuda())
+    for rid, n in enumerate((5, 2, 9)):
+        eng.submit(Request(rid=rid, prompt=rng.integers(
+            0, cfg.vocab, size=n).tolist(), max_new=6))
+    flash_decode.launches = 0
+    done = eng.run()
+    assert len(done) == 3 and all(len(r.out) == 6 for r in done)
+    assert all(0 <= t < cfg.vocab for r in done for t in r.out)
+    assert flash_decode.launches == cfg.n_layers * eng.steps > 0
+
+
+# ---------------------------------------------------------------------------
 # Scale-out: #1 per shard of a device mesh, and launches on another card
 # ---------------------------------------------------------------------------
 

@@ -712,21 +712,49 @@ class TestBliPlan:
 
 
 @pytest.mark.parametrize("which", ["dcn_fused_batch", "dcn_fused_schedule",
-                                   "dcn_fused_tile", "flash_attention",
-                                   "flash_decode"])
+                                   "dcn_fused_tile"])
 def test_other_kernels_still_refuse_bf16(which):
-    """bf16 is ported for the BLI kernel (#6) only; #1, #4, #5, #7 and #8
-    raise on it, saying so."""
-    from repro_torch.kernels import flash_attention as fa
-
+    """bf16 is ported for the BLI kernel (#6) and the attention kernels
+    (#7, #8); the split-C DCN kernels #1, #4 and #5 raise on it, saying
+    so."""
     h = torch.zeros((2, 4, 4), dtype=torch.bfloat16)
     i = torch.zeros((2, 4), dtype=torch.int32)
     call = {"dcn_fused_batch": lambda: kf.dcn_fused_batch(
                 h, i, i, i, i, h, h, h, t_in=1),
             "dcn_fused_schedule": lambda: kf.dcn_fused_schedule(
                 h, i, i, i, h, h, h),
-            "dcn_fused_tile": lambda: kf.dcn_fused_tile(h, i, h, h, h),
-            "flash_attention": lambda: fa.flash_attention(h, h, h),
-            "flash_decode": lambda: fd.flash_decode(h, h, h, i)}[which]
+            "dcn_fused_tile": lambda: kf.dcn_fused_tile(h, i, h, h, h)}[which]
     with pytest.raises(ValueError, match="bf16 is not ported yet"):
         call()
+
+
+def _attention_call(which, q_dtype, kv_dtype):
+    from repro_torch.kernels import flash_attention as fa
+
+    q = torch.ones((1, 3, 4, 8), dtype=q_dtype)
+    kv = torch.ones((1, 5, 2, 8), dtype=kv_dtype)
+    if which == "flash_attention":
+        return fa.flash_attention(q, kv, kv)
+    return fd.flash_decode(q[:, 0].contiguous(), kv, kv,
+                           torch.tensor([4], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("which", ["flash_attention", "flash_decode"])
+def test_attention_kernels_take_bf16_and_return_q_dtype(which):
+    """#7 and #8 take bf16 operands and a bf16 cache under a float32 q
+    (and the reverse), as the TPU kernels do, and return q's dtype."""
+    for q_dtype, kv_dtype in ((torch.bfloat16, torch.bfloat16),
+                              (torch.float32, torch.bfloat16),
+                              (torch.bfloat16, torch.float32)):
+        out = _attention_call(which, q_dtype, kv_dtype)
+        assert out.dtype == q_dtype
+        assert torch.allclose(out.float(), torch.ones_like(out.float()))
+
+
+@pytest.mark.parametrize("which", ["flash_attention", "flash_decode"])
+def test_attention_kernels_refuse_fp16(which):
+    """float16 is not ported for #7 and #8: they raise, saying so."""
+    for q_dtype, kv_dtype in ((torch.float16, torch.float16),
+                              (torch.float32, torch.float16)):
+        with pytest.raises(ValueError, match="fp16 is not ported yet"):
+            _attention_call(which, q_dtype, kv_dtype)
