@@ -210,6 +210,29 @@ Phases, each fatal on failure:
               cache tensors themselves, checked by data pointer), decode
               vs prefill over the image, the image's effect, a profiled
               prefill and decode step, and peak memory.
+14. dcn-bf16 — 14a: #1, #4 and #5 (per tile and whole plane) on phase
+              2's operands with x, w and b rounded to bf16, held against
+              their plain versions within 2**-7 * max|ref|, rerun
+              bitwise, one bf16 launch a call, timed beside the float32
+              kernel on the same values widened, the plain version and
+              ``torch.matmul`` of the float32 contraction (bounds at 2
+              bytes a value and the 3xbf16 rate), and a mixed call (bf16
+              x under float32 w and b) through the float32 kernel. 14b:
+              VGG19-3 DCN-II at 224x224, 1000 classes, nothing cut, phase
+              3's weights rounded to bf16: ``DcnServingEngine.infer`` on
+              images 0-11 in batches of 4 and ``run_graph`` batch_fused on
+              the same, one image through ``batched`` and ``per_tile``;
+              logits against ``run_graph_dense`` in bf16 within
+              max(2 eps, 2**-7) * max|ref| (``BF16_DCN``: eps the bf16
+              dense path's distance from a float32 run of the same
+              weights), every trace at 2 bytes a value equal to the
+              simulator, every #1 / #4 / #5 launch a bf16 one, images/s
+              of bf16 and float32 ``infer`` in turns and one profiled
+              ``infer`` of each (device idle share). 14c (cache-bf16):
+              the llama smoke model's bf16 self and cross layer over a
+              float32 cache, ``attention_decode`` on the card against the CPU
+              path within 2**-7 * max|ref|, and #8's ``round_kv`` over a
+              cache within 0.2 ulp of bf16 values against the bf16 cache.
 
 Each path is driven with every kernel's launch count set to 0 just
 before it and read just after. The last lines are the card's name and
@@ -318,6 +341,18 @@ BF16_RTOL = 2.0 ** -7
 # move the bf16 logits by more than this share of max|logits| (a cross
 # path that ignored the image would give bitwise-equal logits).
 BF16_LIMITS = dict(noise_factor=2.0, image=BF16_RTOL)
+# Phase 14: bf16 DCN serving. 14b's logits limit (PERF.md §2, written
+# before its first run): max(noise_factor x eps, BF16_RTOL) of max|ref|,
+# eps the bf16 dense path's distance from a float32 run of the same bf16
+# weights and images over max|ref32| (the network's own bf16 error).
+# ``batches``: the images of phase 3's requests in serving steps of 4;
+# ``turns``: rounds of float32 and bf16 ``infer`` timed in turns (f, b,
+# b, f), each on a fresh engine.
+BF16_DCN = dict(noise_factor=2.0, batches=[(0, 4), (4, 8), (8, 12)],
+                warm=(12, 16), one=(14, 15), turns=4)
+# 14c: the llama-3.2-vision smoke model's layers over a float32 cache.
+BF16_CACHE = dict(arch="llama-3.2-vision-11b", batch=3, max_len=300,
+                  pos=(0, 170, 299))
 # Phase 8 / 9: training sizes.
 TRAIN_SIZES = dict(dcn_batch=16, dcn_steps=5, example_steps=300,
                    example_tail=50, example_limit=0.35, lm_arch="qwen3-1.7b",
@@ -2374,6 +2409,365 @@ def bf16_phase(card, kernels, reset_counts, peak_bw) -> None:
     torch.cuda.empty_cache()
 
 
+def bf16_dcn_kernels(kernels, ops, contraction, fused_ops) -> None:
+    """Phase 14a: #1, #4 and #5 on bf16 x, w and b (float32 coefficients)
+    at phase 2's full-width VGG19-3 shapes (``ops``: a list of (name,
+    shape tag, wrapper, plain version, float32 args, kwargs, positions of
+    x / w / b, rows of the contraction, live output pixels)): each
+    held against its plain version within BF16_RTOL * max|ref|, rerun
+    bitwise, one bf16 launch a call; timed beside the float32 kernel on
+    the same values widened, the plain version and ``torch.matmul`` of
+    the float32 contraction; a mixed call (bf16 x under float32 w and b)
+    runs the float32 kernel and rounds once. Adds the ``bf16`` entries of
+    the three kernels; the bytes of their bounds at 2 B a value."""
+    import torch
+
+    bf16 = torch.bfloat16
+    for name, tag, fn, plain, args, kw, at, rows, live in ops:
+        a16 = [t.to(bf16) if i in at else t for i, t in enumerate(args)]
+        a32 = [t.float() if i in at else t for i, t in enumerate(a16)]
+        pkw = {n: v for n, v in kw.items() if n == "t_in"}
+        fn.dtypes = {}
+        got = fn(*a16, **kw)
+        if got.dtype != bf16 or fn.dtypes != {"bfloat16": 1}:
+            fail(f"{name} bf16 at {tag}: {got.dtype} output, launches "
+                 f"{fn.dtypes}")
+        err, sc = hold(f"{name} bf16 at {tag}", got.float(),
+                       plain(*a16, **pkw).float(), BF16_RTOL)
+        if not torch.equal(fn(*a16, **kw), got):
+            fail(f"{name} bf16 at {tag}: a rerun differs")
+        mixed = [t.float() if i in at[1:] else t for i, t in enumerate(a16)]
+        fn.dtypes = {}
+        got_m = fn(*mixed, **kw)
+        if got_m.dtype != bf16 or fn.dtypes != {"float32": 1}:
+            fail(f"{name} mixed (bf16 x, float32 w, b) at {tag}: "
+                 f"{got_m.dtype} output, launches {fn.dtypes}")
+        err_m, _ = hold(f"{name} mixed at {tag}", got_m.float(),
+                        plain(*mixed, **pkw).float(), BF16_RTOL)
+        print(f"[dcn-bf16] {name} bf16 at {tag}: max|d| vs plain {err:.3e} "
+              f"(limit {BF16_RTOL:.4g}*{sc:.3f}), rerun bitwise equal, "
+              f"grid {fn.last_grid}; mixed x/w call through the float32 "
+              f"kernel {err_m:.3e}")
+        x, w = a16[at[0]], a16[at[1]]
+        kk, c, o = w.shape
+        kernels[name].setdefault("bf16", {})[tag] = dict(
+            max_abs_err=err,
+            ms=cuda_time_ms(lambda: fn(*a16, **kw), 50),
+            f32_kernel_ms=cuda_time_ms(lambda: fn(*a32, **kw), 50),
+            plain_ms=cuda_time_ms(lambda: plain(*a16, **pkw), 5),
+            library_ms=contraction(rows, args[at[1]]),
+            ops=fused_ops(live, kk, c, o, "3xbf16"),
+            bytes=sum(t.numel() * t.element_size() for t in a16)
+            + got.numel() * 2,
+            shape=f"bf16 {tag}: x {tuple(x.shape)} w {tuple(w.shape)}, "
+                  f"{live} live output pixels, grid {fn.last_grid}")
+        del got, got_m, a16, a32, mixed
+
+
+def bf16_dcn_phase(card, kernels, reset_counts, dcn) -> None:
+    """Phase 14: bf16 DCN serving. 14a: ``bf16_dcn_kernels``. 14b:
+    VGG19-3 DCN-II at 224x224, 1000 classes, nothing cut, with phase 3's
+    float32 weights rounded to bf16 and ``GraphConfig(tile=8,
+    schedule_backend="device")``: ``DcnServingEngine.infer`` on phase 3's
+    images in batches of 4, ``run_graph`` (batch_fused) on the same
+    batches, one image through ``batched`` and ``per_tile``; logits
+    against ``run_graph_dense`` in bf16 within the ``BF16_DCN`` limit,
+    every trace at 2 B a value equal to the simulator, every launch of
+    #1 / #4 / #5 on the path a bf16 one; images/s of bf16 and float32
+    ``infer`` in turns, and one profiled ``infer`` of each for the
+    device's idle share. ``dcn`` carries
+    phase 3's objects (params, cfg, graph, images) and phase 2's
+    operands."""
+    import numpy as np
+    import torch
+
+    from repro_torch._tree import tree_map
+    from repro_torch.core.simulator import simulate_network
+    from repro_torch.kernels import dcn_fused as kf
+    from repro_torch.models.dcn_models import apply_head
+    from repro_torch.runtime import fused_exec as fx
+    from repro_torch.runtime.cache import ScheduleCache
+    from repro_torch.serving import DcnServingEngine
+
+    dev, bf16, sz = torch.device("cuda"), torch.bfloat16, BF16_DCN
+    torch.cuda.empty_cache()
+    bf16_dcn_kernels(kernels, dcn["ops"], dcn["contraction"],
+                     dcn["fused_ops"])
+
+    cfg, graph, images = dcn["cfg"], dcn["graph"], dcn["images"]
+    params32 = dcn["params"]
+    params = tree_map(lambda t: t.to(bf16), params32)
+    gcfg = fx.GraphConfig(tile=8, schedule_backend="device")
+
+    def x_of(lo, hi, dtype=bf16):
+        return torch.as_tensor(images[lo:hi], device=dev).to(dtype)
+
+    # The network's own bf16 error: the bf16 dense path against a float32
+    # run of the same bf16 weights and images.
+    ref16, ref32 = [], []
+    p_wide = tree_map(lambda t: t.float(), params)
+    for lo, hi in sz["batches"]:
+        x = x_of(lo, hi)
+        ref16.append(apply_head(params, cfg, fx.run_graph_dense(
+            params["convs"], graph, x)))
+        ref32.append(apply_head(p_wide, cfg, fx.run_graph_dense(
+            p_wide["convs"], graph, x.float())))
+    del p_wide
+    r16, r32 = torch.cat(ref16), torch.cat(ref32)
+    eps = float((r16.float() - r32).abs().max() / r32.abs().max())
+    rtol = max(sz["noise_factor"] * eps, BF16_RTOL)
+    print(f"[dcn-bf16] VGG19-{cfg.n_deform} DCN-II {cfg.img_size}x"
+          f"{cfg.img_size}, {cfg.num_classes} classes, phase 3's weights "
+          f"rounded to bf16: the bf16 dense path is {eps:.4e} of max|ref| "
+          f"from the float32 run of the same weights; logits limit "
+          f"max({sz['noise_factor']} x {eps:.4e}, 2^-7) = {rtol:.4e}")
+
+    def check(what, logits, ref):
+        if logits.dtype != bf16 or not torch.isfinite(logits.float()).all():
+            fail(f"{what}: {logits.dtype} logits, or not finite")
+        d, sc = rel_err(logits.float(), ref.float())
+        if not d <= rtol * sc:
+            fail(f"{what}: max|logit - dense bf16| = {d} > {rtol:.4e} * "
+                 f"{sc}")
+        return d / sc
+
+    def check_traces(what, traces):
+        for tr in traces:
+            if {g.dtype_bytes for g in tr.groups} != {2}:
+                fail(f"{what}: a group traced at "
+                     f"{ {g.dtype_bytes for g in tr.groups} } B a value")
+            sim = simulate_network(fx.network_sim_specs(tr),
+                                   boundary_bytes=tr.boundary_bytes)
+            if sim.total_dram_bytes != tr.total_dram_bytes:
+                fail(f"{what}: trace DRAM {tr.total_dram_bytes} != "
+                     f"simulator {sim.total_dram_bytes}")
+
+    def only_bf16(what, fn):
+        n = fn.launches
+        if n <= 0 or fn.dtypes != {"bfloat16": n}:
+            fail(f"{what}: {fn.__name__} launches {n}, by type "
+                 f"{fn.dtypes}; expected bf16 launches only")
+        return n
+
+    def fresh_engine(p, dtype):
+        eng = DcnServingEngine(p, cfg, slots=4, device=dev, graph=gcfg)
+        eng.infer(x_of(*sz["warm"], dtype))      # cuDNN, conv schedules
+        torch.cuda.synchronize()
+        return eng
+
+    def serve(eng, dtype):
+        t0 = time.perf_counter()
+        outs = [eng.infer(x_of(lo, hi, dtype)) for lo, hi in sz["batches"]]
+        torch.cuda.synchronize()
+        return outs, time.perf_counter() - t0
+
+    # The main path: infer on the batches, every run_graph traced.
+    eng = fresh_engine(params, bf16)
+    traces = []
+    orig = fx.run_graph
+
+    def traced(*a, **k):
+        out = orig(*a, **k)
+        traces.append(out[1])
+        return out
+
+    reset_counts()
+    for fn in (kf.dcn_fused_batch, kf.dcn_fused_schedule, kf.dcn_fused_tile):
+        fn.dtypes = {}
+    fx.run_graph = traced
+    try:
+        outs, wall = serve(eng, bf16)
+    finally:
+        fx.run_graph = orig
+    n1 = only_bf16("infer", kf.dcn_fused_batch)
+    worst = max(check(f"infer images {lo}-{hi - 1}", o, r) for o, r, (lo, hi)
+                in zip(outs, ref16, sz["batches"]))
+    if len(traces) != len(sz["batches"]):
+        fail(f"infer ran run_graph {len(traces)} times for "
+             f"{len(sz['batches'])} batches")
+    check_traces("infer", traces)
+    n_img = sum(hi - lo for lo, hi in sz["batches"])
+    print(f"[dcn-bf16] DcnServingEngine.infer in bf16 on {n_img} images in "
+          f"batches of 4: logits bf16, max rel. deviation from dense bf16 "
+          f"{worst:.4e} (limit {rtol:.4e}); {len(traces)} traces at 2 B a "
+          f"value == simulator; #1 launches {n1}, by type "
+          f"{kf.dcn_fused_batch.dtypes}")
+    entries = {n: kernels[n]["bf16"] for n in (
+        "dcn_fused_batch", "dcn_fused_schedule", "dcn_fused_tile")}
+    next(iter(entries["dcn_fused_batch"].values()))["launches"] = n1
+
+    # run_graph in batch_fused on the same batches, with the trace.
+    reset_counts()
+    kf.dcn_fused_batch.dtypes = {}
+    for (lo, hi), r in zip(sz["batches"], ref16):
+        y, tr = fx.run_graph(params["convs"], graph, x_of(lo, hi),
+                             config=gcfg, schedule_cache=ScheduleCache(),
+                             return_trace=True)
+        check(f"run_graph batch_fused images {lo}-{hi - 1}",
+              apply_head(params, cfg, y), r)
+        check_traces("run_graph batch_fused", [tr])
+    n1g = only_bf16("run_graph batch_fused", kf.dcn_fused_batch)
+    print(f"[dcn-bf16] run_graph(dispatch='batch_fused') in bf16 on the "
+          f"same batches: logits within the limit, traces == simulator, "
+          f"#1 launches {n1g}, by type {kf.dcn_fused_batch.dtypes}")
+
+    # One image through batched (#4) and per_tile (#5).
+    lo, hi = sz["one"]
+    ref1 = apply_head(params, cfg, fx.run_graph_dense(
+        params["convs"], graph, x_of(lo, hi)))
+    for mode, fn in (("batched", kf.dcn_fused_schedule),
+                     ("per_tile", kf.dcn_fused_tile)):
+        reset_counts()
+        fn.dtypes = {}
+        t0 = time.perf_counter()
+        y, tr = fx.run_graph(
+            params["convs"], graph, x_of(lo, hi),
+            config=dataclasses.replace(gcfg, dispatch=mode),
+            schedule_cache=ScheduleCache(), return_trace=True)
+        torch.cuda.synchronize()
+        w_mode = time.perf_counter() - t0
+        d = check(f"run_graph {mode}", apply_head(params, cfg, y), ref1)
+        check_traces(f"run_graph {mode}", [tr])
+        n = only_bf16(f"run_graph {mode}", fn)
+        next(iter(entries[fn.__name__].values()))["launches"] = n
+        print(f"[dcn-bf16] run_graph(dispatch={mode!r}) in bf16 on image "
+              f"{lo}: {n} {fn.__name__} launches, all bf16, in "
+              f"{w_mode:.2f} s; max rel. deviation from dense bf16 "
+              f"{d:.4e}; trace == simulator")
+
+    # images/s of infer, float32 and bf16, in turns on fresh engines; then
+    # one profiled infer call of each on a fresh engine, for the device's
+    # idle share.
+    ips = {"bf16": [], "float32": []}
+    for kind in ("float32", "bf16", "bf16", "float32") * sz["turns"]:
+        p, dtype = (params, bf16) if kind == "bf16" else (params32,
+                                                          torch.float32)
+        e = fresh_engine(p, dtype)
+        _, w = serve(e, dtype)
+        ips[kind].append(n_img / w)
+        del e
+    print(f"[dcn-bf16] {card}: DcnServingEngine.infer images/s, in turns "
+          f"on fresh engines ({n_img} images in batches of 4, "
+          f"{2 * sz['turns']} runs a dtype): bf16 median "
+          f"{float(np.median(ips['bf16'])):.3f} "
+          f"{[round(v, 3) for v in ips['bf16']]}, float32 median "
+          f"{float(np.median(ips['float32'])):.3f} "
+          f"{[round(v, 3) for v in ips['float32']]}; the checked bf16 run "
+          f"above {n_img / wall:.3f}")
+    for kind, p, dtype in (("bf16", params, bf16),
+                           ("float32", params32, torch.float32)):
+        profile_infer(fresh_engine(p, dtype), x_of(*sz["batches"][0], dtype),
+                      kind, card)
+    del eng, params, ref16, ref32, r16, r32
+    torch.cuda.empty_cache()
+
+
+def profile_infer(eng, x, what: str, card: str) -> None:
+    """One ``infer`` call on a fresh engine's unseen images under
+    ``torch.profiler``: wall time, device busy time and idle share, and the
+    top device activities."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.infer(x)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us, by_name = device_busy(prof.events())
+    if busy_us <= 0:
+        fail(f"the profiler recorded no device activity in a {what} infer")
+    print(f"[dcn-bf16] {card}: one {what} infer of {len(x)} unseen images "
+          f"under the profiler: wall {wall_us / 1e3:.1f} ms, device busy "
+          f"{busy_us / 1e3:.1f} ms (idle {100 * (1 - busy_us / wall_us):.1f}"
+          f" %)")
+    for name, d in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:5]:
+        print(f"  device {sum(d) / 1e3:8.2f} ms x{len(d):<5d} {name[:90]}")
+
+
+def bf16_cache_phase() -> None:
+    """Phase 14c: a bf16 model over a float32 cache (the engines' default
+    ``cache_dtype``). The llama-3.2-vision smoke model's first self and
+    first cross layer in bf16, ``attention_decode`` over a float32 cache
+    on the card (#8 with ``round_kv``) against the CPU path (the JAX
+    cast of the cache to bf16) within BF16_RTOL * max|ref|; and #8 over a
+    float32 cache whose values lie within 0.2 bf16 ulp of bf16 numbers,
+    under a float32 q, against #8 over those bf16 numbers within 1e-5 *
+    max|ref|, where the unrounded read moves the result by more."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models import layers, lm
+    from repro_torch.models.transformer import layer_slices
+
+    sz, bf16 = BF16_CACHE, torch.bfloat16
+    cfg = configs.get_config(sz["arch"], smoke=True)
+    params = lm.init_lm(cfg, SEED, device="cpu", dtype=bf16)
+    rng = np.random.default_rng(SEED + 16)
+    pos = torch.tensor(sz["pos"], dtype=torch.int32)
+    kinds = [s.cross for s in cfg.pattern]
+    if not (cfg.n_repeats and True in kinds and False in kinds):
+        fail(f"{cfg.name} smoke has no self and cross layer in its stack")
+    for kind, idx in (("self", kinds.index(False)),
+                      ("cross", kinds.index(True))):
+        acfg = cfg.attn_cfg(cfg.pattern[idx])
+        p = layer_slices(params["layers"]["stack"][f"b{idx}"])[0]["attn"]
+        cache = layers.init_kv_cache(acfg, sz["batch"], sz["max_len"],
+                                     dtype=torch.float32)
+        g = torch.Generator().manual_seed(SEED + 17 + idx)
+        cache["k"].normal_(generator=g)
+        cache["v"].normal_(generator=g)
+        card_cache = {n: t.cuda() for n, t in cache.items()}
+        x = torch.as_tensor(rng.normal(size=(sz["batch"], 1, cfg.d_model))
+                            .astype(np.float32)).to(bf16)
+        want, _ = layers.attention_decode(p, acfg, x, cache, pos)
+        fd.flash_decode.dtypes = {}
+        got, _ = layers.attention_decode(
+            {n: t.cuda() for n, t in p.items()}, acfg, x.cuda(), card_cache,
+            pos.cuda())
+        if fd.flash_decode.dtypes != {"bfloat16/float32": 1}:
+            fail(f"bf16 {kind} layer over a float32 cache launched #8 "
+                 f"{fd.flash_decode.dtypes}")
+        err, sc = hold(f"bf16 {kind} layer over a float32 cache, card vs "
+                       f"CPU", got.float().cpu(), want.float(), BF16_RTOL)
+        print(f"[cache-bf16] {cfg.name}, bf16 {kind} layer {idx} over a "
+              f"float32 cache: attention_decode on the card (#8, round_kv) "
+              f"vs the CPU path (cache cast to bf16): max|d| {err:.3e} "
+              f"(limit {BF16_RTOL:.4g}*{sc:.3f})")
+    b, s, hq, hkv, d = 4, 512, 16, 8, 128
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    q = torch.randn((b, hq, d), generator=gen, device="cuda")
+    lens = torch.tensor([512, 300, 64, 1], dtype=torch.int32, device="cuda")
+    caches = []
+    for _ in range(2):
+        kb = torch.randn((b, s, hkv, d), generator=gen,
+                         device="cuda").to(bf16)
+        ulp = torch.ldexp(torch.ones_like(kb, dtype=torch.float32),
+                          torch.floor(torch.log2(kb.float().abs())).int() - 7)
+        nudge = 0.2 * ulp * (2 * torch.rand(kb.shape, generator=gen,
+                                            device="cuda").round() - 1)
+        caches.append((kb, kb.float() + torch.where(kb == 0, 0, nudge)))
+    (kb, kf32), (vb, vf32) = caches
+    if not (torch.equal(kf32.to(bf16), kb) and torch.equal(vf32.to(bf16),
+                                                           vb)):
+        fail("the nudged float32 cache does not round to its bf16 values")
+    want = fd.flash_decode(q, kb, vb, lens)
+    got = fd.flash_decode(q, kf32, vf32, lens, round_kv=True)
+    unrounded = fd.flash_decode(q, kf32, vf32, lens)
+    err, sc = hold("#8 round_kv over a nudged float32 cache vs the bf16 "
+                   "cache", got, want, 1e-5)
+    moved, _ = rel_err(unrounded, want)
+    if not moved > 1e-5 * sc:
+        fail(f"the unrounded read moved the result by only {moved}: the "
+             f"check cannot see the rounding")
+    print(f"[cache-bf16] #8 round_kv over a float32 cache within 0.2 ulp of "
+          f"bf16 values, float32 q: max|d| vs the bf16 cache {err:.3e} "
+          f"(limit 1e-5*{sc:.3f}); without round_kv {moved:.3e}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2423,11 +2817,19 @@ def main() -> int:
     # Operation rates by the units a kernel's work runs on: FP32 on the
     # CUDA cores; the 3xTF32 contraction of #1 / #4 / #5 at a third of the
     # dense TF32 tensor-core rate (three TF32 products per FP32 product).
-    # Dense bf16 on the tensor cores is twice dense TF32 on every Hopper
-    # part (SXM 989, PCIe 756, NVL 835 TFLOP/s).
+    # Their contraction on bf16 weights at a third of the dense bf16 rate:
+    # the float32 patch splits exactly into three bf16 pieces (8 + 8 + 8
+    # significant bits), and each piece times a bf16 weight is exact in
+    # float32, so three bf16 products give the FP32-accurate product (the
+    # kernels' own 2xTF32 runs at 495 / 2, slower). Dense bf16 on the
+    # tensor cores is twice dense TF32 on every Hopper part (SXM 989, PCIe
+    # 756, NVL 835 TFLOP/s).
     rates = {"fp32": (peak_fp32, f"FP32 {peak_fp32 / 1e12:g} TFLOP/s"),
              "3xtf32": (peak_tf32 / 3, f"3xTF32 {peak_tf32 / 3e12:.4g} "
                         f"TFLOP/s (TF32 {peak_tf32 / 1e12:g} / 3)"),
+             "3xbf16": (2 * peak_tf32 / 3, f"3xbf16 "
+                        f"{2 * peak_tf32 / 3e12:.4g} TFLOP/s (bf16 dense "
+                        f"{2 * peak_tf32 / 1e12:g} / 3)"),
              "bf16": (2 * peak_tf32, f"bf16 dense {2 * peak_tf32 / 1e12:g} "
                       f"TFLOP/s")}
     print(f"card: {card}; peaks used for bounds: {peak_fp32 / 1e12:g} "
@@ -2460,8 +2862,9 @@ def main() -> int:
     def reset_counts():
         for fn in wrappers.values():
             fn.launches = 0
-        fa.flash_attention.dtypes = {}
-        fd.flash_decode.dtypes = {}
+        for fn in (fa.flash_attention, fd.flash_decode, kf.dcn_fused_batch,
+                   kf.dcn_fused_schedule, kf.dcn_fused_tile):
+            fn.dtypes = {}
 
     def read_counts(*names, into=launches):
         got = {n: wrappers[n].launches for n in names}
@@ -2636,6 +3039,7 @@ def main() -> int:
     g_rows, p_pix = row.shape[0], idx.shape[1]
     kk, c_in, c_out = w.shape
     live = int((cnt > 0).sum())
+    a1, k1, live1 = a, k, live        # held again in bf16 in phase 14
     ms1 = cuda_time_ms(lambda: kf.dcn_fused_batch(*a, **k), 50)
     grid1 = kf.dcn_fused_batch.last_grid
     # The default grid against others: one that fits a single wave of two
@@ -3714,6 +4118,29 @@ def main() -> int:
 
     # -- phase 13: bf16 serving (#7 / #8 in bf16, llama in bf16) --------------
     bf16_phase(card, kernels, reset_counts, peak_bw)
+
+    # -- phase 14: bf16 DCN serving (#1 / #4 / #5 in bf16, VGG19-3 in bf16) --
+    bf16_dcn_phase(card, kernels, reset_counts, dict(
+        params=params, cfg=cfg, graph=graph, images=images,
+        contraction=contraction, fused_ops=fused_ops, ops=[
+            ("dcn_fused_batch", f"G={g_rows} P={p_pix} KK={kk} C={c_in} "
+             f"O={c_out}", kf.dcn_fused_batch, kf.dcn_fused_batch_plain, a1,
+             k1, (0, 6, 7), g_rows * p_pix, live1 * p_pix),
+            ("dcn_fused_schedule", f"T={t4} P={p4} KK={w4.shape[0]} "
+             f"C={w4.shape[1]} O={w4.shape[2]}", kf.dcn_fused_schedule,
+             kf.dcn_fused_schedule_plain, a4, k4, (0, 5, 6), t4 * p4,
+             live4 * p4),
+            ("dcn_fused_tile", f"per tile S={x5t.shape[0]} "
+             f"P={idx5t.shape[0]}", kf.dcn_fused_tile,
+             kf.dcn_fused_tile_plain, a5t, k5t, (0, 3, 4), idx5t.shape[0],
+             live5t),
+            ("dcn_fused_tile", f"whole plane S={x5.shape[-2]} "
+             f"P={idx5.shape[-3]}", kf.dcn_fused_tile,
+             kf.dcn_fused_tile_plain, a5, k5, (0, 3, 4), idx5.shape[-3],
+             live5)]))
+
+    # -- phase 14c: a bf16 model over a float32 cache (#8 round_kv) ---------
+    bf16_cache_phase()
 
     def bounds(kd):
         kd.update(bound_of(kd.pop("ops"), kd.pop("bytes")))

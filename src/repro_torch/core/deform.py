@@ -76,7 +76,10 @@ def randomize_offset_conv(params: DeformableConvParams,
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
            stride: int = 1, padding: str = "SAME") -> torch.Tensor:
     """Standard NHWC conv with HWIO weights (stages 1 and 3 building
-    block). ``padding`` is "SAME" or "VALID", as in the JAX package."""
+    block). ``padding`` is "SAME" or "VALID", as in the JAX package.
+    bf16 follows the JAX package's rule: the sum is taken in float32 (here
+    on operands widened exactly), b added in float32, and the result
+    rounded once to x's dtype."""
     if padding == "SAME":
         kh, kw = w.shape[0], w.shape[1]
         if stride != 1:
@@ -87,6 +90,9 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
         xn = x.permute(0, 3, 1, 2)
     else:
         raise ValueError(f"unknown padding: {padding!r}")
+    if x.dtype == torch.bfloat16:
+        xn, w = xn.float(), w.float()
+        b = None if b is None else b.float()
     y = F.conv2d(xn, w.permute(3, 2, 0, 1), None, stride=stride)
     y = y.permute(0, 2, 3, 1)
     if b is not None:

@@ -12,7 +12,11 @@
 // Bound: operations. At the full-width VGG19-3 segment (tp = P = 64,
 // KK = 9, C = O = 512, 4 images, G = 16 rows) the call does ~4.8 GFLOP of
 // contraction on ~14 MB; in 3xTF32 on the tensor cores (165 TFLOP/s) that
-// is ~0.029 ms against ~0.004 ms of bytes.
+// is ~0.029 ms against ~0.004 ms of bytes. With bf16 operands (`bf16_ops`:
+// x, w, b and out bf16) the bytes halve. The card can do that contraction
+// to FP32 accuracy in three bf16 products (the float32 patch split into
+// three bf16 pieces, each product by a bf16 weight exact: 989 / 3 = 330
+// TFLOP/s), ~0.015 ms; this body runs it in 2xTF32 (247.5 TFLOP/s).
 //
 // Design: the split-C body of #4 and #5. The TPU walks the row's dep
 // slots as a sequential grid dimension, DMAs tile dep_glb[g, k] and
@@ -28,8 +32,8 @@ extern "C" int dcn_fused_batch_launch(
     const void* dep_cnt, const void* idx, const void* coeff, const void* w,
     const void* b, void* ws, void* out, int G, int k_pad, int n_x, int t_in,
     int tp, int P, int KK, int C, int O, int n_split, int c_split,
-    void* stream) {
+    int bf16_ops, void* stream) {
   return split::split_launch<split::ADDR_BATCH>(
       x, row_id, dep_glb, dep_cnt, idx, coeff, w, b, ws, out, G, k_pad, n_x,
-      t_in, tp, P, KK, C, O, n_split, c_split, stream);
+      t_in, tp, P, KK, C, O, n_split, c_split, bf16_ops, stream);
 }

@@ -26,6 +26,11 @@
 // whole-plane call (S = 196, P = 196 -> 256) ~0.9 GFLOP on ~10.4 MB. With
 // the contraction in 3xTF32 on the tensor cores (165 TFLOP/s effective)
 // the weight bytes bound a one-row call and the operations a schedule.
+// With bf16 operands (`bf16_ops`) both entries halve the bytes and run the
+// contraction in 2xTF32 (247.5 TFLOP/s): x, w, b and out bf16, the
+// coefficients, patch and sums float32. Their bound takes the faster
+// FP32-accurate form the card offers, three bf16 products (989 / 3 = 330
+// TFLOP/s).
 //
 // Design: the split-C body of dcn_fused_split.cuh. The TPU keeps the
 // whole (S, C) halo (512 KB at S = 256, C = 512) or the (bp*KK, C) patch
@@ -43,10 +48,10 @@ extern "C" int dcn_fused_schedule_launch(
     const void* x, const void* dep_tbl, const void* dep_cnt, const void* idx,
     const void* coeff, const void* w, const void* b, void* ws, void* out,
     int T, int k_pad, int t_in, int tp, int P, int KK, int C, int O,
-    int n_split, int c_split, void* stream) {
+    int n_split, int c_split, int bf16_ops, void* stream) {
   return split::split_launch<split::ADDR_SCHED>(
       x, nullptr, dep_tbl, dep_cnt, idx, coeff, w, b, ws, out, T, k_pad,
-      t_in, t_in, tp, P, KK, C, O, n_split, c_split, stream);
+      t_in, t_in, tp, P, KK, C, O, n_split, c_split, bf16_ops, stream);
 }
 
 extern "C" int dcn_fused_tile_launch(const void* x, const void* idx,
@@ -54,8 +59,8 @@ extern "C" int dcn_fused_tile_launch(const void* x, const void* idx,
                                      const void* b, void* ws, void* out,
                                      int N, int S, int P, int KK, int C,
                                      int O, int n_split, int c_split,
-                                     void* stream) {
+                                     int bf16_ops, void* stream) {
   return split::split_launch<split::ADDR_TILE>(
       x, nullptr, nullptr, nullptr, idx, coeff, w, b, ws, out, N, 1, 1, 1, S,
-      P, KK, C, O, n_split, c_split, stream);
+      P, KK, C, O, n_split, c_split, bf16_ops, stream);
 }

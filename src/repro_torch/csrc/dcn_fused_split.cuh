@@ -74,8 +74,26 @@
 //   round-to-nearest: the tensor cores' own accumulation rounds toward
 //   zero, and carried over all KK * C = 4608 products it drifts past the
 //   1e-5 * max|out| that the split count may move the result.
+//
+// Element type T of x, w, b and out: float or bf16, as the TPU kernels take
+// either and widen to float32 inside. The BLI coefficients, the patch, the
+// accumulators and the split workspace stay float32 in both. In bf16, x and
+// w are staged in shared memory as stored (16-byte copies of 8 values, a
+// halo row of 16 channels 32 bytes) and widened where they are read, which
+// halves the halo's shared memory, so twice the dep rows take the resident
+// path. A bf16 weight is exact in TF32 (8 significant bits of 11), so its
+// residual is zero: 2xTF32, w * patch_hi + w * patch_lo, keeps the patch's
+// FP32 accuracy in two products a k-step instead of three (495 / 2 = 247.5
+// TFLOP/s). The card's fastest FP32-accurate form is faster still: the
+// patch split into three bf16 pieces (8 + 8 + 8 significant bits), each
+// product by a bf16 weight exact in float32, 989 / 3 = 330 TFLOP/s; the
+// bound is taken at that rate, and a wgmma bf16 body is later work. The
+// patch is not rounded to bf16, as the TPU kernels keep it in float32. b is added once to the float32 sum and the result rounded once to
+// T (out, or the combine pass's out): no float32 output and cast after.
 
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include "wgmma_tf32.cuh"
 
@@ -91,8 +109,69 @@ constexpr int NT = 256;       // 2 warpgroups, one per 64 output channels
 constexpr int WS = BO + 8;    // w row stride: conflict-free A fragments
 constexpr int RING = 3;       // stages in flight: two ahead of the math
 constexpr int PATCH = BP * BC;  // floats of one stage's patch (hi or lo)
-constexpr int HS = BC + 4;    // halo row stride (floats)
 constexpr int COMBINE_NT = 128;
+using bf16 = __nv_bfloat16;
+
+// Per element type T of x and w: values of one 16-byte copy, and the halo
+// row stride (values): a chunk row of BC channels plus one copy's padding,
+// 80 bytes in float, 48 in bf16, each row on a 16-byte boundary.
+template <typename T>
+struct Elem {
+  static constexpr int VEC = 16 / (int)sizeof(T);
+  static constexpr int HS = BC + VEC;
+};
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
+
+// float -> T, rounded to nearest.
+template <typename T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ bf16 narrow<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Four consecutive values as float4 (bf16: widened, exactly).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(w.x << 16),
+                     __uint_as_float(w.x & 0xffff0000u),
+                     __uint_as_float(w.y << 16),
+                     __uint_as_float(w.y & 0xffff0000u));
+}
+
+// One value into shared memory, zero where !ok: a 4-byte cp.async in
+// float; a plain load and store in bf16 (cp.async copies 4 bytes at the
+// least). The barriers that order the cp.async copies order these too.
+__device__ __forceinline__ void copy1(float* dst, const float* src,
+                                      const float* any, bool ok) {
+  cp_async4(dst, ok ? src : any, ok ? 4 : 0);
+}
+__device__ __forceinline__ void copy1(bf16* dst, const bf16* src, const bf16*,
+                                      bool ok) {
+  *dst = ok ? *src : __float2bfloat16_rn(0.f);
+}
+
+// Four consecutive values (16 bytes in float, 8 in bf16) by one cp.async,
+// zero-filled where !ok.
+__device__ __forceinline__ void copy4(float* dst, const float* src,
+                                      const float* any, bool ok) {
+  cp_async16(dst, ok ? src : any, ok ? 16 : 0);
+}
+__device__ __forceinline__ void copy4(bf16* dst, const bf16* src,
+                                      const bf16* any, bool ok) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(ok ? src : any), "r"(ok ? 8 : 0));
+}
 static_assert(NT == 4 * BP && BC == 16 && BO == 2 * 64 && BP == 64 &&
                   BC * BO % (4 * NT) == 0,
               "the thread maps below assume this tile");
@@ -128,25 +207,28 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32],
         "r"(scale_d));
 }
 
-template <int MODE, bool HALO>
+template <typename T, int MODE, bool HALO>
 __global__ void __launch_bounds__(NT, 2)
-split_kernel(const float* __restrict__ x, const int* __restrict__ row_id,
+split_kernel(const T* __restrict__ x, const int* __restrict__ row_id,
              const int* __restrict__ dep, const int* __restrict__ dep_cnt,
              const int* __restrict__ idx, const float* __restrict__ coeff,
-             const float* __restrict__ w, const float* __restrict__ b,
-             float* __restrict__ ws, float* __restrict__ out, int rows,
+             const T* __restrict__ w, const T* __restrict__ b,
+             float* __restrict__ ws, T* __restrict__ out, int rows,
              int k_pad, int n_x, int t_in, int tp, int P, int KK, int C,
              int O, int c_split) {
+  constexpr int VEC = Elem<T>::VEC, HS = Elem<T>::HS;
+  // float: w's TF32 residual is a third product; a bf16 w has none.
+  constexpr bool SPLIT_W = sizeof(T) == 4;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Bh = (float*)smem;                  // [2][PATCH] patch, TF32 high
   float* Bl = Bh + 2 * PATCH;                // [2][PATCH] patch, residual
-  float* Wr = Bl + 2 * PATCH;                // [RING][BC][WS] w slices
+  T* Wr = (T*)(Bl + 2 * PATCH);              // [RING][BC][WS] w slices
   // HALO: [2][S_h][HS], a chunk of the row's halo (TILE) or of its dep
   // tiles (BATCH, SCHED), double-buffered by chunk; else
   // [RING][4][4][BP][4], the neighbours of each stage gathered from device
-  // memory.
+  // memory. Both in T, as stored.
   const int S_h = MODE == ADDR_TILE ? tp : k_pad * tp;
-  float* Xr = Wr + RING * BC * WS;
+  T* Xr = Wr + RING * BC * WS;
   int* src = (int*)(Xr + (HALO ? 2 * S_h * HS : RING * 16 * BP * 4));
   float* cf = (float*)(src + BP * KK * 4);   // [BP][KK][4]
   int* deps = (int*)(cf + BP * KK * 4);      // [k_pad] (BATCH, SCHED)
@@ -181,16 +263,16 @@ split_kernel(const float* __restrict__ x, const int* __restrict__ row_id,
     }
   };
   // Copy stage (kk, c0)'s [BC][BO] slice of w into ring slot `slot`, in
-  // 16-byte pieces where O allows, else 4-byte ones; rows past c_hi and
+  // 16-byte pieces where O allows, else value by value; rows past c_hi and
   // columns past O are zero-filled.
-  const bool vec_w = (O & 3) == 0 && ((uintptr_t)w & 15) == 0;
+  const bool vec_w = O % VEC == 0 && ((uintptr_t)w & 15) == 0;
   auto copy_w = [&](int slot, int kk, int c0) {
-    float* dst = Wr + slot * BC * WS;
+    T* dst = Wr + slot * BC * WS;
     if (vec_w) {
 #pragma unroll
-      for (int i = 0; i < BC * BO / 4 / NT; ++i) {
+      for (int i = 0; i < BC * BO / VEC / NT; ++i) {
         const int e = tid + i * NT;
-        const int r = e / (BO / 4), o = (e % (BO / 4)) * 4;
+        const int r = e / (BO / VEC), o = (e % (BO / VEC)) * VEC;
         const bool ok = c0 + r < c_hi && o0 + o < O;
         cp_async16(dst + r * WS + o,
                    ok ? w + ((size_t)kk * C + c0 + r) * O + o0 + o : w,
@@ -202,9 +284,8 @@ split_kernel(const float* __restrict__ x, const int* __restrict__ row_id,
         const int e = tid + i * NT;
         const int r = e / BO, o = e % BO;
         const bool ok = c0 + r < c_hi && o0 + o < O;
-        cp_async4(dst + r * WS + o,
-                  ok ? w + ((size_t)kk * C + c0 + r) * O + o0 + o : w,
-                  ok ? 4 : 0);
+        copy1(dst + r * WS + o, w + ((size_t)kk * C + c0 + r) * O + o0 + o,
+              w, ok);
       }
     }
   };
@@ -276,30 +357,38 @@ split_kernel(const float* __restrict__ x, const int* __restrict__ row_id,
   // does not count or c >= c_hi): it reads only what it copied, so those
   // copies need its own wait, not a barrier.
   const int q = lane >> 3, pl = 8 * warp + (lane & 7);
-  const bool vec_x = (C & 3) == 0 && ((uintptr_t)x & 15) == 0;
+  // Halo rows move in 16-byte copies of VEC channels, a gathered
+  // neighbour's 4 channels in one copy of 4 values, where C and x's
+  // alignment allow; else value by value.
+  const bool vec_x = C % VEC == 0 && ((uintptr_t)x & 15) == 0;
+  const bool vec_g =
+      (C & 3) == 0 && ((uintptr_t)x & (4 * sizeof(T) - 1)) == 0;
   // Copy x rows [r0, r0 + n) of channels [c0, c0 + BC) to halo rows
   // dst .. (zeros where ok is false or c >= c_hi).
-  auto copy_rows = [&](float* dst, size_t r0, int n, int c0, bool ok) {
+  auto copy_rows = [&](T* dst, size_t r0, int n, int c0, bool ok) {
+    constexpr int PIECES = BC / VEC;  // 16-byte copies a row
     if (vec_x) {
-      for (int e = tid; e < n * 4; e += NT) {
-        const int r = e >> 2, c = c0 + 4 * (e & 3);
+      // Unsigned, so that / and % by PIECES are a shift and a mask: the
+      // signed forms cost registers here, inside the stage loop where
+      // the accumulators peak, and make the float body spill them.
+      for (unsigned e = tid; e < n * PIECES; e += NT) {
+        const int r = e / PIECES, c = c0 + VEC * (e % PIECES);
         const bool v = ok && c < c_hi;
-        cp_async16(dst + r * HS + 4 * (e & 3),
+        cp_async16(dst + r * HS + VEC * (e % PIECES),
                    v ? x + (r0 + r) * C + c : x, v ? 16 : 0);
       }
     } else {
       for (int e = tid; e < n * BC; e += NT) {
         const int r = e / BC, c = c0 + e % BC;
-        const bool v = ok && c < c_hi;
-        cp_async4(dst + r * HS + e % BC, v ? x + (r0 + r) * C + c : x,
-                  v ? 4 : 0);
+        copy1(dst + r * HS + e % BC, x + (r0 + r) * C + c, x,
+              ok && c < c_hi);
       }
     }
   };
   auto copy_x = [&](int slot, int kk, int c0) {
     if (HALO) {
       if (kk != 0) return;  // one copy a chunk, into buffer chunk % 2
-      float* dst = Xr + (((c0 - c_lo) / BC) & 1) * S_h * HS;
+      T* dst = Xr + (((c0 - c_lo) / BC) & 1) * S_h * HS;
       if (MODE == ADDR_TILE) {
         copy_rows(dst, (size_t)g * tp, tp, c0, true);
       } else {
@@ -313,20 +402,17 @@ split_kernel(const float* __restrict__ x, const int* __restrict__ row_id,
     }
     const int c = c0 + 4 * q;
     const int* sj = src + (pl * KK + kk) * 4;
-    float* dst = Xr + ((slot * 16 + q) * BP + pl) * 4;
+    T* dst = Xr + ((slot * 16 + q) * BP + pl) * 4;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int s = sj[j];
-      const float* xp = x + (size_t)max(s, 0) * C + c;
-      if (vec_x) {
-        const bool ok = s >= 0 && c < c_hi;
-        cp_async16(dst + j * 4 * BP * 4, ok ? xp : x, ok ? 16 : 0);
+      const T* xp = x + (size_t)max(s, 0) * C + c;
+      if (vec_g) {
+        copy4(dst + j * 4 * BP * 4, xp, x, s >= 0 && c < c_hi);
       } else {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool ok = s >= 0 && c + e < c_hi;
-          cp_async4(dst + j * 4 * BP * 4 + e, ok ? xp + e : x, ok ? 4 : 0);
-        }
+        for (int e = 0; e < 4; ++e)
+          copy1(dst + j * 4 * BP * 4 + e, xp + e, x, s >= 0 && c + e < c_hi);
       }
     }
   };
@@ -339,17 +425,17 @@ split_kernel(const float* __restrict__ x, const int* __restrict__ row_id,
     const float4 c4 = *(const float4*)(cf + (pl * KK + kk) * 4);
     const int sj[4] = {s4.x, s4.y, s4.z, s4.w};
     const float cj[4] = {c4.x, c4.y, c4.z, c4.w};
-    const float* h = Xr + (chunk & 1) * S_h * HS + 4 * q;
-    const float* xs = Xr + ((slot * 16 + q) * BP + pl) * 4;
+    const T* h = Xr + (chunk & 1) * S_h * HS + 4 * q;
+    const T* xs = Xr + ((slot * 16 + q) * BP + pl) * 4;
     float v[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float k = cj[j];
       float4 xv = make_float4(0.f, 0.f, 0.f, 0.f);
       if (!HALO)
-        xv = *(const float4*)(xs + j * 4 * BP * 4);
+        xv = load4(xs + j * 4 * BP * 4);
       else if (sj[j] >= 0)
-        xv = *(const float4*)(h + sj[j] * HS);
+        xv = load4(h + sj[j] * HS);
       v[0] += k * xv.x;
       v[1] += k * xv.y;
       v[2] += k * xv.z;
@@ -412,25 +498,35 @@ split_kernel(const float* __restrict__ x, const int* __restrict__ row_id,
   __syncthreads();
   for (int s = 0; s < n_stages; ++s) {
     uint32_t ah[2][4], al[2][4];
-    const float* A = Wr + slot * BC * WS + a_off;
+    const T* A = Wr + slot * BC * WS + a_off;
 #pragma unroll
     for (int ks = 0; ks < 2; ++ks) {
-      const float* a = A + ks * 8 * WS;
-      split_tf32(a[0], ah[ks][0], al[ks][0]);
-      split_tf32(a[8], ah[ks][1], al[ks][1]);
-      split_tf32(a[4 * WS], ah[ks][2], al[ks][2]);
-      split_tf32(a[4 * WS + 8], ah[ks][3], al[ks][3]);
+      const T* a = A + ks * 8 * WS;
+      const float av[4] = {widen(a[0]), widen(a[8]), widen(a[4 * WS]),
+                           widen(a[4 * WS + 8])};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (SPLIT_W)
+          split_tf32(av[i], ah[ks][i], al[ks][i]);
+        else
+          ah[ks][i] = __float_as_uint(av[i]);  // exact in TF32
+      }
     }
-    // 3xTF32: lo*hi + hi*lo + hi*hi, each k-step's 32 bytes of patch rows
-    // two core matrices along K. The stage's sum starts from zero and is
-    // added to the FP32 total with round-to-nearest.
+    // 3xTF32 (float w): lo*hi + hi*lo + hi*hi; 2xTF32 (bf16 w): w*lo +
+    // w*hi. Each k-step's 32 bytes of patch rows are two core matrices
+    // along K. The stage's sum starts from zero and is added to the FP32
+    // total with round-to-nearest.
     const float* bh = Bh + (s & 1) * PATCH;
     const float* bl = Bl + (s & 1) * PATCH;
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < 2; ++ks) {
-      wgmma_tf32(d, al[ks], patch_desc(bh + ks * 64), ks);
-      wgmma_tf32(d, ah[ks], patch_desc(bl + ks * 64), 1);
+      if (SPLIT_W) {
+        wgmma_tf32(d, al[ks], patch_desc(bh + ks * 64), ks);
+        wgmma_tf32(d, ah[ks], patch_desc(bl + ks * 64), 1);
+      } else {
+        wgmma_tf32(d, ah[ks], patch_desc(bl + ks * 64), ks);
+      }
       wgmma_tf32(d, ah[ks], patch_desc(bh + ks * 64), 1);
     }
     wgmma_commit();
@@ -456,33 +552,42 @@ split_kernel(const float* __restrict__ x, const int* __restrict__ row_id,
     fence_regs(d);
     fence_regs(ah[0]);
     fence_regs(ah[1]);
-    fence_regs(al[0]);
-    fence_regs(al[1]);
+    if (SPLIT_W) {
+      fence_regs(al[0]);
+      fence_regs(al[1]);
+    }
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] += d[i];
     __syncthreads();  // patch and w of stage s + 1 visible; stage s done
   }
 
   // Epilogue: acc[4j + v] is output channel o0 + 64 wg + 16 wi + gq
-  // (+ 8 for v >= 2) of pixel p0 + 8j + 2tq (+ 1 for odd v).
-  float* dst = n_split == 1 ? out : ws + (size_t)sp * rows * P * O;
+  // (+ 8 for v >= 2) of pixel p0 + 8j + 2tq (+ 1 for odd v). Unsplit, the
+  // sum plus b is rounded once to T; else the float32 partial is kept.
+  float* part = ws + (size_t)sp * rows * P * O;
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int v = 0; v < 4; ++v) {
       const int p = p0 + 8 * j + 2 * tq + (v & 1);
       const int o = o0 + 64 * wg + 16 * wi + gq + 8 * (v >> 1);
-      if (p < P && o < O)
-        dst[((size_t)g * P + p) * O + o] =
-            n_split == 1 ? acc[4 * j + v] + b[o] : acc[4 * j + v];
+      const size_t e = ((size_t)g * P + p) * O + o;
+      if (p < P && o < O) {
+        if (n_split == 1)
+          out[e] = narrow<T>(acc[4 * j + v] + widen(b[o]));
+        else
+          part[e] = acc[4 * j + v];
+      }
     }
 }
 
 // out[g, p, o] = (ws[0, g, p, o] + ... + ws[n_split - 1, g, p, o]) + b[o],
-// in split order; a dep_cnt = 0 row is b.
+// in split order, in float32 and rounded once to T; a dep_cnt = 0 row is
+// b.
+template <typename T>
 __global__ void __launch_bounds__(COMBINE_NT)
 split_combine(const float* __restrict__ ws, const int* __restrict__ dep_cnt,
-              const float* __restrict__ b, float* __restrict__ out, int rows,
+              const T* __restrict__ b, T* __restrict__ out, int rows,
               int P, int O, int n_split) {
   // Launched early (programmatic dependent launch): wait until the split
   // pass has finished and its workspace writes are visible.
@@ -490,7 +595,7 @@ split_combine(const float* __restrict__ ws, const int* __restrict__ dep_cnt,
   const int o = blockIdx.y * COMBINE_NT + threadIdx.x;
   if (o >= O) return;
   const size_t e = (size_t)blockIdx.x * O + o;  // blockIdx.x = g * P + p
-  float v = b[o];
+  float v = widen(b[o]);
   if (dep_cnt == nullptr || dep_cnt[blockIdx.x / P] != 0) {
     const size_t stride = (size_t)rows * P * O;
     float s = ws[e];
@@ -498,10 +603,10 @@ split_combine(const float* __restrict__ ws, const int* __restrict__ dep_cnt,
     for (int i = 1; i < n_split; ++i) s += ws[e + i * stride];
     v = s + v;
   }
-  out[e] = v;
+  out[e] = narrow<T>(v);
 }
 
-template <int MODE, bool HALO>
+template <typename T, int MODE, bool HALO>
 cudaError_t launch_main(int smem, dim3 grid, cudaStream_t stream,
                         const void* x, const void* row_id, const void* dep,
                         const void* dep_cnt, const void* idx,
@@ -510,34 +615,36 @@ cudaError_t launch_main(int smem, dim3 grid, cudaStream_t stream,
                         int t_in, int tp, int P, int KK, int C, int O,
                         int c_split) {
   const cudaError_t err = cudaFuncSetAttribute(
-      split_kernel<MODE, HALO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      split_kernel<T, MODE, HALO>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  split_kernel<MODE, HALO><<<grid, NT, smem, stream>>>(
-      (const float*)x, (const int*)row_id, (const int*)dep,
-      (const int*)dep_cnt, (const int*)idx, (const float*)coeff,
-      (const float*)w, (const float*)b, (float*)ws, (float*)out, rows, k_pad,
-      n_x, t_in, tp, P, KK, C, O, c_split);
+  split_kernel<T, MODE, HALO><<<grid, NT, smem, stream>>>(
+      (const T*)x, (const int*)row_id, (const int*)dep, (const int*)dep_cnt,
+      (const int*)idx, (const float*)coeff, (const T*)w, (const T*)b,
+      (float*)ws, (T*)out, rows, k_pad, n_x, t_in, tp, P, KK, C, O, c_split);
   return cudaGetLastError();
 }
 
 // Launch both passes over `rows` grid rows on `stream`; returns the first
-// cudaGetLastError() that is not cudaSuccess. `ws` holds (n_split, rows,
-// P, O) floats when n_split > 1; `c_split` channels per slice; `n_x`
-// tiles of tp rows in x (BATCH, SCHED); `row_id` only for BATCH. The halo
-// path runs when two chunks of the halo (TILE: S rows; BATCH, SCHED:
-// k_pad * tp) fit a block's shared memory, else the gather path.
-template <int MODE>
-int split_launch(const void* x, const void* row_id, const void* dep,
-                 const void* dep_cnt, const void* idx, const void* coeff,
-                 const void* w, const void* b, void* ws, void* out, int rows,
-                 int k_pad, int n_x, int t_in, int tp, int P, int KK, int C,
-                 int O, int n_split, int c_split, void* stream) {
+// cudaGetLastError() that is not cudaSuccess. x, w, b and out hold T;
+// `ws` holds (n_split, rows, P, O) floats when n_split > 1; `c_split`
+// channels per slice; `n_x` tiles of tp rows in x (BATCH, SCHED); `row_id`
+// only for BATCH. The halo path runs when two chunks of the halo (TILE: S
+// rows; BATCH, SCHED: k_pad * tp), in T, fit a block's shared memory, else
+// the gather path.
+template <typename T, int MODE>
+int split_launch_t(const void* x, const void* row_id, const void* dep,
+                   const void* dep_cnt, const void* idx, const void* coeff,
+                   const void* w, const void* b, void* ws, void* out,
+                   int rows, int k_pad, int n_x, int t_in, int tp, int P,
+                   int KK, int C, int O, int n_split, int c_split,
+                   void* stream) {
+  constexpr long long E = sizeof(T);
   const long long s_h = MODE == ADDR_TILE ? tp : (long long)k_pad * tp;
-  const long long fixed = 4 * (4 * PATCH + RING * BC * WS) +
+  const long long fixed = 4 * 4 * PATCH + E * RING * BC * WS +
                           KK * BP * 4 * 8 +
                           (MODE != ADDR_TILE ? 4 * k_pad : 0);
-  const long long halo = fixed + 4 * 2 * s_h * HS;
+  const long long halo = fixed + E * 2 * s_h * Elem<T>::HS;
   int dev = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -548,12 +655,12 @@ int split_launch(const void* x, const void* row_id, const void* dep,
   const dim3 grid(rows, (P + BP - 1) / BP, n_ob * n_split);
   const cudaStream_t st = (cudaStream_t)stream;
   err = halo <= limit
-            ? launch_main<MODE, true>((int)halo, grid, st, x, row_id, dep,
-                                      dep_cnt, idx, coeff, w, b, ws, out,
-                                      rows, k_pad, n_x, t_in, tp, P, KK, C,
-                                      O, c_split)
-            : launch_main<MODE, false>(
-                  (int)(fixed + 4 * RING * 16 * BP * 4), grid, st, x, row_id,
+            ? launch_main<T, MODE, true>((int)halo, grid, st, x, row_id, dep,
+                                         dep_cnt, idx, coeff, w, b, ws, out,
+                                         rows, k_pad, n_x, t_in, tp, P, KK,
+                                         C, O, c_split)
+            : launch_main<T, MODE, false>(
+                  (int)(fixed + E * RING * 16 * BP * 4), grid, st, x, row_id,
                   dep, dep_cnt, idx, coeff, w, b, ws, out, rows, k_pad, n_x,
                   t_in, tp, P, KK, C, O, c_split);
   if (err != cudaSuccess || n_split == 1) return (int)err;
@@ -567,11 +674,30 @@ int split_launch(const void* x, const void* row_id, const void* dep,
   cfg.attrs = pdl;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(
-      &cfg, split_combine, (const float*)ws,
-      MODE != ADDR_TILE ? (const int*)dep_cnt : nullptr, (const float*)b,
-      (float*)out, rows, P, O, n_split);
+      &cfg, split_combine<T>, (const float*)ws,
+      MODE != ADDR_TILE ? (const int*)dep_cnt : nullptr, (const T*)b,
+      (T*)out, rows, P, O, n_split);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// split_launch_t in float (bf16 == 0) or bf16 (bf16 != 0).
+template <int MODE>
+int split_launch(const void* x, const void* row_id, const void* dep,
+                 const void* dep_cnt, const void* idx, const void* coeff,
+                 const void* w, const void* b, void* ws, void* out, int rows,
+                 int k_pad, int n_x, int t_in, int tp, int P, int KK, int C,
+                 int O, int n_split, int c_split, int bf16_ops,
+                 void* stream) {
+  return bf16_ops
+             ? split_launch_t<bf16, MODE>(x, row_id, dep, dep_cnt, idx, coeff,
+                                          w, b, ws, out, rows, k_pad, n_x,
+                                          t_in, tp, P, KK, C, O, n_split,
+                                          c_split, stream)
+             : split_launch_t<float, MODE>(x, row_id, dep, dep_cnt, idx,
+                                           coeff, w, b, ws, out, rows, k_pad,
+                                           n_x, t_in, tp, P, KK, C, O,
+                                           n_split, c_split, stream);
 }
 
 }  // namespace split

@@ -11,7 +11,13 @@
 //   out = acc / max(l, 1e-30)   (a sequence with no visible key gives 0)
 //
 // in float32 (the bf16 values are widened exactly), the output in q's
-// type, rounded once.
+// type, rounded once. With `round_kv` (a float32 cache under a bf16
+// model, which the wrapper's caller asks for) each K and V value is
+// rounded to bf16 where it is read, as the model's JAX decode path casts
+// the cache to x's type before the attention; the cache is read as stored
+// and nothing is copied. The rounding is a template parameter, so the
+// instantiations without it are the TPU kernel's function (it widens
+// without rounding) with no branch added to their loops.
 //
 // Bound: bytes. Each visible key row of K and V is read once and used for
 // 2 * g * D multiply-adds: ~g / 4 FLOP per byte, far below the FP32 ridge
@@ -130,6 +136,14 @@ __host__ __device__ __forceinline__ int row_stride(int D) {
   return E * (w + (w % 2 ? 2 : 1));
 }
 
+// v with each value rounded to bf16 (to nearest even) and widened back.
+__device__ __forceinline__ float4 round_bf16(float4 v) {
+  return make_float4(__bfloat162float(__float2bfloat16_rn(v.x)),
+                     __bfloat162float(__float2bfloat16_rn(v.y)),
+                     __bfloat162float(__float2bfloat16_rn(v.z)),
+                     __bfloat162float(__float2bfloat16_rn(v.w)));
+}
+
 // Four consecutive values as float4 (bf16: widened, exactly).
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -144,8 +158,10 @@ __device__ __forceinline__ float4 load4(const bf16* p) {
 
 // T: the caches' type. G: query heads a block holds in registers (g <= G;
 // heads g.. are zero). NW: warps a block. q and out are bf16 where
-// `q_bf16`, else float32.
-template <typename T, int G, int NW>
+// `q_bf16`, else float32. RK: K and V rounded to bf16 where they are read
+// (a float32 cache under a bf16 model); the instantiations without it are
+// the TPU kernel's function.
+template <typename T, bool RK, int G, int NW>
 __global__ void __launch_bounds__(32 * NW)
 decode_kernel(const void* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ lengths,
@@ -266,7 +282,8 @@ decode_kernel(const void* __restrict__ q, const T* __restrict__ k,
     const T* kr = Ks + kq * ld;
 #pragma unroll 2
     for (int c = pq; c < d4; c += 8) {
-      const float4 x = load4(kr + 4 * c);
+      float4 x = load4(kr + 4 * c);
+      if constexpr (RK) x = round_bf16(x);
 #pragma unroll
       for (int h = 0; h < G; ++h) {
         const float4 y =
@@ -277,7 +294,8 @@ decode_kernel(const void* __restrict__ q, const T* __restrict__ k,
         s[h] = fmaf(x.w, y.w, s[h]);
       }
       if (c + 4 < d4) {
-        const float4 z = load4(kr + 4 * c + 16);
+        float4 z = load4(kr + 4 * c + 16);
+        if constexpr (RK) z = round_bf16(z);
 #pragma unroll
         for (int h = 0; h < G; ++h) {
           const float4 y =
@@ -324,7 +342,8 @@ decode_kernel(const void* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 2; ++j) {
         const int c = lane + 32 * j;
         if (c < d4) {
-          const float4 y = load4(Vs + t * ld + 4 * c);
+          float4 y = load4(Vs + t * ld + 4 * c);
+          if constexpr (RK) y = round_bf16(y);
 #pragma unroll
           for (int h = 0; h < G; ++h) {
             acc[h][j].x = fmaf(pt[h], y.x, acc[h][j].x);
@@ -419,7 +438,7 @@ decode_kernel(const void* __restrict__ q, const T* __restrict__ k,
   if (tid == 0) ticket[pair] = 0;
 }
 
-template <typename T, int G, int NW>
+template <typename T, bool RK, int G, int NW>
 cudaError_t launch(size_t smem, dim3 grid, cudaStream_t stream,
                    const void* q, const void* k, const void* v,
                    const void* lengths, void* part, void* ticket, void* out,
@@ -427,12 +446,12 @@ cudaError_t launch(size_t smem, dim3 grid, cudaStream_t stream,
                    int target, int window, int q_bf16, float scale,
                    float softcap) {
   const cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<T, G, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      decode_kernel<T, RK, G, NW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   float* ml = static_cast<float*>(part);
   float* acc = ml + (size_t)2 * B * Hq * splits;
-  decode_kernel<T, G, NW><<<grid, 32 * NW, smem, stream>>>(
+  decode_kernel<T, RK, G, NW><<<grid, 32 * NW, smem, stream>>>(
       q, static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(lengths), ml, acc, static_cast<int*>(ticket),
       out, B, S, Hq, Hkv, D, splits, target, window, q_bf16, scale, softcap);
@@ -441,7 +460,7 @@ cudaError_t launch(size_t smem, dim3 grid, cudaStream_t stream,
 
 // Eight warps a block where their rings fit an SM's shared memory
 // (D <= 128), else four.
-template <typename T, int G>
+template <typename T, bool RK, int G>
 cudaError_t launch_g(dim3 grid, cudaStream_t st, const void* q,
                      const void* k, const void* v, const void* lengths,
                      void* part, void* ticket, void* out, int B, int S,
@@ -450,15 +469,15 @@ cudaError_t launch_g(dim3 grid, cudaStream_t st, const void* q,
   const size_t ring = sizeof(T) * RING * 2 * TK * row_stride<T>(D);
   const size_t qs = sizeof(float) * G * D;
   if (D <= 128)
-    return launch<T, G, 8>(qs + 8 * ring, grid, st, q, k, v, lengths, part,
-                           ticket, out, B, S, Hq, Hkv, D, splits, target,
-                           window, q_bf16, scale, softcap);
-  return launch<T, G, 4>(qs + 4 * ring, grid, st, q, k, v, lengths, part,
-                         ticket, out, B, S, Hq, Hkv, D, splits, target,
-                         window, q_bf16, scale, softcap);
+    return launch<T, RK, G, 8>(qs + 8 * ring, grid, st, q, k, v, lengths,
+                               part, ticket, out, B, S, Hq, Hkv, D, splits,
+                               target, window, q_bf16, scale, softcap);
+  return launch<T, RK, G, 4>(qs + 4 * ring, grid, st, q, k, v, lengths, part,
+                             ticket, out, B, S, Hq, Hkv, D, splits, target,
+                             window, q_bf16, scale, softcap);
 }
 
-template <typename T>
+template <typename T, bool RK>
 cudaError_t launch_t(dim3 grid, cudaStream_t st, const void* q,
                      const void* k, const void* v, const void* lengths,
                      void* part, void* ticket, void* out, int B, int S,
@@ -466,20 +485,20 @@ cudaError_t launch_t(dim3 grid, cudaStream_t st, const void* q,
                      int window, int q_bf16, float scale, float softcap) {
   const int g = Hq / Hkv;
   if (g == 1)
-    return launch_g<T, 1>(grid, st, q, k, v, lengths, part, ticket, out, B,
-                          S, Hq, Hkv, D, splits, target, window, q_bf16,
-                          scale, softcap);
+    return launch_g<T, RK, 1>(grid, st, q, k, v, lengths, part, ticket, out,
+                              B, S, Hq, Hkv, D, splits, target, window,
+                              q_bf16, scale, softcap);
   if (g == 2)
-    return launch_g<T, 2>(grid, st, q, k, v, lengths, part, ticket, out, B,
-                          S, Hq, Hkv, D, splits, target, window, q_bf16,
-                          scale, softcap);
+    return launch_g<T, RK, 2>(grid, st, q, k, v, lengths, part, ticket, out,
+                              B, S, Hq, Hkv, D, splits, target, window,
+                              q_bf16, scale, softcap);
   if (g <= 4)
-    return launch_g<T, 4>(grid, st, q, k, v, lengths, part, ticket, out, B,
-                          S, Hq, Hkv, D, splits, target, window, q_bf16,
-                          scale, softcap);
-  return launch_g<T, 8>(grid, st, q, k, v, lengths, part, ticket, out, B, S,
-                        Hq, Hkv, D, splits, target, window, q_bf16, scale,
-                        softcap);
+    return launch_g<T, RK, 4>(grid, st, q, k, v, lengths, part, ticket, out,
+                              B, S, Hq, Hkv, D, splits, target, window,
+                              q_bf16, scale, softcap);
+  return launch_g<T, RK, 8>(grid, st, q, k, v, lengths, part, ticket, out, B,
+                            S, Hq, Hkv, D, splits, target, window, q_bf16,
+                            scale, softcap);
 }
 
 }  // namespace
@@ -489,25 +508,28 @@ cudaError_t launch_t(dim3 grid, cudaStream_t st, const void* q,
 // `target` the blocks of equal work the split rule aims at (INT32_MAX: a
 // split of 64 keys, each sequence taking up to `splits` of them). q and
 // out are bf16 where `q_bf16`, else float32; the caches bf16 where
-// `kv_bf16` (D then a multiple of 8), else float32.
+// `kv_bf16` (D then a multiple of 8), else float32; `round_kv` rounds each
+// K and V value to bf16 where it is read.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* lengths,
                                    void* part, void* ticket, void* out,
                                    int B, int S, int Hq, int Hkv, int D,
                                    int splits, int target, int window,
-                                   int q_bf16, int kv_bf16, float scale,
-                                   float softcap, void* stream) {
+                                   int q_bf16, int kv_bf16, int round_kv,
+                                   float scale, float softcap,
+                                   void* stream) {
   if (D % (kv_bf16 ? 8 : 4) || D < 4 || D > 256 || Hkv < 1 || Hq % Hkv ||
       Hq / Hkv > 8 || splits < 1 || splits > 65535 || target < 1)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(B * Hkv, splits);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // round_kv is a no-op on a bf16 cache, so only the float32 cache has
+  // an instantiation that rounds.
+  const auto run = kv_bf16   ? launch_t<bf16, false>
+                   : round_kv ? launch_t<float, true>
+                              : launch_t<float, false>;
   const cudaError_t err =
-      kv_bf16 ? launch_t<bf16>(grid, st, q, k, v, lengths, part, ticket, out,
-                               B, S, Hq, Hkv, D, splits, target, window,
-                               q_bf16, scale, softcap)
-              : launch_t<float>(grid, st, q, k, v, lengths, part, ticket,
-                                out, B, S, Hq, Hkv, D, splits, target,
-                                window, q_bf16, scale, softcap);
+      run(grid, st, q, k, v, lengths, part, ticket, out, B, S, Hq, Hkv, D,
+          splits, target, window, q_bf16, scale, softcap);
   return (int)err;
 }

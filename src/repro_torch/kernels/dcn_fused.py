@@ -24,14 +24,22 @@ few rows still fills the card.
 device of a :class:`~repro_torch.launch.mesh.DeviceMesh` (the TPU
 package's ``shard_map`` of the batch kernel).
 
+As the TPU kernels, each takes x, w and b in float32 or bf16 and the BLI
+coefficients in float32, widens to float32 inside (the deformed patch
+stays float32), and returns x's dtype, the float32 sum plus b rounded
+once. A call whose x, w and b do not share one type (the TPU kernel takes
+that too) is widened to float32 in the wrapper, exactly, runs the float32
+kernel and is rounded once to x's dtype. float16 raises.
+
 For a CPU tensor each wrapper runs its plain torch version, which repeats
 the TPU kernel's dataflow (batch and schedule: per dep slot, localise the
 addresses, 4-hot gather, accumulate the patch in float32; tile: the 4-hot
 rows against ``iota(S)`` as a masked gather; then the contraction with
 ``w``); for a CUDA tensor it launches the kernel or raises. Each wrapper
 counts its calls that launched in a plain-integer ``launches`` attribute
-(a split-C call launches its combine pass too) and records the grid of
-its last launch in ``last_grid``.
+(a split-C call launches its combine pass too), tallies them by the
+type the kernel ran in (``"float32"`` or ``"bfloat16"``) in ``dtypes``,
+and records the grid of its last launch in ``last_grid``.
 """
 
 from __future__ import annotations
@@ -102,8 +110,8 @@ def _check_operands(floats: dict, ints: dict,
         if t.dtype not in dtypes:
             names = " or ".join(str(d).removeprefix("torch.")
                                 for d in dtypes)
-            note = ("" if torch.bfloat16 in dtypes
-                    else " (bf16 is not ported yet for this kernel)")
+            note = (" (fp16 is not ported yet)" if t.dtype == torch.float16
+                    else "")
             raise ValueError(f"{name} must be {names}{note}, got {t.dtype}")
     for name, t in ints.items():
         if t.dtype != torch.int32:
@@ -111,6 +119,36 @@ def _check_operands(floats: dict, ints: dict,
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+# Types of x, w and b that #1, #4 and #5 take (the coefficients are float32).
+FUSED_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_fused(floats: dict, ints: dict) -> torch.device:
+    """:func:`_check_operands` for #1, #4 and #5: x, w and b float32 or
+    bf16, the coefficients float32, as the packers give them."""
+    dev = _check_operands(floats, ints, FUSED_DTYPES)
+    if floats["coeff"].dtype != torch.float32:
+        raise ValueError(f"coeff must be float32, got "
+                         f"{floats['coeff'].dtype}")
+    return dev
+
+
+def _kernel_operands(x, w, b):
+    """x, w and b as the CUDA body takes them: as they are where they
+    share one type; else (a mixed call) widened to float32, exactly; the
+    caller rounds the result once to x's dtype."""
+    if x.dtype == w.dtype == b.dtype:
+        return x, w, b
+    return x.float(), w.float(), b.float()
+
+
+def _count(fn, dtype: torch.dtype) -> None:
+    """One launch of ``fn``'s kernel in ``dtype``."""
+    fn.launches += 1
+    key = str(dtype).removeprefix("torch.")
+    fn.dtypes[key] = fn.dtypes.get(key, 0) + 1
 
 
 def _check_conv(idx, coeff, w, b, c: int) -> None:
@@ -184,11 +222,13 @@ def fused_grid(rows: int, p: int, o: int, n_split: int
 def _launch_split(fn, entry: str, out: torch.Tensor, rows: int,
                   pointers: tuple, ints: tuple, n_split: int | None,
                   c: int) -> None:
-    """Both passes of a split-C call into ``out`` (rows, ..., P, O): C entry
-    point ``entry`` takes ``pointers``, the workspace, ``out``, ``ints``,
-    ``n_split`` and the channels per slice, and the stream. Picks
-    ``n_split`` by :func:`fused_splits` unless given, allocates the
-    workspace, launches, checks, and records the grid on ``fn.last_grid``."""
+    """Both passes of a split-C call into ``out`` (rows, ..., P, O), whose
+    dtype is the operands' (x, w, b): C entry point ``entry`` takes
+    ``pointers``, the workspace, ``out``, ``ints``, ``n_split``, the
+    channels per slice, 1 for bf16 operands (else 0) and the stream.
+    Picks ``n_split`` by :func:`fused_splits` unless given, allocates the
+    float32 workspace, launches, checks, records the grid on
+    ``fn.last_grid`` and counts the launch on ``fn``."""
     from repro_torch.kernels import _build
 
     lib = _build.load()
@@ -203,16 +243,19 @@ def _launch_split(fn, entry: str, out: torch.Tensor, rows: int,
     # operands' own.
     with torch.cuda.device(out.device):
         err = getattr(lib, entry)(*pointers, ws.data_ptr(), out.data_ptr(),
-                                  *ints, n_split, c_split, _stream(out))
+                                  *ints, n_split, c_split,
+                                  int(out.dtype == torch.bfloat16),
+                                  _stream(out))
     _build.check(err, entry)
     fn.last_grid = fused_grid(rows, p, o, n_split)
+    _count(fn, out.dtype)
 
 
 def _check_batch(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff, w, b,
                  t_in: int) -> torch.device:
-    dev = _check_operands(dict(x_tiles=x_tiles, coeff=coeff, w=w, b=b),
-                          dict(row_id=row_id, dep_glb=dep_glb,
-                               dep_cnt=dep_cnt, idx=idx))
+    dev = _check_fused(dict(x_tiles=x_tiles, coeff=coeff, w=w, b=b),
+                       dict(row_id=row_id, dep_glb=dep_glb, dep_cnt=dep_cnt,
+                            idx=idx))
     nt_in, tp, c = x_tiles.shape
     g = row_id.shape[0]
     if nt_in % t_in:
@@ -236,18 +279,18 @@ def _batch_call(dev, x_tiles, row_id, dep_glb, dep_cnt, idx, coeff, w, b,
                                      coeff, w, b, t_in=t_in)
     nt_in, tp, c = x_tiles.shape
     g, p, o = row_id.shape[0], idx.shape[1], w.shape[2]
-    out = torch.empty((g, p, o), dtype=torch.float32, device=dev)
     if g == 0 or p == 0:
-        return out
+        return torch.empty((g, p, o), dtype=x_tiles.dtype, device=dev)
+    xk, wk, bk = _kernel_operands(x_tiles, w, b)
+    out = torch.empty((g, p, o), dtype=xk.dtype, device=dev)
     _launch_split(
         dcn_fused_batch, "dcn_fused_batch_launch", out, g,
-        (x_tiles.data_ptr(), row_id.data_ptr(), dep_glb.data_ptr(),
+        (xk.data_ptr(), row_id.data_ptr(), dep_glb.data_ptr(),
          dep_cnt.data_ptr(), idx.data_ptr(), coeff.data_ptr(),
-         w.data_ptr(), b.data_ptr()),
+         wk.data_ptr(), bk.data_ptr()),
         (g, dep_glb.shape[1], nt_in, t_in, tp, p, idx.shape[2], c, o),
         n_split, c)
-    dcn_fused_batch.launches += 1
-    return out
+    return out.to(x_tiles.dtype)
 
 
 def dcn_fused_batch(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff, w, b,
@@ -255,13 +298,14 @@ def dcn_fused_batch(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff, w, b,
                     ) -> torch.Tensor:
     """Fused Eq. 2+3 over a whole batch's schedules -> (G, P, C_out).
 
-    x_tiles (N*T_in, tp, C) f32 — every image's input tiles;
+    x_tiles (N*T_in, tp, C) f32 or bf16 — every image's input tiles;
     row_id (G,) i32 — idx/coeff row ``img*T_out + out_tile`` per grid row;
     dep_glb (G, k_pad) i32 — global dep tiles ``img*T_in + dep`` in load
     order; dep_cnt (G,) i32 — true dep count (0 = padding row, output b);
     idx/coeff (N*T_out, P, KK, 4) — plane-global addresses
-    ``tile*tp + offset`` and BLI coefficients; w (KK, C, O); b (O,).
-    ``n_split`` as for :func:`dcn_fused_schedule`.
+    ``tile*tp + offset`` and BLI coefficients (f32); w (KK, C, O); b
+    (O,). The result is in x's dtype (module doc). ``n_split`` as for
+    :func:`dcn_fused_schedule`.
     """
     dev = _check_batch(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff, w, b,
                        t_in)
@@ -273,6 +317,7 @@ def dcn_fused_batch(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff, w, b,
 
 
 dcn_fused_batch.launches = 0
+dcn_fused_batch.dtypes = {}
 dcn_fused_batch.last_grid = None
 
 
@@ -380,7 +425,7 @@ def dcn_fused_batch_sharded(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff,
             done.append((s, _batch_call(sdev, *ops, wd, bd, t_in, n_split)))
             if sdev.type == "cuda" and p:    # _batch_call launched #1
                 dcn_fused_batch_sharded.launches += 1
-        out = b.to(torch.float32).expand(d, g_loc, p, o).clone()
+        out = b.to(x_tiles.dtype).expand(d, g_loc, p, o).clone()
         for s, y in done:
             out[s, :rows[s]] = y.to(home, non_blocking=True)
         return out
@@ -425,18 +470,19 @@ def dcn_fused_schedule(x_tiles, dep_tbl, dep_cnt, idx, coeff, w, b, *,
                        n_split: int | None = None) -> torch.Tensor:
     """Fused Eq. 2+3 over one image's whole tile schedule -> (T, P, C_out).
 
-    x_tiles (T_in, tp, C) f32 — every input tile of the plane;
+    x_tiles (T_in, tp, C) f32 or bf16 — every input tile of the plane;
     dep_tbl (T, k_pad) i32 — per scheduled tile its deps in load order;
     dep_cnt (T,) i32 — true dep count (0 = bias only); idx/coeff (T, P,
-    KK, 4) — slot-local addresses ``k*tp + offset`` and BLI coefficients;
-    w (KK, C, O); b (O,). Row t is scheduled tile t's output; the caller
+    KK, 4) — slot-local addresses ``k*tp + offset`` and BLI coefficients
+    (f32); w (KK, C, O); b (O,); the result in x's dtype (module doc).
+    Row t is scheduled tile t's output; the caller
     scatters rows by its schedule order. ``block_p`` keeps the TPU
     kernel's pixel-block contract: P must tile by ``min(block_p, P)``.
     ``n_split`` (CUDA only) overrides :func:`fused_splits`; the result
     does not depend on it beyond float32 summation order.
     """
-    dev = _check_operands(dict(x_tiles=x_tiles, coeff=coeff, w=w, b=b),
-                          dict(dep_tbl=dep_tbl, dep_cnt=dep_cnt, idx=idx))
+    dev = _check_fused(dict(x_tiles=x_tiles, coeff=coeff, w=w, b=b),
+                       dict(dep_tbl=dep_tbl, dep_cnt=dep_cnt, idx=idx))
     t_in, tp, c = x_tiles.shape
     if idx.dim() != 4:
         raise ValueError("idx and coeff must both be (T, P, KK, 4)")
@@ -453,18 +499,19 @@ def dcn_fused_schedule(x_tiles, dep_tbl, dep_cnt, idx, coeff, w, b, *,
         if dev.type == "cpu":
             return dcn_fused_schedule_plain(x_tiles, dep_tbl, dep_cnt, idx,
                                             coeff, w, b)
-        out = torch.empty((t, p, o), dtype=torch.float32, device=dev)
+        xk, wk, bk = _kernel_operands(x_tiles, w, b)
+        out = torch.empty((t, p, o), dtype=xk.dtype, device=dev)
         _launch_split(
             dcn_fused_schedule, "dcn_fused_schedule_launch", out, t,
-            (x_tiles.data_ptr(), dep_tbl.data_ptr(), dep_cnt.data_ptr(),
-             idx.data_ptr(), coeff.data_ptr(), w.data_ptr(), b.data_ptr()),
+            (xk.data_ptr(), dep_tbl.data_ptr(), dep_cnt.data_ptr(),
+             idx.data_ptr(), coeff.data_ptr(), wk.data_ptr(), bk.data_ptr()),
             (t, dep_tbl.shape[1], t_in, tp, p, idx.shape[2], c, o), n_split,
             c)
-        dcn_fused_schedule.launches += 1
-        return out
+        return out.to(x_tiles.dtype)
 
 
 dcn_fused_schedule.launches = 0
+dcn_fused_schedule.dtypes = {}
 dcn_fused_schedule.last_grid = None
 
 
@@ -496,14 +543,15 @@ def dcn_fused_tile(x_tile, idx, coeff, w, b, *, block_p: int = 128,
                    n_split: int | None = None) -> torch.Tensor:
     """Fused Eq. 2+3 on one tile -> (..., P, C_out).
 
-    x_tile (..., S, C) f32 — the packed halo buffer; idx/coeff (..., P, KK,
-    4) — addresses into ``[0, S)`` and BLI coefficients; w (KK, C, O);
-    b (O,). Leading dimensions are a batch of independent tiles (JAX's
+    x_tile (..., S, C) f32 or bf16 — the packed halo buffer; idx/coeff
+    (..., P, KK, 4) — addresses into ``[0, S)`` and BLI coefficients (f32);
+    w (KK, C, O); b (O,); the result in x's dtype (module doc). Leading
+    dimensions are a batch of independent tiles (JAX's
     ``vmap`` over images), all in one launch. ``n_split`` as for
     :func:`dcn_fused_schedule`.
     """
-    dev = _check_operands(dict(x_tile=x_tile, coeff=coeff, w=w, b=b),
-                          dict(idx=idx))
+    dev = _check_fused(dict(x_tile=x_tile, coeff=coeff, w=w, b=b),
+                       dict(idx=idx))
     *lead, s, c = x_tile.shape
     if idx.dim() != x_tile.dim() + 1 or list(idx.shape[:-3]) != lead:
         raise ValueError(f"idx {tuple(idx.shape)} does not match x_tile "
@@ -517,17 +565,18 @@ def dcn_fused_tile(x_tile, idx, coeff, w, b, *, block_p: int = 128,
                            c_out=int(o)):
         if dev.type == "cpu":
             return dcn_fused_tile_plain(x_tile, idx, coeff, w, b)
-        out = torch.empty((*lead, p, o), dtype=torch.float32, device=dev)
         if n == 0 or p == 0:
-            return out
+            return torch.empty((*lead, p, o), dtype=x_tile.dtype, device=dev)
+        xk, wk, bk = _kernel_operands(x_tile, w, b)
+        out = torch.empty((*lead, p, o), dtype=xk.dtype, device=dev)
         _launch_split(
             dcn_fused_tile, "dcn_fused_tile_launch", out, n,
-            (x_tile.data_ptr(), idx.data_ptr(), coeff.data_ptr(),
-             w.data_ptr(), b.data_ptr()),
+            (xk.data_ptr(), idx.data_ptr(), coeff.data_ptr(),
+             wk.data_ptr(), bk.data_ptr()),
             (n, s, p, idx.shape[-2], c, o), n_split, c)
-        dcn_fused_tile.launches += 1
-        return out
+        return out.to(x_tile.dtype)
 
 
 dcn_fused_tile.launches = 0
+dcn_fused_tile.dtypes = {}
 dcn_fused_tile.last_grid = None

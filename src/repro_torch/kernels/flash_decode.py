@@ -13,7 +13,12 @@ decode path's ``_sdpa`` with ``kv_valid_len = pos + 1``. As the TPU
 kernel, it takes q in float32 or bf16 and the caches in float32 or bf16
 (one type for both), computes in float32 and returns ``q.dtype``: a bf16
 cache under a float32 q gives the float32 result on the widened cache (the
-widening is exact). float16 raises. For a CUDA tensor the wrapper launches
+widening is exact). float16 raises. ``round_kv=True`` rounds each K and V
+value to bf16 where it is read (a no-op on a bf16 cache): what a bf16
+model's decode path computes over a float32 cache, whose JAX form casts the
+cache to the model's type first; the kernel reads the float32 cache as
+stored, with no copy. Without it the function is the TPU kernel's, which
+widens without rounding. For a CUDA tensor the wrapper launches
 the kernel of ``csrc/flash_decode.cu`` (one launch: the last block of each
 sequence and kv head merges its splits; it reads a bf16 cache as stored)
 or raises, and counts it in ``flash_decode.launches`` (and by the types of
@@ -56,9 +61,12 @@ _TICKETS: dict = {}
 def flash_decode_plain(q, k_cache, v_cache, lengths, *,
                        window: int | None = None,
                        softcap: float | None = None,
-                       scale: float) -> torch.Tensor:
+                       scale: float, round_kv: bool = False) -> torch.Tensor:
     """Plain torch version of the decode kernel (masked full softmax in
-    float32), in ``q.dtype``."""
+    float32), in ``q.dtype``; ``round_kv`` as for :func:`flash_decode`."""
+    if round_kv:
+        k_cache = k_cache.to(torch.bfloat16)
+        v_cache = v_cache.to(torch.bfloat16)
     b, hq, d = q.shape
     s_len, hkv = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv
@@ -139,7 +147,8 @@ def _tickets(dev: torch.device, stream: int, n: int) -> torch.Tensor:
 
 def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
                  softcap: float | None = None, scale: float | None = None,
-                 num_splits: int | None = None) -> torch.Tensor:
+                 num_splits: int | None = None,
+                 round_kv: bool = False) -> torch.Tensor:
     """(B, Hq, D) attention output of the new token in ``q.dtype``; see
     the module doc. ``lengths`` is int32; a length past S counts as S.
     ``num_splits`` (CUDA only) overrides the split rule: each sequence
@@ -166,7 +175,7 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
     if dev.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, lengths,
                                   window=window, softcap=softcap,
-                                  scale=scale)
+                                  scale=scale, round_kv=round_kv)
     kv_bf16 = k_cache.dtype == torch.bfloat16
     step = 8 if kv_bf16 else 4          # values of a 16-byte cache copy
     if d % step or d > MAX_HEAD_DIM:
@@ -204,7 +213,8 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
             out.data_ptr(), b, s_len, hq, hkv, d, splits,
             _BLOCKS_PER_SM * sms if num_splits is None else _NO_TARGET,
             NO_WINDOW if window is None else int(window),
-            int(q.dtype == torch.bfloat16), int(kv_bf16), scale,
+            int(q.dtype == torch.bfloat16), int(kv_bf16),
+            int(round_kv and not kv_bf16), scale,
             0.0 if softcap is None else float(softcap), stream)
     _build.check(err, "flash_decode_launch")
     flash_decode.launches += 1

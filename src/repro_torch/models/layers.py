@@ -311,11 +311,12 @@ def attention_decode(p, cfg: AttnConfig, x, cache, pos):
     package's ``dynamic_update_slice`` clamps it), and the same dict comes
     back. On a card the attention runs in the split-KV decode kernel with
     ``lengths = pos + 1``, over the cache tensors themselves (a bf16 cache
-    is read as stored and widened in the kernel, exactly); on the CPU
-    through ``_sdpa`` with ``q_offset=pos, kv_valid_len=pos + 1`` over the
-    cache cast to ``x.dtype``, exactly as the JAX package. The two differ
-    only where a bf16 model keeps a float32 cache: the JAX cast rounds the
-    cache to bf16, the kernel reads it whole.
+    is read as stored and widened in the kernel, exactly; a float32 cache
+    under a bf16 model is rounded to bf16 value by value as the kernel
+    reads it, ``round_kv``); on the CPU through ``_sdpa`` with
+    ``q_offset=pos, kv_valid_len=pos + 1`` over the cache cast to
+    ``x.dtype``, exactly as the JAX package. Both compute the JAX
+    function: K and V in ``x.dtype``.
 
     A cross layer's cache holds the encoder states' K/V (every row valid,
     filled by ``lm.build_cross_cache``) and is never written: the query
@@ -335,12 +336,18 @@ def attention_decode(p, cfg: AttnConfig, x, cache, pos):
     if x.device.type == "cuda":
         out = flash_decode(q[:, 0].contiguous(), ck, cv,
                            (pos + 1).to(torch.int32), window=cfg.window,
-                           softcap=cfg.attn_softcap,
-                           scale=cfg.qk_scale)[:, None]
+                           softcap=cfg.attn_softcap, scale=cfg.qk_scale,
+                           round_kv=_rounds_cache(x, ck))[:, None]
     else:
         out = _sdpa(q, ck.to(x.dtype), cv.to(x.dtype), cfg, causal=True,
                     q_offset=pos, kv_valid_len=pos + 1)
     return _out_proj(out, p["wo"]), cache
+
+
+def _rounds_cache(x, cache) -> bool:
+    """Whether the JAX decode path's cast of the cache to ``x.dtype``
+    rounds it: a float32 cache under a bf16 model."""
+    return x.dtype == torch.bfloat16 and cache.dtype == torch.float32
 
 
 def _cross_decode(p, cfg: AttnConfig, x, cache, pos):
@@ -357,8 +364,8 @@ def _cross_decode(p, cfg: AttnConfig, x, cache, pos):
         lengths = torch.full((x.shape[0],), ck.shape[1], dtype=torch.int32,
                              device=x.device)
         out = flash_decode(q[:, 0].contiguous(), ck, cv, lengths,
-                           softcap=cfg.attn_softcap,
-                           scale=cfg.qk_scale)[:, None]
+                           softcap=cfg.attn_softcap, scale=cfg.qk_scale,
+                           round_kv=_rounds_cache(x, ck))[:, None]
     else:
         out = _sdpa(q, ck.to(x.dtype), cv.to(x.dtype), cfg, causal=False,
                     q_offset=pos)

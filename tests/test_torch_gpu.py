@@ -875,6 +875,175 @@ def test_llama_vision_smoke_in_bf16_on_the_card():
     assert flash_decode.launches == cfg.n_layers * eng.steps > 0
 
 
+def _bf16_fused_case(which, shape):
+    """(wrapper, plain version, operands with x, w and b rounded to bf16
+    and the coefficients float32, extra keyword arguments, C) for #1, #4
+    or #5 at one of the split shapes above."""
+    from repro_torch.kernels import dcn_fused as kf
+
+    if which == "batch":
+        ops = _batch_operands(8, *shape)
+        fns, kw, c = (kf.dcn_fused_batch, kf.dcn_fused_batch_plain), dict(
+            t_in=shape[1]), shape[3]
+    elif which == "schedule":
+        ops = _sched_operands(5, *shape)
+        fns, kw, c = (kf.dcn_fused_schedule, kf.dcn_fused_schedule_plain), \
+            {}, shape[3]
+    else:
+        n, s, p, c, o = shape
+        rng = np.random.default_rng(6)
+        ops = [torch.as_tensor(a) for a in (
+            rng.normal(size=(n, s, c)).astype(np.float32),
+            rng.integers(-2, s + 3, size=(n, p, 9, 4)).astype(np.int32),
+            rng.uniform(size=(n, p, 9, 4)).astype(np.float32),
+            (rng.normal(size=(9, c, o)) / np.sqrt(9 * c)).astype(np.float32),
+            rng.normal(size=(o,)).astype(np.float32))]
+        fns, kw = (kf.dcn_fused_tile, kf.dcn_fused_tile_plain), {}
+    ops = [a.to(torch.bfloat16) if i in (0, len(ops) - 2, len(ops) - 1)
+           else a for i, a in enumerate(ops)]
+    return (*fns, ops, kw, c)
+
+
+BF16_FUSED_CASES = ([("batch", s) for s in SPLIT_BATCH_SHAPES]
+                    + [("schedule", s) for s in SPLIT_SCHED_SHAPES]
+                    + [("tile", s) for s in SPLIT_TILE_SHAPES])
+
+
+@pytest.mark.parametrize("case", range(len(BF16_FUSED_CASES)))
+def test_fused_kernels_in_bf16(case):
+    """#1, #4 and #5 on bf16 x, w and b (float32 coefficients), at the
+    full-width shapes and the awkward ones (C not a multiple of 8 or 4, O
+    not a multiple of 8, the gather path): a bf16 output within two bf16
+    ulps of the plain version's (float32 inside, one rounding) at n_split
+    = 1, the default and the chunk count, one bf16 launch each, a bitwise
+    rerun, and a dep_cnt = 0 row that is exactly b."""
+    from repro_torch.kernels.dcn_fused import SPLIT_BC
+
+    fn, plain, ops, kw, c = _bf16_fused_case(*BF16_FUSED_CASES[case])
+    want = plain(*ops, **kw)
+    assert want.dtype == torch.bfloat16
+    args = [a.cuda() for a in ops]
+    fn.dtypes = {}
+    splits = list(dict.fromkeys((1, None, math.ceil(c / SPLIT_BC))))
+    outs = {n: fn(*args, **kw, n_split=n) for n in splits}
+    assert fn.dtypes == {"bfloat16": len(splits)}
+    for got in outs.values():
+        assert got.dtype == torch.bfloat16
+        _within(got, want, BF16_RTOL)
+    assert torch.equal(fn(*args, **kw), outs[None])
+    if BF16_FUSED_CASES[case][0] != "tile":       # the dep_cnt = 0 row
+        for got in outs.values():
+            assert torch.equal(got[-1], args[-1].expand_as(got[-1]))
+
+
+@pytest.mark.parametrize("which", ["batch", "schedule", "tile"])
+def test_fused_kernels_widen_mixed_operands(which):
+    """x bf16 under float32 w and b (and the reverse): the wrapper widens
+    to the float32 kernel (exact) and rounds the result once to x's
+    dtype."""
+    shape = {"batch": SPLIT_BATCH_SHAPES[0], "schedule": SPLIT_SCHED_SHAPES[0],
+             "tile": SPLIT_TILE_SHAPES[0]}[which]
+    fn, plain, ops, kw, _ = _bf16_fused_case(which, shape)
+    for x_dtype, wb_dtype in ((torch.bfloat16, torch.float32),
+                              (torch.float32, torch.bfloat16)):
+        mixed = [a.to(x_dtype) if i == 0 else
+                 a.to(wb_dtype) if i >= len(ops) - 2 else a
+                 for i, a in enumerate(ops)]
+        fn.dtypes = {}
+        got = fn(*(a.cuda() for a in mixed), **kw)
+        assert got.dtype == x_dtype and fn.dtypes == {"float32": 1}
+        _within(got, plain(*mixed, **kw),
+                BF16_RTOL if x_dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.parametrize("opts", [{}, dict(window=100, softcap=30.0)])
+def test_flash_decode_rounds_a_float32_cache(opts):
+    """``round_kv=True`` over a float32 cache under a bf16 q: within two
+    bf16 ulps of the plain version's (which rounds the cache to bf16
+    first) and of the kernel over the cache cast to bf16; a float32
+    cache of bf16 values gives the unrounded call's result bitwise; and
+    a cache within 0.2 ulp of bf16 values under a float32 q gives the bf16
+    cache's result within 1e-5, where the unrounded read moves it by
+    more."""
+    from repro_torch.kernels import flash_decode as fd
+
+    b, s, hq, hkv, d = len(RAGGED_LENGTHS), 512, 16, 8, 128
+    q, kc, vc, lens = (t.cuda() for t in _decode_operands(
+        15, b, s, hq, hkv, d, RAGGED_LENGTHS))
+    q = q.to(torch.bfloat16)
+    want = fd.flash_decode_plain(q, kc, vc, lens, scale=d ** -0.5,
+                                 round_kv=True, **opts)
+    fd.flash_decode.dtypes = {}
+    got = fd.flash_decode(q, kc, vc, lens, round_kv=True, **opts)
+    assert got.dtype == torch.bfloat16
+    assert fd.flash_decode.dtypes == {"bfloat16/float32": 1}
+    _within(got, want, BF16_RTOL)
+    _within(got, fd.flash_decode(q, kc.to(torch.bfloat16),
+                                 vc.to(torch.bfloat16), lens, **opts),
+            BF16_RTOL)
+    kr, vr = kc.to(torch.bfloat16).float(), vc.to(torch.bfloat16).float()
+    assert torch.equal(fd.flash_decode(q, kr, vr, lens, round_kv=True,
+                                       **opts),
+                       fd.flash_decode(q, kr, vr, lens, **opts))
+    # Under a float32 q, a cache within 0.2 bf16 ulp of bf16 values: the
+    # rounded read gives the bf16 cache's float32 result, the unrounded
+    # read does not.
+    qf = q.float()
+    ulp = torch.ldexp(torch.ones_like(kr), torch.floor(torch.log2(
+        kr.abs())).int() - 7)
+    kn = torch.where(kr == 0, kr, kr + 0.2 * ulp)
+    vn = torch.where(vr == 0, vr, vr - 0.2 * torch.ldexp(
+        torch.ones_like(vr), torch.floor(torch.log2(vr.abs())).int() - 7))
+    assert torch.equal(kn.to(torch.bfloat16).float(), kr)
+    assert torch.equal(vn.to(torch.bfloat16).float(), vr)
+    want = fd.flash_decode(qf, kr.to(torch.bfloat16), vr.to(torch.bfloat16),
+                           lens, **opts)
+    _within(fd.flash_decode(qf, kn, vn, lens, round_kv=True, **opts), want,
+            1e-5)
+    moved = fd.flash_decode(qf, kn, vn, lens, **opts).float().cpu()
+    assert float((moved - want.float().cpu()).abs().max()) > \
+        1e-5 * float(want.abs().max())
+
+
+def test_bf16_model_over_a_float32_cache_decodes_as_on_the_cpu():
+    """A bf16 layer over a float32 cache (the engines' default
+    ``cache_dtype``), self and cross: ``attention_decode`` on the card
+    (#8 with ``round_kv``, the cache read as stored) within two bf16 ulps
+    of the CPU path, which casts the cache to bf16 as the JAX package
+    does; the card's cache is the CPU's (the new row's bf16 projections
+    may round apart by an ulp)."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models import layers
+
+    rng = np.random.default_rng(16)
+    for cross in (False, True):
+        cfg = layers.AttnConfig(d_model=256, n_heads=8, n_kv_heads=2,
+                                head_dim=64, cross=cross,
+                                d_cross=128 if cross else None)
+        d_kv = 128 if cross else 256
+        p = {n: torch.as_tensor((rng.normal(size=sh) * 0.1).astype(
+            np.float32)).to(torch.bfloat16) for n, sh in (
+            ("wq", (256, 8, 64)), ("wk", (d_kv, 2, 64)),
+            ("wv", (d_kv, 2, 64)), ("wo", (8, 64, 256)))}
+        cache = layers.init_kv_cache(cfg, 3, 300, dtype=torch.float32)
+        cache["k"].normal_(generator=torch.Generator().manual_seed(1))
+        cache["v"].normal_(generator=torch.Generator().manual_seed(2))
+        x = torch.as_tensor(rng.normal(size=(3, 1, 256)).astype(
+            np.float32)).to(torch.bfloat16)
+        pos = torch.tensor([0, 170, 299], dtype=torch.int32)
+        on_card = {n: t.cuda() for n, t in p.items()}
+        card_cache = {n: t.cuda() for n, t in cache.items()}
+        want, cpu_cache = layers.attention_decode(p, cfg, x, cache, pos)
+        fd.flash_decode.dtypes = {}
+        got, card_cache = layers.attention_decode(
+            on_card, cfg, x.cuda(), card_cache, pos.cuda())
+        assert fd.flash_decode.dtypes == {"bfloat16/float32": 1}
+        assert got.dtype == torch.bfloat16
+        _within(got, want, BF16_RTOL)
+        for n in ("k", "v"):
+            _within(card_cache[n], cpu_cache[n], BF16_RTOL)
+
+
 # ---------------------------------------------------------------------------
 # Scale-out: #1 per shard of a device mesh, and launches on another card
 # ---------------------------------------------------------------------------

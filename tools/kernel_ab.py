@@ -1,0 +1,194 @@
+"""Time the split-C DCN kernels (#1, #4, #5) and the decode kernel (#8) of
+one source tree of ``repro_torch``, to compare two trees on one card.
+
+    python tools/kernel_ab.py --src build/parent/src
+    python tools/kernel_ab.py --src src
+
+Run from the repository root on a machine with a CUDA card. ``--src`` is
+the directory that holds the ``repro_torch`` package to time; its kernels
+are built from that tree's own sources (into ``build/`` beside it). To
+compare a commit with its parent, unpack the parent into a directory that
+``.gitignore`` lists (``git archive``) and run parent, change, change,
+parent in one session on one card.
+
+The DCN operands are the ones ``chip_smoke.py`` phase 2 holds: VGG19-3
+DCN-II at 224x224 with the same seeds, #1 from a 4-image ``run_graph``
+(batch_fused), #4 from one image through ``batched``, #5 from one image
+through ``per_tile`` (one tile) and from ``deformable_conv2d_pallas`` on
+the whole 14x14x512 plane; each is timed in float32 and, where the tree
+takes it, on the same values rounded to bf16. #8 is timed on random
+float32 operands at Qwen3-1.7B's decode shapes (B=4 S=512 and B=8
+S=32768, Hq=16 Hkv=8 D=128), and with ``round_kv`` under a bf16 q where
+the tree has it. Times are means of CUDA-event windows after an
+L2-evicting write (``chip_smoke.cuda_time_ms``).
+
+Prints the card's name and power limit, one ``PTXAS`` line per split-C
+and decode kernel instantiation with its registers and spills, and one
+``RESULT <src> {json}`` line of times in ms.
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import os
+import re
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402  (puts the checkout's src on the path)
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_KERNEL = re.compile(r"(split_kernel|split_combine|decode_kernel)(I.*?E)Ev")
+
+
+def ptxas_lines(build_log: str) -> list[str]:
+    """``<kernel><template args> | <spills> | <registers>`` for each
+    split-C and decode kernel entry of an ``nvcc -Xptxas -v`` log."""
+    out, name, spill = [], None, ""
+    for line in build_log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            k = _KERNEL.search(m.group(1))
+            name = k.group(1) + k.group(2) if k else None
+            spill = ""
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "Used" in line:
+            out.append(f"{name} | {spill} | {line.split(':', 1)[-1].strip()}")
+            name = None
+    return out
+
+
+def dcn_operands(torch, np):
+    """The first captured call of #1, #4 and #5 (per tile, whole plane)
+    at chip_smoke's VGG19-3 operands: (name, wrapper, args, kwargs,
+    positions of x / w / b)."""
+    from repro_torch.core.deform import randomize_offset_conv
+    from repro_torch.kernels import dcn_fused as kf
+    from repro_torch.kernels import ops
+    from repro_torch.models.dcn_models import DcnNetConfig, init_dcn_net
+    from repro_torch.runtime import fused_exec as fx
+    from repro_torch.runtime.cache import ScheduleCache
+    from repro_torch.runtime.graph import (DeformNode, PoolNode,
+                                           UpsampleNode, build_graph)
+
+    dev = torch.device("cuda")
+    cfg = DcnNetConfig("vgg19", n_deform=3, variant="dcn2", img_size=224,
+                       width_mult=1.0, num_classes=1000)
+    params = init_dcn_net(cs.SEED, cfg, device=dev)
+    gen = torch.Generator().manual_seed(cs.SEED + 1)
+    params["convs"] = [
+        randomize_offset_conv(p, gen, 2.0 / p.w.shape[2])
+        if hasattr(p, "w_off") else p for p in params["convs"]]
+    graph = build_graph(cfg)
+    images = np.random.default_rng(cs.SEED + 2).normal(
+        size=(16, 224, 224, 3)).astype(np.float32)
+    x = torch.as_tensor(images[:cs.N_BATCH], device=dev)
+    got = {k: [] for k in ("batch", "sched", "tile", "plane")}
+    with cs.recording(fx, "dcn_fused_batch", got["batch"]):
+        fx.run_graph(params["convs"], graph, x,
+                     schedule_cache=ScheduleCache(),
+                     config=fx.GraphConfig(tile=8, schedule_backend="device"))
+    for mode, key, name in (("batched", "sched", "dcn_fused_schedule"),
+                            ("per_tile", "tile", "dcn_fused_tile")):
+        with cs.recording(fx, name, got[key]):
+            fx.run_graph(params["convs"], graph, x[:1],
+                         schedule_cache=ScheduleCache(),
+                         config=fx.GraphConfig(tile=8, dispatch=mode,
+                                               schedule_backend="device"))
+    # The whole plane of the first DCN layer (image 0), as chip_smoke's
+    # phase 2 captures it.
+    plane = x[:1]
+    for node in graph.nodes:
+        if isinstance(node, DeformNode):
+            p_dcn = params["convs"][node.param_idx]
+            break
+        if isinstance(node, (PoolNode, UpsampleNode)):
+            plane = fx.apply_boundary_batch(plane, node)
+        else:
+            plane = fx._advance_dense_batch(
+                plane, node, params["convs"][node.param_idx], None)
+    with cs.recording(ops, "dcn_fused_tile", got["plane"]):
+        ops.deformable_conv2d_pallas(plane.contiguous(), p_dcn)
+    torch.cuda.synchronize()
+    at = {"batch": (0, 6, 7), "sched": (0, 5, 6), "tile": (0, 3, 4),
+          "plane": (0, 3, 4)}
+    fns = {"batch": kf.dcn_fused_batch, "sched": kf.dcn_fused_schedule,
+           "tile": kf.dcn_fused_tile, "plane": kf.dcn_fused_tile}
+    return [(k, fns[k], list(got[k][0][0]), got[k][0][1], at[k])
+            for k in at]
+
+
+def decode_operands(torch, b, s, lengths, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    hq, hkv, d = 16, 8, 128
+    q = torch.randn((b, hq, d), generator=gen, device="cuda")
+    k = torch.randn((b, s, hkv, d), generator=gen, device="cuda")
+    v = torch.randn((b, s, hkv, d), generator=gen, device="cuda")
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", required=True,
+                    help="directory holding the repro_torch package")
+    ap.add_argument("--iters", type=int, default=50)
+    args = ap.parse_args()
+    src = os.path.abspath(args.src)
+    sys.path.insert(0, src)
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_decode as fd
+    import repro_torch
+
+    if not repro_torch.__file__.startswith(src):
+        raise SystemExit(f"kernel_ab: imported {repro_torch.__file__}, not "
+                         f"the tree under {src}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    print(cs.card_line())
+    _build.load()
+    for line in ptxas_lines(getattr(_build, "build_log", "")):
+        print(f"PTXAS {args.src} {line}")
+
+    res = {}
+    for key, fn, a, kw, at in dcn_operands(torch, np):
+        res[key] = cs.cuda_time_ms(lambda: fn(*a, **kw), args.iters)
+        a16 = [t.to(torch.bfloat16) if i in at else t
+               for i, t in enumerate(a)]
+        try:
+            fn(*a16, **kw)
+        except ValueError:      # a tree whose kernel refuses bf16
+            continue
+        res[key + "_bf16"] = cs.cuda_time_ms(lambda: fn(*a16, **kw),
+                                             args.iters)
+    rounds = "round_kv" in inspect.signature(fd.flash_decode).parameters
+    for tag, b, s, lengths in (
+            ("decode_serve", 4, 512, [459, 443, 420, 438]),
+            ("decode_32k", 8, 32768, [2278, 26576, 30867, 8568, 5556, 2530,
+                                      26181, 31014])):
+        q, k, v, lens = decode_operands(torch, b, s, lengths, cs.SEED + 30)
+        res[tag] = cs.cuda_time_ms(lambda: fd.flash_decode(q, k, v, lens),
+                                   args.iters)
+        if rounds:
+            qb = q.to(torch.bfloat16)
+            res[tag + "_round_kv"] = cs.cuda_time_ms(
+                lambda: fd.flash_decode(qb, k, v, lens, round_kv=True),
+                args.iters)
+    print(f"RESULT {args.src} "
+          f"{json.dumps({k: round(t, 4) for k, t in res.items()})}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
