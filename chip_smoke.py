@@ -2090,7 +2090,9 @@ def time_flash_bf16(q, k, v, opts, err, name) -> dict:
               f"{'' if skv == sq else f' Skv={skv}'} Hq={hq} Hkv={hkv} "
               f"D={d}, {'causal' if causal else 'non-causal'} (live share "
               f"{live / (sq * skv):.4f}), grid {grid}, {tiles['block_q']} x "
-              f"{tiles['block_k']} tiles, {tiles['smem_bytes']} B shared")
+              f"{tiles['block_k']} tiles, {tiles['smem_bytes']} B shared, "
+              f"{tiles['swizzle']} B swizzle, {tiles['stages']}-tile K / V "
+              f"rings")
     del qf, kf, vf, qt, kt, vt
     return out
 

@@ -265,18 +265,25 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         : "memory");
 }
 
-// TMA copy of one box of the 4-d tensor map (dims d, kv head, key, batch)
-// at (0, hk, k0, b) into dst: BK rows of DP + 4 floats (bf16: BK16 rows of
-// DP + 8 values), zeros where d >= D or key >= Skv; completes on `bar`.
-__device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map,
-                                         int hk, int k0, int b,
-                                         uint64_t* bar) {
+// TMA copy of one box of a 4-d tensor map at (c0, c1, c2, c3) into dst;
+// completes on `bar`.
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
+                                        int c0, int c1, int c2, int c3,
+                                        uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(hk), "r"(k0), "r"(b),
-      "r"(smem_u32(bar))
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_u32(bar))
       : "memory");
+}
+
+// The box of the 4-d tensor map (dims d, kv head, key, batch) at (0, hk,
+// k0, b): BK rows of DP + 4 floats, zeros where d >= D or key >= Skv.
+__device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map,
+                                         int hk, int k0, int b,
+                                         uint64_t* bar) {
+  tma_box(dst, map, 0, hk, k0, b, bar);
 }
 
 template <int DP>
@@ -563,14 +570,43 @@ flash_kernel(const __grid_constant__ CUtensorMap k_map,
 // m64nNk16 bf16 instructions with float32 accumulation (no split: bf16
 // operands are exact in bf16).
 //
-// Design, where it differs from the float32 kernel:
-// * BQ = 128 (two warpgroups) for every head dim and BK16 = 64 keys a
-//   tile: bf16 tiles take half the shared memory.
-// * The landed tile is moved into the canonical layouts as it is, with no
-//   split: K [64 keys][DP] and V^T [DP][64 keys], K-major, 16-byte core
-//   rows. q is moved once per block, unscaled (exact); the scale (times
-//   log2 e) multiplies the float32 scores.
-// * S = Q K^T: DP / 16 wgmma m64n64k16, both operands in shared memory.
+// Design (two consumer warpgroups and a producer warp, 288 threads):
+// * One block per (batch * q head, 128-row query tile), heaviest tile
+//   first; consumer warpgroup c owns query rows 64c .. 64c + 63. One
+//   thread of the producer warp starts every copy by TMA: q once, then
+//   every 64-key K and V tile the block's rows see. (Nine warps are
+//   given registers as twelve: 168 a thread, and ptxas did not lift the
+//   consumers above that through setmaxnreg. 64-key tiles fit: S 32, O
+//   DP / 2 and P 16 registers; 128-key ones spill at D 128. Without the
+//   producer warp, 256 threads may hold 255 registers and 128-key tiles:
+//   thread 0 starting every copy stalled its warpgroup (1.6x slower); the
+//   warpgroup releasing a stage second refilling it was 1-8 % faster at
+//   D <= 128 but 20 % slower at D 144, nine copies a tile from a
+//   consumer thread.)
+// * The tiles land straight in the swizzled layouts wgmma reads: rows of
+//   W = 64, 32 or 16 values (128, 64 or 32 B swizzle, the widest that
+//   divides DP), so a tile is DP / W panels [rows][W], one TMA box each
+//   (zeros past Skv, Sq and D). q and K are K-major operands of S = Q K^T;
+//   V, [keys][D] as landed, is the MN-major B of P V (the wgmma transpose
+//   flag). There is no move pass and no block barrier in the key loop.
+// * K and V have rings of their own (4 tiles at every head dim), each
+//   stage with a full and an empty mbarrier: a K stage is free once both
+//   warpgroups' S has read it, a V stage once their P V has, and the
+//   producer refills it at once.
+// * Each warpgroup starts S(t) = Q K(t)^T, rescales O by alpha(t - 1),
+//   starts O += P(t - 1) V(t - 1), waits for S(t) alone (wgmma.wait_group
+//   1) and runs tile t's softmax in place while P(t - 1) V(t - 1) is
+//   still on the tensor cores; then it waits for that product and packs
+//   P(t). Each product is a wgmma group of its own behind its own fence,
+//   and every register it reads is pinned before the fence: ptxas
+//   serializes all the products of a kernel where another instruction
+//   writes a wgmma operand inside a group's span.
+// * The soft-cap and the masks are passes of their own under uniform
+//   branches (per score, the compiler evaluated them for every score: a
+//   2x slower softmax); the scale rides the exponent's FFMA.
+// * Scores in base 2 (log2 e folded into the scale or the soft-cap, exp2
+//   on the SFU); masks only on edge tiles; a masked score is -1e30 and a
+//   row with no visible key yet subtracts 0, so its p is exactly 0.
 // * P is rounded to bf16 for O += P V: the accumulator of S hands a thread
 //   keys {2t, 2t + 1} and {2t + 8, 2t + 9} of each 16-key step, which is
 //   the A fragment of a bf16 wgmma as it stands (no permutation). The row
@@ -579,203 +615,317 @@ flash_kernel(const __grid_constant__ CUtensorMap k_map,
 //   alpha: a bf16 output does not see their truncating accumulation.
 // ---------------------------------------------------------------------------
 
-constexpr int BK16 = 64;      // keys per tile of the bf16 kernel
+constexpr int BQ16 = 128;     // query rows a block of the bf16 kernel
+constexpr int BK16 = 64;      // keys a K / V tile
 
+// Values a swizzled shared-memory row holds for head dim dp: the widest of
+// the 128, 64 and 32 B swizzles whose row divides dp.
+__host__ __device__ constexpr int panel_bf16(int dp) {
+  return dp % 64 == 0 ? 64 : dp % 32 == 0 ? 32 : 16;
+}
+constexpr int ST16 = 4;       // tiles a K or V ring holds
+// q, the K and V rings, their mbarriers and q's, and 1 KB to align the
+// base: 185,480 bytes at DP 144.
 __host__ __device__ constexpr int smem_bytes_bf16(int dp) {
-  return 2 * (2 * 64 * dp + 2 * BK16 * dp + 2 * BK16 * (dp + 8)) + 8;
+  return 1024 + 2 * BQ16 * dp + 4 * ST16 * BK16 * dp + 8 * (4 * ST16 + 1);
+}
+static_assert(smem_bytes_bf16(MAX_DP) <= 232448, "bf16 rings");
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// One probe of an mbarrier's phase of `parity` (try_wait may suspend the
+// thread for a while before it answers).
+__device__ __forceinline__ bool mbar_try(uint64_t* bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done;
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait_n() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 template <int DP>
-__global__ void __launch_bounds__(2 * WG, 1)
-flash_kernel_bf16(const __grid_constant__ CUtensorMap k_map,
+__global__ void __launch_bounds__(2 * WG + 32, 1)
+flash_kernel_bf16(const __grid_constant__ CUtensorMap q_map,
+                  const __grid_constant__ CUtensorMap k_map,
                   const __grid_constant__ CUtensorMap v_map,
-                  const __nv_bfloat16* __restrict__ q,
                   __nv_bfloat16* __restrict__ out, int Sq, int Skv, int Hq,
                   int Hkv, int D, int causal, int window, float scale,
                   float softcap) {
-  constexpr int BK = BK16;
-  constexpr int NT = 2 * WG, NW = NT / 32, BQ = 128;
-  constexpr int LD = DP + 8;      // row stride of the landed tiles
-  extern __shared__ __align__(128) __nv_bfloat16 smem_h[];
-  __nv_bfloat16* Qc = smem_h;          // [BQ][DP] q, canonical
-  __nv_bfloat16* Kc = Qc + BQ * DP;    // [BK][DP] K tile, canonical
-  __nv_bfloat16* Vc = Kc + BK * DP;    // [DP][BK] V^T tile, canonical
-  __nv_bfloat16* Ks = Vc + BK * DP;    // [BK][LD] next K tile as landed
-  __nv_bfloat16* Vs = Ks + BK * LD;    // [BK][LD] next V tile as landed
-  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + BK * LD);
+  constexpr int BQ = BQ16, BK = BK16, ST = ST16;
+  constexpr int W = panel_bf16(DP), SWZ = 2 * W;  // values / bytes a row
+  constexpr int QP = BQ * SWZ, KP = BK * SWZ;     // bytes of a q / K panel
+  constexpr int TILE = BK * DP * 2;               // bytes of a K / V tile
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* const Qs =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* const Ks = Qs + BQ * DP * 2;  // [ST][DP / W][BK][W]
+  uint8_t* const Vs = Ks + ST * TILE;    // [ST][DP / W][BK][W]
+  uint64_t* const full_k = reinterpret_cast<uint64_t*>(Vs + ST * TILE);
+  uint64_t* const full_v = full_k + ST;
+  uint64_t* const empty_k = full_v + ST;
+  uint64_t* const empty_v = empty_k + ST;
+  uint64_t* const q_full = empty_v + ST;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wg = tid / WG;
-  const int wi = warp & 3, gq = lane >> 2, tq = lane & 3;
+  const int tid = threadIdx.x;
   const int bh = blockIdx.y, b = bh / Hq, h = bh % Hq;
   const int hk = h / (Hq / Hkv);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tile first
-  const long long qstride = (long long)Hq * D;
-  const __nv_bfloat16* qb = q + ((long long)b * Sq * Hq + h) * D;
-  __nv_bfloat16* ob = out + ((long long)b * Sq * Hq + h) * D;
-
   const long long off = (long long)Skv - Sq;
   const int q_rows = min(BQ, Sq - q0);
   long long k_hi = Skv;
   if (causal) k_hi = min(k_hi, q0 + q_rows - 1 + off + 1);
   const long long k_lo = max(0LL, q0 + off - (long long)window + 1);
-  const int w0 = q0 + 64 * wg, w_rows = min(64, q_rows - 64 * wg);
-  long long wk_hi = w_rows > 0 ? Skv : 0;
-  if (causal && w_rows > 0) wk_hi = min(wk_hi, w0 + w_rows - 1 + off + 1);
-  const long long wk_lo = max(0LL, w0 + off - (long long)window + 1);
   const int kt0 = (int)(k_lo / BK) * BK;
   const int n_tiles = k_lo < k_hi ? (int)((k_hi - kt0 + BK - 1) / BK) : 0;
 
-  auto fetch = [&](int k0) {
-    asm volatile(
-        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-            smem_u32(full)),
-        "r"(2 * BK * LD * 2)
-        : "memory");
-    tma_rows(Ks, &k_map, hk, k0, b, full);
-    tma_rows(Vs, &v_map, hk, k0, b, full);
-  };
   if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+          smem_u32(full_k + i)));
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+          smem_u32(full_v + i)));
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 2;\n" ::"r"(
+          smem_u32(empty_k + i)));
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 2;\n" ::"r"(
+          smem_u32(empty_v + i)));
+    }
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                     smem_u32(full)));
+        smem_u32(q_full)));
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    if (n_tiles > 0) fetch(kt0);
+  }
+  __syncthreads();  // the barriers' init, before anyone waits on them
+
+  // A wait that outlasts ~2^34 cycles (seconds) traps: a barrier that
+  // never completes surfaces as a launch failure, not as a hung card.
+  auto wait = [](uint64_t* bar, int parity) {
+    const long long t0 = clock64();
+    while (!mbar_try(bar, parity))
+      if (clock64() - t0 > (1ll << 34)) __trap();
+  };
+  // Warpgroup 0, 1: the consumers; 2: the producer warp. Lane 0's,
+  // shuffled: warp-uniform as the compiler sees it, which the wgmma
+  // products need (a branch it cannot prove uniform serializes them).
+  const int c = __shfl_sync(0xffffffffu, tid / WG, 0);
+  if (c == 2) {
+    // The producer: q once, then the K and V tiles in order, each into its
+    // ring stage once both consumers have released the stage's last tile.
+    if (tid == 2 * WG) {
+      mbar_expect(q_full, BQ * DP * 2);
+#pragma unroll
+      for (int p = 0; p < DP / W; ++p)
+        tma_box(Qs + p * QP, &q_map, p * W, h, q0, b, q_full);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % ST, u = t / ST, k0 = kt0 + t * BK;
+        if (u > 0) wait(empty_k + st, (u - 1) & 1);
+        mbar_expect(full_k + st, TILE);
+#pragma unroll
+        for (int p = 0; p < DP / W; ++p)
+          tma_box(Ks + st * TILE + p * KP, &k_map, p * W, hk, k0, b,
+                  full_k + st);
+        if (u > 0) wait(empty_v + st, (u - 1) & 1);
+        mbar_expect(full_v + st, TILE);
+#pragma unroll
+        for (int p = 0; p < DP / W; ++p)
+          tma_box(Vs + st * TILE + p * KP, &v_map, p * W, hk, k0, b,
+                  full_v + st);
+      }
+    }
+    return;
   }
 
-  // q into the canonical layout while the first tile flies: chunk (row r,
-  // dims 8c .. 8c + 7) to core matrix (r / 8, c), row r % 8.
-#pragma unroll 4
-  for (int e = tid; e < BQ * DP / 8; e += NT) {
-    const int r8 = e & 7, c = (e >> 3) % (DP / 8);
-    const int r = 8 * ((e >> 3) / (DP / 8)) + r8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r < q_rows && 8 * c < D)
-      x = __ldg(reinterpret_cast<const uint4*>(
-          qb + (long long)(q0 + r) * qstride + 8 * c));
-    *reinterpret_cast<uint4*>(Qc + ((r >> 3) * (DP / 8) + c) * 64 + r8 * 8) =
-        x;
-  }
-  fence_async_smem();  // q: to wgmma
-  __syncthreads();     // and the barrier's init, before anyone waits on it
+  // Consumer warpgroup c owns query rows w0 .. w0 + 63; lane (gq, tq) of
+  // warp wi holds rows 16 wi + gq (+ 8) of S (keys 8j + 2tq (+ 1)) and of
+  // O (dims 8j + 2tq (+ 1)). It computes tiles [ta, tb) of the block's
+  // n_tiles, those its rows see, and releases the others unread.
+  const int ct = tid % WG;
+  const int lane = ct & 31, wi = ct >> 5, gq = lane >> 2, tq = lane & 3;
+  const int w0 = q0 + 64 * c, w_rows = min(64, q_rows - 64 * c);
+  long long wk_hi = w_rows > 0 ? Skv : 0;
+  if (causal && w_rows > 0) wk_hi = min(wk_hi, w0 + w_rows - 1 + off + 1);
+  const long long wk_lo = max(0LL, w0 + off - (long long)window + 1);
+  const bool any = wk_lo < wk_hi;
+  const int ta = any ? (int)((wk_lo - kt0) / BK) : 0;
+  const int tb = any ? (int)((wk_hi - kt0 + BK - 1) / BK) : 0;
+  const bool leader = ct == 0;  // releases the warpgroup's stages
 
-  // Warpgroup wg owns query rows w0 .. w0 + 63; lane (gq, tq) of warp wi
-  // holds rows 16 wi + gq (+ 8) of S (keys 8j + 2tq (+ 1)) and of O
-  // (dims 8j + 2tq (+ 1)).
+  auto release = [&](uint64_t* bar) {
+    if (leader) mbar_arrive(bar);
+  };
+  auto skip = [&](int t) {  // a tile these rows do not see
+    if (leader) {
+      wait(full_k + t % ST, (t / ST) & 1);
+      mbar_arrive(empty_k + t % ST);
+      wait(full_v + t % ST, (t / ST) & 1);
+      mbar_arrive(empty_v + t % ST);
+    }
+  };
+  for (int t = 0; t < ta; ++t) skip(t);
+
   float o[DP / 2], s[BK / 2];
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+  uint32_t pa[BK / 16][4];  // P of the last tile, bf16 A fragments
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  const uint64_t dq = smem_desc(Qc + wg * 64 * DP, 128, DP * 16);
-  const uint64_t dk = smem_desc(Kc, 128, DP * 16);
-  const uint64_t dv = smem_desc(Vc, 128, BK * 16);
+  float alpha[2] = {1.f, 1.f};
+  // K-major q and K: 8-row atoms 8 * SWZ bytes apart. MN-major V: 8-key
+  // atoms 8 * SWZ apart along K, W-dim panels KP apart along N.
+  const uint64_t dq = smem_desc_sw(Qs + c * 64 * SWZ, 16, 8 * SWZ, SWZ);
+  const uint64_t dk = smem_desc_sw(Ks, 16, 8 * SWZ, SWZ);
+  const uint64_t dv = smem_desc_sw(Vs, KP, 8 * SWZ, SWZ);
+  // Scores in base 2: log2 e folded into the scale, or into the soft-cap
+  // (whose pass then leaves a scale of 1 for the exponent's FFMA).
   const float qscale = softcap > 0.f ? scale : scale * LOG2E;
+  const float escale = softcap > 0.f ? 1.f : qscale;
   const float cap2 = softcap * LOG2E;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = kt0 + t * BK;
-    mbar_wait(full, t & 1);
-    __syncthreads();  // tile t landed; every thread is done with t - 1
-    // K: chunk (key r, dims 8c ..) to core matrix (r / 8, c), row r % 8.
-    // V^T: thread (d, key group g8) gathers dim d of keys 8 g8 .. 8 g8 + 7
-    // into row d % 8 of core matrix (d / 8, g8). Rows LD = DP + 8 apart
-    // (an odd number of 16-byte words) keep the reads free of conflicts.
-#pragma unroll 2
-    for (int e = tid; e < BK * DP / 8; e += NT) {
-      const int r8 = e & 7, c = (e >> 3) % (DP / 8);
-      const int r = 8 * ((e >> 3) / (DP / 8)) + r8;
-      *reinterpret_cast<uint4*>(Kc + ((r >> 3) * (DP / 8) + c) * 64 +
-                                r8 * 8) =
-          *reinterpret_cast<const uint4*>(Ks + r * LD + 8 * c);
+  // S = Q K(t)^T, one wgmma group: 16 dims of panel 16ks / W a step.
+  auto qk = [&](int t) {
+    const uint64_t dkt = dk + (((t % ST) * TILE) >> 4);
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks) {
+      const int at = (16 * ks / W) * QP + (16 * ks % W) * 2;
+      const int bt = (16 * ks / W) * KP + (16 * ks % W) * 2;
+      wgmma_bf16_n64(s, dq + (at >> 4), dkt + (bt >> 4), ks);
     }
-#pragma unroll 2
-    for (int e = tid; e < BK * DP / 8; e += NT) {
-      const int d = e % DP, g8 = e / DP;
-      const unsigned short* src =
-          reinterpret_cast<const unsigned short*>(Vs + 8 * g8 * LD + d);
-      uint4 w;
-      w.x = src[0] | ((uint32_t)src[LD] << 16);
-      w.y = src[2 * LD] | ((uint32_t)src[3 * LD] << 16);
-      w.z = src[4 * LD] | ((uint32_t)src[5 * LD] << 16);
-      w.w = src[6 * LD] | ((uint32_t)src[7 * LD] << 16);
-      *reinterpret_cast<uint4*>(Vc + ((d >> 3) * (BK / 8) + g8) * 64 +
-                                (d & 7) * 8) = w;
-    }
-    fence_async_smem();  // the moved tile: to wgmma
-    __syncthreads();     // and the landing buffers are free
-    if (tid == 0 && t + 1 < n_tiles) {
-      fence_async_smem();  // their reads above before the TMA's writes
-      fetch(k0 + BK);
-    }
-
-    if (k0 < wk_hi && k0 + BK > wk_lo) {
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < DP / 16; ++ks)  // 16 dims = 2 core matrices
-        wgmma_bf16_n64(s, dq + 16 * ks, dk + 16 * ks, ks);
-      wgmma_commit();
-      wgmma_wait();
-      fence_regs(s);
-
-      const bool edge =
-          !(k0 + BK <= Skv && (!causal || k0 + BK - 1 <= w0 + off) &&
-            w0 + w_rows - 1 + off - k0 < window);
-      float alpha[2];
-      uint32_t pa[BK / 16][4];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const long long qi = w0 + 16 * wi + gq + 8 * hh + off;
-        bool ok[BK / 4];
-        float mx = NEG_INF;
-#pragma unroll
-        for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            float x = s[4 * j + 2 * hh + u] * qscale;
-            if (softcap > 0.f) x = tanhf(x / softcap) * cap2;
-            const long long ki = k0 + 8 * j + 2 * tq + u;
-            ok[2 * j + u] = !edge || (ki < Skv && (!causal || qi >= ki) &&
-                                      qi - ki < window);
-            x = ok[2 * j + u] ? x : NEG_INF;
-            s[4 * j + 2 * hh + u] = x;
-            mx = fmaxf(mx, x);
-          }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[hh], mx);
-        alpha[hh] = exp2_fast(m[hh] - m_new);
-        float ps = 0.f;
-#pragma unroll
-        for (int j = 0; j < BK / 8; ++j) {
-          const float p0 =
-              ok[2 * j] ? exp2_fast(s[4 * j + 2 * hh] - m_new) : 0.f;
-          const float p1 =
-              ok[2 * j + 1] ? exp2_fast(s[4 * j + 2 * hh + 1] - m_new) : 0.f;
-          // Keys 8j + 2tq (+ 1) of row hh: register 2 (j & 1) + hh of the
-          // A fragment of 16-key step j / 2.
-          const uint32_t w = pack_bf16(p0, p1);
-          pa[j >> 1][2 * (j & 1) + hh] = w;
-          ps += bf16_lo(w) + bf16_hi(w);
-        }
-        l[hh] = l[hh] * alpha[hh] + ps;  // this thread's share of the row
-        m[hh] = m_new;
-      }
-
-      // O = alpha O + P V, accumulated by the tensor cores.
+    wgmma_commit();
+  };
+  // O = alpha O + P V(t), one wgmma group, P from pa: 16 keys (2 atoms) a
+  // step. Multiplying by 1 is exact, so a thread whose rows kept their
+  // maximum skips the rescale.
+  auto pv = [&](int t) {
+    if (alpha[0] != 1.f || alpha[1] != 1.f) {
 #pragma unroll
       for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)  // 16 keys = 2 core matrices
-        wgmma_bf16_rs<DP>(o, pa[kk], dv + 16 * kk, 1);
-      wgmma_commit();
-      wgmma_wait();
-      fence_regs(o);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
     }
+    wait(full_v + t % ST, (t / ST) & 1);
+    const uint64_t dvt = dv + (((t % ST) * TILE) >> 4);
+    fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_bf16_rs<DP>(o, pa[kk], dvt + ((kk * 16 * SWZ) >> 4), 1);
+    wgmma_commit();
+  };
+  auto pv_done = [&](int t) {  // after the wait for P V(t)
+    fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
+    release(empty_v + t % ST);
+  };
+  // Tile t's softmax, in place: S becomes p, the rescale of O alpha. The
+  // soft-cap and the masks are whole passes under uniform branches: per
+  // score, the compiler would evaluate them unconditionally.
+  auto softmax = [&](int t) {
+    const long long k0 = kt0 + (long long)t * BK;
+    if (softcap > 0.f) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i)
+        s[i] = tanhf(s[i] * qscale / softcap) * cap2;
+    }
+    if (!(k0 + BK <= Skv && (!causal || k0 + BK - 1 <= w0 + off) &&
+          w0 + w_rows - 1 + off - k0 < window)) {  // an edge tile
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const long long qi = w0 + 16 * wi + gq + 8 * ((i >> 1) & 1) + off;
+        const long long ki = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
+        if (!(ki < Skv && (!causal || qi >= ki) && qi - ki < window))
+          s[i] = NEG_INF;
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // The row's maximum in base-2 units (escale > 0 keeps the order); a
+      // row that has seen no visible key yet subtracts 0: its -1e30
+      // scores then give p = 0 exactly (and its alpha 0 scales zeros).
+      const float m_new = fmaxf(m[hh], mx == NEG_INF ? NEG_INF : mx * escale);
+      const float m_use = m_new == NEG_INF ? 0.f : m_new;
+      alpha[hh] = exp2_fast(m[hh] - m_use);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        float& p0 = s[4 * j + 2 * hh];
+        float& p1 = s[4 * j + 2 * hh + 1];
+        p0 = exp2_fast(fmaf(p0, escale, -m_use));
+        p1 = exp2_fast(fmaf(p1, escale, -m_use));
+        const uint32_t w = pack_bf16(p0, p1);  // as P V will read them
+        ps += bf16_lo(w) + bf16_hi(w);
+      }
+      l[hh] = l[hh] * alpha[hh] + ps;  // this thread's share of the row
+      m[hh] = m_new;
+    }
+  };
+  // P (in s) rounded to bf16 as the A fragments of P V: keys 8j + 2tq
+  // (+ 1) of row hh are register 2 (j & 1) + hh of 16-key step j / 2.
+  auto pack_p = [&] {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        pa[j >> 1][2 * (j & 1) + hh] =
+            pack_bf16(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]);
+  };
+
+  wait(q_full, 0);  // even with no tile: no copy outlives the block
+  if (ta < tb) {
+    wait(full_k + ta % ST, (ta / ST) & 1);
+    qk(ta);
+    wgmma_wait_n<0>();
+    fence_regs(s);
+    release(empty_k + ta % ST);
+    softmax(ta);
+    pack_p();
   }
+  for (int t = ta + 1; t < tb; ++t) {
+    // S(t) and P(t - 1) V(t - 1) in flight together; tile t's softmax
+    // runs under the second.
+    wait(full_k + t % ST, (t / ST) & 1);
+    qk(t);
+    pv(t - 1);
+    wgmma_wait_n<1>();  // S(t)
+    fence_regs(s);
+    release(empty_k + t % ST);
+    softmax(t);
+    wgmma_wait_n<0>();  // P(t - 1) V(t - 1)
+    pv_done(t - 1);
+    pack_p();
+  }
+  if (ta < tb) {
+    pv(tb - 1);
+    wgmma_wait_n<0>();
+    pv_done(tb - 1);
+  }
+  for (int t = tb; t < n_tiles; ++t) skip(t);
 
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -785,12 +935,13 @@ flash_kernel_bf16(const __grid_constant__ CUtensorMap k_map,
     const int r = 16 * wi + gq + 8 * hh;
     if (r < w_rows) {
       const float den = fmaxf(li, 1e-30f);
-      __nv_bfloat16* orow = ob + (long long)(w0 + r) * qstride;
+      __nv_bfloat16* orow =
+          out + (((long long)b * Sq + w0 + r) * Hq + h) * D;
 #pragma unroll
       for (int j = 0; j < DP / 8; ++j) {
-        const int c = 8 * j + 2 * tq;
-        if (c < D)
-          *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+        const int cc = 8 * j + 2 * tq;
+        if (cc < D)
+          *reinterpret_cast<__nv_bfloat162*>(orow + cc) =
               __floats2bfloat162_rn(o[4 * j + 2 * hh] / den,
                                     o[4 * j + 2 * hh + 1] / den);
       }
@@ -798,36 +949,66 @@ flash_kernel_bf16(const __grid_constant__ CUtensorMap k_map,
   }
 }
 
-// The 4-d tensor map (d, kv head, key, batch) of k or v (B, Skv, Hkv, D)
-// whose box is the tile the kernel lands: (DP + 4) x 1 x BK x 1 floats, or
-// (DP + 8) x 1 x BK16 x 1 bf16 values.
-cudaError_t rows_map(CUtensorMap* map, const void* x, int B, int Skv,
-                     int Hkv, int D, int dp, bool bf16) {
+// cuTensorMapEncodeTiled, found once through the runtime (no libcuda
+// link); null where the installed CUDA lacks it.
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder(cudaError_t* err) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  *err = cudaSuccess;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+    *err = cudaGetDriverEntryPointByVersion(
         "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode), 12000,
         cudaEnableDefault, &found);
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
+    if (*err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
       encode = nullptr;
-      return err != cudaSuccess ? err : cudaErrorSymbolNotFound;
+      if (*err == cudaSuccess) *err = cudaErrorSymbolNotFound;
     }
   }
-  const cuuint64_t elem = bf16 ? 2 : 4;
+  return encode;
+}
+
+// The 4-d tensor map (d, kv head, key, batch) of float32 k or v (B, Skv,
+// Hkv, D) whose box is the tile the kernel lands: (DP + 4) x 1 x BK x 1.
+cudaError_t rows_map(CUtensorMap* map, const void* x, int B, int Skv,
+                     int Hkv, int D, int dp) {
+  cudaError_t err;
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder(&err);
+  if (encode == nullptr) return err;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv,
                               (cuuint64_t)Skv, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {elem * D, elem * D * Hkv,
-                                 elem * D * Hkv * Skv};
-  const cuuint32_t box[4] = {(cuuint32_t)dp + (bf16 ? 8 : 4), 1,
-                             (cuuint32_t)(bf16 ? BK16 : BK), 1};
+  const cuuint64_t strides[3] = {4ull * D, 4ull * D * Hkv,
+                                 4ull * D * Hkv * Skv};
+  const cuuint32_t box[4] = {(cuuint32_t)dp + 4, 1, (cuuint32_t)BK, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult res = encode(
-      map,
-      bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-           : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-      4, const_cast<void*>(x), dims, strides, box, step,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(x), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The 4-d tensor map (d, head, row, batch) of bf16 q, k or v (B, S, H, D)
+// whose box is one swizzled panel of the bf16 kernel: w values (the
+// panel's row, w * 2 bytes = the swizzle) x 1 x rows x 1; zeros past D
+// and S.
+cudaError_t panel_map(CUtensorMap* map, const void* x, int B, int S, int H,
+                      int D, int w, int rows) {
+  cudaError_t err;
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder(&err);
+  if (encode == nullptr) return err;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {2ull * D, 2ull * D * H, 2ull * D * H * S};
+  const cuuint32_t box[4] = {(cuuint32_t)w, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      w == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+              : w == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                        : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -839,9 +1020,8 @@ int launch(const float* q, const float* k, const float* v, float* out, int B,
   if (block_q != 64 * warpgroups(DP)) return (int)cudaErrorInvalidValue;
   const int smem = smem_bytes(DP, warpgroups(DP));
   CUtensorMap k_map, v_map;
-  cudaError_t err = rows_map(&k_map, k, B, Skv, Hkv, D, DP, false);
-  if (err == cudaSuccess)
-    err = rows_map(&v_map, v, B, Skv, Hkv, D, DP, false);
+  cudaError_t err = rows_map(&k_map, k, B, Skv, Hkv, D, DP);
+  if (err == cudaSuccess) err = rows_map(&v_map, v, B, Skv, Hkv, D, DP);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(
         flash_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -854,24 +1034,27 @@ int launch(const float* q, const float* k, const float* v, float* out, int B,
 }
 
 template <int DP>
-int launch_bf16(const __nv_bfloat16* q, const void* k, const void* v,
+int launch_bf16(const void* q, const void* k, const void* v,
                 __nv_bfloat16* out, int B, int Sq, int Skv, int Hq, int Hkv,
                 int D, int causal, int window, int block_q, float scale,
                 float softcap, cudaStream_t stream) {
-  if (block_q != 128) return (int)cudaErrorInvalidValue;
+  if (block_q != BQ16) return (int)cudaErrorInvalidValue;
+  constexpr int W = panel_bf16(DP);
   const int smem = smem_bytes_bf16(DP);
-  CUtensorMap k_map, v_map;
-  cudaError_t err = rows_map(&k_map, k, B, Skv, Hkv, D, DP, true);
+  CUtensorMap q_map, k_map, v_map;
+  cudaError_t err = panel_map(&q_map, q, B, Sq, Hq, D, W, BQ16);
   if (err == cudaSuccess)
-    err = rows_map(&v_map, v, B, Skv, Hkv, D, DP, true);
+    err = panel_map(&k_map, k, B, Skv, Hkv, D, W, BK16);
+  if (err == cudaSuccess)
+    err = panel_map(&v_map, v, B, Skv, Hkv, D, W, BK16);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(flash_kernel_bf16<DP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + block_q - 1) / block_q, B * Hq);
-  flash_kernel_bf16<DP><<<grid, 2 * WG, smem, stream>>>(
-      k_map, v_map, q, out, Sq, Skv, Hq, Hkv, D, causal, window, scale,
+  const dim3 grid((Sq + BQ16 - 1) / BQ16, B * Hq);
+  flash_kernel_bf16<DP><<<grid, 2 * WG + 32, smem, stream>>>(
+      q_map, k_map, v_map, out, Sq, Skv, Hq, Hkv, D, causal, window, scale,
       softcap);
   return (int)cudaGetLastError();
 }
@@ -907,7 +1090,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 }
 
 // The same for bf16 q, k, v and out; D a multiple of 8 (16-byte rows for
-// the TMA), block_q 128.
+// the TMA), block_q 128 (`BQ16`).
 extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
                                            const void* v, void* out, int B,
                                            int Sq, int Skv, int Hq, int Hkv,
@@ -916,12 +1099,11 @@ extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
                                            float softcap, void* stream) {
   if (D % 8 || D < 8 || D > MAX_DP || Hkv < 1 || Hq % Hkv)
     return (int)cudaErrorInvalidValue;
-  const __nv_bfloat16* qh = static_cast<const __nv_bfloat16*>(q);
   __nv_bfloat16* oh = static_cast<__nv_bfloat16*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FLASH_CASE(n)                                                      \
   case n:                                                                  \
-    return launch_bf16<16 * n>(qh, k, v, oh, B, Sq, Skv, Hq, Hkv, D,       \
+    return launch_bf16<16 * n>(q, k, v, oh, B, Sq, Skv, Hq, Hkv, D,       \
                                causal, window, block_q, scale, softcap,    \
                                st);
   switch ((D + 15) / 16) {

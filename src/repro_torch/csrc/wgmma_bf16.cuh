@@ -1,7 +1,7 @@
 // Hopper bf16 building blocks of the flash-attention kernel
 // (flash_attention.cu): the wgmma products with bf16 operands and float32
-// accumulators, and the packing of two floats into a bf16 pair. The
-// descriptors and fences are those of wgmma_tf32.cuh.
+// accumulators, the descriptor of a swizzled operand, and the packing of
+// two floats into a bf16 pair. The fences are those of wgmma_tf32.cuh.
 
 #pragma once
 
@@ -26,6 +26,18 @@ __device__ __forceinline__ float bf16_lo(uint32_t w) {
 }
 __device__ __forceinline__ float bf16_hi(uint32_t w) {
   return __uint_as_float(w & 0xffff0000u);
+}
+
+// Shared-memory matrix descriptor of a swizzled layout as the TMA lands
+// it (wgmma_tf32.cuh's `smem_desc` is the unswizzled one): `swz` bytes a
+// row (128, 64 or 32; layout type 1, 2 or 3 in bits 62-63), 8-row atoms
+// of 8 * swz bytes whose base must be aligned to them. K-major: `sbo` to
+// the next 8 rows along M / N, `lbo` unused (16). MN-major: `sbo` to the
+// next 8 rows along K, `lbo` to the next atom along M / N.
+__device__ __forceinline__ uint64_t smem_desc_sw(const void* p, uint32_t lbo,
+                                                 uint32_t sbo, int swz) {
+  const uint64_t layout = swz == 128 ? 1 : swz == 64 ? 2 : 3;
+  return smem_desc(p, lbo, sbo) | (layout << 62);
 }
 
 // D (64 x 64) = A (64 x 16) * B (16 x 64) + (scale_d ? D : 0), both bf16
@@ -55,9 +67,10 @@ __device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], uint64_t da,
   "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
 
 // D (64 x N) = A (64 x 16, four registers of bf16 pairs: rows g, g + 8 of
-// keys 2t, 2t + 1, then of keys 2t + 8, 2t + 9) * B (16 x N, K-major in
-// shared memory) + (scale_d ? D : 0), for N = DP a multiple of 16 up to
-// 144.
+// keys 2t, 2t + 1, then of keys 2t + 8, 2t + 9) * B (16 x N, MN-major in
+// shared memory: the transpose flag is set, so V as it lands, N
+// contiguous, is the operand) + (scale_d ? D : 0), for N = DP a multiple
+// of 16 up to 144.
 template <int DP>
 __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[DP / 2],
                                               const uint32_t (&a)[4],
@@ -68,7 +81,7 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[DP / 2],
         "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
         : ACC8(0)
         : RS_IN);
   } else if constexpr (DP == 32) {
@@ -77,7 +90,7 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[DP / 2],
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, "
         "%8, %9, %10, %11, %12, %13, %14, %15"
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
         : ACC8(0), ACC8(8)
         : RS_IN);
   } else if constexpr (DP == 48) {
@@ -87,7 +100,7 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[DP / 2],
         "%0, %1, %2, %3, %4, %5, %6, %7, "
         "%8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23"
-        "}, {%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+        "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
         : ACC8(0), ACC8(8), ACC8(16)
         : RS_IN);
   } else if constexpr (DP == 64) {
@@ -98,7 +111,7 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[DP / 2],
         "%8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
         : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
         : RS_IN);
   } else if constexpr (DP == 80) {
@@ -110,7 +123,7 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[DP / 2],
         "%16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39"
-        "}, {%40, %41, %42, %43}, %44, p, 1, 1, 0;\n}\n"
+        "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
         : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32)
         : RS_IN);
   } else if constexpr (DP == 96) {
@@ -123,7 +136,7 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[DP / 2],
         "%24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, "
         "%40, %41, %42, %43, %44, %45, %46, %47"
-        "}, {%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
+        "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
         : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32),
           ACC8(40)
         : RS_IN);
@@ -138,7 +151,7 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[DP / 2],
         "%32, %33, %34, %35, %36, %37, %38, %39, "
         "%40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55"
-        "}, {%56, %57, %58, %59}, %60, p, 1, 1, 0;\n}\n"
+        "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
         : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32),
           ACC8(40), ACC8(48)
         : RS_IN);
@@ -154,7 +167,7 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[DP / 2],
         "%40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, "
         "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
         : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32),
           ACC8(40), ACC8(48), ACC8(56)
         : RS_IN);
@@ -171,7 +184,7 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[DP / 2],
         "%48, %49, %50, %51, %52, %53, %54, %55, "
         "%56, %57, %58, %59, %60, %61, %62, %63, "
         "%64, %65, %66, %67, %68, %69, %70, %71"
-        "}, {%72, %73, %74, %75}, %76, p, 1, 1, 0;\n}\n"
+        "}, {%72, %73, %74, %75}, %76, p, 1, 1, 1;\n}\n"
         : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32),
           ACC8(40), ACC8(48), ACC8(56), ACC8(64)
         : RS_IN);

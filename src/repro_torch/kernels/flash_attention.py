@@ -16,11 +16,11 @@ operands, computes in float32 (a bf16 value widens exactly) and returns
 ``csrc/flash_attention.cu`` or raises, and counts the launch in
 ``flash_attention.launches`` (and by the kernel's operand type in
 ``flash_attention.dtypes``): the float32 kernel (3xTF32 products) for
-float32 operands, the bf16 kernel (bf16 wgmma, P rounded to bf16 for the
-P V product, the output rounded once) for bf16 ones. Mixed operands (a
-bf16 q over float32 k, v, or the reverse) are widened to float32, which
-is exact, and go to the float32 kernel; the output is cast to
-``q.dtype``. float16 raises. For a CPU tensor it runs
+float32 operands, the bf16 kernel (bf16 wgmma on swizzled TMA tiles, P
+rounded to bf16 for the P V product, the output rounded once) for bf16
+ones. Mixed operands (a bf16 q over float32 k, v, or the reverse) are
+widened to float32, which is exact, and go to the float32 kernel; the
+output is cast to ``q.dtype``. float16 raises. For a CPU tensor it runs
 :func:`flash_attention_plain`, the masked full-softmax form with the same
 conventions. The float32 kernel takes head dims that are multiples of 4
 up to 144, the bf16 kernel multiples of 8 up to 144, with the tiles
@@ -44,6 +44,7 @@ MAX_HEAD_DIM = 256
 MAX_KERNEL_HEAD_DIM = 144
 BLOCK_K = 32                    # keys per K/V tile of the float32 kernel
 BLOCK_K_BF16 = 64               # and of the bf16 kernel
+STAGES_BF16 = 4                 # K / V tiles each ring of it holds
 SMEM_LIMIT = 232_448            # shared memory a block may use on Hopper
 # The operand types of #7 and #8 (each computes in float32).
 ATTN_DTYPES = (torch.float32, torch.bfloat16)
@@ -70,7 +71,7 @@ def check_attention_dtypes(**operands) -> None:
 def tile_config(d: int, dtype=torch.float32) -> dict:
     """The CUDA kernel's tiles for head dim ``d`` and operand ``dtype``:
     ``dp`` (d padded to a multiple of 16), ``block_q`` query rows a block
-    (one warpgroup of 128 threads per 64 rows), ``block_k`` keys a tile,
+    (64 a consumer warpgroup of 128 threads), ``block_k`` keys a tile,
     ``threads`` and ``smem_bytes``.
 
     float32: ``block_q`` 128 where the shared memory holds it, else 64;
@@ -79,20 +80,28 @@ def tile_config(d: int, dtype=torch.float32) -> dict:
     of ``dp + 4`` floats) and their mbarrier, ``4 * (2 * block_q * dp + 4
     * block_k * dp + 2 * block_k * (dp + 4)) + 8`` bytes.
 
-    bfloat16 (``d`` a multiple of 8): ``block_q`` 128, 64-key tiles; q,
-    the current K and V^T tiles, the next K and V tiles as they land (rows
-    of ``dp + 8`` values) and the mbarrier, ``2 * (block_q * dp + 2 *
-    block_k * dp + 2 * block_k * (dp + 8)) + 8`` bytes."""
+    bfloat16 (``d`` a multiple of 8): ``block_q`` 128, 64-key tiles, two
+    consumer warpgroups and a producer warp (288 threads, 168 registers
+    a thread). Every tile lands by TMA in swizzled panels of ``swizzle``
+    bytes a row: 128 (64 values) where ``dp`` is a multiple of 64, else
+    64 where it is one of 32, else 32. K and V each have a ring of
+    ``stages`` = 4 tiles; the bytes are 1,024 to align the base, q ``2 *
+    block_q * dp``, the rings ``4 * stages * block_k * dp`` and ``4 *
+    stages + 1`` mbarriers of 8 (the rings' and q's): 185,480 at ``dp``
+    144. Per 64-key tile a warpgroup runs ``dp / 16`` wgmma steps for Q
+    K^T and 4 for P V, each ``dp`` wide: a padded ``dp`` costs ``dp /
+    d`` times the operations of ``d``."""
     if dtype == torch.bfloat16:
         if d % 8 or not 8 <= d <= MAX_KERNEL_HEAD_DIM:
             raise ValueError(f"head_dim {d} must be a multiple of 8 in [8, "
                              f"{MAX_KERNEL_HEAD_DIM}] for the bf16 CUDA "
                              f"kernel")
         dp = -(-d // 16) * 16
-        bq, bk = 128, BLOCK_K_BF16
-        return dict(dp=dp, block_q=bq, block_k=bk, threads=2 * 128,
-                    smem_bytes=2 * (bq * dp + 2 * bk * dp
-                                    + 2 * bk * (dp + 8)) + 8)
+        bq, bk, stages = 128, BLOCK_K_BF16, STAGES_BF16
+        swizzle = 128 if dp % 64 == 0 else 64 if dp % 32 == 0 else 32
+        return dict(dp=dp, block_q=bq, block_k=bk, threads=2 * 128 + 32,
+                    smem_bytes=1024 + 2 * bq * dp + 4 * stages * bk * dp
+                    + 8 * (4 * stages + 1), swizzle=swizzle, stages=stages)
     if d % 4 or not 4 <= d <= MAX_KERNEL_HEAD_DIM:
         raise ValueError(f"head_dim {d} must be a multiple of 4 in [4, "
                          f"{MAX_KERNEL_HEAD_DIM}] for the CUDA kernel")

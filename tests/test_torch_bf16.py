@@ -201,19 +201,39 @@ def test_flash_attention_plain_matches_jax(case, mix):
 @pytest.mark.parametrize("d", range(8, MAX_KERNEL_HEAD_DIM + 1, 8))
 def test_flash_tile_config_bf16_fits_shared_memory(d):
     """The bf16 kernel's tiles for every head dim it takes (multiples of
-    8 up to 144): 128 query rows over 64-key tiles in two warpgroups, and
-    its shared memory (q, the K and V^T tiles, the landing K and V rows
-    of ``dp + 8`` values, the mbarrier) fits a block's 232,448 bytes."""
+    8 up to 144): 128 query rows over 64-key tiles in two consumer
+    warpgroups and a producer warp, and its shared memory (the alignment
+    slack, q, K and V rings of 4 tiles, the rings' and q's mbarriers)
+    fits a block's 232,448 bytes."""
     t = tile_config(d, torch.bfloat16)
     dp = t["dp"]
     assert dp % 16 == 0 and d <= dp < d + 16
-    assert (t["block_q"], t["block_k"], t["threads"]) == (128, 64, 256)
-    assert t["smem_bytes"] == 2 * (128 * dp + 2 * 64 * dp
-                                   + 2 * 64 * (dp + 8)) + 8 <= 232_448
+    assert (t["block_q"], t["block_k"], t["threads"], t["stages"]) == (
+        128, 64, 288, 4)
+    assert t["smem_bytes"] == 1024 + 2 * 128 * dp + 4 * 4 * 64 * dp \
+        + 8 * (4 * 4 + 1) <= 232_448
     for bad in (d - 4, MAX_KERNEL_HEAD_DIM + 8):
         if bad > 0:
             with pytest.raises(ValueError, match="multiple of 8"):
                 tile_config(bad, torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", range(8, MAX_KERNEL_HEAD_DIM + 1, 8))
+def test_flash_tile_config_bf16_swizzle_divides_row(d):
+    """Every head dim gets a swizzle (128, 64 or 32 B) whose row of
+    swizzle / 2 values (the TMA box's width) divides its padded row: the
+    widest that does, so D 64 / 128 land in 128 B panels, 32 / 96 in 64 B
+    ones and the rest (80, 112, 144, ...) in 32 B ones. Each panel and
+    each ring stage is 1,024-byte aligned for the swizzle atoms."""
+    t = tile_config(d, torch.bfloat16)
+    dp, panel = t["dp"], t["swizzle"] // 2
+    assert t["swizzle"] in (32, 64, 128)
+    assert dp % panel == 0
+    assert panel == 64 or dp % (2 * panel)          # the widest that fits
+    assert t["smem_bytes"] <= 232_448
+    for rows in (t["block_q"], t["block_k"]):
+        assert (rows * 2 * panel) % 1024 == 0       # one panel's bytes
+        assert (rows * 2 * dp) % 1024 == 0          # one tile's bytes
 
 
 # -- kernel #8: flash decode ------------------------------------------------

@@ -647,8 +647,14 @@ BF16_RTOL = 2.0 ** -7
 
 # (B, Sq, Skv, Hq, Hkv, D, options) of #7 in bf16: head dims 64 / 128 /
 # 144, 1-4 query heads a kv head, causal, non-causal over ragged key counts
-# above and below Sq, window, soft-cap, and lengths around the 64-key tile
-# and the 64-row warpgroup.
+# above and below Sq, window, soft-cap, and lengths around the 64-row
+# warpgroup. The cases after the first twelve probe the TMA ring of
+# 64-key tiles: key counts at block_k +- 1 (63, 65 above), 2 block_k +- 1
+# and 4 block_k + 1, more keys than the ring's 4 stages hold (600 / 700 /
+# 1000), head dims 80 / 112 (32 B swizzle) and 96 (64 B), windows below
+# one tile, warpgroups of one block that see different tiles (one fewer
+# at the end, one skipped at the start), a block with no rows for its
+# second warpgroup, and causal rows with no visible key at all.
 FLASH_BF16_CASES = [
     (2, 200, 200, 4, 4, 64, {}),
     (2, 300, 300, 8, 4, 128, {}),
@@ -662,6 +668,20 @@ FLASH_BF16_CASES = [
     (1, 63, 63, 4, 2, 128, {}),
     (1, 65, 65, 4, 2, 144, {}),
     (2, 129, 129, 4, 2, 128, dict(window=64)),
+    (1, 127, 127, 4, 2, 128, {}),
+    (1, 64, 129, 4, 2, 128, dict(causal=False)),
+    (1, 100, 257, 8, 2, 128, dict(causal=False)),
+    (1, 1000, 1000, 4, 1, 128, {}),
+    (1, 300, 700, 4, 2, 144, dict(causal=False)),
+    (1, 600, 600, 4, 2, 64, dict(softcap=30.0)),
+    (1, 200, 300, 4, 2, 80, {}),
+    (2, 150, 150, 4, 2, 96, dict(window=100)),
+    (1, 333, 333, 6, 3, 112, dict(softcap=20.0)),
+    (1, 400, 400, 4, 2, 128, dict(window=5)),
+    (1, 192, 256, 4, 2, 128, {}),
+    (1, 300, 300, 4, 2, 128, dict(window=40)),
+    (1, 60, 60, 4, 2, 128, {}),
+    (1, 300, 100, 4, 2, 64, {}),
 ]
 
 

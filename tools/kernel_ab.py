@@ -1,8 +1,9 @@
-"""Time the split-C DCN kernels (#1, #4, #5) and the decode kernel (#8) of
-one source tree of ``repro_torch``, to compare two trees on one card.
+"""Time the split-C DCN kernels (#1, #4, #5), the flash kernel (#7) and
+the decode kernel (#8) of one source tree of ``repro_torch``, to compare
+two trees on one card.
 
     python tools/kernel_ab.py --src build/parent/src
-    python tools/kernel_ab.py --src src
+    python tools/kernel_ab.py --src src --only flash
 
 Run from the repository root on a machine with a CUDA card. ``--src`` is
 the directory that holds the ``repro_torch`` package to time; its kernels
@@ -19,12 +20,17 @@ the whole 14x14x512 plane; each is timed in float32 and, where the tree
 takes it, on the same values rounded to bf16. #8 is timed on random
 float32 operands at Qwen3-1.7B's decode shapes (B=4 S=512 and B=8
 S=32768, Hq=16 Hkv=8 D=128), and with ``round_kv`` under a bf16 q where
-the tree has it. Times are means of CUDA-event windows after an
-L2-evicting write (``chip_smoke.cuda_time_ms``).
+the tree has it. #7 is timed on random bf16 operands at the five shapes
+``chip_smoke.py`` phase 13a holds (``BF16_SIZES["flash"]``: Qwen3-1.7B and
+granite prefill, a Gemma-2 local layer, llama-3.2-vision's self and
+cross layers) and in float32 at Qwen3-1.7B's 4 x 2048 prefill. Times are
+means of CUDA-event windows after an L2-evicting write
+(``chip_smoke.cuda_time_ms``). ``--only`` times one group: ``dcn``,
+``flash`` or ``decode``.
 
-Prints the card's name and power limit, one ``PTXAS`` line per split-C
-and decode kernel instantiation with its registers and spills, and one
-``RESULT <src> {json}`` line of times in ms.
+Prints the card's name and power limit, one ``PTXAS`` line per split-C,
+flash and decode kernel instantiation with its registers and spills,
+and one ``RESULT <src> {json}`` line of times in ms.
 """
 
 from __future__ import annotations
@@ -42,12 +48,14 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402  (puts the checkout's src on the path)
 
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
-_KERNEL = re.compile(r"(split_kernel|split_combine|decode_kernel)(I.*?E)Ev")
+_KERNEL = re.compile(r"(split_kernel|split_combine|decode_kernel|"
+                     r"flash_kernel_bf16|flash_kernel)(I.*?E)Ev")
 
 
 def ptxas_lines(build_log: str) -> list[str]:
     """``<kernel><template args> | <spills> | <registers>`` for each
-    split-C and decode kernel entry of an ``nvcc -Xptxas -v`` log."""
+    split-C, flash and decode kernel entry of an ``nvcc -Xptxas -v``
+    log."""
     out, name, spill = [], None, ""
     for line in build_log.splitlines():
         m = _ENTRY.search(line)
@@ -132,11 +140,19 @@ def decode_operands(torch, b, s, lengths, seed):
     return q, k, v, torch.tensor(lengths, dtype=torch.int32, device="cuda")
 
 
+def flash_operands(torch, b, sq, skv, hq, hkv, d, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for shape in ((b, sq, hq, d), (b, skv, hkv, d),
+                          (b, skv, hkv, d))]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", required=True,
                     help="directory holding the repro_torch package")
     ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--only", choices=("dcn", "flash", "decode"))
     args = ap.parse_args()
     src = os.path.abspath(args.src)
     sys.path.insert(0, src)
@@ -147,6 +163,7 @@ def main() -> int:
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     import repro_torch
 
@@ -161,8 +178,11 @@ def main() -> int:
     for line in ptxas_lines(getattr(_build, "build_log", "")):
         print(f"PTXAS {args.src} {line}")
 
+    def want(group):
+        return args.only in (None, group)
+
     res = {}
-    for key, fn, a, kw, at in dcn_operands(torch, np):
+    for key, fn, a, kw, at in dcn_operands(torch, np) if want("dcn") else []:
         res[key] = cs.cuda_time_ms(lambda: fn(*a, **kw), args.iters)
         a16 = [t.to(torch.bfloat16) if i in at else t
                for i, t in enumerate(a)]
@@ -172,11 +192,21 @@ def main() -> int:
             continue
         res[key + "_bf16"] = cs.cuda_time_ms(lambda: fn(*a16, **kw),
                                              args.iters)
+    flash = [(f"flash_bf16 {name}", torch.bfloat16, shape, opts)
+             for name, *shape, opts in cs.BF16_SIZES["flash"]]
+    flash.append(("flash_f32 Qwen3-1.7B prefill", torch.float32,
+                  (4, 2048, 2048, 16, 8, 128), {}))
+    for tag, dtype, shape, opts in flash if want("flash") else []:
+        q, k, v = flash_operands(torch, *shape, dtype, cs.SEED + 13)
+        res[tag] = cs.cuda_time_ms(lambda: fa.flash_attention(q, k, v,
+                                                              **opts),
+                                   args.iters)
+        del q, k, v
     rounds = "round_kv" in inspect.signature(fd.flash_decode).parameters
-    for tag, b, s, lengths in (
-            ("decode_serve", 4, 512, [459, 443, 420, 438]),
-            ("decode_32k", 8, 32768, [2278, 26576, 30867, 8568, 5556, 2530,
-                                      26181, 31014])):
+    decode = [("decode_serve", 4, 512, [459, 443, 420, 438]),
+              ("decode_32k", 8, 32768, [2278, 26576, 30867, 8568, 5556,
+                                        2530, 26181, 31014])]
+    for tag, b, s, lengths in decode if want("decode") else []:
         q, k, v, lens = decode_operands(torch, b, s, lengths, cs.SEED + 30)
         res[tag] = cs.cuda_time_ms(lambda: fd.flash_decode(q, k, v, lens),
                                    args.iters)
