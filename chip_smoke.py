@@ -322,6 +322,8 @@ BF16_SIZES = dict(
             dict(causal=False))],
     decode=[("Qwen3-1.7B serving shape", 4, 512, 16, 8, 128, {}, "ragged"),
             ("Qwen3-1.7B 32k cache", 8, 32768, 16, 8, 128, {}, "ragged"),
+            ("llama-3.2-vision self layer", 4, 512, 32, 8, 128, {},
+             "ragged"),
             ("llama-3.2-vision cross cache", 4, 1601, 32, 8, 128, {},
              "full"),
             ("Gemma-2-27B window + soft-cap, 64 splits forced", 4, 8192, 32,
@@ -748,10 +750,33 @@ def serving_line(reqs, eng, step_s, finish_s, wall) -> str:
             f" s")
 
 
+def decode_splits(kc, lengths, opts) -> str:
+    """How #8 cuts a call's sequences: over a float32 cache the split
+    count a sequence (``split_ranges`` under ``default_splits``), over a
+    bf16 one the cluster size and the blocks with keys a sequence
+    (``cluster_ranges``)."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as fd
+
+    b, s, hkv, _ = kc.shape
+    w, n = opts.get("window"), opts.get("num_splits")
+    if kc.dtype == torch.bfloat16:
+        c = fd.cluster_size(b, hkv, s, num_splits=n)
+        per = [len(r) for r in fd.cluster_ranges(lengths, s, c, w, n)]
+        return (f"clusters of {c} blocks, {c * b * hkv} blocks, blocks "
+                f"with keys {per}")
+    cap = n or fd.default_splits(b, hkv, s)
+    per = [len(r) for r in fd.split_ranges(
+        lengths, s, cap, hkv, w, None if n else fd._BLOCKS_PER_SM
+        * fd.H100_SMS)]
+    return f"splits {per} of at most {cap}"
+
+
 def time_decode(call, n_split, shape) -> dict:
     """#8 on a captured ``(args, kwargs, out)`` call, its plain version and
     the SDPA yardstick, timed; the work and bytes its bound is computed
-    from (the keys its split ranges visit)."""
+    from (the keys visible to it)."""
     import torch
 
     from repro_torch.kernels import flash_decode as fd
@@ -779,8 +804,8 @@ def time_decode(call, n_split, shape) -> dict:
         bytes=kc8.element_size() * 2 * vis8 * hkv8 * d8
         + q8.element_size() * 2 * q8.numel() + 4 * b8,
         shape=f"{shape}, B={b8} S={s8} Hq={q8.shape[1]} Hkv={hkv8} D={d8}, "
-              f"lengths {lens8.tolist()}, {vis8} visible keys, at most "
-              f"{n_split} splits a sequence")
+              f"lengths {lens8.tolist()}, {vis8} visible keys, "
+              f"{decode_splits(kc8, lens8.tolist(), k8)}")
 
 
 def cache_kv_ptrs(cache) -> set:
@@ -917,16 +942,14 @@ def serve_through_decode(card, tag, params, cfg, reset_counts,
             "flash_decode on the serving operands", held8,
             fd.flash_decode_plain, attn_rtol)):
         lens = held8[i][0][3].tolist()
-        s_len, n_split = held8[i][0][1].shape[1], splits(held8[i])
-        per_seq = [len(r) for r in fd.split_ranges(
-            lens, s_len, n_split, cfg.n_kv_heads, held8[i][1].get("window"))]
+        s_len = held8[i][0][1].shape[1]
         layer = ends[i % len(ends)]
         err8[layer in cross] = max(err8[layer in cross], d)
         at_stale = i >= 2 * len(ends)
         print(f"[{tag}] flash_decode at step {kept_steps[i // len(ends)]}, "
               f"{'cross' if layer in cross else 'attention'} layer {layer} "
-              f"of {n_attn} ({s_len}-row cache, lengths {lens}, splits "
-              f"{per_seq} of at most {n_split}"
+              f"of {n_attn} ({s_len}-row cache, lengths {lens}, "
+              f"{decode_splits(held8[i][0][1], lens, held8[i][1])}"
               f"{f', free slots {stale} at stale lengths' if at_stale else ''}"
               f") vs plain: max|d| {d:.3e} (limit {attn_rtol:.4g}*"
               f"{sc:.3f})")
@@ -2107,7 +2130,6 @@ def time_decode_bf16(q, kc, vc, lens, opts, err, name) -> dict:
     from repro_torch.kernels import flash_decode as fd
 
     b, s, hkv, d = kc.shape
-    n_split = opts.get("num_splits") or fd.default_splits(b, hkv, s)
     kw = {k: v for k, v in opts.items() if k != "num_splits"}
     w = kw.get("window")
     vis = sum(max(0, min(n, s) - (max(0, n - w) if w else 0))
@@ -2136,8 +2158,8 @@ def time_decode_bf16(q, kc, vc, lens, opts, err, name) -> dict:
         shape=f"bf16 cache, {str(q.dtype).removeprefix('torch.')} q, "
               f"{name}, B={b} S={s} Hq={q.shape[1]} Hkv={hkv} D={d} "
               f"{kw or ''}, lengths {lens.tolist()[:8]}"
-              f"{'...' if b > 8 else ''}, {vis} visible keys, at most "
-              f"{n_split} splits a sequence")
+              f"{'...' if b > 8 else ''}, {vis} visible keys, "
+              f"{decode_splits(kc, lens.tolist(), opts)}")
     del kt, vt, kf, vf
     return out
 
@@ -4168,6 +4190,7 @@ def main() -> int:
             print(f"[kernel] {card}: {name} at {extra.pop('shape')}: "
                   f"{extra['ms']:.4f} ms (bound {extra['bound_ms']:.6f} ms "
                   f"by {extra['bound_by']} at {extra['bound_rate']}{note}, "
+                  f"{100 * extra['bound_ms'] / extra['ms']:.1f} % of it, "
                   f"plain {extra['plain_ms']:.4f} ms, library "
                   f"{extra['library_ms']:.4f} ms{f32}){runs}")
         kd["launches"] = launches[name]

@@ -1,8 +1,8 @@
 // Split-KV single-query decode attention for Hopper.
 //
 // Replaces src/repro/kernels/flash_decode.py `_decode_kernel`
-// (`flash_decode`): for q (B, Hq, D) and caches k, v (B, S, Hkv, D), q
-// float32 or bf16 and the caches float32 or bf16 (one type for both), q
+// (`flash_decode`) over float32 caches (bf16 caches: flash_decode_bf16.cu):
+// for q (B, Hq, D) and caches k, v (B, S, Hkv, D), q float32 or bf16, q
 // head h reading kv head h / g (g = Hq / Hkv), with valid prefix len =
 // lengths[b],
 //
@@ -10,12 +10,11 @@
 //   keys ki < len (and ki > len - 1 - w with a window w) are visible
 //   out = acc / max(l, 1e-30)   (a sequence with no visible key gives 0)
 //
-// in float32 (the bf16 values are widened exactly), the output in q's
-// type, rounded once. With `round_kv` (a float32 cache under a bf16
-// model, which the wrapper's caller asks for) each K and V value is
-// rounded to bf16 where it is read, as the model's JAX decode path casts
-// the cache to x's type before the attention; the cache is read as stored
-// and nothing is copied. The rounding is a template parameter, so the
+// in float32, the output in q's type, rounded once. With `round_kv` (a
+// float32 cache under a bf16 model, which the wrapper's caller asks for)
+// each K and V value is rounded to bf16 where it is read, as the model's
+// JAX decode path casts the cache to x's type before the attention; the
+// cache is read as stored and nothing is copied. The rounding is a template parameter, so the
 // instantiations without it are the TPU kernel's function (it widens
 // without rounding) with no branch added to their loops.
 //
@@ -51,9 +50,6 @@
 //   moves on three shuffles a head, each lane keeps its own key's share of
 //   the running sum until the end, and P.V accumulates in registers, lane
 //   l owning columns l and l + 32.
-// * A bf16 cache is copied as it is stored (16 bytes = 8 values a copy)
-//   and widened at the products, which halves the bytes the bound counts;
-//   q * scale, (m, l, acc) and the per-split scratch stay float32.
 // * One launch. The warps' states are merged in warp order; with n = 1
 //   the block writes out. Else it writes its (m, l, acc) to scratch, and
 //   the last block of the (sequence, kv head) to finish — an atomic
@@ -156,8 +152,8 @@ __device__ __forceinline__ float4 load4(const bf16* p) {
                      __uint_as_float(w.y & 0xffff0000u));
 }
 
-// T: the caches' type. G: query heads a block holds in registers (g <= G;
-// heads g.. are zero). NW: warps a block. q and out are bf16 where
+// T: the caches' type (float). G: query heads a block holds in registers
+// (g <= G; heads g.. are zero). NW: warps a block. q and out are bf16 where
 // `q_bf16`, else float32. RK: K and V rounded to bf16 where they are read
 // (a float32 cache under a bf16 model); the instantiations without it are
 // the TPU kernel's function.
@@ -507,27 +503,21 @@ cudaError_t launch_t(dim3 grid, cudaStream_t st, const void* q,
 // `ticket` B * Hkv ints that are 0 on entry and are 0 again on exit;
 // `target` the blocks of equal work the split rule aims at (INT32_MAX: a
 // split of 64 keys, each sequence taking up to `splits` of them). q and
-// out are bf16 where `q_bf16`, else float32; the caches bf16 where
-// `kv_bf16` (D then a multiple of 8), else float32; `round_kv` rounds each
-// K and V value to bf16 where it is read.
+// out are bf16 where `q_bf16`, else float32; the caches float32;
+// `round_kv` rounds each K and V value to bf16 where it is read.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* lengths,
                                    void* part, void* ticket, void* out,
                                    int B, int S, int Hq, int Hkv, int D,
                                    int splits, int target, int window,
-                                   int q_bf16, int kv_bf16, int round_kv,
-                                   float scale, float softcap,
-                                   void* stream) {
-  if (D % (kv_bf16 ? 8 : 4) || D < 4 || D > 256 || Hkv < 1 || Hq % Hkv ||
-      Hq / Hkv > 8 || splits < 1 || splits > 65535 || target < 1)
+                                   int q_bf16, int round_kv, float scale,
+                                   float softcap, void* stream) {
+  if (D % 4 || D < 4 || D > 256 || Hkv < 1 || Hq % Hkv || Hq / Hkv > 8 ||
+      splits < 1 || splits > 65535 || target < 1)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(B * Hkv, splits);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // round_kv is a no-op on a bf16 cache, so only the float32 cache has
-  // an instantiation that rounds.
-  const auto run = kv_bf16   ? launch_t<bf16, false>
-                   : round_kv ? launch_t<float, true>
-                              : launch_t<float, false>;
+  const auto run = round_kv ? launch_t<float, true> : launch_t<float, false>;
   const cudaError_t err =
       run(grid, st, q, k, v, lengths, part, ticket, out, B, S, Hq, Hkv, D,
           splits, target, window, q_bf16, scale, softcap);

@@ -18,15 +18,21 @@ value to bf16 where it is read (a no-op on a bf16 cache): what a bf16
 model's decode path computes over a float32 cache, whose JAX form casts the
 cache to the model's type first; the kernel reads the float32 cache as
 stored, with no copy. Without it the function is the TPU kernel's, which
-widens without rounding. For a CUDA tensor the wrapper launches
-the kernel of ``csrc/flash_decode.cu`` (one launch: the last block of each
-sequence and kv head merges its splits; it reads a bf16 cache as stored)
-or raises, and counts it in ``flash_decode.launches`` (and by the types of
-q and the cache in ``flash_decode.dtypes``); for a CPU tensor it runs
-:func:`flash_decode_plain`. Each sequence's visible keys are cut into
-splits on the device by the rule of :func:`split_ranges`, under the upper
-limit :func:`default_splits` (or ``num_splits``): the wrapper reads
-nothing back from the card.
+widens without rounding. For a CUDA tensor the wrapper launches one
+kernel or raises, and counts it in ``flash_decode.launches`` (and by the
+types of q and the cache in ``flash_decode.dtypes``); for a CPU tensor it
+runs :func:`flash_decode_plain`. The wrapper reads nothing back from the
+card: each sequence's visible keys are cut into splits on the device.
+
+* A float32 cache: ``csrc/flash_decode.cu``, grid (sequence x kv head,
+  split); the splits follow :func:`split_ranges` under the upper limit
+  :func:`default_splits` (or ``num_splits``), and the last block of each
+  sequence and kv head merges them through scratch and a ticket.
+* A bf16 cache: ``csrc/flash_decode_bf16.cu``, read as stored, one thread
+  block cluster of :func:`cluster_size` blocks per sequence and kv head,
+  rows taking the sequences in :func:`cluster_order`, keys cut by
+  :func:`cluster_ranges`; the splits merge in the cluster's shared memory,
+  so a launch holds no state on the host.
 """
 
 from __future__ import annotations
@@ -53,9 +59,16 @@ KEY_TILE = 8
 _NO_TARGET = 2**31 - 1
 # Query heads per kv head the kernel holds in registers, at most.
 MAX_GROUP = 8
-# Per (device, stream): the kernel's zeroed tickets, one per (sequence,
-# kv head); every launch leaves them zero again.
+# Per (device, stream): the float32-cache kernel's zeroed tickets, one per
+# (sequence, kv head); every launch leaves them zero again.
 _TICKETS: dict = {}
+# The bf16-cache kernel (csrc/flash_decode_bf16.cu): keys a stage (a
+# consumer warp's unit, whole multiples of which its splits are cut in),
+# the cluster limit (the portable one), and the blocks an SM its shared
+# memory is sized for.
+STAGE_KEYS = 16
+MAX_CLUSTER = 8
+_CLUSTER_BLOCKS_PER_SM = 3
 
 
 def flash_decode_plain(q, k_cache, v_cache, lengths, *,
@@ -98,6 +111,15 @@ def default_splits(batch: int, kv_heads: int, s_len: int,
                       math.ceil(s_len / _MIN_SPLIT_KEYS)))
 
 
+def _visible(lengths, s_len: int, window: int | None):
+    """(first visible key, visible keys) of each sequence."""
+    out = []
+    for length in lengths:
+        lo = max(0, length - window) if window is not None else 0
+        out.append((lo, max(0, min(length, s_len) - lo)))
+    return out
+
+
 def split_ranges(lengths, s_len: int, splits: int, kv_heads: int,
                  window: int | None = None,
                  target: int | None = _BLOCKS_PER_SM * H100_SMS
@@ -113,10 +135,7 @@ def split_ranges(lengths, s_len: int, splits: int, kv_heads: int,
     rounded up to whole tiles; with ``target=None`` (an explicit
     ``num_splits``) it is ``_MIN_SPLIT_KEYS``. The kernel's ``split_of``
     is this rule."""
-    vis = []
-    for length in lengths:
-        lo = max(0, length - window) if window is not None else 0
-        vis.append((lo, max(0, min(length, s_len) - lo)))
+    vis = _visible(lengths, s_len, window)
     total = sum(n for _, n in vis)
     keys = _MIN_SPLIT_KEYS
     if target is not None:
@@ -132,6 +151,61 @@ def split_ranges(lengths, s_len: int, splits: int, kv_heads: int,
         out.append([(lo + KEY_TILE * (n_t * i // n),
                      min(lo + n_vis, lo + KEY_TILE * (n_t * (i + 1) // n)))
                     for i in range(n)])
+    return out
+
+
+def cluster_size(batch: int, kv_heads: int, s_len: int,
+                 sm_count: int = H100_SMS,
+                 num_splits: int | None = None) -> int:
+    """Blocks of the bf16-cache kernel's cluster, one cluster per
+    (sequence, kv head), from shapes alone: twice a pair's even share of
+    one wave (``_CLUSTER_BLOCKS_PER_SM`` blocks an SM), at most
+    ``MAX_CLUSTER``, the cache's stages and ``num_splits``. Up to 45 pairs
+    the grid is one wave on an H100, which runs 45 clusters of 8 at once
+    at three blocks an SM."""
+    pairs = max(batch * kv_heads, 1)
+    c = -(-2 * _CLUSTER_BLOCKS_PER_SM * sm_count // pairs)
+    c = min(c, MAX_CLUSTER, -(-s_len // STAGE_KEYS), num_splits or c)
+    return max(1, c)
+
+
+def cluster_order(lengths, s_len: int, window: int | None = None
+                  ) -> list[int]:
+    """The sequence each cluster row of the bf16-cache kernel serves (row
+    r: kv heads ``r * Hkv ..``): most visible keys first, ties by index,
+    so the longest blocks start first. The kernel's ``ranked`` is this
+    rule."""
+    vis = _visible(lengths, s_len, window)
+    return sorted(range(len(vis)), key=lambda i: (-vis[i][1], i))
+
+
+def cluster_ranges(lengths, s_len: int, cluster: int,
+                   window: int | None = None,
+                   num_splits: int | None = None
+                   ) -> list[list[tuple[int, int]]]:
+    """Per sequence, the key ranges ``[a, e)`` of the bf16-cache kernel's
+    blocks that have keys, in cluster rank (= split) order.
+
+    A sequence's visible keys are ``nt`` stages of ``STAGE_KEYS``; its
+    ``n`` splits are the stages themselves, or with ``num_splits`` the
+    rule of :func:`split_ranges`' explicit count, ``min(num_splits,
+    visible // 64)`` (at least one) runs of whole stages; ``nb = min(
+    cluster, n)`` blocks take them, block j the consecutive splits ``[j n
+    / nb, (j + 1) n / nb)`` as one range. None when no key is visible. The
+    kernel's ``range_of`` is this rule."""
+    out = []
+    for lo, n_vis in _visible(lengths, s_len, window):
+        if n_vis == 0:
+            out.append([])
+            continue
+        nt = -(-n_vis // STAGE_KEYS)
+        n = (max(1, min(num_splits, n_vis // _MIN_SPLIT_KEYS))
+             if num_splits else nt)
+        nb = min(cluster, n)
+        out.append([(lo + STAGE_KEYS * (j * n // nb * nt // n),
+                     min(lo + n_vis,
+                         lo + STAGE_KEYS * ((j + 1) * n // nb * nt // n)))
+                    for j in range(nb)])
     return out
 
 
@@ -153,9 +227,10 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
     the module doc. ``lengths`` is int32; a length past S counts as S.
     ``num_splits`` (CUDA only) overrides the split rule: each sequence
     takes ``min(num_splits, visible keys // 64)`` splits (at least one), in
-    place of its share of the batch under :func:`default_splits`. The
-    result does not depend on the splits beyond float32 summation
-    order."""
+    place of its share of the batch under :func:`default_splits`; over a
+    bf16 cache at most ``MAX_CLUSTER`` blocks take them, each a run of
+    consecutive splits (:func:`cluster_ranges`). The result does not
+    depend on the splits beyond float32 summation order."""
     check_attention_dtypes(q=q, k_cache=k_cache, v_cache=v_cache)
     dev = _check_operands(dict(q=q, k_cache=k_cache, v_cache=v_cache),
                           dict(lengths=lengths), dtypes=ATTN_DTYPES)
@@ -194,29 +269,41 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
     if not 1 <= splits <= min(max(s_len, 1), 65535):
         raise ValueError(f"num_splits {splits} must be in [1, S={s_len}] "
                          f"and at most 65535")
+    if kv_bf16 and b * hkv > 65535:
+        raise ValueError(f"B * Hkv = {b * hkv}: the CUDA kernel over a "
+                         f"bf16 cache takes at most 65535")
     from repro_torch.kernels import _build
 
     lib = _build.load()
     out = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
-    # Per-split state (m, l, acc) of the sequences that take more than one
-    # split, merged by their last block.
-    part = torch.empty(b * hq * splits * (2 + d), dtype=torch.float32,
-                       device=dev)
     stream = _stream(q)
-    tickets = _tickets(dev, stream, b * hkv)
-    with torch.cuda.device(dev):
-        err = lib.flash_decode_launch(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), part.data_ptr(), tickets.data_ptr(),
-            out.data_ptr(), b, s_len, hq, hkv, d, splits,
-            _BLOCKS_PER_SM * sms if num_splits is None else _NO_TARGET,
-            NO_WINDOW if window is None else int(window),
-            int(q.dtype == torch.bfloat16), int(kv_bf16),
-            int(round_kv and not kv_bf16), scale,
-            0.0 if softcap is None else float(softcap), stream)
-    _build.check(err, "flash_decode_launch")
+    ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            lengths.data_ptr())
+    opts = (NO_WINDOW if window is None else int(window),
+            int(q.dtype == torch.bfloat16))
+    cap = 0.0 if softcap is None else float(softcap)
+    if kv_bf16:
+        with torch.cuda.device(dev):
+            err = lib.flash_decode_bf16_launch(
+                *ptrs, out.data_ptr(), b, s_len, hq, hkv, d,
+                cluster_size(b, hkv, s_len, sms, num_splits),
+                num_splits or 0, *opts, scale, cap, stream)
+        _build.check(err, "flash_decode_bf16_launch")
+    else:
+        # Per-split state (m, l, acc) of the sequences that take more than
+        # one split, merged by their last block.
+        part = torch.empty(b * hq * splits * (2 + d), dtype=torch.float32,
+                           device=dev)
+        tickets = _tickets(dev, stream, b * hkv)
+        with torch.cuda.device(dev):
+            err = lib.flash_decode_launch(
+                *ptrs, part.data_ptr(), tickets.data_ptr(), out.data_ptr(),
+                b, s_len, hq, hkv, d, splits,
+                _BLOCKS_PER_SM * sms if num_splits is None else _NO_TARGET,
+                *opts, int(round_kv), scale, cap, stream)
+        _build.check(err, "flash_decode_launch")
     flash_decode.launches += 1
     key = "/".join(str(t.dtype).removeprefix("torch.") for t in (q, k_cache))
     flash_decode.dtypes[key] = flash_decode.dtypes.get(key, 0) + 1

@@ -789,6 +789,107 @@ def test_flash_decode_bf16_cache_equals_the_upcast_cache():
     _within(got, want, 1e-5)
 
 
+@pytest.mark.parametrize("d", [64, 128, 144])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_flash_decode_bf16_cluster_kernel(g, d):
+    """#8's cluster kernel over a bf16 cache at g query heads a kv head
+    and head dim d, under a float32 q (1e-4 * max|ref|) and a bf16 q (two
+    bf16 ulps), on lengths around a 32-key stage, the whole cache and past
+    it; a rerun is bitwise equal."""
+    from repro_torch.kernels import flash_decode as fd
+
+    lengths = [1, 31, 33, 160, 300, 305]
+    for q_dtype, rtol in ((torch.float32, 1e-4),
+                          (torch.bfloat16, BF16_RTOL)):
+        ops = _bf16_cache_operands(70 + g + d, len(lengths), 300, 2 * g, 2,
+                                   d, lengths, q_dtype)
+        want = fd.flash_decode_plain(*ops, scale=d ** -0.5)
+        got = fd.flash_decode(*ops)
+        assert got.dtype == q_dtype
+        _within(got, want, rtol)
+        assert torch.equal(fd.flash_decode(*ops), got)
+
+
+@pytest.mark.parametrize("opts", [{}, dict(window=100), dict(softcap=30.0),
+                                  dict(window=40, softcap=50.0)])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_bf16_stage_and_cluster_edges(q_dtype, opts):
+    """#8's cluster kernel at lengths 0, 1, around a stage and around the
+    keys that give every block of a cluster one stage, S and past S, with
+    1, the default and 64 splits: each within the bound of its q, the
+    split counts within 1e-5 * max|ref| of each other under a float32 q
+    (a bf16 output rounds each), no visible key gives 0, and a rerun is
+    bitwise equal."""
+    from repro_torch.kernels import flash_decode as fd
+
+    b, s, hq, hkv, d = 10, 512, 16, 4, 128
+    edge = fd.cluster_size(b, hkv, s) * fd.STAGE_KEYS
+    lengths = [0, 1, 31, 32, 33, edge - 1, edge, edge + 1, s, s + 7]
+    ops = _bf16_cache_operands(15, b, s, hq, hkv, d, lengths, q_dtype)
+    want = fd.flash_decode_plain(*ops, scale=d ** -0.5, **opts)
+    rtol = 1e-4 if q_dtype == torch.float32 else BF16_RTOL
+    outs = {n: fd.flash_decode(*ops, num_splits=n, **opts)
+            for n in (1, None, 64)}
+    for got in outs.values():
+        _within(got, want, rtol)
+        if q_dtype == torch.float32:
+            assert float((got - outs[1]).abs().max()) <= 1e-5 * float(
+                want.abs().max())
+    assert not outs[None][0].any() and not outs[64][0].any()
+    for n in (None, 64):
+        assert torch.equal(fd.flash_decode(*ops, num_splits=n, **opts),
+                           outs[n])
+
+
+@pytest.mark.parametrize("opts", [{}, dict(window=5000, softcap=30.0),
+                                  dict(num_splits=64)])
+@pytest.mark.parametrize("d", [64, 128, 144])
+def test_flash_decode_bf16_long_cache(d, opts):
+    """A cache long enough that a block streams 1024 keys or more, where
+    the kernel copies by TMA into its swizzled panels: within the bound of
+    each q against the plain version, no visible key gives 0, a rerun is
+    bitwise equal."""
+    from repro_torch.kernels import flash_decode as fd
+
+    lengths = [12000, 7001, 130, 0]
+    kw = {k: v for k, v in opts.items() if k != "num_splits"}
+    for q_dtype, rtol in ((torch.float32, 1e-4),
+                          (torch.bfloat16, BF16_RTOL)):
+        ops = _bf16_cache_operands(17 + d, 4, 12000, 8, 2, d, lengths,
+                                   q_dtype)
+        want = fd.flash_decode_plain(*ops, scale=d ** -0.5, **kw)
+        got = fd.flash_decode(*ops, **opts)
+        _within(got, want, rtol)
+        assert not got[3].any()
+        assert torch.equal(fd.flash_decode(*ops, **opts), got)
+
+
+def test_flash_decode_bf16_replays_in_a_cuda_graph():
+    """A bf16-cache #8 launch captured in a CUDA graph (no scratch, no
+    ticket: nothing to warm) replays bitwise equal to the eager call, and
+    reads ``lengths`` on the card at each replay."""
+    from repro_torch.kernels import flash_decode as fd
+
+    ops = _bf16_cache_operands(16, 4, 1601, 32, 8, 128, [1601, 900, 37, 0],
+                               torch.bfloat16)
+    eager = fd.flash_decode(*ops)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fd.flash_decode(*ops)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fd.flash_decode(*ops)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    ops[3].copy_(torch.tensor([5, 1601, 640, 1], dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, fd.flash_decode(*ops))
+
+
 def test_attention_decode_hands_the_stored_cache_to_the_kernel(monkeypatch):
     """On the card ``attention_decode`` (self and cross layers) hands #8
     the cache tensors themselves, a bf16 cache under float32 activations

@@ -577,6 +577,92 @@ class TestDecodeSplitRanges:
         assert fd.default_splits(b, hkv, s_len) == want
 
 
+# Ragged batches of the bf16-cache kernel's cluster rule: the serving
+# shapes, the 32k cache, lengths around a stage and past S, none visible.
+CLUSTER_BATCHES = [
+    [459, 443, 420, 438], [201, 77, 236, 149], [1601] * 4,
+    [2278, 26576, 30867, 8568, 5556, 2530, 26181, 31014],
+    [0, 1, 31, 32, 33, 64, 255, 256, 257, 600, -3]]
+
+
+class TestDecodeClusterRanges:
+    """The rule by which the bf16-cache decode kernel cuts each sequence's
+    visible keys over the blocks of its cluster (``cluster_ranges``; the
+    kernel's ``range_of`` and ``ranked`` compute the same on the card)."""
+
+    @pytest.mark.parametrize("num_splits", [None, 1, 3, 64])
+    @pytest.mark.parametrize("window", [None, 1, 40, 4096])
+    @pytest.mark.parametrize("lengths", CLUSTER_BATCHES)
+    def test_ranges_cover_the_visible_keys_in_whole_stages(
+            self, lengths, window, num_splits):
+        """Every visible key once, in order; whole stages from the range's
+        start (the last may end early); at most the cluster's blocks, none
+        empty; a forced count gives min(num_splits, visible // 64) splits
+        (at least one), each block a run of them."""
+        s_len = max(max(lengths), 1)
+        cluster = fd.cluster_size(len(lengths), 8, s_len,
+                                  num_splits=num_splits)
+        assert 1 <= cluster <= fd.MAX_CLUSTER
+        for length, got in zip(lengths, fd.cluster_ranges(
+                lengths, s_len, cluster, window, num_splits)):
+            vis = _visible(length, s_len, window)
+            keys = np.concatenate([np.arange(a, e) for a, e in got]
+                                  + [np.zeros(0, np.int64)])
+            np.testing.assert_array_equal(keys, vis)
+            if vis.size == 0:
+                assert got == []
+                continue
+            assert 1 <= len(got) <= cluster
+            assert all(e > a for a, e in got)
+            lo = got[0][0]
+            assert all((a - lo) % fd.STAGE_KEYS == 0 for a, _ in got)
+            n = (max(1, min(num_splits, vis.size // 64)) if num_splits
+                 else -(-vis.size // fd.STAGE_KEYS))
+            assert len(got) == min(cluster, n)
+            if num_splits:
+                # each block a run of whole splits of the forced count
+                (one,) = fd.cluster_ranges([length], s_len, n, window,
+                                           num_splits)
+                bounds = {a for a, _ in one}
+                assert {a for a, _ in got} <= bounds
+
+    @pytest.mark.parametrize("b,hkv,s_len,num_splits,want", [
+        (4, 8, 512, None, 8), (4, 8, 1601, None, 8), (8, 8, 32768, None, 8),
+        (4, 16, 8192, 64, 8), (64, 8, 4096, None, 2), (512, 8, 4096, None, 1),
+        (1, 1, 100, None, 7), (4, 8, 512, 3, 3), (2, 1, 20, None, 2)])
+    def test_cluster_size_from_shapes(self, b, hkv, s_len, num_splits,
+                                      want):
+        assert fd.cluster_size(b, hkv, s_len,
+                               num_splits=num_splits) == want
+
+    @pytest.mark.parametrize("lengths", CLUSTER_BATCHES)
+    def test_one_wave_at_the_serving_shapes(self, lengths):
+        """Up to 45 (sequence, kv head) pairs the grid is one wave: at
+        most 360 blocks, the 45 clusters of 8 an H100 runs at once at
+        three blocks an SM; every block of a sequence with a stage for
+        each has keys."""
+        for hkv in (1, 8):
+            b, s_len = len(lengths), max(max(lengths), 1)
+            cluster = fd.cluster_size(b, hkv, s_len)
+            if b * hkv <= 45:
+                assert cluster * b * hkv <= 360
+            for length, got in zip(lengths, fd.cluster_ranges(
+                    lengths, s_len, cluster)):
+                stages = -(-_visible(length, s_len, None).size
+                           // fd.STAGE_KEYS)
+                assert len(got) == min(cluster, stages)
+
+    @pytest.mark.parametrize("window", [None, 100])
+    @pytest.mark.parametrize("lengths", CLUSTER_BATCHES)
+    def test_clusters_take_the_heaviest_sequence_first(self, lengths,
+                                                       window):
+        order = fd.cluster_order(lengths, 32768, window)
+        assert sorted(order) == list(range(len(lengths)))
+        vis = [_visible(n, 32768, window).size for n in lengths]
+        for a, b in zip(order, order[1:]):
+            assert vis[a] > vis[b] or (vis[a] == vis[b] and a < b)
+
+
 class TestBli:
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     @pytest.mark.parametrize("n,s,p,c,lo,hi,bp,bc", [

@@ -20,7 +20,11 @@ the whole 14x14x512 plane; each is timed in float32 and, where the tree
 takes it, on the same values rounded to bf16. #8 is timed on random
 float32 operands at Qwen3-1.7B's decode shapes (B=4 S=512 and B=8
 S=32768, Hq=16 Hkv=8 D=128), and with ``round_kv`` under a bf16 q where
-the tree has it. #7 is timed on random bf16 operands at the five shapes
+the tree has it; over bf16 caches under a float32 and a bf16 q at
+``DECODE_BF16``'s five shapes (Qwen3's serving shape and 32k cache,
+llama-3.2-vision's self layer and cross cache, a Gemma-2 window with 64
+splits forced), each beside SDPA bf16 on the same values (``sdpa ...``
+keys) and its bytes bound at 2 B a value (``bound ...`` keys, computed). #7 is timed on random bf16 operands at the five shapes
 ``chip_smoke.py`` phase 13a holds (``BF16_SIZES["flash"]``: Qwen3-1.7B and
 granite prefill, a Gemma-2 local layer, llama-3.2-vision's self and
 cross layers) and in float32 at Qwen3-1.7B's 4 x 2048 prefill. Times are
@@ -48,7 +52,7 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402  (puts the checkout's src on the path)
 
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
-_KERNEL = re.compile(r"(split_kernel|split_combine|decode_kernel|"
+_KERNEL = re.compile(r"(split_kernel|split_combine|decode_kernel|decode_bf16_kernel|"
                      r"flash_kernel_bf16|flash_kernel)(I.*?E)Ev")
 
 
@@ -129,6 +133,39 @@ def dcn_operands(torch, np):
            "tile": kf.dcn_fused_tile, "plane": kf.dcn_fused_tile}
     return [(k, fns[k], list(got[k][0][0]), got[k][0][1], at[k])
             for k in at]
+
+
+# #8 over a bf16 cache: (name, B, S, Hq, Hkv, D, options, lengths). The
+# llama self layer's lengths sum to the 663 visible keys of the operands
+# chip_smoke.py phase 13b times; the Gemma-2 lengths are ragged around its
+# 4096-key window.
+DECODE_BF16 = [
+    ("Qwen3 serving", 4, 512, 16, 8, 128, {}, [459, 443, 420, 438]),
+    ("32k", 8, 32768, 16, 8, 128, {},
+     [2278, 26576, 30867, 8568, 5556, 2530, 26181, 31014]),
+    ("llama self", 4, 512, 32, 8, 128, {}, [201, 77, 236, 149]),
+    ("llama cross", 4, 1601, 32, 8, 128, {}, [1601] * 4),
+    ("Gemma-2 window 64 splits", 4, 8192, 32, 16, 144,
+     dict(window=4096, softcap=50.0, num_splits=64),
+     [6519, 2048, 8192, 4711]),
+]
+
+
+def bf16_decode_operands(torch, b, s, hq, hkv, d, lengths, seed):
+    """Random bf16 caches and a float32 q (rounded to bf16 values, so the
+    bf16 q is the same numbers) and int32 lengths, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               .to(torch.bfloat16)
+               for shape in ((b, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    return q.float(), k, v, torch.tensor(lengths, dtype=torch.int32,
+                                         device="cuda")
+
+
+def visible_keys(lengths, s, window=None) -> int:
+    """Keys the masks leave visible, summed over the batch."""
+    return sum(max(0, min(n, s) - (max(0, n - window) if window else 0))
+               for n in lengths)
 
 
 def decode_operands(torch, b, s, lengths, seed):
@@ -215,8 +252,29 @@ def main() -> int:
             res[tag + "_round_kv"] = cs.cuda_time_ms(
                 lambda: fd.flash_decode(qb, k, v, lens, round_kv=True),
                 args.iters)
+    for name, b, s, hq, hkv, d, opts, lengths in (
+            DECODE_BF16 if want("decode") else []):
+        q, k, v, lens = bf16_decode_operands(torch, b, s, hq, hkv, d,
+                                             lengths, cs.SEED + 31)
+        qb = q.to(torch.bfloat16)
+        for tag, qq in ((f"decode_bf16 {name} f32 q", q),
+                        (f"decode_bf16 {name} bf16 q", qb)):
+            res[tag] = cs.cuda_time_ms(
+                lambda: fd.flash_decode(qq, k, v, lens, **opts), args.iters)
+        w = opts.get("window")
+        ki = torch.arange(s, device="cuda")[None, :]
+        mask = ki < lens[:, None].long()
+        if w is not None:
+            mask &= ki > lens[:, None].long() - 1 - w
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+        res[f"sdpa_bf16 {name}"] = cs.cuda_time_ms(cs.sdpa_yardstick(
+            qb[:, :, None], kt, vt, attn_mask=mask[:, None, None, :],
+            scale=d ** -0.5), args.iters)
+        nbytes = 2 * 2 * visible_keys(lengths, s, w) * hkv * d
+        res[f"bound_bf16 {name}"] = nbytes / 3.35e12 * 1e3
+        del q, qb, k, v, kt, vt
     print(f"RESULT {args.src} "
-          f"{json.dumps({k: round(t, 4) for k, t in res.items()})}")
+          f"{json.dumps({k: round(t, 6) for k, t in res.items()})}")
     return 0
 
 
