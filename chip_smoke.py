@@ -2442,9 +2442,13 @@ def bf16_dcn_kernels(kernels, ops, contraction, fused_ops) -> None:
     bitwise, one bf16 launch a call; timed beside the float32 kernel on
     the same values widened, the plain version and ``torch.matmul`` of
     the float32 contraction; a mixed call (bf16 x under float32 w and b)
-    runs the float32 kernel and rounds once. Adds the ``bf16`` entries of
-    the three kernels; the bytes of their bounds at 2 B a value."""
+    runs the float32 kernel and rounds once. Each call's grid and its
+    cluster size (csrc/dcn_fused_bf16.cuh: the split's blocks, clusters of
+    at most 8) are printed. Adds the ``bf16`` entries of the three
+    kernels; the bytes of their bounds at 2 B a value."""
     import torch
+
+    from repro_torch.kernels import dcn_fused as kf
 
     bf16 = torch.bfloat16
     for name, tag, fn, plain, args, kw, at, rows, live in ops:
@@ -2453,6 +2457,8 @@ def bf16_dcn_kernels(kernels, ops, contraction, fused_ops) -> None:
         pkw = {n: v for n, v in kw.items() if n == "t_in"}
         fn.dtypes = {}
         got = fn(*a16, **kw)
+        grid = fn.last_grid
+        cluster, groups = kf.fused_cluster(fn.last_split)
         if got.dtype != bf16 or fn.dtypes != {"bfloat16": 1}:
             fail(f"{name} bf16 at {tag}: {got.dtype} output, launches "
                  f"{fn.dtypes}")
@@ -2470,11 +2476,14 @@ def bf16_dcn_kernels(kernels, ops, contraction, fused_ops) -> None:
                         plain(*mixed, **pkw).float(), BF16_RTOL)
         print(f"[dcn-bf16] {name} bf16 at {tag}: max|d| vs plain {err:.3e} "
               f"(limit {BF16_RTOL:.4g}*{sc:.3f}), rerun bitwise equal, "
-              f"grid {fn.last_grid}; mixed x/w call through the float32 "
-              f"kernel {err_m:.3e}")
+              f"grid {grid} (blocks of the split, O blocks, unit pairs), "
+              f"{groups} cluster(s) of {cluster} a tile; mixed x/w call "
+              f"through the float32 kernel {err_m:.3e}")
         x, w = a16[at[0]], a16[at[1]]
         kk, c, o = w.shape
         kernels[name].setdefault("bf16", {})[tag] = dict(
+            source="src/repro_torch/csrc/dcn_fused_bf16.cuh",
+            cluster=cluster, cluster_groups=groups,
             max_abs_err=err,
             ms=cuda_time_ms(lambda: fn(*a16, **kw), 50),
             f32_kernel_ms=cuda_time_ms(lambda: fn(*a32, **kw), 50),
@@ -2484,7 +2493,8 @@ def bf16_dcn_kernels(kernels, ops, contraction, fused_ops) -> None:
             bytes=sum(t.numel() * t.element_size() for t in a16)
             + got.numel() * 2,
             shape=f"bf16 {tag}: x {tuple(x.shape)} w {tuple(w.shape)}, "
-                  f"{live} live output pixels, grid {fn.last_grid}")
+                  f"{live} live output pixels, grid {grid}, {groups} "
+                  f"cluster(s) of {cluster} a tile")
         del got, got_m, a16, a32, mixed
 
 

@@ -13,27 +13,43 @@
 // KK = 9, C = O = 512, 4 images, G = 16 rows) the call does ~4.8 GFLOP of
 // contraction on ~14 MB; in 3xTF32 on the tensor cores (165 TFLOP/s) that
 // is ~0.029 ms against ~0.004 ms of bytes. With bf16 operands (`bf16_ops`:
-// x, w, b and out bf16) the bytes halve. The card can do that contraction
+// x, w, b and out bf16) the bytes halve, and the card does the contraction
 // to FP32 accuracy in three bf16 products (the float32 patch split into
 // three bf16 pieces, each product by a bf16 weight exact: 989 / 3 = 330
-// TFLOP/s), ~0.015 ms; this body runs it in 2xTF32 (247.5 TFLOP/s).
+// TFLOP/s), ~0.015 ms.
 //
-// Design: the split-C body of #4 and #5. The TPU walks the row's dep
-// slots as a sequential grid dimension, DMAs tile dep_glb[g, k] and
-// localises the addresses against it; here each neighbour's tile is
-// matched to its dep slot once per block, the row's live dep tiles are
-// kept resident one 16-channel chunk at a time, and the C reduction is
-// split so that 16 rows of 64 pixels fill the card.
+// Design: float32 calls run the split-C body of #4 and #5
+// (dcn_fused_split.cuh), bf16 calls its Hopper counterpart
+// (dcn_fused_bf16.cuh). The TPU walks the row's dep slots as a sequential
+// grid dimension, DMAs tile dep_glb[g, k] and localises the addresses
+// against it; here each neighbour's tile is matched to its dep slot once
+// per block, the row's live dep tiles are kept resident one chunk of
+// channels at a time, and the C reduction is split so that 16 rows of 64
+// pixels fill the card.
 
+#include "dcn_fused_bf16.cuh"
 #include "dcn_fused_split.cuh"
 
+// `ws`: the float32 body's split workspace, or the bf16 body's clusters'
+// sums past one cluster a tile; `tickets`: the bf16 body's counts (zero
+// between calls).
 extern "C" int dcn_fused_batch_launch(
     const void* x, const void* row_id, const void* dep_glb,
     const void* dep_cnt, const void* idx, const void* coeff, const void* w,
-    const void* b, void* ws, void* out, int G, int k_pad, int n_x, int t_in,
-    int tp, int P, int KK, int C, int O, int n_split, int c_split,
-    int bf16_ops, void* stream) {
-  return split::split_launch<split::ADDR_BATCH>(
+    const void* b, void* ws, void* tickets, void* out, int G, int k_pad,
+    int n_x, int t_in, int tp, int P, int KK, int C, int O, int n_split,
+    int c_split, int bf16_ops, void* stream) {
+  if (bf16_ops)
+    return b16::bf16_launch<b16::ADDR_BATCH>(
+        x, row_id, dep_glb, dep_cnt, idx, coeff, w, b, ws, tickets, out, G,
+        k_pad, n_x, t_in, tp, P, KK, C, O, n_split, stream);
+  return split::split_launch_t<float, split::ADDR_BATCH>(
       x, row_id, dep_glb, dep_cnt, idx, coeff, w, b, ws, out, G, k_pad, n_x,
-      t_in, tp, P, KK, C, O, n_split, c_split, bf16_ops, stream);
+      t_in, tp, P, KK, C, O, n_split, c_split, stream);
+}
+
+// Clusters of `cluster` blocks of the bf16 body the current device runs
+// at once, into *count (the wrappers' split rule reads it).
+extern "C" int dcn_fused_bf16_max_clusters(int cluster, void* count) {
+  return b16::bf16_max_clusters(cluster, static_cast<int*>(count));
 }

@@ -75,25 +75,10 @@
 //   zero, and carried over all KK * C = 4608 products it drifts past the
 //   1e-5 * max|out| that the split count may move the result.
 //
-// Element type T of x, w, b and out: float or bf16, as the TPU kernels take
-// either and widen to float32 inside. The BLI coefficients, the patch, the
-// accumulators and the split workspace stay float32 in both. In bf16, x and
-// w are staged in shared memory as stored (16-byte copies of 8 values, a
-// halo row of 16 channels 32 bytes) and widened where they are read, which
-// halves the halo's shared memory, so twice the dep rows take the resident
-// path. A bf16 weight is exact in TF32 (8 significant bits of 11), so its
-// residual is zero: 2xTF32, w * patch_hi + w * patch_lo, keeps the patch's
-// FP32 accuracy in two products a k-step instead of three (495 / 2 = 247.5
-// TFLOP/s). The card's fastest FP32-accurate form is faster still: the
-// patch split into three bf16 pieces (8 + 8 + 8 significant bits), each
-// product by a bf16 weight exact in float32, 989 / 3 = 330 TFLOP/s; the
-// bound is taken at that rate, and a wgmma bf16 body is later work. The
-// patch is not rounded to bf16, as the TPU kernels keep it in float32. b is added once to the float32 sum and the result rounded once to
-// T (out, or the combine pass's out): no float32 output and cast after.
+// Element type T of x, w, b and out: float (calls whose x, w and b are all
+// bf16 run the Hopper body of dcn_fused_bf16.cuh).
 
 #pragma once
-
-#include <cuda_bf16.h>
 
 #include "wgmma_tf32.cuh"
 
@@ -110,11 +95,10 @@ constexpr int WS = BO + 8;    // w row stride: conflict-free A fragments
 constexpr int RING = 3;       // stages in flight: two ahead of the math
 constexpr int PATCH = BP * BC;  // floats of one stage's patch (hi or lo)
 constexpr int COMBINE_NT = 128;
-using bf16 = __nv_bfloat16;
 
 // Per element type T of x and w: values of one 16-byte copy, and the halo
 // row stride (values): a chunk row of BC channels plus one copy's padding,
-// 80 bytes in float, 48 in bf16, each row on a 16-byte boundary.
+// 80 bytes, each row on a 16-byte boundary.
 template <typename T>
 struct Elem {
   static constexpr int VEC = 16 / (int)sizeof(T);
@@ -122,7 +106,6 @@ struct Elem {
 };
 
 __device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
 
 // float -> T, rounded to nearest.
 template <typename T>
@@ -131,46 +114,23 @@ template <>
 __device__ __forceinline__ float narrow<float>(float v) {
   return v;
 }
-template <>
-__device__ __forceinline__ bf16 narrow<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
-// Four consecutive values as float4 (bf16: widened, exactly).
+// Four consecutive values as float4.
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const bf16* p) {
-  const uint2 w = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(w.x << 16),
-                     __uint_as_float(w.x & 0xffff0000u),
-                     __uint_as_float(w.y << 16),
-                     __uint_as_float(w.y & 0xffff0000u));
-}
 
-// One value into shared memory, zero where !ok: a 4-byte cp.async in
-// float; a plain load and store in bf16 (cp.async copies 4 bytes at the
-// least). The barriers that order the cp.async copies order these too.
+// One value into shared memory by a 4-byte cp.async, zero where !ok.
 __device__ __forceinline__ void copy1(float* dst, const float* src,
                                       const float* any, bool ok) {
   cp_async4(dst, ok ? src : any, ok ? 4 : 0);
 }
-__device__ __forceinline__ void copy1(bf16* dst, const bf16* src, const bf16*,
-                                      bool ok) {
-  *dst = ok ? *src : __float2bfloat16_rn(0.f);
-}
 
-// Four consecutive values (16 bytes in float, 8 in bf16) by one cp.async,
-// zero-filled where !ok.
+// Four consecutive values (16 bytes) by one cp.async, zero-filled where
+// !ok.
 __device__ __forceinline__ void copy4(float* dst, const float* src,
                                       const float* any, bool ok) {
   cp_async16(dst, ok ? src : any, ok ? 16 : 0);
-}
-__device__ __forceinline__ void copy4(bf16* dst, const bf16* src,
-                                      const bf16* any, bool ok) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
-               "l"(ok ? src : any), "r"(ok ? 8 : 0));
 }
 static_assert(NT == 4 * BP && BC == 16 && BO == 2 * 64 && BP == 64 &&
                   BC * BO % (4 * NT) == 0,
@@ -217,8 +177,6 @@ split_kernel(const T* __restrict__ x, const int* __restrict__ row_id,
              int k_pad, int n_x, int t_in, int tp, int P, int KK, int C,
              int O, int c_split) {
   constexpr int VEC = Elem<T>::VEC, HS = Elem<T>::HS;
-  // float: w's TF32 residual is a third product; a bf16 w has none.
-  constexpr bool SPLIT_W = sizeof(T) == 4;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Bh = (float*)smem;                  // [2][PATCH] patch, TF32 high
   float* Bl = Bh + 2 * PATCH;                // [2][PATCH] patch, residual
@@ -505,28 +463,18 @@ split_kernel(const T* __restrict__ x, const int* __restrict__ row_id,
       const float av[4] = {widen(a[0]), widen(a[8]), widen(a[4 * WS]),
                            widen(a[4 * WS + 8])};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (SPLIT_W)
-          split_tf32(av[i], ah[ks][i], al[ks][i]);
-        else
-          ah[ks][i] = __float_as_uint(av[i]);  // exact in TF32
-      }
+      for (int i = 0; i < 4; ++i) split_tf32(av[i], ah[ks][i], al[ks][i]);
     }
-    // 3xTF32 (float w): lo*hi + hi*lo + hi*hi; 2xTF32 (bf16 w): w*lo +
-    // w*hi. Each k-step's 32 bytes of patch rows are two core matrices
-    // along K. The stage's sum starts from zero and is added to the FP32
+    // 3xTF32: lo*hi + hi*lo + hi*hi. Each k-step's 32 bytes of patch rows
+    // are two core matrices along K. The stage's sum starts from zero and is added to the FP32
     // total with round-to-nearest.
     const float* bh = Bh + (s & 1) * PATCH;
     const float* bl = Bl + (s & 1) * PATCH;
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < 2; ++ks) {
-      if (SPLIT_W) {
-        wgmma_tf32(d, al[ks], patch_desc(bh + ks * 64), ks);
-        wgmma_tf32(d, ah[ks], patch_desc(bl + ks * 64), 1);
-      } else {
-        wgmma_tf32(d, ah[ks], patch_desc(bl + ks * 64), ks);
-      }
+      wgmma_tf32(d, al[ks], patch_desc(bh + ks * 64), ks);
+      wgmma_tf32(d, ah[ks], patch_desc(bl + ks * 64), 1);
       wgmma_tf32(d, ah[ks], patch_desc(bh + ks * 64), 1);
     }
     wgmma_commit();
@@ -552,10 +500,8 @@ split_kernel(const T* __restrict__ x, const int* __restrict__ row_id,
     fence_regs(d);
     fence_regs(ah[0]);
     fence_regs(ah[1]);
-    if (SPLIT_W) {
-      fence_regs(al[0]);
-      fence_regs(al[1]);
-    }
+    fence_regs(al[0]);
+    fence_regs(al[1]);
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] += d[i];
     __syncthreads();  // patch and w of stage s + 1 visible; stage s done
@@ -679,25 +625,6 @@ int split_launch_t(const void* x, const void* row_id, const void* dep,
       (T*)out, rows, P, O, n_split);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
-}
-
-// split_launch_t in float (bf16 == 0) or bf16 (bf16 != 0).
-template <int MODE>
-int split_launch(const void* x, const void* row_id, const void* dep,
-                 const void* dep_cnt, const void* idx, const void* coeff,
-                 const void* w, const void* b, void* ws, void* out, int rows,
-                 int k_pad, int n_x, int t_in, int tp, int P, int KK, int C,
-                 int O, int n_split, int c_split, int bf16_ops,
-                 void* stream) {
-  return bf16_ops
-             ? split_launch_t<bf16, MODE>(x, row_id, dep, dep_cnt, idx, coeff,
-                                          w, b, ws, out, rows, k_pad, n_x,
-                                          t_in, tp, P, KK, C, O, n_split,
-                                          c_split, stream)
-             : split_launch_t<float, MODE>(x, row_id, dep, dep_cnt, idx,
-                                           coeff, w, b, ws, out, rows, k_pad,
-                                           n_x, t_in, tp, P, KK, C, O,
-                                           n_split, c_split, stream);
 }
 
 }  // namespace split

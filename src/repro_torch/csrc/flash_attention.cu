@@ -54,6 +54,7 @@
 #include <cuda.h>
 #include <cudaTypedefs.h>
 
+#include "tma.cuh"
 #include "wgmma_bf16.cuh"
 #include "wgmma_tf32.cuh"
 
@@ -949,30 +950,13 @@ flash_kernel_bf16(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// cuTensorMapEncodeTiled, found once through the runtime (no libcuda
-// link); null where the installed CUDA lacks it.
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder(cudaError_t* err) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  *err = cudaSuccess;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    *err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode), 12000,
-        cudaEnableDefault, &found);
-    if (*err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
-      encode = nullptr;
-      if (*err == cudaSuccess) *err = cudaErrorSymbolNotFound;
-    }
-  }
-  return encode;
-}
-
 // The 4-d tensor map (d, kv head, key, batch) of float32 k or v (B, Skv,
 // Hkv, D) whose box is the tile the kernel lands: (DP + 4) x 1 x BK x 1.
 cudaError_t rows_map(CUtensorMap* map, const void* x, int B, int Skv,
                      int Hkv, int D, int dp) {
   cudaError_t err;
-  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder(&err);
+  const PFN_cuTensorMapEncodeTiled_v12000 encode =
+      hop::tensor_map_encoder(&err);
   if (encode == nullptr) return err;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv,
                               (cuuint64_t)Skv, (cuuint64_t)B};
@@ -995,7 +979,8 @@ cudaError_t rows_map(CUtensorMap* map, const void* x, int B, int Skv,
 cudaError_t panel_map(CUtensorMap* map, const void* x, int B, int S, int H,
                       int D, int w, int rows) {
   cudaError_t err;
-  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder(&err);
+  const PFN_cuTensorMapEncodeTiled_v12000 encode =
+      hop::tensor_map_encoder(&err);
   if (encode == nullptr) return err;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};

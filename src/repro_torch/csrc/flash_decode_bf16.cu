@@ -72,6 +72,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace {
 
 constexpr int TK = 16;            // keys a stage (one consumer warp's unit)
@@ -734,31 +736,14 @@ decode_bf16_kernel(const __grid_constant__ CUtensorMap k_map,
   }
 }
 
-// cuTensorMapEncodeTiled, found once through the runtime (no libcuda
-// link).
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder(cudaError_t* err) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  *err = cudaSuccess;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    *err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode), 12000,
-        cudaEnableDefault, &found);
-    if (*err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
-      encode = nullptr;
-      if (*err == cudaSuccess) *err = cudaErrorSymbolNotFound;
-    }
-  }
-  return encode;
-}
-
 // The 4-d tensor map (d, kv head, key, batch) of a bf16 cache (B, S, Hkv,
 // D) whose box is one panel of a stage: W values x 1 x TK keys x 1, in
 // the panel's swizzle; zeros past D and S.
 cudaError_t panel_map(CUtensorMap* map, const void* x, int B, int S,
                       int Hkv, int D) {
   cudaError_t err;
-  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder(&err);
+  const PFN_cuTensorMapEncodeTiled_v12000 encode =
+      hop::tensor_map_encoder(&err);
   if (encode == nullptr) return err;
   const int W = panel_w(D);
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)S,

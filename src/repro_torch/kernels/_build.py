@@ -32,9 +32,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # c_void_p, ints as c_int, floats as c_float). Each returns
 # cudaGetLastError() as an int.
 _SIGNATURES = {
-    "dcn_fused_batch_launch": [_P] * 10 + [_I] * 12 + [_P],
-    "dcn_fused_schedule_launch": [_P] * 9 + [_I] * 11 + [_P],
-    "dcn_fused_tile_launch": [_P] * 7 + [_I] * 9 + [_P],
+    "dcn_fused_batch_launch": [_P] * 11 + [_I] * 12 + [_P],
+    "dcn_fused_schedule_launch": [_P] * 10 + [_I] * 11 + [_P],
+    "dcn_fused_tile_launch": [_P] * 8 + [_I] * 9 + [_P],
+    "dcn_fused_bf16_max_clusters": [_I, _P],
     "bli_gather_launch": [_P] * 4 + [_I] * 9 + [_P],
     "schedule_group_launch": [_P, _P],
     "schedule_group_smem_bytes": [_I] * 4,

@@ -4,10 +4,13 @@ The deformed-feature tensor is K*K times the input feature map; the
 paper's fusion keeps it on chip. Three entry points: per output row,
 gather the deformed patch chunk by chunk in shared memory and contract it
 with the main-conv weights, so the intermediate never reaches device
-memory. All three run the split-C tensor-core body of
+memory. In float32 all three run the split-C tensor-core body of
 ``csrc/dcn_fused_split.cuh``, whose C reduction is cut into
 :func:`fused_splits` slices (a second pass adds them) so that a call of a
-few rows still fills the card.
+few rows still fills the card; on bf16 x, w and b they run the Hopper body
+of ``csrc/dcn_fused_bf16.cuh``, whose slices are the blocks of a thread
+block cluster and merge on chip (:func:`fused_splits` with ``dtype``,
+:func:`fused_grid_bf16`).
 
 * :func:`dcn_fused_batch` — the concatenated Algorithm-1 schedules of a
   whole batch in ONE launch (``batch_fused``; ``csrc/dcn_fused_batch.cu``),
@@ -37,13 +40,16 @@ addresses, 4-hot gather, accumulate the patch in float32; tile: the 4-hot
 rows against ``iota(S)`` as a masked gather; then the contraction with
 ``w``); for a CUDA tensor it launches the kernel or raises. Each wrapper
 counts its calls that launched in a plain-integer ``launches`` attribute
-(a split-C call launches its combine pass too), tallies them by the
-type the kernel ran in (``"float32"`` or ``"bfloat16"``) in ``dtypes``,
-and records the grid of its last launch in ``last_grid``.
+(a float32 split-C call launches its combine pass too), tallies them by
+the type the kernel ran in (``"float32"`` or ``"bfloat16"``) in
+``dtypes``, and records the grid of its last launch in ``last_grid``
+(:func:`fused_grid`, or :func:`fused_grid_bf16` for a bf16 call) and its
+``n_split`` in ``last_split``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -185,14 +191,29 @@ H100_SMS = 132
 
 
 def fused_splits(rows: int, p: int, o: int, c: int,
-                 sm_count: int = H100_SMS) -> int:
+                 sm_count: int = H100_SMS,
+                 dtype: torch.dtype = torch.float32,
+                 clusters: dict | None = None) -> int:
     """Slices of the C reduction for one split-C call: 1 when the
     (row, pixel block, output-channel block) grid already fills one wave
     of two blocks on each of ``sm_count`` SMs; else the most slices that
     still fit that wave, each of the same whole number of
     ``SPLIT_BC``-channel chunks, never more slices than chunks. (A wave
     and a bit more runs as two: on an H100, #1's 320 blocks took 0.157 ms
-    where 256 took 0.124.)"""
+    where 256 took 0.124.)
+
+    For the bf16 body (``dtype`` bfloat16) the slices of a (unit pair,
+    channel block) are the blocks of :func:`fused_cluster`'s clusters,
+    each an even share of the stages (:func:`bf16_slices`): the most
+    slices, at most the ``BF16_BC``-channel chunk count, whose clusters
+    all run at once; ``clusters`` maps a cluster size to the clusters of
+    that size the card runs at once (:func:`card_clusters`; by default
+    ``H100_CLUSTERS`` at 132 SMs, else :func:`cluster_model`)."""
+    if dtype == torch.bfloat16:
+        if clusters is None:
+            clusters = (H100_CLUSTERS if sm_count == H100_SMS
+                        else cluster_model(sm_count))
+        return _bf16_splits(rows, p, o, c, clusters)
     base = rows * math.ceil(p / SPLIT_BP) * math.ceil(o / SPLIT_BO)
     chunks = max(1, math.ceil(c / SPLIT_BC))
     if base == 0 or base >= 2 * sm_count:
@@ -212,6 +233,20 @@ def split_channels(c: int, n_split: int) -> tuple[int, int]:
     return math.ceil(chunks / per), per * SPLIT_BC
 
 
+def bf16_slices(c: int, kk: int, n_split: int) -> list[tuple[int, int]]:
+    """The bf16 body's cut of a call's stages (``kk`` taps x ceil(C /
+    BF16_BC) chunks, tap fastest) into ``n_split`` slices, at most the
+    chunk count: slice x is stages [x S / n, (x + 1) S / n), whole stages,
+    each at least one chunk's taps (none empty)."""
+    chunks = max(1, math.ceil(c / BF16_BC))
+    if not 1 <= n_split <= chunks:
+        raise ValueError(f"n_split {n_split} must be in [1, {chunks}] for "
+                         f"C={c} ({BF16_BC}-channel chunks)")
+    stages = kk * chunks
+    return [(x * stages // n_split, (x + 1) * stages // n_split)
+            for x in range(n_split)]
+
+
 def fused_grid(rows: int, p: int, o: int, n_split: int
                ) -> tuple[int, int, int, int]:
     """(rows, pixel blocks, output-channel blocks, n_split): the blocks of
@@ -219,35 +254,152 @@ def fused_grid(rows: int, p: int, o: int, n_split: int
     return (rows, math.ceil(p / SPLIT_BP), math.ceil(o / SPLIT_BO), n_split)
 
 
+# Tile of csrc/dcn_fused_bf16.cuh: a block owns 128 output channels of two
+# units of 64 output pixels (a row's pixel block each; units pair in
+# order) and walks its slice of C in 32-channel chunks. The n_split slices
+# of a (unit pair, channel block) run as thread block clusters of at most
+# MAX_CLUSTER blocks (the portable limit), one block a slice: one cluster
+# merges its slices on chip; past MAX_CLUSTER slices, ceil(n_split / 8)
+# clusters merge theirs and the last to finish adds the clusters' sums
+# from a float32 workspace.
+BF16_BP, BF16_BO, BF16_BC = 64, 128, 32
+MAX_CLUSTER = 8
+# Clusters of k blocks of the bf16 body (one block an SM) that an H100
+# 80GB HBM3 runs at once, k = 1..8 (cudaOccupancyMaxActiveClusters, as
+# `card_clusters` asks the card): whole clusters fit a GPC, so fewer than
+# 132 // k.
+H100_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+
+
+def cluster_model(sm_count: int) -> dict:
+    """Clusters of k blocks that ``sm_count`` SMs run at once at one block
+    an SM, ignoring how SMs group into GPCs: ``sm_count // k``."""
+    return {k: sm_count // k for k in range(1, MAX_CLUSTER + 1)}
+
+
+def fused_cluster(n_split: int) -> tuple[int, int]:
+    """(blocks of a cluster, clusters a tile) for ``n_split`` slices of
+    the bf16 body (``cluster_of`` and ``groups_of`` in the CUDA source):
+    ceil(n_split / MAX_CLUSTER) clusters of the fewest blocks that hold
+    the slices (a last cluster's blocks past the last slice add zeros)."""
+    groups = math.ceil(n_split / MAX_CLUSTER)
+    return math.ceil(n_split / groups), groups
+
+
+def fused_grid_bf16(rows: int, p: int, o: int, n_split: int
+                    ) -> tuple[int, int, int]:
+    """The bf16 body's grid (cluster * clusters a tile, output-channel
+    blocks, unit pairs): clusters of (cluster, 1, 1) blocks, one launch."""
+    cluster, groups = fused_cluster(n_split)
+    units = rows * math.ceil(p / BF16_BP)
+    return (cluster * groups, math.ceil(o / BF16_BO), math.ceil(units / 2))
+
+
+def _bf16_splits(rows: int, p: int, o: int, c: int, clusters: dict) -> int:
+    base = math.ceil(rows * math.ceil(p / BF16_BP) / 2) * math.ceil(
+        o / BF16_BO)
+    chunks = max(1, math.ceil(c / BF16_BC))
+    best = 1
+    for k in range(2, chunks + 1):
+        cluster, groups = fused_cluster(k)
+        if clusters.get(cluster, 0) >= base * groups:
+            best = k
+    return best
+
+
+_CARD_CLUSTERS: dict = {}
+_TICKETS: dict = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 counts on ``device``, zero: the bf16 body's
+    last cluster of a tile sets its count back to zero, so one buffer a
+    card serves every call (launched in stream order)."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
+
+
+def card_clusters(device: torch.device) -> dict:
+    """Clusters of k blocks of the bf16 body that the card ``device`` runs
+    at once, k = 1..``MAX_CLUSTER`` (``cudaOccupancyMaxActiveClusters``),
+    asked once a card."""
+    from repro_torch.kernels import _build
+
+    idx = torch.device(device).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    if idx not in _CARD_CLUSTERS:
+        lib = _build.load()
+        got = {}
+        with torch.cuda.device(idx):
+            for k in range(1, MAX_CLUSTER + 1):
+                n = ctypes.c_int(0)
+                _build.check(lib.dcn_fused_bf16_max_clusters(
+                    k, ctypes.byref(n)), "dcn_fused_bf16_max_clusters")
+                got[k] = n.value
+        _CARD_CLUSTERS[idx] = got
+    return _CARD_CLUSTERS[idx]
+
+
+def _card_splits(rows: int, p: int, o: int, c: int, dtype: torch.dtype,
+                 device: torch.device) -> int:
+    """:func:`fused_splits` on the card ``device``: its SM count, and for
+    the bf16 body its cluster capacity."""
+    if dtype == torch.bfloat16:
+        return fused_splits(rows, p, o, c, dtype=dtype,
+                            clusters=card_clusters(device))
+    return fused_splits(rows, p, o, c, torch.cuda.get_device_properties(
+        device).multi_processor_count)
+
+
 def _launch_split(fn, entry: str, out: torch.Tensor, rows: int,
                   pointers: tuple, ints: tuple, n_split: int | None,
                   c: int) -> None:
-    """Both passes of a split-C call into ``out`` (rows, ..., P, O), whose
-    dtype is the operands' (x, w, b): C entry point ``entry`` takes
-    ``pointers``, the workspace, ``out``, ``ints``, ``n_split``, the
-    channels per slice, 1 for bf16 operands (else 0) and the stream.
-    Picks ``n_split`` by :func:`fused_splits` unless given, allocates the
-    float32 workspace, launches, checks, records the grid on
-    ``fn.last_grid`` and counts the launch on ``fn``."""
+    """A split-C call into ``out`` (rows, ..., P, O), whose dtype is the
+    operands' (x, w, b): C entry point ``entry`` takes ``pointers``, the
+    workspace, the tickets, ``out``, ``ints``, ``n_split``, the channels
+    per slice (float32 body), 1 for bf16 operands (else 0) and the stream.
+    Picks ``n_split`` by :func:`fused_splits` unless given; allocates the
+    float32 body's split workspace, or the bf16 body's clusters' sums past
+    one cluster a tile (one cluster merges its slices on chip) and its
+    tickets; launches, checks, records the grid on ``fn.last_grid`` and
+    counts the launch on ``fn``."""
     from repro_torch.kernels import _build
 
     lib = _build.load()
     p, o = out.shape[-2], out.shape[-1]
+    bf16 = out.dtype == torch.bfloat16
     if n_split is None:
-        n_split = fused_splits(rows, p, o, c, torch.cuda.get_device_properties(
-            out.device).multi_processor_count)
-    n_split, c_split = split_channels(c, n_split)
-    ws = (torch.empty((n_split, rows, p, o), dtype=torch.float32,
-                      device=out.device) if n_split > 1 else out)
+        n_split = _card_splits(rows, p, o, c, out.dtype, out.device)
+    tickets = None
+    if not bf16:
+        n_split, c_split = split_channels(c, n_split)
+        ws = (torch.empty((n_split, rows, p, o), dtype=torch.float32,
+                          device=out.device) if n_split > 1 else out)
+        grid = fused_grid(rows, p, o, n_split)
+    else:
+        bf16_slices(c, 1, n_split)  # checks n_split
+        c_split = 0                 # the body cuts the stages itself
+        grid = fused_grid_bf16(rows, p, o, n_split)
+        groups = fused_cluster(n_split)[1]
+        # float32 sums [groups][pairs][O-blocks][2 BF16_BP][BF16_BO] past
+        # one cluster a tile; a count a (pair, O-block, rank).
+        ws = (torch.empty(groups * grid[1] * grid[2] * 2 * BF16_BP * BF16_BO,
+                          dtype=torch.float32, device=out.device)
+              if groups > 1 else out)
+        tickets = _tickets(out.device,
+                           grid[0] // groups * grid[1] * grid[2]).data_ptr()
     # The C side sizes and launches on the current device: make it the
     # operands' own.
     with torch.cuda.device(out.device):
-        err = getattr(lib, entry)(*pointers, ws.data_ptr(), out.data_ptr(),
-                                  *ints, n_split, c_split,
-                                  int(out.dtype == torch.bfloat16),
-                                  _stream(out))
+        err = getattr(lib, entry)(*pointers, ws.data_ptr(), tickets,
+                                  out.data_ptr(), *ints, n_split, c_split,
+                                  int(bf16), _stream(out))
     _build.check(err, entry)
-    fn.last_grid = fused_grid(rows, p, o, n_split)
+    fn.last_grid, fn.last_split = grid, n_split
     _count(fn, out.dtype)
 
 
@@ -319,6 +471,7 @@ def dcn_fused_batch(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff, w, b,
 dcn_fused_batch.launches = 0
 dcn_fused_batch.dtypes = {}
 dcn_fused_batch.last_grid = None
+dcn_fused_batch.last_split = None
 
 
 # ---------------------------------------------------------------------------
@@ -389,9 +542,10 @@ def dcn_fused_batch_sharded(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff,
     issued before any result is copied back.
 
     On CUDA every shard takes the split the single-device call over the
-    same rows would take, ``fused_splits(sum of real rows, ...)``, so each
-    row sums its C slices in the same order as the unsharded run: the
-    result is bitwise the single-device one.
+    same rows would take, ``fused_splits(sum of real rows, ...)`` in the
+    type the kernel runs in, so each row sums its C slices in the same
+    order as the unsharded run: the result is bitwise the single-device
+    one.
     """
     d = _sharded_operands(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff,
                           mesh, sizes)
@@ -407,9 +561,9 @@ def dcn_fused_batch_sharded(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff,
     if home.type == "cuda" and sum(rows) and p:
         c = x_tiles.shape[3]
         dev0 = mesh.devices[next(s for s in range(d) if rows[s])]
-        n_split = fused_splits(
-            sum(rows), p, o, c,
-            torch.cuda.get_device_properties(dev0).multi_processor_count)
+        kdtype = (x_tiles.dtype if x_tiles.dtype == w.dtype == b.dtype
+                  else torch.float32)
+        n_split = _card_splits(sum(rows), p, o, c, kdtype, dev0)
     with get_tracer().span("dispatch.batch_fused_sharded", shards=int(d),
                            grid_rows=int(d * g_loc), c_out=int(o)):
         done = []
@@ -513,6 +667,7 @@ def dcn_fused_schedule(x_tiles, dep_tbl, dep_cnt, idx, coeff, w, b, *,
 dcn_fused_schedule.launches = 0
 dcn_fused_schedule.dtypes = {}
 dcn_fused_schedule.last_grid = None
+dcn_fused_schedule.last_split = None
 
 
 # ---------------------------------------------------------------------------
@@ -580,3 +735,4 @@ def dcn_fused_tile(x_tile, idx, coeff, w, b, *, block_p: int = 128,
 dcn_fused_tile.launches = 0
 dcn_fused_tile.dtypes = {}
 dcn_fused_tile.last_grid = None
+dcn_fused_tile.last_split = None

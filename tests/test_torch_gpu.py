@@ -1036,16 +1036,16 @@ def test_fused_kernels_in_bf16(case):
     full-width shapes and the awkward ones (C not a multiple of 8 or 4, O
     not a multiple of 8, the gather path): a bf16 output within two bf16
     ulps of the plain version's (float32 inside, one rounding) at n_split
-    = 1, the default and the chunk count, one bf16 launch each, a bitwise
-    rerun, and a dep_cnt = 0 row that is exactly b."""
-    from repro_torch.kernels.dcn_fused import SPLIT_BC
+    = 1, the default and the bf16 body's chunk count, one bf16 launch
+    each, a bitwise rerun, and a dep_cnt = 0 row that is exactly b."""
+    from repro_torch.kernels.dcn_fused import BF16_BC
 
     fn, plain, ops, kw, c = _bf16_fused_case(*BF16_FUSED_CASES[case])
     want = plain(*ops, **kw)
     assert want.dtype == torch.bfloat16
     args = [a.cuda() for a in ops]
     fn.dtypes = {}
-    splits = list(dict.fromkeys((1, None, math.ceil(c / SPLIT_BC))))
+    splits = list(dict.fromkeys((1, None, math.ceil(c / BF16_BC))))
     outs = {n: fn(*args, **kw, n_split=n) for n in splits}
     assert fn.dtypes == {"bfloat16": len(splits)}
     for got in outs.values():
@@ -1075,6 +1075,110 @@ def test_fused_kernels_widen_mixed_operands(which):
         assert got.dtype == x_dtype and fn.dtypes == {"float32": 1}
         _within(got, plain(*mixed, **kw),
                 BF16_RTOL if x_dtype == torch.bfloat16 else 1e-4)
+
+
+def _bf16_hold(fn, plain, args, kw, want, **call):
+    """One bf16 call within two bf16 ulps of the plain version's result,
+    bitwise equal on a rerun and launched once in bf16; -> the result."""
+    fn.dtypes = {}
+    got = fn(*args, **kw, **call)
+    assert got.dtype == torch.bfloat16 and fn.dtypes == {"bfloat16": 1}
+    _within(got, want, BF16_RTOL)
+    assert torch.equal(fn(*args, **kw, **call), got)
+    return got
+
+
+# (which, shape) of the bf16 body's copy paths: C and O whose rows are
+# whole 16-byte copies (TMA boxes for w and the halo) against C and O
+# whose rows are not (the producer warp copies value by value).
+BF16_COPY_CASES = [("batch", (2, 4, 64, 64, 128, 4)),
+                   ("batch", (2, 4, 64, 60, 124, 4)),
+                   ("schedule", (3, 5, 64, 96, 256, 4)),
+                   ("schedule", (3, 5, 64, 90, 250, 4)),
+                   ("tile", (2, 120, 64, 64, 192)),
+                   ("tile", (2, 120, 64, 66, 190))]
+
+
+@pytest.mark.parametrize("case", range(len(BF16_COPY_CASES)))
+def test_bf16_body_copy_paths(case):
+    """The TMA and the value-by-value copies give the plain version's
+    result (within two bf16 ulps, bitwise reruns) at n_split 1 and the
+    default, and a dep_cnt = 0 row that is exactly b."""
+    which, shape = BF16_COPY_CASES[case]
+    fn, plain, ops, kw, c = _bf16_fused_case(which, shape)
+    want = plain(*ops, **kw)
+    args = [a.cuda() for a in ops]
+    for n in (1, None):
+        got = _bf16_hold(fn, plain, args, kw, want, n_split=n)
+        if which != "tile":
+            assert torch.equal(got[-1], args[-1].expand_as(got[-1]))
+
+
+@pytest.mark.parametrize("which", ["batch", "schedule", "tile"])
+def test_bf16_body_at_a_base_off_16_bytes(which):
+    """x and w whose first value sits 2 bytes past a 16-byte boundary
+    (TMA refuses such a base): the value-by-value copies, the plain
+    version's result."""
+    shape = {"batch": (2, 4, 64, 64, 128, 4),
+             "schedule": (3, 5, 64, 96, 256, 4),
+             "tile": (2, 120, 64, 64, 192)}[which]
+    fn, plain, ops, kw, _ = _bf16_fused_case(which, shape)
+    want = plain(*ops, **kw)
+    args = [a.cuda() for a in ops]
+    for i in (0, len(args) - 2):           # x and w, one value in
+        buf = torch.empty(args[i].numel() + 1, dtype=torch.bfloat16,
+                          device="cuda")
+        moved = buf[1:].view(args[i].shape)
+        moved.copy_(args[i])
+        assert moved.data_ptr() % 16 == 2
+        args[i] = moved
+    _bf16_hold(fn, plain, args, kw, want)
+
+
+# (C, n_split) of #1 in bf16: C = 32 n channels in n slices, a cluster of
+# every size 1-8, then slices past one cluster (16 slices: two clusters of
+# 8; 11: two clusters of 6, the last block of the second with no slice),
+# whose clusters' sums meet in the workspace.
+BF16_CLUSTER_CASES = [(32 * n, n) for n in range(1, 9)] + [(512, 16),
+                                                           (352, 11)]
+
+
+@pytest.mark.parametrize("c,n_split", BF16_CLUSTER_CASES)
+def test_bf16_body_cluster_sizes(c, n_split):
+    """#1 in bf16 at every cluster size and at splits past one cluster:
+    the plain version's result, bitwise reruns (the workspace's clusters
+    added in a fixed order, whichever finishes last), the grid of
+    ``fused_grid_bf16``, a dep_cnt = 0 row that is exactly b."""
+    from repro_torch.kernels import dcn_fused as kf
+
+    shape = (2, 4, 64, c, 256, 4)
+    fn, plain, ops, kw, _ = _bf16_fused_case("batch", shape)
+    want = plain(*ops, **kw)
+    args = [a.cuda() for a in ops]
+    got = _bf16_hold(fn, plain, args, kw, want, n_split=n_split)
+    assert len(kf.bf16_slices(c, 9, n_split)) == n_split
+    assert fn.last_grid == kf.fused_grid_bf16(8, 64, 256, n_split)
+    cluster, groups = kf.fused_cluster(n_split)
+    assert cluster <= 8 and fn.last_grid[0] == cluster * groups
+    assert torch.equal(got[-1], args[-1].expand_as(got[-1]))
+
+
+def test_bf16_body_cluster_capacity():
+    """The card's cluster capacity (cudaOccupancyMaxActiveClusters) falls
+    with the cluster size and the default splits of #1, #4 and #5 at full
+    width run their clusters in one wave."""
+    from repro_torch.kernels import dcn_fused as kf
+
+    cap = kf.card_clusters(torch.device("cuda", 0))
+    assert sorted(cap) == list(range(1, kf.MAX_CLUSTER + 1))
+    assert all(cap[k] >= cap[k + 1] >= 1 for k in range(1, kf.MAX_CLUSTER))
+    for rows, p in ((16, 64), (4, 64), (1, 64), (1, 256)):
+        n = kf.fused_splits(rows, p, 512, 512, dtype=torch.bfloat16,
+                            clusters=cap)
+        blocks, o_blocks, pairs = kf.fused_grid_bf16(rows, p, 512, n)
+        cluster, groups = kf.fused_cluster(n)
+        assert blocks == cluster * groups
+        assert o_blocks * pairs * groups <= cap[cluster]
 
 
 @pytest.mark.parametrize("opts", [{}, dict(window=100, softcap=30.0)])
@@ -1193,9 +1297,10 @@ def _serving_layer_operands(n=4, seed=3):
             coeff.reshape(n * t, 64, 9, 4), w, b)
 
 
-def _sharded_vs_single(mesh, sizes):
+def _sharded_vs_single(mesh, sizes, dtype=torch.float32):
     """#1 over ``mesh`` with ``sizes`` images a shard, scattered back to
-    (image, tile) rows, and the single call's rows on cuda:0."""
+    (image, tile) rows, and the single call's rows on cuda:0; x, w and b
+    in ``dtype``."""
     from repro_torch.kernels.dcn_fused import dcn_fused_batch_sharded
     from repro_torch.runtime.packing import pack_batch_schedules
     from repro_torch.runtime.shard import (plan_batch_shards,
@@ -1206,12 +1311,13 @@ def _sharded_vs_single(mesh, sizes):
     n = sum(sizes)
     dev = torch.device("cuda", 0)
     x, idx, coeff, w, b = (a.to(dev) for a in (x, idx, coeff, w, b))
+    x, w, b = (a.to(dtype) for a in (x, w, b))
     bd = pack_batch_schedules(scheds, t, t, dev)
     y0 = dcn_fused_batch(x, bd.row_id, bd.dep_glb, bd.dep_cnt, idx, coeff,
                          w, b, t_in=t)
     target = torch.where(bd.oid >= 0, bd.row_id,
                          torch.full_like(bd.row_id, n * t)).long()
-    want = torch.zeros((n * t + 1, 64, 512), device=dev)
+    want = torch.zeros((n * t + 1, 64, 512), dtype=dtype, device=dev)
     want[target] = y0
     plan = plan_batch_shards(n, len(sizes), sizes)
     sh = shard_batch_schedules(scheds, t, t, plan, dev)
@@ -1233,6 +1339,19 @@ def test_sharded_batch_kernel_equals_unsharded(sizes):
     from repro_torch.launch.mesh import DeviceMesh
 
     got, want = _sharded_vs_single(DeviceMesh.on("cuda:0", data=4), sizes)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("sizes", [[2, 1, 0, 1], [1, 1, 1, 1], [4, 0, 0, 0]])
+def test_sharded_batch_kernel_equals_unsharded_in_bf16(sizes):
+    """The bf16 body sharded over DeviceMesh.on("cuda:0", data=4): each
+    shard's cluster split pinned to the single call's, so the result is
+    bitwise the single call's."""
+    from repro_torch.launch.mesh import DeviceMesh
+
+    got, want = _sharded_vs_single(DeviceMesh.on("cuda:0", data=4), sizes,
+                                   torch.bfloat16)
+    assert got.dtype == torch.bfloat16
     assert torch.equal(got, want)
 
 

@@ -483,6 +483,80 @@ class TestSplitPolicy:
             kf.split_channels(512, n)
 
 
+# (rows, P, O, C) of bf16 split calls: #1 (a 4-image batch), #4, #5 per
+# tile and on the whole plane at full width, then awkward sizes.
+BF16_SPLIT_SHAPES = [(16, 64, 512, 512), (4, 64, 512, 512), (1, 64, 512, 512),
+                     (1, 256, 512, 512), (3, 100, 200, 37), (1, 40, 5, 7),
+                     (2, 196, 130, 100), (70, 64, 512, 512), (9, 128, 256, 1000)]
+
+
+class TestBf16SplitPolicy:
+    """The bf16 body's split rule (`fused_splits(dtype=bfloat16)`,
+    `bf16_slices`, `fused_cluster`, `fused_grid_bf16`): its stages cut
+    into even slices, clusters of at most 8 blocks, one wave of them."""
+
+    @pytest.mark.parametrize("rows,p,o,c", BF16_SPLIT_SHAPES)
+    def test_slices_are_whole_stages_none_empty(self, rows, p, o, c):
+        chunks = math.ceil(c / kf.BF16_BC)
+        n = kf.fused_splits(rows, p, o, c, dtype=torch.bfloat16)
+        assert 1 <= n <= chunks
+        for want in {1, n, chunks}:
+            cuts = kf.bf16_slices(c, 9, want)
+            assert len(cuts) == want
+            # contiguous, all the stages, each at least one chunk's taps
+            assert cuts[0][0] == 0 and cuts[-1][1] == 9 * chunks
+            assert all(a[1] == b[0] for a, b in zip(cuts, cuts[1:]))
+            assert all(e - s >= 9 for s, e in cuts)
+            assert max(e - s for s, e in cuts) - min(
+                e - s for s, e in cuts) <= 1
+
+    @pytest.mark.parametrize("n", [1, 2, 3, 7, 8, 9, 11, 16, 24, 33])
+    def test_clusters_hold_at_most_eight_blocks(self, n):
+        cluster, groups = kf.fused_cluster(n)
+        assert 1 <= cluster <= kf.MAX_CLUSTER
+        assert groups == math.ceil(n / kf.MAX_CLUSTER)
+        # the fewest blocks a cluster that hold the slices
+        assert cluster * groups >= n > (cluster - 1) * groups
+        assert kf.fused_grid_bf16(16, 64, 512, n)[0] == cluster * groups
+
+    @pytest.mark.parametrize("sms", [66, 114, 132])
+    def test_clusters_run_in_one_wave(self, sms):
+        cap = kf.cluster_model(sms)
+        for rows, p, o, c in BF16_SPLIT_SHAPES:
+            n = kf.fused_splits(rows, p, o, c, sms, dtype=torch.bfloat16,
+                                clusters=cap)
+            blocks, o_blocks, pairs = kf.fused_grid_bf16(rows, p, o, n)
+            cluster, groups = kf.fused_cluster(n)
+            if o_blocks * pairs <= sms:
+                assert o_blocks * pairs * groups <= cap[cluster]
+                # no more slices would fit the wave
+                for k in range(n + 1, math.ceil(c / kf.BF16_BC) + 1):
+                    c2, g2 = kf.fused_cluster(k)
+                    assert o_blocks * pairs * g2 > cap[c2]
+        for rows, p, o, c in BF16_SPLIT_SHAPES:  # the card's own capacity
+            n = kf.fused_splits(rows, p, o, c, dtype=torch.bfloat16)
+            _, o_blocks, pairs = kf.fused_grid_bf16(rows, p, o, n)
+            cluster, groups = kf.fused_cluster(n)
+            if o_blocks * pairs <= kf.H100_SMS:
+                assert o_blocks * pairs * groups <= kf.H100_CLUSTERS[cluster]
+
+    @pytest.mark.parametrize("shape,grid", [
+        ((16, 64, 512, 512), (3, 4, 8)),      # #1, a batch of 4
+        ((4, 64, 512, 512), (12, 4, 2)),      # #4, two clusters of 6
+        ((1, 64, 512, 512), (16, 4, 1)),      # #5 per tile, two of 8
+        ((1, 256, 512, 512), (12, 4, 2)),     # #5 whole plane
+    ])
+    def test_grids_quoted_in_perf(self, shape, grid):
+        rows, p, o, c = shape
+        n = kf.fused_splits(*shape, dtype=torch.bfloat16)
+        assert kf.fused_grid_bf16(rows, p, o, n) == grid
+
+    @pytest.mark.parametrize("n", [0, 17, -1])
+    def test_rejects_out_of_range_split(self, n):
+        with pytest.raises(ValueError, match="n_split"):
+            kf.bf16_slices(512, 9, n)
+
+
 def _visible(length, s_len, window):
     """Keys that ``flash_decode_plain`` leaves visible, by its own mask."""
     ki = np.arange(s_len)

@@ -17,7 +17,10 @@ DCN-II at 224x224 with the same seeds, #1 from a 4-image ``run_graph``
 (batch_fused), #4 from one image through ``batched``, #5 from one image
 through ``per_tile`` (one tile) and from ``deformable_conv2d_pallas`` on
 the whole 14x14x512 plane; each is timed in float32 and, where the tree
-takes it, on the same values rounded to bf16. #8 is timed on random
+takes it, on the same values rounded to bf16 (its grid printed on a
+``GRID`` line), beside ``torch.matmul`` of its contraction in float32 and
+in bf16 (``matmul_f32`` / ``matmul_bf16`` keys; the bf16 one rounds the
+patch, so it is not the same function: a yardstick only). #8 is timed on random
 float32 operands at Qwen3-1.7B's decode shapes (B=4 S=512 and B=8
 S=32768, Hq=16 Hkv=8 D=128), and with ``round_kv`` under a bf16 q where
 the tree has it; over bf16 caches under a float32 and a bf16 q at
@@ -33,8 +36,9 @@ means of CUDA-event windows after an L2-evicting write
 ``flash`` or ``decode``.
 
 Prints the card's name and power limit, one ``PTXAS`` line per split-C,
-flash and decode kernel instantiation with its registers and spills,
-and one ``RESULT <src> {json}`` line of times in ms.
+bf16 DCN, flash and decode kernel instantiation with its registers and
+spills (and one per ptxas warning, a serialized wgmma among them), and
+one ``RESULT <src> {json}`` line of times in ms.
 """
 
 from __future__ import annotations
@@ -52,16 +56,21 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402  (puts the checkout's src on the path)
 
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
-_KERNEL = re.compile(r"(split_kernel|split_combine|decode_kernel|decode_bf16_kernel|"
-                     r"flash_kernel_bf16|flash_kernel)(I.*?E)Ev")
+_KERNEL = re.compile(r"(split_kernel|split_combine|bf16_kernel|decode_kernel|"
+                     r"decode_bf16_kernel|flash_kernel_bf16|flash_kernel)"
+                     r"(I.*?E)Ev")
 
 
 def ptxas_lines(build_log: str) -> list[str]:
     """``<kernel><template args> | <spills> | <registers>`` for each
-    split-C, flash and decode kernel entry of an ``nvcc -Xptxas -v``
-    log."""
+    split-C, bf16 DCN, flash and decode kernel entry of an ``nvcc -Xptxas
+    -v`` log, and every ptxas warning (a serialized wgmma among them)."""
     out, name, spill = [], None, ""
     for line in build_log.splitlines():
+        if "serialized" in line or ("warning" in line.lower()
+                                    and "ptxas" in line.lower()):
+            out.append(f"warning | {line.strip()}")
+            continue
         m = _ENTRY.search(line)
         if m:
             k = _KERNEL.search(m.group(1))
@@ -221,6 +230,18 @@ def main() -> int:
     res = {}
     for key, fn, a, kw, at in dcn_operands(torch, np) if want("dcn") else []:
         res[key] = cs.cuda_time_ms(lambda: fn(*a, **kw), args.iters)
+        # torch.matmul of the contraction, (output pixels, KK * C) by
+        # (KK * C, O), in float32 and in bf16.
+        w = a[at[1]]
+        idx = a[{"batch": 4, "sched": 3}.get(key, 1)]
+        rows = (a[1].shape[0] * idx.shape[1] if key == "batch"
+                else idx.numel() // (idx.shape[-2] * 4))
+        w2 = w.reshape(-1, w.shape[-1])
+        for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            patch = torch.randn(rows, w2.shape[0], device="cuda").to(dt)
+            wt = w2.to(dt)
+            res[f"matmul_{tag} {key}"] = cs.cuda_time_ms(
+                lambda: torch.matmul(patch, wt), args.iters)
         a16 = [t.to(torch.bfloat16) if i in at else t
                for i, t in enumerate(a)]
         try:
@@ -229,6 +250,7 @@ def main() -> int:
             continue
         res[key + "_bf16"] = cs.cuda_time_ms(lambda: fn(*a16, **kw),
                                              args.iters)
+        print(f"GRID {args.src} {key}_bf16 {fn.last_grid}")
     flash = [(f"flash_bf16 {name}", torch.bfloat16, shape, opts)
              for name, *shape, opts in cs.BF16_SIZES["flash"]]
     flash.append(("flash_f32 Qwen3-1.7B prefill", torch.float32,
