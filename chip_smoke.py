@@ -233,6 +233,27 @@ Phases, each fatal on failure:
               float32 cache, ``attention_decode`` on the card against the CPU
               path within 2**-7 * max|ref|, and #8's ``round_kv`` over a
               cache within 0.2 ulp of bf16 values against the bf16 cache.
+15. mesh    — the mesh's "model" axis on this card (a mesh that lists it
+              several times: no copy between devices, none measured).
+              15a: granite-moe-3b-a800m ``full()`` served by a
+              ``DecodeEngine(mesh=DeviceMesh.on("cuda:0", data=1,
+              model=16))`` (its ep, 3 experts a rank) in lockstep beside
+              an engine without a mesh on the same weights, 2 requests x
+              8 new tokens: each step's logits within 1e-4 * max|ref|,
+              tokens equal wherever the top-2 gap exceeds 1e-3 *
+              max|logits|, step p50 of both and #8 launches a step;
+              ``moe_apply(mesh=)`` over (2, 16) in both weight modes at
+              the decode shape against the unsharded call (nothing
+              drops) and the same call over the CPU mesh. 15b: Qwen3-1.7B
+              ``full()`` through ``build_step`` over
+              ``DeviceMesh.on("cuda:0", data=2, model=2)``: prefill 4 x
+              2048 (28 x 4 #7 launches, logits within 1e-3 * max|ref| of
+              the unsharded prefill), 16 decode steps from the prompts'
+              K/V (28 x 4 #8 launches a step, each on its rank's cache
+              tensor by data pointer; logits within 1e-4 * max|ref|),
+              tokens/s beside the unsharded path. 15c: ``python -m
+              repro_torch.launch.serve --arch granite-moe-3b-a800m`` on
+              ``make_host_mesh(1, 1)`` exits 0.
 
 Each path is driven with every kernel's launch count set to 0 just
 before it and read just after. The last lines are the card's name and
@@ -360,6 +381,16 @@ TRAIN_SIZES = dict(dcn_batch=16, dcn_steps=5, example_steps=300,
                    example_tail=50, example_limit=0.35, lm_arch="qwen3-1.7b",
                    lm_batch=1, lm_seq=512, lm_steps=3)
 GRAD_RTOL = 1e-5      # fused vs unfused gradients, norm-wise per tensor
+# Phase 15: the mesh's "model" axis on this one card (PERF.md §2 holds the
+# limits, written before its first run). 15a: granite served by a
+# DecodeEngine over a (1, 16) mesh beside an unsharded one, moe_apply held
+# over (2, 16); 15b: Qwen3-1.7B through build_step over (2, 2).
+MESH_SIZES = dict(granite="granite-moe-3b-a800m", ep_mesh=(1, 16),
+                  moe_mesh=(2, 16), requests=2, prompt_len=4, max_new=8,
+                  max_len=32, step_rtol=1e-4, gap_rtol=1e-3,
+                  qwen="qwen3-1.7b", tp_mesh=(2, 2), prefill=(4, 2048),
+                  decode_steps=16, decode_rtol=1e-4, held_step=4,
+                  aux_rtol=1e-5)
 # Device cycles the stream sleeps before each timed window, so the host
 # enqueues the window's launches while the device is still busy and the
 # events time the device work, not the host's launch overhead.
@@ -2802,6 +2833,353 @@ def bf16_cache_phase() -> None:
           f"(limit 1e-5*{sc:.3f}); without round_kv {moved:.3e}")
 
 
+def mesh_phase(card, reset_counts) -> None:
+    """Phase 15: the mesh's "model" axis, every shard on this card (a mesh
+    that lists it several times: no copy between devices happens, and none
+    is measured). 15a: granite-moe ``full()`` served by a
+    ``DecodeEngine(mesh=)`` over a (1, ep) mesh beside an unsharded engine
+    on the same weights, in lockstep; ``moe_apply(mesh=)`` over (2, ep) in
+    both weight modes. 15b: Qwen3-1.7B ``full()`` through ``build_step``
+    over (2, 2): prefill through #7 and decode through #8 on every rank's
+    slice. 15c: ``launch.serve`` on ``make_host_mesh(1, 1)``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import layers, lm, moe
+    from repro_torch.models.params import ShardedTree, param_bytes
+    from repro_torch.serving import DecodeEngine, Request
+
+    dev, sz, sync = torch.device("cuda"), MESH_SIZES, torch.cuda.synchronize
+
+    # -- 15a: expert parallelism ---------------------------------------------
+    torch.cuda.empty_cache()
+    cfg = configs.get_config(sz["granite"])
+    params = lm.init_lm(cfg, SEED, device=dev)
+    d_ep, m_ep = sz["ep_mesh"]
+    if m_ep != cfg.moe.ep:
+        fail(f"{cfg.name}: ep {cfg.moe.ep}, mesh model size {m_ep}")
+    mesh = DeviceMesh.on("cuda:0", data=d_ep, model=m_ep)
+    print(f"[mesh-ep] {cfg.name} full(): {param_bytes(params) / 1e9:.2f} GB "
+          f"of float32 params; {cfg.moe.n_experts_padded} padded experts, "
+          f"{cfg.moe.e_loc} a rank over DeviceMesh.on(cuda:0, data={d_ep}, "
+          f"model={m_ep})")
+    rng = np.random.default_rng(SEED + 15)
+    prompts = [rng.integers(0, cfg.vocab, size=sz["prompt_len"]).tolist()
+               for _ in range(sz["requests"])]
+    engines = {
+        name: DecodeEngine(params, cfg, batch=sz["requests"],
+                           max_len=sz["max_len"], device=dev, mesh=m)
+        for name, m in (("unsharded", None), ("mesh", mesh))}
+    for eng in engines.values():
+        for rid, prompt in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=list(prompt),
+                               max_new=sz["max_new"]))
+    logits_of, orig = {}, lm.lm_decode_step
+
+    def spy(p, c, cache, token, pos, ctx=None):
+        out = orig(p, c, cache, token, pos, ctx)
+        logits_of["mesh" if ctx else "unsharded"] = out[0]
+        return out
+
+    step_s = {name: [] for name in engines}
+    n8 = {name: [] for name in engines}
+    worst, resynced = 0.0, []
+    ref_eng, mesh_eng = engines["unsharded"], engines["mesh"]
+    # The mesh engine's #8 calls of its first and last attention layer at
+    # one step, held against the plain version after the run.
+    n_attn, held8 = attn_layers(cfg), []
+    ends = (0, n_attn - 1)
+
+    def keep8():
+        return fd.flash_decode.launches - 1 in ends
+
+    lm.lm_decode_step = spy
+    try:
+        while True:
+            active, before = {}, list(mesh_eng.slots)
+            for name, eng in engines.items():
+                held = name == "mesh" and eng.steps == sz["held_step"]
+                fd.flash_decode.launches = 0
+                t0 = time.perf_counter()
+                with recording(layers, "flash_decode", held8, keep=keep8) \
+                        if held else contextlib.nullcontext():
+                    active[name] = eng.step()
+                sync()
+                step_s[name].append(time.perf_counter() - t0)
+                n8[name].append(fd.flash_decode.launches)
+            ref = logits_of["unsharded"]
+            d, sc = hold(f"15a step {ref_eng.steps} logits (mesh engine vs "
+                         f"unsharded)", logits_of["mesh"], ref,
+                         sz["step_rtol"])
+            worst = max(worst, d / sc)
+            for i, req in enumerate(before):
+                got = int(mesh_eng.pending_tok[i].reshape(-1)[0])
+                want = int(ref_eng.pending_tok[i].reshape(-1)[0])
+                if req is None or got == want:
+                    continue
+                top = torch.topk(ref[i, 0], 2).values
+                gap = float(top[0] - top[1])
+                tol = sz["gap_rtol"] * float(ref[i, 0].abs().max())
+                if gap > tol:
+                    fail(f"15a step {ref_eng.steps} slot {i}: token {got} "
+                         f"vs {want} with top-2 gap {gap} > {tol}")
+                # A near tie: resynchronise, so the logits stay comparable.
+                mesh_eng.pending_tok[i] = want
+                req.out[-1] = want
+                resynced.append((ref_eng.steps, i, gap))
+            if active["unsharded"] != active["mesh"]:
+                fail(f"15a: {active} slots active after a step")
+            if active["unsharded"] == 0 and not ref_eng.queue:
+                break
+    finally:
+        lm.lm_decode_step = orig
+    outs = {name: {r.rid: r.out for r in eng.finished}
+            for name, eng in engines.items()}
+    if outs["mesh"] != outs["unsharded"] or len(outs["mesh"]) != len(prompts):
+        fail(f"15a tokens: {outs}")
+    if any(len(o) != sz["max_new"] for o in outs["mesh"].values()):
+        fail(f"15a: requests did not finish with max_new tokens: {outs}")
+    p50 = {name: float(np.percentile(v, 50)) * 1e3
+           for name, v in step_s.items()}
+    print(f"[mesh-ep] {card}: {len(prompts)} requests x {sz['max_new']} new "
+          f"tokens (prompts of {sz['prompt_len']}) in {ref_eng.steps} "
+          f"steps of batch {ref_eng.batch}; step p50 unsharded "
+          f"{p50['unsharded']:.2f} ms, mesh {p50['mesh']:.2f} ms; "
+          f"flash_decode launches a step {sorted(set(n8['unsharded']))} / "
+          f"{sorted(set(n8['mesh']))}; step logits max|d| {worst:.3e} of "
+          f"max|ref| (limit {sz['step_rtol']}); tokens equal"
+          + (f", resynchronised at near ties {resynced}" if resynced else ""))
+    if set(n8["mesh"]) != {n_attn}:
+        fail(f"15a: the mesh engine launched flash_decode {n8['mesh']} "
+             f"times a step, not {n_attn}")
+    if len(held8) != len(ends):
+        fail(f"15a: kept {len(held8)} flash_decode calls at step "
+             f"{sz['held_step']}, not {len(ends)}")
+    for layer, (a, _, _), (d, sc) in zip(ends, held8, hold_captured(
+            "15a flash_decode on the mesh engine's operands", held8,
+            fd.flash_decode_plain)):
+        print(f"[mesh-ep] flash_decode of the mesh engine at step "
+              f"{sz['held_step']}, attention layer {layer} of {n_attn} (q "
+              f"{tuple(a[0].shape)}, cache {tuple(a[1].shape)}, lengths "
+              f"{a[3].tolist()}) vs plain: max|d| {d:.3e} (limit "
+              f"{ATTN_RTOL}*{sc:.3f})")
+    del engines, ref_eng, mesh_eng, logits_of, held8
+
+    layer0 = {k: v[0] for k, v in params["layers"]["stack"]["b0"][
+        "moe"].items()}
+    on_cpu = {k: v.cpu() for k, v in layer0.items()}
+    x = torch.randn((sz["requests"], 1, cfg.d_model),
+                    generator=torch.Generator().manual_seed(SEED + 15))
+    d2, m2 = sz["moe_mesh"]
+    mesh2 = DeviceMesh.on("cuda:0", data=d2, model=m2)
+    cpu2 = DeviceMesh.on("cpu", data=d2, model=m2)
+    for mode in ("fsdp", "tp_f"):
+        mcfg = dataclasses.replace(cfg.moe, weight_mode=mode)
+        free = no_drops(dataclasses.replace(cfg, moe=mcfg)).moe
+        got, aux = moe.moe_apply(layer0, free, x.to(dev), mesh=mesh2)
+        want, aux_w = moe.moe_apply(layer0, free, x.to(dev))
+        d_free, sc = hold(f"15a moe_apply({mode}) over ({d2}, {m2}) vs "
+                          f"unsharded", got, want, sz["step_rtol"])
+        got, aux = moe.moe_apply(layer0, mcfg, x.to(dev), mesh=mesh2)
+        want, aux_c = moe.moe_apply(on_cpu, mcfg, x, mesh=cpu2)
+        d_cpu, _ = hold(f"15a moe_apply({mode}) over ({d2}, {m2}) vs the CPU "
+                        f"mesh", got.cpu(), want, sz["step_rtol"])
+        d_aux = abs(float(aux) - float(aux_c))
+        if not d_aux <= sz["aux_rtol"] * abs(float(aux_c)):
+            fail(f"15a moe_apply({mode}) aux {float(aux)} vs the CPU "
+                 f"mesh's {float(aux_c)}: |d| {d_aux} > {sz['aux_rtol']}"
+                 f"*|ref|")
+        print(f"[mesh-ep] moe_apply(weight_mode={mode}) of layer 0 at the "
+              f"decode shape {tuple(x.shape)} over DeviceMesh.on(cuda:0, "
+              f"data={d2}, model={m2}): vs unsharded (capacity factor "
+              f"{free.capacity_factor:g}, nothing drops) max|d| "
+              f"{d_free:.3e}; at the config's factor "
+              f"{mcfg.capacity_factor:g} vs the same call over the CPU mesh "
+              f"max|d| {d_cpu:.3e} (limit {sz['step_rtol']}*{sc:.3f}); aux "
+              f"{float(aux):.6f} vs {float(aux_c):.6f}, |d| {d_aux:.3e} "
+              f"(limit {sz['aux_rtol']}*|ref|)")
+    del params, layer0, on_cpu
+    torch.cuda.empty_cache()
+
+    # -- 15b: tensor parallelism ---------------------------------------------
+    cfg = dataclasses.replace(configs.get_config(sz["qwen"]), use_flash=True)
+    if cfg.prefix or len(cfg.pattern) != 1:
+        fail(f"15b expects one stacked block kind, got {cfg.pattern}")
+    params = lm.init_lm(cfg, SEED, device=dev)
+    d_tp, m_tp = sz["tp_mesh"]
+    mesh = DeviceMesh.on("cuda:0", data=d_tp, model=m_tp)
+    pb, plen = sz["prefill"]
+    steps = sz["decode_steps"]
+    pre = build_step(cfg, ShapeCell("p", "prefill", plen, pb), mesh,
+                     param_dtype=torch.float32)
+    dec = build_step(cfg, ShapeCell("d", "decode", plen + steps, pb), mesh,
+                     param_dtype=torch.float32)
+    placed = ShardedTree.place(params, pre.param_shardings, mesh)
+    rank = placed.shards[1][1]
+    blk = rank["layers"]["stack"]["b0"]
+    per_rank = dict(q_heads=blk["attn"]["wq"].shape[2],
+                    kv_heads=blk["attn"]["wk"].shape[2],
+                    mlp_columns=blk["mlp"]["w_up"].shape[2],
+                    vocab_rows=(rank["embed"].shape[1]))
+    want_rank = dict(q_heads=cfg.n_heads // m_tp,
+                     kv_heads=cfg.n_kv_heads // m_tp,
+                     mlp_columns=cfg.d_ff // m_tp,
+                     vocab_rows=cfg.vocab // m_tp)
+    if per_rank != want_rank:
+        fail(f"15b rank (1, 1) holds {per_rank}, expected {want_rank}")
+    print(f"[mesh-tp] {cfg.name} full() over DeviceMesh.on(cuda:0, "
+          f"data={d_tp}, model={m_tp}): each rank holds {per_rank} (views "
+          f"of the {param_bytes(params) / 1e9:.2f} GB of float32 params: "
+          f"one card)")
+    prng = np.random.default_rng(SEED + 6)
+    toks = torch.as_tensor(prng.integers(0, cfg.vocab, size=(pb, plen))
+                           .astype(np.int32), device=dev)
+    pre.fn(placed, {"tokens": toks[:, :64]})                    # warm-up
+    sync()
+    # #7's calls of the first and the last layer (every row and rank),
+    # held against the plain version after the run.
+    n_rk, ends = d_tp * m_tp, (0, cfg.n_layers - 1)
+    held7 = []
+    reset_counts()
+    t0 = time.perf_counter()
+    with recording(layers, "flash_attention", held7, keep=lambda: (
+            (fa.flash_attention.launches - 1) // n_rk in ends)):
+        got = pre.fn(placed, {"tokens": toks})
+    sync()
+    wall = time.perf_counter() - t0
+    n7 = fa.flash_attention.launches
+    if n7 != cfg.n_layers * d_tp * m_tp:
+        fail(f"15b prefill launched flash_attention {n7} times, not "
+             f"{cfg.n_layers} x {d_tp * m_tp}")
+    kv, orig7 = [], layers.flash_attention
+
+    def keep_kv(q, k, v, **kw):
+        kv.append((k, v))
+        return orig7(q, k, v, **kw)
+
+    layers.flash_attention = keep_kv
+    try:
+        t0 = time.perf_counter()
+        ref = lm.lm_prefill(params, cfg, {"tokens": toks})
+        sync()
+        wall_ref = time.perf_counter() - t0
+    finally:
+        layers.flash_attention = orig7
+    d, sc = hold("15b prefill logits (build_step over the mesh vs "
+                 "unsharded)", got, ref, LOGIT_RTOL)
+    print(f"[mesh-tp] {card}: prefill {pb} x {plen} tokens through {n7} "
+          f"flash_attention launches ({cfg.n_layers} layers x {d_tp} rows x "
+          f"{m_tp} ranks) in {wall * 1e3:.1f} ms = {pb * plen / wall:.0f} "
+          f"tokens/s (unsharded {wall_ref * 1e3:.1f} ms = "
+          f"{pb * plen / wall_ref:.0f} tokens/s); logits max|d| {d:.3e} "
+          f"(limit {LOGIT_RTOL}*{sc:.3f})")
+    if len(held7) != len(ends) * n_rk:
+        fail(f"15b: kept {len(held7)} prefill calls of flash_attention, not "
+             f"{len(ends) * n_rk}")
+    for n, ((a, k, _), (d, sc)) in enumerate(zip(held7, hold_captured(
+            "15b flash_attention on a rank's prefill operands", held7,
+            fa.flash_attention_plain))):
+        print(f"[mesh-tp] flash_attention at layer {ends[n // n_rk]} of "
+              f"{cfg.n_layers}, row {n % n_rk // m_tp} rank {n % m_tp} (q "
+              f"{tuple(a[0].shape)}, k {tuple(a[1].shape)}, {k}) vs plain: "
+              f"max|d| {d:.3e} (limit {ATTN_RTOL}*{sc:.3f})")
+    del held7
+
+    # The cache of the prompts: each layer's K / V as the prefill made them.
+    cache = lm.init_cache(cfg, pb, plen + steps, dtype=torch.float32,
+                          device=dev)
+    for r, (k, v) in enumerate(kv):
+        cache["stack"]["b0"]["mix"]["k"][r, :, :plen] = k
+        cache["stack"]["b0"]["mix"]["v"][r, :, :plen] = v
+    del kv
+    tok = torch.argmax(ref[:, 0], -1, keepdim=True).to(torch.int32)
+    pos = torch.full((pb,), plen, dtype=torch.int32, device=dev)
+    ptrs, orig8, sharded_call = set(), layers.flash_decode, [False]
+
+    def spy8(q, kc, vc, *a, **kw):
+        if sharded_call[0]:
+            ptrs.update([kc.data_ptr(), vc.data_ptr()])
+        return orig8(q, kc, vc, *a, **kw)
+
+    placed_cache, worst, t_tp, t_ref, n8 = cache, 0.0, [], [], set()
+    held8, held_at = [], (0, steps - 1)
+    layers.flash_decode = spy8
+    try:
+        for step in range(steps):
+            fd.flash_decode.launches = 0
+            sharded_call[0] = True
+            t0 = time.perf_counter()
+            with recording(layers, "flash_decode", held8, keep=lambda: (
+                    (fd.flash_decode.launches - 1) // n_rk in ends)) \
+                    if step in held_at else contextlib.nullcontext():
+                got, placed_cache = dec.fn(placed, placed_cache, tok, pos)
+            sync()
+            t_tp.append(time.perf_counter() - t0)
+            sharded_call[0] = False
+            n8.add(fd.flash_decode.launches)
+            t0 = time.perf_counter()
+            want, cache = lm.lm_decode_step(params, cfg, cache, tok, pos)
+            sync()
+            t_ref.append(time.perf_counter() - t0)
+            d, sc = hold(f"15b decode step {step} logits", got, want,
+                         sz["decode_rtol"])
+            worst = max(worst, d / sc)
+            tok = torch.argmax(want[:, 0], -1, keepdim=True).to(torch.int32)
+            pos = pos + 1
+    finally:
+        layers.flash_decode = orig8
+    own = cache_kv_ptrs(placed_cache.shards)
+    n_tp = cfg.n_layers * d_tp * m_tp
+    if n8 != {n_tp} or not ptrs <= own:
+        fail(f"15b: flash_decode launches a step {n8} (expected {n_tp}), "
+             f"{len(ptrs - own)} cache pointers not the rank caches'")
+    p50_tp = float(np.percentile(t_tp, 50))
+    p50_ref = float(np.percentile(t_ref, 50))
+    print(f"[mesh-tp] {card}: {steps} decode steps of batch {pb} from the "
+          f"{plen}-token prompts: {n_tp} flash_decode launches a step, each "
+          f"on its rank's cache slice (data pointers of the ShardedCache, "
+          f"no copy); step p50 {p50_tp * 1e3:.2f} ms = {pb / p50_tp:.1f} "
+          f"tokens/s (unsharded {p50_ref * 1e3:.2f} ms = "
+          f"{pb / p50_ref:.1f} tokens/s; no gain is claimed: one card); "
+          f"logits max|d| {worst:.3e} of max|ref| (limit "
+          f"{sz['decode_rtol']})")
+    if len(held8) != len(held_at) * len(ends) * n_rk:
+        fail(f"15b: kept {len(held8)} decode calls of flash_decode, not "
+             f"{len(held_at) * len(ends) * n_rk}")
+    for n, ((a, _, _), (d, sc)) in enumerate(zip(held8, hold_captured(
+            "15b flash_decode on a rank's cache slice", held8,
+            fd.flash_decode_plain))):
+        at = n // (len(ends) * n_rk)
+        print(f"[mesh-tp] flash_decode at step {held_at[at]}, layer "
+              f"{ends[n // n_rk % len(ends)]} of {cfg.n_layers}, row "
+              f"{n % n_rk // m_tp} rank {n % m_tp} (q {tuple(a[0].shape)}, "
+              f"cache {tuple(a[1].shape)}, lengths {a[3].tolist()}) vs "
+              f"plain: max|d| {d:.3e} (limit {ATTN_RTOL}*{sc:.3f})")
+    del params, placed, placed_cache, cache, ref, got, want, held8
+    torch.cuda.empty_cache()
+
+    # -- 15c: launch.serve on make_host_mesh(1, 1) ----------------------------
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         sz["granite"]], env=env, capture_output=True, text=True,
+        timeout=600, cwd=ROOT)
+    if proc.returncode != 0:
+        fail(f"15c: launch.serve exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    print(f"[mesh-serve] python -m repro_torch.launch.serve --arch "
+          f"{sz['granite']} (smoke config, make_host_mesh(1, 1)) exited 0 "
+          f"in {time.perf_counter() - t0:.1f} s: "
+          + proc.stdout.strip().splitlines()[0])
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4175,6 +4553,9 @@ def main() -> int:
 
     # -- phase 14c: a bf16 model over a float32 cache (#8 round_kv) ---------
     bf16_cache_phase()
+
+    # -- phase 15: the mesh's "model" axis on this card -----------------------
+    mesh_phase(card, reset_counts)
 
     def bounds(kd):
         kd.update(bound_of(kd.pop("ops"), kd.pop("bytes")))

@@ -5,7 +5,12 @@ decode engine on it.
 
 Serves the arch's smoke config with random weights from ``--seed``, as
 the JAX package's serve script does; prompts are drawn with numpy from
-``--seed``. Runs on the card unless ``--device cpu``. A cross-attention
+``--seed``. Runs on the card unless ``--device cpu``. As the JAX script,
+it builds a (1, 1) mesh (``make_host_mesh(1, 1)`` on the card,
+``DeviceMesh.on("cpu")`` under ``--device cpu``) and hands it to the
+engine (``DecodeEngine(mesh=)``), so the MoE blocks run through the
+expert-parallel path; a config whose ``ep`` is not 1 would need a larger
+mesh, and the smoke configs have ``ep == 1``. A cross-attention
 arch (llama-3.2-vision) is served, as by the JAX script, with its cross
 cache left at zero (no image), and the script says so.
 
@@ -28,6 +33,8 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch._device import resolve_device
+from repro_torch.launch.mesh import DeviceMesh, make_host_mesh
 from repro_torch.models import lm
 from repro_torch.serving import DecodeEngine, Request
 
@@ -45,8 +52,12 @@ def main(argv=None):
 
     cfg = configs.get_config(args.arch, smoke=True)
     params = lm.init_lm(cfg, args.seed, device=args.device)
+    mesh = make_host_mesh(1, 1) \
+        if resolve_device(args.device).type == "cuda" \
+        else DeviceMesh.on(args.device)
     engine = DecodeEngine(params, cfg, batch=args.batch,
-                          max_len=args.max_len, device=args.device)
+                          max_len=args.max_len, mesh=mesh,
+                          device=args.device)
     if cfg.d_cross:
         print(f"[serve] {cfg.name}: no image states given; the cross "
               f"layers decode against a zero cross cache (fill it with "

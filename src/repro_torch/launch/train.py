@@ -40,10 +40,10 @@ from repro_torch.models.dcn_models import (DcnNetConfig, dcn_net_apply,
                                            init_dcn_net)
 from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
 
-_PARALLEL_ITEM = ("data- and model-parallel training are not ported yet "
-                  "(ROADMAP.md §1: the DecodeEngine(mesh=) and "
-                  "data-parallel training item, and the launch/sharding "
-                  "item)")
+_PARALLEL_ITEM = ("data- and model-parallel training are not ported yet: "
+                  "training over a mesh is the next slice (ROADMAP.md §1 "
+                  "item 5: build_step(kind='train') past (1, 1), "
+                  "compressed_psum_tree, the elastic re-mesh)")
 
 
 def train_loop(cfg, shape: ShapeCell, *, steps: int = 20,

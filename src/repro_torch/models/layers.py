@@ -24,6 +24,16 @@ embedding. Its train form attends non-causally over every state (the
 flash kernel with ``causal=False``); its decode form reads a static cache
 of the states' K/V (``lm.build_cross_cache``) and never writes it.
 
+Tensor-parallel forms (:func:`attention_train_tp`,
+:func:`attention_decode_tp`, :func:`mlp_tp`) take one entry a model rank:
+the rank's slice of the params (its query heads and kv heads, or its MLP
+columns) and its device. Each rank computes its partial of the output
+projection (or of the down projection) on its own device, and the
+partials are summed onto x's device: the all-reduce after attention and
+after the MLP. Where the query heads split but the kv heads do not, a rank
+reads the kv heads its query heads map to (:func:`kv_heads_of`), so the
+GQA groups stay right.
+
 MLA has the same pair: :func:`mla_train` concatenates the nope and rope
 parts and runs ``sdpa_any`` (its qk dim 192 and unequal v dim are not
 shapes the flash kernel takes, and the JAX package runs no kernel there
@@ -296,6 +306,69 @@ def attention_train(p, cfg: AttnConfig, x, *, positions=None, kv_src=None,
     return _out_proj(out, p["wo"])
 
 
+def kv_heads_of(n_heads: int, n_kv_heads: int, model: int,
+                rank: int) -> tuple[int, int]:
+    """[lo, hi): the kv heads the query heads of ``rank`` read when the
+    model axis splits ``n_heads`` query heads ``model`` ways."""
+    g = n_heads // n_kv_heads
+    q0, q1 = rank * n_heads // model, (rank + 1) * n_heads // model
+    return q0 // g, (q1 - 1) // g + 1
+
+
+def _rank_attn(p, cfg: AttnConfig, rank: int, model: int):
+    """Rank ``rank``'s params and config: ``p`` holds its query heads and
+    either its kv heads or all of them, which are cut here to the ones
+    its query heads read."""
+    hq = p["wq"].shape[1]
+    lo, hi = kv_heads_of(cfg.n_heads, cfg.n_kv_heads, model, rank)
+    if p["wk"].shape[1] == cfg.n_kv_heads and hi - lo != cfg.n_kv_heads:
+        p = {**p, "wk": p["wk"][:, lo:hi], "wv": p["wv"][:, lo:hi]}
+    hkv = hi - lo
+    g = cfg.n_heads // cfg.n_kv_heads
+    if p["wk"].shape[1] != hkv or (hkv > 1 and (
+            hq % g or (rank * hq) % g)):
+        raise ValueError(
+            f"rank {rank} of {model}: {hq} query heads over kv heads "
+            f"[{lo}, {hi}) of {cfg.n_kv_heads} are not whole GQA groups")
+    return p, dataclasses.replace(cfg, n_heads=hq, n_kv_heads=hkv)
+
+
+def _sum_onto(parts, device):
+    out = None
+    for y in parts:
+        y = y.to(device)
+        out = y if out is None else out + y
+    return out
+
+
+def attention_train_tp(ranks, cfg: AttnConfig, x, *, kv_src=None,
+                       use_flash: bool = False):
+    """:func:`attention_train` split over the model ranks ``ranks``, a
+    list of (params slice, device) (see the module docstring)."""
+    def part(r, p, dev):
+        p, lcfg = _rank_attn(p, cfg, r, len(ranks))
+        return attention_train(
+            p, lcfg, x.to(dev), use_flash=use_flash,
+            kv_src=None if kv_src is None else kv_src.to(dev))
+    return _sum_onto((part(r, p, dev) for r, (p, dev) in enumerate(ranks)),
+                     x.device)
+
+
+def attention_decode_tp(ranks, cfg: AttnConfig, x, pos):
+    """:func:`attention_decode` split over the model ranks ``ranks``, a
+    list of (params slice, device, cache): each rank's cache holds its kv
+    heads on its device and takes its new row in place."""
+    def part(r, p, dev, cache):
+        p, lcfg = _rank_attn(p, cfg, r, len(ranks))
+        if cache["k"].shape[2] != lcfg.n_kv_heads:
+            raise ValueError(f"rank {r}'s cache holds {cache['k'].shape[2]} "
+                             f"kv heads, its query heads read "
+                             f"{lcfg.n_kv_heads}")
+        return attention_decode(p, lcfg, x.to(dev), cache, pos.to(dev))[0]
+    return _sum_onto((part(r, *rank) for r, rank in enumerate(ranks)),
+                     x.device)
+
+
 def init_kv_cache(cfg: AttnConfig, batch: int, max_len: int, *,
                   dtype=torch.bfloat16, device="cpu", lead=()):
     shape = (*lead, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
@@ -513,6 +586,13 @@ def init_mlp(mk: Maker, cfg: MlpConfig):
 
 def _gelu(x):
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+
+
+def mlp_tp(ranks, cfg: MlpConfig, x):
+    """:func:`mlp` split over the model ranks ``ranks``, a list of
+    (params slice, device), each holding its columns of the up and gate
+    projections and its rows of the down projection."""
+    return _sum_onto((mlp(p, cfg, x.to(dev)) for p, dev in ranks), x.device)
 
 
 def mlp(p, cfg: MlpConfig, x):

@@ -7,10 +7,21 @@ Entry points:
                                               shapes only)
   make_lm(mk, cfg)                            the same tree from any Maker
   lm_loss(params, cfg, batch)                 -> (loss, metrics)
-  lm_prefill(params, cfg, batch)              last-position logits
+  lm_prefill(params, cfg, batch, ctx)         last-position logits
   init_cache(cfg, batch, max_len, ...)        the decode cache
   build_cross_cache(params, cfg, cache, states) the cross layers' K/V
-  lm_decode_step(params, cfg, cache, token, pos) -> (logits, cache)
+  lm_decode_step(params, cfg, cache, token, pos, ctx) -> (logits, cache)
+
+``ctx`` is the JAX package's dict: ``{"mesh": DeviceMesh}`` runs the MoE
+blocks expert-parallel over the mesh. Params placed on a mesh (a
+``ShardedTree``, ``launch.steps.build_step``) run tensor-parallel
+(``models.transformer``): the batch splits over the data rows, the
+embedding and the logits are vocab-parallel where the specs split the
+vocabulary (a rank looks up only its rows, masking the tokens outside
+them, and the lookups are summed; each rank's logits slice is gathered),
+an FSDP-split d_model is gathered onto the row's device at its use, and
+the logits are assembled on ``mesh.device(0, 0)``. Decode then reads a
+``transformer.ShardedCache`` (``init_cache(mesh=)``).
 
 Multi-codebook tokens (musicgen), tied embeddings, ``emb_scale``,
 ``logits_scale`` and the final soft-cap follow the JAX package. The tied
@@ -48,12 +59,13 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.models.layers import make_norm
-from repro_torch.models.params import Maker, make_generator
+from repro_torch.models.params import Maker, ShardedTree, make_generator
 from repro_torch.models.transformer import (BlockSpec, ModelConfig,
                                             apply_layers_decode,
                                             apply_layers_train, block_train,
                                             init_block, init_layer_caches,
-                                            init_layers, layer_slices)
+                                            init_layers, layer_slices,
+                                            maybe_constrain, shard_cache)
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda",
@@ -94,8 +106,21 @@ def make_lm(mk: Maker, cfg: ModelConfig):
     return p
 
 
+def _rows(p, t):
+    """``t`` split into the data rows of the mesh ``p`` is placed on
+    (``transformer.maybe_constrain``); ``t`` itself for params that are
+    not placed, or None."""
+    if t is None or not isinstance(p, ShardedTree):
+        return t
+    return maybe_constrain(t, {"mesh": p.mesh})
+
+
 def _embed(p, cfg: ModelConfig, tokens):
-    """tokens: (B, S) int or (B, S, n_cb) -> (B, S, D)."""
+    """tokens: (B, S) int or (B, S, n_cb) -> (B, S, D); of params placed
+    on a mesh, the list of its data rows' embeddings."""
+    if isinstance(p, ShardedTree):
+        return [_embed_row(p, cfg, t, i)
+                for i, t in enumerate(_rows(p, tokens))]
     table = p["embed"]
     tokens = tokens.long()
     if cfg.n_codebooks == 1:
@@ -109,19 +134,79 @@ def _embed(p, cfg: ModelConfig, tokens):
     return x
 
 
-def _logits(p, cfg: ModelConfig, x):
-    """x: (..., D) -> (..., n_cb, V) fp32."""
-    if cfg.tie_embeddings:
-        heads = [p["embed"][c].t() for c in range(cfg.n_codebooks)]
-    else:
-        heads = [p["head"][c] for c in range(cfg.n_codebooks)]
-    logits = torch.stack([torch.matmul(x, w.to(x.dtype)) for w in heads],
-                         dim=-2).float()
+def _embed_row(p: ShardedTree, cfg: ModelConfig, tokens, i: int):
+    """Row i's embedding, vocab-parallel where the spec splits the
+    vocabulary: rank r looks up the tokens in its rows and zeroes the
+    others, and the lookups are summed onto the row's device."""
+    emb = p["embed"]
+    m = emb.mesh.shape["model"]
+    split = emb.specs[1] == "model"
+    tokens = tokens.long()
+    if cfg.n_codebooks == 1 and tokens.dim() == 3:
+        tokens = tokens[..., 0]
+    out = None
+    for r in range(m if split else 1):
+        table = emb.local(i, r)                      # (n_cb, V_r, D)
+        vr = table.shape[1]
+        t = tokens.to(table.device) - r * vr
+        valid = (t >= 0) & (t < vr)
+        t = t.clamp(0, vr - 1)
+        if cfg.n_codebooks == 1:
+            x = table[0][t] * valid[..., None]
+        else:
+            x = sum(table[c][t[..., c]] * valid[..., c, None]
+                    for c in range(cfg.n_codebooks))
+        x = x.to(tokens.device)
+        out = x if out is None else out + x
+    if cfg.emb_scale:
+        out = out * math.sqrt(cfg.d_model)
+    return out
+
+
+def _finish_logits(cfg: ModelConfig, logits):
+    logits = logits.float()
     if cfg.logits_scale is not None:
         logits = logits / cfg.logits_scale
     if cfg.final_softcap is not None:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
     return logits
+
+
+def _logits_sharded(p: ShardedTree, cfg: ModelConfig, xs):
+    """The rows' logits (B_i, n_cb, V), vocab-parallel where the spec
+    splits the vocabulary: each rank's slice is gathered onto
+    ``mesh.device(0, 0)``, where the rows are assembled."""
+    tied = cfg.tie_embeddings
+    w = p["embed"] if tied else p["head"]
+    mesh = w.mesh
+    vdim = 1 if tied else 2
+    split = w.specs[vdim] == "model"
+    out = mesh.device(0, 0)
+    rows = []
+    for i, x in enumerate(xs):
+        parts = []
+        for r in range(mesh.shape["model"] if split else 1):
+            t = w.local(i, r)
+            xr = x.to(t.device)
+            heads = [t[c].t() if tied else t[c]
+                     for c in range(cfg.n_codebooks)]
+            parts.append(torch.stack([torch.matmul(xr, h.to(xr.dtype))
+                                      for h in heads], dim=-2).to(out))
+        rows.append(torch.cat(parts, dim=-1))
+    return _finish_logits(cfg, torch.cat(rows, 0))
+
+
+def _logits(p, cfg: ModelConfig, x):
+    """x: (..., D) -> (..., n_cb, V) fp32; of params placed on a mesh, x
+    lists the data rows."""
+    if isinstance(p, ShardedTree):
+        return _logits_sharded(p, cfg, x)
+    if cfg.tie_embeddings:
+        heads = [p["embed"][c].t() for c in range(cfg.n_codebooks)]
+    else:
+        heads = [p["head"][c] for c in range(cfg.n_codebooks)]
+    return _finish_logits(cfg, torch.stack(
+        [torch.matmul(x, w.to(x.dtype)) for w in heads], dim=-2))
 
 
 def _xent(logits, labels):
@@ -172,27 +257,46 @@ def lm_loss(p, cfg: ModelConfig, batch):
     return loss, metrics
 
 
+def _last(p, cfg: ModelConfig, x):
+    """The final norm of x's last position (of each data row's, for
+    params placed on a mesh)."""
+    _, norm = make_norm(cfg.norm)
+    if isinstance(p, ShardedTree):
+        return [norm(p["final_norm"].whole(i), r[:, -1])
+                for i, r in enumerate(x)]
+    return norm(p["final_norm"], x[:, -1])
+
+
 @torch.no_grad()
-def lm_prefill(p, cfg: ModelConfig, batch):
+def lm_prefill(p, cfg: ModelConfig, batch, ctx=None):
     """Forward the full prompt ``batch["tokens"]`` (B, S[, n_cb]) and return
     the last position's logits (B, n_cb, V); a cross-attention model reads
     ``batch["cross_states"]``. With ``cfg.use_flash`` every attention layer
     runs the flash kernel (a cross layer non-causally). Prefill is
     inference: it runs under ``torch.no_grad()``, so ``cfg.remat`` and the
     recurrent blocks' chunk checkpoints (training only) keep no
-    activations here."""
+    activations here. ``p`` placed on a mesh runs tensor-parallel (module
+    docstring)."""
     x = _embed(p, cfg, batch["tokens"])
-    x, _ = apply_layers_train(p["layers"], cfg, x,
-                              cross_states=batch.get("cross_states"))
-    _, norm = make_norm(cfg.norm)
-    x = norm(p["final_norm"], x[:, -1])
-    return _logits(p, cfg, x)
+    x, _ = apply_layers_train(p["layers"], cfg, x, ctx=ctx,
+                              cross_states=_rows(p, batch.get(
+                                  "cross_states")))
+    return _logits(p, cfg, _last(p, cfg, x))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               dtype=torch.bfloat16, device="cuda"):
-    return init_layer_caches(cfg, batch, max_len, dtype=dtype,
-                             device=resolve_device(device))
+               dtype=torch.bfloat16, device="cuda", mesh=None):
+    """The decode cache on ``device``; with a ``mesh``, a
+    ``ShardedCache`` over it, split by kv heads as the default sharding
+    rules place the query heads (split when the model size divides
+    ``n_heads``)."""
+    if mesh is None:
+        return init_layer_caches(cfg, batch, max_len, dtype=dtype,
+                                 device=resolve_device(device))
+    whole = init_layer_caches(cfg, batch, max_len, dtype=dtype,
+                              device=mesh.device(0, 0))
+    return shard_cache(cfg, whole, mesh,
+                       cfg.n_heads % mesh.shape["model"] == 0)
 
 
 @torch.no_grad()
@@ -221,14 +325,13 @@ def build_cross_cache(p, cfg: ModelConfig, cache, cross_states):
     return cache
 
 
-def lm_decode_step(p, cfg: ModelConfig, cache, token, pos):
+def lm_decode_step(p, cfg: ModelConfig, cache, token, pos, ctx=None):
     """One decode step; ``cache`` is updated in place.
 
     token: (B, 1) or (B, 1, n_cb) int; pos: (B,) int current position.
-    -> (logits (B, n_cb, V) fp32, cache)
-    """
+    -> (logits (B, n_cb, V) fp32, cache). ``p`` placed on a mesh runs
+    tensor-parallel against the ``ShardedCache`` ``cache``."""
     x = _embed(p, cfg, token)
-    x, cache = apply_layers_decode(p["layers"], cfg, x, cache, pos)
-    _, norm = make_norm(cfg.norm)
-    x = norm(p["final_norm"], x[:, -1])
-    return _logits(p, cfg, x), cache
+    x, cache = apply_layers_decode(p["layers"], cfg, x, cache,
+                                   _rows(p, pos), ctx)
+    return _logits(p, cfg, _last(p, cfg, x)), cache

@@ -1,5 +1,6 @@
 """Mixture-of-Experts MLP: routing, capacity-slot dispatch, the batched
-expert FFN and the gated combine.
+expert FFN and the gated combine, on one device or expert-parallel over a
+mesh's "model" axis.
 
 Dispatch is the JAX package's gather/scatter into static *capacity slots*
 (no dense one-hot dispatch product): each (token, k) pair gets a position
@@ -8,13 +9,30 @@ within its expert by a per-``k`` cumulative count, pairs past the capacity
 runs as one batched product over all ``(E, cap)`` slots, and the kept
 pairs' outputs are gathered back and summed with their gates in float32.
 
-On one device the port computes what the JAX package computes over a
-(data=1, model=ep) mesh: every padded expert at once, with ``cap`` counted
-from ``n_experts_padded``. A slot's position is counted per expert, so it
-does not depend on which rank owns the expert, and the sum of the ranks'
-partial outputs is this single computation. The JAX local path
-(``mesh=None``) asserts ``ep == 1`` instead; the port accepts any ``ep``
-(ROADMAP.md §3, deliberate differences). A mesh is not ported yet.
+On one device (``mesh=None``) the port computes what the JAX package
+computes over a (data=1, model=ep) mesh: every padded expert at once, with
+``cap`` counted from ``n_experts_padded``. A slot's position is counted per
+expert, so it does not depend on which rank owns the expert, and the sum
+of the ranks' partial outputs is this single computation. The JAX local
+path asserts ``ep == 1`` instead; the port accepts any ``ep`` (ROADMAP.md
+§3, deliberate differences).
+
+Over a mesh (``mesh=``, a ``launch.mesh.DeviceMesh`` whose model size must
+be ``ep``) the port runs the JAX ``shard_map`` body rank by rank from one
+controller: rank r owns experts ``[r * e_loc, (r + 1) * e_loc)``, and
+rank (i, r) runs on ``mesh.device(i, r)``.
+
+* ``weight_mode="fsdp"``: tokens split over the data rows (the batch
+  whole on one row when it does not divide), ``cap`` counted from the
+  row's own tokens, the rank's experts gathered whole over "data" (FSDP)
+  onto its device, partials summed over "model" onto the row's device.
+* ``weight_mode="tp_f"``: every rank sees every token; the weights stay
+  in place, each data row holding a slice of the expert FFN width, and
+  the partials are summed over (data, model).
+
+A shared expert runs tensor-parallel over "model" (each rank its slice of
+the shared FFN's columns). ``aux`` is the mean over shards of each
+shard's own load-balancing term (the JAX ``pmean``).
 
 There is no hand-written kernel here, as there is no Pallas kernel in the
 JAX package's MoE: the expert products are ``torch.bmm`` and the dispatch
@@ -137,56 +155,195 @@ def capacity(cfg: MoeConfig, tokens: int) -> int:
                       * cfg.capacity_factor))
 
 
-def _moe_core(p, cfg: MoeConfig, x):
-    """x: (B, S, D) -> (out (B, S, D), aux) over all padded experts."""
-    b, s, d = x.shape
-    t = b * s
-    x_flat = x.reshape(t, d)
-    gates, eids, aux = _route(p, cfg, x_flat)
-
-    e = cfg.n_experts_padded
+def _routed(w, cfg: MoeConfig, x_flat, gates, eids, lo: int):
+    """The experts ``[lo, lo + n)`` of ``w`` (n = ``w["w_gate"].shape[0]``)
+    over x_flat (T, D) -> their float32 partial output (T, D)."""
+    t, d = x_flat.shape
+    n_loc = w["w_gate"].shape[0]
     cap = capacity(cfg, t)
-    n_slots = e * cap
-    x_slots = x.new_zeros((n_slots + 1, d))          # last row = drop bin
+    n_slots = n_loc * cap
+    x_slots = x_flat.new_zeros((n_slots + 1, d))     # last row = drop bin
     slot_of, keep_of = [], []
     # Per-k dispatch keeps transients at (T, D) instead of (T*K, D).
-    occupancy = torch.zeros((e,), dtype=torch.int64, device=x.device)
+    occupancy = torch.zeros((n_loc,), dtype=torch.int64,
+                            device=x_flat.device)
+    every = n_loc == cfg.n_experts_padded   # one device: no mask needed
     for k in range(cfg.top_k):
         le = eids[:, k]                                        # (T,)
-        onehot = F.one_hot(le, e)                              # (T, E)
+        if every:
+            onehot = F.one_hot(le, n_loc)                      # (T, E)
+        else:
+            local = (le >= lo) & (le < lo + n_loc)
+            le = (le - lo).clamp(0, n_loc - 1)
+            onehot = F.one_hot(le, n_loc) * local[:, None]     # (T, E_loc)
         pos = torch.cumsum(onehot, dim=0) - 1
         pos_k = torch.take_along_dim(pos, le[:, None], dim=1)[:, 0]
         pos_k = pos_k + occupancy[le]
         occupancy = occupancy + onehot.sum(0)
-        keep = pos_k < cap
+        keep = pos_k < cap if every else local & (pos_k < cap)
         slot = torch.where(keep, le * cap + pos_k, n_slots)
         x_slots = x_slots.index_add(
             0, slot, torch.where(keep[:, None], x_flat, 0.0))
         slot_of.append(slot)
         keep_of.append(keep)
 
-    y_slots = _expert_ffn(x_slots[:n_slots].reshape(e, cap, d),
-                          p["w_gate"], p["w_up"], p["w_down"])
+    y_slots = _expert_ffn(x_slots[:n_slots].reshape(n_loc, cap, d),
+                          w["w_gate"], w["w_up"], w["w_down"])
     y_slots = torch.cat([y_slots.reshape(n_slots, d),
                          y_slots.new_zeros((1, d))], 0)
 
-    y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    y = torch.zeros((t, d), dtype=torch.float32, device=x_flat.device)
     for k in range(cfg.top_k):
         contrib = y_slots[slot_of[k]].float()
-        w = torch.where(keep_of[k], gates[:, k], 0.0)
-        y = y + contrib * w[:, None]
-    out = y.to(x.dtype).reshape(b, s, d)
+        wk = torch.where(keep_of[k], gates[:, k], 0.0)
+        y = y + contrib * wk[:, None]
+    return y
 
+
+def _shared(p, cfg: MoeConfig, x):
+    return mlp(p, MlpConfig(cfg.d_model, p["w_up"].shape[1]), x)
+
+
+def _moe_core(p, cfg: MoeConfig, x):
+    """x: (B, S, D) -> (out (B, S, D), aux) over all padded experts."""
+    b, s, d = x.shape
+    x_flat = x.reshape(b * s, d)
+    gates, eids, aux = _route(p, cfg, x_flat)
+    out = _routed(p, cfg, x_flat, gates, eids, 0).to(x.dtype)
+    out = out.reshape(b, s, d)
     if cfg.n_shared:
-        out = out + mlp(p["shared"], MlpConfig(d, cfg.d_ff * cfg.n_shared), x)
+        out = out + _shared(p["shared"], cfg, x)
     return out, aux
 
 
+def _batch_rows(batch: int, data: int) -> list[tuple[int, int]]:
+    """The batch rows of each data row: ``data`` equal runs, or the whole
+    batch on one row when ``data`` does not divide it (the JAX rule:
+    tokens replicate over a data axis that does not divide the batch)."""
+    if batch % data:
+        return [(0, batch)]
+    n = batch // data
+    return [(i * n, (i + 1) * n) for i in range(data)]
+
+
+def _rank_weights(p, cfg: MoeConfig, mesh, i: int, r: int, f_split: int):
+    """Rank (i, r)'s expert weights on ``mesh.device(i, r)``: its
+    ``e_loc`` experts (whole in d_model), and under ``tp_f`` data row i's
+    slice of the FFN width (``f_split`` slices); and its slice of the
+    shared expert's columns. ``p`` is the whole tree or a placed
+    ``ShardedTree``, whose ``local`` gathers the FSDP-split d_model."""
+    dev = mesh.device(i, r)
+    m = mesh.shape["model"]
+    if isinstance(p, dict):
+        def get(t):
+            return mesh.replica(t, dev)
+        loc = {k: v for k, v in p.items() if k != "shared"}
+        shared = p.get("shared")
+    else:
+        loc = p.local(i, r)
+        shared = loc.pop("shared", None)
+        get = None
+    w = {}
+    for name in ("w_gate", "w_up", "w_down"):
+        t = loc[name]
+        if t.shape[0] == cfg.n_experts_padded:
+            t = t[r * cfg.e_loc:(r + 1) * cfg.e_loc]
+        if f_split > 1:                  # tp_f: F over the data rows
+            f_dim = 1 if name == "w_down" else 2
+            n = t.shape[f_dim] // f_split
+            t = t.narrow(f_dim, i * n, n)
+        w[name] = get(t) if get else t
+    if shared is not None:
+        fs = cfg.d_ff * cfg.n_shared
+        sh = {}
+        for name, dim in (("w_gate", 1), ("w_up", 1), ("w_down", 0)):
+            t = shared[name]
+            if t.shape[dim] == fs:
+                if fs % m:
+                    raise ValueError(f"the shared expert's {fs} columns do "
+                                     f"not split over model={m}")
+                t = t.narrow(dim, r * (fs // m), fs // m)
+            sh[name] = get(t) if get else t
+        w["shared"] = sh
+    return w
+
+
+def moe_sharded(p, cfg: MoeConfig, xs: list, mesh):
+    """The MoE over ``mesh`` of the batch rows ``xs`` (row i on
+    ``mesh.device(i, 0)``, ``len(xs)`` the mesh's data size, or 1 when the
+    batch does not divide over it) -> (rows out, aux). ``p`` is the whole
+    tree or a placed ``ShardedTree``."""
+    d, m = mesh.shape["data"], mesh.shape["model"]
+    if m != cfg.ep:
+        raise ValueError(f"moe over a mesh of model size {m} needs "
+                         f"MoeConfig.ep == {m}, got ep={cfg.ep}")
+    router = p["router"] if isinstance(p, dict) else p["router"].whole(0)
+    e_bias = p.get("e_bias") if isinstance(p, dict) else (
+        p["e_bias"].whole(0) if "e_bias" in p else None)
+    route_p = {"router": router} if e_bias is None else \
+        {"router": router, "e_bias": e_bias}
+
+    def route(x_flat):
+        return _route({k: v.to(x_flat.device) for k, v in route_p.items()},
+                      cfg, x_flat)
+
+    n_rows = len(xs)
+    if cfg.weight_mode == "tp_f":
+        x0 = torch.cat([x.to(xs[0].device) for x in xs], 0)
+        b, s, dm = x0.shape
+        gates, eids, aux = route(x0.reshape(b * s, dm))
+        total, shared = None, None
+        for i in range(n_rows):
+            for r in range(m):
+                dev = mesh.device(i, r)
+                w = _rank_weights(p, cfg, mesh, i, r, n_rows)
+                xf = x0.reshape(b * s, dm).to(dev)
+                y = _routed(w, cfg, xf, gates.to(dev), eids.to(dev),
+                            r * cfg.e_loc)
+                if cfg.n_shared:         # routed partials in x's dtype
+                    y = y.to(x0.dtype).float()
+                    if i == 0:           # the shared partials vary over r
+                        sy = _shared(w["shared"], cfg, xf).float()
+                        sy = sy.to(x0.device)
+                        shared = sy if shared is None else shared + sy
+                y = y.to(x0.device)
+                total = y if total is None else total + y
+        if shared is not None:
+            total = total + shared
+        out = total.to(x0.dtype).reshape(b, s, dm)
+        rows = _batch_rows(b, n_rows)
+        return [out[b0:b1].to(x.device) for (b0, b1), x in zip(rows, xs)], \
+            aux
+
+    outs, auxs = [], []
+    for i, x in enumerate(xs):
+        b, s, dm = x.shape
+        x_flat = x.reshape(b * s, dm)
+        gates, eids, aux = route(x_flat)
+        total = None
+        for r in range(m):
+            dev = mesh.device(i, r)
+            w = _rank_weights(p, cfg, mesh, i, r, 1)
+            xf = x_flat.to(dev)
+            y = _routed(w, cfg, xf, gates.to(dev), eids.to(dev),
+                        r * cfg.e_loc)
+            if cfg.n_shared:
+                y = y.to(x.dtype).float() + \
+                    _shared(w["shared"], cfg, xf).float()
+            y = y.to(x.device)
+            total = y if total is None else total + y
+        outs.append(total.to(x.dtype).reshape(b, s, dm))
+        auxs.append(aux)
+    return outs, torch.stack([a.to(xs[0].device) for a in auxs]).mean()
+
+
 def moe_apply(p, cfg: MoeConfig, x, *, mesh=None):
-    """MoE forward of x (B, S, D) -> (out, aux) on one device, for any
-    ``ep`` (see the module docstring)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "moe_apply(mesh=...) is not ported yet (ROADMAP.md §1, the "
-            "DecodeEngine(mesh=) / launch/sharding.py item)")
-    return _moe_core(p, cfg, x)
+    """MoE forward of x (B, S, D) -> (out, aux): on x's device without a
+    mesh (for any ``ep``), else over ``mesh`` (see the module docstring),
+    the result gathered back onto x's device."""
+    if mesh is None:
+        return _moe_core(p, cfg, x)
+    rows = _batch_rows(x.shape[0], mesh.shape["data"])
+    xs = [x[b0:b1].to(mesh.device(i, 0)) for i, (b0, b1) in enumerate(rows)]
+    outs, aux = moe_sharded(p, cfg, xs, mesh)
+    return torch.cat([o.to(x.device) for o in outs], 0), aux.to(x.device)

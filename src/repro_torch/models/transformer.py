@@ -23,6 +23,19 @@ serving engine does when it admits a request into a used slot; attention
 and MLA caches are left alone, as ``pos`` masks them, and so are the
 cross-attention caches, whose image belongs to the slot.
 
+Over a mesh, ``ctx`` (the JAX package's dict) carries ``"mesh"``, a
+``launch.mesh.DeviceMesh``: the MoE blocks run expert-parallel over it
+(``moe_apply(mesh=)``). Params placed on the mesh (a ``ShardedTree``,
+``launch.steps.build_step``) run the layer stack tensor-parallel from one
+controller: the batch splits over the data rows (:func:`maybe_constrain`,
+row i on ``mesh.device(i, 0)``), attention and the dense MLP split over
+the model ranks wherever their specs split heads or MLP columns
+(``layers.attention_train_tp`` / ``attention_decode_tp`` / ``mlp_tp``),
+and decode reads a :class:`ShardedCache` whose rank r of row i holds the
+kv heads its query heads read. Mixers the specs do not split in this
+slice (MLA, Mamba, xLSTM, cross-attention) run on their row's device with
+their weights gathered whole; their caches live there too.
+
 ``remat`` applies to training (grad mode on) per layer or per pattern
 super-block, as in the JAX package: ``"full"`` recomputes everything in
 the backward pass (``torch.utils.checkpoint`` with only the inputs kept),
@@ -43,12 +56,16 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.models import ssm, xlstm
 from repro_torch.models.layers import (AttnConfig, MlaConfig, MlpConfig,
-                                       attention_decode, attention_train,
+                                       attention_decode, attention_decode_tp,
+                                       attention_train, attention_train_tp,
                                        init_attention, init_kv_cache,
                                        init_mla, init_mla_cache, init_mlp,
-                                       make_norm, mla_decode, mla_train, mlp)
-from repro_torch.models.moe import MoeConfig, init_moe, moe_apply
-from repro_torch.models.params import Maker, stacked
+                                       kv_heads_of, make_norm, mla_decode,
+                                       mla_train, mlp, mlp_tp)
+from repro_torch.models.moe import (MoeConfig, _batch_rows, init_moe,
+                                    moe_apply, moe_sharded)
+from repro_torch.models.params import (LogicalAxes, Maker, ShardedTree,
+                                       map_tree, stacked)
 
 @dataclasses.dataclass(frozen=True)
 class BlockSpec:
@@ -159,24 +176,67 @@ def init_block(mk: Maker, cfg: ModelConfig, spec: BlockSpec):
     return p
 
 
-def _mlp_residual(p, cfg: ModelConfig, spec: BlockSpec, x):
-    """The block's MLP half -> (x, aux); aux is the MoE load-balancing
-    term, a float32 zero for the other MLPs."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+def _held(p, key: str, i: int):
+    """``p[key]`` as data row ``i`` runs an unsplit function on it: for a
+    block placed on a mesh (a ``ShardedTree``), whole on the row's
+    device."""
+    return p[key].whole(i) if isinstance(p, ShardedTree) else p[key]
+
+
+def _split(p, key: str, name: str) -> bool:
+    """Whether ``p`` is placed on a mesh with leaf ``name`` of ``p[key]``
+    split over "model" in its first dimension after d_model (query heads,
+    MLP columns)."""
+    return isinstance(p, ShardedTree) and p[key].specs[name][1] == "model"
+
+
+def _rank_list(p: ShardedTree, i: int):
+    return [(p.local(i, r), p.mesh.device(i, r))
+            for r in range(p.mesh.shape["model"])]
+
+
+def _self_attn_split(p, spec: BlockSpec) -> bool:
+    return spec.kind == "attn" and not spec.cross and _split(p, "attn", "wq")
+
+
+def _mlp_residual(p, cfg: ModelConfig, spec: BlockSpec, xs, mesh=None):
+    """The block's MLP half over the batch rows ``xs`` -> (rows, aux); aux
+    is the MoE load-balancing term, a float32 zero for the other MLPs.
+    ``mesh`` reaches ``moe_apply``; a placed block runs its MoE over its
+    own mesh and its dense MLP tensor-parallel where the specs split the
+    columns."""
+    aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
     if spec.mlp not in ("dense", "moe"):
-        return x, aux
+        return xs, aux
     _, norm = make_norm(cfg.norm)
-    h = norm(p["norm2"], x)
-    if spec.mlp == "dense":
-        y = mlp(p["mlp"], _mlp_cfg(cfg), h)
+    hs = [norm(_held(p, "norm2", i), x) for i, x in enumerate(xs)]
+    if spec.mlp == "moe" and isinstance(p, ShardedTree):
+        ys, aux = moe_sharded(p["moe"], cfg.moe, hs, p.mesh)
+    elif spec.mlp == "moe":
+        y, aux = moe_apply(p["moe"], cfg.moe, hs[0], mesh=mesh)
+        ys = [y]
+    elif _split(p, "mlp", "w_up"):
+        ys = [mlp_tp(_rank_list(p["mlp"], i), _mlp_cfg(cfg), h)
+              for i, h in enumerate(hs)]
     else:
-        y, aux = moe_apply(p["moe"], cfg.moe, h)
+        ys = [mlp(_held(p, "mlp", i), _mlp_cfg(cfg), h)
+              for i, h in enumerate(hs)]
     if cfg.sandwich_norm:
-        y = norm(p["post2"], y)
-    return x + y, aux
+        ys = [norm(_held(p, "post2", i), y) for i, y in enumerate(ys)]
+    return [x + y for x, y in zip(xs, ys)], aux
 
 
-def _mix_train(p, cfg: ModelConfig, spec: BlockSpec, h, cross_states):
+def _mesh(ctx):
+    return (ctx or {}).get("mesh")
+
+
+def _mix_train(p, cfg: ModelConfig, spec: BlockSpec, h, cross_states,
+               i: int = 0):
+    if _self_attn_split(p, spec):
+        return attention_train_tp(_rank_list(p["attn"], i),
+                                  cfg.attn_cfg(spec), h,
+                                  use_flash=cfg.use_flash)
+    p = {k: _held(p, k, i) for k in ("attn", "mix") if k in p}
     if spec.kind == "attn":
         return attention_train(p["attn"], cfg.attn_cfg(spec), h,
                                kv_src=cross_states if spec.cross else None,
@@ -191,22 +251,17 @@ def _mix_train(p, cfg: ModelConfig, spec: BlockSpec, h, cross_states):
     return xlstm.slstm_train(p["mix"], cfg.xlstm_cfg, h)
 
 
-def block_train(p, cfg: ModelConfig, spec: BlockSpec, x, *,
-                cross_states=None):
-    """Full-sequence forward of one block -> (x, aux). A cross block
-    attends over ``cross_states`` (B, S_kv, d_cross) and raises
-    ``ValueError`` without them."""
-    _, norm = make_norm(cfg.norm)
-    y = _mix_train(p, cfg, spec, norm(p["norm1"], x), cross_states)
-    if cfg.sandwich_norm:
-        y = norm(p["post1"], y)
-    return _mlp_residual(p, cfg, spec, x + y)
-
-
-def block_decode(p, cfg: ModelConfig, spec: BlockSpec, x, cache, pos):
-    """Single-token step; ``cache`` is updated in place. -> (x, cache)."""
-    _, norm = make_norm(cfg.norm)
-    h = norm(p["norm1"], x)
+def _mix_decode(p, cfg: ModelConfig, spec: BlockSpec, h, cache, pos,
+                i: int = 0):
+    """The mixer's decode output; ``cache`` is the block's cache, or for a
+    placed block row i's list of rank caches."""
+    if _self_attn_split(p, spec):
+        ranks = [(q, dev, c["mix"]) for (q, dev), c in
+                 zip(_rank_list(p["attn"], i), cache)]
+        return attention_decode_tp(ranks, cfg.attn_cfg(spec), h, pos)
+    if isinstance(p, ShardedTree):
+        cache = cache[0]                 # held by the row's rank 0
+    p = {k: _held(p, k, i) for k in ("attn", "mix") if k in p}
     if spec.kind == "attn":
         y, _ = attention_decode(p["attn"], cfg.attn_cfg(spec), h,
                                 cache["mix"], pos)
@@ -218,10 +273,47 @@ def block_decode(p, cfg: ModelConfig, spec: BlockSpec, x, cache, pos):
         y, _ = xlstm.mlstm_decode(p["mix"], cfg.xlstm_cfg, h, cache["mix"])
     else:
         y, _ = xlstm.slstm_decode(p["mix"], cfg.xlstm_cfg, h, cache["mix"])
-    if cfg.sandwich_norm:
-        y = norm(p["post1"], y)
-    x, _ = _mlp_residual(p, cfg, spec, x + y)
-    return x, cache
+    return y
+
+
+def _block(p, cfg: ModelConfig, spec: BlockSpec, xs, mix, mesh):
+    """One block over the batch rows ``xs`` -> (rows, aux); ``mix(i, h)``
+    is row i's mixer output."""
+    _, norm = make_norm(cfg.norm)
+    out = []
+    for i, x in enumerate(xs):
+        y = mix(i, norm(_held(p, "norm1", i), x))
+        if cfg.sandwich_norm:
+            y = norm(_held(p, "post1", i), y)
+        out.append(x + y)
+    return _mlp_residual(p, cfg, spec, out, mesh)
+
+
+def block_train(p, cfg: ModelConfig, spec: BlockSpec, x, *,
+                cross_states=None, ctx=None):
+    """Full-sequence forward of one block -> (x, aux). A cross block
+    attends over ``cross_states`` (B, S_kv, d_cross) and raises
+    ``ValueError`` without them. With ``p`` placed on a mesh (a
+    ``ShardedTree``), ``x`` and ``cross_states`` are lists of batch rows
+    (:func:`maybe_constrain`), and so is the x returned."""
+    placed = isinstance(p, ShardedTree)
+    xs, cross = (x, cross_states) if placed else ([x], [cross_states])
+    xs, aux = _block(p, cfg, spec, xs, lambda i, h: _mix_train(
+        p, cfg, spec, h, cross[i] if cross else None, i), _mesh(ctx))
+    return (xs if placed else xs[0]), aux
+
+
+def block_decode(p, cfg: ModelConfig, spec: BlockSpec, x, cache, pos,
+                 ctx=None):
+    """Single-token step; ``cache`` is updated in place. -> (x, cache).
+    With ``p`` placed on a mesh, ``x`` and ``pos`` are lists of batch rows
+    and ``cache`` lists, for each row, its ranks' caches of the block
+    (:class:`ShardedCache`)."""
+    placed = isinstance(p, ShardedTree)
+    xs, ps, cs = (x, pos, cache) if placed else ([x], [pos], [cache])
+    xs, _ = _block(p, cfg, spec, xs, lambda i, h: _mix_decode(
+        p, cfg, spec, h, cs[i], ps[i], i), _mesh(ctx))
+    return (xs if placed else xs[0]), cache
 
 
 def init_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int,
@@ -294,6 +386,8 @@ def layer_slices(tree) -> list:
     stack. One ``unbind`` a leaf: its backward stacks the layers'
     gradients once, where a slice a layer would add a zero-filled
     stack-sized gradient per layer."""
+    if isinstance(tree, ShardedTree):
+        return tree.layers()
     if isinstance(tree, dict):
         per = {k: layer_slices(v) for k, v in tree.items()}
         n = len(next(iter(per.values())))
@@ -322,25 +416,32 @@ def _remat(cfg: ModelConfig, fn):
     return lambda x: checkpoint(fn, x, use_reentrant=False, **kw)
 
 
-def apply_layers_train(p, cfg: ModelConfig, x, *, cross_states=None):
+def _device_of(x) -> torch.device:
+    return (x[0] if isinstance(x, list) else x).device
+
+
+def apply_layers_train(p, cfg: ModelConfig, x, *, cross_states=None,
+                       ctx=None):
     """Full-sequence forward of every layer -> (x, aux): ``aux`` sums the
     MoE blocks' load-balancing terms (float32), as in the JAX package.
-    The cross blocks attend over ``cross_states``."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    The cross blocks attend over ``cross_states``. With ``p`` placed on a
+    mesh (a ``ShardedTree``), ``x`` and ``cross_states`` are lists of
+    batch rows (:func:`maybe_constrain`) and so is the x returned."""
+    aux = torch.zeros((), dtype=torch.float32, device=_device_of(x))
     for i, spec in enumerate(cfg.prefix):
         x, a = _remat(cfg, functools.partial(
             block_train, p["prefix"][i], cfg, spec,
-            cross_states=cross_states))(x)
+            cross_states=cross_states, ctx=ctx))(x)
         aux = aux + a
 
     stack = [layer_slices(p["stack"][f"b{j}"])
              for j in range(len(cfg.pattern))] if cfg.n_repeats else []
 
     def superblock(x, r, cross_states):
-        a_tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        a_tot = torch.zeros((), dtype=torch.float32, device=_device_of(x))
         for j, spec in enumerate(cfg.pattern):
             x, a = block_train(stack[j][r], cfg, spec, x,
-                               cross_states=cross_states)
+                               cross_states=cross_states, ctx=ctx)
             a_tot = a_tot + a
         return x, a_tot
 
@@ -354,19 +455,45 @@ def apply_layers_train(p, cfg: ModelConfig, x, *, cross_states=None):
     return x, aux
 
 
-def apply_layers_decode(p, cfg: ModelConfig, x, cache, pos):
-    """One token through every layer; ``cache`` is updated in place."""
+def apply_layers_decode(p, cfg: ModelConfig, x, cache, pos, ctx=None):
+    """One token through every layer; ``cache`` is updated in place. With
+    ``p`` placed on a mesh, ``x`` and ``pos`` are lists of batch rows and
+    ``cache`` a :class:`ShardedCache`."""
+    if isinstance(p, ShardedTree):
+        if not isinstance(cache, ShardedCache):
+            raise ValueError("params placed on a mesh decode against a "
+                             "ShardedCache (lm.init_cache(mesh=))")
+        if len(x) != len(cache.rows):
+            raise ValueError("the cache's batch rows do not match the "
+                             "token batch")
+        if cache.split != heads_split(p, cfg):
+            raise ValueError("the cache's kv-head split does not match the "
+                             "params' placement")
     for i, spec in enumerate(cfg.prefix):
         x, _ = block_decode(p["prefix"][i], cfg, spec, x,
-                            cache["prefix"][i], pos)
+                            _block_cache(cache, ("prefix", i)), pos, ctx)
     layers = [(layer_slices(p["stack"][f"b{j}"]),
-               layer_slices(cache["stack"][f"b{j}"]))
+               _block_cache(cache, ("stack", f"b{j}"), cfg.n_repeats))
               for j in range(len(cfg.pattern))] if cfg.n_repeats else []
     for r in range(cfg.n_repeats):
         for j, spec in enumerate(cfg.pattern):
             x, _ = block_decode(layers[j][0][r], cfg, spec, x,
-                                layers[j][1][r], pos)
+                                layers[j][1][r], pos, ctx)
     return x, cache
+
+
+def _block_cache(cache, path, n_layers: int | None = None):
+    """The cache of the block at ``path`` (with ``n_layers``, the list of
+    a stacked block's layers, as views); of a :class:`ShardedCache`, each
+    data row's list of rank caches."""
+    if not isinstance(cache, ShardedCache):
+        c = _at(cache, path)
+        return c if n_layers is None else layer_slices(c)
+    if n_layers is None:
+        return [[_at(s, path) for s in row] for row in cache.shards]
+    return [[[map_tree(lambda t: None if t is None else t[r], _at(s, path))
+              for s in row] for row in cache.shards]
+            for r in range(n_layers)]
 
 
 def init_layer_caches(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -382,3 +509,144 @@ def init_layer_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                                       lead=(cfg.n_repeats,), **kw)
             for j, s in enumerate(cfg.pattern)}
     return cache
+
+
+_CACHE_AXES = {
+    "attn": {"k": ("batch", "kv_seq", "kv_heads", "head_dim"),
+             "v": ("batch", "kv_seq", "kv_heads", "head_dim")},
+    "mla": {"ckv": ("batch", "kv_seq", None)},
+    "mamba": {"conv": ("batch", None, "mlp"), "ssm": ("batch", "mlp", None)},
+    "mlstm": {"c": ("batch", "heads", None, None), "n": ("batch", "heads", None),
+              "m": ("batch", "heads")},
+    "slstm": {k: ("batch", None) for k in ("c", "n", "h", "m")},
+}
+
+
+def _cache_blocks(cfg: ModelConfig):
+    """(path, spec, lead) of every block's cache: ``lead`` is 1 for a
+    stacked one (its leading dimension the layer)."""
+    out = [(("prefix", i), s, 0) for i, s in enumerate(cfg.prefix)]
+    if cfg.n_repeats:
+        out += [(("stack", f"b{j}"), s, 1) for j, s in enumerate(cfg.pattern)]
+    return out
+
+
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def cache_axes(cfg: ModelConfig):
+    """The decode cache's tree of :class:`LogicalAxes` (a stacked leaf's
+    with "layers" first), as the JAX ``init_cache`` in axes mode."""
+    cache: dict[str, Any] = {}
+    if cfg.prefix:
+        cache["prefix"] = []
+    if cfg.n_repeats:
+        cache["stack"] = {}
+    for (where, key), spec, lead in _cache_blocks(cfg):
+        mix = {k: LogicalAxes(("layers",) * lead + ax)
+               for k, ax in _CACHE_AXES[spec.kind].items()}
+        if where == "prefix":
+            cache["prefix"].append({"mix": mix})
+        else:
+            cache["stack"][key] = {"mix": mix}
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# The layer stack over a mesh (params placed by build_step)
+# ---------------------------------------------------------------------------
+
+def maybe_constrain(x, ctx):
+    """x's batch split over the data rows of ``ctx["mesh"]`` (the JAX
+    package's activation sharding constraint): a list of row tensors, row
+    i on ``mesh.device(i, 0)``; the whole batch on row 0 when the rows do
+    not divide it; ``[x]`` without a mesh."""
+    mesh = _mesh(ctx)
+    if mesh is None:
+        return [x]
+    rows = _batch_rows(x.shape[0], mesh.shape["data"])
+    return [x[b0:b1].to(mesh.device(i, 0))
+            for i, (b0, b1) in enumerate(rows)]
+
+
+def heads_split(layers: ShardedTree, cfg: ModelConfig) -> bool:
+    """Whether the specs of the placed layer stack ``layers`` split the
+    self-attention layers' query heads over "model" (the decode cache
+    then splits by kv heads)."""
+    for (where, key), spec, lead in _cache_blocks(cfg):
+        if spec.kind == "attn" and not spec.cross:
+            wq = layers[where][key]["attn"].specs["wq"]
+            return wq[lead + 1] == "model"
+    return False
+
+
+@dataclasses.dataclass
+class ShardedCache:
+    """The decode cache over a mesh: ``shards[i][r]`` is the cache tree of
+    rank r of data row i, on ``mesh.device(i, r)``. Row i holds batch rows
+    ``rows[i]``. With ``split`` a self-attention layer's K/V at rank r
+    hold the kv heads its query heads read (``layers.kv_heads_of``), in
+    contiguous tensors of their own that the decode kernel reads as they
+    are; every other leaf is held by rank 0 of its row only (None at the
+    other ranks). ``index`` gives each
+    held leaf's place in the whole cache, which :meth:`gather`
+    assembles."""
+
+    mesh: object
+    rows: list
+    split: bool
+    shards: list
+    index: list
+    like: Any
+
+    def gather(self):
+        """The whole cache on ``mesh.device(0, 0)``."""
+        dev = self.mesh.device(0, 0)
+        flat_s = [s for row in self.shards for s in row]
+        flat_i = [s for row in self.index for s in row]
+
+        def build(like, *held):
+            out = torch.empty(like.shape, dtype=like.dtype, device=dev)
+            n = len(flat_s)
+            for t, idx in zip(held[:n], held[n:]):
+                if t is not None:
+                    out[idx] = t.to(dev)
+            return out
+
+        return map_tree(build, self.like, *flat_s, *flat_i)
+
+
+def shard_cache(cfg: ModelConfig, cache, mesh, split: bool) -> ShardedCache:
+    """``cache`` (whole, any device) copied onto ``mesh`` as a
+    :class:`ShardedCache`; ``split``: whether the self-attention layers'
+    query heads split over "model" (:func:`heads_split`)."""
+    d, m = mesh.shape["data"], mesh.shape["model"]
+    path, _, lead = _cache_blocks(cfg)[0]
+    batch = next(iter(_at(cache, path)["mix"].values())).shape[lead]
+    rows = _batch_rows(batch, d)
+    kv = [kv_heads_of(cfg.n_heads, cfg.n_kv_heads, m, r) for r in range(m)]
+    like = map_tree(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), cache)
+    shards = [[map_tree(lambda t: None, cache) for _ in range(m)]
+              for _ in rows]
+    index = [[map_tree(lambda t: None, cache) for _ in range(m)]
+             for _ in rows]
+    for path, spec, lead in _cache_blocks(cfg):
+        heads = split and spec.kind == "attn" and not spec.cross
+        for name, t in _at(cache, path)["mix"].items():
+            for i, (b0, b1) in enumerate(rows):
+                for r in range(m if heads else 1):
+                    idx = [slice(None)] * t.dim()
+                    idx[lead] = slice(b0, b1)
+                    if heads:
+                        idx[lead + 2] = slice(*kv[r])
+                    idx = tuple(idx)
+                    part = t[idx]
+                    own = torch.empty(part.shape, dtype=part.dtype,
+                                      device=mesh.device(i, r))
+                    _at(shards[i][r], path)["mix"][name] = own.copy_(part)
+                    _at(index[i][r], path)["mix"][name] = idx
+    return ShardedCache(mesh, rows, split, shards, index, like)

@@ -103,9 +103,12 @@ class DecodeEngine:
     request the slot serves sees it. Sampling at
     ``temperature > 0`` draws from the engine's own ``torch.Generator``
     seeded with ``rng_seed``; its draws differ from ``jax.random``'s, so
-    only greedy (temperature 0) tokens match the JAX engine. ``mesh`` is
-    accepted only as ``None`` until tensor parallelism is ported
-    (ROADMAP.md §1).
+    only greedy (temperature 0) tokens match the JAX engine. ``mesh`` (a
+    ``launch.mesh.DeviceMesh``) goes into the decode step's ``ctx``, as in
+    the JAX engine: the MoE blocks run expert-parallel over it (its model
+    size must be the config's ``ep``); the params and the cache stay on
+    ``device``, which must be the mesh's rank (0, 0), and every device of
+    the mesh of its type (``ValueError`` otherwise).
     ``steps`` counts the decode steps run. ``cache_dtype`` (float32 by
     default, as the JAX engine's) is the attention, MLA and Mamba caches'
     dtype, free of the params' dtype: bf16 params with ``cache_dtype=
@@ -116,11 +119,18 @@ class DecodeEngine:
     def __init__(self, params, cfg, *, batch: int, max_len: int, mesh=None,
                  cache_dtype=torch.float32, eos_id: int | None = None,
                  rng_seed: int = 0, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "DecodeEngine(mesh=...) is not ported yet (ROADMAP.md §1, "
-                "tensor parallelism)")
         self.device = resolve_device(device)
+        if mesh is not None:
+            here = self.device
+            if here.type == "cuda" and here.index is None:
+                here = torch.device("cuda", torch.cuda.current_device())
+            if mesh.device(0, 0) != here or any(
+                    d.type != here.type for row in mesh.ranks for d in row):
+                raise ValueError(
+                    f"DecodeEngine(device={self.device}) needs a mesh whose "
+                    f"devices are {self.device.type} devices, rank (0, 0) "
+                    f"on the engine's device; got {mesh.ranks}")
+        self._ctx = {"mesh": mesh} if mesh is not None else {}
         self.params = params
         self.cfg = cfg
         self.batch = batch
@@ -185,7 +195,8 @@ class DecodeEngine:
         tok = torch.as_tensor(self.pending_tok).to(self.device)
         pos = torch.as_tensor(self.pos).to(self.device)
         logits, self.cache = lm.lm_decode_step(self.params, self.cfg,
-                                                     self.cache, tok, pos)
+                                               self.cache, tok, pos,
+                                               self._ctx)
         self.steps += 1
 
         # Sampled at each slot's OWN request temperature (inactive slots

@@ -1537,8 +1537,8 @@ def test_granite_smoke_serves_through_the_flash_kernels(monkeypatch):
     step_logits = {}
     orig = lm.lm_decode_step
 
-    def recording(p, c, cache, token, pos):
-        logits, cache = orig(p, c, cache, token, pos)
+    def recording(p, c, cache, token, pos, ctx=None):
+        logits, cache = orig(p, c, cache, token, pos, ctx)
         step_logits.setdefault(logits.device.type, []).append(logits.cpu())
         return logits, cache
 
@@ -1665,3 +1665,155 @@ def test_llama_vision_smoke_serves_on_the_card_with_its_image():
         if dev == "cuda":
             assert flash_decode.launches == cfg.n_layers * eng.steps > 0
     assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) == 3
+
+
+# -- the mesh's model axis on one card ------------------------------------------
+
+def test_flash_kernels_on_rank_slices_of_a_model_mesh():
+    """#7 and #8 on each rank's heads of DeviceMesh.on("cuda:0", data=2,
+    model=2) (row i's batch rows, rank r's query heads and the kv heads
+    they read, as the tensor-parallel forms hand them) against their plain
+    versions within 1e-4 * max|ref|."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.models.layers import kv_heads_of
+
+    mesh = DeviceMesh.on("cuda:0", data=2, model=2)
+    rng = np.random.default_rng(70)
+    b, s, hq, hkv, d = 4, 300, 16, 8, 128
+    q, k, v = (torch.as_tensor(rng.normal(size=sh).astype(np.float32))
+               for sh in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    dq, lens = q[:, -1], torch.as_tensor([300, 1, 170, 64], dtype=torch.int32)
+    for i in range(2):
+        rows = slice(2 * i, 2 * i + 2)
+        for r in range(2):
+            dev = mesh.device(i, r)
+            lo, hi = kv_heads_of(hq, hkv, 2, r)
+            heads = slice(r * hq // 2, (r + 1) * hq // 2)
+            qs, ks, vs = (t[rows][:, :, h].contiguous() for t, h in (
+                (q, heads), (k, slice(lo, hi)), (v, slice(lo, hi))))
+            got = flash_attention(qs.to(dev), ks.to(dev), vs.to(dev)).cpu()
+            want = flash_attention_plain(qs, ks, vs, scale=d ** -0.5)
+            assert float((got - want).abs().max()) <= \
+                1e-4 * float(want.abs().max())
+            dqs = dq[rows][:, heads].contiguous()
+            got = flash_decode(dqs.to(dev), ks.to(dev), vs.to(dev),
+                               lens[rows].to(dev)).cpu()
+            want = flash_decode_plain(dqs, ks, vs, lens[rows],
+                                      scale=d ** -0.5)
+            assert float((got - want).abs().max()) <= \
+                1e-4 * float(want.abs().max())
+
+
+def test_moe_over_a_model_mesh_on_the_card():
+    """``moe_apply(mesh=)`` over DeviceMesh.on("cuda:0", data=2, model=4)
+    in both weight modes: within 1e-4 * max|ref| of the unsharded call on
+    the card where nothing drops, and of the same call over a CPU mesh at
+    a capacity factor that drops."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.models import moe
+    from repro_torch.models.params import Maker, make_generator
+
+    for mode in ("fsdp", "tp_f"):
+        cfg = moe.MoeConfig(d_model=64, d_ff=64, n_experts=8, top_k=2,
+                            n_shared=1, ep=4, weight_mode=mode,
+                            capacity_factor=1.25)
+        p = moe.init_moe(Maker(make_generator(3, "cpu")), cfg)
+        p["router"] = p["router"] * 8.0
+        x = torch.randn((4, 64, 64), generator=torch.Generator()
+                        .manual_seed(4))
+        on_card = {k: ({n: t.cuda() for n, t in v.items()}
+                       if isinstance(v, dict) else v.cuda())
+                   for k, v in p.items()}
+
+        def close(got, want):
+            got = got.cpu()
+            assert torch.isfinite(got).all()
+            assert float((got - want.cpu()).abs().max()) <= \
+                1e-4 * float(want.abs().max())
+
+        card_mesh = DeviceMesh.on("cuda:0", data=2, model=4)
+        got, _ = moe.moe_apply(on_card, cfg, x.cuda(), mesh=card_mesh)
+        want, _ = moe.moe_apply(p, cfg, x,
+                                mesh=DeviceMesh.on("cpu", data=2, model=4))
+        close(got, want)
+        free = dataclasses.replace(cfg, capacity_factor=16.0)
+        got, _ = moe.moe_apply(on_card, free, x.cuda(), mesh=card_mesh)
+        close(got, moe.moe_apply(on_card, free, x.cuda())[0])
+
+
+def test_tensor_parallel_steps_launch_once_a_rank_and_layer():
+    """qwen3 smoke through ``build_step`` over DeviceMesh.on("cuda:0",
+    data=2, model=2) with ``use_flash``: a prefill launches #7 once a
+    layer, data row and rank, a decode step #8 likewise, each on the
+    rank's own cache tensor (by data pointer), and the logits equal the
+    unsharded path on the card within 1e-4 * max|ref|."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import layers, lm
+    from repro_torch.models.params import ShardedTree
+
+    cfg = dataclasses.replace(configs.get_config("qwen3-1.7b", smoke=True),
+                              use_flash=True)
+    mesh = DeviceMesh.on("cuda:0", data=2, model=2)
+    params = lm.init_lm(cfg, 0, device="cuda")
+    b, s, max_len = 4, 20, 32
+    pre = build_step(cfg, ShapeCell("p", "prefill", s, b), mesh,
+                     param_dtype=torch.float32)
+    dec = build_step(cfg, ShapeCell("d", "decode", max_len, b), mesh,
+                     param_dtype=torch.float32)
+    placed = ShardedTree.place(params, pre.param_shardings, mesh)
+    toks = torch.as_tensor(np.random.default_rng(71).integers(
+        0, cfg.vocab, size=(b, s)).astype(np.int32), device="cuda")
+
+    def close(got, want):
+        assert torch.isfinite(got).all()
+        assert float((got - want).abs().max()) <= \
+            1e-4 * float(want.abs().max())
+
+    flash_attention.launches = 0
+    got = pre.fn(placed, {"tokens": toks})
+    assert flash_attention.launches == cfg.n_layers * 4
+    close(got, lm.lm_prefill(params, cfg, {"tokens": toks}))
+
+    cache = lm.init_cache(cfg, b, max_len, dtype=torch.float32,
+                          device="cuda", mesh=mesh)
+    ref = lm.init_cache(cfg, b, max_len, dtype=torch.float32, device="cuda")
+    own = {t.data_ptr() for row in cache.shards for sh in row
+           for name in ("k", "v")
+           for t in torch.unbind(sh["stack"]["b0"]["mix"][name], 0)}
+    seen, sharded = [], [False]
+    orig = layers.flash_decode
+
+    def spy(q, kc, vc, *a, **k):
+        if sharded[0]:
+            seen.extend([kc.data_ptr(), vc.data_ptr()])
+        return orig(q, kc, vc, *a, **k)
+
+    layers.flash_decode = spy
+    try:
+        pos = torch.tensor([0, 5, 2, 9], device="cuda")
+        for step in range(3):
+            flash_decode.launches = 0
+            sharded[0] = True
+            got, cache = dec.fn(placed, cache, toks[:, step:step + 1], pos)
+            sharded[0] = False
+            assert flash_decode.launches == cfg.n_layers * 4
+            want, ref = lm.lm_decode_step(params, cfg, ref,
+                                          toks[:, step:step + 1], pos)
+            close(got, want)
+            pos = pos + 1
+    finally:
+        layers.flash_decode = orig
+    assert seen and set(seen) <= own

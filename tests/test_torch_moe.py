@@ -42,6 +42,7 @@ from repro_torch._tree import flatten_with_names, tree_leaves, \
 from repro_torch.convert import lm_params_from_jax, opt_state_from_jax
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models import layers, lm, moe
+from repro_torch.launch.mesh import DeviceMesh
 from repro_torch.models.params import abstract_params, param_count
 
 def _normal(rng, *shape):
@@ -157,8 +158,14 @@ def test_moe_apply_at_ep_equals_the_jax_ranks_composed(ep, router):
     got, aux = moe.moe_apply(tp, cfg, torch.as_tensor(x_np))
     _close_rel(got, want, 1e-5)
     assert abs(float(aux) - float(jaux)) <= 1e-6
-    with pytest.raises(NotImplementedError, match="mesh"):
-        moe.moe_apply(tp, cfg, torch.as_tensor(x_np), mesh=object())
+    # Over a (1, ep) mesh the ranks run one by one: the same function.
+    mesh = DeviceMesh.on("cpu", data=1, model=ep)
+    got_m, aux_m = moe.moe_apply(tp, cfg, torch.as_tensor(x_np), mesh=mesh)
+    _close_rel(got_m, want, 1e-5)
+    assert abs(float(aux_m) - float(jaux)) <= 1e-6
+    with pytest.raises(ValueError, match="ep"):
+        moe.moe_apply(tp, cfg, torch.as_tensor(x_np),
+                      mesh=DeviceMesh.on("cpu", data=1, model=ep + 1))
 
 
 # -- MLA -----------------------------------------------------------------------
