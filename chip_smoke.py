@@ -233,6 +233,13 @@ Phases, each fatal on failure:
               float32 cache, ``attention_decode`` on the card against the CPU
               path within 2**-7 * max|ref|, and #8's ``round_kv`` over a
               cache within 0.2 ulp of bf16 values against the bf16 cache.
+              14d: the same bf16 engine serves 8 single-image requests of
+              host bf16 tensors through ``submit`` / ``step()``: logits
+              host bf16, bitwise bf16 ``infer`` on the same batches of 4,
+              traces at 2 B a value == simulator, every #1 launch bf16,
+              images/s beside 14b's; an untagged fault degrades a step to
+              per-image ``batched`` dispatch through #4's bf16 body
+              (logits within 14b's limit).
 15. mesh    — the mesh's "model" axis on this card (a mesh that lists it
               several times: no copy between devices, none measured).
               15a: granite-moe-3b-a800m ``full()`` served by a
@@ -254,6 +261,14 @@ Phases, each fatal on failure:
               tokens/s beside the unsharded path. 15c: ``python -m
               repro_torch.launch.serve --arch granite-moe-3b-a800m`` on
               ``make_host_mesh(1, 1)`` exits 0.
+16. mesh-train — Qwen3-1.7B ``full()``, ``remat="dots"``, 3 AdamW steps
+              of 2 x 512 through ``build_step(kind="train")`` over
+              ``DeviceMesh.on("cuda:0", data=2, model=2)`` beside the
+              unsharded ``build_train_step`` from the same seed and
+              batches (run first and freed): losses and every tensor's
+              step-0 gradient norm within 1e-4 relative, no hand-written
+              kernel launched; step p50 of both, peak memory, one
+              profiled mesh step's device idle share.
 
 Each path is driven with every kernel's launch count set to 0 just
 before it and read just after. The last lines are the card's name and
@@ -372,7 +387,7 @@ BF16_LIMITS = dict(noise_factor=2.0, image=BF16_RTOL)
 # ``turns``: rounds of float32 and bf16 ``infer`` timed in turns (f, b,
 # b, f), each on a fresh engine.
 BF16_DCN = dict(noise_factor=2.0, batches=[(0, 4), (4, 8), (8, 12)],
-                warm=(12, 16), one=(14, 15), turns=4)
+                warm=(12, 16), one=(14, 15), turns=4, step_images=(0, 8))
 # 14c: the llama-3.2-vision smoke model's layers over a float32 cache.
 BF16_CACHE = dict(arch="llama-3.2-vision-11b", batch=3, max_len=300,
                   pos=(0, 170, 299))
@@ -391,6 +406,11 @@ MESH_SIZES = dict(granite="granite-moe-3b-a800m", ep_mesh=(1, 16),
                   qwen="qwen3-1.7b", tp_mesh=(2, 2), prefill=(4, 2048),
                   decode_steps=16, decode_rtol=1e-4, held_step=4,
                   aux_rtol=1e-5)
+# Phase 16: Qwen3-1.7B training over DeviceMesh.on("cuda:0", 2, 2) beside
+# the unsharded step (PERF.md §2 holds the limit, written before its first
+# run).
+MESH_TRAIN = dict(arch="qwen3-1.7b", mesh=(2, 2), batch=2, seq=512,
+                  steps=3, lr=1e-4, rtol=1e-4)
 # Device cycles the stream sleeps before each timed window, so the host
 # enqueues the window's launches while the device is still busy and the
 # events time the device work, not the host's launch overhead.
@@ -1200,30 +1220,38 @@ def tf32_line() -> str:
 
 def profile_train(what: str, fn, card: str) -> None:
     """One training step under ``torch.profiler``: wall, device busy time
-    and idle share, and the top device activities by time."""
+    and idle share, and the top device activities by time. Only the CUDA
+    activity is traced (it records the runtime calls too): a step of tens
+    of thousands of launches then takes seconds, not a minute, to read,
+    and the wall time carries no host-operator profiling."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t_prof = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us, by_name = device_busy(prof.events())
+    events = prof.events()
+    busy_us, by_name = device_busy(events)
     if busy_us <= 0:
         fail(f"the profiler recorded no device activity in a {what}")
     print(f"[train-profile] {card}: one {what}: wall {wall_us / 1e3:.2f} ms, "
           f"device busy {busy_us / 1e3:.2f} ms (idle "
           f"{100 * (1 - busy_us / wall_us):.1f} %, busy share "
           f"{100 * busy_us / wall_us:.1f} %)")
-    calls = {e.key: e.count for e in prof.key_averages()
-             if e.key.startswith(("cudaLaunch", "cudaMemcpy"))}
+    calls: dict = {}
+    for e in events:
+        if e.name.startswith(("cudaLaunch", "cudaMemcpy")):
+            calls[e.name] = calls.get(e.name, 0) + 1
     print("[train-profile] host runtime calls in the step: " + ", ".join(
         f"{k} {v}" for k, v in sorted(calls.items())))
     for name, d in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]:
         print(f"  device {sum(d) / 1e3:8.3f} ms x{len(d):<5d} "
               f"{100 * sum(d) / busy_us:5.1f} % {name[:80]}")
+    print(f"[train-profile] the profile took "
+          f"{time.perf_counter() - t_prof:.1f} s to take and read")
 
 
 def no_kernel_launched(what: str, wrappers: dict) -> None:
@@ -2723,7 +2751,71 @@ def bf16_dcn_phase(card, kernels, reset_counts, dcn) -> None:
                            ("float32", params32, torch.float32)):
         profile_infer(fresh_engine(p, dtype), x_of(*sz["batches"][0], dtype),
                       kind, card)
-    del eng, params, ref16, ref32, r16, r32
+
+    # -- 14d: bf16 images through submit / step() ---------------------------
+    from repro_torch.testing import FaultInjector
+
+    lo, hi = sz["step_images"]
+    host = [torch.as_tensor(images[k]).to(bf16) for k in range(lo, hi)]
+    w_eng = fresh_engine(params, bf16)
+    want = [w_eng.infer(x_of(a, a + 4)) for a in range(lo, hi, 4)]
+    del w_eng
+    torch.cuda.synchronize()
+    traces.clear()
+    eng = fresh_engine(params, bf16)
+    reset_counts()
+    kf.dcn_fused_batch.dtypes = {}
+    fx.run_graph = traced
+    try:
+        t0 = time.perf_counter()
+        reqs = [eng.submit(x) for x in host]
+        done = eng.drain()
+        wall = time.perf_counter() - t0
+    finally:
+        fx.run_graph = orig
+    n1s = only_bf16("step()", kf.dcn_fused_batch)
+    st = eng.stats
+    if len(done) != len(reqs) or any(r.failed for r in reqs) or \
+            st["step_retries"] or st["degraded_steps"]:
+        fail(f"14d: {len(done)} of {len(reqs)} requests resolved, failed "
+             f"{[r.rid for r in reqs if r.failed]}, retries "
+             f"{st['step_retries']}, degraded {st['degraded_steps']}")
+    got = torch.cat([r.result() for r in reqs])
+    if got.dtype != bf16 or got.device.type != "cpu" or \
+            not torch.equal(got, torch.cat(want).cpu()):
+        fail(f"14d: step() logits ({got.dtype} on {got.device}) differ "
+             f"from bf16 infer on the same batches")
+    if len(traces) != (hi - lo) // 4:
+        fail(f"14d: {len(traces)} steps for {hi - lo} images in 4 slots")
+    check_traces("step()", traces)
+    step_ips = (hi - lo) / wall
+    print(f"[dcn-bf16] {card}: 14d DcnServingEngine.submit / step() in "
+          f"bf16: {hi - lo} requests of one host bf16 image, {len(traces)} "
+          f"steps: logits bf16 on the host, bitwise bf16 infer on the same "
+          f"batches; traces at 2 B a value == simulator; #1 launches "
+          f"{n1s}, by type {kf.dcn_fused_batch.dtypes}; {step_ips:.3f} "
+          f"images/s (14b infer bf16 median "
+          f"{float(np.median(ips['bf16'])):.3f})")
+    # The degraded step: an untagged fault sends the step to per-image
+    # batched dispatch, #4's bf16 body.
+    reset_counts()
+    kf.dcn_fused_schedule.dtypes = {}
+    eng = DcnServingEngine(params, cfg, slots=4, device=dev, graph=gcfg,
+                           faults=FaultInjector(kinds=("dispatch",), rate=1.0,
+                                                max_fires=1, tag_image=False))
+    reqs = [eng.submit(x) for x in host[:4]]
+    eng.drain()
+    if eng.stats["degraded_steps"] != 1 or any(r.failed for r in reqs):
+        fail(f"14d degraded: {eng.stats['degraded_steps']} degraded steps, "
+             f"failed {[r.rid for r in reqs if r.failed]}")
+    n4 = only_bf16("degraded step()", kf.dcn_fused_schedule)
+    d = check("14d degraded step()", torch.cat(
+        [r.result() for r in reqs]).to(dev), ref16[0])
+    check_traces("degraded step()", [eng.last_trace])
+    print(f"[dcn-bf16] 14d degraded step in bf16: 4 images through "
+          f"{n4} dcn_fused_schedule launches, all bf16; max rel. deviation "
+          f"from dense bf16 {d:.4e} (limit {rtol:.4e}); trace == simulator")
+    del eng, params, ref16, ref32, r16, r32, want
     torch.cuda.empty_cache()
 
 
@@ -3178,6 +3270,122 @@ def mesh_phase(card, reset_counts) -> None:
           f"{sz['granite']} (smoke config, make_host_mesh(1, 1)) exited 0 "
           f"in {time.perf_counter() - t0:.1f} s: "
           + proc.stdout.strip().splitlines()[0])
+
+
+def mesh_train_phase(card: str, wrappers: dict) -> None:
+    """Phase 16: Qwen3-1.7B ``full()`` training, ``remat="dots"``, over
+    ``DeviceMesh.on("cuda:0", data=2, model=2)`` through
+    ``build_step(kind="train")`` beside the unsharded ``build_train_step``
+    from the same seed and batches. The unsharded run goes first (its
+    step-0 per-tensor gradient norms and its losses kept on the host) and
+    is freed, so the two never hold memory together. Held: the losses
+    within ``rtol`` relative, every tensor's step-0 gradient norm within
+    ``rtol`` relative (the logical gradient: each slice's holders'
+    parts summed), no hand-written kernel launched; printed: step p50 of
+    both, the mesh run's peak allocated memory, one profiled mesh step's
+    device idle share."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch._tree import flatten_with_names, value_and_grad
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data import DataConfig, token_batch
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.launch.steps import (build_step, build_train_step,
+                                          value_and_grad_placed)
+    from repro_torch.models import lm
+    from repro_torch.models.params import ShardedTree, param_bytes
+    from repro_torch.optim import AdamWConfig, init_opt_state
+
+    dev, sync, sz = torch.device("cuda"), torch.cuda.synchronize, MESH_TRAIN
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(configs.get_config(sz["arch"]), remat="dots")
+    ocfg = AdamWConfig(lr=sz["lr"], warmup_steps=1, total_steps=sz["steps"])
+    dcfg = DataConfig(seed=SEED, vocab=cfg.vocab, seq=sz["seq"],
+                      global_batch=sz["batch"])
+    batches = [token_batch(dcfg, s) for s in range(sz["steps"])]
+    first = {"tokens": torch.as_tensor(batches[0]["tokens"], device=dev)}
+
+    def timed_steps(step, params, opt):
+        losses, times = [], []
+        for b in batches:
+            sync()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+        return params, opt, losses, times
+
+    # The unsharded step first; only host numbers are kept.
+    for w in wrappers.values():
+        w.launches = 0
+    params = lm.init_lm(cfg, SEED, device=dev)
+    pb = param_bytes(params)
+    _, g = value_and_grad(lambda p: lm.lm_loss(p, cfg, first), params)
+    ref_norms = {n: float(t.norm()) for n, t in flatten_with_names(g)}
+    del g
+    params, opt, ref_losses, ref_times = timed_steps(
+        build_train_step(cfg, ocfg), params, init_opt_state(params, ocfg))
+    del params, opt
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_phase
+
+    d, m = sz["mesh"]
+    mesh = DeviceMesh.on("cuda:0", data=d, model=m)
+    bundle = build_step(cfg, ShapeCell("train", "train", sz["seq"],
+                                       sz["batch"]), mesh, opt_cfg=ocfg,
+                        param_dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    placed = ShardedTree.place(lm.init_lm(cfg, SEED, device=dev),
+                               bundle.param_shardings, mesh)
+    _, g = value_and_grad_placed(
+        lambda p: lm.lm_loss(p, cfg, first, {"mesh": mesh}), placed)
+    norms = {n: float(t.norm()) for n, t in flatten_with_names(g.whole(0))}
+    del g
+    placed, opt, losses, times = timed_steps(
+        bundle.fn, placed, init_opt_state(placed, ocfg))
+    peak = torch.cuda.max_memory_allocated() - base
+    no_kernel_launched("training over the mesh", wrappers)
+    bad = [(s, a, b) for s, (a, b) in enumerate(zip(losses, ref_losses))
+           if not abs(a - b) <= sz["rtol"] * abs(b)]
+    if bad or not all(math.isfinite(v) for v in losses):
+        fail(f"16: mesh losses {losses} vs unsharded {ref_losses}")
+    if set(norms) != set(ref_norms):
+        fail("16: the mesh's gradient tree has other leaves")
+    worst = max(abs(norms[n] - ref_norms[n]) / max(ref_norms[n], 1e-30)
+                for n in norms)
+    if not worst <= sz["rtol"]:
+        fail(f"16: a tensor's gradient norm is {worst:.3e} relative from "
+             f"the unsharded one's (limit {sz['rtol']})")
+    toks = sz["batch"] * sz["seq"]
+
+    def ms(ts):
+        return [round(t * 1e3, 1) for t in ts]
+
+    print(f"[mesh-train] {card}: {cfg.name} full() {cfg.n_layers} layers, "
+          f"remat='dots', float32 params {pb / 1e9:.2f} GB, {sz['steps']} "
+          f"steps of {sz['batch']} x {sz['seq']} over "
+          f"DeviceMesh.on(cuda:0, data={d}, model={m}) beside the unsharded "
+          f"step: losses {losses} vs {ref_losses}; step-0 gradient norms of "
+          f"{len(norms)} tensors within {worst:.3e} relative (limit "
+          f"{sz['rtol']}); step p50 {np.median(times) * 1e3:.1f} ms "
+          f"({toks / np.median(times):.0f} tokens/s) vs unsharded "
+          f"{np.median(ref_times) * 1e3:.1f} ms; steps {ms(times)} vs "
+          f"{ms(ref_times)} ms; mesh peak allocated {peak / 1e9:.2f} GB "
+          f"above the "
+          f"{base / 1e9:.2f} GB held before it")
+    t_mesh = time.perf_counter() - t_phase
+    profile_train(f"Qwen3-1.7B training step of {toks} tokens over the "
+                  f"({d}, {m}) mesh", lambda: bundle.fn(placed, opt,
+                                                        batches[0]), card)
+    del placed, opt
+    torch.cuda.empty_cache()
+    print(f"[mesh-train] phase 16 took {time.perf_counter() - t_phase:.1f} "
+          f"s: the unsharded run to {t_ref:.1f} s, the mesh run to "
+          f"{t_mesh:.1f} s, then the profiled step")
 
 
 def main() -> int:
@@ -4556,6 +4764,9 @@ def main() -> int:
 
     # -- phase 15: the mesh's "model" axis on this card -----------------------
     mesh_phase(card, reset_counts)
+
+    # -- phase 16: training over the (data, model) mesh -------------------------
+    mesh_train_phase(card, wrappers)
 
     def bounds(kd):
         kd.update(bound_of(kd.pop("ops"), kd.pop("bytes")))

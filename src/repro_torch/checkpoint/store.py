@@ -15,6 +15,14 @@ no bfloat16) under the manifest dtype ``bfloat16``.
 ``AsyncCheckpointer`` copies the tree to the host synchronously — the
 trainer updates its tensors in place right after — and writes the files
 on a background thread, so the loop waits for the copy, not the disk.
+
+A tree placed on a mesh (a ``models.params.ShardedTree`` anywhere in the
+tree) is written as its whole leaves, gathered leaf by leaf to the host,
+so a checkpoint does not depend on the mesh that wrote it (the JAX
+package's ``device_get`` of global arrays). ``restore`` places subtrees
+on a mesh again: those the like tree holds placed, on their own mesh, and
+those ``shardings=`` names, on any mesh (the JAX ``restore(shardings=)``
+of an elastic re-mesh).
 """
 
 from __future__ import annotations
@@ -30,6 +38,40 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch._tree import (flatten_with_names, tree_leaves, tree_map,
                                tree_unflatten)
+from repro_torch.models.params import ShardedTree
+
+
+def _whole(tree, device):
+    """``tree`` with every placed subtree replaced by its whole leaves on
+    ``device`` (gathered a leaf at a time)."""
+    if isinstance(tree, ShardedTree):
+        return tree.whole(0, device=device)
+    if isinstance(tree, dict):
+        return {k: _whole(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return type(tree)(_whole(v, device) for v in tree)
+    return tree
+
+
+def _place(tree, like, shardings):
+    """``tree``, restored whole, with each subtree placed: on the mesh of
+    ``shardings``' ``(specs, mesh)`` pair at its place, else as ``like``
+    holds it placed (a ``ShardedTree``)."""
+    sh = shardings
+    if isinstance(sh, tuple) and len(sh) == 2 and hasattr(sh[1], "ranks"):
+        specs, mesh = sh
+    elif isinstance(like, ShardedTree):
+        specs, mesh = like.specs, like.mesh
+    elif isinstance(like, dict):
+        return {k: _place(tree[k], like[k], sh.get(k)
+                          if isinstance(sh, dict) else None) for k in like}
+    elif isinstance(like, list):
+        return [_place(t, l, sh[k] if isinstance(sh, list) else None)
+                for k, (t, l) in enumerate(zip(tree, like))]
+    else:
+        return tree
+    return ShardedTree.place(
+        tree_map(lambda t: t.to(mesh.device(0, 0)), tree), specs, mesh)
 
 
 def _host(leaf) -> np.ndarray:
@@ -58,6 +100,7 @@ def save(ckpt_dir: str, step: int, tree, keep: int | None = 3) -> str:
     os.makedirs(tmp)
 
     manifest = {"step": step, "leaves": []}
+    tree = _whole(tree, torch.device("cpu"))
     for i, (name, leaf) in enumerate(flatten_with_names(tree)):
         arr = _host(leaf)
         fname = f"leaf_{i:05d}.npy"
@@ -105,15 +148,23 @@ def _load(path: str, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, order="C"))
 
 
-def restore(ckpt_dir: str, step: int, like_tree, device="cuda"):
+def restore(ckpt_dir: str, step: int, like_tree, device="cuda",
+            shardings=None):
     """The checkpoint of ``step`` in the structure and dtypes of
     ``like_tree`` (its leaves are read for shape and dtype only), every
-    leaf on ``device``."""
+    leaf on ``device``. A subtree that ``like_tree`` holds placed (a
+    ``ShardedTree``) comes back placed by its specs on its mesh; a
+    subtree where ``shardings`` — a tree of ``like_tree``'s outer
+    structure, e.g. ``{"params": (specs, mesh), "opt": {"m": (specs,
+    mesh), "v": (specs, mesh)}}`` — holds a ``(specs, mesh)`` pair comes
+    back placed on that mesh, whatever mesh wrote the checkpoint (its
+    whole leaves are read onto ``mesh.device(0, 0)``)."""
     dev = resolve_device(device)
+    shapes = _whole(like_tree, torch.device("meta"))
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(final, "manifest.json")) as f:
         manifest = json.load(f)
-    flat_like = tree_leaves(like_tree)
+    flat_like = tree_leaves(shapes)
     if len(flat_like) != len(manifest["leaves"]):
         raise ValueError(f"checkpoint has {len(manifest['leaves'])} leaves, "
                          f"the tree {len(flat_like)}")
@@ -124,7 +175,7 @@ def restore(ckpt_dir: str, step: int, like_tree, device="cuda"):
             raise ValueError(f"{rec['name']}: checkpoint shape "
                              f"{list(t.shape)}, tree {list(like.shape)}")
         leaves.append(t.to(device=dev, dtype=like.dtype))
-    return tree_unflatten(like_tree, leaves)
+    return _place(tree_unflatten(shapes, leaves), like_tree, shardings)
 
 
 class AsyncCheckpointer:
@@ -141,7 +192,8 @@ class AsyncCheckpointer:
         host_tree = tree_map(
             lambda l: (l.detach().to("cpu", copy=True)
                        if isinstance(l, torch.Tensor)
-                       else np.array(l, copy=True)), tree)
+                       else np.array(l, copy=True)),
+            _whole(tree, torch.device("cpu")))
 
         def work():
             try:

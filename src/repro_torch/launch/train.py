@@ -2,11 +2,12 @@
 
 ``train_loop`` / ``main`` (``python -m repro_torch.launch.train --arch
 qwen3-1.7b``): data pipeline -> train step -> checkpoints, as the JAX
-package's trainer, on one device. It resumes from the newest complete
-checkpoint, writes one asynchronously every ``ckpt_every`` steps, handles
+package's trainer, on one device or over a (data, model) mesh
+(``--data-parallel`` / ``--model-parallel``: ``build_step(kind="train")``
+with the params and AdamW state placed on the mesh). It resumes from the
+newest complete checkpoint (whole leaves, so a run may resume on another
+mesh), writes one asynchronously every ``ckpt_every`` steps, handles
 SIGTERM preemption and watches for stragglers (``launch.elastic``).
-Data- and model-parallel training wait for the port's sharding rules
-(ROADMAP.md §1).
 
 ``dcn_train_step`` / ``dcn_train_loop``: the step of the JAX package's
 ``examples/train_dcn.py`` — a VGG19/SegNet DCN classifier trained on the
@@ -34,30 +35,37 @@ from repro_torch.data import (DataConfig, PrefetchIterator, image_batch,
                               token_batch)
 from repro_torch.launch.elastic import (ElasticConfig, PreemptionGuard,
                                         StragglerDetector)
-from repro_torch.launch.steps import build_train_step
+from repro_torch.launch.mesh import DeviceMesh, make_host_mesh
+from repro_torch.launch.steps import build_step, build_train_step
 from repro_torch.models import lm
 from repro_torch.models.dcn_models import (DcnNetConfig, dcn_net_apply,
                                            init_dcn_net)
+from repro_torch.models.params import ShardedTree
 from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
 
-_PARALLEL_ITEM = ("data- and model-parallel training are not ported yet: "
-                  "training over a mesh is the next slice (ROADMAP.md §1 "
-                  "item 5: build_step(kind='train') past (1, 1), "
-                  "compressed_psum_tree, the elastic re-mesh)")
-
-
-def train_loop(cfg, shape: ShapeCell, *, steps: int = 20,
+def train_loop(cfg, shape: ShapeCell, mesh=None, *, steps: int = 20,
                opt_cfg: AdamWConfig | None = None, ckpt_dir: str | None = None,
                ckpt_every: int = 10, seed: int = 0, log_every: int = 5,
                param_dtype=torch.float32, verbose: bool = True,
                device="cuda"):
     """Train ``cfg`` on ``token_batch`` data of ``shape`` (seq,
-    global_batch) up to ``steps``. -> (params, opt_state, losses of the
-    steps this call ran)."""
-    dev = resolve_device(device)
+    global_batch) up to ``steps``, on ``device``, or over ``mesh`` (a
+    ``launch.mesh.DeviceMesh``: the params made on its rank (0, 0) and
+    placed by ``build_step``'s specs). -> (params, opt_state, losses of
+    the steps this call ran); placed trees over a mesh."""
     opt_cfg = opt_cfg or AdamWConfig(total_steps=steps)
-    step_fn = build_train_step(cfg, opt_cfg)
-    params = lm.init_lm(cfg, seed, device=dev, dtype=param_dtype)
+    if mesh is None:
+        dev = resolve_device(device)
+        step_fn = build_train_step(cfg, opt_cfg)
+        params = lm.init_lm(cfg, seed, device=dev, dtype=param_dtype)
+    else:
+        dev = mesh.device(0, 0)
+        bundle = build_step(cfg, shape, mesh, opt_cfg=opt_cfg,
+                            param_dtype=param_dtype)
+        step_fn = bundle.fn
+        params = ShardedTree.place(
+            lm.init_lm(cfg, seed, device=dev, dtype=param_dtype),
+            bundle.param_shardings, mesh)
     opt_state = init_opt_state(params, opt_cfg)
 
     start_step = 0
@@ -130,14 +138,18 @@ def main(argv=None):
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.data_parallel > 1 or args.model_parallel > 1:
-        raise NotImplementedError(_PARALLEL_ITEM)
 
     cfg = configs.get_config(args.arch, smoke=args.smoke)
     shape = ShapeCell("cli_train", "train", args.seq, args.batch)
+    d, m = args.data_parallel, args.model_parallel
+    mesh = None
+    if d * m > 1:     # as launch.serve maps its mesh
+        mesh = make_host_mesh(d, m) \
+            if resolve_device(args.device).type == "cuda" \
+            else DeviceMesh.on(args.device, data=d, model=m)
     opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
                       total_steps=args.steps)
-    _, _, losses = train_loop(cfg, shape, steps=args.steps, opt_cfg=opt,
+    _, _, losses = train_loop(cfg, shape, mesh, steps=args.steps, opt_cfg=opt,
                               ckpt_dir=args.ckpt_dir, device=args.device)
     print(f"[train] done: first loss {losses[0]:.4f} -> last {losses[-1]:.4f}")
     return losses

@@ -6,7 +6,7 @@ Entry points:
   init_lm(cfg, seed, device=)                 params (``device="meta"``:
                                               shapes only)
   make_lm(mk, cfg)                            the same tree from any Maker
-  lm_loss(params, cfg, batch)                 -> (loss, metrics)
+  lm_loss(params, cfg, batch, ctx)            -> (loss, metrics)
   lm_prefill(params, cfg, batch, ctx)         last-position logits
   init_cache(cfg, batch, max_len, ...)        the decode cache
   build_cross_cache(params, cfg, cache, states) the cross layers' K/V
@@ -21,7 +21,10 @@ vocabulary (a rank looks up only its rows, masking the tokens outside
 them, and the lookups are summed; each rank's logits slice is gathered),
 an FSDP-split d_model is gathered onto the row's device at its use, and
 the logits are assembled on ``mesh.device(0, 0)``. Decode then reads a
-``transformer.ShardedCache`` (``init_cache(mesh=)``).
+``transformer.ShardedCache`` (``init_cache(mesh=)``). ``lm_loss`` of
+placed params takes each data row's cross-entropy on the row's device
+and averages them by token count on ``mesh.device(0, 0)``; its gradient
+with respect to every held slice is ``launch.steps.value_and_grad_placed``.
 
 Multi-codebook tokens (musicgen), tied embeddings, ``emb_scale``,
 ``logits_scale`` and the final soft-cap follow the JAX package. The tied
@@ -172,41 +175,47 @@ def _finish_logits(cfg: ModelConfig, logits):
     return logits
 
 
-def _logits_sharded(p: ShardedTree, cfg: ModelConfig, xs):
-    """The rows' logits (B_i, n_cb, V), vocab-parallel where the spec
-    splits the vocabulary: each rank's slice is gathered onto
-    ``mesh.device(0, 0)``, where the rows are assembled."""
-    tied = cfg.tie_embeddings
-    w = p["embed"] if tied else p["head"]
-    mesh = w.mesh
-    vdim = 1 if tied else 2
-    split = w.specs[vdim] == "model"
-    out = mesh.device(0, 0)
-    rows = []
-    for i, x in enumerate(xs):
-        parts = []
-        for r in range(mesh.shape["model"] if split else 1):
-            t = w.local(i, r)
-            xr = x.to(t.device)
-            heads = [t[c].t() if tied else t[c]
-                     for c in range(cfg.n_codebooks)]
-            parts.append(torch.stack([torch.matmul(xr, h.to(xr.dtype))
-                                      for h in heads], dim=-2).to(out))
-        rows.append(torch.cat(parts, dim=-1))
-    return _finish_logits(cfg, torch.cat(rows, 0))
+def _rowwise(p, f, leaf, *xs):
+    """f(leaf, *xs); of params placed on a mesh, the xs list the data
+    rows, and row i reads its own copy of ``leaf`` (``whole(i)``)."""
+    if isinstance(p, ShardedTree):
+        return [f(leaf.whole(i), *r) for i, r in enumerate(zip(*xs))]
+    return f(leaf, *xs)
+
+
+def _as_rows(x) -> list:
+    """A list of data rows: ``x`` itself, or ``[x]`` for one tensor."""
+    return x if isinstance(x, list) else [x]
 
 
 def _logits(p, cfg: ModelConfig, x):
-    """x: (..., D) -> (..., n_cb, V) fp32; of params placed on a mesh, x
-    lists the data rows."""
-    if isinstance(p, ShardedTree):
-        return _logits_sharded(p, cfg, x)
-    if cfg.tie_embeddings:
-        heads = [p["embed"][c].t() for c in range(cfg.n_codebooks)]
-    else:
-        heads = [p["head"][c] for c in range(cfg.n_codebooks)]
-    return _finish_logits(cfg, torch.stack(
-        [torch.matmul(x, w.to(x.dtype)) for w in heads], dim=-2))
+    """x: (..., D) -> (..., n_cb, V) fp32. Of params placed on a mesh, x
+    lists the data rows and so does the result, each row's logits on the
+    row's device, vocab-parallel where the spec splits the vocabulary:
+    each rank's slice is gathered there."""
+    tied = cfg.tie_embeddings
+    if not isinstance(p, ShardedTree):
+        if tied:
+            heads = [p["embed"][c].t() for c in range(cfg.n_codebooks)]
+        else:
+            heads = [p["head"][c] for c in range(cfg.n_codebooks)]
+        return _finish_logits(cfg, torch.stack(
+            [torch.matmul(x, w.to(x.dtype)) for w in heads], dim=-2))
+    w = p["embed"] if tied else p["head"]
+    mesh = w.mesh
+    split = w.specs[1 if tied else 2] == "model"
+    rows = []
+    for i, xi in enumerate(x):
+        parts = []
+        for r in range(mesh.shape["model"] if split else 1):
+            t = w.local(i, r)
+            xr = xi.to(t.device)
+            heads = [t[c].t() if tied else t[c]
+                     for c in range(cfg.n_codebooks)]
+            parts.append(torch.stack([torch.matmul(xr, h.to(xr.dtype))
+                                      for h in heads], dim=-2).to(xi.device))
+        rows.append(_finish_logits(cfg, torch.cat(parts, dim=-1)))
+    return rows
 
 
 def _xent(logits, labels):
@@ -217,54 +226,80 @@ def _xent(logits, labels):
     return torch.mean(lse - gold)
 
 
-def lm_loss(p, cfg: ModelConfig, batch):
+def _xent_rows(logits: list, labels: list):
+    """The mean cross-entropy over every data row's positions, on the
+    first row's device: each row's mean weighted by its share of the
+    labels, so that a split of the batch gives the whole batch's mean
+    (and one row its own mean)."""
+    n = sum(lab.numel() for lab in labels)
+    out = logits[0].device
+    terms = [_xent(lg, lab).to(out) * (lab.numel() / n)
+             for lg, lab in zip(logits, labels)]
+    return sum(terms[1:], terms[0])
+
+
+def lm_loss(p, cfg: ModelConfig, batch, ctx=None):
     """batch: {"tokens": (B, S+1[, n_cb]) int, optional "cross_states"
     (B, S_kv, d_cross): data, not a parameter}. -> (loss, {"ce", "aux",
     ["mtp",] "loss"}): next-token cross-entropy averaged over all positions
     (and codebooks), plus ``aux_weight`` times the MoE blocks' auxiliary
     term (MoE configs) and ``mtp_weight`` times the MTP loss (``cfg.mtp``:
     the trunk state at position i with the embedding of token i+1
-    predicts token i+2)."""
-    tokens, cross = batch["tokens"], batch.get("cross_states")
-    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    predicts token i+2). ``ctx`` as in ``lm_prefill``. ``p`` placed on a
+    mesh runs over it: each data row's cross-entropy on the row's
+    device, averaged by token count on ``mesh.device(0, 0)``; the MoE
+    ``aux`` is the rows' mean (the JAX ``pmean``)."""
+    tokens, cross = batch["tokens"], _rows(p, batch.get("cross_states"))
+    inputs = tokens[:, :-1]
+    labels = _as_rows(_rows(p, tokens[:, 1:]))
     x, aux = apply_layers_train(p["layers"], cfg, _embed(p, cfg, inputs),
-                                cross_states=cross)
+                                cross_states=cross, ctx=ctx)
     _, norm = make_norm(cfg.norm)
-    logits = _logits(p, cfg, norm(p["final_norm"], x))   # (B, S, n_cb, V)
-    if cfg.n_codebooks == 1:
-        lab = labels if labels.dim() == 2 else labels[..., 0]
-        loss = _xent(logits[..., 0, :], lab)
+    fin = p["final_norm"]
+    logits = _as_rows(_logits(p, cfg, _rowwise(p, norm, fin, x)))
+    if cfg.n_codebooks == 1:                         # (B_i, S, n_cb, V)
+        loss = _xent_rows([lg[..., 0, :] for lg in logits],
+                          [lab if lab.dim() == 2 else lab[..., 0]
+                           for lab in labels])
     else:
-        loss = _xent(logits, labels)                     # labels (B,S,n_cb)
+        loss = _xent_rows(logits, labels)            # labels (B_i, S, n_cb)
+    aux = aux.to(loss.device)
     metrics = {"ce": loss, "aux": aux}
     if cfg.moe is not None:
         loss = loss + cfg.aux_weight * aux
 
     if cfg.mtp:
         mtp = p["mtp"]
-        h_in = norm(mtp["norm_h"], x[:, :-1])                # (B, S-1, D)
-        e_in = norm(mtp["norm_e"], _embed(p, cfg, inputs[:, 1:]))
-        h = torch.matmul(torch.cat([h_in, e_in], -1),
-                         mtp["proj"].to(x.dtype))
+        h_in = _rowwise(p, lambda w, r: norm(w, r[:, :-1]), mtp["norm_h"],
+                        x)                                  # (B, S-1, D)
+        e_in = _rowwise(p, norm, mtp["norm_e"],
+                        _embed(p, cfg, inputs[:, 1:]))
+        h = _rowwise(p, lambda w, a, b: torch.matmul(torch.cat([a, b], -1),
+                                                     w.to(a.dtype)),
+                     mtp["proj"], h_in, e_in)
         h, _ = block_train(mtp["block"], cfg, _mtp_spec(cfg), h,
-                           cross_states=cross)
-        mtp_logits = _logits(p, cfg, norm(p["final_norm"], h))
-        lab2 = labels[:, 1:] if labels.dim() == 2 else labels[:, 1:, 0]
-        mtp_loss = _xent(mtp_logits[..., 0, :], lab2)
+                           cross_states=cross, ctx=ctx)
+        mtp_logits = _as_rows(_logits(p, cfg, _rowwise(p, norm, fin, h)))
+        mtp_loss = _xent_rows([lg[..., 0, :] for lg in mtp_logits],
+                              [lab[:, 1:] if lab.dim() == 2 else
+                               lab[:, 1:, 0] for lab in labels])
         metrics["mtp"] = mtp_loss
         loss = loss + cfg.mtp_weight * mtp_loss
     metrics["loss"] = loss
     return loss, metrics
 
 
-def _last(p, cfg: ModelConfig, x):
-    """The final norm of x's last position (of each data row's, for
-    params placed on a mesh)."""
+def _next_logits(p, cfg: ModelConfig, x):
+    """The logits (B, n_cb, V) of x's last position after the final norm;
+    of params placed on a mesh, the data rows' assembled on
+    ``mesh.device(0, 0)``."""
     _, norm = make_norm(cfg.norm)
-    if isinstance(p, ShardedTree):
-        return [norm(p["final_norm"].whole(i), r[:, -1])
-                for i, r in enumerate(x)]
-    return norm(p["final_norm"], x[:, -1])
+    logits = _logits(p, cfg, _rowwise(p, lambda w, r: norm(w, r[:, -1]),
+                                      p["final_norm"], x))
+    if not isinstance(p, ShardedTree):
+        return logits
+    out = p.mesh.device(0, 0)
+    return torch.cat([r.to(out) for r in logits], 0)
 
 
 @torch.no_grad()
@@ -281,7 +316,7 @@ def lm_prefill(p, cfg: ModelConfig, batch, ctx=None):
     x, _ = apply_layers_train(p["layers"], cfg, x, ctx=ctx,
                               cross_states=_rows(p, batch.get(
                                   "cross_states")))
-    return _logits(p, cfg, _last(p, cfg, x))
+    return _next_logits(p, cfg, x)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -334,4 +369,4 @@ def lm_decode_step(p, cfg: ModelConfig, cache, token, pos, ctx=None):
     x = _embed(p, cfg, token)
     x, cache = apply_layers_decode(p["layers"], cfg, x, cache,
                                    _rows(p, pos), ctx)
-    return _logits(p, cfg, _last(p, cfg, x)), cache
+    return _next_logits(p, cfg, x), cache

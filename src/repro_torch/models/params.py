@@ -143,6 +143,19 @@ def map_tree(fn: Callable, tree, *rest):
 # Logical axes -> mesh axes, and trees placed on a mesh
 # ---------------------------------------------------------------------------
 
+def _leaf_list(tree) -> list:
+    """The leaves of a :func:`map_tree` tree (a spec tuple is a leaf)."""
+    out: list = []
+    map_tree(out.append, tree)
+    return out
+
+
+def _unflat(like, flat: list):
+    """A tree of ``like``'s structure holding ``flat`` in order."""
+    it = iter(flat)
+    return map_tree(lambda _: next(it), like)
+
+
 def resolve_spec(axes: LogicalAxes, shape: tuple[int, ...], rules: dict,
                  mesh) -> tuple:
     """LogicalAxes -> spec under ``rules``: per dimension the mesh axis
@@ -239,12 +252,16 @@ class ShardedTree:
 
     def layers(self) -> list["ShardedTree"]:
         """Every layer of a stacked subtree (its leading "layers"
-        dimension, which no rule splits), as views."""
+        dimension, which no rule splits), as views: one ``unbind`` a held
+        leaf, whose backward stacks the layers' gradients once (a slice a
+        layer would add a zero-filled stack-sized gradient per layer)."""
         specs = map_tree(lambda s: s[1:], self.specs)
         n = next(leaves(self.shards[0][0])).shape[0]
+        per = [[map_tree(lambda t: torch.unbind(t, 0), s) for s in row]
+               for row in self.shards]
         return [ShardedTree(self.mesh, specs,
-                            [[map_tree(lambda t: t[index], s) for s in row]
-                             for row in self.shards])
+                            [[map_tree(lambda u: u[index], s) for s in row]
+                             for row in per])
                 for index in range(n)]
 
     def local(self, i: int, r: int):
@@ -268,19 +285,89 @@ class ShardedTree:
 
         return map_tree(get, self.specs, *self._flat())
 
-    def whole(self, i: int = 0):
+    def whole(self, i: int = 0, device=None):
         """Every leaf whole on data row i's device, ``mesh.device(i,
-        0)``: a leaf no spec splits as it is held there, others gathered
-        from every device's slice."""
-        dev = self.mesh.device(i, 0)
+        0)``, or on ``device``: a leaf no spec splits as row i's rank 0
+        holds it (moved to ``device``), others gathered from every
+        device's slice."""
+        dev = self.mesh.device(i, 0) if device is None else device
         m = self.mesh.shape["model"]
 
         def get(spec, *held):
             if not any(spec):
-                return held[i * m]
+                return held[i * m].to(dev)
             return self._assemble(spec, held, dev)
 
         return map_tree(get, self.specs, *self._flat())
+
+    def map(self, fn) -> "ShardedTree":
+        """``fn`` over every held slice, placed as this tree."""
+        return ShardedTree(self.mesh, self.specs,
+                           [[map_tree(fn, s) for s in row]
+                            for row in self.shards])
+
+    def groups(self, spec) -> list[list[int]]:
+        """The devices, by flat index ``i * model + r``, that hold each
+        distinct slice of a leaf of ``spec``, one list a slice, its first
+        device the slice's home: a leaf not split over "data" is held by
+        every data row, one not split over "model" by every rank of a
+        row."""
+        axes = {a for e in spec for a in _names(e)}
+        m = self.mesh.shape["model"]
+        out: dict = {}
+        for k in range(len(self._flat())):
+            i, r = divmod(k, m)
+            key = (i if "data" in axes else 0, r if "model" in axes else 0)
+            out.setdefault(key, []).append(k)
+        return list(out.values())
+
+    def flat_leaves(self) -> list[list]:
+        """Every device's leaves, in (i, r) order, each in the order of
+        :meth:`spec_leaves`."""
+        out = []
+        for s in self._flat():
+            held: list = []
+            map_tree(lambda _, t: held.append(t), self.specs, s)
+            out.append(held)
+        return out
+
+    def spec_leaves(self) -> list:
+        """The leaves' specs in :func:`map_tree` order (dict keys as the
+        spec tree inserted them)."""
+        return _leaf_list(self.specs)
+
+    def slices(self) -> list[list[list]]:
+        """Per leaf, per distinct slice, the tensors that hold it, its
+        home's first (:meth:`groups`)."""
+        held = self.flat_leaves()
+        return [[[held[k][j] for k in ks] for ks in self.groups(spec)]
+                for j, spec in enumerate(self.spec_leaves())]
+
+    def per_slice(self, fn) -> "ShardedTree":
+        """A tree placed as this one whose every distinct slice is
+        ``fn(j, ks)`` (leaf j, its holders' flat indices, home first),
+        made once on the home device and held by every holder: the same
+        tensor on a device the mesh lists several times, a copy on
+        another device."""
+        n_dev = len(self._flat())
+        out = [[None] * len(self.spec_leaves()) for _ in range(n_dev)]
+        for j, spec in enumerate(self.spec_leaves()):
+            for ks in self.groups(spec):
+                value = fn(j, ks)
+                for k in ks:
+                    i, r = divmod(k, self.mesh.shape["model"])
+                    out[k][j] = value.to(self.mesh.device(i, r))
+        m = self.mesh.shape["model"]
+        rows = [[_unflat(self.specs, out[i * m + r]) for r in range(m)]
+                for i in range(self.mesh.shape["data"])]
+        return ShardedTree(self.mesh, self.specs, rows)
+
+    def zeros(self, dtype) -> "ShardedTree":
+        """Zeros of ``dtype`` placed as this tree, one tensor a distinct
+        slice (the AdamW moments)."""
+        held = self.flat_leaves()
+        return self.per_slice(lambda j, ks: torch.zeros(
+            held[ks[0]][j].shape, dtype=dtype, device=held[ks[0]][j].device))
 
     def _flat(self) -> list:
         """Every device's tree, in (i, r) order."""

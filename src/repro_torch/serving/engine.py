@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.convert import _tensor
 from repro_torch.kernels._build import KernelError
 from repro_torch.models import lm
 from repro_torch.models.transformer import reset_cache_rows
@@ -261,6 +262,21 @@ def _image_dram(trace) -> dict[int, int]:
     return per_img
 
 
+def _host_images(x) -> torch.Tensor:
+    """Images as a host tensor in their own floating dtype (bf16 from an
+    ``ml_dtypes`` array or a torch tensor included); float64 and
+    non-floating values are read as float32."""
+    if isinstance(x, torch.Tensor):
+        t = x.detach().cpu()
+    else:
+        a = np.asarray(x)
+        t = _tensor(a, torch.device("cpu")) \
+            if a.dtype.name == "bfloat16" else torch.as_tensor(a)
+    if t.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        t = t.to(torch.float32)
+    return t
+
+
 @dataclasses.dataclass
 class DcnRequest:
     """One vision serving request: a small batch of images.
@@ -268,11 +284,15 @@ class DcnRequest:
     ``out`` fills per image as serving steps complete the images' slots;
     the request finishes when its last image does. A request always
     resolves: ``done`` with outputs, or ``done`` with ``error`` set, in
-    which case ``result()`` raises it.
+    which case ``result()`` raises it. ``x`` holds the images on the host
+    as submitted, in their dtype (float64 read as float32). Outputs are
+    numpy arrays, except a bf16 engine's, which numpy cannot hold without
+    ``ml_dtypes``: those are host ``torch.bfloat16`` tensors with the
+    logits' exact values.
     """
 
     rid: int
-    x: np.ndarray                # (n, H, W, C)
+    x: torch.Tensor              # (n, H, W, C), on the host
     submit_s: float
     out: list = dataclasses.field(default_factory=list)
     done: bool = False
@@ -293,11 +313,14 @@ class DcnRequest:
         return (self.finish_s - self.submit_s) if self.done else 0.0
 
     def result(self) -> np.ndarray:
-        """Stacked per-image outputs, in submit order."""
+        """Stacked per-image outputs, in submit order (a host bf16 tensor
+        on a bf16 engine, else a numpy array)."""
         if self.error is not None:
             raise self.error
         if not self.done:
             raise RuntimeError(f"request {self.rid} is not finished")
+        if isinstance(self.out[0], torch.Tensor):
+            return torch.stack(self.out)
         return np.stack([np.asarray(o) for o in self.out])
 
 
@@ -563,12 +586,21 @@ class DcnServingEngine:
         return True
 
     def _to_device(self, x) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x, np.float32)).to(self.device)
+        return _host_images(x).to(self.device)
 
     def _run_graph(self, x: torch.Tensor, cfg, shard_sizes=None):
-        """One executor call -> (logits on the device, trace)."""
+        """One executor call -> (logits on the device, trace). Images of
+        another dtype than the params' raise ``TypeError``, as the JAX
+        engine's first convolution rejects mixed dtypes."""
         from repro_torch.models.dcn_models import apply_head
         from repro_torch.runtime.fused_exec import run_graph
+
+        w0 = self.params["convs"][0]
+        w0 = w0.w if hasattr(w0, "w") else w0["w"]
+        if x.dtype != w0.dtype:
+            raise TypeError(f"{x.dtype} images into an engine whose params "
+                            f"are {w0.dtype}: the first convolution takes "
+                            f"one dtype")
 
         y, trace = run_graph(
             self.params["convs"], self.net_graph, x, config=cfg,
@@ -578,11 +610,13 @@ class DcnServingEngine:
         return apply_head(self.params, self.cfg, y), trace
 
     def _run_batch(self, images: list[np.ndarray], cfg, shard_sizes=None):
-        """One executor call over a list of images -> (host logits,
-        trace)."""
-        logits, trace = self._run_graph(self._to_device(np.stack(images)),
-                                        cfg, shard_sizes)
-        return logits.cpu().numpy(), trace
+        """One executor call over a list of host images -> (host logits,
+        trace): numpy, or a bf16 tensor (``DcnRequest``)."""
+        logits, trace = self._run_graph(
+            torch.stack(images).to(self.device), cfg, shard_sizes)
+        logits = logits.cpu()
+        return (logits if logits.dtype == torch.bfloat16
+                else logits.numpy()), trace
 
     def _shard_sizes(self, repl: list[int] | None):
         """Per-replica image counts of one step's batch (None when the
@@ -682,8 +716,12 @@ class DcnServingEngine:
         past the deadline or its step completes past it. With
         ``max_queue`` set, an overfilling submit follows ``queue_policy``:
         ``block`` waits, ``reject`` raises :class:`QueueFullError`,
-        ``shed-oldest`` fails the request(s) owning the oldest images."""
-        x = np.asarray(x)
+        ``shed-oldest`` fails the request(s) owning the oldest images.
+        ``x`` is a numpy array (an ``ml_dtypes`` bfloat16 one included) or
+        a torch tensor, in the params' dtype: it is served in its own
+        dtype, as the JAX engine serves it, float64 read as float32;
+        images of another dtype fail their request at its step."""
+        x = _host_images(x)
         if x.ndim == 3:
             x = x[None]
         g = self.net_graph
@@ -695,7 +733,7 @@ class DcnServingEngine:
             raise ValueError(
                 "empty request: a serving request needs at least one "
                 "image")
-        if not bool(np.isfinite(x).all()):
+        if not bool(torch.isfinite(x).all()):
             # NaN/Inf would decode into junk clipped-floor coords and
             # poison the schedule cache with a shared junk digest.
             raise ValueError(
@@ -796,7 +834,10 @@ class DcnServingEngine:
         first), then serve all occupied slots with one ``batch_fused``
         grid per layer segment, under the retry/degrade containment of
         :meth:`_execute_isolated`. Returns the requests that resolved this
-        step — finished or failed, each exactly once."""
+        step — finished or failed, each exactly once. Images are served in
+        their own dtype, the degraded per-image step's and the evicted
+        retry's included; a bf16 engine's outputs are host
+        ``torch.bfloat16`` tensors, a float32 engine's numpy arrays."""
         tr = self.tracer
         if self._faults is not None:
             begin = getattr(self._faults, "begin_step", None)

@@ -17,7 +17,11 @@ the JAX function and the port's:
 * ``DcnServingEngine.infer`` equal to ``run_graph`` plus the head, the
   sharded ``run_graph`` equal to the unsharded one, and the kernel model
   backends near the dense one;
-* a mixed call (x and w of different types) equal to the widened call.
+* a mixed call (x and w of different types) equal to the widened call;
+* bf16 images through ``DcnServingEngine.submit`` / ``step()`` against
+  the JAX engine: logits within one bf16 ulp, trace records and DRAM
+  bytes equal to JAX's and the simulator's at 2 B a value, float32
+  images failing in both, and the degraded per-image step in bf16.
 """
 
 import numpy as np
@@ -312,3 +316,132 @@ def test_model_backends_in_bf16(backend):
     assert got.dtype == want.dtype == BF16
     np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
                                rtol=0, atol=5e-2 * float(want.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# bf16 images through DcnServingEngine.submit / step against the JAX engine
+# ---------------------------------------------------------------------------
+
+ENGINE_CFG = dict(name="vgg19", n_deform=2, img_size=16, width_mult=0.125,
+                  num_classes=4)
+
+
+@pytest.fixture(scope="module")
+def engine_case():
+    """The JAX VGG19-2 network at 16x16, width 0.125, its offsets
+    randomized, in bf16 (a JAX tree and the port's), and six bf16 images
+    as an ``ml_dtypes`` array."""
+    import ml_dtypes
+
+    from repro.core.deform import randomize_offset_conv as j_randomize
+    from repro.models.dcn_models import DcnNetConfig as JNetConfig
+    from repro.models.dcn_models import init_dcn_net as j_init_dcn_net
+
+    key = jax.random.PRNGKey(31)
+    jparams = j_init_dcn_net(key, JNetConfig(**ENGINE_CFG))
+    jparams["convs"] = [
+        j_randomize(p, jax.random.fold_in(key, 100 + i), 2.0 / p.w.shape[2])
+        if isinstance(p, JParams) else p
+        for i, p in enumerate(jparams["convs"])]
+    jparams = jax.tree.map(lambda a: a.astype(jnp.bfloat16), jparams)
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams),
+                              device="cpu")
+    xs = np.random.default_rng(31).normal(size=(6, 16, 16, 3)).astype(
+        ml_dtypes.bfloat16)
+    return jparams, tparams, xs
+
+
+def _engines(case, **faults):
+    from repro.models.dcn_models import DcnNetConfig as JNetConfig
+    from repro.serving import DcnServingEngine as JEngine
+    from repro.testing import FaultInjector as JInjector
+    from repro_torch.testing import FaultInjector
+
+    jparams, tparams, _ = case
+    j_eng = JEngine(jparams, JNetConfig(**ENGINE_CFG),
+                    graph=JGraphConfig(tile=4), slots=4,
+                    faults=JInjector(**faults) if faults else None)
+    t_eng = DcnServingEngine(
+        tparams, DcnNetConfig(**ENGINE_CFG), graph=GraphConfig(tile=4),
+        slots=4, device="cpu",
+        faults=FaultInjector(**faults) if faults else None)
+    return j_eng, t_eng
+
+
+def _lockstep(j_eng, t_eng, requests):
+    """Submit ``requests`` (JAX image batch, port image batch) to both
+    engines and step them together; -> (JAX requests, port requests,
+    [(JAX trace, port trace)] of each step that served images)."""
+    j_reqs = [j_eng.submit(j) for j, _ in requests]
+    t_reqs = [t_eng.submit(t) for _, t in requests]
+    traces = []
+    while not all(r.done for r in j_reqs + t_reqs):
+        j_eng.step()
+        t_eng.step()
+        traces.append((j_eng.last_trace, t_eng.last_trace))
+    return j_reqs, t_reqs, traces
+
+
+def _trace_equals_jax_and_simulator(j_tr, t_tr):
+    assert _records(t_tr) == _records(j_tr)
+    assert t_tr.total_dram_bytes == j_tr.total_dram_bytes
+    assert {g.dtype_bytes for g in t_tr.groups} == {2}
+    sim = simulate_network(network_sim_specs(t_tr),
+                           boundary_bytes=t_tr.boundary_bytes)
+    assert sim.total_dram_bytes == t_tr.total_dram_bytes
+
+
+def test_engine_step_serves_bf16_images_as_jax(engine_case):
+    """bf16 images through ``submit`` / ``step()``: one request a torch
+    bf16 tensor, the others ``ml_dtypes`` arrays, the JAX engine fed the
+    same values. Logits come back host bf16 tensors within one bf16 ulp
+    of the JAX engine's, every step's trace records and DRAM bytes equal
+    JAX's at 2 B a value and the simulator's; float32 images fail their
+    request in both engines, and the error names both dtypes."""
+    _, tparams, xs = engine_case
+    j_eng, t_eng = _engines(engine_case)
+    requests = [(xs[:1], torch.as_tensor(xs[:1].astype(np.float32)).to(BF16)),
+                (xs[1:4], xs[1:4]), (xs[4:], xs[4:])]
+    j_reqs, t_reqs, traces = _lockstep(j_eng, t_eng, requests)
+    for j, t in zip(j_reqs, t_reqs):
+        assert not j.failed and not t.failed
+        _within_ulp(t.result(), j.result())
+    assert len(traces) == 2
+    for j_tr, t_tr in traces:
+        _trace_equals_jax_and_simulator(j_tr, t_tr)
+    want = t_eng.infer(torch.as_tensor(xs.astype(np.float32)).to(BF16))
+    got = torch.cat([t.result() for t in t_reqs])
+    _within_ulp(got, want.float().numpy())
+
+    x32 = xs[:2].astype(np.float32)
+    j_reqs, t_reqs, _ = _lockstep(j_eng, t_eng, [(x32, x32)])
+    assert j_reqs[0].failed and t_reqs[0].failed
+    assert "torch.float32 images into an engine whose params are " \
+        "torch.bfloat16" in str(t_reqs[0].error.__cause__)
+    with pytest.raises(TypeError, match="float32 images"):
+        t_eng.infer(torch.as_tensor(x32))
+
+
+def test_degraded_step_serves_bf16_as_jax(engine_case):
+    """An untagged dispatch fault degrades the step to per-image
+    ``batched`` dispatch (#4's bf16 body on a card) in both engines; the
+    bf16 requests still resolve, within one bf16 ulp of the JAX engine's
+    and of a fault-free port engine's, with the same counters."""
+    _, _, xs = engine_case
+    plan = dict(kinds=("dispatch",), rate=1.0, max_fires=1,
+                tag_image=False, seed=7)
+    j_eng, t_eng = _engines(engine_case, **plan)
+    j_reqs, t_reqs, traces = _lockstep(j_eng, t_eng,
+                                       [(xs[:3], xs[:3]), (xs[3:4], xs[3:4])])
+    assert t_eng.stats["degraded_steps"] == j_eng.stats["degraded_steps"] \
+        == 1
+    assert t_eng.last_trace.groups[0].dispatch == "batched"
+    _, clean = _engines(engine_case)
+    ref = clean.submit(xs[:4])
+    clean.drain()
+    got = torch.cat([t.result() for t in t_reqs])
+    assert got.dtype == BF16
+    _within_ulp(got, np.concatenate([j.result() for j in j_reqs]))
+    _within_ulp(got, ref.result().float().numpy())
+    for j_tr, t_tr in traces:
+        _trace_equals_jax_and_simulator(j_tr, t_tr)

@@ -485,8 +485,10 @@ def test_build_step_kinds_and_abstract_args():
     _, same = b.fn(params, cache, tok, pos.long())
     assert same is cache                            # donated: in place
     assert any(float(t.abs().max()) > 0 for t in leaves(cache.gather()))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        build_step(cfg, ShapeCell("t", "train", 8, 2), mesh)
+    train_b = build_step(cfg, ShapeCell("t", "train", 8, 2), mesh)
+    assert train_b.opt_shardings == {"step": (),
+                                     "m": train_b.param_shardings,
+                                     "v": train_b.param_shardings}
     one = build_step(cfg, ShapeCell("t", "train", 8, 2),
                      DeviceMesh.on("cpu"))
     assert callable(one.fn) and one.param_shardings is not None

@@ -218,6 +218,7 @@ def test_train_command_runs_on_the_cpu(tmp_path, capsys):
                          "--ckpt-dir", str(tmp_path)])
     assert len(losses) == 3 and all(np.isfinite(losses))
     assert "done: first loss" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(["--arch", "qwen3-1.7b", "--data-parallel", "2",
-                    "--device", "cpu"])
+    losses = train.main(["--arch", "qwen3-1.7b", "--steps", "2", "--seq",
+                         "8", "--batch", "2", "--device", "cpu",
+                         "--data-parallel", "2"])
+    assert len(losses) == 2 and all(np.isfinite(losses))
