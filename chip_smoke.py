@@ -153,7 +153,14 @@ Phases, each fatal on failure:
               against ``lm_prefill`` within 1e-3 * max|ref|, and
               ``DecodeEngine`` serving 2 requests of 8 new tokens; no
               kernel wrapper launches on this path. Peak memory of each
-              part is printed.
+              part is printed. 10c: the same weights through
+              ``build_step`` over ``DeviceMesh.on("cuda:0", data=1,
+              model=4)`` (MLA split by heads, each rank a copy of the
+              latent cache; ep 4, nothing drops) beside the unsharded
+              path (``mesh_split_run``, ``MESH_SPLIT``): prefill 1 x 512
+              within 1e-3 * max|ref|, then 5 decode steps from position
+              512 against a 512-row prompt cache (``prompt_cache``) within
+              1e-4, step p50 of both, peak memory.
 11. lm-recurrent — 11a: jamba-v0.1-52b at full width with its depth cut
               to one period (7 Mamba + 1 attention layer, 4 MoE + 4 dense
               MLPs; 13,295,235,072 params, the whole 51,570,315,264
@@ -170,7 +177,13 @@ Phases, each fatal on failure:
               (a chunk boundary and a padded tail, 1e-3 * max|ref|), and
               request 0 served again through a used slot gets the greedy
               tokens it got in a fresh slot. Peak memory of each part is
-              printed.
+              printed. 11c / 11d: each model's weights through
+              ``build_step`` over (2, 2) as 10c (jamba's Mamba split by
+              channel, its attention layer's 4 #7 / #8 launches on the
+              rank slices held against the plain versions; xlstm's
+              mLSTM / sLSTM by head, its limits max(10c's, 2 x the
+              logits' move under a one-ulp nudge of every weight),
+              prefill 2 x 512.
 12. lm-cross — llama-3.2-vision-11b ``full()``, whole (40 layers, the 8
               cross-attention layers at 3, 8, ..., 38 over 1,601 image
               tokens of width 4096; 9,775,157,248 params, 39.1 GB float32
@@ -190,7 +203,16 @@ Phases, each fatal on failure:
               the cross cache against ``lm_prefill`` within 1e-3 *
               max|ref|, and the same prompts under another image moving
               the logits by more than 1e-3 * max|ref|. Peak memory of each
-              part is printed.
+              part is printed. 12b: the same weights through
+              ``build_step`` over (2, 2) as 10c, the cross layers split by
+              head and the ``ShardedCache``'s cross K/V filled by
+              ``build_cross_cache`` from each rank's own ``wk`` / ``wv``:
+              160 #7 launches in the prefill (32 non-causal) and 160 #8 a
+              decode step (32 counted over the ranks' cross caches by
+              their rows), each on its rank's cache tensor; #7 and #8 on
+              the 4 ranks' slices of the first self-attention layer and
+              of the first cross layer held against their plain
+              versions, the cross layer's timed.
 13. lm-bf16 — 13a: #7's bf16 kernel (Qwen3, granite D 64, Gemma-2 window
               + soft-cap, llama's self and cross layers) and #8 over a
               bf16 cache under a float32 and a bf16 q (the serving shape,
@@ -326,7 +348,10 @@ LM_SIZES = dict(
     max_new=32, cross_checked=2)
 # Phase 10: the MoE / MLA configurations (full widths), their parameter
 # counts, and deepseek's prefill, MLA check and served requests.
+# granite's serving run is cut to 6 requests of 16-64-token prompts
+# (phase 7's are 8 of 16-256): still past step 64 with a stale free slot.
 MOE_SIZES = dict(granite="granite-moe-3b-a800m", granite_params=3_903_166_464,
+                 granite_requests=6, granite_prompt_len=(16, 64),
                  deepseek="deepseek-v3-671b",
                  deepseek_params=671_712_677_376,
                  deepseek_cut_params=14_630_393_088, ds_prefill=(1, 512),
@@ -406,6 +431,23 @@ MESH_SIZES = dict(granite="granite-moe-3b-a800m", ep_mesh=(1, 16),
                   qwen="qwen3-1.7b", tp_mesh=(2, 2), prefill=(4, 2048),
                   decode_steps=16, decode_rtol=1e-4, held_step=4,
                   aux_rtol=1e-5)
+# Phases 10c, 11c, 11d and 12b: each family's own weights through
+# build_step over DeviceMesh.on("cuda:0", data, model) beside the unsharded
+# path, with MLA, Mamba, mLSTM / sLSTM and cross-attention split over
+# "model" (PERF.md §2 holds the limits): prefill (B, S), then
+# ``decode_steps`` steps from position S against an S-row prompt cache.
+# xlstm's limits are read from the model's own float32 conditioning
+# (``nudge``): each is max(its fixed limit, nudge x how far the unsharded
+# logits move when every weight moves by at most one ulp). On the H100
+# the random-weight 48-layer xlstm moves its prefill by 1.5e-3 of
+# max|ref| over the mesh, and its own decode-vs-prefill check (11b)
+# reads 8.1e-4: float32 sums in another order move it that far.
+MESH_SPLIT = dict(
+    deepseek=dict(mesh=(1, 4), prefill=(1, 512)),
+    jamba=dict(mesh=(2, 2), prefill=(2, 512)),
+    xlstm=dict(mesh=(2, 2), prefill=(2, 512), decode_rtol=1e-3, nudge=2.0),
+    llama=dict(mesh=(2, 2), prefill=(2, 512)),
+    decode_steps=5, prefill_rtol=1e-3, decode_rtol=1e-4)
 # Phase 16: Qwen3-1.7B training over DeviceMesh.on("cuda:0", 2, 2) beside
 # the unsharded step (PERF.md §2 holds the limit, written before its first
 # run).
@@ -740,17 +782,18 @@ def prefill_through_flash(card, tag, params, cfg, toks, reset_counts,
     return n7, held7, wall, n_nc
 
 
-def serving_requests(cfg):
-    """Phase 7's greedy requests (``LM_SIZES``), drawn from the seed."""
+def serving_requests(cfg, n=None, prompt_len=None):
+    """Phase 7's greedy requests (``LM_SIZES``), drawn from the seed; ``n``
+    requests of ``prompt_len`` (lo, hi) tokens where given."""
     import numpy as np
 
     from repro_torch.serving import Request
 
     sizes = LM_SIZES
     srng = np.random.default_rng(SEED + 7)
-    lo, hi = sizes["prompt_len"]
+    lo, hi = prompt_len or sizes["prompt_len"]
     reqs = []
-    for rid in range(sizes["requests"]):
+    for rid in range(n or sizes["requests"]):
         plen_r = int(srng.integers(lo, hi + 1))
         reqs.append(Request(rid=rid, max_new=sizes["max_new"],
                             prompt=srng.integers(0, cfg.vocab, size=plen_r)
@@ -871,6 +914,8 @@ def cache_kv_ptrs(cache) -> set:
         if isinstance(node, dict):
             if set(node) == {"k", "v"}:
                 for t in node.values():
+                    if t is None:        # a ShardedCache rank holding none
+                        continue
                     ptrs.update([t.data_ptr()] if t.dim() == 4 else
                                 [r.data_ptr() for r in torch.unbind(t, 0)])
                 return
@@ -884,10 +929,306 @@ def cache_kv_ptrs(cache) -> set:
     return ptrs
 
 
+def prompt_cache(cfg, b, max_len, fill, seed):
+    """A whole float32 decode cache of ``b`` rows on the card as a prefill
+    of ``fill`` tokens leaves it: every self-attention layer's K / V and
+    every MLA layer's latent hold ``fill`` rows of seeded normal values
+    (the weights are random, and so are the rows a prompt writes), the
+    recurrent states their initial values, the cross caches empty.
+    Decode from ``pos = fill`` then reads each cache at the prompt's
+    length."""
+    import torch
+
+    from repro_torch.models import lm
+
+    cache = lm.init_cache(cfg, b, max_len, dtype=torch.float32,
+                          device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def fill_rows(t, seq_dim):
+        rows = t.narrow(t.dim() + seq_dim, 0, fill)
+        rows.copy_(torch.randn(rows.shape, generator=gen, device=t.device))
+
+    def walk(node):
+        if isinstance(node, list):
+            for v in node:
+                walk(v)
+        elif set(node) == {"k", "v"}:
+            for t in node.values():
+                if t.shape[-3] == max_len:        # not a cross layer's
+                    fill_rows(t, -3)
+        elif set(node) == {"ckv"}:
+            fill_rows(node["ckv"], -2)
+        else:
+            for v in node.values():
+                if isinstance(v, (dict, list)):
+                    walk(v)
+
+    walk(cache)
+    return cache
+
+
+def mesh_split_run(card, tag, params, cfg, family, kernels=None,
+                   cross_states=None) -> None:
+    """``params`` of ``cfg`` (the phase's own weights) through
+    ``build_step`` over ``DeviceMesh.on("cuda:0", data, model)``
+    (``MESH_SPLIT[family]``) beside the unsharded path on the same
+    inputs: every mixer whose specs split it over "model" runs over the
+    ranks, each on its own slices (views: one card, no copy). Prefill
+    logits within ``prefill_rtol`` * max|ref|; then ``decode_steps``
+    steps from position ``plen`` against a ``prompt_cache`` of ``plen``
+    rows (cut by ``shard_cache`` for the mesh; a cross model's cross
+    caches filled by ``build_cross_cache``, on the mesh from the placed
+    params) within ``decode_rtol`` * max|ref| a step. Every attention
+    layer launches #7 once a row and rank, non-causal in the cross
+    layers, and #8 once a row and rank a step, each on its rank's cache
+    tensor (by data pointer), the cross layers' counted by their cache's
+    rows. #7 and #8 on the ranks' slices of the first self-attention
+    layer and the first cross layer (the last step's) are held against
+    their plain versions; with ``kernels``, the cross layer's are timed
+    into their ``shapes``. Prints the step p50 of both paths and the peak
+    memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import layers, lm
+    from repro_torch.models.params import ShardedTree
+    from repro_torch.models.transformer import cache_split, shard_cache
+
+    sz, sync = MESH_SPLIT, torch.cuda.synchronize
+    d, m = sz[family]["mesh"]
+    pb, plen = sz[family]["prefill"]
+    steps = sz["decode_steps"]
+    max_len = plen + steps
+    prefill_rtol = sz["prefill_rtol"]
+    decode_rtol = sz[family].get("decode_rtol", sz["decode_rtol"])
+    if cfg.moe is not None:        # ep = the model size; nothing drops
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            no_drops(cfg).moe, ep=m))
+    cfg = dataclasses.replace(cfg, use_flash=True)
+    dev = torch.device("cuda")
+    mesh = DeviceMesh.on("cuda:0", data=d, model=m)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pre = build_step(cfg, ShapeCell("p", "prefill", plen, pb), mesh,
+                     param_dtype=torch.float32)
+    dec = build_step(cfg, ShapeCell("d", "decode", max_len, pb), mesh,
+                     param_dtype=torch.float32)
+    placed = ShardedTree.place(params, pre.param_shardings, mesh)
+    split = cache_split(placed["layers"], cfg)
+    rng = np.random.default_rng(SEED + 22)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(
+        pb, plen + steps)).astype(np.int32), device=dev)
+    batch = {"tokens": toks[:, :plen]}
+    if cross_states is not None:
+        batch["cross_states"] = cross_states[:pb]
+    n_attn, cross = attn_layers(cfg), cross_layers(cfg)
+    n_rk = d * m
+    ref_cache = prompt_cache(cfg, pb, max_len, plen, SEED + 24)
+    pos0 = torch.full((pb,), plen, dtype=torch.int32, device=dev)
+    if sz[family].get("nudge"):
+        prefill_rtol, decode_rtol = nudged_limits(
+            tag, params, cfg, batch, toks[:, plen:], ref_cache, pos0,
+            sz[family]["nudge"], prefill_rtol, decode_rtol)
+    # The attention layers whose rank calls are held against the plain
+    # versions: the first self-attention layer and the first cross layer.
+    selfs = [j for j in range(n_attn) if j not in cross]
+    watch = sorted({selfs[0] if selfs else -1, cross[0] if cross else -1}
+                   - {-1})
+
+    def calls_at(held, j):
+        k = watch.index(j)
+        return held[k * n_rk:(k + 1) * n_rk]
+
+    pre.fn(placed, {k: v[:, :16] if k == "tokens" else v
+                    for k, v in batch.items()})               # warm-up
+    sync()
+    held7, modes = [], {}
+    fa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    with tallied(layers, "flash_attention",
+                 lambda _, k: "causal" if k.get("causal", True) else
+                 "non-causal", modes), \
+            recording(layers, "flash_attention", held7, keep=lambda: (
+                (fa.flash_attention.launches - 1) // n_rk in watch)):
+        got = pre.fn(placed, batch)
+    sync()
+    wall = time.perf_counter() - t0
+    n7 = fa.flash_attention.launches
+    n_nc = modes.get("non-causal", 0)
+    if n7 != n_attn * n_rk or n_nc != len(cross) * n_rk:
+        fail(f"{tag} mesh prefill launched flash_attention {n7} times "
+             f"({modes}), expected {n_attn} attention layers x {n_rk} "
+             f"ranks, {len(cross)} x {n_rk} non-causal")
+    t0 = time.perf_counter()
+    ref = lm.lm_prefill(params, cfg, batch)
+    sync()
+    wall_ref = time.perf_counter() - t0
+    dp, sc = hold(f"{tag} prefill logits over the mesh vs unsharded", got,
+                  ref, prefill_rtol)
+    del got, ref
+    print(f"[{tag}] {card}: {cfg.name} through build_step over "
+          f"DeviceMesh.on(cuda:0, data={d}, model={m}), cache split by "
+          f"block {split}: prefill {pb} x {plen} tokens in "
+          f"{wall * 1e3:.1f} ms (unsharded {wall_ref * 1e3:.1f} ms), "
+          f"{n7} flash_attention launches ({n_attn} attention layers x "
+          f"{d} rows x {m} ranks, {n_nc} non-causal); logits max|d| "
+          f"{dp:.3e} (limit {prefill_rtol:.4g}*{sc:.3f})")
+
+    cache = shard_cache(cfg, ref_cache, mesh, split)
+    if cross_states is not None:
+        cache = lm.build_cross_cache(placed, cfg, cache, cross_states[:pb])
+        ref_cache = lm.build_cross_cache(params, cfg, ref_cache,
+                                         cross_states[:pb])
+    ptrs, orig8, sharded_call, on_cross = set(), layers.flash_decode, \
+        [False], [0]
+
+    def spy8(q, kc, vc, *a, **kw):
+        if sharded_call[0]:
+            ptrs.update([kc.data_ptr(), vc.data_ptr()])
+            on_cross[0] += bool(cross) and kc.shape[1] == cfg.n_cross_tokens
+        return orig8(q, kc, vc, *a, **kw)
+
+    pos = pos0.clone()
+    worst, t_tp, t_ref, n8, n8c, held8 = 0.0, [], [], set(), set(), []
+    layers.flash_decode = spy8
+    try:
+        for step in range(steps):
+            fd.flash_decode.launches, on_cross[0] = 0, 0
+            sharded_call[0] = True
+            tok = toks[:, plen + step:plen + step + 1]
+            t0 = time.perf_counter()
+            with recording(layers, "flash_decode", held8, keep=lambda: (
+                    (fd.flash_decode.launches - 1) // n_rk in watch)) \
+                    if watch and step == steps - 1 \
+                    else contextlib.nullcontext():
+                got, cache = dec.fn(placed, cache, tok, pos)
+            sync()
+            t_tp.append(time.perf_counter() - t0)
+            sharded_call[0] = False
+            n8.add(fd.flash_decode.launches)
+            n8c.add(on_cross[0])
+            t0 = time.perf_counter()
+            want, ref_cache = lm.lm_decode_step(params, cfg, ref_cache, tok,
+                                                pos)
+            sync()
+            t_ref.append(time.perf_counter() - t0)
+            dd, sc = hold(f"{tag} decode step {step} logits over the mesh",
+                          got, want, decode_rtol)
+            worst = max(worst, dd / sc)
+            pos = pos + 1
+    finally:
+        layers.flash_decode = orig8
+    own = cache_kv_ptrs(cache.shards)
+    if n8 != {n_attn * n_rk} or n8c != {len(cross) * n_rk} \
+            or not ptrs <= own:
+        fail(f"{tag} mesh decode: flash_decode launches a step {n8} "
+             f"(expected {n_attn * n_rk}), on the cross caches {n8c} "
+             f"(expected {len(cross) * n_rk}), {len(ptrs - own)} cache "
+             f"pointers not the rank caches'")
+    n_on_cross = n8c.pop()
+    p50, p50_ref = (float(np.percentile(t, 50)) * 1e3 for t in (t_tp, t_ref))
+    print(f"[{tag}] {card}: {cfg.name} over ({d}, {m}): {steps} decode "
+          f"steps of batch {pb} from position {plen} against a {plen}-row "
+          f"prompt cache (max_len {max_len}), "
+          f"{n_attn * n_rk} flash_decode launches a step"
+          + (f" ({n_on_cross} counted on the ranks' cross caches)"
+             if cross else "")
+          + f", each on its rank's cache tensor; step p50 {p50:.2f} ms "
+          f"(unsharded {p50_ref:.2f} ms; no gain is claimed: one card, "
+          f"one thread issues every rank's work); logits max|d| "
+          f"{worst:.3e} of max|ref| (limit {decode_rtol:.4g}); "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" GB")
+    if len(held7) != len(watch) * n_rk or len(held8) != len(watch) * n_rk:
+        fail(f"{tag}: kept {len(held7)} / {len(held8)} rank calls of #7 / "
+             f"#8 at attention layers {watch}, not {n_rk} each")
+    errs = {}
+    for j in watch:
+        what = f"{'cross' if j in cross else 'self-attention'} layer {j}"
+        errs[j] = [max(e for e, _ in hold_captured(
+            f"{tag} {name} on the ranks' slices of {what}",
+            calls_at(held, j), plain)) for name, held, plain in (
+            ("flash_attention", held7, fa.flash_attention_plain),
+            ("flash_decode", held8, fd.flash_decode_plain))]
+        (q, k, _), _, _ = calls_at(held7, j)[0]
+        kc = calls_at(held8, j)[0][0][1]
+        print(f"[{tag}] flash_attention / flash_decode on the {n_rk} ranks' "
+              f"slices of {what} (q {tuple(q.shape)} over k "
+              f"{tuple(k.shape)}; cache {tuple(kc.shape)} at step "
+              f"{steps - 1}) vs plain: max|d| {errs[j][0]:.3e} / "
+              f"{errs[j][1]:.3e}")
+    if kernels is not None and cross:
+        j = cross[0]
+        (q, k, v), kw, _ = calls_at(held7, j)[0]
+        name = f"{cfg.name} over ({d}, {m}), a rank's cross layer"
+        opts = {n: x for n, x in kw.items() if x is not None and n != "scale"}
+        kernels["flash_attention"].setdefault("shapes", {})[name] = dict(
+            time_flash(q, k, v, opts, errs[j][0], name), launches=n_nc)
+        call8 = calls_at(held8, j)[0]
+        kc = call8[0][1]
+        kernels["flash_decode"].setdefault("shapes", {})[name] = dict(
+            max_abs_err=errs[j][1], launches=n_on_cross,
+            **time_decode(call8, fd.default_splits(
+                kc.shape[0], kc.shape[2], kc.shape[1]),
+                f"{name}, step {steps - 1}"))
+    del placed, cache, ref_cache, held7, held8
+    torch.cuda.empty_cache()
+
+
+def nudged_limits(tag, params, cfg, batch, toks, cache0, pos0, factor,
+                  prefill_rtol, decode_rtol):
+    """The model's own float32 conditioning: how far the unsharded
+    prefill logits of ``batch`` and the logits of decode steps of
+    ``toks`` (B, n) from ``cache0`` (copied, left as it is) at ``pos0``
+    move when every weight moves by at most one ulp (a copy of
+    ``params``, times 1 + k * 2**-23, k in {-1, 0, 1} from the seed). ->
+    (max(prefill_rtol, factor x the prefill's move), max(decode_rtol,
+    factor x the decode steps' largest move)), each a share of
+    max|ref|."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models.params import map_tree
+
+    dev = toks.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    nudged = map_tree(lambda t: t * (1 + 2.0 ** -23 * torch.randint(
+        -1, 2, t.shape, generator=gen, device=dev).to(t.dtype)), params)
+
+    def run(p):
+        out = [lm.lm_prefill(p, cfg, batch)]
+        cache, pos = map_tree(torch.clone, cache0), pos0
+        for j in range(toks.shape[1]):
+            logits, cache = lm.lm_decode_step(p, cfg, cache,
+                                              toks[:, j:j + 1], pos)
+            out.append(logits)
+            pos = pos + 1
+        return out
+
+    moves = [d / sc for d, sc in (rel_err(a, b) for a, b in
+                                  zip(run(nudged), run(params)))]
+    del nudged
+    torch.cuda.empty_cache()
+    limits = (max(prefill_rtol, factor * moves[0]),
+              max(decode_rtol, factor * max(moves[1:])))
+    print(f"[{tag}] {cfg.name}: every weight moved by at most one ulp moves "
+          f"the unsharded prefill logits by {moves[0]:.3e} and the decode "
+          f"steps' by up to {max(moves[1:]):.3e} of max|ref|: the mesh's "
+          f"limits are max(fixed, {factor:g} x that): prefill "
+          f"{limits[0]:.4g}, decode {limits[1]:.4g}")
+    return limits
+
+
 def serve_through_decode(card, tag, params, cfg, reset_counts,
                          check_cfg=None, cross_states=None,
                          cache_dtype=None, attn_rtol=ATTN_RTOL,
-                         gap_rtol=1e-3):
+                         gap_rtol=1e-3, reqs=None):
     """``DecodeEngine(batch, max_len, cache_dtype)`` of LM_SIZES (float32
     caches unless ``cache_dtype``) serving its greedy requests: one #8
     launch an attention layer and step, every request finished, #8 held
@@ -903,7 +1244,8 @@ def serve_through_decode(card, tag, params, cfg, reset_counts,
     model's engine gets its cross cache from ``cross_states`` (row i slot
     i's image), and each checked request's prefill gets its slot's row. ->
     (#8 timed at the serving shape, #8 launches, the engine, the step
-    latencies in s, #8 timed at the cross shape or None)."""
+    latencies in s, #8 timed at the cross shape or None). ``reqs`` stands
+    in for phase 7's requests where given."""
     import numpy as np
     import torch
 
@@ -931,7 +1273,7 @@ def serve_through_decode(card, tag, params, cfg, reset_counts,
     warm.run()
     del warm
     eng = engine()
-    reqs = serving_requests(cfg)
+    reqs = reqs or serving_requests(cfg)
     # The slot each request is admitted into (its image, when there is
     # one).
     slot_of, admit = {}, eng._admit
@@ -1634,7 +1976,8 @@ def moe_phases(card, kernels, wrappers, reset_counts, peak_bw) -> None:
                    {"tokens": toks}), 1, card, "flash_kernel")
 
     timed8, n8, eng, step_s, _ = serve_through_decode(
-        card, "lm-moe", params, cfg, reset_counts)
+        card, "lm-moe", params, cfg, reset_counts, reqs=serving_requests(
+            cfg, sz["granite_requests"], sz["granite_prompt_len"]))
     kernels["flash_decode"].setdefault("shapes", {})[
         f"{cfg.name} decode"] = dict(timed8, launches=n8)
     # One more step, profiled, after one that keeps layer 0's MoE input.
@@ -1735,7 +2078,10 @@ def moe_phases(card, kernels, wrappers, reset_counts, peak_bw) -> None:
         fail(f"the MLA path launched hand-written kernels {counts}")
     print(f"[lm-moe] no kernel wrapper launched on the MLA path: {counts}")
     peak("10b decode")
-    del params, eng, logits
+    del eng, logits
+    # 10c: the same weights over the mesh, MLA split by heads.
+    mesh_split_run(card, "lm-moe", params, cfg, "deepseek")
+    del params
     torch.cuda.empty_cache()
 
 
@@ -1943,6 +2289,8 @@ def recurrent_phases(card, kernels, wrappers, reset_counts, peak_bw) -> None:
     decode_vs_prefill("lm-recurrent", params, cfg, tokens(
         cfg, SEED + 12, sz["check_batch"], sz["check_len"]["jamba"]))
     peak("11a decode vs prefill")
+    # 11c: the same weights over the mesh, Mamba split by channel.
+    mesh_split_run(card, "lm-recurrent", params, cfg, "jamba")
     del params
     torch.cuda.empty_cache()
 
@@ -2010,6 +2358,12 @@ def recurrent_phases(card, kernels, wrappers, reset_counts, peak_bw) -> None:
     print(f"[lm-recurrent] no kernel wrapper launched on the xLSTM path: "
           f"{counts}")
     peak("11b decode vs prefill")
+    # 11d: the same weights over the mesh, mLSTM / sLSTM split by head.
+    mesh_split_run(card, "lm-recurrent", params, cfg, "xlstm")
+    counts = {name: w.launches for name, w in wrappers.items()}
+    if any(counts.values()):
+        fail(f"the xLSTM path over the mesh launched hand-written kernels "
+             f"{counts}")
     del params
     torch.cuda.empty_cache()
 
@@ -2138,7 +2492,11 @@ def cross_phase(card, kernels, reset_counts, peak_bw) -> None:
     print(f"[lm-cross] {cfg.name}: the same {cb} x {clen} prompts under "
           f"another image: last-position logits move by max|d| {d:.3e} "
           f"(> {LOGIT_RTOL}*{sc:.3f}): the cross layers read the image")
-    del params, states, a, b
+    del a, b
+    # 12b: the same weights over the mesh, the cross layers split by head.
+    mesh_split_run(card, "lm-cross", params, cfg, "llama", kernels=kernels,
+                   cross_states=states)
+    del params, states
     torch.cuda.empty_cache()
 
 

@@ -35,7 +35,7 @@ from repro_torch.launch.sharding import param_tree_specs, sharding_rules
 from repro_torch.models import lm
 from repro_torch.models.params import ShardedTree
 from repro_torch.models.transformer import (ModelConfig, ShardedCache,
-                                            heads_split, shard_cache)
+                                            cache_split, shard_cache)
 from repro_torch.optim import AdamWConfig, adamw_update
 
 
@@ -176,7 +176,7 @@ def build_step(cfg: ModelConfig, shape: cfgbase.ShapeCell, mesh,
         params = placed(params)
         if not isinstance(cache, ShardedCache):
             cache = shard_cache(cfg, cache, mesh,
-                                heads_split(params["layers"], cfg))
+                                cache_split(params["layers"], cfg))
         elif not donate:
             cache = shard_cache(cfg, cache.gather(), mesh, cache.split)
         return lm.lm_decode_step(params, cfg, cache, token, pos,

@@ -25,14 +25,21 @@ flash kernel with ``causal=False``); its decode form reads a static cache
 of the states' K/V (``lm.build_cross_cache``) and never writes it.
 
 Tensor-parallel forms (:func:`attention_train_tp`,
-:func:`attention_decode_tp`, :func:`mlp_tp`) take one entry a model rank:
-the rank's slice of the params (its query heads and kv heads, or its MLP
-columns) and its device. Each rank computes its partial of the output
-projection (or of the down projection) on its own device, and the
-partials are summed onto x's device: the all-reduce after attention and
-after the MLP. Where the query heads split but the kv heads do not, a rank
-reads the kv heads its query heads map to (:func:`kv_heads_of`), so the
-GQA groups stay right.
+:func:`attention_decode_tp`, :func:`mla_train_tp`, :func:`mla_decode_tp`,
+:func:`mlp_tp`) take one entry a model rank: the rank's slice of the
+params (its query heads and kv heads, or its MLP columns) and its device.
+Each rank computes its partial of the output projection (or of the down
+projection) on its own device, and the partials are summed onto x's
+device: the all-reduce after attention and after the MLP. Where the query
+heads split but the kv heads do not, a rank reads the kv heads its query
+heads map to (:func:`kv_heads_of`), so the GQA groups stay right; a cross
+layer splits as self-attention does, each rank over its kv heads of the
+image K/V. :func:`owned`, :func:`own_slice`, :func:`col_parts`,
+:func:`row_parts` and :func:`rmsnorm_tp` are the plumbing the recurrent
+mixers' split forms share (``models.ssm``, ``models.xlstm``): which units
+a rank computes, its slice of a leaf, a column-split product whose output
+columns move to the ranks that need them, a row-split product's partial
+sums, and a norm over channels the ranks hold in parts.
 
 MLA has the same pair: :func:`mla_train` concatenates the nope and rope
 parts and runs ``sdpa_any`` (its qk dim 192 and unequal v dim are not
@@ -341,6 +348,122 @@ def _sum_onto(parts, device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Tensor-parallel plumbing of the split mixers (MLA, Mamba, mLSTM, sLSTM)
+# ---------------------------------------------------------------------------
+
+def owned(n_units: int, held: int, model: int) -> list[tuple[int, int]]:
+    """Per model rank, the [lo, hi) of ``n_units`` units (heads or
+    channels) it computes: its own block where a spec splits them (each
+    rank then holds ``held`` < ``n_units``), else all of them at rank 0
+    and none elsewhere."""
+    if held == n_units:
+        return [(0, n_units)] + [(0, 0)] * (model - 1)
+    return [(r * held, (r + 1) * held) for r in range(model)]
+
+
+def own_slice(w, dim: int, lo: int, hi: int):
+    """Rows [lo, hi) along ``dim`` of a leaf, for the rank that owns them:
+    the leaf itself where the rank holds just those (its split slice),
+    else cut from the whole leaf it holds."""
+    return w if w.shape[dim] == hi - lo else w.narrow(dim, lo, hi - lo)
+
+
+def _merged(ranges) -> list[tuple[int, int]]:
+    """Column ranges with each one that starts where the last ends joined
+    to it."""
+    out: list[tuple[int, int]] = []
+    for a, b in ranges:
+        if out and out[-1][1] == a:
+            out[-1] = (out[-1][0], b)
+        else:
+            out.append((a, b))
+    return out
+
+
+def col_parts(ranks, name: str, x, width: int, want):
+    """``x @ W`` for ``W = p[name]`` (d, width), as each rank needs it: the
+    output columns of the ranges ``want[r]`` concatenated, on rank r's
+    device (None where it wants none). Each rank holds a block of W's
+    columns or all of them. A rank multiplies x by the columns it holds,
+    and the pieces then move to the ranks that need them: the all-to-all
+    of GSPMD's column reshard (no weight column leaves its rank)."""
+    held = ranks[0][0][name].shape[-1]
+    if held == width:
+        out = []
+        for (p, dev), ranges in zip(ranks, want):
+            if not ranges:
+                out.append(None)
+                continue
+            spans = _merged(ranges)
+            w = p[name] if spans == [(0, width)] else torch.cat(
+                [p[name][..., a:b] for a, b in spans], -1)
+            out.append(torch.matmul(x.to(dev), w.to(x.dtype)))
+        return out
+    blocks: dict[int, torch.Tensor] = {}
+
+    def block(k):
+        if k not in blocks:
+            p, dev = ranks[k]
+            blocks[k] = torch.matmul(x.to(dev), p[name].to(x.dtype))
+        return blocks[k]
+
+    out = []
+    for (_, dev), ranges in zip(ranks, want):
+        pieces = []
+        for a, b in ranges:
+            for k in range(a // held, -(-b // held)):
+                lo, hi = max(a, k * held) - k * held, min(b, (k + 1) * held) \
+                    - k * held
+                pieces.append(block(k)[..., lo:hi].to(dev))
+        out.append(torch.cat(pieces, -1) if pieces else None)
+    return out
+
+
+def row_parts(ranks, name: str, acts, own, width: int) -> list:
+    """The partial products ``acts @ W`` for ``W = p[name]`` (width, ...),
+    whose rows (channels) each rank holds in a block or whole, where rank
+    r holds the activation channels ``own[r]`` (``acts[r]``, None for
+    none): one partial a rank that multiplies, on its device. Their sum
+    is the whole product (the all-reduce that follows a row-split
+    weight); where the rows of W and the channels a rank holds differ,
+    the channels move to the rank that holds the rows."""
+    held = ranks[0][0][name].shape[0]
+    parts = []
+    if held == width:
+        for (p, _), (lo, hi), a in zip(ranks, own, acts):
+            if hi > lo:
+                w = own_slice(p[name], 0, lo, hi)
+                parts.append(torch.matmul(a, w.to(a.dtype)))
+        return parts
+    for k, (p, dev) in enumerate(ranks):
+        lo, hi = k * held, (k + 1) * held
+        pieces = [a[..., max(lo, o0) - o0:min(hi, o1) - o0].to(dev)
+                  for a, (o0, o1) in zip(acts, own)
+                  if min(hi, o1) > max(lo, o0)]
+        a_k = torch.cat(pieces, -1)
+        parts.append(torch.matmul(a_k, p[name].to(a_k.dtype)))
+    return parts
+
+
+def rmsnorm_tp(scales, xs, width: int, device, eps: float = 1e-6):
+    """:func:`rmsnorm` over ``width`` channels that the ranks hold in
+    parts: ``xs[r]`` rank r's channels (None for none), ``scales[r]`` their
+    scale. The ranks' sums of squares are added (an all-reduce of one
+    value a position), and each rank normalises its own channels."""
+    sq = [torch.sum(x.float() * x.float(), dim=-1, keepdim=True)
+          for x in xs if x is not None]
+    var = _sum_onto(sq, device) / width
+    out = []
+    for x, scale in zip(xs, scales):
+        if x is None:
+            out.append(None)
+            continue
+        y = x.float() * torch.rsqrt(var.to(x.device) + eps)
+        out.append((y * (1.0 + scale.float())).to(x.dtype))
+    return out
+
+
 def attention_train_tp(ranks, cfg: AttnConfig, x, *, kv_src=None,
                        use_flash: bool = False):
     """:func:`attention_train` split over the model ranks ``ranks``, a
@@ -445,6 +568,19 @@ def _cross_decode(p, cfg: AttnConfig, x, cache, pos):
     return _out_proj(out, p["wo"])
 
 
+def cross_kv(p, cfg: AttnConfig, states, rank: int = 0, model: int = 1):
+    """A cross layer's K and V of the encoder ``states`` (B, S_kv,
+    d_cross), each (B, S_kv, Hkv, D); with ``model`` > 1, of the kv heads
+    that rank ``rank``'s query heads read, from the rank's own ``wk`` /
+    ``wv`` slice (``p`` the rank's params). No ``k_norm``, as the JAX
+    ``build_cross_cache``."""
+    if model > 1:
+        p, _ = _rank_attn(p, cfg, rank, model)
+    return tuple(torch.einsum("bsd,dhk->bshk", states,
+                              p[name].to(states.dtype))
+                 for name in ("wk", "wv"))
+
+
 # ---------------------------------------------------------------------------
 # DeepSeek MLA (multi-head latent attention)
 # ---------------------------------------------------------------------------
@@ -500,7 +636,8 @@ def _mla_qkr(p, cfg: MlaConfig, x, positions):
 
 def mla_train(p, cfg: MlaConfig, x, *, positions=None, impl: str = "ref",
               chunk: int = 2048):
-    """Full-sequence causal MLA of x (B, S, d_model)."""
+    """Full-sequence causal MLA of x (B, S, d_model), over the heads ``p``
+    holds (a model rank's slice holds its own)."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
@@ -510,7 +647,7 @@ def mla_train(p, cfg: MlaConfig, x, *, positions=None, impl: str = "ref",
 
     # q.k = q_nope.k_nope + q_rope.k_rope == concat(q).concat(k) with the
     # shared rope key broadcast per head: the standard SDPA paths.
-    h = cfg.n_heads
+    h = p["wq_b"].shape[1]
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         b, s, h, cfg.d_rope).to(k_nope.dtype)], dim=-1)
@@ -564,6 +701,26 @@ def mla_decode(p, cfg: MlaConfig, x, cache, pos):
     out = torch.einsum("bqhr,rhv->bqhv", o_lat,
                        p["wv_b"].float()).to(x.dtype)       # absorb W_uv
     return torch.einsum("bshv,hvd->bsd", out, p["wo"].to(x.dtype)), cache
+
+
+def mla_train_tp(ranks, cfg: MlaConfig, x, *, impl: str = "ref",
+                 chunk: int = 2048):
+    """:func:`mla_train` split over the model ranks ``ranks``, a list of
+    (params slice, device): a rank holds its heads of ``wq_b`` / ``wk_b``
+    / ``wv_b`` and their rows of ``wo``, computes the replicated latent
+    and rope key itself, attends over its heads and projects them; the
+    partial outputs are summed onto x's device."""
+    return _sum_onto((mla_train(p, cfg, x.to(dev), impl=impl,
+                                chunk=chunk) for p, dev in ranks), x.device)
+
+
+def mla_decode_tp(ranks, cfg: MlaConfig, x, pos):
+    """:func:`mla_decode` split over the model ranks ``ranks``, a list of
+    (params slice, device, cache): each rank's cache is its own copy of
+    the row's whole latent cache, into which it writes the same new row;
+    it absorbs only its own heads, and the partial outputs are summed."""
+    return _sum_onto((mla_decode(p, cfg, x.to(dev), cache, pos.to(dev))[0]
+                      for p, dev, cache in ranks), x.device)
 
 
 # ---------------------------------------------------------------------------

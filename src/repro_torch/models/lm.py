@@ -61,13 +61,15 @@ from typing import Any
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.models.layers import make_norm
+from repro_torch.models.layers import cross_kv, make_norm
 from repro_torch.models.params import Maker, ShardedTree, make_generator
 from repro_torch.models.transformer import (BlockSpec, ModelConfig,
+                                            ShardedCache,
                                             apply_layers_decode,
                                             apply_layers_train, block_train,
-                                            init_block, init_layer_caches,
-                                            init_layers, layer_slices,
+                                            cross_caches,
+                                            default_cache_split, init_block,
+                                            init_layer_caches, init_layers,
                                             maybe_constrain, shard_cache)
 
 
@@ -322,16 +324,16 @@ def lm_prefill(p, cfg: ModelConfig, batch, ctx=None):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                dtype=torch.bfloat16, device="cuda", mesh=None):
     """The decode cache on ``device``; with a ``mesh``, a
-    ``ShardedCache`` over it, split by kv heads as the default sharding
-    rules place the query heads (split when the model size divides
-    ``n_heads``)."""
+    ``ShardedCache`` over it, each block split over "model" as the
+    default sharding rules split its units (``default_cache_split``:
+    where the model size divides them)."""
     if mesh is None:
         return init_layer_caches(cfg, batch, max_len, dtype=dtype,
                                  device=resolve_device(device))
     whole = init_layer_caches(cfg, batch, max_len, dtype=dtype,
                               device=mesh.device(0, 0))
     return shard_cache(cfg, whole, mesh,
-                       cfg.n_heads % mesh.shape["model"] == 0)
+                       default_cache_split(cfg, mesh.shape["model"]))
 
 
 @torch.no_grad()
@@ -340,23 +342,32 @@ def build_cross_cache(p, cfg: ModelConfig, cache, cross_states):
     d_cross) into ``cache`` in place (cast to the cache's dtype; a stacked
     layer through its ``layer_slices`` view) and return the cache. Row i
     of the states is batch slot i's image; no decode step writes these
-    caches. As the JAX function, it applies no ``k_norm``."""
-    def fill(layer_p, layer_c):
-        ap = layer_p["attn"]
-        for name, w in (("k", ap["wk"]), ("v", ap["wv"])):
-            kv = torch.einsum("bsd,dhk->bshk", cross_states,
-                              w.to(cross_states.dtype))
-            layer_c["mix"][name].copy_(kv)
+    caches. As the JAX function, it applies no ``k_norm``.
 
-    layers = p["layers"]
-    for i, spec in enumerate(cfg.prefix):
-        if spec.cross:
-            fill(layers["prefix"][i], cache["prefix"][i])
-    for j, spec in enumerate(cfg.pattern if cfg.n_repeats else ()):
-        if spec.cross:
-            for lp, lc in zip(layer_slices(layers["stack"][f"b{j}"]),
-                              layer_slices(cache["stack"][f"b{j}"])):
-                fill(lp, lc)
+    With params placed on a mesh and a ``ShardedCache``, each rank of a
+    data row fills its own cross K/V (the kv heads its query heads read,
+    where the layer splits) from its own ``wk`` / ``wv`` slice and the
+    row's states."""
+    sharded = isinstance(cache, ShardedCache)
+    if sharded != isinstance(p, ShardedTree):
+        raise ValueError("build_cross_cache takes whole params with a whole "
+                         "cache, or params placed on a mesh with a "
+                         "ShardedCache")
+    for lp, lc, spec, split in cross_caches(p["layers"], cfg, cache):
+        acfg = cfg.attn_cfg(spec)
+        if not sharded:
+            for name, kv in zip("kv", cross_kv(lp["attn"], acfg,
+                                               cross_states)):
+                lc["mix"][name].copy_(kv)
+            continue
+        m = cache.mesh.shape["model"] if split else 1
+        for i, (b0, b1) in enumerate(cache.rows):
+            for r in range(m):               # an unsplit layer: rank 0's
+                c = lc[i][r]["mix"]
+                kvs = cross_kv(lp["attn"].local(i, r), acfg,
+                               cross_states[b0:b1].to(c["k"].device), r, m)
+                for name, kv in zip("kv", kvs):
+                    c[name].copy_(kv)
     return cache
 
 

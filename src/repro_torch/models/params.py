@@ -278,7 +278,10 @@ class ShardedTree:
                 return held[i * m + r]
             (k,) = dims                      # an axis splits one dimension
             if spec[k] == "data":
-                return torch.cat([t.to(dev) for t in held[r::m]], dim=k)
+                parts = held[r::m]
+                if len(parts) == 1:          # one data row: nothing to gather
+                    return parts[0].to(dev)
+                return torch.cat([t.to(dev) for t in parts], dim=k)
             # (data, model) on one dimension: no other dimension is split
             # over "model", so the rank computes with the leaf whole.
             return self._assemble(spec, held, dev)

@@ -18,6 +18,12 @@ ssm state) cache, which ``mamba_decode`` updates in place. There is no
 hand-written kernel here, as there is no Pallas kernel in the JAX
 package's Mamba: the products are ``torch.einsum`` and the scan is
 elementwise ``torch`` ops.
+
+Over a mesh's "model" axis (:func:`mamba_tp`) each rank owns a block of
+the inner channels,
+as the JAX package's specs split them on ``mlp``; the scan runs per
+channel, so only the products with ``in_proj``, ``x_proj`` and
+``out_proj`` cross ranks.
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models.layers import (_sum_onto, col_parts, own_slice,
+                                       owned, row_parts)
 from repro_torch.models.params import Maker
 
 # The cache's initial values, leaf by leaf: ``init_mamba_cache`` builds
@@ -69,10 +77,13 @@ def init_mamba(mk: Maker, cfg: MambaConfig):
     }
 
 
-def _ssm_inputs(p, cfg: MambaConfig, u):
+def _ssm_inputs(p, cfg: MambaConfig, u, xdb=None):
     """u: (B, W, I) conv'd + silu'd inputs -> (dA, dBu, C) of the chunk:
-    (B, W, I, N), (B, W, I, N), (B, W, N), float32."""
-    xdb = torch.einsum("bwi,ir->bwr", u, p["x_proj"].to(u.dtype))
+    (B, W, I, N), (B, W, I, N), (B, W, N), float32. ``xdb`` is u's
+    ``x_proj`` product (B, W, r + 2n), made here when None; a rank of a
+    split layer is handed the ranks' sum of it."""
+    if xdb is None:
+        xdb = torch.einsum("bwi,ir->bwr", u, p["x_proj"].to(u.dtype))
     r, n = cfg.rank, cfg.d_state
     dt = F.softplus(
         torch.einsum("bwr,ri->bwi", xdb[..., :r], p["dt_w"].to(u.dtype))
@@ -101,6 +112,51 @@ def _chunk_scan(carry_h, da, dbu):
     return h_all[:, -1], h_all
 
 
+def _scan(p, cfg: MambaConfig, u, xdb=None):
+    """The selective scan of u (B, S, I) in chunks of ``chunk_size`` ->
+    y (B, S, I) in u's dtype, before the skip and the gate; ``xdb`` as in
+    :func:`_ssm_inputs`, for the whole sequence."""
+    b, s, i = u.shape
+    w = min(cfg.chunk_size, s)
+    s_pad = -(-s // w) * w
+    if s_pad != s:  # pad tail; padded steps only affect sliced-off outputs
+        u = F.pad(u, (0, 0, 0, s_pad - s))
+        if xdb is not None:
+            xdb = F.pad(xdb, (0, 0, 0, s_pad - s))
+
+    def step(h, u_chunk, xdb_chunk):
+        da, dbu, c_out = _ssm_inputs(p, cfg, u_chunk, xdb_chunk)
+        h_last, h_all = _chunk_scan(h, da, dbu)
+        y = torch.einsum("bwin,bwn->bwi", h_all, c_out)
+        return h_last, y.to(u.dtype)
+
+    if torch.is_grad_enabled():
+        step = functools.partial(checkpoint, step, use_reentrant=False)
+    h = torch.zeros((b, i, cfg.d_state), dtype=torch.float32,
+                    device=u.device)
+    ys = []
+    for c in range(0, s_pad, w):
+        h, y = step(h, u[:, c:c + w],
+                    None if xdb is None else xdb[:, c:c + w])
+        ys.append(y)
+    return torch.cat(ys, 1)[:, :s]
+
+
+def _step(p, cfg: MambaConfig, u, cache, xdb=None):
+    """One decode step of the scan: u (B, 1, I) -> y (B, 1, I) before the
+    skip and the gate; writes the new ssm state into ``cache`` in place."""
+    da, dbu, c_out = _ssm_inputs(p, cfg, u, xdb)            # W = 1
+    h = cache["ssm"].float() * da[:, 0] + dbu[:, 0]
+    y = torch.einsum("bin,bn->bi", h, c_out[:, 0])[:, None].to(u.dtype)
+    cache["ssm"].copy_(h)
+    return y
+
+
+def _gated(p, y, u, z):
+    """The scan's output with the skip term, gated by silu(z)."""
+    return (y + u * p["d_skip"].to(y.dtype)) * F.silu(z)
+
+
 def _causal_conv(p, cfg: MambaConfig, x, conv_state=None):
     """Depthwise causal conv1d, kernel ``d_conv``. x: (B, S, I) -> (silu
     of the conv, the last ``d_conv - 1`` inputs)."""
@@ -118,35 +174,11 @@ def _causal_conv(p, cfg: MambaConfig, x, conv_state=None):
 
 def mamba_train(p, cfg: MambaConfig, x):
     """x: (B, S, D) -> (B, S, D)."""
-    b, s, _ = x.shape
     i = cfg.d_inner
     xz = torch.einsum("bsd,de->bse", x, p["in_proj"].to(x.dtype))
     u, z = xz[..., :i], xz[..., i:]
     u, _ = _causal_conv(p, cfg, u)
-
-    w = min(cfg.chunk_size, s)
-    s_pad = -(-s // w) * w
-    if s_pad != s:  # pad tail; padded steps only affect sliced-off outputs
-        u = F.pad(u, (0, 0, 0, s_pad - s))
-
-    def step(h, u_chunk):
-        da, dbu, c_out = _ssm_inputs(p, cfg, u_chunk)
-        h_last, h_all = _chunk_scan(h, da, dbu)
-        y = torch.einsum("bwin,bwn->bwi", h_all, c_out)
-        return h_last, y.to(x.dtype)
-
-    if torch.is_grad_enabled():
-        step = functools.partial(checkpoint, step, use_reentrant=False)
-    h = torch.zeros((b, i, cfg.d_state), dtype=torch.float32,
-                    device=x.device)
-    ys = []
-    for c in range(0, s_pad, w):
-        h, y = step(h, u[:, c:c + w])
-        ys.append(y)
-    y = torch.cat(ys, 1)[:, :s]
-    u = u[:, :s]
-    y = y + u * p["d_skip"].to(x.dtype)
-    y = y * F.silu(z)
+    y = _gated(p, _scan(p, cfg, u), u, z)
     return torch.einsum("bsi,id->bsd", y, p["out_proj"].to(x.dtype))
 
 
@@ -166,13 +198,58 @@ def mamba_decode(p, cfg: MambaConfig, x, cache):
     xz = torch.einsum("bsd,de->bse", x, p["in_proj"].to(x.dtype))
     u, z = xz[..., :i], xz[..., i:]
     u, conv_new = _causal_conv(p, cfg, u, conv_state=cache["conv"])
-
-    da, dbu, c_out = _ssm_inputs(p, cfg, u)                # W = 1
-    h = cache["ssm"].float() * da[:, 0] + dbu[:, 0]
-    y = torch.einsum("bin,bn->bi", h, c_out[:, 0])[:, None].to(x.dtype)
-    y = y + u * p["d_skip"].to(x.dtype)
-    y = y * F.silu(z)
+    y = _gated(p, _step(p, cfg, u, cache), u, z)
     out = torch.einsum("bsi,id->bsd", y, p["out_proj"].to(x.dtype))
     cache["conv"].copy_(conv_new)
-    cache["ssm"].copy_(h)
     return out, cache
+
+
+# The leaves a rank of a split layer holds for its own channels, with the
+# dimension that indexes them.
+_PER_CHANNEL = {"conv_w": 1, "conv_b": 0, "dt_w": 1, "dt_b": 0, "a_log": 0,
+                "d_skip": 0}
+
+
+def mamba_tp(ranks, cfg: MambaConfig, x, caches=None):
+    """:func:`mamba_train` (``caches`` None) or :func:`mamba_decode` (one
+    step against ``caches[r]``, rank r's conv window and ssm state of its
+    channels, written in place; None at a rank that owns none) split over
+    the model ranks ``ranks``, a list of (params slice, device). Rank r
+    computes the inner channels it owns (:func:`layers.owned`: its block
+    where the specs split them, else all at rank 0): the conv and the
+    scan run per channel on its slices of ``conv_w`` / ``conv_b`` /
+    ``dt_w`` / ``dt_b`` / ``a_log`` / ``d_skip``. ``in_proj``'s columns
+    are split in blocks of the concatenated [u | z], so no rank holds the
+    u and z columns of the same channels: each rank multiplies by the
+    columns it holds and the output columns move to their channels'
+    ranks. ``x_proj`` and ``out_proj`` split on their rows, so the ranks'
+    products are partial sums: ``x_proj``'s (B, S, r + 2n) is summed
+    before ``dt``, B and C are read, ``out_proj``'s is the output."""
+    i = cfg.d_inner
+    own = owned(i, ranks[0][0]["conv_w"].shape[1], len(ranks))
+    xz = col_parts(ranks, "in_proj", x, 2 * i,
+                   [[(lo, hi), (i + lo, i + hi)] if hi > lo else []
+                    for lo, hi in own])
+    mine, us, zs, convs = ([None] * len(ranks) for _ in range(4))
+    for r, ((p, _), (lo, hi), t) in enumerate(zip(ranks, own, xz)):
+        if hi == lo:
+            continue
+        mine[r] = {k: own_slice(p[k], d, lo, hi)
+                   for k, d in _PER_CHANNEL.items()}
+        zs[r] = t[..., hi - lo:]
+        us[r], convs[r] = _causal_conv(mine[r], cfg, t[..., :hi - lo],
+                                       None if caches is None
+                                       else caches[r]["conv"])
+    xdb = _sum_onto(row_parts(ranks, "x_proj", us, own, i), x.device)
+    ys = []
+    for r, (q, u, z) in enumerate(zip(mine, us, zs)):
+        if q is None:
+            ys.append(None)
+            continue
+        if caches is None:
+            y = _scan(q, cfg, u, xdb.to(u.device))
+        else:
+            y = _step(q, cfg, u, caches[r], xdb.to(u.device))
+            caches[r]["conv"].copy_(convs[r])
+        ys.append(_gated(q, y, u, z))
+    return _sum_onto(row_parts(ranks, "out_proj", ys, own, i), x.device)

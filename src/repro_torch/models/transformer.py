@@ -28,13 +28,16 @@ Over a mesh, ``ctx`` (the JAX package's dict) carries ``"mesh"``, a
 (``moe_apply(mesh=)``). Params placed on the mesh (a ``ShardedTree``,
 ``launch.steps.build_step``) run the layer stack tensor-parallel from one
 controller: the batch splits over the data rows (:func:`maybe_constrain`,
-row i on ``mesh.device(i, 0)``), attention and the dense MLP split over
-the model ranks wherever their specs split heads or MLP columns
-(``layers.attention_train_tp`` / ``attention_decode_tp`` / ``mlp_tp``),
-and decode reads a :class:`ShardedCache` whose rank r of row i holds the
-kv heads its query heads read. Mixers the specs do not split in this
-slice (MLA, Mamba, xLSTM, cross-attention) run on their row's device with
-their weights gathered whole; their caches live there too.
+row i on ``mesh.device(i, 0)``). Every mixer whose specs split any of its
+leaves over "model" runs over the model ranks, each rank computing with
+its own slices (self- and cross-attention ``layers.attention_*_tp``, MLA
+``layers.mla_*_tp``, Mamba ``ssm.mamba_tp``, mLSTM / sLSTM
+``xlstm.mlstm_tp`` / ``xlstm.slstm_tp``); the dense MLP splits where its
+columns do (``layers.mlp_tp``). Decode reads a :class:`ShardedCache` whose rank r of
+row i holds the part of each block's cache its units need. A mixer none
+of whose leaves a spec splits (smollm's 3 heads over 2 ranks) runs whole
+on its row's rank 0. Only leaves no spec splits over "model" are read
+whole (:func:`_held`: the norms, a dense MLP whose columns stay whole).
 
 ``remat`` applies to training (grad mode on) per layer or per pattern
 super-block, as in the JAX package: ``"full"`` recomputes everything in
@@ -61,7 +64,8 @@ from repro_torch.models.layers import (AttnConfig, MlaConfig, MlpConfig,
                                        init_attention, init_kv_cache,
                                        init_mla, init_mla_cache, init_mlp,
                                        kv_heads_of, make_norm, mla_decode,
-                                       mla_train, mlp, mlp_tp)
+                                       mla_decode_tp, mla_train,
+                                       mla_train_tp, mlp, mlp_tp)
 from repro_torch.models.moe import (MoeConfig, _batch_rows, init_moe,
                                     moe_apply, moe_sharded)
 from repro_torch.models.params import (LogicalAxes, Maker, ShardedTree,
@@ -179,7 +183,8 @@ def init_block(mk: Maker, cfg: ModelConfig, spec: BlockSpec):
 def _held(p, key: str, i: int):
     """``p[key]`` as data row ``i`` runs an unsplit function on it: for a
     block placed on a mesh (a ``ShardedTree``), whole on the row's
-    device."""
+    device. The blocks' norms and a dense MLP whose columns no spec
+    splits read it; the mixers never do (:func:`_mixer_params`)."""
     return p[key].whole(i) if isinstance(p, ShardedTree) else p[key]
 
 
@@ -195,8 +200,37 @@ def _rank_list(p: ShardedTree, i: int):
             for r in range(p.mesh.shape["model"])]
 
 
-def _self_attn_split(p, spec: BlockSpec) -> bool:
-    return spec.kind == "attn" and not spec.cross and _split(p, "attn", "wq")
+def _on_model(spec) -> bool:
+    return any(e == "model" or (isinstance(e, tuple) and "model" in e)
+               for e in spec)
+
+
+# Per mixer kind: its subtree, and the leaf whose split over "model"
+# splits the mixer's units (query heads, or Mamba's inner channels) and
+# with them its decode cache.
+_UNIT_LEAF = {"attn": ("attn", "wq"), "mla": ("attn", "wq_b"),
+              "mamba": ("mix", "conv_w"), "mlstm": ("mix", "wq"),
+              "slstm": ("mix", "r")}
+
+
+def _mixer_split(p, spec: BlockSpec) -> bool:
+    """Whether ``p`` is a block placed on a mesh whose specs split any
+    leaf of its mixer over "model": the mixer then runs over the model
+    ranks (its ``*_tp`` form), each computing with its own slices."""
+    if not isinstance(p, ShardedTree):
+        return False
+    return any(_on_model(s)
+               for s in p[_UNIT_LEAF[spec.kind][0]].spec_leaves())
+
+
+def _mixer_params(p, spec: BlockSpec, i: int):
+    """Row i's params of the block's mixer: a (slice, device) a model rank
+    where :func:`_mixer_split`, else the tree its rank 0 computes with
+    (every leaf replicated over "model", an FSDP-split one gathered)."""
+    key = _UNIT_LEAF[spec.kind][0]
+    if _mixer_split(p, spec):
+        return _rank_list(p[key], i)
+    return p[key].local(i, 0) if isinstance(p, ShardedTree) else p[key]
 
 
 def _mlp_residual(p, cfg: ModelConfig, spec: BlockSpec, xs, mesh=None):
@@ -230,49 +264,67 @@ def _mesh(ctx):
     return (ctx or {}).get("mesh")
 
 
+# The recurrent kinds' split forms (train, or decode given the caches).
+_RECURRENT_TP = {"mamba": ssm.mamba_tp, "mlstm": xlstm.mlstm_tp,
+                 "slstm": xlstm.slstm_tp}
+
+
+def _recurrent_cfg(cfg: ModelConfig, spec: BlockSpec):
+    return cfg.mamba if spec.kind == "mamba" else cfg.xlstm_cfg
+
+
 def _mix_train(p, cfg: ModelConfig, spec: BlockSpec, h, cross_states,
                i: int = 0):
-    if _self_attn_split(p, spec):
-        return attention_train_tp(_rank_list(p["attn"], i),
-                                  cfg.attn_cfg(spec), h,
-                                  use_flash=cfg.use_flash)
-    p = {k: _held(p, k, i) for k in ("attn", "mix") if k in p}
+    q = _mixer_params(p, spec, i)
+    kv = cross_states if spec.cross else None
+    if _mixer_split(p, spec):
+        if spec.kind == "attn":
+            return attention_train_tp(q, cfg.attn_cfg(spec), h, kv_src=kv,
+                                      use_flash=cfg.use_flash)
+        if spec.kind == "mla":
+            return mla_train_tp(q, cfg.mla, h, impl=cfg.attn_impl,
+                                chunk=cfg.attn_chunk)
+        return _RECURRENT_TP[spec.kind](q, _recurrent_cfg(cfg, spec), h)
     if spec.kind == "attn":
-        return attention_train(p["attn"], cfg.attn_cfg(spec), h,
-                               kv_src=cross_states if spec.cross else None,
+        return attention_train(q, cfg.attn_cfg(spec), h, kv_src=kv,
                                use_flash=cfg.use_flash)
     if spec.kind == "mla":
-        return mla_train(p["attn"], cfg.mla, h, impl=cfg.attn_impl,
+        return mla_train(q, cfg.mla, h, impl=cfg.attn_impl,
                          chunk=cfg.attn_chunk)
     if spec.kind == "mamba":
-        return ssm.mamba_train(p["mix"], cfg.mamba, h)
+        return ssm.mamba_train(q, cfg.mamba, h)
     if spec.kind == "mlstm":
-        return xlstm.mlstm_train(p["mix"], cfg.xlstm_cfg, h)
-    return xlstm.slstm_train(p["mix"], cfg.xlstm_cfg, h)
+        return xlstm.mlstm_train(q, cfg.xlstm_cfg, h)
+    return xlstm.slstm_train(q, cfg.xlstm_cfg, h)
 
 
 def _mix_decode(p, cfg: ModelConfig, spec: BlockSpec, h, cache, pos,
                 i: int = 0):
     """The mixer's decode output; ``cache`` is the block's cache, or for a
-    placed block row i's list of rank caches."""
-    if _self_attn_split(p, spec):
-        ranks = [(q, dev, c["mix"]) for (q, dev), c in
-                 zip(_rank_list(p["attn"], i), cache)]
-        return attention_decode_tp(ranks, cfg.attn_cfg(spec), h, pos)
+    placed block row i's list of rank caches (a rank that holds none of
+    the block's cache has None leaves)."""
+    q = _mixer_params(p, spec, i)
+    if _mixer_split(p, spec):
+        caches = [c["mix"] for c in cache]
+        ranks = [(w, dev, c) for (w, dev), c in zip(q, caches)]
+        if spec.kind == "attn":
+            return attention_decode_tp(ranks, cfg.attn_cfg(spec), h, pos)
+        if spec.kind == "mla":
+            return mla_decode_tp(ranks, cfg.mla, h, pos)
+        return _RECURRENT_TP[spec.kind](q, _recurrent_cfg(cfg, spec), h,
+                                        caches)
     if isinstance(p, ShardedTree):
         cache = cache[0]                 # held by the row's rank 0
-    p = {k: _held(p, k, i) for k in ("attn", "mix") if k in p}
     if spec.kind == "attn":
-        y, _ = attention_decode(p["attn"], cfg.attn_cfg(spec), h,
-                                cache["mix"], pos)
+        y, _ = attention_decode(q, cfg.attn_cfg(spec), h, cache["mix"], pos)
     elif spec.kind == "mla":
-        y, _ = mla_decode(p["attn"], cfg.mla, h, cache["mix"], pos)
+        y, _ = mla_decode(q, cfg.mla, h, cache["mix"], pos)
     elif spec.kind == "mamba":
-        y, _ = ssm.mamba_decode(p["mix"], cfg.mamba, h, cache["mix"])
+        y, _ = ssm.mamba_decode(q, cfg.mamba, h, cache["mix"])
     elif spec.kind == "mlstm":
-        y, _ = xlstm.mlstm_decode(p["mix"], cfg.xlstm_cfg, h, cache["mix"])
+        y, _ = xlstm.mlstm_decode(q, cfg.xlstm_cfg, h, cache["mix"])
     else:
-        y, _ = xlstm.slstm_decode(p["mix"], cfg.xlstm_cfg, h, cache["mix"])
+        y, _ = xlstm.slstm_decode(q, cfg.xlstm_cfg, h, cache["mix"])
     return y
 
 
@@ -466,9 +518,9 @@ def apply_layers_decode(p, cfg: ModelConfig, x, cache, pos, ctx=None):
         if len(x) != len(cache.rows):
             raise ValueError("the cache's batch rows do not match the "
                              "token batch")
-        if cache.split != heads_split(p, cfg):
-            raise ValueError("the cache's kv-head split does not match the "
-                             "params' placement")
+        if cache.split != cache_split(p, cfg):
+            raise ValueError("the cache's split over \"model\" does not "
+                             "match the params' placement")
     for i, spec in enumerate(cfg.prefix):
         x, _ = block_decode(p["prefix"][i], cfg, spec, x,
                             _block_cache(cache, ("prefix", i)), pos, ctx)
@@ -572,32 +624,72 @@ def maybe_constrain(x, ctx):
             for i, (b0, b1) in enumerate(rows)]
 
 
-def heads_split(layers: ShardedTree, cfg: ModelConfig) -> bool:
-    """Whether the specs of the placed layer stack ``layers`` split the
-    self-attention layers' query heads over "model" (the decode cache
-    then splits by kv heads)."""
+def cache_split(layers: ShardedTree, cfg: ModelConfig) -> tuple:
+    """Per block of the decode cache (``_cache_blocks`` order), whether the
+    specs of the placed layer stack ``layers`` split the block's units
+    over "model" (its query heads, or Mamba's inner channels): its cache
+    then splits with them (:func:`shard_cache`)."""
+    out = []
     for (where, key), spec, lead in _cache_blocks(cfg):
-        if spec.kind == "attn" and not spec.cross:
-            wq = layers[where][key]["attn"].specs["wq"]
-            return wq[lead + 1] == "model"
-    return False
+        sub, leaf = _UNIT_LEAF[spec.kind]
+        out.append(_on_model(layers[where][key][sub].specs[leaf]))
+    return tuple(out)
+
+
+def default_cache_split(cfg: ModelConfig, model: int) -> tuple:
+    """:func:`cache_split` of params placed by the default sharding rules
+    over a model axis of ``model`` ranks: a block's units split where
+    ``model`` divides their count."""
+    def units(spec):
+        if spec.kind == "attn":
+            return cfg.n_heads
+        if spec.kind == "mla":
+            return cfg.mla.n_heads
+        if spec.kind == "mamba":
+            return cfg.mamba.d_inner
+        return cfg.xlstm_cfg.n_heads
+    return tuple(units(spec) % model == 0
+                 for _, spec, _ in _cache_blocks(cfg))
+
+
+def _cache_cut(cfg: ModelConfig, spec: BlockSpec, name: str, model: int,
+               rank: int):
+    """Where a split block's cache leaf ``name`` is cut for ``rank``: (the
+    dimension after the batch's, lo, hi), or None for a whole copy."""
+    if spec.kind == "attn":       # self or cross K / V: (B, S, Hkv, D)
+        return (2, *kv_heads_of(cfg.n_heads, cfg.n_kv_heads, model, rank))
+    if spec.kind == "mla":        # the row's whole latent on every rank
+        return None
+    if spec.kind == "mamba":      # conv (B, K-1, I), ssm (B, I, N)
+        i = cfg.mamba.d_inner // model
+        return (2 if name == "conv" else 1, rank * i, (rank + 1) * i)
+    x = cfg.xlstm_cfg
+    if spec.kind == "mlstm":      # c / n / m: heads first
+        h = x.n_heads // model
+        return (1, rank * h, (rank + 1) * h)
+    w = x.d_model // model        # sLSTM (B, D): its heads' channels
+    return (1, rank * w, (rank + 1) * w)
 
 
 @dataclasses.dataclass
 class ShardedCache:
     """The decode cache over a mesh: ``shards[i][r]`` is the cache tree of
     rank r of data row i, on ``mesh.device(i, r)``. Row i holds batch rows
-    ``rows[i]``. With ``split`` a self-attention layer's K/V at rank r
-    hold the kv heads its query heads read (``layers.kv_heads_of``), in
-    contiguous tensors of their own that the decode kernel reads as they
-    are; every other leaf is held by rank 0 of its row only (None at the
-    other ranks). ``index`` gives each
-    held leaf's place in the whole cache, which :meth:`gather`
-    assembles."""
+    ``rows[i]``. ``split`` has a flag a block (:func:`cache_split`): a
+    split block's cache is cut along the units its rank computes, in
+    contiguous tensors of their own (the decode kernel reads a K / V as
+    it is): a self- or cross-attention layer's K / V by the kv heads its
+    query heads read (``layers.kv_heads_of``), Mamba's conv window and
+    ssm state by channel, mLSTM's (C, n, m) by head, sLSTM's (c, n, h, m)
+    by its heads' channels, and MLA's latent not at all: every rank of
+    the row keeps its own copy of the whole latent. An unsplit block's
+    leaves are held by rank 0 of the row only (None at the other ranks).
+    ``index`` gives each held leaf's place in the whole cache (None for a
+    latent copy past rank 0), which :meth:`gather` assembles."""
 
     mesh: object
     rows: list
-    split: bool
+    split: tuple
     shards: list
     index: list
     like: Any
@@ -612,41 +704,62 @@ class ShardedCache:
             out = torch.empty(like.shape, dtype=like.dtype, device=dev)
             n = len(flat_s)
             for t, idx in zip(held[:n], held[n:]):
-                if t is not None:
+                if idx is not None:
                     out[idx] = t.to(dev)
             return out
 
         return map_tree(build, self.like, *flat_s, *flat_i)
 
 
-def shard_cache(cfg: ModelConfig, cache, mesh, split: bool) -> ShardedCache:
+def shard_cache(cfg: ModelConfig, cache, mesh, split) -> ShardedCache:
     """``cache`` (whole, any device) copied onto ``mesh`` as a
-    :class:`ShardedCache`; ``split``: whether the self-attention layers'
-    query heads split over "model" (:func:`heads_split`)."""
+    :class:`ShardedCache`; ``split``: per cache block, whether the
+    params' specs split its units over "model" (:func:`cache_split`)."""
     d, m = mesh.shape["data"], mesh.shape["model"]
+    split = tuple(split)
     path, _, lead = _cache_blocks(cfg)[0]
     batch = next(iter(_at(cache, path)["mix"].values())).shape[lead]
     rows = _batch_rows(batch, d)
-    kv = [kv_heads_of(cfg.n_heads, cfg.n_kv_heads, m, r) for r in range(m)]
     like = map_tree(lambda t: torch.empty(t.shape, dtype=t.dtype,
                                           device="meta"), cache)
     shards = [[map_tree(lambda t: None, cache) for _ in range(m)]
               for _ in rows]
     index = [[map_tree(lambda t: None, cache) for _ in range(m)]
              for _ in rows]
-    for path, spec, lead in _cache_blocks(cfg):
-        heads = split and spec.kind == "attn" and not spec.cross
+    for (path, spec, lead), cut in zip(_cache_blocks(cfg), split):
         for name, t in _at(cache, path)["mix"].items():
             for i, (b0, b1) in enumerate(rows):
-                for r in range(m if heads else 1):
+                for r in range(m if cut else 1):
                     idx = [slice(None)] * t.dim()
                     idx[lead] = slice(b0, b1)
-                    if heads:
-                        idx[lead + 2] = slice(*kv[r])
+                    at = _cache_cut(cfg, spec, name, m, r) if cut else None
+                    if at is not None:
+                        idx[lead + at[0]] = slice(at[1], at[2])
                     idx = tuple(idx)
                     part = t[idx]
                     own = torch.empty(part.shape, dtype=part.dtype,
                                       device=mesh.device(i, r))
                     _at(shards[i][r], path)["mix"][name] = own.copy_(part)
-                    _at(index[i][r], path)["mix"][name] = idx
+                    _at(index[i][r], path)["mix"][name] = \
+                        idx if at is not None or r == 0 else None
     return ShardedCache(mesh, rows, split, shards, index, like)
+
+
+def cross_caches(layers, cfg: ModelConfig, cache):
+    """(layer params, layer cache, spec, split) of every cross-attention
+    layer, a stacked one's as views. For a :class:`ShardedCache` the layer
+    cache lists each data row's rank caches, and ``split`` is its block's
+    flag; False for a whole cache."""
+    blocks = _cache_blocks(cfg)
+    flags = cache.split if isinstance(cache, ShardedCache) else \
+        (False,) * len(blocks)
+    for ((where, key), spec, lead), split in zip(blocks, flags):
+        if not spec.cross:
+            continue
+        p = layers[where][key]
+        if lead:
+            yield from ((lp, lc, spec, split) for lp, lc in zip(
+                layer_slices(p), _block_cache(cache, (where, key),
+                                              cfg.n_repeats)))
+        else:
+            yield p, _block_cache(cache, (where, key)), spec, split
