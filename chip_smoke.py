@@ -291,6 +291,15 @@ Phases, each fatal on failure:
               step-0 gradient norm within 1e-4 relative, no hand-written
               kernel launched; step p50 of both, peak memory, one
               profiled mesh step's device idle share.
+17. dryrun  — ``launch.op_analysis`` runs Qwen3-1.7B ``full()``'s
+              prefill 4 x 2048 and one decode step of 4 over a 2064-row
+              bf16 cache on fake tensors over a (2, 2) mesh of ``meta``
+              devices; the same steps run on ``DeviceMesh.on("cuda:0", 2,
+              2)``: the dry run's #7 / #8 launches equal the wrappers'
+              counts (112 each), its aten FLOPs ``FlopCounterMode``'s
+              around the real step, each device's argument bytes the
+              bytes rank (i, r) holds; the (1, 1) prefill's dry-run peak
+              memory within 5 % of ``max_memory_allocated``'s rise.
 
 Each path is driven with every kernel's launch count set to 0 just
 before it and read just after. The last lines are the card's name and
@@ -453,6 +462,12 @@ MESH_SPLIT = dict(
 # run).
 MESH_TRAIN = dict(arch="qwen3-1.7b", mesh=(2, 2), batch=2, seq=512,
                   steps=3, lr=1e-4, rtol=1e-4)
+# Phase 17: the dry run (``launch.op_analysis`` on a mesh of meta devices)
+# of Qwen3-1.7B beside the same steps run on DeviceMesh.on("cuda:0", 2, 2)
+# (phase 15b's cell; PERF.md §2 holds the limit, written before its first
+# run): prefill (B, S), one decode step of B over an S-row cache.
+DRYRUN = dict(arch="qwen3-1.7b", mesh=(2, 2), prefill=(4, 2048),
+              decode=(4, 2064), mem_rtol=0.05)
 # Device cycles the stream sleeps before each timed window, so the host
 # enqueues the window's launches while the device is still busy and the
 # events time the device work, not the host's launch overhead.
@@ -3746,6 +3761,144 @@ def mesh_train_phase(card: str, wrappers: dict) -> None:
           f"{t_mesh:.1f} s, then the profiled step")
 
 
+def dryrun_phase(card: str) -> None:
+    """Phase 17: the dry run of Qwen3-1.7B ``full()`` (float32 params,
+    ``use_flash=True``) over a (2, 2) mesh of ``meta`` devices
+    (``launch.mesh.meta_mesh``, ``launch.op_analysis.analyze_step`` on
+    ``StepBundle.args_abstract``) beside the same steps run on
+    ``DeviceMesh.on("cuda:0", 2, 2)``: prefill and one decode step.
+    Held, exactly: the dry run's #7 / #8 launches to the wrappers' counts
+    over the real step (one a layer, row and rank); its aten FLOPs (the
+    kernels' charged FLOPs left out) summed over the devices to
+    ``FlopCounterMode`` around the real step; each device's argument
+    bytes to the bytes of rank (i, r)'s held slices and inputs. Then the
+    (1, 1) dry run's prefill memory beside the card's
+    ``max_memory_allocated`` rise over the same step (warm), its peak
+    within ``mem_rtol``."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.launch.mesh import DeviceMesh, meta_mesh
+    from repro_torch.launch.op_analysis import analyze_step
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import lm
+    from repro_torch.models.params import ShardedTree, leaves
+    from repro_torch.models.transformer import cache_split, shard_cache
+
+    dev, sync, sz = torch.device("cuda"), torch.cuda.synchronize, DRYRUN
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(configs.get_config(sz["arch"]), use_flash=True)
+    params = lm.init_lm(cfg, SEED, device=dev)
+    rng = np.random.default_rng(SEED + 17)
+    wrapper = {"prefill": fa.flash_attention, "decode": fd.flash_decode}
+    kernel = {"prefill": "flash_attention", "decode": "flash_decode"}
+
+    def nbytes(tree) -> int:
+        return sum(t.numel() * t.element_size() for t in leaves(tree)
+                   if t is not None)
+
+    def cell(kind):
+        b, s = sz[kind]
+        return ShapeCell(kind, kind, s, b)
+
+    def dry(kind, d, m):
+        mesh = meta_mesh(d, m)
+        bundle = build_step(cfg, cell(kind), mesh, param_dtype=torch.float32)
+        t0 = time.perf_counter()
+        out = analyze_step(bundle.fn, *bundle.args_abstract, mesh=mesh)
+        return out, time.perf_counter() - t0
+
+    def real(kind, d, m):
+        """The step on the card, its arguments and each rank's bytes."""
+        mesh = DeviceMesh.on("cuda:0", data=d, model=m)
+        bundle = build_step(cfg, cell(kind), mesh, param_dtype=torch.float32)
+        placed = ShardedTree.place(params, bundle.param_shardings, mesh)
+        want = [nbytes(placed.shards[i][r]) for i in range(d)
+                for r in range(m)]
+        b, s = sz[kind]
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(
+            b, s if kind == "prefill" else 1)).astype(np.int32), device=dev)
+        if kind == "prefill":
+            want[0] += nbytes(toks)
+            return bundle.fn, (placed, {"tokens": toks}), want
+        # A bf16 cache, as the dry run's stand-in (``input_specs``).
+        cache = shard_cache(cfg, lm.init_cache(cfg, b, s, device=dev), mesh,
+                            cache_split(placed["layers"], cfg))
+        pos = torch.full((b,), s // 2, dtype=torch.int32, device=dev)
+        want = [w + nbytes(cache.shards[k // m][k % m])
+                for k, w in enumerate(want)]
+        want[0] += nbytes(toks) + nbytes(pos)
+        return bundle.fn, (placed, cache, toks, pos), want
+
+    d, m = sz["mesh"]
+    for kind in ("prefill", "decode"):
+        ana, trace_s = dry(kind, d, m)
+        fn, args, want = real(kind, d, m)
+        wrapper[kind].launches = 0
+        with FlopCounterMode(display=False) as fc:
+            fn(*args)
+        sync()
+        n_real = wrapper[kind].launches
+        k = ana["kernels"].get(kernel[kind], {"launches": [], "flops": []})
+        n_dry = sum(k["launches"])
+        if not n_dry == n_real == cfg.n_layers * d * m:
+            fail(f"17 {kind}: the dry run counts {n_dry} {kernel[kind]} "
+                 f"launches, the card ran {n_real}, expected "
+                 f"{cfg.n_layers} x {d * m}")
+        aten = sum(r["flops"] for r in ana["per_device"]) - sum(k["flops"])
+        if aten != fc.get_total_flops():
+            fail(f"17 {kind}: the dry run's aten FLOPs {aten} != "
+                 f"FlopCounterMode's {fc.get_total_flops()} on the card")
+        got = [r["memory"]["argument_bytes"] for r in ana["per_device"]]
+        if got != want or ana["off_mesh_ops"]:
+            fail(f"17 {kind}: argument bytes a device {got}, the ranks' "
+                 f"held slices {want}; {ana['off_mesh_ops']} ops off the "
+                 f"mesh")
+        mem = ana["memory"]
+        print(f"[dryrun] {card}: {cfg.name} full() {kind} {sz[kind]} over a "
+              f"({d}, {m}) mesh of meta devices, traced in {trace_s:.1f} s "
+              f"({ana['ops']} aten ops): {n_dry} {kernel[kind]} launches "
+              f"== the card's {n_real}; aten FLOPs {aten} == "
+              f"FlopCounterMode's on the card; argument bytes a device "
+              f"{got} == the ranks' held slices; per device (largest): "
+              f"FLOPs {ana['flops']} (kernels {max(k['flops'])}), traffic "
+              f"{ana['traffic_bytes']} B, copied {ana['collective_bytes']}"
+              f" B, temp {mem['temp_bytes']} B, output "
+              f"{mem['output_bytes']} B")
+        del fn, args
+        torch.cuda.empty_cache()
+
+    ana, trace_s = dry("prefill", 1, 1)
+    fn, args, _ = real("prefill", 1, 1)
+    fn(*args)                                   # warm-up: workspaces
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn(*args)
+    sync()
+    rise = torch.cuda.max_memory_allocated() - base
+    mem = ana["memory"]
+    gap = abs(mem["peak_bytes"] - rise) / rise
+    print(f"[dryrun] {card}: {cfg.name} full() prefill {sz['prefill']} on "
+          f"(1, 1): dry run temp {mem['temp_bytes']} B + output "
+          f"{mem['output_bytes']} B, peak {mem['peak_bytes']} B beside the "
+          f"card's max_memory_allocated rise {rise} B over the step "
+          f"({gap:.4f} of it; limit {sz['mem_rtol']})")
+    if not gap <= sz["mem_rtol"]:
+        fail(f"17: the dry run's prefill peak {mem['peak_bytes']} B is "
+             f"{gap:.4f} of the card's rise {rise} B away (limit "
+             f"{sz['mem_rtol']})")
+    del params, fn, args, out
+    torch.cuda.empty_cache()
+    print(f"[dryrun] phase 17 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5125,6 +5278,9 @@ def main() -> int:
 
     # -- phase 16: training over the (data, model) mesh -------------------------
     mesh_train_phase(card, wrappers)
+
+    # -- phase 17: the dry run beside the card ---------------------------------
+    dryrun_phase(card)
 
     def bounds(kd):
         kd.update(bound_of(kd.pop("ops"), kd.pop("bytes")))

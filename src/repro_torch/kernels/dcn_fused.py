@@ -54,6 +54,7 @@ import math
 
 import torch
 
+from repro_torch._device import is_fake_meta
 from repro_torch.obs import get_tracer
 
 
@@ -93,13 +94,17 @@ def dcn_fused_batch_plain(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff, w,
 
 
 def _check_operands(floats: dict, ints: dict,
-                    dtypes: tuple = (torch.float32,)) -> torch.device:
+                    dtypes: tuple = (torch.float32,),
+                    fake: bool = False) -> torch.device:
     """Common operand checks: one device, contiguous, each float operand
     of one of ``dtypes`` (float32 unless the kernel takes more), int32,
     and no float operand that requires grad while grad mode is on: no
     kernel has a backward (in the JAX package neither), and a result
-    written through a raw pointer would silently cut the graph."""
-    dev = next(iter(floats.values())).device
+    written through a raw pointer would silently cut the graph. With
+    ``fake``, the dry run's fake tensors on a ``meta`` device pass too
+    (``_device.is_fake_meta``)."""
+    first = next(iter(floats.values()))
+    dev = first.device
     if torch.is_grad_enabled():
         for name, t in floats.items():
             if t.requires_grad:
@@ -122,7 +127,7 @@ def _check_operands(floats: dict, ints: dict,
     for name, t in ints.items():
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda") and not (fake and is_fake_meta(first)):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

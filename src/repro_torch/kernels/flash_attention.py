@@ -22,15 +22,21 @@ ones. Mixed operands (a bf16 q over float32 k, v, or the reverse) are
 widened to float32, which is exact, and go to the float32 kernel; the
 output is cast to ``q.dtype``. float16 raises. For a CPU tensor it runs
 :func:`flash_attention_plain`, the masked full-softmax form with the same
-conventions. The float32 kernel takes head dims that are multiples of 4
-up to 144, the bf16 kernel multiples of 8 up to 144, with the tiles
-:func:`tile_config` gives; others raise.
+conventions. For the dry run's fake tensor on a ``meta`` device
+(``launch.dryrun``) it makes the CUDA call's checks and reports the
+launch to the running ``launch.op_analysis``, which counts it, in place
+of launching anything (``launches`` counts only kernels launched); its
+output is an empty tensor of the result's shape. The float32 kernel
+takes head dims that are multiples of 4 up to 144, the bf16 kernel
+multiples of 8 up to 144, with the tiles :func:`tile_config` gives;
+others raise.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch._device import is_fake_meta
 from repro_torch.kernels.dcn_fused import _check_operands, _stream
 
 NEG_INF = -1e30
@@ -156,13 +162,22 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     return (out / l.clamp_min(1e-30)).reshape(b, sq, hq, d).to(q.dtype)
 
 
+def plain_flops(b: int, sq: int, skv: int, hq: int, d: int) -> int:
+    """The FLOPs of :func:`flash_attention_plain` on these shapes: its two
+    products, S = Q K^T and P V, over every (query, key) pair, as
+    ``torch.utils.flop_counter`` counts them (and the JAX ``_sdpa``'s
+    dots). The dry run charges them to each launch."""
+    return 4 * b * sq * skv * hq * d
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None, softcap: float | None = None,
                     scale: float | None = None) -> torch.Tensor:
     """(B, Sq, Hq, D) attention output in ``q.dtype``; see the module
     doc. ``scale`` defaults to D**-0.5."""
     check_attention_dtypes(q=q, k=k, v=v)
-    dev = _check_operands(dict(q=q, k=k, v=v), {}, dtypes=ATTN_DTYPES)
+    dev = _check_operands(dict(q=q, k=k, v=v), {}, dtypes=ATTN_DTYPES,
+                          fake=True)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q {tuple(q.shape)} must be (B, Sq, Hq, D) and "
                          f"k, v {tuple(k.shape)} / {tuple(v.shape)} equal "
@@ -183,15 +198,22 @@ def flash_attention(q, k, v, *, causal: bool = True,
         q, k, v = q.float(), k.float(), v.float()
     bf16 = q.dtype == torch.bfloat16
     tiles = tile_config(d, q.dtype)
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    fake = is_fake_meta(q)
+    if not fake and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must be 16-byte aligned for the CUDA "
                          "kernel")
-    from repro_torch.kernels import _build
-
-    lib = _build.load()
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out.to(out_dtype)
+    if fake:            # the dry run: reported, nothing launched
+        from repro_torch.launch import op_analysis
+
+        op_analysis.kernel_launch("flash_attention", (q, k, v), out,
+                                  plain_flops(b, sq, skv, hq, d))
+        return out.to(out_dtype)
+    from repro_torch.kernels import _build
+
+    lib = _build.load()
     launch = (lib.flash_attention_bf16_launch if bf16
               else lib.flash_attention_launch)
     with torch.cuda.device(dev):

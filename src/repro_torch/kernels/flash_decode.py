@@ -21,8 +21,12 @@ stored, with no copy. Without it the function is the TPU kernel's, which
 widens without rounding. For a CUDA tensor the wrapper launches one
 kernel or raises, and counts it in ``flash_decode.launches`` (and by the
 types of q and the cache in ``flash_decode.dtypes``); for a CPU tensor it
-runs :func:`flash_decode_plain`. The wrapper reads nothing back from the
-card: each sequence's visible keys are cut into splits on the device.
+runs :func:`flash_decode_plain`. For the dry run's fake tensor on a
+``meta`` device it makes the CUDA call's checks and reports the launch
+to the running ``launch.op_analysis``, which counts it, in place of
+launching anything (``launches`` counts only kernels launched). The
+wrapper reads nothing back from the card: each sequence's visible keys
+are cut into splits on the device.
 
 * A float32 cache: ``csrc/flash_decode.cu``, grid (sequence x kv head,
   split); the splits follow :func:`split_ranges` under the upper limit
@@ -41,6 +45,7 @@ import math
 
 import torch
 
+from repro_torch._device import is_fake_meta
 from repro_torch.kernels.dcn_fused import H100_SMS, _check_operands, _stream
 from repro_torch.kernels.flash_attention import (ATTN_DTYPES, MAX_HEAD_DIM,
                                                  NEG_INF, NO_WINDOW,
@@ -233,7 +238,8 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
     depend on the splits beyond float32 summation order."""
     check_attention_dtypes(q=q, k_cache=k_cache, v_cache=v_cache)
     dev = _check_operands(dict(q=q, k_cache=k_cache, v_cache=v_cache),
-                          dict(lengths=lengths), dtypes=ATTN_DTYPES)
+                          dict(lengths=lengths), dtypes=ATTN_DTYPES,
+                          fake=True)
     if (q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape
             or k_cache.shape[0] != q.shape[0]
             or k_cache.shape[3] != q.shape[2]
@@ -258,13 +264,15 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
                          f"most {MAX_HEAD_DIM} for the CUDA kernel over a "
                          f"{str(k_cache.dtype).removeprefix('torch.')} "
                          f"cache")
-    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
+    fake = is_fake_meta(q)
+    if not fake and any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
         raise ValueError("q and the k/v caches must start on 16-byte "
                          "boundaries for the CUDA kernel")
     if hq // hkv > MAX_GROUP:
         raise ValueError(f"{hq // hkv} query heads per kv head: the CUDA "
                          f"kernel takes at most {MAX_GROUP}")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = H100_SMS if fake else \
+        torch.cuda.get_device_properties(dev).multi_processor_count
     splits = num_splits or default_splits(b, hkv, s_len, sms)
     if not 1 <= splits <= min(max(s_len, 1), 65535):
         raise ValueError(f"num_splits {splits} must be in [1, S={s_len}] "
@@ -272,12 +280,19 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
     if kv_bf16 and b * hkv > 65535:
         raise ValueError(f"B * Hkv = {b * hkv}: the CUDA kernel over a "
                          f"bf16 cache takes at most 65535")
-    from repro_torch.kernels import _build
-
-    lib = _build.load()
     out = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
+    if fake:            # the dry run: reported, nothing launched
+        from repro_torch.launch import op_analysis
+
+        op_analysis.kernel_launch("flash_decode",
+                                  (q, k_cache, v_cache, lengths), out,
+                                  plain_flops(b, s_len, hq, d))
+        return out
+    from repro_torch.kernels import _build
+
+    lib = _build.load()
     stream = _stream(q)
     ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lengths.data_ptr())
@@ -308,6 +323,14 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
     key = "/".join(str(t.dtype).removeprefix("torch.") for t in (q, k_cache))
     flash_decode.dtypes[key] = flash_decode.dtypes.get(key, 0) + 1
     return out
+
+
+def plain_flops(b: int, s_len: int, hq: int, d: int) -> int:
+    """The FLOPs of :func:`flash_decode_plain` on these shapes: its two
+    products over every cache row, as ``torch.utils.flop_counter`` counts
+    them (and the JAX ``_sdpa``'s dots). The dry run charges them to each
+    launch."""
+    return 4 * b * s_len * hq * d
 
 
 flash_decode.launches = 0

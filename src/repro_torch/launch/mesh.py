@@ -15,7 +15,8 @@ sharded path run on one card (or on the CPU in the tests); on such a
 mesh no copy between devices happens, and none is measured.
 
 Functions, not module-level constants: importing this module touches no
-device.
+device. :func:`make_production_mesh` is a mesh of ``meta`` devices for
+the dry run; :func:`make_host_mesh` one of this host's cards.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import weakref
 
 import torch
 
-from repro_torch._device import resolve_device
+from repro_torch._device import resolve_device, storage_key
 
 
 def _pinned(device) -> torch.device:
@@ -90,13 +91,14 @@ class DeviceMesh:
         """``t`` on ``device``: ``t`` itself where it already lies there,
         else a copy made once per (tensor or view of it, device) while the
         tensor is alive and unchanged. A view made anew on every call (a
-        reshaped weight) finds its copy by its base tensor, address,
-        shape and strides; the version counter, which views share with
+        reshaped weight) finds its copy by its base tensor, where it
+        starts in the base's storage (``_device.storage_key``), shape and
+        strides; the version counter, which views share with
         their base, catches an in-place update."""
         if t.device == device:
             return t
         base = t if t._base is None else t._base
-        key = (id(base), t.data_ptr(), tuple(t.shape), t.stride(), t.dtype,
+        key = (id(base), storage_key(t), tuple(t.shape), t.stride(), t.dtype,
                device)
         hit = self._replicas.get(key)
         if hit is not None and hit[0]() is base and hit[1] == t._version:
@@ -106,6 +108,53 @@ class DeviceMesh:
                                            self._replicas.pop(k, None)),
                                t._version, copy)
         return copy
+
+
+# torch's device index is 8 bits (c10's ``DeviceIndex``): one process
+# names at most 128 indexed devices of a type.
+MAX_DEVICES = 128
+
+
+def meta_mesh(data: int, model: int) -> DeviceMesh:
+    """A (data, model) mesh of ``meta`` devices for the dry run, device
+    ``i * model + r`` rank r of row i (row-major, as JAX's ``make_mesh``
+    lays out its devices).
+
+    Past :data:`MAX_DEVICES` chips one process cannot name a device for
+    each, so the mesh lists fewer, as :meth:`DeviceMesh.on` lists one
+    device several times: rows 0, 1 and the last hold a device a rank,
+    and the rows between share one more row of devices. The port's
+    program runs rows 1 to the last alike (equal runs of the batch, the
+    same ops); row 0 holds the step's outputs and the last row's
+    temporaries outlive the loop over rows. So the rows with devices of
+    their own carry every per-chip number of the mesh, and each copy into
+    them, from whichever row, is a copy between two devices. Copies among
+    the shared rows lie on one device and are not counted;
+    ``op_analysis`` reports no number of a device that stands for several
+    chips."""
+    if data * model <= MAX_DEVICES:
+        return DeviceMesh(tuple(tuple(torch.device("meta", i * model + r)
+                                      for r in range(model))
+                                for i in range(data)))
+    if 4 * model > MAX_DEVICES:
+        raise ValueError(f"a meta mesh of model size {model} needs "
+                         f"{4 * model} devices, more than {MAX_DEVICES}")
+    rows = [tuple(torch.device("meta", i * model + r) for r in range(model))
+            for i in range(4)]
+    return DeviceMesh(tuple(rows[:2] + rows[2:3] * (data - 3) + rows[3:]))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """The production mesh of ``meta`` devices (:func:`meta_mesh`), on
+    which the dry run (``launch.dryrun``) runs the card's program on fake
+    tensors: one pod is (16, 16) = 256 chips. Two pods fold "pod" into
+    "data": (32, 16) = 512 chips. The sharding rules name ("pod", "data")
+    for the batch and the FSDP dims and ``resolve_spec`` drops the "pod"
+    axis this mesh lacks, so those dims split 32 ways as on the JAX (2,
+    16, 16) mesh and every per-chip number is the same; no copy is told
+    apart as crossing between pods (ROADMAP.md §3). Building it touches
+    no device."""
+    return meta_mesh(32 if multi_pod else 16, 16)
 
 
 def make_host_mesh(data: int = 1, model: int = 1) -> DeviceMesh:

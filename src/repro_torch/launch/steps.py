@@ -25,6 +25,7 @@ controller (``models.transformer``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
@@ -33,10 +34,10 @@ from repro_torch._tree import tree_leaves, tree_map, value_and_grad
 from repro_torch.configs import base as cfgbase
 from repro_torch.launch.sharding import param_tree_specs, sharding_rules
 from repro_torch.models import lm
-from repro_torch.models.params import ShardedTree
+from repro_torch.models.params import ShardedTree, map_tree
 from repro_torch.models.transformer import (ModelConfig, ShardedCache,
                                             cache_split, shard_cache)
-from repro_torch.optim import AdamWConfig, adamw_update
+from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
 
 
 def build_train_step(cfg: ModelConfig,
@@ -113,12 +114,53 @@ class StepBundle:
     """The step ``fn``, the rule table it was resolved under, the spec
     tree of the params (``ShardedTree.place``) and, for a train step,
     that of the optimizer state: ``{"step": (), "m": param specs, "v":
-    param specs}``."""
+    param specs}``. :attr:`args_abstract` gives fake stand-ins of its
+    arguments, made on first use."""
 
     fn: Callable
     rules: dict
     param_shardings: Any
     opt_shardings: Any = None
+    abstract: Callable | None = dataclasses.field(default=None, repr=False)
+
+    @functools.cached_property
+    def args_abstract(self) -> tuple:
+        """Fake stand-ins (``FakeTensorMode``: no memory) of ``fn``'s
+        arguments as the step receives them on its mesh, the JAX
+        package's ``ShapeDtypeStruct`` arguments: (params, opt_state,
+        batch) for train, (params, batch) for prefill and (params, cache,
+        token, pos) for decode (a bf16 cache, as ``configs.base.
+        input_specs`` makes it). The params, the AdamW moments and a
+        decode cache are placed (``ShardedTree.place``, ``shard_cache``):
+        every device holds its own slices; the step count and the inputs
+        lie on ``mesh.device(0, 0)``. ``launch.op_analysis.analyze_step``
+        runs ``fn`` on them."""
+        return self.abstract()
+
+
+def _abstract_args(cfg: ModelConfig, shape: cfgbase.ShapeCell, mesh,
+                   pspecs, params_ab, opt_cfg: AdamWConfig | None) -> tuple:
+    """:attr:`StepBundle.args_abstract` of a cell: made inside a fresh
+    ``FakeTensorMode``, whole on the (fake) CPU, then placed as the step
+    receives them (a plain ``meta`` tensor would take no device index,
+    and ops on it would lie on no device of the mesh)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    out = mesh.device(0, 0)
+    host = lambda t: torch.empty(t.shape, dtype=t.dtype)
+    on_out = lambda t: torch.empty(t.shape, dtype=t.dtype, device=out)
+    with FakeTensorMode():
+        params = ShardedTree.place(map_tree(host, params_ab), pspecs, mesh)
+        ins = cfgbase.input_specs(cfg, shape)
+        if shape.kind == "train":
+            return (params, init_opt_state(params, opt_cfg),
+                    map_tree(on_out, ins["batch"]))
+        if shape.kind == "prefill":
+            return params, map_tree(on_out, ins["batch"])
+        cache = shard_cache(cfg, map_tree(host, ins["cache"]), mesh,
+                            cache_split(params["layers"], cfg))
+        return params, cache, on_out(ins["token"]), \
+            torch.zeros(ins["pos"].shape, dtype=torch.int32, device=out)
 
 
 def build_step(cfg: ModelConfig, shape: cfgbase.ShapeCell, mesh,
@@ -134,7 +176,10 @@ def build_step(cfg: ModelConfig, shape: cfgbase.ShapeCell, mesh,
     long_ctx = shape.name == "long_500k"
     rules = rules_override if rules_override is not None else \
         sharding_rules(cfg, kind=shape.kind, long_ctx=long_ctx)
-    pspecs, _ = param_tree_specs(cfg, mesh, rules, param_dtype)
+    pspecs, params_ab = param_tree_specs(cfg, mesh, rules, param_dtype)
+    abstract = functools.partial(
+        _abstract_args, cfg, shape, mesh, pspecs, params_ab,
+        (opt_cfg or AdamWConfig()) if shape.kind == "train" else None)
 
     def placed(params):
         if isinstance(params, ShardedTree):
@@ -164,13 +209,13 @@ def build_step(cfg: ModelConfig, shape: cfgbase.ShapeCell, mesh,
                                                  opt_cfg)
             return params, opt_state, {**metrics, **om}
 
-        return StepBundle(train_step, rules, pspecs, ospecs)
+        return StepBundle(train_step, rules, pspecs, ospecs, abstract)
 
     if shape.kind == "prefill":
         def prefill_step(params, batch):
             return lm.lm_prefill(placed(params), cfg, batch, {"mesh": mesh})
 
-        return StepBundle(prefill_step, rules, pspecs)
+        return StepBundle(prefill_step, rules, pspecs, abstract=abstract)
 
     def decode_step(params, cache, token, pos):
         params = placed(params)
@@ -182,4 +227,4 @@ def build_step(cfg: ModelConfig, shape: cfgbase.ShapeCell, mesh,
         return lm.lm_decode_step(params, cfg, cache, token, pos,
                                  {"mesh": mesh})
 
-    return StepBundle(decode_step, rules, pspecs)
+    return StepBundle(decode_step, rules, pspecs, abstract=abstract)

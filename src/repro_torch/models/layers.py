@@ -17,6 +17,9 @@ Attention has two entry points:
   split-KV decode kernel on a card (handed the cache as it is stored,
   float32 or bf16, with no copy) and through ``_sdpa`` on the CPU (the
   cache cast to the activations' dtype first, as in the JAX package).
+  The dry run's fake tensors take the kernel's branch, as on a card
+  (``_device.takes_kernel``): the wrapper reports the call to the
+  analysis there instead of launching.
 
 A cross-attention layer (``cfg.cross``, llama-3.2-vision's image layers)
 takes K/V from encoder states of width ``d_cross`` and applies no rotary
@@ -55,6 +58,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch._device import takes_kernel
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.models.params import Maker
@@ -529,7 +533,7 @@ def attention_decode(p, cfg: AttnConfig, x, cache, pos):
     at = pos.long().clamp(0, ck.shape[1] - 1)
     ck[rows, at] = k_new[:, 0].to(ck.dtype)
     cv[rows, at] = v_new[:, 0].to(cv.dtype)
-    if x.device.type == "cuda":
+    if takes_kernel(x):
         out = flash_decode(q[:, 0].contiguous(), ck, cv,
                            (pos + 1).to(torch.int32), window=cfg.window,
                            softcap=cfg.attn_softcap, scale=cfg.qk_scale,
@@ -551,7 +555,7 @@ def _cross_decode(p, cfg: AttnConfig, x, cache, pos):
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q)
     ck, cv = cache["k"], cache["v"]
-    if x.device.type == "cuda":
+    if takes_kernel(x):
         if cfg.window is not None:
             # The kernel places the query at key lengths - 1; the JAX
             # function places it at ``pos``, which only a window reads.

@@ -21,6 +21,7 @@ import math
 
 import torch
 
+from repro_torch._device import storage_key
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.models.params import ShardedTree
 
@@ -139,7 +140,7 @@ def _write(held: list, value: torch.Tensor) -> None:
     same storage."""
     done = []
     for t in held:
-        key = (t.device, t.data_ptr(), tuple(t.shape), t.stride())
+        key = (t.device, storage_key(t), tuple(t.shape), t.stride())
         if key not in done:
             t.copy_(value)
             done.append(key)
