@@ -171,7 +171,8 @@ Phases, each fatal on failure:
               lifted), the decode step profiled beside the bound of its
               weight reads. 11b: xlstm-1.3b ``full()`` whole: prefill 4 x
               2048 with the mLSTM / sLSTM layers' time by CUDA events,
-              phase 7's serving, a decode step profiled; no kernel
+              serving cut to 6 requests of 16-64-token prompts
+              (``short_requests``), a decode step profiled; no kernel
               wrapper launches on this path. For both: prompts fed token
               by token through ``lm_decode_step`` against ``lm_prefill``
               (a chunk boundary and a padded tail, 1e-3 * max|ref|), and
@@ -227,9 +228,10 @@ Phases, each fatal on failure:
               of the same weights gives the model's own bf16 error, which
               sets the prefill and decode limits (``BF16_LIMITS``);
               phase 6's prefill (40 #7 launches, 8 non-causal, all on
-              bf16 operands), phase 7's serving with ``cache_dtype=
-              bfloat16`` (40 #8 launches a step, each on the engine's
-              cache tensors themselves, checked by data pointer), decode
+              bf16 operands), serving (``short_requests``) with
+              ``cache_dtype=bfloat16`` (40 #8 launches a step, each on the
+              engine's cache tensors themselves, checked by data
+              pointer), decode
               vs prefill over the image, the image's effect, a profiled
               prefill and decode step, and peak memory.
 14. dcn-bf16 — 14a: #1, #4 and #5 (per tile and whole plane) on phase
@@ -354,13 +356,15 @@ LM_SIZES = dict(
              dict(window=4096, softcap=50.0))],
     prefill_batch=4, prefill_len=2048,
     serve_batch=4, serve_max_len=512, requests=8, prompt_len=(16, 256),
-    max_new=32, cross_checked=2)
+    max_new=32, cross_checked=2,
+    # The serving runs cut for the script's time (granite 10a, xlstm 11b,
+    # llama bf16 13b): 6 requests of 16-64-token prompts, still past step
+    # 64 with a stale free slot (148 steps against phase 7's 380).
+    short_requests=6, short_prompt_len=(16, 64))
 # Phase 10: the MoE / MLA configurations (full widths), their parameter
 # counts, and deepseek's prefill, MLA check and served requests.
-# granite's serving run is cut to 6 requests of 16-64-token prompts
-# (phase 7's are 8 of 16-256): still past step 64 with a stale free slot.
+# granite's serving run is cut (``short_requests``).
 MOE_SIZES = dict(granite="granite-moe-3b-a800m", granite_params=3_903_166_464,
-                 granite_requests=6, granite_prompt_len=(16, 64),
                  deepseek="deepseek-v3-671b",
                  deepseek_params=671_712_677_376,
                  deepseek_cut_params=14_630_393_088, ds_prefill=(1, 512),
@@ -403,6 +407,10 @@ BF16_SIZES = dict(
 # the plain version (both float32 inside, the output rounded once; #7 also
 # rounds P to bf16 for P V).
 BF16_RTOL = 2.0 ** -7
+# One float16 ulp at the largest output, phase 18's limit for a float16
+# output against the plain version (both float32 inside, the output
+# rounded once; #7 also rounds P to float16 for P V).
+F16_RTOL = 2.0 ** -10
 # Phase 13's model-level limits (PERF.md §2, written before its first
 # run). A random-weight 40-layer model in bf16 moves its logits by a few
 # per cent of max|logits| from rounding alone, so the prefill and decode
@@ -468,6 +476,44 @@ MESH_TRAIN = dict(arch="qwen3-1.7b", mesh=(2, 2), batch=2, seq=512,
 # run): prefill (B, S), one decode step of B over an S-row cache.
 DRYRUN = dict(arch="qwen3-1.7b", mesh=(2, 2), prefill=(4, 2048),
               decode=(4, 2064), mem_rtol=0.05)
+# Phase 18: float16 (PERF.md §2 holds the limits, written before its first
+# run). 18a: #7 at phase 13a's shapes and #8 at ``decode``'s, in float16;
+# #1 / #4 / #5 / #6 on phase 2's operands rounded to float16; every
+# float16 output within F16_RTOL * max|ref| of the plain version (a
+# float32 one, #8 under a float32 q, within 1e-4). 18b: VGG19-3 in
+# float16, BF16_DCN's rule with the floor F16_RTOL. 18c: Qwen3-1.7B
+# ``full()`` in float16 (phase 6's prefill, phase 7's requests over a
+# float16 cache): prefill and token limits max(noise_factor x eps,
+# F16_RTOL), eps the float16 ``_sdpa`` path's distance from a float32 run
+# of the same float16 weights; ``layer``: one layer over a float32 cache
+# (B, S, positions; 14c's rule: within 1e-5 of the float16 cache, the
+# unrounded read moving it by more). 18d: the general bodies of #7 / #8
+# at ``any_flash`` / ``any_decode`` in float32, bf16 and float16 (each
+# within ATTN_RTOL / BF16_RTOL / F16_RTOL of its plain version), one view
+# off a 16-byte boundary each, and a bf16 cache of B * Hkv = 65,536 at a
+# few rows (``many_pairs``); ``timed_flash`` / ``timed_decode`` name the
+# shapes of the two general bodies' JSON entries.
+F16_SIZES = dict(
+    decode=("Qwen3-1.7B serving shape", "Qwen3-1.7B 32k cache",
+            "llama-3.2-vision cross cache"),
+    noise_factor=2.0,
+    layer=(4, 512, (511, 300, 64, 1)),
+    any_flash=[("D 6", 1, 300, 300, 8, 2, 6, {}),
+               ("D 72, window", 1, 300, 300, 8, 2, 72, dict(window=64)),
+               ("D 160, soft-cap", 1, 300, 300, 8, 2, 160,
+                dict(softcap=30.0)),
+               ("Gemma-7B D 256", 1, 2048, 2048, 16, 16, 256, {}),
+               ("D 320, window + soft-cap, non-causal", 2, 200, 333, 8, 1,
+                320, dict(window=100, softcap=50.0, causal=False))],
+    any_decode=[("D 6", 4, 512, 8, 2, 6, {}),
+                ("D 100, window", 4, 512, 8, 2, 100, dict(window=200)),
+                ("D 320, soft-cap", 4, 512, 8, 2, 320, dict(softcap=30.0)),
+                ("group 16 over 1 kv head", 4, 1024, 16, 1, 128, {}),
+                ("Falcon-7B group 71 over 1 kv head", 4, 2048, 71, 1, 64,
+                 {})],
+    many_pairs=(8192, 8, 8, 16, 16),       # B, Hkv, Hq, S, D
+    timed_flash="Gemma-7B D 256", timed_decode=(
+        "Falcon-7B group 71 over 1 kv head"))
 # Device cycles the stream sleeps before each timed window, so the host
 # enqueues the window's launches while the device is still busy and the
 # events time the device work, not the host's launch overhead.
@@ -662,7 +708,8 @@ def time_flash(q, k, v, opts, err, name) -> dict:
     skv, hkv = k.shape[1], k.shape[2]
     causal = opts.get("causal", True)
     tiles = fa.tile_config(d)
-    grid = (-(-sq // tiles["block_q"]), b * hq)
+    n_qt = -(-sq // tiles["block_q"])
+    grid = f"({n_qt * b * hq},) = {n_qt} query tiles x {b * hq} rows"
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     lib = sdpa_yardstick(qt, kt, vt, is_causal=causal)
     live = live_pairs(sq, skv, causal, opts.get("window"))
@@ -795,6 +842,12 @@ def prefill_through_flash(card, tag, params, cfg, toks, reset_counts,
               f"{attn_rtol:.4g}*{sc:.3f})")
     torch.cuda.empty_cache()
     return n7, held7, wall, n_nc
+
+
+def short_requests(cfg):
+    """The cut serving runs' requests (``LM_SIZES["short_requests"]``)."""
+    return serving_requests(cfg, LM_SIZES["short_requests"],
+                            LM_SIZES["short_prompt_len"])
 
 
 def serving_requests(cfg, n=None, prompt_len=None):
@@ -1432,7 +1485,8 @@ def lm_phases(card, kernels, launches, reset_counts) -> None:
                        fa.flash_attention_plain(q, k, v, scale=d ** -0.5,
                                                 **opts), ATTN_RTOL)
         tiles = fa.tile_config(d)
-        grid = (-(-sq // tiles["block_q"]), b * hq)
+        n_qt = -(-sq // tiles["block_q"])
+        grid = f"({n_qt * b * hq},) = {n_qt} query tiles x {b * hq} rows"
         print(f"[lm-kernels] flash_attention at {name} (B={b} Sq={sq} "
               f"Skv={skv} Hq={hq} Hkv={hkv} D={d} {opts or 'causal'}; grid "
               f"{grid}, {tiles}): max|d| {err:.3e} (limit "
@@ -1991,8 +2045,8 @@ def moe_phases(card, kernels, wrappers, reset_counts, peak_bw) -> None:
                    {"tokens": toks}), 1, card, "flash_kernel")
 
     timed8, n8, eng, step_s, _ = serve_through_decode(
-        card, "lm-moe", params, cfg, reset_counts, reqs=serving_requests(
-            cfg, sz["granite_requests"], sz["granite_prompt_len"]))
+        card, "lm-moe", params, cfg, reset_counts,
+        reqs=short_requests(cfg))
     kernels["flash_decode"].setdefault("shapes", {})[
         f"{cfg.name} decode"] = dict(timed8, launches=n8)
     # One more step, profiled, after one that keeps layer 0's MoE input.
@@ -2354,7 +2408,7 @@ def recurrent_phases(card, kernels, wrappers, reset_counts, peak_bw) -> None:
     warm.run()
     del warm
     eng = engine(params, cfg)
-    reqs = serving_requests(cfg)
+    reqs = short_requests(cfg)
     step_s, finish_s, wall = serve_timed(eng, reqs)
     print(f"[lm-recurrent] {card}: {cfg.name}: "
           + serving_line(reqs, eng, step_s, finish_s, wall))
@@ -2515,18 +2569,25 @@ def cross_phase(card, kernels, reset_counts, peak_bw) -> None:
     torch.cuda.empty_cache()
 
 
-def time_flash_bf16(q, k, v, opts, err, name) -> dict:
-    """#7's bf16 kernel on bf16 (q, k, v) timed beside the float32 kernel
-    on the same values widened, the plain version and the bf16 SDPA
-    yardstick; the work and bytes of its bound (operations at the dense
-    bf16 tensor-core rate)."""
+def half_name(dtype) -> str:
+    """A 16-bit type's short name, "bf16" or "fp16" (also the key of its
+    dense tensor-core rate)."""
+    return "fp16" if str(dtype) == "torch.float16" else "bf16"
+
+
+def time_flash_16(q, k, v, opts, err, name) -> dict:
+    """#7's 16-bit kernel on bf16 or float16 (q, k, v) timed beside the
+    float32 kernel on the same values widened, the plain version and the
+    SDPA yardstick in the same type; the work and bytes of its bound
+    (operations at the dense 16-bit tensor-core rate)."""
     from repro_torch.kernels import flash_attention as fa
 
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     causal = opts.get("causal", True)
     tiles = fa.tile_config(d, q.dtype)
-    grid = (-(-sq // tiles["block_q"]), b * hq)
+    n_qt = -(-sq // tiles["block_q"])
+    grid = f"({n_qt * b * hq},) = {n_qt} query tiles x {b * hq} rows"
     qf, kf, vf = q.float(), k.float(), v.float()
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     lib = sdpa_yardstick(qt, kt, vt, is_causal=causal)
@@ -2539,9 +2600,9 @@ def time_flash_bf16(q, k, v, opts, err, name) -> dict:
         plain_ms=cuda_time_ms(lambda: fa.flash_attention_plain(
             q, k, v, scale=d ** -0.5, **opts), 2, warmup=1),
         library_ms=cuda_time_ms(lib, 5),
-        ops={"bf16": 4 * b * hq * live * d},
+        ops={half_name(q.dtype): 4 * b * hq * live * d},
         bytes=2 * (2 * q.numel() + k.numel() + v.numel()),
-        shape=f"bf16 {name} B={b} S={sq}"
+        shape=f"{half_name(q.dtype)} {name} B={b} S={sq}"
               f"{'' if skv == sq else f' Skv={skv}'} Hq={hq} Hkv={hkv} "
               f"D={d}, {'causal' if causal else 'non-causal'} (live share "
               f"{live / (sq * skv):.4f}), grid {grid}, {tiles['block_q']} x "
@@ -2552,11 +2613,12 @@ def time_flash_bf16(q, k, v, opts, err, name) -> dict:
     return out
 
 
-def time_decode_bf16(q, kc, vc, lens, opts, err, name) -> dict:
-    """#8 over a bf16 cache (q float32 or bf16) timed beside the same
-    kernel over the cache widened to float32, the plain version and the
-    bf16 SDPA yardstick; the bytes of its bound (the visible keys of both
-    caches at 2 bytes a value, q and the output in q's type)."""
+def time_decode_16(q, kc, vc, lens, opts, err, name) -> dict:
+    """#8 over a bf16 or float16 cache (q float32 or of the cache's type)
+    timed beside the same kernel over the cache widened to float32, the
+    plain version and the SDPA yardstick in the cache's type; the bytes of
+    its bound (the visible keys of both caches at 2 bytes a value, q and
+    the output in q's type)."""
     import torch
 
     from repro_torch.kernels import flash_decode as fd
@@ -2571,7 +2633,7 @@ def time_decode_bf16(q, kc, vc, lens, opts, err, name) -> dict:
     if kw.get("window") is not None:
         mask &= ki > lens[:, None].long() - 1 - kw["window"]
     kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
-    lib = sdpa_yardstick(q.to(torch.bfloat16)[:, :, None], kt, vt,
+    lib = sdpa_yardstick(q.to(kc.dtype)[:, :, None], kt, vt,
                          attn_mask=mask[:, None, None, :],
                          scale=d ** -0.5)
     kf, vf = kc.float(), vc.float()
@@ -2587,7 +2649,8 @@ def time_decode_bf16(q, kc, vc, lens, opts, err, name) -> dict:
         ops=dict(fp32=4 * vis * q.shape[1] * d),
         bytes=2 * 2 * vis * hkv * d + 2 * q.numel() * q.element_size()
         + 4 * b,
-        shape=f"bf16 cache, {str(q.dtype).removeprefix('torch.')} q, "
+        shape=f"{half_name(kc.dtype)} cache, "
+              f"{str(q.dtype).removeprefix('torch.')} q, "
               f"{name}, B={b} S={s} Hq={q.shape[1]} Hkv={hkv} D={d} "
               f"{kw or ''}, lengths {lens.tolist()[:8]}"
               f"{'...' if b > 8 else ''}, {vis} visible keys, "
@@ -2596,10 +2659,13 @@ def time_decode_bf16(q, kc, vc, lens, opts, err, name) -> dict:
     return out
 
 
-def bf16_kernels(kernels) -> None:
-    """Phase 13a: #7's bf16 kernel and #8 over bf16 caches held against
-    their plain versions on the card, at the serving path's shapes, and
-    timed (``BF16_SIZES``). Adds the ``bf16`` entries of #7 and #8."""
+def half_kernels(kernels, dtype, decode=None) -> None:
+    """Phase 13a (bf16) / 18a (float16): #7's 16-bit kernel and #8 over
+    caches of ``dtype`` held against their plain versions on the card, at
+    the serving path's shapes (``BF16_SIZES``; ``decode`` names the #8
+    shapes to run, default all), rerun bitwise, and timed. Adds the
+    ``bf16`` / ``fp16`` entries of #7 and #8 (float16 ones named with a
+    leading "fp16 ")."""
     import numpy as np
     import torch
 
@@ -2607,80 +2673,91 @@ def bf16_kernels(kernels) -> None:
     from repro_torch.kernels import flash_decode as fd
 
     dev, sz = torch.device("cuda"), BF16_SIZES
-    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
-    rng = np.random.default_rng(SEED + 13)
+    short, long_name = half_name(dtype), str(dtype).removeprefix("torch.")
+    rtol = BF16_RTOL if dtype == torch.bfloat16 else F16_RTOL
+    tag = "lm-bf16" if dtype == torch.bfloat16 else "lm-fp16"
+    pre = "" if dtype == torch.bfloat16 else "fp16 "
+    seed = SEED + (13 if dtype == torch.bfloat16 else 18)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
 
-    def randn(*shape, dtype=torch.bfloat16):
+    def randn(*shape, dtype=dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    entries7 = kernels["flash_attention"].setdefault("bf16", {})
+    entries7 = kernels["flash_attention"].setdefault(short, {})
     for name, b, sq, skv, hq, hkv, d, opts in sz["flash"]:
         q, k, v = randn(b, sq, hq, d), randn(b, skv, hkv, d), \
             randn(b, skv, hkv, d)
-        fa.flash_attention.dtypes = {}
+        fa.flash_attention.dtypes, fa.flash_attention.bodies = {}, {}
         got = fa.flash_attention(q, k, v, **opts)
-        if got.dtype != torch.bfloat16 or fa.flash_attention.dtypes != {
-                "bfloat16": 1}:
-            fail(f"flash_attention at bf16 {name}: {got.dtype} output, "
-                 f"launches {fa.flash_attention.dtypes}")
-        err, sc = hold(f"bf16 flash_attention at {name}", got.float(),
+        if got.dtype != dtype or fa.flash_attention.dtypes != {
+                long_name: 1} or fa.flash_attention.bodies != {"16bit": 1}:
+            fail(f"flash_attention at {short} {name}: {got.dtype} output, "
+                 f"launches {fa.flash_attention.dtypes} "
+                 f"{fa.flash_attention.bodies}")
+        err, sc = hold(f"{short} flash_attention at {name}", got.float(),
                        fa.flash_attention_plain(q, k, v, scale=d ** -0.5,
-                                                **opts).float(), BF16_RTOL)
+                                                **opts).float(), rtol)
         if not torch.equal(fa.flash_attention(q, k, v, **opts), got):
-            fail(f"bf16 flash_attention at {name}: a rerun differs")
-        print(f"[lm-bf16] flash_attention bf16 at {name} (B={b} Sq={sq} "
+            fail(f"{short} flash_attention at {name}: a rerun differs")
+        print(f"[{tag}] flash_attention {short} at {name} (B={b} Sq={sq} "
               f"Skv={skv} Hq={hq} Hkv={hkv} D={d} {opts or 'causal'}; "
-              f"{fa.tile_config(d, torch.bfloat16)}): max|d| {err:.3e} "
-              f"(limit {BF16_RTOL:.4g}*{sc:.3f}), rerun bitwise equal")
+              f"{fa.tile_config(d, dtype)}): max|d| {err:.3e} "
+              f"(limit {rtol:.4g}*{sc:.3f}), rerun bitwise equal")
         del got
-        entries7[name] = time_flash_bf16(q, k, v, opts, err, name)
+        entries7[pre + name] = time_flash_16(q, k, v, opts, err, name)
         del q, k, v
         torch.cuda.empty_cache()
 
-    entries8 = kernels["flash_decode"].setdefault("bf16", {})
+    entries8 = kernels["flash_decode"].setdefault(short, {})
     for name, b, s, hq, hkv, d, opts, lengths in sz["decode"]:
+        if decode is not None and name not in decode:
+            continue
         kc, vc = randn(b, s, hkv, d), randn(b, s, hkv, d)
         lens = torch.as_tensor(
             np.full(b, s) if lengths == "full" else
             rng.integers(1, s + 1, size=b), dtype=torch.int32, device=dev)
         kw = {k: v for k, v in opts.items() if k != "num_splits"}
-        for q_dtype, rtol in ((torch.float32, 1e-4),
-                              (torch.bfloat16, BF16_RTOL)):
+        body = "cluster" if dtype == torch.bfloat16 else "split"
+        for q_dtype, q_rtol in ((torch.float32, 1e-4), (dtype, rtol)):
             q = randn(b, hq, d, dtype=q_dtype)
-            fd.flash_decode.dtypes = {}
+            fd.flash_decode.dtypes, fd.flash_decode.bodies = {}, {}
             got = fd.flash_decode(q, kc, vc, lens, **opts)
-            key = f"{str(q_dtype).removeprefix('torch.')}/bfloat16"
-            if got.dtype != q_dtype or fd.flash_decode.dtypes != {key: 1}:
-                fail(f"flash_decode over a bf16 cache at {name}: "
-                     f"{got.dtype} output, launches {fd.flash_decode.dtypes}")
-            err, sc = hold(f"flash_decode over a bf16 cache at {name}, "
+            key = f"{str(q_dtype).removeprefix('torch.')}/{long_name}"
+            if got.dtype != q_dtype or fd.flash_decode.dtypes != {key: 1} \
+                    or fd.flash_decode.bodies != {body: 1}:
+                fail(f"flash_decode over a {short} cache at {name}: "
+                     f"{got.dtype} output, launches {fd.flash_decode.dtypes}"
+                     f" {fd.flash_decode.bodies}")
+            err, sc = hold(f"flash_decode over a {short} cache at {name}, "
                            f"{q_dtype} q", got.float(),
                            fd.flash_decode_plain(q, kc, vc, lens,
                                                  scale=d ** -0.5,
-                                                 **kw).float(), rtol)
+                                                 **kw).float(), q_rtol)
             if not torch.equal(fd.flash_decode(q, kc, vc, lens, **opts),
                                got):
-                fail(f"flash_decode over a bf16 cache at {name}: a rerun "
-                     f"differs")
-            print(f"[lm-bf16] flash_decode over a bf16 cache at {name} "
+                fail(f"flash_decode over a {short} cache at {name}: a "
+                     f"rerun differs")
+            print(f"[{tag}] flash_decode over a {short} cache at {name} "
                   f"({q_dtype} q, B={b} S={s} Hq={hq} Hkv={hkv} D={d} "
-                  f"{opts}): max|d| {err:.3e} (limit {rtol:.4g}*{sc:.3f}), "
-                  f"rerun bitwise equal")
-            entries8[f"{name}, {str(q_dtype).removeprefix('torch.')} q"] = \
-                time_decode_bf16(q, kc, vc, lens, opts, err, name)
+                  f"{opts}, {body} body): max|d| {err:.3e} (limit "
+                  f"{q_rtol:.4g}*{sc:.3f}), rerun bitwise equal")
+            entries8[f"{pre}{name}, "
+                     f"{str(q_dtype).removeprefix('torch.')} q"] = \
+                time_decode_16(q, kc, vc, lens, opts, err, name)
             del q, got
         del kc, vc
         torch.cuda.empty_cache()
 
 
 def bf16_phase(card, kernels, reset_counts, peak_bw) -> None:
-    """Phase 13: bf16 serving. 13a: ``bf16_kernels``. 13b:
+    """Phase 13: bf16 serving. 13a: ``half_kernels`` in bf16. 13b:
     llama-3.2-vision-11b ``full()``, whole, with bf16 params from the seed
     and random bf16 image states: a float32 run of the same bf16 weights
     sets the model's own bf16 rounding error (its noise floor); prefill
     through #7's bf16 kernel against the bf16 ``_sdpa`` path (40 launches,
     8 non-causal, all on bf16 operands), a ``cache_dtype=bfloat16``
-    ``DecodeEngine`` serving phase 7's requests through #8 over the bf16
+    ``DecodeEngine`` serving ``short_requests`` through #8 over the bf16
     caches themselves (no copy: data pointers checked), decode vs prefill
     over the image, the image's effect, profiles and peak memory. The
     limits are ``BF16_LIMITS`` (written in PERF.md before the first run)."""
@@ -2706,7 +2783,7 @@ def bf16_phase(card, kernels, reset_counts, peak_bw) -> None:
     torch.cuda.empty_cache()
     print(f"[lm-bf16] memory_allocated before phase 13 "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
-    bf16_kernels(kernels)
+    half_kernels(kernels, torch.bfloat16)
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2813,7 +2890,7 @@ def bf16_phase(card, kernels, reset_counts, peak_bw) -> None:
     timed8, n8, eng, step_s, timed_cross = serve_through_decode(
         card, "lm-bf16", params, cfg, reset_counts, cross_states=states,
         cache_dtype=torch.bfloat16, attn_rtol=BF16_RTOL,
-        gap_rtol=limits["prefill"])
+        gap_rtol=limits["prefill"], reqs=short_requests(cfg))
     # The serving run's launches and the timing calls after it, by type.
     if set(fd.flash_decode.dtypes) != {"bfloat16/bfloat16"}:
         fail(f"bf16 serving launched flash_decode {fd.flash_decode.dtypes},"
@@ -2865,85 +2942,107 @@ def bf16_phase(card, kernels, reset_counts, peak_bw) -> None:
     torch.cuda.empty_cache()
 
 
-def bf16_dcn_kernels(kernels, ops, contraction, fused_ops) -> None:
-    """Phase 14a: #1, #4 and #5 on bf16 x, w and b (float32 coefficients)
-    at phase 2's full-width VGG19-3 shapes (``ops``: a list of (name,
-    shape tag, wrapper, plain version, float32 args, kwargs, positions of
-    x / w / b, rows of the contraction, live output pixels)): each
-    held against its plain version within BF16_RTOL * max|ref|, rerun
-    bitwise, one bf16 launch a call; timed beside the float32 kernel on
-    the same values widened, the plain version and ``torch.matmul`` of
-    the float32 contraction; a mixed call (bf16 x under float32 w and b)
-    runs the float32 kernel and rounds once. Each call's grid and its
-    cluster size (csrc/dcn_fused_bf16.cuh: the split's blocks, clusters of
-    at most 8) are printed. Adds the ``bf16`` entries of the three
-    kernels; the bytes of their bounds at 2 B a value."""
+def half_dcn_kernels(kernels, ops, contraction, fused_ops, dtype) -> None:
+    """Phase 14a (bf16) / 18a (float16): #1, #4 and #5 on x, w and b of
+    ``dtype`` (float32 coefficients) at phase 2's full-width VGG19-3
+    shapes (``ops``: a list of (name, shape tag, wrapper, plain version,
+    float32 args, kwargs, positions of x / w / b, rows of the
+    contraction, live output pixels)): each held against its plain
+    version (BF16_RTOL / F16_RTOL * max|ref|), rerun bitwise, one launch
+    of ``dtype`` a call; timed beside the float32 kernel on the same
+    values widened, the plain version and ``torch.matmul`` of the
+    float32 contraction (in float16 too, for float16); a mixed call (x of
+    ``dtype`` under float32 w and b) runs the float32 kernel and rounds
+    once. bf16 calls run the Hopper body (each call's grid and cluster
+    size printed), float16 ones the split-C body (its grid and split).
+    Adds the ``bf16`` / ``fp16`` entries of the three kernels (float16
+    ones named with a leading "fp16 "); the bytes of their bounds at 2 B
+    a value, the operations at the 3xbf16 (bf16) / 2xTF32 (float16: the
+    weight is exact in TF32) rate."""
     import torch
 
     from repro_torch.kernels import dcn_fused as kf
 
-    bf16 = torch.bfloat16
-    for name, tag, fn, plain, args, kw, at, rows, live in ops:
-        a16 = [t.to(bf16) if i in at else t for i, t in enumerate(args)]
+    short, long_name = half_name(dtype), str(dtype).removeprefix("torch.")
+    bf16 = dtype == torch.bfloat16
+    rtol = BF16_RTOL if bf16 else F16_RTOL
+    tag = "dcn-bf16" if bf16 else "dcn-fp16"
+    for name, shape_tag, fn, plain, args, kw, at, rows, live in ops:
+        a16 = [t.to(dtype) if i in at else t for i, t in enumerate(args)]
         a32 = [t.float() if i in at else t for i, t in enumerate(a16)]
         pkw = {n: v for n, v in kw.items() if n == "t_in"}
         fn.dtypes = {}
         got = fn(*a16, **kw)
-        grid = fn.last_grid
-        cluster, groups = kf.fused_cluster(fn.last_split)
-        if got.dtype != bf16 or fn.dtypes != {"bfloat16": 1}:
-            fail(f"{name} bf16 at {tag}: {got.dtype} output, launches "
-                 f"{fn.dtypes}")
-        err, sc = hold(f"{name} bf16 at {tag}", got.float(),
-                       plain(*a16, **pkw).float(), BF16_RTOL)
+        grid, split = fn.last_grid, fn.last_split
+        if got.dtype != dtype or fn.dtypes != {long_name: 1}:
+            fail(f"{name} {short} at {shape_tag}: {got.dtype} output, "
+                 f"launches {fn.dtypes}")
+        err, sc = hold(f"{name} {short} at {shape_tag}", got.float(),
+                       plain(*a16, **pkw).float(), rtol)
         if not torch.equal(fn(*a16, **kw), got):
-            fail(f"{name} bf16 at {tag}: a rerun differs")
+            fail(f"{name} {short} at {shape_tag}: a rerun differs")
         mixed = [t.float() if i in at[1:] else t for i, t in enumerate(a16)]
         fn.dtypes = {}
         got_m = fn(*mixed, **kw)
-        if got_m.dtype != bf16 or fn.dtypes != {"float32": 1}:
-            fail(f"{name} mixed (bf16 x, float32 w, b) at {tag}: "
+        if got_m.dtype != dtype or fn.dtypes != {"float32": 1}:
+            fail(f"{name} mixed ({short} x, float32 w, b) at {shape_tag}: "
                  f"{got_m.dtype} output, launches {fn.dtypes}")
-        err_m, _ = hold(f"{name} mixed at {tag}", got_m.float(),
-                        plain(*mixed, **pkw).float(), BF16_RTOL)
-        print(f"[dcn-bf16] {name} bf16 at {tag}: max|d| vs plain {err:.3e} "
-              f"(limit {BF16_RTOL:.4g}*{sc:.3f}), rerun bitwise equal, "
-              f"grid {grid} (blocks of the split, O blocks, unit pairs), "
-              f"{groups} cluster(s) of {cluster} a tile; mixed x/w call "
-              f"through the float32 kernel {err_m:.3e}")
+        err_m, _ = hold(f"{name} mixed at {shape_tag}", got_m.float(),
+                        plain(*mixed, **pkw).float(), rtol)
+        if bf16:
+            cluster, groups = kf.fused_cluster(split)
+            layout = (f"grid {grid} (blocks of the split, O blocks, unit "
+                      f"pairs), {groups} cluster(s) of {cluster} a tile")
+        else:
+            layout = (f"grid {grid} (rows, pixel blocks, O blocks, "
+                      f"n_split) of the split-C body")
+        print(f"[{tag}] {name} {short} at {shape_tag}: max|d| vs plain "
+              f"{err:.3e} (limit {rtol:.4g}*{sc:.3f}), rerun bitwise equal, "
+              f"{layout}; mixed x/w call through the float32 kernel "
+              f"{err_m:.3e}")
         x, w = a16[at[0]], a16[at[1]]
         kk, c, o = w.shape
-        kernels[name].setdefault("bf16", {})[tag] = dict(
-            source="src/repro_torch/csrc/dcn_fused_bf16.cuh",
-            cluster=cluster, cluster_groups=groups,
+        entry = dict(
+            source="src/repro_torch/csrc/" + (
+                "dcn_fused_bf16.cuh" if bf16 else "dcn_fused_split.cuh"),
             max_abs_err=err,
             ms=cuda_time_ms(lambda: fn(*a16, **kw), 50),
             f32_kernel_ms=cuda_time_ms(lambda: fn(*a32, **kw), 50),
             plain_ms=cuda_time_ms(lambda: plain(*a16, **pkw), 5),
             library_ms=contraction(rows, args[at[1]]),
-            ops=fused_ops(live, kk, c, o, "3xbf16"),
+            ops=fused_ops(live, kk, c, o, "3xbf16" if bf16 else "2xtf32"),
             bytes=sum(t.numel() * t.element_size() for t in a16)
             + got.numel() * 2,
-            shape=f"bf16 {tag}: x {tuple(x.shape)} w {tuple(w.shape)}, "
-                  f"{live} live output pixels, grid {grid}, {groups} "
-                  f"cluster(s) of {cluster} a tile")
+            shape=f"{short} {shape_tag}: x {tuple(x.shape)} w "
+                  f"{tuple(w.shape)}, {live} live output pixels, {layout}")
+        if bf16:
+            entry.update(cluster=cluster, cluster_groups=groups)
+        else:
+            entry["library_fp16_ms"] = contraction(rows, w)
+        kernels[name].setdefault(short, {})[
+            ("" if bf16 else "fp16 ") + shape_tag] = entry
         del got, got_m, a16, a32, mixed
 
 
-def bf16_dcn_phase(card, kernels, reset_counts, dcn) -> None:
-    """Phase 14: bf16 DCN serving. 14a: ``bf16_dcn_kernels``. 14b:
-    VGG19-3 DCN-II at 224x224, 1000 classes, nothing cut, with phase 3's
-    float32 weights rounded to bf16 and ``GraphConfig(tile=8,
-    schedule_backend="device")``: ``DcnServingEngine.infer`` on phase 3's
-    images in batches of 4, ``run_graph`` (batch_fused) on the same
-    batches, one image through ``batched`` and ``per_tile``; logits
-    against ``run_graph_dense`` in bf16 within the ``BF16_DCN`` limit,
+def half_dcn_phase(card, kernels, reset_counts, dcn, dtype) -> float:
+    """Phase 14 (bf16) / 18a-b (float16): 16-bit DCN serving. 14a / 18a:
+    ``half_dcn_kernels``. 14b / 18b: VGG19-3 DCN-II at 224x224, 1000
+    classes, nothing cut, with phase 3's float32 weights rounded to
+    ``dtype`` and ``GraphConfig(tile=8, schedule_backend="device")``:
+    ``DcnServingEngine.infer`` on phase 3's images in batches of 4,
+    ``run_graph`` (batch_fused) on the same batches, one image through
+    ``batched`` and ``per_tile``; logits against ``run_graph_dense`` in
+    ``dtype`` within the ``BF16_DCN`` rule (floor BF16_RTOL / F16_RTOL),
     every trace at 2 B a value equal to the simulator, every launch of
-    #1 / #4 / #5 on the path a bf16 one; images/s of bf16 and float32
-    ``infer`` in turns, and one profiled ``infer`` of each for the
-    device's idle share. ``dcn`` carries
-    phase 3's objects (params, cfg, graph, images) and phase 2's
-    operands."""
+    #1 / #4 / #5 on the path one of ``dtype``. bf16: images/s of bf16 and
+    float32 ``infer`` in turns, and one profiled ``infer`` of each for
+    the device's idle share; float16: images/s of two float16 ``infer``
+    runs beside 14b's bf16 median (``dcn["bf16_ips"]``). 14d / 18b: host
+    images of ``dtype`` through ``submit`` / ``step()`` (bf16 tensors;
+    float16 numpy arrays, whose logits come back numpy float16) and a
+    degraded step. ``dcn`` carries phase 3's objects (params, cfg, graph,
+    images) and phase 2's operands. -> the median images/s of the 16-bit
+    ``infer`` runs."""
     import numpy as np
     import torch
 
@@ -2955,10 +3054,14 @@ def bf16_dcn_phase(card, kernels, reset_counts, dcn) -> None:
     from repro_torch.runtime.cache import ScheduleCache
     from repro_torch.serving import DcnServingEngine
 
-    dev, bf16, sz = torch.device("cuda"), torch.bfloat16, BF16_DCN
+    dev, bf16, sz = torch.device("cuda"), dtype, BF16_DCN
+    short, long_name = half_name(dtype), str(dtype).removeprefix("torch.")
+    is_bf16 = dtype == torch.bfloat16
+    tag = f"dcn-{short}"
+    floor_rtol = BF16_RTOL if is_bf16 else F16_RTOL
     torch.cuda.empty_cache()
-    bf16_dcn_kernels(kernels, dcn["ops"], dcn["contraction"],
-                     dcn["fused_ops"])
+    half_dcn_kernels(kernels, dcn["ops"], dcn["contraction"],
+                     dcn["fused_ops"], dtype)
 
     cfg, graph, images = dcn["cfg"], dcn["graph"], dcn["images"]
     params32 = dcn["params"]
@@ -2981,19 +3084,20 @@ def bf16_dcn_phase(card, kernels, reset_counts, dcn) -> None:
     del p_wide
     r16, r32 = torch.cat(ref16), torch.cat(ref32)
     eps = float((r16.float() - r32).abs().max() / r32.abs().max())
-    rtol = max(sz["noise_factor"] * eps, BF16_RTOL)
-    print(f"[dcn-bf16] VGG19-{cfg.n_deform} DCN-II {cfg.img_size}x"
+    rtol = max(sz["noise_factor"] * eps, floor_rtol)
+    print(f"[{tag}] VGG19-{cfg.n_deform} DCN-II {cfg.img_size}x"
           f"{cfg.img_size}, {cfg.num_classes} classes, phase 3's weights "
-          f"rounded to bf16: the bf16 dense path is {eps:.4e} of max|ref| "
-          f"from the float32 run of the same weights; logits limit "
-          f"max({sz['noise_factor']} x {eps:.4e}, 2^-7) = {rtol:.4e}")
+          f"rounded to {short}: the {short} dense path is {eps:.4e} of "
+          f"max|ref| from the float32 run of the same weights; logits "
+          f"limit max({sz['noise_factor']} x {eps:.4e}, {floor_rtol:.4g}) "
+          f"= {rtol:.4e}")
 
     def check(what, logits, ref):
         if logits.dtype != bf16 or not torch.isfinite(logits.float()).all():
             fail(f"{what}: {logits.dtype} logits, or not finite")
         d, sc = rel_err(logits.float(), ref.float())
         if not d <= rtol * sc:
-            fail(f"{what}: max|logit - dense bf16| = {d} > {rtol:.4e} * "
+            fail(f"{what}: max|logit - dense {short}| = {d} > {rtol:.4e} * "
                  f"{sc}")
         return d / sc
 
@@ -3010,9 +3114,9 @@ def bf16_dcn_phase(card, kernels, reset_counts, dcn) -> None:
 
     def only_bf16(what, fn):
         n = fn.launches
-        if n <= 0 or fn.dtypes != {"bfloat16": n}:
+        if n <= 0 or fn.dtypes != {long_name: n}:
             fail(f"{what}: {fn.__name__} launches {n}, by type "
-                 f"{fn.dtypes}; expected bf16 launches only")
+                 f"{fn.dtypes}; expected {short} launches only")
         return n
 
     def fresh_engine(p, dtype):
@@ -3053,12 +3157,12 @@ def bf16_dcn_phase(card, kernels, reset_counts, dcn) -> None:
              f"{len(sz['batches'])} batches")
     check_traces("infer", traces)
     n_img = sum(hi - lo for lo, hi in sz["batches"])
-    print(f"[dcn-bf16] DcnServingEngine.infer in bf16 on {n_img} images in "
-          f"batches of 4: logits bf16, max rel. deviation from dense bf16 "
-          f"{worst:.4e} (limit {rtol:.4e}); {len(traces)} traces at 2 B a "
-          f"value == simulator; #1 launches {n1}, by type "
-          f"{kf.dcn_fused_batch.dtypes}")
-    entries = {n: kernels[n]["bf16"] for n in (
+    print(f"[{tag}] DcnServingEngine.infer in {short} on {n_img} images "
+          f"in batches of 4: logits {short}, max rel. deviation from dense "
+          f"{short} {worst:.4e} (limit {rtol:.4e}); {len(traces)} traces at "
+          f"2 B a value == simulator; #1 launches {n1}, by type "
+          f"{kf.dcn_fused_batch.dtypes}; {n_img / wall:.3f} images/s")
+    entries = {n: kernels[n][short] for n in (
         "dcn_fused_batch", "dcn_fused_schedule", "dcn_fused_tile")}
     next(iter(entries["dcn_fused_batch"].values()))["launches"] = n1
 
@@ -3073,7 +3177,7 @@ def bf16_dcn_phase(card, kernels, reset_counts, dcn) -> None:
               apply_head(params, cfg, y), r)
         check_traces("run_graph batch_fused", [tr])
     n1g = only_bf16("run_graph batch_fused", kf.dcn_fused_batch)
-    print(f"[dcn-bf16] run_graph(dispatch='batch_fused') in bf16 on the "
+    print(f"[{tag}] run_graph(dispatch='batch_fused') in {short} on the "
           f"same batches: logits within the limit, traces == simulator, "
           f"#1 launches {n1g}, by type {kf.dcn_fused_batch.dtypes}")
 
@@ -3096,40 +3200,52 @@ def bf16_dcn_phase(card, kernels, reset_counts, dcn) -> None:
         check_traces(f"run_graph {mode}", [tr])
         n = only_bf16(f"run_graph {mode}", fn)
         next(iter(entries[fn.__name__].values()))["launches"] = n
-        print(f"[dcn-bf16] run_graph(dispatch={mode!r}) in bf16 on image "
-              f"{lo}: {n} {fn.__name__} launches, all bf16, in "
-              f"{w_mode:.2f} s; max rel. deviation from dense bf16 "
+        print(f"[{tag}] run_graph(dispatch={mode!r}) in {short} on image "
+              f"{lo}: {n} {fn.__name__} launches, all {short}, in "
+              f"{w_mode:.2f} s; max rel. deviation from dense {short} "
               f"{d:.4e}; trace == simulator")
 
     # images/s of infer, float32 and bf16, in turns on fresh engines; then
     # one profiled infer call of each on a fresh engine, for the device's
     # idle share.
-    ips = {"bf16": [], "float32": []}
-    for kind in ("float32", "bf16", "bf16", "float32") * sz["turns"]:
-        p, dtype = (params, bf16) if kind == "bf16" else (params32,
-                                                          torch.float32)
-        e = fresh_engine(p, dtype)
-        _, w = serve(e, dtype)
-        ips[kind].append(n_img / w)
+    if is_bf16:
+        ips = {"bf16": [], "float32": []}
+        for kind in ("float32", "bf16", "bf16", "float32") * sz["turns"]:
+            p, dt = (params, bf16) if kind == "bf16" else (params32,
+                                                           torch.float32)
+            e = fresh_engine(p, dt)
+            _, w = serve(e, dt)
+            ips[kind].append(n_img / w)
+            del e
+        print(f"[dcn-bf16] {card}: DcnServingEngine.infer images/s, in "
+              f"turns on fresh engines ({n_img} images in batches of 4, "
+              f"{2 * sz['turns']} runs a dtype): bf16 median "
+              f"{float(np.median(ips['bf16'])):.3f} "
+              f"{[round(v, 3) for v in ips['bf16']]}, float32 median "
+              f"{float(np.median(ips['float32'])):.3f} "
+              f"{[round(v, 3) for v in ips['float32']]}; the checked bf16 "
+              f"run above {n_img / wall:.3f}")
+        for kind, p, dt in (("bf16", params, bf16),
+                            ("float32", params32, torch.float32)):
+            profile_infer(fresh_engine(p, dt), x_of(*sz["batches"][0], dt),
+                          kind, card)
+    else:
+        e = fresh_engine(params, bf16)
+        ips = {short: [n_img / serve(e, bf16)[1] for _ in range(2)]}
         del e
-    print(f"[dcn-bf16] {card}: DcnServingEngine.infer images/s, in turns "
-          f"on fresh engines ({n_img} images in batches of 4, "
-          f"{2 * sz['turns']} runs a dtype): bf16 median "
-          f"{float(np.median(ips['bf16'])):.3f} "
-          f"{[round(v, 3) for v in ips['bf16']]}, float32 median "
-          f"{float(np.median(ips['float32'])):.3f} "
-          f"{[round(v, 3) for v in ips['float32']]}; the checked bf16 run "
-          f"above {n_img / wall:.3f}")
-    for kind, p, dtype in (("bf16", params, bf16),
-                           ("float32", params32, torch.float32)):
-        profile_infer(fresh_engine(p, dtype), x_of(*sz["batches"][0], dtype),
-                      kind, card)
+        print(f"[{tag}] {card}: DcnServingEngine.infer images/s in "
+              f"{short} ({n_img} images in batches of 4, 2 runs on a warm "
+              f"engine): {[round(v, 3) for v in ips[short]]}, median "
+              f"{float(np.median(ips[short])):.3f}; 14b's bf16 median "
+              f"{dcn['bf16_ips']:.3f} (no gain claimed: one call, the "
+              f"runs not in turns)")
 
     # -- 14d: bf16 images through submit / step() ---------------------------
     from repro_torch.testing import FaultInjector
 
     lo, hi = sz["step_images"]
-    host = [torch.as_tensor(images[k]).to(bf16) for k in range(lo, hi)]
+    host = [torch.as_tensor(images[k]).to(bf16) if is_bf16 else
+            images[k].astype(np.float16) for k in range(lo, hi)]
     w_eng = fresh_engine(params, bf16)
     want = [w_eng.infer(x_of(a, a + 4)) for a in range(lo, hi, 4)]
     del w_eng
@@ -3153,22 +3269,29 @@ def bf16_dcn_phase(card, kernels, reset_counts, dcn) -> None:
         fail(f"14d: {len(done)} of {len(reqs)} requests resolved, failed "
              f"{[r.rid for r in reqs if r.failed]}, retries "
              f"{st['step_retries']}, degraded {st['degraded_steps']}")
-    got = torch.cat([r.result() for r in reqs])
+    res = [r.result() for r in reqs]
+    if not is_bf16 and not all(isinstance(r, np.ndarray) for r in res):
+        fail(f"18b: a float16 engine's step() gave {type(res[0])}, not the "
+             f"numpy logits np.asarray gives in the JAX engine")
+    got = torch.cat([torch.as_tensor(r) for r in res])
     if got.dtype != bf16 or got.device.type != "cpu" or \
             not torch.equal(got, torch.cat(want).cpu()):
-        fail(f"14d: step() logits ({got.dtype} on {got.device}) differ "
-             f"from bf16 infer on the same batches")
+        fail(f"step(): logits ({got.dtype} on {got.device}) differ from "
+             f"{short} infer on the same batches")
     if len(traces) != (hi - lo) // 4:
         fail(f"14d: {len(traces)} steps for {hi - lo} images in 4 slots")
     check_traces("step()", traces)
     step_ips = (hi - lo) / wall
-    print(f"[dcn-bf16] {card}: 14d DcnServingEngine.submit / step() in "
-          f"bf16: {hi - lo} requests of one host bf16 image, {len(traces)} "
-          f"steps: logits bf16 on the host, bitwise bf16 infer on the same "
+    print(f"[{tag}] {card}: {'14d' if is_bf16 else '18b'} "
+          f"DcnServingEngine.submit / step() in {short}: {hi - lo} "
+          f"requests of one host {short} image "
+          f"({'torch tensors' if is_bf16 else 'numpy arrays'}), "
+          f"{len(traces)} steps: logits {short} on the host "
+          f"({type(res[0]).__name__}), bitwise {short} infer on the same "
           f"batches; traces at 2 B a value == simulator; #1 launches "
           f"{n1s}, by type {kf.dcn_fused_batch.dtypes}; {step_ips:.3f} "
-          f"images/s (14b infer bf16 median "
-          f"{float(np.median(ips['bf16'])):.3f})")
+          f"images/s (infer {short} median "
+          f"{float(np.median(ips[short])):.3f})")
     # The degraded step: an untagged fault sends the step to per-image
     # batched dispatch, #4's bf16 body.
     reset_counts()
@@ -3182,14 +3305,16 @@ def bf16_dcn_phase(card, kernels, reset_counts, dcn) -> None:
         fail(f"14d degraded: {eng.stats['degraded_steps']} degraded steps, "
              f"failed {[r.rid for r in reqs if r.failed]}")
     n4 = only_bf16("degraded step()", kf.dcn_fused_schedule)
-    d = check("14d degraded step()", torch.cat(
-        [r.result() for r in reqs]).to(dev), ref16[0])
+    d = check("degraded step()", torch.cat(
+        [torch.as_tensor(r.result()) for r in reqs]).to(dev), ref16[0])
     check_traces("degraded step()", [eng.last_trace])
-    print(f"[dcn-bf16] 14d degraded step in bf16: 4 images through "
-          f"{n4} dcn_fused_schedule launches, all bf16; max rel. deviation "
-          f"from dense bf16 {d:.4e} (limit {rtol:.4e}); trace == simulator")
+    print(f"[{tag}] degraded step in {short}: 4 images through "
+          f"{n4} dcn_fused_schedule launches, all {short}; max rel. "
+          f"deviation from dense {short} {d:.4e} (limit {rtol:.4e}); trace "
+          f"== simulator")
     del eng, params, ref16, ref32, r16, r32, want
     torch.cuda.empty_cache()
+    return float(np.median(ips[short]))
 
 
 def profile_infer(eng, x, what: str, card: str) -> None:
@@ -3285,7 +3410,7 @@ def bf16_cache_phase() -> None:
                                                            vb)):
         fail("the nudged float32 cache does not round to its bf16 values")
     want = fd.flash_decode(q, kb, vb, lens)
-    got = fd.flash_decode(q, kf32, vf32, lens, round_kv=True)
+    got = fd.flash_decode(q, kf32, vf32, lens, round_kv=torch.bfloat16)
     unrounded = fd.flash_decode(q, kf32, vf32, lens)
     err, sc = hold("#8 round_kv over a nudged float32 cache vs the bf16 "
                    "cache", got, want, 1e-5)
@@ -3899,6 +4024,393 @@ def dryrun_phase(card: str) -> None:
     print(f"[dryrun] phase 17 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def fp16_bli(kernels, dcn) -> None:
+    """Phase 18a's #6: the BLI kernel on phase 2's serving-shape planes
+    (one image, a serving step's four) rounded to float16, held within
+    F16_RTOL of its plain version, rerun bitwise and timed
+    (``dcn["bli"]``: phase 2's ``bli_record`` and its operands); then
+    ``ops.bli_pallas`` on the first DCN layer's float16 plane, its
+    launches counted, within F16_RTOL of the same call on the plane
+    widened to float32 (the sum is float32 in both; one rounding)."""
+    import torch
+
+    from repro_torch.kernels import dcn_bli as kb
+    from repro_torch.kernels import ops
+
+    record, a6, a6x4, plane, coords = dcn["bli"]
+    f16 = torch.float16
+    entries = kernels["bli_tile_matmul"].setdefault("fp16", {})
+    entries["fp16 N=1"] = record("serving shape", (a6[0].to(f16), *a6[1:]))
+    entries["fp16 N=4"] = record("serving step", (a6x4[0].to(f16),
+                                                  *a6x4[1:]))
+    x16 = plane.to(f16)
+    kb.bli_tile_matmul.launches = 0
+    got = ops.bli_pallas(x16, coords)
+    n = kb.bli_tile_matmul.launches
+    want = ops.bli_pallas(x16.float(), coords)
+    if got.dtype != f16 or n != 1:
+        fail(f"bli_pallas on a float16 plane: {got.dtype}, {n} launches")
+    err, sc = hold("bli_pallas float16 vs the widened plane", got.float(),
+                   want, F16_RTOL)
+    entries["fp16 N=1"]["launches"] = n
+    print(f"[lm-fp16] bli_pallas on the float16 {tuple(plane.shape)} plane:"
+          f" {n} bli_tile_matmul launch, max|d| vs the float32 plane "
+          f"{err:.3e} (limit {F16_RTOL:.4g}*{sc:.3f})")
+
+
+def fp16_lm_phase(card, kernels, reset_counts, peak_bw) -> None:
+    """Phase 18c: Qwen3-1.7B ``full()`` in float16 (3.4 GB from the seed):
+    a float32 run of the same float16 weights gives the model's own
+    float16 error (and shows whether float16 overflows: finite logits,
+    their largest magnitude printed); phase 6's prefill through #7's
+    16-bit kernel (28 launches, all float16) against the float16 ``_sdpa``
+    path within max(noise_factor x eps, F16_RTOL); phase 7's requests
+    through ``DecodeEngine(cache_dtype=float16)``, every #8 launch on a
+    float16 cache through the split body and on the engine's own cache
+    tensors, tokens held to the prefill argmax; one float16 layer over a
+    float32 cache (``F16_SIZES["layer"]``). eps is read with cuBLAS's
+    ``allow_fp16_reduced_precision_reduction`` off (float32 accumulation,
+    scoped to one ``_sdpa`` run here; the port sets no such flag), and the
+    path at the flag's default is held to the resulting limit too."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models import layers, lm
+    from repro_torch.models.params import param_bytes, param_count
+    from repro_torch.models.transformer import layer_slices
+
+    dev, sync, f16 = torch.device("cuda"), torch.cuda.synchronize, \
+        torch.float16
+    sz, lsz = F16_SIZES, LM_SIZES
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get_config(lsz["arch"])
+    cfg_flash = dataclasses.replace(cfg, use_flash=True)
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, SEED, device=dev, dtype=f16)
+    sync()
+    if {t.dtype for t in tree_leaves(params)} != {f16}:
+        fail(f"{cfg.name}: float16 init gave leaves of "
+             f"{ {t.dtype for t in tree_leaves(params)} }")
+    flag = torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction
+    print(f"[lm-fp16] {cfg.name} full() in float16: {param_count(params):,} "
+          f"params = {param_bytes(params) / 1e9:.2f} GB from seed {SEED} in "
+          f"{time.perf_counter() - t0:.1f} s; torch.backends.cuda.matmul."
+          f"allow_fp16_reduced_precision_reduction = {flag}")
+    prng = np.random.default_rng(SEED + 6)
+    toks = torch.as_tensor(prng.integers(
+        0, cfg.vocab, size=(lsz["prefill_batch"], lsz["prefill_len"]))
+        .astype(np.int32), device=dev)
+    t0 = time.perf_counter()
+    p32 = tree_map(lambda t: t.float(), params)
+    ref32 = lm.lm_prefill(p32, cfg_flash, {"tokens": toks})
+    sync()
+    del p32
+    torch.cuda.empty_cache()
+    print(f"[lm-fp16] float32 run of the same weights ({tuple(toks.shape)}) "
+          f"in {time.perf_counter() - t0:.1f} s: max|logits| "
+          f"{float(ref32.abs().max()):.4f}")
+    limits = {}
+
+    def eps_of(logits16):
+        return float((logits16.float() - ref32).abs().max()
+                     / ref32.abs().max())
+
+    def prefill_limit(sdpa16):
+        """The prefill limit from eps read with cuBLAS's reduced-precision
+        float16 reductions off (float32 accumulation, as JAX's products):
+        the ``_sdpa`` path is run once more with the flag off, scoped to
+        that run and restored. The path at the flag's default must stay
+        within the limit of the float32 run: otherwise the reductions pull
+        the port away from float32 accumulation."""
+        if not torch.isfinite(sdpa16.float()).all():
+            fail(f"{cfg.name} float16 _sdpa prefill: logits not finite "
+                 f"(float16 overflow)")
+        matmul = torch.backends.cuda.matmul
+        matmul.allow_fp16_reduced_precision_reduction = False
+        try:
+            sdpa_off = lm.lm_prefill(params, cfg, {"tokens": toks})
+            sync()
+        finally:
+            matmul.allow_fp16_reduced_precision_reduction = flag
+        eps, eps_on = eps_of(sdpa_off), eps_of(sdpa16)
+        moved = float((sdpa16.float() - sdpa_off.float()).abs().max()
+                      / ref32.abs().max())
+        rt = max(sz["noise_factor"] * eps, F16_RTOL)
+        print(f"[lm-fp16] float16 _sdpa path prefill: finite, max|logits| "
+              f"{float(sdpa16.float().abs().max()):.4f}; from the float32 "
+              f"run, of max|ref|: {eps:.4e} with "
+              f"allow_fp16_reduced_precision_reduction = False, {eps_on:.4e}"
+              f" with {flag} (the default, the port's); the flag moves the "
+              f"logits by {moved:.4e}; prefill limit max("
+              f"{sz['noise_factor']} x {eps:.4e}, 2^-10) = {rt:.4e}")
+        if eps_on > rt:
+            fail(f"{cfg.name} float16 prefill with allow_fp16_reduced_"
+                 f"precision_reduction = {flag}: {eps_on:.4e} of max|ref| "
+                 f"from the float32 run, past the limit {rt:.4e} of float32 "
+                 f"accumulation")
+        limits["prefill"] = rt
+        return rt
+
+    fa.flash_attention.dtypes, fa.flash_attention.bodies = {}, {}
+    n7, held7, wall, _ = prefill_through_flash(
+        card, "lm-fp16", params, cfg, toks, reset_counts,
+        logit_rtol=prefill_limit, attn_rtol=F16_RTOL)
+    n_attn = attn_layers(cfg)
+    if (n7 != n_attn or fa.flash_attention.dtypes != {"float16": n7}
+            or fa.flash_attention.bodies != {"16bit": n7}):
+        fail(f"the float16 prefill launched flash_attention "
+             f"{fa.flash_attention.dtypes} {fa.flash_attention.bodies}, "
+             f"expected {n_attn} float16 launches of the 16-bit body")
+    del held7
+    print(f"[lm-fp16] {card}: float16 prefill {tuple(toks.shape)}: {n7} #7 "
+          f"launches, by type {fa.flash_attention.dtypes}, by body "
+          f"{fa.flash_attention.bodies}; {wall * 1e3:.1f} ms = "
+          f"{toks.numel() / wall:.0f} prefill tokens/s")
+    kernels["flash_attention"]["fp16"]["fp16 Qwen3-1.7B prefill"][
+        "launches"] = n7
+    del ref32
+    torch.cuda.empty_cache()
+
+    fd.flash_decode.dtypes, fd.flash_decode.bodies = {}, {}
+    timed8, n8, eng, step_s, _ = serve_through_decode(
+        card, "lm-fp16", params, cfg, reset_counts, cache_dtype=f16,
+        attn_rtol=F16_RTOL, gap_rtol=limits["prefill"])
+    if set(fd.flash_decode.dtypes) != {"float16/float16"} or \
+            set(fd.flash_decode.bodies) != {"split"}:
+        fail(f"float16 serving launched flash_decode "
+             f"{fd.flash_decode.dtypes} {fd.flash_decode.bodies}, expected "
+             f"a float16 q over a float16 cache through the split body")
+    kernels["flash_decode"]["fp16"][f"fp16 {cfg.name} decode, serving "
+                                    f"step"] = dict(timed8, launches=n8)
+    print(f"[lm-fp16] {card}: float16 serving: {n8} #8 launches, by type "
+          f"{fd.flash_decode.dtypes}, by body {fd.flash_decode.bodies}; "
+          f"step p50 {np.percentile(step_s, 50) * 1e3:.2f} ms")
+    del eng
+    torch.cuda.empty_cache()
+
+    # One float16 layer over a float32 cache whose values lie within 0.2
+    # float16 ulp of float16 numbers: #8 rounds them back (round_kv), so
+    # the layer gives the float16 cache's result; the unrounded read moves
+    # it.
+    b, s, pos = sz["layer"]
+    acfg = cfg.attn_cfg(cfg.pattern[0])
+    p0 = layer_slices(params["layers"]["stack"]["b0"])[0]["attn"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    x = torch.randn((b, 1, cfg.d_model), generator=gen, device=dev).to(f16)
+    pos = torch.tensor(pos, device=dev)
+    half, wide = {}, {}
+    for name in ("k", "v"):
+        kh = torch.randn((b, s, acfg.n_kv_heads, acfg.head_dim),
+                         generator=gen, device=dev).to(f16)
+        ulp = torch.ldexp(torch.ones_like(kh, dtype=torch.float32),
+                          torch.floor(torch.log2(kh.float().abs())).int()
+                          - 10)
+        nudge = 0.2 * ulp * (2 * torch.rand(kh.shape, generator=gen,
+                                            device=dev).round() - 1)
+        half[name] = kh
+        wide[name] = kh.float() + torch.where(kh == 0, 0, nudge)
+        if not torch.equal(wide[name].to(f16), kh):
+            fail("the nudged float32 cache does not round to its float16 "
+                 "values")
+    fd.flash_decode.dtypes = {}
+    want, _ = layers.attention_decode(p0, acfg, x, dict(half), pos)
+    got, _ = layers.attention_decode(p0, acfg, x, dict(wide), pos)
+    if fd.flash_decode.dtypes != {"float16/float16": 1,
+                                  "float16/float32": 1}:
+        fail(f"the float16 layer launched #8 {fd.flash_decode.dtypes}")
+    rounds = layers._rounds_cache
+    layers._rounds_cache = lambda x, c: None
+    try:
+        unrounded, _ = layers.attention_decode(p0, acfg, x, dict(wide), pos)
+    finally:
+        layers._rounds_cache = rounds
+    err, sc = hold("a float16 layer over a nudged float32 cache vs the "
+                   "float16 cache", got.float(), want.float(), 1e-5)
+    moved, _ = rel_err(unrounded.float(), want.float())
+    if not moved > 1e-5 * sc:
+        fail(f"the unrounded read moved the layer by only {moved}: the "
+             f"check cannot see the rounding")
+    print(f"[lm-fp16] {cfg.name} layer 0 in float16 over a float32 cache "
+          f"within 0.2 float16 ulp of float16 values (B={b} S={s} pos "
+          f"{pos.tolist()}): #8 round_kv=float16, max|d| vs the float16 "
+          f"cache {err:.3e} (limit 1e-5*{sc:.3f}); without the rounding "
+          f"{moved:.3e}")
+    print(f"[lm-fp16] 18c max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del params
+    torch.cuda.empty_cache()
+
+
+def general_bodies_phase(card, kernels, launches) -> None:
+    """Phase 18d: the general bodies of #7 and #8 (csrc/attention_any.cu)
+    at ``F16_SIZES``' shapes in float32, bf16 and float16: each call held
+    against its plain version (ATTN_RTOL / BF16_RTOL / F16_RTOL), the body
+    each took printed beside ``attention_body`` / ``decode_body``'s
+    answer; one view off a 16-byte boundary for each; a bf16 cache of B x
+    Hkv = 65,536 at a few rows. The two timed shapes give the JSON
+    entries ``flash_attention_any`` / ``flash_decode_any``, whose launches
+    are the general bodies' in this phase."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+
+    dev, sz = torch.device("cuda"), F16_SIZES
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    rng = np.random.default_rng(SEED + 20)
+    rtols = {torch.float32: ATTN_RTOL, torch.bfloat16: BF16_RTOL,
+             torch.float16: F16_RTOL}
+
+    def randn(dtype, *shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def off16(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        moved = buf[1:].view(t.shape)
+        moved.copy_(t)
+        return moved
+
+    t_phase = time.perf_counter()
+    for fn in (fa.flash_attention, fd.flash_decode):
+        fn.launches, fn.bodies = 0, {}
+    for dtype, rtol in rtols.items():
+        short = str(dtype).removeprefix("torch.")
+        for name, b, sq, skv, hq, hkv, d, opts in sz["any_flash"]:
+            q, k, v = (randn(dtype, *sh) for sh in (
+                (b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+            want = fa.flash_attention_plain(q, k, v, scale=d ** -0.5,
+                                            **opts)
+            cases = [("", (q, k, v), True)]
+            if name == sz["any_flash"][0][0]:
+                cases.append((", q and v off 16 B", (off16(q), k, off16(v)),
+                              False))
+            for note, args, aligned in cases:
+                before = dict(fa.flash_attention.bodies)
+                got = fa.flash_attention(*args, **opts)
+                body = fa.attention_body(d, dtype, aligned)
+                took = {k_: n - before.get(k_, 0) for k_, n in
+                        fa.flash_attention.bodies.items()
+                        if n != before.get(k_, 0)}
+                if took != {body: 1} or got.dtype != dtype:
+                    fail(f"#7 {short} {name}{note}: bodies {took}, "
+                         f"attention_body says {body}, {got.dtype}")
+                err, sc = hold(f"#7 {short} {name}{note}", got.float(),
+                               want.float(), rtol)
+                print(f"[any] #7 {short} {name}{note} (B={b} Sq={sq} "
+                      f"Skv={skv} Hq={hq} Hkv={hkv} D={d} {opts or 'causal'})"
+                      f": the {body} body, max|d| {err:.3e} (limit "
+                      f"{rtol:.4g}*{sc:.3f})")
+                if (dtype == torch.float16 and name == sz["timed_flash"]
+                        and aligned):
+                    live = live_pairs(sq, skv, opts.get("causal", True),
+                                      opts.get("window"))
+                    qt, kt, vt = (t.transpose(1, 2).contiguous()
+                                  for t in (q, k, v))
+                    lib = sdpa_yardstick(qt, kt, vt,
+                                         is_causal=opts.get("causal", True))
+                    kernels["flash_attention_any"] = dict(
+                        route="cuda",
+                        source="src/repro_torch/csrc/attention_any.cu",
+                        replaces="src/repro/kernels/flash_attention.py:27",
+                        body=body, max_abs_err=err,
+                        ms=cuda_time_ms(
+                            lambda: fa.flash_attention(q, k, v, **opts), 5),
+                        plain_ms=cuda_time_ms(lambda: fa.flash_attention_plain(
+                            q, k, v, scale=d ** -0.5, **opts), 2, warmup=1),
+                        library_ms=cuda_time_ms(lib, 5),
+                        ops={"fp16": 4 * b * hq * live * d},
+                        bytes=2 * (2 * q.numel() + k.numel() + v.numel()),
+                        shape=f"fp16 {name} B={b} S={sq} Hq={hq} Hkv={hkv} "
+                              f"D={d}, the general body")
+                    del qt, kt, vt
+            del q, k, v, want
+        for name, b, s, hq, hkv, d, opts in sz["any_decode"]:
+            q = randn(dtype, b, hq, d)
+            kc, vc = randn(dtype, b, s, hkv, d), randn(dtype, b, s, hkv, d)
+            lens = torch.as_tensor(rng.integers(0, s + 1, size=b),
+                                   dtype=torch.int32, device=dev)
+            want = fd.flash_decode_plain(q, kc, vc, lens, scale=d ** -0.5,
+                                         **opts)
+            cases = [("", (q, kc, vc), True)]
+            if name == sz["any_decode"][0][0]:
+                cases.append((", q and k off 16 B", (off16(q), off16(kc),
+                                                     vc), False))
+            for note, args, aligned in cases:
+                before = dict(fd.flash_decode.bodies)
+                got = fd.flash_decode(*args, lens, **opts)
+                body = fd.decode_body(d, hq // hkv, dtype, aligned, b * hkv)
+                took = {k_: n - before.get(k_, 0) for k_, n in
+                        fd.flash_decode.bodies.items()
+                        if n != before.get(k_, 0)}
+                if took != {body: 1} or got.dtype != dtype:
+                    fail(f"#8 {short} {name}{note}: bodies {took}, "
+                         f"decode_body says {body}, {got.dtype}")
+                err, sc = hold(f"#8 {short} {name}{note}", got.float(),
+                               want.float(), rtol)
+                print(f"[any] #8 {short} {name}{note} (B={b} S={s} Hq={hq} "
+                      f"Hkv={hkv} D={d} {opts}): the {body} body, max|d| "
+                      f"{err:.3e} (limit {rtol:.4g}*{sc:.3f})")
+                if (dtype == torch.float16 and name == sz["timed_decode"]
+                        and aligned):
+                    vis = int(lens.clamp(max=s).sum())
+                    ki = torch.arange(s, device=dev)[None, :]
+                    mask = (ki < lens[:, None].long())[:, None, None, :]
+                    kt, vt = (t.transpose(1, 2).contiguous()
+                              for t in (kc, vc))
+                    lib = sdpa_yardstick(q[:, :, None], kt, vt,
+                                         attn_mask=mask, scale=d ** -0.5)
+                    kernels["flash_decode_any"] = dict(
+                        route="cuda",
+                        source="src/repro_torch/csrc/attention_any.cu",
+                        replaces="src/repro/kernels/flash_decode.py:28",
+                        body=body, max_abs_err=err,
+                        ms=cuda_time_ms(
+                            lambda: fd.flash_decode(q, kc, vc, lens, **opts),
+                            20),
+                        plain_ms=cuda_time_ms(lambda: fd.flash_decode_plain(
+                            q, kc, vc, lens, scale=d ** -0.5, **opts), 5),
+                        library_ms=cuda_time_ms(lib, 20),
+                        ops=dict(fp16=4 * vis * hq * d),
+                        bytes=2 * 2 * vis * hkv * d + 2 * 2 * q.numel()
+                        + 4 * b,
+                        shape=f"fp16 cache, fp16 q, {name} B={b} S={s} "
+                              f"Hq={hq} Hkv={hkv} D={d}, lengths "
+                              f"{lens.tolist()}, {vis} visible keys, the "
+                              f"general body")
+                    del kt, vt, mask
+            del q, kc, vc, want
+        torch.cuda.empty_cache()
+    b, hkv, hq, s, d = sz["many_pairs"]
+    q = randn(torch.bfloat16, b, hq, d)
+    kc, vc = (randn(torch.bfloat16, b, s, hkv, d) for _ in range(2))
+    lens = torch.as_tensor(rng.integers(0, s + 1, size=b), dtype=torch.int32,
+                           device=dev)
+    before = dict(fd.flash_decode.bodies)
+    got = fd.flash_decode(q, kc, vc, lens)
+    if fd.flash_decode.bodies.get("general", 0) != before.get("general",
+                                                              0) + 1:
+        fail(f"#8 over a bf16 cache of B x Hkv = {b * hkv}: bodies "
+             f"{fd.flash_decode.bodies}, expected the general body")
+    err, sc = hold(f"#8 bf16 B x Hkv = {b * hkv}", got.float(),
+                   fd.flash_decode_plain(q, kc, vc, lens,
+                                         scale=d ** -0.5).float(), BF16_RTOL)
+    print(f"[any] #8 over a bf16 cache of B x Hkv = {b * hkv} (B={b} S={s} "
+          f"Hq={hq} Hkv={hkv} D={d}): the general body, max|d| {err:.3e} "
+          f"(limit {BF16_RTOL:.4g}*{sc:.3f})")
+    launches["flash_attention_any"] = fa.flash_attention.bodies.get(
+        "general", 0)
+    launches["flash_decode_any"] = fd.flash_decode.bodies.get("general", 0)
+    print(f"[any] {card}: phase 18d took {time.perf_counter() - t_phase:.1f}"
+          f" s; #7 launches by body {fa.flash_attention.bodies}, #8 "
+          f"{fd.flash_decode.bodies}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3952,16 +4464,23 @@ def main() -> int:
     # the float32 patch splits exactly into three bf16 pieces (8 + 8 + 8
     # significant bits), and each piece times a bf16 weight is exact in
     # float32, so three bf16 products give the FP32-accurate product (the
-    # kernels' own 2xTF32 runs at 495 / 2, slower). Dense bf16 on the
-    # tensor cores is twice dense TF32 on every Hopper part (SXM 989, PCIe
-    # 756, NVL 835 TFLOP/s).
+    # kernels' own 2xTF32 runs at 495 / 2, slower). Their contraction on
+    # float16 weights at half the dense TF32 rate: a float16 weight (11
+    # significant bits) is exact in TF32, so its residual is zero and two
+    # TF32 products (patch high and low part times the weight) give the
+    # FP32-accurate product. Dense bf16 on the tensor cores is twice dense
+    # TF32 on every Hopper part (SXM 989, PCIe 756, NVL 835 TFLOP/s).
     rates = {"fp32": (peak_fp32, f"FP32 {peak_fp32 / 1e12:g} TFLOP/s"),
              "3xtf32": (peak_tf32 / 3, f"3xTF32 {peak_tf32 / 3e12:.4g} "
                         f"TFLOP/s (TF32 {peak_tf32 / 1e12:g} / 3)"),
+             "2xtf32": (peak_tf32 / 2, f"2xTF32 {peak_tf32 / 2e12:.4g} "
+                        f"TFLOP/s (TF32 {peak_tf32 / 1e12:g} / 2)"),
              "3xbf16": (2 * peak_tf32 / 3, f"3xbf16 "
                         f"{2 * peak_tf32 / 3e12:.4g} TFLOP/s (bf16 dense "
                         f"{2 * peak_tf32 / 1e12:g} / 3)"),
              "bf16": (2 * peak_tf32, f"bf16 dense {2 * peak_tf32 / 1e12:g} "
+                      f"TFLOP/s"),
+             "fp16": (2 * peak_tf32, f"fp16 dense {2 * peak_tf32 / 1e12:g} "
                       f"TFLOP/s")}
     print(f"card: {card}; peaks used for bounds: {peak_fp32 / 1e12:g} "
           f"TFLOP/s fp32, {peak_tf32 / 1e12:g} TFLOP/s tf32 dense, "
@@ -3996,6 +4515,8 @@ def main() -> int:
         for fn in (fa.flash_attention, fd.flash_decode, kf.dcn_fused_batch,
                    kf.dcn_fused_schedule, kf.dcn_fused_tile):
             fn.dtypes = {}
+        for fn in (fa.flash_attention, fd.flash_decode):
+            fn.bodies = {}
 
     def read_counts(*names, into=launches):
         got = {n: wrappers[n].launches for n in names}
@@ -4125,9 +4646,9 @@ def main() -> int:
 
     def contraction(rows, w):
         """The library yardstick of a fused kernel: torch.matmul of the
-        (rows, KK*C) patch with the (KK*C, O) weights."""
+        (rows, KK*C) patch with the (KK*C, O) weights, in w's dtype."""
         kk, c_in, c_out = w.shape
-        patch = torch.randn(rows, kk * c_in, device=dev)
+        patch = torch.randn(rows, kk * c_in, device=dev, dtype=w.dtype)
         w2 = w.reshape(kk * c_in, c_out)
         return cuda_time_ms(lambda: torch.matmul(patch, w2), 50)
 
@@ -4401,7 +4922,8 @@ def main() -> int:
         got = kb.bli_tile_matmul(*a)
         plan = kb.bli_tile_matmul.last_plan
         d, sc = rel_err(got.float(), kb.bli_tile_plain(*a).float())
-        tol = BLI_RTOL if x.dtype == torch.float32 else BLI_BF16_RTOL
+        tol = {torch.float32: BLI_RTOL, torch.float16: F16_RTOL}.get(
+            x.dtype, BLI_BF16_RTOL)
         if not d <= tol * sc:
             fail(f"bli_tile_matmul {what}: max|d|={d} > {tol}*{sc}")
         if not torch.equal(kb.bli_tile_matmul(*a), got):
@@ -5251,7 +5773,7 @@ def main() -> int:
     bf16_phase(card, kernels, reset_counts, peak_bw)
 
     # -- phase 14: bf16 DCN serving (#1 / #4 / #5 in bf16, VGG19-3 in bf16) --
-    bf16_dcn_phase(card, kernels, reset_counts, dict(
+    dcn16 = dict(
         params=params, cfg=cfg, graph=graph, images=images,
         contraction=contraction, fused_ops=fused_ops, ops=[
             ("dcn_fused_batch", f"G={g_rows} P={p_pix} KK={kk} C={c_in} "
@@ -5268,7 +5790,10 @@ def main() -> int:
             ("dcn_fused_tile", f"whole plane S={x5.shape[-2]} "
              f"P={idx5.shape[-3]}", kf.dcn_fused_tile,
              kf.dcn_fused_tile_plain, a5, k5, (0, 3, 4), idx5.shape[-3],
-             live5)]))
+             live5)],
+        bli=(bli_record, a6, a6x4, dcn_in, dcn_coords))
+    bf16_ips = half_dcn_phase(card, kernels, reset_counts, dcn16,
+                              torch.bfloat16)
 
     # -- phase 14c: a bf16 model over a float32 cache (#8 round_kv) ---------
     bf16_cache_phase()
@@ -5282,6 +5807,23 @@ def main() -> int:
     # -- phase 17: the dry run beside the card ---------------------------------
     dryrun_phase(card)
 
+    # -- phase 18: float16 (#1 / #4-#8), VGG19-3 and Qwen3-1.7B served in
+    # float16, the general bodies of #7 / #8 -----------------------------------
+    t18 = time.perf_counter()
+    half_kernels(kernels, torch.float16, decode=F16_SIZES["decode"])
+    fp16_bli(kernels, dcn16)
+    print(f"[lm-fp16] 18a #6 / #7 / #8 took {time.perf_counter() - t18:.1f} "
+          f"s")
+    t0 = time.perf_counter()
+    half_dcn_phase(card, kernels, reset_counts,
+                   dict(dcn16, bf16_ips=bf16_ips), torch.float16)
+    print(f"[dcn-fp16] 18a-b DCN took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fp16_lm_phase(card, kernels, reset_counts, peak_bw)
+    print(f"[lm-fp16] 18c took {time.perf_counter() - t0:.1f} s")
+    general_bodies_phase(card, kernels, launches)
+    print(f"[fp16] phase 18 took {time.perf_counter() - t18:.1f} s")
+
     def bounds(kd):
         kd.update(bound_of(kd.pop("ops"), kd.pop("bytes")))
         if "fp32_ops" in kd:   # the same work on the FP32 CUDA cores
@@ -5290,13 +5832,14 @@ def main() -> int:
             f" (FP32 bound {kd['bound_fp32_ms']:.4f} ms)"
 
     out_k = []
-    for name in wrappers:
+    for name in [*wrappers, "flash_attention_any", "flash_decode_any"]:
         kd = kernels[name]
         fp32_note = bounds(kd)
         for shape_name, extra in {**kd.get("long_cache", {}),
                                   **kd.get("long_seq", {}),
                                   **kd.get("shapes", {}),
-                                  **kd.get("bf16", {})}.items():
+                                  **kd.get("bf16", {}),
+                                  **kd.get("fp16", {})}.items():
             note = bounds(extra)
             runs = "" if "launches" not in extra else \
                 f", {extra['launches']} launches on its path"

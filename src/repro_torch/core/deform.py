@@ -79,7 +79,9 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     block). ``padding`` is "SAME" or "VALID", as in the JAX package.
     bf16 follows the JAX package's rule: the sum is taken in float32 (here
     on operands widened exactly), b added in float32, and the result
-    rounded once to x's dtype."""
+    rounded once to x's dtype. float16 follows its rule too: the sum is
+    taken in float32 and rounded to float16 (XLA's float16 convolution),
+    then b is added in float16, a second rounding."""
     if padding == "SAME":
         kh, kw = w.shape[0], w.shape[1]
         if stride != 1:
@@ -90,11 +92,14 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
         xn = x.permute(0, 3, 1, 2)
     else:
         raise ValueError(f"unknown padding: {padding!r}")
-    if x.dtype == torch.bfloat16:
+    if x.dtype in (torch.bfloat16, torch.float16):
         xn, w = xn.float(), w.float()
-        b = None if b is None else b.float()
+    if x.dtype == torch.bfloat16 and b is not None:
+        b = b.float()
     y = F.conv2d(xn, w.permute(3, 2, 0, 1), None, stride=stride)
     y = y.permute(0, 2, 3, 1)
+    if x.dtype == torch.float16:
+        y = y.to(torch.float16)
     if b is not None:
         y = y + b.to(y.dtype)
     return y.to(x.dtype).contiguous()

@@ -5,8 +5,8 @@
 //   out[n, p, :] = sum_j [0 <= idx[n, p, j] < S] coeff[n, p, j]
 //                        * x[n, idx[n, p, j], :]
 //
-// over the 4 BLI neighbours j of output row p of image n; x float32 or
-// bfloat16, the sum in float32 rounded once to x's type. The TPU forms a
+// over the 4 BLI neighbours j of output row p of image n; x float32,
+// bfloat16 or float16, the sum in float32 rounded once to x's type. The TPU forms a
 // 4-hot (bp, S) interpolation matrix against iota(S) and runs it through
 // the MXU with the (S, bc) input block resident in VMEM; an index outside
 // [0, S) matches no column and contributes zero. Here the same function
@@ -33,10 +33,12 @@
 // store: nothing here reads the output again. The block's slice stays in
 // L1 across its rows, so one body serves every S, aligned or not. bf16
 // words unpack by bit moves (a bf16 is the top half of a float32) and
-// pack with cvt.rn.bf16x2. The host plan (kernels/dcn_bli.py `bli_plan`)
+// pack with cvt.rn.bf16x2; float16 words convert with the half2
+// intrinsics (every float16 widens to float32 exactly). The host plan (kernels/dcn_bli.py `bli_plan`)
 // sizes the grid to one wave of four blocks an SM.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -105,6 +107,41 @@ struct Word<__nv_bfloat16, false> {
   }
   __device__ static raw pack(const float* f) {
     return __bfloat16_as_ushort(__float2bfloat16_rn(f[0]));
+  }
+};
+
+template <>
+struct Word<__half, true> {
+  using raw = uint4;  // 8 float16
+  static constexpr int n = 8;
+  __device__ static void unpack(const raw& v, float* f) {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 p = __half22float2(*reinterpret_cast<const __half2*>(&w[k]));
+      f[2 * k] = p.x;
+      f[2 * k + 1] = p.y;
+    }
+  }
+  __device__ static uint32_t bits(float lo, float hi) {
+    const __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+  __device__ static raw pack(const float* f) {
+    return make_uint4(bits(f[0], f[1]), bits(f[2], f[3]), bits(f[4], f[5]),
+                      bits(f[6], f[7]));
+  }
+};
+
+template <>
+struct Word<__half, false> {
+  using raw = unsigned short;
+  static constexpr int n = 1;
+  __device__ static void unpack(const raw& v, float* f) {
+    f[0] = __half2float(__ushort_as_half(v));
+  }
+  __device__ static raw pack(const float* f) {
+    return __half_as_ushort(__float2half_rn(f[0]));
   }
 };
 
@@ -189,36 +226,40 @@ cudaError_t launch(dim3 grid, cudaStream_t st, const void* x, const void* idx,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_t(int vec, dim3 grid, cudaStream_t st, const void* x,
+                     const void* idx, const void* coeff, void* out, int P,
+                     int S, int cw, int lsh, int rows) {
+  return vec ? launch<T, true>(grid, st, x, idx, coeff, out, P, S, cw, lsh,
+                               rows)
+             : launch<T, false>(grid, st, x, idx, coeff, out, P, S, cw, lsh,
+                                rows);
+}
+
 }  // namespace
 
 // One launch over N images of (S, C) planes -> (N, P, C), as planned by
-// kernels/dcn_bli.py `bli_plan`: `bf16` picks x's type, `vec` 16-byte
-// words (else one element a lane), `lw` the words of a block's channel
-// slice (a power of two up to 32 that divides the row's words), `rows`
-// the output rows of a block, `chunks` the row chunks (at least
-// ceil(P / rows)).
+// kernels/dcn_bli.py `bli_plan`: `dtype` picks x's type (0 float32, 1
+// bfloat16, 2 float16), `vec` 16-byte words (else one element a lane),
+// `lw` the words of a block's channel slice (a power of two up to 32 that
+// divides the row's words), `rows` the output rows of a block, `chunks`
+// the row chunks (at least ceil(P / rows)).
 extern "C" int bli_gather_launch(const void* x, const void* idx,
                                  const void* coeff, void* out, int N, int P,
-                                 int S, int C, int bf16, int vec, int lw,
+                                 int S, int C, int dtype, int vec, int lw,
                                  int rows, int chunks, void* stream) {
-  const int elem = bf16 ? 2 : 4;
+  const int elem = dtype ? 2 : 4;
   const int cw = vec ? C * elem / 16 : C;
   int lsh = 0;
   while ((1 << lsh) < lw) ++lsh;
-  if (lw < 1 || lw > 32 || (1 << lsh) != lw || cw % lw || rows < 1 ||
-      chunks < 1 || (long long)chunks * rows < P ||
+  if (dtype < 0 || dtype > 2 || lw < 1 || lw > 32 || (1 << lsh) != lw ||
+      cw % lw || rows < 1 || chunks < 1 || (long long)chunks * rows < P ||
       (vec && (C * elem) % 16))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(chunks, cw / lw, N);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (bf16)
-    return (int)(vec ? launch<__nv_bfloat16, true>(grid, st, x, idx, coeff,
-                                                   out, P, S, cw, lsh, rows)
-                     : launch<__nv_bfloat16, false>(grid, st, x, idx, coeff,
-                                                    out, P, S, cw, lsh,
-                                                    rows));
-  return (int)(vec ? launch<float, true>(grid, st, x, idx, coeff, out, P, S,
-                                         cw, lsh, rows)
-                   : launch<float, false>(grid, st, x, idx, coeff, out, P, S,
-                                          cw, lsh, rows));
+  const auto run = dtype == 1   ? launch_t<__nv_bfloat16>
+                   : dtype == 2 ? launch_t<__half>
+                                : launch_t<float>;
+  return (int)run(vec, grid, st, x, idx, coeff, out, P, S, cw, lsh, rows);
 }

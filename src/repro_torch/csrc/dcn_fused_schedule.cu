@@ -26,15 +26,15 @@
 // whole-plane call (S = 196, P = 196 -> 256) ~0.9 GFLOP on ~10.4 MB. With
 // the contraction in 3xTF32 on the tensor cores (165 TFLOP/s effective)
 // the weight bytes bound a one-row call and the operations a schedule.
-// With bf16 operands (`bf16_ops`: x, w, b and out bf16; the coefficients,
+// With bf16 operands (`dtype` 1: x, w, b and out bf16; the coefficients,
 // patch and sums float32) both entries halve the bytes and run the
 // contraction in three bf16 products (989 / 3 = 330 TFLOP/s), in the
 // Hopper body of dcn_fused_bf16.cuh.
 //
-// Design: in float32 the split-C body of dcn_fused_split.cuh (in bf16 its
-// Hopper counterpart, dcn_fused_bf16.cuh, the same plan). The TPU keeps the
-// whole (S, C) halo (512 KB at S = 256, C = 512) or the (bp*KK, C) patch
-// in VMEM, over a block's 227 KB; the body resolves each neighbour to an x
+// Design: in float32 and float16 the split-C body of dcn_fused_split.cuh
+// (in bf16 its Hopper counterpart, dcn_fused_bf16.cuh, the same plan). The
+// TPU keeps the whole (S, C) halo (512 KB at S = 256, C = 512) or the
+// (bp*KK, C) patch in VMEM, over a block's 227 KB; the body resolves each neighbour to an x
 // row once per block and streams (tap, 16-channel) stages of the patch
 // through shared memory, so the deformed intermediate never reaches device
 // memory. At these shapes a row has only 4-16 (pixel, output-channel)
@@ -50,14 +50,16 @@ extern "C" int dcn_fused_schedule_launch(
     const void* x, const void* dep_tbl, const void* dep_cnt, const void* idx,
     const void* coeff, const void* w, const void* b, void* ws, void* tickets,
     void* out, int T, int k_pad, int t_in, int tp, int P, int KK, int C,
-    int O, int n_split, int c_split, int bf16_ops, void* stream) {
-  if (bf16_ops)
+    int O, int n_split, int c_split, int dtype, void* stream) {
+  if (dtype == 1)
     return b16::bf16_launch<b16::ADDR_SCHED>(
         x, nullptr, dep_tbl, dep_cnt, idx, coeff, w, b, ws, tickets, out, T,
         k_pad, t_in, t_in, tp, P, KK, C, O, n_split, stream);
-  return split::split_launch_t<float, split::ADDR_SCHED>(
-      x, nullptr, dep_tbl, dep_cnt, idx, coeff, w, b, ws, out, T, k_pad,
-      t_in, t_in, tp, P, KK, C, O, n_split, c_split, stream);
+  const auto run = dtype == 2
+                       ? split::split_launch_t<__half, split::ADDR_SCHED>
+                       : split::split_launch_t<float, split::ADDR_SCHED>;
+  return run(x, nullptr, dep_tbl, dep_cnt, idx, coeff, w, b, ws, out, T,
+             k_pad, t_in, t_in, tp, P, KK, C, O, n_split, c_split, stream);
 }
 
 extern "C" int dcn_fused_tile_launch(const void* x, const void* idx,
@@ -65,12 +67,14 @@ extern "C" int dcn_fused_tile_launch(const void* x, const void* idx,
                                      const void* b, void* ws, void* tickets,
                                      void* out, int N, int S, int P, int KK,
                                      int C, int O, int n_split, int c_split,
-                                     int bf16_ops, void* stream) {
-  if (bf16_ops)
+                                     int dtype, void* stream) {
+  if (dtype == 1)
     return b16::bf16_launch<b16::ADDR_TILE>(
         x, nullptr, nullptr, nullptr, idx, coeff, w, b, ws, tickets, out, N,
         1, 1, 1, S, P, KK, C, O, n_split, stream);
-  return split::split_launch_t<float, split::ADDR_TILE>(
-      x, nullptr, nullptr, nullptr, idx, coeff, w, b, ws, out, N, 1, 1, 1, S,
-      P, KK, C, O, n_split, c_split, stream);
+  const auto run = dtype == 2
+                       ? split::split_launch_t<__half, split::ADDR_TILE>
+                       : split::split_launch_t<float, split::ADDR_TILE>;
+  return run(x, nullptr, nullptr, nullptr, idx, coeff, w, b, ws, out, N, 1,
+             1, 1, S, P, KK, C, O, n_split, c_split, stream);
 }

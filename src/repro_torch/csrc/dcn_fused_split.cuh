@@ -75,10 +75,18 @@
 //   zero, and carried over all KK * C = 4608 products it drifts past the
 //   1e-5 * max|out| that the split count may move the result.
 //
-// Element type T of x, w, b and out: float (calls whose x, w and b are all
-// bf16 run the Hopper body of dcn_fused_bf16.cuh).
+// Element type T of x, w, b and out: float or __half. A float16 value
+// widens to float32 exactly and its 11-bit significand is exact in TF32,
+// so on float16 operands the 3xTF32 products keep float32 accuracy and
+// the output is rounded once to float16. Calls whose x, w and b are all
+// bf16 run the Hopper body of dcn_fused_bf16.cuh, which splits the float32
+// patch into three bf16 pieces: exact only in bf16's exponent range (float16
+// pieces would underflow below 2^-24 and overflow above 65504), so float16
+// calls do not take it.
 
 #pragma once
+
+#include <cuda_fp16.h>
 
 #include "wgmma_tf32.cuh"
 
@@ -106,6 +114,7 @@ struct Elem {
 };
 
 __device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__half v) { return __half2float(v); }
 
 // float -> T, rounded to nearest.
 template <typename T>
@@ -114,23 +123,52 @@ template <>
 __device__ __forceinline__ float narrow<float>(float v) {
   return v;
 }
+template <>
+__device__ __forceinline__ __half narrow<__half>(float v) {
+  return __float2half_rn(v);
+}
 
-// Four consecutive values as float4.
+// Four consecutive values as float4 (float16: widened, exactly; 8-byte
+// aligned).
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&w.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&w.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
 
-// One value into shared memory by a 4-byte cp.async, zero where !ok.
+// One value into shared memory, zero where !ok: a 4-byte cp.async for a
+// float; a float16 (cp.async copies no fewer than 4 bytes) by a load and a
+// store, which land before the barrier or the wait that precedes its use,
+// as the copy would.
 __device__ __forceinline__ void copy1(float* dst, const float* src,
                                       const float* any, bool ok) {
   cp_async4(dst, ok ? src : any, ok ? 4 : 0);
 }
+__device__ __forceinline__ void copy1(__half* dst, const __half* src,
+                                      const __half*, bool ok) {
+  *dst = ok ? *src : __float2half_rn(0.f);
+}
 
-// Four consecutive values (16 bytes) by one cp.async, zero-filled where
-// !ok.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int src_bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+
+// Four consecutive values by one cp.async (16 bytes of float, 8 of
+// float16), zero-filled where !ok.
 __device__ __forceinline__ void copy4(float* dst, const float* src,
                                       const float* any, bool ok) {
   cp_async16(dst, ok ? src : any, ok ? 16 : 0);
+}
+__device__ __forceinline__ void copy4(__half* dst, const __half* src,
+                                      const __half* any, bool ok) {
+  cp_async8(dst, ok ? src : any, ok ? 8 : 0);
 }
 static_assert(NT == 4 * BP && BC == 16 && BO == 2 * 64 && BP == 64 &&
                   BC * BO % (4 * NT) == 0,

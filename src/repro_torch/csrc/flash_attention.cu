@@ -2,8 +2,8 @@
 //
 // Replaces src/repro/kernels/flash_attention.py `_flash_kernel`
 // (`flash_attention`): for q (B, Sq, Hq, D), k, v (B, Skv, Hkv, D), all
-// float32 (`flash_kernel`) or all bf16 (`flash_kernel_bf16`, below), q head
-// h reading kv head h / (Hq / Hkv),
+// float32 (`flash_kernel`) or all bf16 or all float16 (`flash_kernel_bf16`,
+// below), q head h reading kv head h / (Hq / Hkv),
 //
 //   s   = (q * scale) . k^T,  tanh(s / c) * c with a soft-cap c > 0
 //   qi  = i + (Skv - Sq),  masked unless ki < Skv, [qi >= ki], [qi - ki < w]
@@ -53,6 +53,8 @@
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
+
+#include <type_traits>
 
 #include "tma.cuh"
 #include "wgmma_bf16.cuh"
@@ -311,9 +313,12 @@ flash_kernel(const __grid_constant__ CUtensorMap k_map,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = tid / WG;
   const int wi = warp & 3, gq = lane >> 2, tq = lane & 3;
-  const int bh = blockIdx.y, b = bh / Hq, h = bh % Hq;
+  // One block a (batch x head row, query tile), the row's tiles adjacent
+  // in the flat grid: the rows live in grid.x, which holds 2^31 - 1.
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int bh = blockIdx.x / n_qt, b = bh / Hq, h = bh % Hq;
   const int hk = h / (Hq / Hkv);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tile first
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x % n_qt)) * BQ;  // heaviest first
   const long long qstride = (long long)Hq * D;
   const float* qb = q + ((long long)b * Sq * Hq + h) * D;
   float* ob = out + ((long long)b * Sq * Hq + h) * D;
@@ -561,15 +566,19 @@ flash_kernel(const __grid_constant__ CUtensorMap k_map,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 operands (`flash_kernel_bf16`): the same function with q, k, v and
-// the output in bf16, as the TPU kernel runs it on bf16 inputs (its
-// products read the bf16 values exactly; scores, softmax state and the
-// accumulator stay float32; the output is rounded once).
+// 16-bit operands (`flash_kernel_bf16<T>`, T bf16 or float16): the same
+// function with q, k, v and the output in T, as the TPU kernel runs it on
+// bf16 or float16 inputs (its products read the 16-bit values exactly;
+// scores, softmax state and the accumulator stay float32; the output is
+// rounded once). The two types differ only in the wgmma operand type
+// (.bf16 / .f16), the TMA element type and the rounding of P and the
+// output (`Mma16<T>`); both are 2-byte types, so the swizzles, rings and
+// tiles are one.
 //
-// Bound: operations, at the dense bf16 tensor-core rate (989 TFLOP/s),
-// twice TF32's, with half the bytes. Both products are single wgmma
-// m64nNk16 bf16 instructions with float32 accumulation (no split: bf16
-// operands are exact in bf16).
+// Bound: operations, at the dense bf16 / float16 tensor-core rate (989
+// TFLOP/s), twice TF32's, with half the bytes. Both products are single
+// wgmma m64nNk16 instructions with float32 accumulation (no split: the
+// operands are exact in their own type).
 //
 // Design (two consumer warpgroups and a producer warp, 288 threads):
 // * One block per (batch * q head, 128-row query tile), heaviest tile
@@ -608,12 +617,14 @@ flash_kernel(const __grid_constant__ CUtensorMap k_map,
 // * Scores in base 2 (log2 e folded into the scale or the soft-cap, exp2
 //   on the SFU); masks only on edge tiles; a masked score is -1e30 and a
 //   row with no visible key yet subtracts 0, so its p is exactly 0.
-// * P is rounded to bf16 for O += P V: the accumulator of S hands a thread
+// * P is rounded to T for O += P V: the accumulator of S hands a thread
 //   keys {2t, 2t + 1} and {2t + 8, 2t + 9} of each 16-key step, which is
-//   the A fragment of a bf16 wgmma as it stands (no permutation). The row
-//   sums l add the rounded p, so that the weights of a row sum to one.
+//   the A fragment of a 16-bit wgmma as it stands (no permutation). The
+//   row sums l add the rounded p, so that the weights of a row sum to
+//   one. (In float16 a p below 2^-24 rounds to 0: a share of the row's sum
+//   under 2^-24 of its largest weight, 1.)
 // * O is accumulated in place by the tensor cores after the rescale by
-//   alpha: a bf16 output does not see their truncating accumulation.
+//   alpha: a 16-bit output does not see their truncating accumulation.
 // ---------------------------------------------------------------------------
 
 constexpr int BQ16 = 128;     // query rows a block of the bf16 kernel
@@ -665,14 +676,15 @@ __device__ __forceinline__ void wgmma_wait_n() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-template <int DP>
+template <typename T, int DP>
 __global__ void __launch_bounds__(2 * WG + 32, 1)
 flash_kernel_bf16(const __grid_constant__ CUtensorMap q_map,
                   const __grid_constant__ CUtensorMap k_map,
                   const __grid_constant__ CUtensorMap v_map,
-                  __nv_bfloat16* __restrict__ out, int Sq, int Skv, int Hq,
-                  int Hkv, int D, int causal, int window, float scale,
+                  T* __restrict__ out, int Sq, int Skv, int Hq, int Hkv,
+                  int D, int causal, int window, float scale,
                   float softcap) {
+  using M = Mma16<T>;
   constexpr int BQ = BQ16, BK = BK16, ST = ST16;
   constexpr int W = panel_bf16(DP), SWZ = 2 * W;  // values / bytes a row
   constexpr int QP = BQ * SWZ, KP = BK * SWZ;     // bytes of a q / K panel
@@ -689,9 +701,12 @@ flash_kernel_bf16(const __grid_constant__ CUtensorMap q_map,
   uint64_t* const q_full = empty_v + ST;
 
   const int tid = threadIdx.x;
-  const int bh = blockIdx.y, b = bh / Hq, h = bh % Hq;
+  // One block a (batch x head row, query tile), the row's tiles adjacent
+  // in the flat grid: the rows live in grid.x, which holds 2^31 - 1.
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int bh = blockIdx.x / n_qt, b = bh / Hq, h = bh % Hq;
   const int hk = h / (Hq / Hkv);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tile first
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x % n_qt)) * BQ;  // heaviest first
   const long long off = (long long)Skv - Sq;
   const int q_rows = min(BQ, Sq - q0);
   long long k_hi = Skv;
@@ -809,7 +824,7 @@ flash_kernel_bf16(const __grid_constant__ CUtensorMap q_map,
     for (int ks = 0; ks < DP / 16; ++ks) {
       const int at = (16 * ks / W) * QP + (16 * ks % W) * 2;
       const int bt = (16 * ks / W) * KP + (16 * ks % W) * 2;
-      wgmma_bf16_n64(s, dq + (at >> 4), dkt + (bt >> 4), ks);
+      M::n64(s, dq + (at >> 4), dkt + (bt >> 4), ks);
     }
     wgmma_commit();
   };
@@ -829,7 +844,7 @@ flash_kernel_bf16(const __grid_constant__ CUtensorMap q_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_bf16_rs<DP>(o, pa[kk], dvt + ((kk * 16 * SWZ) >> 4), 1);
+      M::template rs<DP>(o, pa[kk], dvt + ((kk * 16 * SWZ) >> 4), 1);
     wgmma_commit();
   };
   auto pv_done = [&](int t) {  // after the wait for P V(t)
@@ -879,8 +894,8 @@ flash_kernel_bf16(const __grid_constant__ CUtensorMap q_map,
         float& p1 = s[4 * j + 2 * hh + 1];
         p0 = exp2_fast(fmaf(p0, escale, -m_use));
         p1 = exp2_fast(fmaf(p1, escale, -m_use));
-        const uint32_t w = pack_bf16(p0, p1);  // as P V will read them
-        ps += bf16_lo(w) + bf16_hi(w);
+        const uint32_t w = M::pack(p0, p1);  // as P V will read them
+        ps += M::lo(w) + M::hi(w);
       }
       l[hh] = l[hh] * alpha[hh] + ps;  // this thread's share of the row
       m[hh] = m_new;
@@ -894,7 +909,7 @@ flash_kernel_bf16(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh)
         pa[j >> 1][2 * (j & 1) + hh] =
-            pack_bf16(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]);
+            M::pack(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]);
   };
 
   wait(q_full, 0);  // even with no tile: no copy outlives the block
@@ -936,15 +951,13 @@ flash_kernel_bf16(const __grid_constant__ CUtensorMap q_map,
     const int r = 16 * wi + gq + 8 * hh;
     if (r < w_rows) {
       const float den = fmaxf(li, 1e-30f);
-      __nv_bfloat16* orow =
-          out + (((long long)b * Sq + w0 + r) * Hq + h) * D;
+      T* orow = out + (((long long)b * Sq + w0 + r) * Hq + h) * D;
 #pragma unroll
       for (int j = 0; j < DP / 8; ++j) {
         const int cc = 8 * j + 2 * tq;
         if (cc < D)
-          *reinterpret_cast<__nv_bfloat162*>(orow + cc) =
-              __floats2bfloat162_rn(o[4 * j + 2 * hh] / den,
-                                    o[4 * j + 2 * hh + 1] / den);
+          *reinterpret_cast<uint32_t*>(orow + cc) = M::pack(
+              o[4 * j + 2 * hh] / den, o[4 * j + 2 * hh + 1] / den);
       }
     }
   }
@@ -972,12 +985,12 @@ cudaError_t rows_map(CUtensorMap* map, const void* x, int B, int Skv,
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The 4-d tensor map (d, head, row, batch) of bf16 q, k or v (B, S, H, D)
-// whose box is one swizzled panel of the bf16 kernel: w values (the
-// panel's row, w * 2 bytes = the swizzle) x 1 x rows x 1; zeros past D
-// and S.
+// The 4-d tensor map (d, head, row, batch) of 16-bit q, k or v (B, S, H,
+// D) of element type `type` whose box is one swizzled panel of the 16-bit
+// kernel: w values (the panel's row, w * 2 bytes = the swizzle) x 1 x rows
+// x 1; zeros past D and S.
 cudaError_t panel_map(CUtensorMap* map, const void* x, int B, int S, int H,
-                      int D, int w, int rows) {
+                      int D, int w, int rows, CUtensorMapDataType type) {
   cudaError_t err;
   const PFN_cuTensorMapEncodeTiled_v12000 encode =
       hop::tensor_map_encoder(&err);
@@ -992,8 +1005,8 @@ cudaError_t panel_map(CUtensorMap* map, const void* x, int B, int S, int H,
               : w == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
                         : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims,
-      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      map, type, 4, const_cast<void*>(x), dims, strides, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -1011,36 +1024,43 @@ int launch(const float* q, const float* k, const float* v, float* out, int B,
     err = cudaFuncSetAttribute(
         flash_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + block_q - 1) / block_q, B * Hq);
+  const long long blocks = (long long)((Sq + block_q - 1) / block_q) * B * Hq;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks);
   flash_kernel<DP><<<grid, WG * warpgroups(DP), smem, stream>>>(
       k_map, v_map, q, out, Sq, Skv, Hq, Hkv, D, causal, window, scale,
       softcap);
   return (int)cudaGetLastError();
 }
 
-template <int DP>
-int launch_bf16(const void* q, const void* k, const void* v,
-                __nv_bfloat16* out, int B, int Sq, int Skv, int Hq, int Hkv,
-                int D, int causal, int window, int block_q, float scale,
-                float softcap, cudaStream_t stream) {
+template <typename T, int DP>
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal,
+                int window, int block_q, float scale, float softcap,
+                cudaStream_t stream) {
   if (block_q != BQ16) return (int)cudaErrorInvalidValue;
   constexpr int W = panel_bf16(DP);
+  constexpr CUtensorMapDataType type =
+      std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const int smem = smem_bytes_bf16(DP);
   CUtensorMap q_map, k_map, v_map;
-  cudaError_t err = panel_map(&q_map, q, B, Sq, Hq, D, W, BQ16);
+  cudaError_t err = panel_map(&q_map, q, B, Sq, Hq, D, W, BQ16, type);
   if (err == cudaSuccess)
-    err = panel_map(&k_map, k, B, Skv, Hkv, D, W, BK16);
+    err = panel_map(&k_map, k, B, Skv, Hkv, D, W, BK16, type);
   if (err == cudaSuccess)
-    err = panel_map(&v_map, v, B, Skv, Hkv, D, W, BK16);
+    err = panel_map(&v_map, v, B, Skv, Hkv, D, W, BK16, type);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_kernel_bf16<DP>,
+    err = cudaFuncSetAttribute(flash_kernel_bf16<T, DP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + BQ16 - 1) / BQ16, B * Hq);
-  flash_kernel_bf16<DP><<<grid, 2 * WG + 32, smem, stream>>>(
-      q_map, k_map, v_map, out, Sq, Skv, Hq, Hkv, D, causal, window, scale,
-      softcap);
+  const long long blocks = (long long)((Sq + BQ16 - 1) / BQ16) * B * Hq;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks);
+  flash_kernel_bf16<T, DP><<<grid, 2 * WG + 32, smem, stream>>>(
+      q_map, k_map, v_map, static_cast<T*>(out), Sq, Skv, Hq, Hkv, D, causal,
+      window, scale, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -1074,27 +1094,41 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// The same for bf16 q, k, v and out; D a multiple of 8 (16-byte rows for
-// the TMA), block_q 128 (`BQ16`).
-extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
-                                           const void* v, void* out, int B,
-                                           int Sq, int Skv, int Hq, int Hkv,
-                                           int D, int causal, int window,
-                                           int block_q, float scale,
-                                           float softcap, void* stream) {
-  if (D % 8 || D < 8 || D > MAX_DP || Hkv < 1 || Hq % Hkv)
-    return (int)cudaErrorInvalidValue;
-  __nv_bfloat16* oh = static_cast<__nv_bfloat16*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+namespace {
+
+// The 16-bit kernel of element type T for D's padded width.
+template <typename T>
+int launch_16(const void* q, const void* k, const void* v, void* out, int B,
+              int Sq, int Skv, int Hq, int Hkv, int D, int causal, int window,
+              int block_q, float scale, float softcap, cudaStream_t st) {
 #define FLASH_CASE(n)                                                      \
   case n:                                                                  \
-    return launch_bf16<16 * n>(q, k, v, oh, B, Sq, Skv, Hq, Hkv, D,       \
-                               causal, window, block_q, scale, softcap,    \
-                               st);
+    return launch_bf16<T, 16 * n>(q, k, v, out, B, Sq, Skv, Hq, Hkv, D,   \
+                                  causal, window, block_q, scale, softcap, \
+                                  st);
   switch ((D + 15) / 16) {
     FLASH_CASE(1) FLASH_CASE(2) FLASH_CASE(3) FLASH_CASE(4) FLASH_CASE(5)
     FLASH_CASE(6) FLASH_CASE(7) FLASH_CASE(8) FLASH_CASE(9)
   }
 #undef FLASH_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// The same for 16-bit q, k, v and out, `dtype` 1 bf16 or 2 float16; D a
+// multiple of 8 (16-byte rows for the TMA), block_q 128 (`BQ16`).
+extern "C" int flash_attention_16_launch(const void* q, const void* k,
+                                         const void* v, void* out, int B,
+                                         int Sq, int Skv, int Hq, int Hkv,
+                                         int D, int causal, int window,
+                                         int block_q, float scale,
+                                         float softcap, int dtype,
+                                         void* stream) {
+  if (D % 8 || D < 8 || D > MAX_DP || Hkv < 1 || Hq % Hkv ||
+      (dtype != 1 && dtype != 2))
+    return (int)cudaErrorInvalidValue;
+  const auto run = dtype == 2 ? launch_16<__half> : launch_16<__nv_bfloat16>;
+  return run(q, k, v, out, B, Sq, Skv, Hq, Hkv, D, causal, window, block_q,
+             scale, softcap, static_cast<cudaStream_t>(stream));
 }

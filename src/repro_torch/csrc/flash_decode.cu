@@ -1,22 +1,26 @@
 // Split-KV single-query decode attention for Hopper.
 //
 // Replaces src/repro/kernels/flash_decode.py `_decode_kernel`
-// (`flash_decode`) over float32 caches (bf16 caches: flash_decode_bf16.cu):
-// for q (B, Hq, D) and caches k, v (B, S, Hkv, D), q float32 or bf16, q
-// head h reading kv head h / g (g = Hq / Hkv), with valid prefix len =
-// lengths[b],
+// (`flash_decode`) over float32 and float16 caches (bf16 caches:
+// flash_decode_bf16.cu): for q (B, Hq, D) and caches k, v (B, S, Hkv, D),
+// q float32, bf16 or float16, q head h reading kv head h / g (g = Hq /
+// Hkv), with valid prefix len = lengths[b],
 //
 //   s   = (q * scale) . k^T,  tanh(s / c) * c with a soft-cap c > 0
 //   keys ki < len (and ki > len - 1 - w with a window w) are visible
 //   out = acc / max(l, 1e-30)   (a sequence with no visible key gives 0)
 //
 // in float32, the output in q's type, rounded once. With `round_kv` (a
-// float32 cache under a bf16 model, which the wrapper's caller asks for)
-// each K and V value is rounded to bf16 where it is read, as the model's
-// JAX decode path casts the cache to x's type before the attention; the
-// cache is read as stored and nothing is copied. The rounding is a template parameter, so the
-// instantiations without it are the TPU kernel's function (it widens
-// without rounding) with no branch added to their loops.
+// float32 cache under a bf16 or float16 model, which the wrapper's caller
+// asks for) each K and V value is rounded to the model's type where it is
+// read, as the model's JAX decode path casts the cache to x's type before
+// the attention; the cache is read as stored and nothing is copied. The
+// rounding is a template parameter, so the instantiations without it are
+// the TPU kernel's function (it widens without rounding) with no branch
+// added to their loops. A float16 cache is read as stored, 2 bytes a value,
+// and widened exactly: the same body with half the bytes. (The bf16 body's
+// split of q and p into three bf16 pieces needs float32's exponent range,
+// which float16 pieces lack, so a float16 cache does not take it.)
 //
 // Bound: bytes. Each visible key row of K and V is read once and used for
 // 2 * g * D multiply-adds: ~g / 4 FLOP per byte, far below the FP32 ridge
@@ -58,6 +62,7 @@
 //   clear; only the float32 summation order depends on the split count.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -76,11 +81,14 @@ __device__ __forceinline__ long long visible(int len, int S, int window) {
   return max(0LL, hi - lo);
 }
 
-// out[i] = x in q's type (bf16: rounded to nearest).
+// out[i] = x in q's type (`q_type` 0 float32, 1 bf16, 2 float16; a 16-bit
+// type rounded to nearest).
 __device__ __forceinline__ void put(void* out, long long i, float x,
-                                    int q_bf16) {
-  if (q_bf16)
+                                    int q_type) {
+  if (q_type == 1)
     static_cast<bf16*>(out)[i] = __float2bfloat16_rn(x);
+  else if (q_type == 2)
+    static_cast<__half*>(out)[i] = __float2half_rn(x);
   else
     static_cast<float*>(out)[i] = x;
 }
@@ -132,15 +140,25 @@ __host__ __device__ __forceinline__ int row_stride(int D) {
   return E * (w + (w % 2 ? 2 : 1));
 }
 
-// v with each value rounded to bf16 (to nearest even) and widened back.
-__device__ __forceinline__ float4 round_bf16(float4 v) {
-  return make_float4(__bfloat162float(__float2bfloat16_rn(v.x)),
-                     __bfloat162float(__float2bfloat16_rn(v.y)),
-                     __bfloat162float(__float2bfloat16_rn(v.z)),
-                     __bfloat162float(__float2bfloat16_rn(v.w)));
+// v with each value rounded (to nearest even) to bf16 (RK 1) or float16
+// (RK 2) and widened back; RK 0 leaves it.
+template <int RK>
+__device__ __forceinline__ float4 rounded(float4 v) {
+  if constexpr (RK == 1)
+    return make_float4(__bfloat162float(__float2bfloat16_rn(v.x)),
+                       __bfloat162float(__float2bfloat16_rn(v.y)),
+                       __bfloat162float(__float2bfloat16_rn(v.z)),
+                       __bfloat162float(__float2bfloat16_rn(v.w)));
+  else if constexpr (RK == 2)
+    return make_float4(__half2float(__float2half_rn(v.x)),
+                       __half2float(__float2half_rn(v.y)),
+                       __half2float(__float2half_rn(v.z)),
+                       __half2float(__float2half_rn(v.w)));
+  else
+    return v;
 }
 
-// Four consecutive values as float4 (bf16: widened, exactly).
+// Four consecutive values as float4 (bf16, float16: widened, exactly).
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -151,20 +169,26 @@ __device__ __forceinline__ float4 load4(const bf16* p) {
                      __uint_as_float(w.y << 16),
                      __uint_as_float(w.y & 0xffff0000u));
 }
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&w.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&w.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
 
-// T: the caches' type (float). G: query heads a block holds in registers
-// (g <= G; heads g.. are zero). NW: warps a block. q and out are bf16 where
-// `q_bf16`, else float32. RK: K and V rounded to bf16 where they are read
-// (a float32 cache under a bf16 model); the instantiations without it are
-// the TPU kernel's function.
-template <typename T, bool RK, int G, int NW>
+// T: the caches' type (float or __half). G: query heads a block holds in
+// registers (g <= G; heads g.. are zero). NW: warps a block. q and out are
+// of `q_type` (0 float32, 1 bf16, 2 float16). RK: K and V rounded to bf16
+// (1) or float16 (2) where they are read (a float32 cache under a 16-bit
+// model); the instantiations without it (0) are the TPU kernel's function.
+template <typename T, int RK, int G, int NW>
 __global__ void __launch_bounds__(32 * NW)
 decode_kernel(const void* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ lengths,
               float* __restrict__ part_ml, float* __restrict__ part_acc,
               int* __restrict__ ticket, void* __restrict__ out, int B,
               int S, int Hq, int Hkv, int D, int splits, int target,
-              int window, int q_bf16, float scale, float softcap) {
+              int window, int q_type, float scale, float softcap) {
   constexpr int NT = 32 * NW;
   const int pair = blockIdx.x, sp = blockIdx.y;
   const int b = pair / Hkv, hk = pair - b * Hkv, g = Hq / Hkv;
@@ -177,8 +201,11 @@ decode_kernel(const void* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < QV; ++j) {
     const int e = tid + j * NT;
     qv[j] = e >= g * D / 4 ? make_float4(0.f, 0.f, 0.f, 0.f)
-            : q_bf16 ? load4(static_cast<const bf16*>(q) + bh0 * D + 4 * e)
-                     : load4(static_cast<const float*>(q) + bh0 * D + 4 * e);
+            : q_type == 1
+                ? load4(static_cast<const bf16*>(q) + bh0 * D + 4 * e)
+            : q_type == 2
+                ? load4(static_cast<const __half*>(q) + bh0 * D + 4 * e)
+                : load4(static_cast<const float*>(q) + bh0 * D + 4 * e);
   }
   // The batch's visible keys (every warp sums them), hence the keys a
   // split aims at, hence this block's keys.
@@ -279,7 +306,7 @@ decode_kernel(const void* __restrict__ q, const T* __restrict__ k,
 #pragma unroll 2
     for (int c = pq; c < d4; c += 8) {
       float4 x = load4(kr + 4 * c);
-      if constexpr (RK) x = round_bf16(x);
+      x = rounded<RK>(x);
 #pragma unroll
       for (int h = 0; h < G; ++h) {
         const float4 y =
@@ -291,7 +318,7 @@ decode_kernel(const void* __restrict__ q, const T* __restrict__ k,
       }
       if (c + 4 < d4) {
         float4 z = load4(kr + 4 * c + 16);
-        if constexpr (RK) z = round_bf16(z);
+        z = rounded<RK>(z);
 #pragma unroll
         for (int h = 0; h < G; ++h) {
           const float4 y =
@@ -339,7 +366,7 @@ decode_kernel(const void* __restrict__ q, const T* __restrict__ k,
         const int c = lane + 32 * j;
         if (c < d4) {
           float4 y = load4(Vs + t * ld + 4 * c);
-          if constexpr (RK) y = round_bf16(y);
+          y = rounded<RK>(y);
 #pragma unroll
           for (int h = 0; h < G; ++h) {
             acc[h][j].x = fmaf(pt[h], y.x, acc[h][j].x);
@@ -394,7 +421,7 @@ decode_kernel(const void* __restrict__ q, const T* __restrict__ k,
       num += Wa[(w * G + h) * D + d] * f;
     }
     if (ne == 1) {
-      put(out, (bh0 + h) * D + d, num / fmaxf(den, 1e-30f), q_bf16);
+      put(out, (bh0 + h) * D + d, num / fmaxf(den, 1e-30f), q_type);
     } else {
       part_acc[((bh0 + h) * splits + sp) * D + d] = num;
       if (d == 0) {
@@ -429,17 +456,17 @@ decode_kernel(const void* __restrict__ q, const T* __restrict__ k,
       num = num * fo + ai * fi;
       mx = mn;
     }
-    put(out, (bh0 + h) * D + d, num / fmaxf(den, 1e-30f), q_bf16);
+    put(out, (bh0 + h) * D + d, num / fmaxf(den, 1e-30f), q_type);
   }
   if (tid == 0) ticket[pair] = 0;
 }
 
-template <typename T, bool RK, int G, int NW>
+template <typename T, int RK, int G, int NW>
 cudaError_t launch(size_t smem, dim3 grid, cudaStream_t stream,
                    const void* q, const void* k, const void* v,
                    const void* lengths, void* part, void* ticket, void* out,
                    int B, int S, int Hq, int Hkv, int D, int splits,
-                   int target, int window, int q_bf16, float scale,
+                   int target, int window, int q_type, float scale,
                    float softcap) {
   const cudaError_t err = cudaFuncSetAttribute(
       decode_kernel<T, RK, G, NW>,
@@ -450,50 +477,50 @@ cudaError_t launch(size_t smem, dim3 grid, cudaStream_t stream,
   decode_kernel<T, RK, G, NW><<<grid, 32 * NW, smem, stream>>>(
       q, static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(lengths), ml, acc, static_cast<int*>(ticket),
-      out, B, S, Hq, Hkv, D, splits, target, window, q_bf16, scale, softcap);
+      out, B, S, Hq, Hkv, D, splits, target, window, q_type, scale, softcap);
   return cudaGetLastError();
 }
 
 // Eight warps a block where their rings fit an SM's shared memory
 // (D <= 128), else four.
-template <typename T, bool RK, int G>
+template <typename T, int RK, int G>
 cudaError_t launch_g(dim3 grid, cudaStream_t st, const void* q,
                      const void* k, const void* v, const void* lengths,
                      void* part, void* ticket, void* out, int B, int S,
                      int Hq, int Hkv, int D, int splits, int target,
-                     int window, int q_bf16, float scale, float softcap) {
+                     int window, int q_type, float scale, float softcap) {
   const size_t ring = sizeof(T) * RING * 2 * TK * row_stride<T>(D);
   const size_t qs = sizeof(float) * G * D;
   if (D <= 128)
     return launch<T, RK, G, 8>(qs + 8 * ring, grid, st, q, k, v, lengths,
                                part, ticket, out, B, S, Hq, Hkv, D, splits,
-                               target, window, q_bf16, scale, softcap);
+                               target, window, q_type, scale, softcap);
   return launch<T, RK, G, 4>(qs + 4 * ring, grid, st, q, k, v, lengths, part,
                              ticket, out, B, S, Hq, Hkv, D, splits, target,
-                             window, q_bf16, scale, softcap);
+                             window, q_type, scale, softcap);
 }
 
-template <typename T, bool RK>
+template <typename T, int RK>
 cudaError_t launch_t(dim3 grid, cudaStream_t st, const void* q,
                      const void* k, const void* v, const void* lengths,
                      void* part, void* ticket, void* out, int B, int S,
                      int Hq, int Hkv, int D, int splits, int target,
-                     int window, int q_bf16, float scale, float softcap) {
+                     int window, int q_type, float scale, float softcap) {
   const int g = Hq / Hkv;
   if (g == 1)
     return launch_g<T, RK, 1>(grid, st, q, k, v, lengths, part, ticket, out,
                               B, S, Hq, Hkv, D, splits, target, window,
-                              q_bf16, scale, softcap);
+                              q_type, scale, softcap);
   if (g == 2)
     return launch_g<T, RK, 2>(grid, st, q, k, v, lengths, part, ticket, out,
                               B, S, Hq, Hkv, D, splits, target, window,
-                              q_bf16, scale, softcap);
+                              q_type, scale, softcap);
   if (g <= 4)
     return launch_g<T, RK, 4>(grid, st, q, k, v, lengths, part, ticket, out,
                               B, S, Hq, Hkv, D, splits, target, window,
-                              q_bf16, scale, softcap);
+                              q_type, scale, softcap);
   return launch_g<T, RK, 8>(grid, st, q, k, v, lengths, part, ticket, out, B,
-                            S, Hq, Hkv, D, splits, target, window, q_bf16,
+                            S, Hq, Hkv, D, splits, target, window, q_type,
                             scale, softcap);
 }
 
@@ -503,23 +530,31 @@ cudaError_t launch_t(dim3 grid, cudaStream_t st, const void* q,
 // `ticket` B * Hkv ints that are 0 on entry and are 0 again on exit;
 // `target` the blocks of equal work the split rule aims at (INT32_MAX: a
 // split of 64 keys, each sequence taking up to `splits` of them). q and
-// out are bf16 where `q_bf16`, else float32; the caches float32;
-// `round_kv` rounds each K and V value to bf16 where it is read.
+// out are of `q_type` (0 float32, 1 bf16, 2 float16); the caches of
+// `kv_type` (0 float32, 2 float16; D a multiple of 8 for float16);
+// `round_kv` rounds each K and V value of a float32 cache to bf16 (1) or
+// float16 (2) where it is read.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* lengths,
                                    void* part, void* ticket, void* out,
                                    int B, int S, int Hq, int Hkv, int D,
                                    int splits, int target, int window,
-                                   int q_bf16, int round_kv, float scale,
-                                   float softcap, void* stream) {
+                                   int q_type, int kv_type, int round_kv,
+                                   float scale, float softcap,
+                                   void* stream) {
   if (D % 4 || D < 4 || D > 256 || Hkv < 1 || Hq % Hkv || Hq / Hkv > 8 ||
-      splits < 1 || splits > 65535 || target < 1)
+      splits < 1 || splits > 65535 || target < 1 || q_type < 0 ||
+      q_type > 2 || round_kv < 0 || round_kv > 2 ||
+      (kv_type == 2 && (D % 8 || round_kv)) || (kv_type != 0 && kv_type != 2))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(B * Hkv, splits);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto run = round_kv ? launch_t<float, true> : launch_t<float, false>;
+  const auto run = kv_type == 2   ? launch_t<__half, 0>
+                   : round_kv == 1 ? launch_t<float, 1>
+                   : round_kv == 2 ? launch_t<float, 2>
+                                   : launch_t<float, 0>;
   const cudaError_t err =
       run(grid, st, q, k, v, lengths, part, ticket, out, B, S, Hq, Hkv, D,
-          splits, target, window, q_bf16, scale, softcap);
+          splits, target, window, q_type, scale, softcap);
   return (int)err;
 }

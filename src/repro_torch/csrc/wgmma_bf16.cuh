@@ -1,11 +1,14 @@
-// Hopper bf16 building blocks of the flash-attention kernel
-// (flash_attention.cu): the wgmma products with bf16 operands and float32
-// accumulators, the descriptor of a swizzled operand, and the packing of
-// two floats into a bf16 pair. The fences are those of wgmma_tf32.cuh.
+// Hopper 16-bit building blocks of the flash-attention kernel
+// (flash_attention.cu) and the bf16 DCN body (dcn_fused_bf16.cuh): the
+// wgmma products with bf16 or float16 operands and float32 accumulators
+// (wgmma_16bit_ops.cuh, once a type), the descriptor of a swizzled operand,
+// the packing of two floats into a 16-bit pair, and `Mma16<T>`, which
+// names them by element type. The fences are those of wgmma_tf32.cuh.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include "wgmma_tf32.cuh"
@@ -40,160 +43,71 @@ __device__ __forceinline__ uint64_t smem_desc_sw(const void* p, uint32_t lbo,
   return smem_desc(p, lbo, sbo) | (layout << 62);
 }
 
-// D (64 x 64) = A (64 x 16) * B (16 x 64) + (scale_d ? D : 0), both bf16
-// operands K-major in shared memory.
-__device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], uint64_t da,
-                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+#define WG_TYPES ".bf16.bf16"
+#define WG_NAME(x) wgmma_bf16_##x
+#include "wgmma_16bit_ops.cuh"
+#undef WG_NAME
+#undef WG_TYPES
+#define WG_TYPES ".f16.f16"
+#define WG_NAME(x) wgmma_f16_##x
+#include "wgmma_16bit_ops.cuh"
+#undef WG_NAME
+#undef WG_TYPES
+
+// Two floats rounded to nearest float16 in one 32-bit register (`lo` in
+// the low half), and the two values of such a pair, widened exactly.
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ float f16_lo(uint32_t w) {
+  return __half2float(__ushort_as_half((unsigned short)(w & 0xffffu)));
+}
+__device__ __forceinline__ float f16_hi(uint32_t w) {
+  return __half2float(__ushort_as_half((unsigned short)(w >> 16)));
 }
 
-#define ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define ACC8(i) ACC4(i), ACC4(i + 4)
-#define RS_IN \
-  "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
+// The products and the packing by operand type T
+// (__nv_bfloat16 or __half): `n64` and `rs<DP>` as wgmma_bf16_n64 and
+// wgmma_bf16_rs, `pack` / `lo` / `hi` as pack_bf16 / bf16_lo / bf16_hi.
+template <typename T>
+struct Mma16;
 
-// D (64 x N) = A (64 x 16, four registers of bf16 pairs: rows g, g + 8 of
-// keys 2t, 2t + 1, then of keys 2t + 8, 2t + 9) * B (16 x N, MN-major in
-// shared memory: the transpose flag is set, so V as it lands, N
-// contiguous, is the operand) + (scale_d ? D : 0), for N = DP a multiple
-// of 16 up to 144.
-template <int DP>
-__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[DP / 2],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db, int scale_d) {
-  static_assert(DP % 16 == 0 && DP >= 16 && DP <= 144, "head dim");
-  if constexpr (DP == 16) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-        : ACC8(0)
-        : RS_IN);
-  } else if constexpr (DP == 32) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15"
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : ACC8(0), ACC8(8)
-        : RS_IN);
-  } else if constexpr (DP == 48) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23"
-        "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
-        : ACC8(0), ACC8(8), ACC8(16)
-        : RS_IN);
-  } else if constexpr (DP == 64) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-        : RS_IN);
-  } else if constexpr (DP == 80) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39"
-        "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-        : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32)
-        : RS_IN);
-  } else if constexpr (DP == 96) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47"
-        "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
-        : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32),
-          ACC8(40)
-        : RS_IN);
-  } else if constexpr (DP == 112) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55"
-        "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
-        : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32),
-          ACC8(40), ACC8(48)
-        : RS_IN);
-  } else if constexpr (DP == 128) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32),
-          ACC8(40), ACC8(48), ACC8(56)
-        : RS_IN);
-  } else if constexpr (DP == 144) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %77, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63, "
-        "%64, %65, %66, %67, %68, %69, %70, %71"
-        "}, {%72, %73, %74, %75}, %76, p, 1, 1, 1;\n}\n"
-        : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32),
-          ACC8(40), ACC8(48), ACC8(56), ACC8(64)
-        : RS_IN);
+template <>
+struct Mma16<__nv_bfloat16> {
+  __device__ static void n64(float (&d)[32], uint64_t da, uint64_t db,
+                             int scale_d) {
+    wgmma_bf16_n64(d, da, db, scale_d);
   }
-}
+  template <int DP>
+  __device__ static void rs(float (&d)[DP / 2], const uint32_t (&a)[4],
+                            uint64_t db, int scale_d) {
+    wgmma_bf16_rs<DP>(d, a, db, scale_d);
+  }
+  __device__ static uint32_t pack(float lo, float hi) {
+    return pack_bf16(lo, hi);
+  }
+  __device__ static float lo(uint32_t w) { return bf16_lo(w); }
+  __device__ static float hi(uint32_t w) { return bf16_hi(w); }
+};
 
-#undef RS_IN
-#undef ACC8
-#undef ACC4
+template <>
+struct Mma16<__half> {
+  __device__ static void n64(float (&d)[32], uint64_t da, uint64_t db,
+                             int scale_d) {
+    wgmma_f16_n64(d, da, db, scale_d);
+  }
+  template <int DP>
+  __device__ static void rs(float (&d)[DP / 2], const uint32_t (&a)[4],
+                            uint64_t db, int scale_d) {
+    wgmma_f16_rs<DP>(d, a, db, scale_d);
+  }
+  __device__ static uint32_t pack(float lo, float hi) {
+    return pack_f16(lo, hi);
+  }
+  __device__ static float lo(uint32_t w) { return f16_lo(w); }
+  __device__ static float hi(uint32_t w) { return f16_hi(w); }
+};
 
 }  // namespace tc
 }  // namespace

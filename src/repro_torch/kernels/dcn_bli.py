@@ -9,8 +9,8 @@ neighbour rows and their weighted sum:
     out (P, C) = sum_j coeff[:, j] * x_tile[idx[:, j], :]
 
 where an index outside ``[0, S)`` contributes zero (it matches no column
-of the TPU's 4-hot row). x is float32 or bfloat16; the sum is taken in
-float32 and rounded once to x's type. For a CPU tensor the wrapper runs
+of the TPU's 4-hot row). x is float32, bfloat16 or float16; the sum is
+taken in float32 and rounded once to x's type. For a CPU tensor the wrapper runs
 :func:`bli_tile_plain`; for a CUDA tensor it launches the kernel as
 :func:`bli_plan` lays it out, or raises, and counts the launch in
 ``bli_tile_matmul.launches``.
@@ -23,10 +23,11 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.dcn_fused import H100_SMS, _check_operands, _stream
+from repro_torch.kernels.dcn_fused import (H100_SMS, _check_operands, _stream,
+                                          dtype_code)
 
-# x dtypes the kernel takes (the JAX kernel's f32 and bf16 sweep).
-BLI_DTYPES = (torch.float32, torch.bfloat16)
+# x dtypes the kernel takes (the JAX kernel widens any float type).
+BLI_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def bli_tile_plain(x_tile, idx, coeff) -> torch.Tensor:
@@ -51,7 +52,7 @@ def bli_tile_plain(x_tile, idx, coeff) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 # Bytes of the channel slice a block owns (8 words of 16 bytes: 32 float32
-# or 64 bfloat16 channels), and the blocks an SM holds in the one wave the
+# or 64 bfloat16 / float16 channels), and the blocks an SM holds in the one wave the
 # grid is sized to.
 BLI_SLICE_BYTES = 128
 BLI_BLOCKS_PER_SM = 4
@@ -93,7 +94,7 @@ def bli_plan(n: int, p: int, s: int, c: int, elem: int, *,
 def bli_tile_matmul(x_tile, idx, coeff, *, block_p: int = 128,
                     block_c: int = 128) -> torch.Tensor:
     """Deformed features (..., P, C) in x's dtype from x_tile (..., S, C)
-    float32 or bfloat16 and idx int32 / coeff float32 (..., P, 4).
+    float32, bfloat16 or float16 and idx int32 / coeff float32 (..., P, 4).
     Leading dimensions are a batch of independent tiles (JAX's ``vmap``
     over images), one launch for all. ``block_p``/``block_c`` keep the
     TPU kernel's contract: P and C must tile by ``min(block, size)``.
@@ -132,7 +133,7 @@ def bli_tile_matmul(x_tile, idx, coeff, *, block_p: int = 128,
     with torch.cuda.device(dev):
         err = lib.bli_gather_launch(
             x_tile.data_ptr(), idx.data_ptr(), coeff.data_ptr(),
-            out.data_ptr(), n, p, s, c, int(x_tile.dtype == torch.bfloat16),
+            out.data_ptr(), n, p, s, c, dtype_code(x_tile.dtype),
             int(plan.vec), plan.lw, plan.rows, plan.grid[0],
             _stream(x_tile))
     _build.check(err, "bli_gather_launch")

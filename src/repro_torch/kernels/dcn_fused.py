@@ -7,10 +7,16 @@ with the main-conv weights, so the intermediate never reaches device
 memory. In float32 all three run the split-C tensor-core body of
 ``csrc/dcn_fused_split.cuh``, whose C reduction is cut into
 :func:`fused_splits` slices (a second pass adds them) so that a call of a
-few rows still fills the card; on bf16 x, w and b they run the Hopper body
-of ``csrc/dcn_fused_bf16.cuh``, whose slices are the blocks of a thread
-block cluster and merge on chip (:func:`fused_splits` with ``dtype``,
-:func:`fused_grid_bf16`).
+few rows still fills the card; float16 x, w and b run the same body with
+float16 loads and stores (a float16 value widens to float32 exactly, so
+the 3xTF32 products keep float32 accuracy, and the output is rounded once
+to float16); on bf16 x, w and b they run the Hopper body of
+``csrc/dcn_fused_bf16.cuh``, whose slices are the blocks of a thread block
+cluster and merge on chip (:func:`fused_splits` with ``dtype``,
+:func:`fused_grid_bf16`). The bf16 body splits the float32 patch into
+three bf16 pieces, which is exact only in bf16's (float32's) exponent
+range; float16 pieces would underflow and overflow, so float16 calls do
+not take it.
 
 * :func:`dcn_fused_batch` — the concatenated Algorithm-1 schedules of a
   whole batch in ONE launch (``batch_fused``; ``csrc/dcn_fused_batch.cu``),
@@ -27,12 +33,12 @@ block cluster and merge on chip (:func:`fused_splits` with ``dtype``,
 device of a :class:`~repro_torch.launch.mesh.DeviceMesh` (the TPU
 package's ``shard_map`` of the batch kernel).
 
-As the TPU kernels, each takes x, w and b in float32 or bf16 and the BLI
-coefficients in float32, widens to float32 inside (the deformed patch
-stays float32), and returns x's dtype, the float32 sum plus b rounded
-once. A call whose x, w and b do not share one type (the TPU kernel takes
-that too) is widened to float32 in the wrapper, exactly, runs the float32
-kernel and is rounded once to x's dtype. float16 raises.
+As the TPU kernels, each takes x, w and b in float32, bf16 or float16 and
+the BLI coefficients in float32, widens to float32 inside (the deformed
+patch stays float32), and returns x's dtype, the float32 sum plus b
+rounded once. A call whose x, w and b do not share one type (the TPU
+kernel takes that too) is widened to float32 in the wrapper, exactly,
+runs the float32 kernel and is rounded once to x's dtype.
 
 For a CPU tensor each wrapper runs its plain torch version, which repeats
 the TPU kernel's dataflow (batch and schedule: per dep slot, localise the
@@ -41,8 +47,8 @@ rows against ``iota(S)`` as a masked gather; then the contraction with
 ``w``); for a CUDA tensor it launches the kernel or raises. Each wrapper
 counts its calls that launched in a plain-integer ``launches`` attribute
 (a float32 split-C call launches its combine pass too), tallies them by
-the type the kernel ran in (``"float32"`` or ``"bfloat16"``) in
-``dtypes``, and records the grid of its last launch in ``last_grid``
+the type the kernel ran in (``"float32"``, ``"bfloat16"`` or
+``"float16"``) in ``dtypes``, and records the grid of its last launch in ``last_grid``
 (:func:`fused_grid`, or :func:`fused_grid_bf16` for a bf16 call) and its
 ``n_split`` in ``last_split``.
 """
@@ -119,11 +125,10 @@ def _check_operands(floats: dict, ints: dict,
             raise ValueError(f"{name} must be contiguous")
     for name, t in floats.items():
         if t.dtype not in dtypes:
-            names = " or ".join(str(d).removeprefix("torch.")
-                                for d in dtypes)
-            note = (" (fp16 is not ported yet)" if t.dtype == torch.float16
-                    else "")
-            raise ValueError(f"{name} must be {names}{note}, got {t.dtype}")
+            names = [str(d).removeprefix("torch.") for d in dtypes]
+            names = " or ".join(filter(None, (", ".join(names[:-1]),
+                                              names[-1])))
+            raise ValueError(f"{name} must be {names}, got {t.dtype}")
     for name, t in ints.items():
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
@@ -133,12 +138,21 @@ def _check_operands(floats: dict, ints: dict,
 
 
 # Types of x, w and b that #1, #4 and #5 take (the coefficients are float32).
-FUSED_DTYPES = (torch.float32, torch.bfloat16)
+FUSED_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# The C entry points' code for an operand type.
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    """The type code the C entry points take: 0 float32, 1 bfloat16, 2
+    float16."""
+    return DTYPE_CODES[dtype]
 
 
 def _check_fused(floats: dict, ints: dict) -> torch.device:
-    """:func:`_check_operands` for #1, #4 and #5: x, w and b float32 or
-    bf16, the coefficients float32, as the packers give them."""
+    """:func:`_check_operands` for #1, #4 and #5: x, w and b float32,
+    bf16 or float16, the coefficients float32, as the packers give
+    them."""
     dev = _check_operands(floats, ints, FUSED_DTYPES)
     if floats["coeff"].dtype != torch.float32:
         raise ValueError(f"coeff must be float32, got "
@@ -366,9 +380,11 @@ def _launch_split(fn, entry: str, out: torch.Tensor, rows: int,
     """A split-C call into ``out`` (rows, ..., P, O), whose dtype is the
     operands' (x, w, b): C entry point ``entry`` takes ``pointers``, the
     workspace, the tickets, ``out``, ``ints``, ``n_split``, the channels
-    per slice (float32 body), 1 for bf16 operands (else 0) and the stream.
+    per slice (split-C body), the operands' :func:`dtype_code` and the
+    stream; float32 and float16 calls run the split-C body, bf16 ones the
+    Hopper body.
     Picks ``n_split`` by :func:`fused_splits` unless given; allocates the
-    float32 body's split workspace, or the bf16 body's clusters' sums past
+    split-C body's float32 workspace, or the bf16 body's clusters' sums past
     one cluster a tile (one cluster merges its slices on chip) and its
     tickets; launches, checks, records the grid on ``fn.last_grid`` and
     counts the launch on ``fn``."""
@@ -402,7 +418,7 @@ def _launch_split(fn, entry: str, out: torch.Tensor, rows: int,
     with torch.cuda.device(out.device):
         err = getattr(lib, entry)(*pointers, ws.data_ptr(), tickets,
                                   out.data_ptr(), *ints, n_split, c_split,
-                                  int(bf16), _stream(out))
+                                  dtype_code(out.dtype), _stream(out))
     _build.check(err, entry)
     fn.last_grid, fn.last_split = grid, n_split
     _count(fn, out.dtype)
@@ -455,7 +471,7 @@ def dcn_fused_batch(x_tiles, row_id, dep_glb, dep_cnt, idx, coeff, w, b,
                     ) -> torch.Tensor:
     """Fused Eq. 2+3 over a whole batch's schedules -> (G, P, C_out).
 
-    x_tiles (N*T_in, tp, C) f32 or bf16 — every image's input tiles;
+    x_tiles (N*T_in, tp, C) f32, bf16 or f16 — every image's input tiles;
     row_id (G,) i32 — idx/coeff row ``img*T_out + out_tile`` per grid row;
     dep_glb (G, k_pad) i32 — global dep tiles ``img*T_in + dep`` in load
     order; dep_cnt (G,) i32 — true dep count (0 = padding row, output b);
@@ -629,7 +645,7 @@ def dcn_fused_schedule(x_tiles, dep_tbl, dep_cnt, idx, coeff, w, b, *,
                        n_split: int | None = None) -> torch.Tensor:
     """Fused Eq. 2+3 over one image's whole tile schedule -> (T, P, C_out).
 
-    x_tiles (T_in, tp, C) f32 or bf16 — every input tile of the plane;
+    x_tiles (T_in, tp, C) f32, bf16 or f16 — every input tile of the plane;
     dep_tbl (T, k_pad) i32 — per scheduled tile its deps in load order;
     dep_cnt (T,) i32 — true dep count (0 = bias only); idx/coeff (T, P,
     KK, 4) — slot-local addresses ``k*tp + offset`` and BLI coefficients
@@ -703,7 +719,7 @@ def dcn_fused_tile(x_tile, idx, coeff, w, b, *, block_p: int = 128,
                    n_split: int | None = None) -> torch.Tensor:
     """Fused Eq. 2+3 on one tile -> (..., P, C_out).
 
-    x_tile (..., S, C) f32 or bf16 — the packed halo buffer; idx/coeff
+    x_tile (..., S, C) f32, bf16 or f16 — the packed halo buffer; idx/coeff
     (..., P, KK, 4) — addresses into ``[0, S)`` and BLI coefficients (f32);
     w (KK, C, O); b (O,); the result in x's dtype (module doc). Leading
     dimensions are a batch of independent tiles (JAX's

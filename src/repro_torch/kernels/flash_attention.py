@@ -10,26 +10,37 @@ tanh logit soft-cap).
     out = sum_k p v / max(sum_k p, 1e-30),   p = exp(s - max s), 0 if masked
 
 which is the TPU kernel's function (``_flash_kernel``): a query row with no
-visible key gives 0. As the TPU kernel, it takes float32 or bf16
-operands, computes in float32 (a bf16 value widens exactly) and returns
-``q.dtype``. For a CUDA tensor the wrapper launches a kernel of
-``csrc/flash_attention.cu`` or raises, and counts the launch in
-``flash_attention.launches`` (and by the kernel's operand type in
-``flash_attention.dtypes``): the float32 kernel (3xTF32 products) for
-float32 operands, the bf16 kernel (bf16 wgmma on swizzled TMA tiles, P
-rounded to bf16 for the P V product, the output rounded once) for bf16
-ones. Mixed operands (a bf16 q over float32 k, v, or the reverse) are
-widened to float32, which is exact, and go to the float32 kernel; the
-output is cast to ``q.dtype``. float16 raises. For a CPU tensor it runs
-:func:`flash_attention_plain`, the masked full-softmax form with the same
-conventions. For the dry run's fake tensor on a ``meta`` device
-(``launch.dryrun``) it makes the CUDA call's checks and reports the
-launch to the running ``launch.op_analysis``, which counts it, in place
-of launching anything (``launches`` counts only kernels launched); its
-output is an empty tensor of the result's shape. The float32 kernel
-takes head dims that are multiples of 4 up to 144, the bf16 kernel
-multiples of 8 up to 144, with the tiles :func:`tile_config` gives;
-others raise.
+visible key gives 0. As the TPU kernel, it takes float32, bf16 or float16
+operands, computes in float32 (a 16-bit value widens exactly) and returns
+``q.dtype``. For a CUDA tensor the wrapper launches one kernel or raises,
+and counts the launch in ``flash_attention.launches``, by the kernel's
+operand type in ``flash_attention.dtypes`` and by body in
+``flash_attention.bodies``. :func:`attention_body` picks the body from the
+head dim, the type and the operands' alignment before the launch:
+
+* ``"tf32"``: ``csrc/flash_attention.cu``'s float32 kernel (3xTF32
+  products), float32 operands, head dims that are multiples of 4 up to
+  144;
+* ``"16bit"``: its 16-bit kernel (bf16 or float16 wgmma on swizzled TMA
+  tiles, P rounded to the operands' type for the P V product, the output
+  rounded once), bf16 or float16 operands, head dims that are multiples of
+  8 up to 144;
+* ``"general"``: ``csrc/attention_any.cu``, every other shape the TPU
+  kernel takes: any head dim, operands off a 16-byte boundary; float32
+  inside, slow.
+
+Every body's grid is flat (one block a row's query tile, or a row's slice),
+so the (batch x head) rows are bounded only by 2^31 - 1 blocks.
+
+The fast bodies' tiles are :func:`tile_config`'s. Mixed operands (a 16-bit
+q over float32 k, v, or the reverse) are widened to float32, which is
+exact, and go to a float32 body; the output is cast to ``q.dtype``. For a
+CPU tensor it runs :func:`flash_attention_plain`, the masked full-softmax
+form with the same conventions. For the dry run's fake tensor on a
+``meta`` device (``launch.dryrun``) it makes the CUDA call's checks and
+reports the launch to the running ``launch.op_analysis``, which counts it,
+in place of launching anything (``launches`` counts only kernels
+launched); its output is an empty tensor of the result's shape.
 """
 
 from __future__ import annotations
@@ -37,37 +48,35 @@ from __future__ import annotations
 import torch
 
 from repro_torch._device import is_fake_meta
-from repro_torch.kernels.dcn_fused import _check_operands, _stream
+from repro_torch.kernels.dcn_fused import _check_operands, _stream, dtype_code
 
 NEG_INF = -1e30
 # ``window=None`` goes to the kernel as INT32_MAX: qi - ki < 2**31 - 1
 # holds for every int32 position, so the sentinel is the same mask as no
 # window at all. ``softcap=None`` goes as 0, which no valid cap takes.
 NO_WINDOW = 2**31 - 1
+# The largest head dim of #8's fast bodies (csrc/flash_decode*.cu).
 MAX_HEAD_DIM = 256
-# Head dims the CUDA kernel takes: multiples of 4 up to 144 (the configs'
-# largest, Gemma-2's), zero-padded to a multiple of 16 in shared memory.
+# Head dims #7's fast bodies take: multiples of 4 (float32) or 8 (16-bit)
+# up to 144 (the configs' largest, Gemma-2's), zero-padded to a multiple of
+# 16 in shared memory; the general body takes the rest.
 MAX_KERNEL_HEAD_DIM = 144
 BLOCK_K = 32                    # keys per K/V tile of the float32 kernel
 BLOCK_K_BF16 = 64               # and of the bf16 kernel
 STAGES_BF16 = 4                 # K / V tiles each ring of it holds
 SMEM_LIMIT = 232_448            # shared memory a block may use on Hopper
 # The operand types of #7 and #8 (each computes in float32).
-ATTN_DTYPES = (torch.float32, torch.bfloat16)
+ATTN_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+HALF_DTYPES = (torch.bfloat16, torch.float16)
 
 
 def check_attention_dtypes(**operands) -> None:
-    """#7's and #8's operand types: each float32 or bfloat16 (float16 is
-    not ported yet), and the key and value operands (the last two) of one
-    type."""
+    """#7's and #8's operand types: each float32, bfloat16 or float16,
+    and the key and value operands (the last two) of one type."""
     for name, t in operands.items():
-        if t.dtype == torch.float16:
-            raise ValueError(f"{name} is float16: fp16 is not ported yet "
-                             f"for the attention kernels (float32 or "
-                             f"bfloat16)")
         if t.dtype not in ATTN_DTYPES:
-            raise ValueError(f"{name} must be float32 or bfloat16, got "
-                             f"{t.dtype}")
+            raise ValueError(f"{name} must be float32, bfloat16 or float16, "
+                             f"got {t.dtype}")
     (kn, k), (vn, v) = list(operands.items())[-2:]
     if k.dtype != v.dtype:
         raise ValueError(f"{kn} ({k.dtype}) and {vn} ({v.dtype}) must share "
@@ -86,7 +95,8 @@ def tile_config(d: int, dtype=torch.float32) -> dict:
     of ``dp + 4`` floats) and their mbarrier, ``4 * (2 * block_q * dp + 4
     * block_k * dp + 2 * block_k * (dp + 4)) + 8`` bytes.
 
-    bfloat16 (``d`` a multiple of 8): ``block_q`` 128, 64-key tiles, two
+    bfloat16 or float16 (``d`` a multiple of 8; one kernel, both 2-byte
+    types): ``block_q`` 128, 64-key tiles, two
     consumer warpgroups and a producer warp (288 threads, 168 registers
     a thread). Every tile lands by TMA in swizzled panels of ``swizzle``
     bytes a row: 128 (64 values) where ``dp`` is a multiple of 64, else
@@ -97,10 +107,10 @@ def tile_config(d: int, dtype=torch.float32) -> dict:
     144. Per 64-key tile a warpgroup runs ``dp / 16`` wgmma steps for Q
     K^T and 4 for P V, each ``dp`` wide: a padded ``dp`` costs ``dp /
     d`` times the operations of ``d``."""
-    if dtype == torch.bfloat16:
+    if dtype in HALF_DTYPES:
         if d % 8 or not 8 <= d <= MAX_KERNEL_HEAD_DIM:
             raise ValueError(f"head_dim {d} must be a multiple of 8 in [8, "
-                             f"{MAX_KERNEL_HEAD_DIM}] for the bf16 CUDA "
+                             f"{MAX_KERNEL_HEAD_DIM}] for the 16-bit CUDA "
                              f"kernel")
         dp = -(-d // 16) * 16
         bq, bk, stages = 128, BLOCK_K_BF16, STAGES_BF16
@@ -127,6 +137,50 @@ def _check_options(window, softcap) -> None:
         raise ValueError(f"window must be >= 1 or None, got {window}")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be > 0 or None, got {softcap}")
+
+
+def attention_body(d: int, dtype=torch.float32, aligned: bool = True) -> str:
+    """The body of #7 for head dim ``d`` on operands of ``dtype`` (mixed
+    operands: float32), whose pointers all lie on 16-byte boundaries
+    (``aligned``): ``"tf32"`` (the float32 kernel), ``"16bit"`` (the
+    bf16 / float16 kernel) where :func:`tile_config` takes ``d``, else
+    ``"general"``. A pure function of its arguments: the wrapper calls it
+    before launching anything."""
+    if aligned:
+        step = 8 if dtype in HALF_DTYPES else 4
+        if d % step == 0 and step <= d <= MAX_KERNEL_HEAD_DIM:
+            return "16bit" if dtype in HALF_DTYPES else "tf32"
+    return "general"
+
+
+def general_launch(lib, q, k, v, lengths, out, mode: int, *, sq: int,
+                   causal: bool, window, softcap, scale: float,
+                   round_to=None) -> None:
+    """One launch of ``csrc/attention_any.cu`` (mode 0: #7's operands, mode
+    1: #8's with ``lengths`` and the caches as k, v); ``round_to`` (mode 1)
+    rounds K and V to that type where read."""
+    from repro_torch.kernels import _build
+
+    b, hkv, d = k.shape[0], k.shape[2], k.shape[3]
+    hq = q.shape[-2]
+    with torch.cuda.device(q.device):
+        err = lib.attention_any_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if lengths is None else lengths.data_ptr(), out.data_ptr(),
+            mode, b, sq, k.shape[1], hq, hkv, d, int(causal),
+            NO_WINDOW if window is None else int(window),
+            dtype_code(q.dtype), dtype_code(k.dtype),
+            0 if round_to is None else dtype_code(round_to), scale,
+            0.0 if softcap is None else float(softcap), _stream(q))
+    _build.check(err, "attention_any_launch")
+
+
+def count_body(fn, body: str, key: str) -> None:
+    """One launch of ``fn``'s kernel: counted, tallied by the operand type
+    ``key`` in ``fn.dtypes`` and by ``body`` in ``fn.bodies``."""
+    fn.launches += 1
+    fn.dtypes[key] = fn.dtypes.get(key, 0) + 1
+    fn.bodies[body] = fn.bodies.get(body, 0) + 1
 
 
 def _check_gqa(hq: int, hkv: int) -> None:
@@ -194,14 +248,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale)
     out_dtype = q.dtype
-    if q.dtype != k.dtype:      # mixed: widened exactly, the float32 kernel
+    if q.dtype != k.dtype:      # mixed: widened exactly, a float32 body
         q, k, v = q.float(), k.float(), v.float()
-    bf16 = q.dtype == torch.bfloat16
-    tiles = tile_config(d, q.dtype)
     fake = is_fake_meta(q)
-    if not fake and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("q, k and v must be 16-byte aligned for the CUDA "
-                         "kernel")
+    aligned = fake or all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    body = attention_body(d, q.dtype, aligned)
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out.to(out_dtype)
@@ -214,23 +265,30 @@ def flash_attention(q, k, v, *, causal: bool = True,
     from repro_torch.kernels import _build
 
     lib = _build.load()
-    launch = (lib.flash_attention_bf16_launch if bf16
-              else lib.flash_attention_launch)
-    with torch.cuda.device(dev):
-        err = launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            skv, hq, hkv, d, int(causal),
-            NO_WINDOW if window is None else int(window), tiles["block_q"],
-            scale, 0.0 if softcap is None else float(softcap), _stream(q))
-    _build.check(err, "flash_attention_bf16_launch" if bf16
-                 else "flash_attention_launch")
-    flash_attention.launches += 1
-    key = str(q.dtype).removeprefix("torch.")
-    flash_attention.dtypes[key] = flash_attention.dtypes.get(key, 0) + 1
+    if body == "general":
+        general_launch(lib, q, k, v, None, out, 0, sq=sq, causal=causal,
+                       window=window, softcap=softcap, scale=scale)
+    else:
+        tiles = tile_config(d, q.dtype)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                sq, skv, hq, hkv, d, int(causal),
+                NO_WINDOW if window is None else int(window),
+                tiles["block_q"], scale,
+                0.0 if softcap is None else float(softcap))
+        with torch.cuda.device(dev):
+            if body == "16bit":
+                err = lib.flash_attention_16_launch(
+                    *args, dtype_code(q.dtype), _stream(q))
+            else:
+                err = lib.flash_attention_launch(*args, _stream(q))
+        _build.check(err, f"flash_attention ({body} body)")
+    count_body(flash_attention, body, str(q.dtype).removeprefix("torch."))
     return out.to(out_dtype)
 
 
 flash_attention.launches = 0
 # Launches by the type of the operands the kernel ran on ("float32" for
-# the float32 kernel, mixed operands included; "bfloat16").
+# a float32 body, mixed operands included; "bfloat16"; "float16").
 flash_attention.dtypes = {}
+# Launches by body (:func:`attention_body`: "tf32", "16bit", "general").
+flash_attention.bodies = {}

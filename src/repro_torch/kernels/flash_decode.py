@@ -10,33 +10,42 @@ q (B, Hq, D) against caches k, v (B, S, Hkv, D) with valid prefix
 
 which is the TPU kernel's function (``_decode_kernel``) and equals the
 decode path's ``_sdpa`` with ``kv_valid_len = pos + 1``. As the TPU
-kernel, it takes q in float32 or bf16 and the caches in float32 or bf16
-(one type for both), computes in float32 and returns ``q.dtype``: a bf16
-cache under a float32 q gives the float32 result on the widened cache (the
-widening is exact). float16 raises. ``round_kv=True`` rounds each K and V
-value to bf16 where it is read (a no-op on a bf16 cache): what a bf16
-model's decode path computes over a float32 cache, whose JAX form casts the
-cache to the model's type first; the kernel reads the float32 cache as
+kernel, it takes q in float32, bf16 or float16 and the caches in any of
+those types (one type for both), computes in float32 and returns
+``q.dtype``: a 16-bit cache under a float32 q gives the float32 result on
+the widened cache (the widening is exact). ``round_kv`` (a dtype, or None)
+rounds each K and V value to that type where it is read: what a bf16 or
+float16 model's decode path computes over a wider cache, whose JAX form
+casts the cache to the model's type first; the kernel reads the cache as
 stored, with no copy. Without it the function is the TPU kernel's, which
 widens without rounding. For a CUDA tensor the wrapper launches one
-kernel or raises, and counts it in ``flash_decode.launches`` (and by the
-types of q and the cache in ``flash_decode.dtypes``); for a CPU tensor it
-runs :func:`flash_decode_plain`. For the dry run's fake tensor on a
-``meta`` device it makes the CUDA call's checks and reports the launch
-to the running ``launch.op_analysis``, which counts it, in place of
-launching anything (``launches`` counts only kernels launched). The
-wrapper reads nothing back from the card: each sequence's visible keys
-are cut into splits on the device.
+kernel or raises, and counts it in ``flash_decode.launches``, by the
+types of q and the cache in ``flash_decode.dtypes`` and by body in
+``flash_decode.bodies``; for a CPU tensor it runs
+:func:`flash_decode_plain`. For the dry run's fake tensor on a ``meta``
+device it makes the CUDA call's checks and reports the launch to the
+running ``launch.op_analysis``, which counts it, in place of launching
+anything (``launches`` counts only kernels launched). The wrapper reads
+nothing back from the card: each sequence's visible keys are cut into
+splits on the device. :func:`decode_body` picks the body from shapes,
+types and alignment before the launch:
 
-* A float32 cache: ``csrc/flash_decode.cu``, grid (sequence x kv head,
-  split); the splits follow :func:`split_ranges` under the upper limit
-  :func:`default_splits` (or ``num_splits``), and the last block of each
-  sequence and kv head merges them through scratch and a ticket.
-* A bf16 cache: ``csrc/flash_decode_bf16.cu``, read as stored, one thread
-  block cluster of :func:`cluster_size` blocks per sequence and kv head,
-  rows taking the sequences in :func:`cluster_order`, keys cut by
-  :func:`cluster_ranges`; the splits merge in the cluster's shared memory,
-  so a launch holds no state on the host.
+* ``"split"``: a float32 or float16 cache, ``csrc/flash_decode.cu``, grid
+  (sequence x kv head, split); the splits follow :func:`split_ranges`
+  under the upper limit :func:`default_splits` (or ``num_splits``), and
+  the last block of each sequence and kv head merges them through scratch
+  and a ticket. A float16 cache is read as stored, 2 bytes a value.
+* ``"cluster"``: a bf16 cache, ``csrc/flash_decode_bf16.cu``, read as
+  stored, one thread block cluster of :func:`cluster_size` blocks per
+  sequence and kv head, rows taking the sequences in
+  :func:`cluster_order`, keys cut by :func:`cluster_ranges`; the splits
+  merge in the cluster's shared memory, so a launch holds no state on the
+  host. It takes a float32 or bf16 q; a float16 q is widened (exactly) and
+  the result rounded once to float16.
+* ``"general"``: ``csrc/attention_any.cu``, every other shape the TPU
+  kernel takes: any head dim, more than ``MAX_GROUP`` query heads a kv head
+  (in chunks of 8), operands off a 16-byte boundary, any B x Hkv, and a
+  rounding the fast bodies do not make; float32 inside, slow.
 """
 
 from __future__ import annotations
@@ -46,12 +55,17 @@ import math
 import torch
 
 from repro_torch._device import is_fake_meta
-from repro_torch.kernels.dcn_fused import H100_SMS, _check_operands, _stream
+from repro_torch.kernels.dcn_fused import (H100_SMS, _check_operands, _stream,
+                                          dtype_code)
 from repro_torch.kernels.flash_attention import (ATTN_DTYPES, MAX_HEAD_DIM,
                                                  NEG_INF, NO_WINDOW,
                                                  _check_gqa, _check_options,
-                                                 check_attention_dtypes)
+                                                 check_attention_dtypes,
+                                                 count_body, general_launch)
 
+# The bf16 cluster body's grid carries B x Hkv in a dimension of at most
+# 65,535 blocks.
+MAX_GRID_ROWS = 65535
 # Blocks of equal work the kernel's split rule aims at, per SM; the
 # grid's upper limit on splits lets one sequence take twice its even share.
 _BLOCKS_PER_SM = 4
@@ -62,7 +76,8 @@ _MIN_SPLIT_KEYS = 64
 KEY_TILE = 8
 # The kernel's `target` under an explicit split count: 64 keys a split.
 _NO_TARGET = 2**31 - 1
-# Query heads per kv head the kernel holds in registers, at most.
+# Query heads per kv head the fast bodies hold in registers, at most (the
+# general body takes any group, in chunks of 8).
 MAX_GROUP = 8
 # Per (device, stream): the float32-cache kernel's zeroed tickets, one per
 # (sequence, kv head); every launch leaves them zero again.
@@ -79,12 +94,12 @@ _CLUSTER_BLOCKS_PER_SM = 3
 def flash_decode_plain(q, k_cache, v_cache, lengths, *,
                        window: int | None = None,
                        softcap: float | None = None,
-                       scale: float, round_kv: bool = False) -> torch.Tensor:
+                       scale: float, round_kv=None) -> torch.Tensor:
     """Plain torch version of the decode kernel (masked full softmax in
     float32), in ``q.dtype``; ``round_kv`` as for :func:`flash_decode`."""
-    if round_kv:
-        k_cache = k_cache.to(torch.bfloat16)
-        v_cache = v_cache.to(torch.bfloat16)
+    if round_kv is not None:
+        k_cache = k_cache.to(round_kv)
+        v_cache = v_cache.to(round_kv)
     b, hq, d = q.shape
     s_len, hkv = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv
@@ -224,18 +239,43 @@ def _tickets(dev: torch.device, stream: int, n: int) -> torch.Tensor:
     return t
 
 
+def decode_body(d: int, g: int, dtype=torch.float32, aligned: bool = True,
+                pairs: int = 1, round_kv=None) -> str:
+    """The body of #8 for head dim ``d``, ``g`` query heads a kv head, a
+    cache of ``dtype``, q and the caches on 16-byte boundaries
+    (``aligned``), ``pairs`` = B x Hkv and the rounding ``round_kv``:
+    ``"cluster"`` (a bf16 cache, no rounding, ``pairs`` within a grid
+    dimension), ``"split"`` (a float32 cache, or a float16 one without
+    rounding) where each 16-byte copy holds whole values of a row (``d`` a
+    multiple of 4, or of 8 for a 16-bit cache), ``d`` is at most
+    ``MAX_HEAD_DIM`` and ``g`` at most ``MAX_GROUP``; else ``"general"``.
+    A pure function of its arguments: the wrapper calls it before
+    launching anything."""
+    if not aligned or g > MAX_GROUP or d > MAX_HEAD_DIM:
+        return "general"
+    if dtype == torch.float32:
+        return "split" if d % 4 == 0 else "general"
+    if d % 8 or round_kv is not None:
+        return "general"
+    if dtype == torch.bfloat16:
+        return "cluster" if pairs <= MAX_GRID_ROWS else "general"
+    return "split"
+
+
 def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
                  softcap: float | None = None, scale: float | None = None,
                  num_splits: int | None = None,
-                 round_kv: bool = False) -> torch.Tensor:
+                 round_kv=None) -> torch.Tensor:
     """(B, Hq, D) attention output of the new token in ``q.dtype``; see
     the module doc. ``lengths`` is int32; a length past S counts as S.
     ``num_splits`` (CUDA only) overrides the split rule: each sequence
     takes ``min(num_splits, visible keys // 64)`` splits (at least one), in
     place of its share of the batch under :func:`default_splits`; over a
     bf16 cache at most ``MAX_CLUSTER`` blocks take them, each a run of
-    consecutive splits (:func:`cluster_ranges`). The result does not
-    depend on the splits beyond float32 summation order."""
+    consecutive splits (:func:`cluster_ranges`); the general body does not
+    split. The result does not depend on the splits beyond float32
+    summation order. ``round_kv``: None, ``torch.bfloat16`` or
+    ``torch.float16``."""
     check_attention_dtypes(q=q, k_cache=k_cache, v_cache=v_cache)
     dev = _check_operands(dict(q=q, k_cache=k_cache, v_cache=v_cache),
                           dict(lengths=lengths), dtypes=ATTN_DTYPES,
@@ -248,6 +288,11 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
             f"q {tuple(q.shape)} must be (B, Hq, D), k/v caches "
             f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)} (B, S, Hkv, "
             f"D) and lengths {tuple(lengths.shape)} (B,)")
+    if round_kv not in (None, torch.bfloat16, torch.float16):
+        raise ValueError(f"round_kv must be None, torch.bfloat16 or "
+                         f"torch.float16, got {round_kv!r}")
+    if round_kv == k_cache.dtype:
+        round_kv = None             # rounding to the cache's own type
     b, hq, d = q.shape
     s_len, hkv = k_cache.shape[1], k_cache.shape[2]
     _check_gqa(hq, hkv)
@@ -257,29 +302,17 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
         return flash_decode_plain(q, k_cache, v_cache, lengths,
                                   window=window, softcap=softcap,
                                   scale=scale, round_kv=round_kv)
-    kv_bf16 = k_cache.dtype == torch.bfloat16
-    step = 8 if kv_bf16 else 4          # values of a 16-byte cache copy
-    if d % step or d > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} must be a multiple of {step} and at "
-                         f"most {MAX_HEAD_DIM} for the CUDA kernel over a "
-                         f"{str(k_cache.dtype).removeprefix('torch.')} "
-                         f"cache")
     fake = is_fake_meta(q)
-    if not fake and any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
-        raise ValueError("q and the k/v caches must start on 16-byte "
-                         "boundaries for the CUDA kernel")
-    if hq // hkv > MAX_GROUP:
-        raise ValueError(f"{hq // hkv} query heads per kv head: the CUDA "
-                         f"kernel takes at most {MAX_GROUP}")
+    aligned = fake or all(t.data_ptr() % 16 == 0
+                          for t in (q, k_cache, v_cache))
+    body = decode_body(d, hq // hkv, k_cache.dtype, aligned, b * hkv,
+                       round_kv)
     sms = H100_SMS if fake else \
         torch.cuda.get_device_properties(dev).multi_processor_count
     splits = num_splits or default_splits(b, hkv, s_len, sms)
     if not 1 <= splits <= min(max(s_len, 1), 65535):
         raise ValueError(f"num_splits {splits} must be in [1, S={s_len}] "
                          f"and at most 65535")
-    if kv_bf16 and b * hkv > 65535:
-        raise ValueError(f"B * Hkv = {b * hkv}: the CUDA kernel over a "
-                         f"bf16 cache takes at most 65535")
     out = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
@@ -294,18 +327,28 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
 
     lib = _build.load()
     stream = _stream(q)
-    ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr())
-    opts = (NO_WINDOW if window is None else int(window),
-            int(q.dtype == torch.bfloat16))
+    key = "/".join(str(t.dtype).removeprefix("torch.") for t in (q, k_cache))
     cap = 0.0 if softcap is None else float(softcap)
-    if kv_bf16:
+    if body == "general":
+        general_launch(lib, q, k_cache, v_cache, lengths, out, 1, sq=1,
+                       causal=False, window=window, softcap=softcap,
+                       scale=scale, round_to=round_kv)
+    elif body == "cluster":
+        # The cluster body takes a float32 or bf16 q: a float16 one is
+        # widened (exactly) and the result rounded once.
+        qk = q.float() if q.dtype == torch.float16 else q
+        ok = out if qk.dtype == q.dtype else torch.empty(
+            out.shape, dtype=qk.dtype, device=dev)
         with torch.cuda.device(dev):
             err = lib.flash_decode_bf16_launch(
-                *ptrs, out.data_ptr(), b, s_len, hq, hkv, d,
+                qk.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                lengths.data_ptr(), ok.data_ptr(), b, s_len, hq, hkv, d,
                 cluster_size(b, hkv, s_len, sms, num_splits),
-                num_splits or 0, *opts, scale, cap, stream)
+                num_splits or 0, NO_WINDOW if window is None else int(window),
+                int(qk.dtype == torch.bfloat16), scale, cap, stream)
         _build.check(err, "flash_decode_bf16_launch")
+        if ok is not out:
+            out.copy_(ok)
     else:
         # Per-split state (m, l, acc) of the sequences that take more than
         # one split, merged by their last block.
@@ -314,14 +357,16 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
         tickets = _tickets(dev, stream, b * hkv)
         with torch.cuda.device(dev):
             err = lib.flash_decode_launch(
-                *ptrs, part.data_ptr(), tickets.data_ptr(), out.data_ptr(),
-                b, s_len, hq, hkv, d, splits,
+                q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                lengths.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+                out.data_ptr(), b, s_len, hq, hkv, d, splits,
                 _BLOCKS_PER_SM * sms if num_splits is None else _NO_TARGET,
-                *opts, int(round_kv), scale, cap, stream)
+                NO_WINDOW if window is None else int(window),
+                dtype_code(q.dtype), dtype_code(k_cache.dtype),
+                0 if round_kv is None else dtype_code(round_kv), scale, cap,
+                stream)
         _build.check(err, "flash_decode_launch")
-    flash_decode.launches += 1
-    key = "/".join(str(t.dtype).removeprefix("torch.") for t in (q, k_cache))
-    flash_decode.dtypes[key] = flash_decode.dtypes.get(key, 0) + 1
+    count_body(flash_decode, body, key)
     return out
 
 
@@ -336,3 +381,5 @@ def plain_flops(b: int, s_len: int, hq: int, d: int) -> int:
 flash_decode.launches = 0
 # Launches by "q dtype/cache dtype", e.g. "float32/bfloat16".
 flash_decode.dtypes = {}
+# Launches by body (:func:`decode_body`: "split", "cluster", "general").
+flash_decode.bodies = {}

@@ -39,8 +39,8 @@ def coords_to_idx_coeff(coords: torch.Tensor, h: int, w: int):
 def bli_pallas(x: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Stage 2 (Eq. 2) through the BLI kernel.
 
-    x: (N, H, W, C) float32 or bfloat16; coords: (N, H, W, KK, 2) ->
-    (N, H, W, KK, C) in x's dtype (the coefficients stay float32).
+    x: (N, H, W, C) float32, bfloat16 or float16; coords: (N, H, W, KK,
+    2) -> (N, H, W, KK, C) in x's dtype (the coefficients stay float32).
     """
     n, h, w, c = x.shape
     kk = coords.shape[3]

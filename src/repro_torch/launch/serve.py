@@ -15,13 +15,15 @@ arch (llama-3.2-vision) is served, as by the JAX script, with its cross
 cache left at zero (no image), and the script says so.
 
 The script serves float32 params over a float32 cache and has no dtype
-flag, as the JAX script has none. A bf16 model is served from Python:
-``lm.init_lm(cfg, seed, dtype=torch.bfloat16)`` builds bf16 params and
-``DecodeEngine(params, cfg, ..., cache_dtype=torch.bfloat16)`` keeps bf16
-caches; on a card the flash kernels (#7 at prefill, #8 at decode) then run
-on bf16 operands, #8 reading the caches as stored. A float32 model may
-keep a bf16 cache as well (``cache_dtype=torch.bfloat16``): #8 widens it
-in the kernel, exactly.
+flag, as the JAX script has none. A bf16 or float16 model is served from
+Python: ``lm.init_lm(cfg, seed, dtype=torch.float16)`` (or
+``torch.bfloat16``) builds 16-bit params and ``DecodeEngine(params, cfg,
+..., cache_dtype=torch.float16)`` keeps 16-bit caches; on a card the flash
+kernels (#7 at prefill, #8 at decode) then run on 16-bit operands, #8
+reading the caches as stored. A float32 model may keep a 16-bit cache as
+well: #8 widens it in the kernel, exactly; a 16-bit model over a float32
+cache has #8 round each value to the model's type as it reads it, as the
+JAX package casts the cache.
 """
 
 from __future__ import annotations

@@ -512,8 +512,8 @@ def attention_decode(p, cfg: AttnConfig, x, cache, pos):
     back. On a card the attention runs in the split-KV decode kernel with
     ``lengths = pos + 1``, over the cache tensors themselves (a bf16 cache
     is read as stored and widened in the kernel, exactly; a float32 cache
-    under a bf16 model is rounded to bf16 value by value as the kernel
-    reads it, ``round_kv``); on the CPU through ``_sdpa`` with
+    under a bf16 or float16 model is rounded to the model's type value by
+    value as the kernel reads it, ``round_kv``); on the CPU through ``_sdpa`` with
     ``q_offset=pos, kv_valid_len=pos + 1`` over the cache cast to
     ``x.dtype``, exactly as the JAX package. Both compute the JAX
     function: K and V in ``x.dtype``.
@@ -544,10 +544,14 @@ def attention_decode(p, cfg: AttnConfig, x, cache, pos):
     return _out_proj(out, p["wo"]), cache
 
 
-def _rounds_cache(x, cache) -> bool:
-    """Whether the JAX decode path's cast of the cache to ``x.dtype``
-    rounds it: a float32 cache under a bf16 model."""
-    return x.dtype == torch.bfloat16 and cache.dtype == torch.float32
+def _rounds_cache(x, cache):
+    """The type the JAX decode path's cast of the cache to ``x.dtype``
+    rounds it to, or None where the cast is exact: a 16-bit model rounds a
+    cache of another type (float32, or the other 16-bit type) to its own;
+    a float32 model widens exactly."""
+    if x.dtype == cache.dtype or x.dtype == torch.float32:
+        return None
+    return x.dtype
 
 
 def _cross_decode(p, cfg: AttnConfig, x, cache, pos):

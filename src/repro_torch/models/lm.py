@@ -41,16 +41,16 @@ states: ``lm_loss`` and ``lm_prefill`` take them as
 the cross layers' K/V of them, which ``build_cross_cache`` writes into the
 cache once and no step changes.
 
-A bf16 model: ``init_lm(cfg, seed, dtype=torch.bfloat16)`` builds bf16
-params (as the JAX package's ``Maker("init", key, jnp.bfloat16)``), and
-every activation then flows in bf16 as the JAX package's do (norms, rotary
-embeddings, softmaxes and the MoE combine in float32, cast back); feed
-bf16 ``cross_states`` to a bf16 model. The decode cache's dtype is
-``init_cache(dtype=)`` (bf16 by default, as in the JAX package), free of
-the params' dtype. On a card the flash kernels take float32 or bf16
-operands and return the query's dtype: a bf16 prefill runs #7 on bf16
-operands, and decode hands #8 each cache as it is stored. Logits come back
-float32.
+A bf16 or float16 model: ``init_lm(cfg, seed, dtype=torch.bfloat16)`` (or
+``torch.float16``) builds 16-bit params (as the JAX package's
+``Maker("init", key, jnp.bfloat16)``), and every activation then flows in
+that type as the JAX package's do (norms, rotary embeddings, softmaxes
+and the MoE combine in float32, cast back); feed ``cross_states`` of the
+model's type. The decode cache's dtype is ``init_cache(dtype=)`` (bf16 by
+default, as in the JAX package), free of the params' dtype. On a card the
+flash kernels take float32, bf16 or float16 operands and return the
+query's dtype: a 16-bit prefill runs #7 on 16-bit operands, and decode
+hands #8 each cache as it is stored. Logits come back float32.
 """
 
 from __future__ import annotations

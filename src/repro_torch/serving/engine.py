@@ -112,9 +112,9 @@ class DecodeEngine:
     the mesh of its type (``ValueError`` otherwise).
     ``steps`` counts the decode steps run. ``cache_dtype`` (float32 by
     default, as the JAX engine's) is the attention, MLA and Mamba caches'
-    dtype, free of the params' dtype: bf16 params with ``cache_dtype=
-    torch.bfloat16`` serve a bf16 model, and on a card #8 reads a bf16
-    cache as stored.
+    dtype, free of the params' dtype: bf16 (float16) params with
+    ``cache_dtype=torch.bfloat16`` (``torch.float16``) serve a bf16
+    (float16) model, and on a card #8 reads the cache as stored.
     """
 
     def __init__(self, params, cfg, *, batch: int, max_len: int, mesh=None,
@@ -837,7 +837,8 @@ class DcnServingEngine:
         step — finished or failed, each exactly once. Images are served in
         their own dtype, the degraded per-image step's and the evicted
         retry's included; a bf16 engine's outputs are host
-        ``torch.bfloat16`` tensors, a float32 engine's numpy arrays."""
+        ``torch.bfloat16`` tensors, a float32 or float16 engine's numpy
+        arrays of its dtype."""
         tr = self.tracer
         if self._faults is not None:
             begin = getattr(self._faults, "begin_step", None)

@@ -1183,9 +1183,9 @@ def test_bf16_body_cluster_capacity():
 
 @pytest.mark.parametrize("opts", [{}, dict(window=100, softcap=30.0)])
 def test_flash_decode_rounds_a_float32_cache(opts):
-    """``round_kv=True`` over a float32 cache under a bf16 q: within two
-    bf16 ulps of the plain version's (which rounds the cache to bf16
-    first) and of the kernel over the cache cast to bf16; a float32
+    """``round_kv=torch.bfloat16`` over a float32 cache under a bf16 q:
+    within two bf16 ulps of the plain version's (which rounds the cache to
+    bf16 first) and of the kernel over the cache cast to bf16; a float32
     cache of bf16 values gives the unrounded call's result bitwise; and
     a cache within 0.2 ulp of bf16 values under a float32 q gives the bf16
     cache's result within 1e-5, where the unrounded read moves it by
@@ -1197,9 +1197,9 @@ def test_flash_decode_rounds_a_float32_cache(opts):
         15, b, s, hq, hkv, d, RAGGED_LENGTHS))
     q = q.to(torch.bfloat16)
     want = fd.flash_decode_plain(q, kc, vc, lens, scale=d ** -0.5,
-                                 round_kv=True, **opts)
+                                 round_kv=torch.bfloat16, **opts)
     fd.flash_decode.dtypes = {}
-    got = fd.flash_decode(q, kc, vc, lens, round_kv=True, **opts)
+    got = fd.flash_decode(q, kc, vc, lens, round_kv=torch.bfloat16, **opts)
     assert got.dtype == torch.bfloat16
     assert fd.flash_decode.dtypes == {"bfloat16/float32": 1}
     _within(got, want, BF16_RTOL)
@@ -1207,7 +1207,7 @@ def test_flash_decode_rounds_a_float32_cache(opts):
                                  vc.to(torch.bfloat16), lens, **opts),
             BF16_RTOL)
     kr, vr = kc.to(torch.bfloat16).float(), vc.to(torch.bfloat16).float()
-    assert torch.equal(fd.flash_decode(q, kr, vr, lens, round_kv=True,
+    assert torch.equal(fd.flash_decode(q, kr, vr, lens, round_kv=torch.bfloat16,
                                        **opts),
                        fd.flash_decode(q, kr, vr, lens, **opts))
     # Under a float32 q, a cache within 0.2 bf16 ulp of bf16 values: the
@@ -1223,7 +1223,7 @@ def test_flash_decode_rounds_a_float32_cache(opts):
     assert torch.equal(vn.to(torch.bfloat16).float(), vr)
     want = fd.flash_decode(qf, kr.to(torch.bfloat16), vr.to(torch.bfloat16),
                            lens, **opts)
-    _within(fd.flash_decode(qf, kn, vn, lens, round_kv=True, **opts), want,
+    _within(fd.flash_decode(qf, kn, vn, lens, round_kv=torch.bfloat16, **opts), want,
             1e-5)
     moved = fd.flash_decode(qf, kn, vn, lens, **opts).float().cpu()
     assert float((moved - want.float().cpu()).abs().max()) > \
@@ -1817,3 +1817,284 @@ def test_tensor_parallel_steps_launch_once_a_rank_and_layer():
     finally:
         layers.flash_decode = orig
     assert seen and set(seen) <= own
+
+
+# ---------------------------------------------------------------------------
+# float16: #1 / #4 / #5 / #6 / #7 / #8 on float16 operands
+# ---------------------------------------------------------------------------
+
+# Two float16 ulps at the largest output: both sides compute in float32
+# and round the output once (#7 also rounds P to float16 for P V).
+F16_RTOL = 2.0 ** -9
+F16 = torch.float16
+
+
+def _f16_fused_case(which, shape):
+    """``_bf16_fused_case`` with x, w and b rounded to float16."""
+    fn, plain, ops, kw, c = _bf16_fused_case(which, shape)
+    return fn, plain, [a.float().to(F16) if a.dtype == torch.bfloat16
+                       else a for a in ops], kw, c
+
+
+@pytest.mark.parametrize("case", range(len(BF16_FUSED_CASES)))
+def test_fused_kernels_in_fp16(case):
+    """#1, #4 and #5 on float16 x, w and b (float32 coefficients) through
+    the split-C body: within two float16 ulps of the plain version at
+    n_split = 1, the default and the chunk count, one float16 launch each
+    (the float32 body's grid), a bitwise rerun, a dep_cnt = 0 row that is
+    exactly b."""
+    from repro_torch.kernels import dcn_fused as kf
+
+    fn, plain, ops, kw, c = _f16_fused_case(*BF16_FUSED_CASES[case])
+    want = plain(*ops, **kw)
+    assert want.dtype == F16
+    args = [a.cuda() for a in ops]
+    fn.dtypes = {}
+    splits = list(dict.fromkeys((1, None, math.ceil(c / kf.SPLIT_BC))))
+    outs = {n: fn(*args, **kw, n_split=n) for n in splits}
+    assert fn.dtypes == {"float16": len(splits)}
+    assert len(fn.last_grid) == 4              # the split-C body's grid
+    for got in outs.values():
+        assert got.dtype == F16
+        _within(got, want, F16_RTOL)
+    assert torch.equal(fn(*args, **kw), outs[None])
+    if BF16_FUSED_CASES[case][0] != "tile":
+        for got in outs.values():
+            assert torch.equal(got[-1], args[-1].expand_as(got[-1]))
+
+
+@pytest.mark.parametrize("which", ["batch", "schedule", "tile"])
+def test_fp16_fused_kernels_off_16_bytes_and_mixed(which):
+    """float16 x and w 2 bytes past a 16-byte boundary (the value-by-value
+    copies) give the plain version's result; float16 x under float32 w
+    and b widens to the float32 kernel and rounds once."""
+    shape = {"batch": (2, 4, 64, 60, 124, 4),
+             "schedule": (3, 5, 64, 90, 250, 4),
+             "tile": (2, 120, 64, 66, 190)}[which]
+    fn, plain, ops, kw, _ = _f16_fused_case(which, shape)
+    want = plain(*ops, **kw)
+    args = [a.cuda() for a in ops]
+    for i in (0, len(args) - 2):
+        buf = torch.empty(args[i].numel() + 1, dtype=F16, device="cuda")
+        moved = buf[1:].view(args[i].shape)
+        moved.copy_(args[i])
+        assert moved.data_ptr() % 16 == 2
+        args[i] = moved
+    fn.dtypes = {}
+    got = fn(*args, **kw)
+    assert got.dtype == F16 and fn.dtypes == {"float16": 1}
+    _within(got, want, F16_RTOL)
+    mixed = [a.float() if i >= len(ops) - 2 else a
+             for i, a in enumerate(ops)]
+    fn.dtypes = {}
+    got = fn(*(a.cuda() for a in mixed), **kw)
+    assert got.dtype == F16 and fn.dtypes == {"float32": 1}
+    _within(got, plain(*mixed, **kw), F16_RTOL)
+
+
+@pytest.mark.parametrize("shape", BLI_GPU_CASES)
+def test_bli_kernel_in_fp16(shape):
+    """#6 on float16 planes: within one float16 ulp of the plain version
+    (four float32 terms rounded once), a bitwise rerun."""
+    from repro_torch.kernels.dcn_bli import bli_tile_matmul, bli_tile_plain
+
+    n, s, p, c, spill = shape
+    x, idx, cf = _bli_case(n, s, p, c, spill, F16)
+    ops = (x.cuda(), idx.cuda(), cf.cuda())
+    got = bli_tile_matmul(*ops, block_p=p, block_c=c)
+    assert got.dtype == F16
+    _within(got, bli_tile_plain(x, idx, cf), 2.0 ** -10)
+    assert torch.equal(bli_tile_matmul(*ops, block_p=p, block_c=c), got)
+
+
+@pytest.mark.parametrize("case", range(len(FLASH_BF16_CASES)))
+def test_flash_attention_fp16_kernel(case):
+    """#7 on float16 operands through the 16-bit kernel: within two
+    float16 ulps of the plain version, one launch of the ``16bit`` body, a
+    bitwise rerun."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, sq, skv, hq, hkv, d, opts = FLASH_BF16_CASES[case]
+    rng = np.random.default_rng(170 + case)
+    q, k, v = (_bf16_normal(rng, *s).float().to(F16).cuda()
+               for s in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+    want = fa.flash_attention_plain(q, k, v, scale=d ** -0.5, **opts)
+    fa.flash_attention.dtypes, fa.flash_attention.bodies = {}, {}
+    got = fa.flash_attention(q, k, v, **opts)
+    assert got.dtype == F16 and fa.flash_attention.bodies == {"16bit": 1}
+    assert fa.flash_attention.dtypes == {"float16": 1}
+    _within(got, want, F16_RTOL)
+    assert torch.equal(fa.flash_attention(q, k, v, **opts), got)
+
+
+@pytest.mark.parametrize("opts", [{}, dict(window=100), dict(softcap=30.0),
+                                  dict(window=40, softcap=50.0)])
+@pytest.mark.parametrize("q_dtype", [torch.float32, F16])
+def test_flash_decode_over_a_fp16_cache(q_dtype, opts):
+    """#8 reading a float16 cache as stored through the split body, under
+    a float32 q (1e-4 * max|ref|: the widening is exact) and a float16 q
+    (two float16 ulps), at ragged lengths and 1 / default / 64 splits; a
+    sequence with no visible key gives 0; a rerun is bitwise equal."""
+    from repro_torch.kernels import flash_decode as fd
+
+    b, s, hq, hkv, d = len(RAGGED_LENGTHS), 512, 16, 8, 128
+    q, kc, vc, lens = _decode_operands(21, b, s, hq, hkv, d, RAGGED_LENGTHS)
+    q, kc, vc = q.to(q_dtype), kc.to(F16), vc.to(F16)
+    want = fd.flash_decode_plain(q, kc, vc, lens, scale=d ** -0.5, **opts)
+    args = [t.cuda() for t in (q, kc, vc, lens)]
+    rtol = 1e-4 if q_dtype == torch.float32 else F16_RTOL
+    fd.flash_decode.bodies = {}
+    outs = {n: fd.flash_decode(*args, num_splits=n, **opts)
+            for n in (1, None, 64)}
+    assert fd.flash_decode.bodies == {"split": 3}
+    for got in outs.values():
+        assert got.dtype == q_dtype
+        _within(got, want, rtol)
+    for i, n in enumerate(RAGGED_LENGTHS):
+        if n <= 0:
+            assert not outs[None][i].any()
+    assert torch.equal(fd.flash_decode(*args, **opts), outs[None])
+
+
+def test_fp16_cache_under_a_bf16_cache_body_and_rounding():
+    """A float16 q over a bf16 cache runs the cluster body on the widened
+    q (one rounding of the output); ``round_kv=float16`` over a float32
+    cache (a float16 model's cast) gives the float16 cache's result within
+    two float16 ulps."""
+    from repro_torch.kernels import flash_decode as fd
+
+    q, kc, vc, lens = (t.cuda() for t in _decode_operands(
+        23, 4, 512, 16, 8, 128, [1, 100, 512, 300]))
+    qh = q.to(F16)
+    fd.flash_decode.bodies = {}
+    got = fd.flash_decode(qh, kc.to(torch.bfloat16), vc.to(torch.bfloat16),
+                          lens)
+    assert got.dtype == F16 and fd.flash_decode.bodies == {"cluster": 1}
+    _within(got, fd.flash_decode_plain(qh, kc.to(torch.bfloat16),
+                                       vc.to(torch.bfloat16), lens,
+                                       scale=128 ** -0.5), F16_RTOL)
+    got = fd.flash_decode(qh, kc, vc, lens, round_kv=F16)
+    assert fd.flash_decode.bodies == {"cluster": 1, "split": 1}
+    _within(got, fd.flash_decode(qh, kc.to(F16), vc.to(F16), lens),
+            F16_RTOL)
+
+
+# ---------------------------------------------------------------------------
+# The general bodies of #7 and #8 (csrc/attention_any.cu)
+# ---------------------------------------------------------------------------
+
+ANY_DTYPES = {torch.float32: 1e-4, torch.bfloat16: BF16_RTOL,
+              F16: F16_RTOL}
+# (B, Sq, Skv, Hq, Hkv, D, options) of #7 at head dims the fast bodies do
+# not take (72 they do: its body is printed, not forced).
+ANY_FLASH = [(1, 70, 70, 4, 2, 6, {}),
+             (1, 90, 90, 4, 2, 72, dict(window=20)),
+             (1, 100, 130, 4, 1, 160, dict(softcap=30.0)),
+             (2, 65, 65, 8, 2, 256, dict(window=33, softcap=50.0)),
+             (1, 77, 40, 4, 4, 320, dict(causal=False))]
+
+
+def _off16(t):
+    """A copy of ``t`` whose first value sits one element past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    moved = buf[1:].view(t.shape)
+    moved.copy_(t)
+    return moved
+
+
+@pytest.mark.parametrize("dtype", list(ANY_DTYPES))
+@pytest.mark.parametrize("case", range(len(ANY_FLASH)))
+def test_flash_attention_general_body(case, dtype):
+    """#7 at head dims past the fast bodies (and 72) in each type: the
+    plain version's result; the body ``attention_body`` names, launched
+    once; an operand off a 16-byte boundary takes the general body at
+    every head dim."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, sq, skv, hq, hkv, d, opts = ANY_FLASH[case]
+    rng = np.random.default_rng(300 + case)
+    q, k, v = (_bf16_normal(rng, *s).float().to(dtype).cuda()
+               for s in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+    want = fa.flash_attention_plain(q, k, v, scale=d ** -0.5, **opts)
+    for args, aligned in (((q, k, v), True),
+                          ((_off16(q), k, _off16(v)), False)):
+        fa.flash_attention.bodies = {}
+        got = fa.flash_attention(*args, **opts)
+        body = fa.attention_body(d, dtype, aligned)
+        assert fa.flash_attention.bodies == {body: 1}
+        assert got.dtype == dtype
+        _within(got, want, ANY_DTYPES[dtype])
+    assert body == "general"
+
+
+@pytest.mark.parametrize("dtype", list(ANY_DTYPES))
+def test_flash_attention_fast_body_past_65535_rows(dtype):
+    """#7 over B x Hq = 65,536 rows at a few query rows: the fast body of
+    the type (its flat grid holds the rows), the plain version's
+    result."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, s, hq, hkv, d = 8192, 3, 8, 2, 16
+    rng = np.random.default_rng(7)
+    q, k, v = (_bf16_normal(rng, *sh).float().to(dtype).cuda()
+               for sh in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    want = fa.flash_attention_plain(q, k, v, scale=d ** -0.5)
+    fa.flash_attention.bodies = {}
+    got = fa.flash_attention(q, k, v)
+    assert fa.flash_attention.bodies == {fa.attention_body(d, dtype): 1}
+    assert fa.attention_body(d, dtype) != "general"
+    _within(got, want, ANY_DTYPES[dtype])
+
+
+# (B, S, Hq, Hkv, D, lengths, options) of #8 past the fast bodies.
+ANY_DECODE = [(3, 300, 8, 2, 6, [0, 1, 300], {}),
+              (2, 257, 4, 1, 100, [257, 64], dict(window=50)),
+              (2, 200, 4, 2, 320, [200, 77], dict(softcap=30.0)),
+              (2, 300, 16, 1, 64, [300, 129], {}),
+              (2, 300, 71, 1, 64, [300, 5], dict(window=100))]
+
+
+@pytest.mark.parametrize("dtype", list(ANY_DTYPES))
+@pytest.mark.parametrize("case", range(len(ANY_DECODE)))
+def test_flash_decode_general_body(case, dtype):
+    """#8 at head dims, groups and alignments past the fast bodies, cache
+    and q in each type: the plain version's result through the body
+    ``decode_body`` names (``general``), launched once; a sequence with
+    no visible key gives 0."""
+    from repro_torch.kernels import flash_decode as fd
+
+    b, s, hq, hkv, d, lengths, opts = ANY_DECODE[case]
+    q, kc, vc, lens = _decode_operands(40 + case, b, s, hq, hkv, d, lengths)
+    q, kc, vc = (t.to(dtype).cuda() for t in (q, kc, vc))
+    lens = lens.cuda()
+    want = fd.flash_decode_plain(q, kc, vc, lens, scale=d ** -0.5, **opts)
+    for args, aligned in (((q, kc, vc), True),
+                          ((_off16(q), _off16(kc), vc), False)):
+        fd.flash_decode.bodies = {}
+        got = fd.flash_decode(*args, lens, **opts)
+        body = fd.decode_body(d, hq // hkv, dtype, aligned, b * hkv)
+        assert fd.flash_decode.bodies == {body: 1}
+        assert got.dtype == dtype
+        _within(got, want, ANY_DTYPES[dtype])
+        for i, n in enumerate(lengths):
+            if n <= 0:
+                assert not got[i].any()
+    assert fd.decode_body(d, hq // hkv, dtype, False, b * hkv) == "general"
+
+
+def test_flash_decode_general_body_past_65535_pairs():
+    """A bf16 cache of B * Hkv = 65,536 (the cluster body's grid holds
+    65,535) at a few rows: the general body, the plain version's result."""
+    from repro_torch.kernels import flash_decode as fd
+
+    b, s, hq, hkv, d = 8192, 4, 8, 8, 16
+    rng = np.random.default_rng(5)
+    q, kc, vc = (_bf16_normal(rng, *sh).cuda()
+                 for sh in ((b, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    lens = torch.as_tensor(rng.integers(0, s + 1, size=b).astype(np.int32))
+    want = fd.flash_decode_plain(q, kc, vc, lens.cuda(), scale=d ** -0.5)
+    fd.flash_decode.bodies = {}
+    got = fd.flash_decode(q, kc, vc, lens.cuda())
+    assert fd.flash_decode.bodies == {"general": 1}
+    _within(got, want, BF16_RTOL)

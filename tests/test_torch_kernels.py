@@ -771,10 +771,22 @@ class TestBli:
 
     @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
     def test_rejects_other_dtypes(self, dtype):
-        x = torch.zeros((20, 8), dtype=dtype)
-        idx = torch.zeros((16, 4), dtype=torch.int32)
-        with pytest.raises(ValueError, match="float32 or bfloat16"):
-            bli_tile_matmul(x, idx, torch.zeros((16, 4)))
+        """float64 x raises; float16 x, which #6 refused until it took
+        float16, now gives float16 rows of the right value (the case keeps
+        its place in this test). Coefficients of either type raise."""
+        x = torch.arange(160, dtype=dtype).reshape(20, 8)
+        idx = torch.tensor([[0, 1, 2, 25]] * 16, dtype=torch.int32)
+        cf = torch.tensor([[0.5, 0.25, 0.25, 1.0]] * 16)
+        if dtype == torch.float16:
+            got = bli_tile_matmul(x, idx, cf)
+            want = 0.5 * x[0].float() + 0.25 * x[1].float() \
+                + 0.25 * x[2].float()
+            assert got.dtype == torch.float16
+            assert torch.equal(got.float(), want.expand(16, 8))
+        else:
+            with pytest.raises(ValueError,
+                               match="float32, bfloat16 or float16"):
+                bli_tile_matmul(x, idx, cf)
         with pytest.raises(ValueError, match="coeff must be float32"):
             bli_tile_matmul(torch.zeros((20, 8)), idx,
                             torch.zeros((16, 4), dtype=dtype))
@@ -875,20 +887,27 @@ class TestBliPlan:
                                    "dcn_fused_tile"])
 def test_other_kernels_still_refuse_bf16(which):
     """The split-C DCN kernels #1, #4 and #5 take bf16 as the other
-    kernels do (``tests/test_torch_dcn_bf16.py``); float16, which no
-    kernel of the port takes yet, still raises, saying so. The test keeps
-    the name it had while these kernels refused bf16, so that its history
-    stays one test's."""
-    h = torch.zeros((2, 4, 4), dtype=torch.float16)
-    f = torch.zeros((2, 4, 4))
-    i = torch.zeros((2, 4), dtype=torch.int32)
+    kernels do (``tests/test_torch_dcn_bf16.py``) and float16 too: a
+    float16 call returns float16, the float32 sum plus b rounded once
+    (here a row of no dep, or a tile of zero coefficients: b itself). The
+    test keeps the name it had while these kernels refused bf16 and then
+    float16, so that its history stays one test's."""
+    h = torch.zeros((2, 4, 4), dtype=torch.float16)     # x: 2 tiles of 4
+    w = torch.ones((1, 4, 4), dtype=torch.float16)       # KK = 1, C = O = 4
+    b = torch.tensor([1.5, -2.0, 0.25, 3.0], dtype=torch.float16)
+    i1 = torch.zeros((2,), dtype=torch.int32)            # no dep: b alone
+    i2 = torch.zeros((2, 1), dtype=torch.int32)
+    idx = torch.zeros((2, 4, 1, 4), dtype=torch.int32)   # (rows, P, KK, 4)
+    cf = torch.zeros((2, 4, 1, 4))
     call = {"dcn_fused_batch": lambda: kf.dcn_fused_batch(
-                h, i, i, i, i, f, h, h, t_in=1),
+                h, i1, i2, i1, idx, cf, w, b, t_in=1),
             "dcn_fused_schedule": lambda: kf.dcn_fused_schedule(
-                h, i, i, i, f, h, h),
-            "dcn_fused_tile": lambda: kf.dcn_fused_tile(h, i, f, h, h)}[which]
-    with pytest.raises(ValueError, match="fp16 is not ported yet"):
-        call()
+                h, i2, i1, idx, cf, w, b),
+            "dcn_fused_tile": lambda: kf.dcn_fused_tile(h, idx, cf, w,
+                                                        b)}[which]
+    got = call()
+    assert got.dtype == torch.float16
+    assert torch.equal(got, b.expand(got.shape))
 
 
 def _attention_call(which, q_dtype, kv_dtype):
@@ -916,8 +935,13 @@ def test_attention_kernels_take_bf16_and_return_q_dtype(which):
 
 @pytest.mark.parametrize("which", ["flash_attention", "flash_decode"])
 def test_attention_kernels_refuse_fp16(which):
-    """float16 is not ported for #7 and #8: they raise, saying so."""
+    """#7 and #8 take float16 operands and a float16 cache under a float32
+    q, as the TPU kernels do, and return q's dtype: over keys and values
+    of ones the output is ones. (The test kept its name from when they
+    refused float16.)"""
     for q_dtype, kv_dtype in ((torch.float16, torch.float16),
-                              (torch.float32, torch.float16)):
-        with pytest.raises(ValueError, match="fp16 is not ported yet"):
-            _attention_call(which, q_dtype, kv_dtype)
+                              (torch.float32, torch.float16),
+                              (torch.float16, torch.float32)):
+        out = _attention_call(which, q_dtype, kv_dtype)
+        assert out.dtype == q_dtype
+        assert torch.equal(out.float(), torch.ones_like(out.float()))

@@ -261,7 +261,11 @@ def main() -> int:
                                                               **opts),
                                    args.iters)
         del q, k, v
-    rounds = "round_kv" in inspect.signature(fd.flash_decode).parameters
+    params = inspect.signature(fd.flash_decode).parameters
+    rounds = "round_kv" in params
+    # round_kv is a bool in trees before fp16, a dtype since.
+    rk = rounds and (torch.bfloat16 if params["round_kv"].default is None
+                     else True)
     decode = [("decode_serve", 4, 512, [459, 443, 420, 438]),
               ("decode_32k", 8, 32768, [2278, 26576, 30867, 8568, 5556,
                                         2530, 26181, 31014])]
@@ -272,7 +276,7 @@ def main() -> int:
         if rounds:
             qb = q.to(torch.bfloat16)
             res[tag + "_round_kv"] = cs.cuda_time_ms(
-                lambda: fd.flash_decode(qb, k, v, lens, round_kv=True),
+                lambda: fd.flash_decode(qb, k, v, lens, round_kv=rk),
                 args.iters)
     for name, b, s, hq, hkv, d, opts, lengths in (
             DECODE_BF16 if want("decode") else []):
