@@ -489,10 +489,14 @@ DRYRUN = dict(arch="qwen3-1.7b", mesh=(2, 2), prefill=(4, 2048),
 # (B, S, positions; 14c's rule: within 1e-5 of the float16 cache, the
 # unrounded read moving it by more). 18d: the general bodies of #7 / #8
 # at ``any_flash`` / ``any_decode`` in float32, bf16 and float16 (each
-# within ATTN_RTOL / BF16_RTOL / F16_RTOL of its plain version), one view
-# off a 16-byte boundary each, and a bf16 cache of B * Hkv = 65,536 at a
-# few rows (``many_pairs``); ``timed_flash`` / ``timed_decode`` name the
-# shapes of the two general bodies' JSON entries.
+# within ATTN_RTOL / BF16_RTOL / F16_RTOL of its plain version; D 1536 and
+# 2048 past the tensor-core body's shared memory, on the wide path; each
+# decode shape's lengths drawn once for the three types), one view
+# off a 16-byte boundary each, a float32 q over a bf16 and a float16 cache
+# at ``timed_decode``'s shape (ATTN_RTOL), and a bf16 cache of B * Hkv =
+# 65,536 at a few rows (``many_pairs``); ``timed_flash`` / ``timed_decode``
+# name the shapes of the two general bodies' JSON entries, timed in all
+# three types.
 F16_SIZES = dict(
     decode=("Qwen3-1.7B serving shape", "Qwen3-1.7B 32k cache",
             "llama-3.2-vision cross cache"),
@@ -504,13 +508,16 @@ F16_SIZES = dict(
                 dict(softcap=30.0)),
                ("Gemma-7B D 256", 1, 2048, 2048, 16, 16, 256, {}),
                ("D 320, window + soft-cap, non-causal", 2, 200, 333, 8, 1,
-                320, dict(window=100, softcap=50.0, causal=False))],
+                320, dict(window=100, softcap=50.0, causal=False)),
+               ("D 1536, window", 1, 200, 200, 4, 2, 1536,
+                dict(window=64))],
     any_decode=[("D 6", 4, 512, 8, 2, 6, {}),
                 ("D 100, window", 4, 512, 8, 2, 100, dict(window=200)),
                 ("D 320, soft-cap", 4, 512, 8, 2, 320, dict(softcap=30.0)),
                 ("group 16 over 1 kv head", 4, 1024, 16, 1, 128, {}),
                 ("Falcon-7B group 71 over 1 kv head", 4, 2048, 71, 1, 64,
-                 {})],
+                 {}),
+                ("D 2048", 4, 300, 4, 2, 2048, {})],
     many_pairs=(8192, 8, 8, 16, 16),       # B, Hkv, Hq, S, D
     timed_flash="Gemma-7B D 256", timed_decode=(
         "Falcon-7B group 71 over 1 kv head"))
@@ -518,6 +525,12 @@ F16_SIZES = dict(
 # enqueues the window's launches while the device is still busy and the
 # events time the device work, not the host's launch overhead.
 HOLD_CYCLES = 1_000_000
+# Empty launches that open a profiled window of #6. Late in this script's
+# run the profiler has returned windows without their first device
+# records: 5 of 60 to all 40 (tools/profiler_windows.py; phase 18a), the
+# same with the device idle for 0.1 s at both ends of the window. The
+# lead-in takes that loss in the timed calls' place.
+PROFILE_LEAD = 1024
 
 
 def fail(msg: str) -> None:
@@ -594,6 +607,25 @@ def recording(module, name: str, store: list, keep=None):
         yield
     finally:
         setattr(module, name, orig)
+
+
+def profiled_window(fn, kernel: str, n: int, cold: bool, lead: int
+                    ) -> tuple[list[float], int]:
+    """One torch.profiler window (CPU and CUDA activity) of ``lead`` empty
+    launches, then ``n`` calls of ``fn`` timed as ``cuda_time_ms`` times
+    them: the device durations (us) of the activities whose name holds
+    ``kernel``, and the count of the window's device records."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(lead):
+            torch.cuda._sleep(0)
+        cuda_time_ms(fn, n, warmup=0, cold=cold)
+    _, by_name = device_busy(prof.events())
+    return ([t for name, ts in by_name.items() if kernel in name
+             for t in ts], sum(len(ts) for ts in by_name.values()))
 
 
 def rel_err(got, ref) -> tuple[float, float]:
@@ -4247,14 +4279,18 @@ def fp16_lm_phase(card, kernels, reset_counts, peak_bw) -> None:
 
 
 def general_bodies_phase(card, kernels, launches) -> None:
-    """Phase 18d: the general bodies of #7 and #8 (csrc/attention_any.cu)
+    """Phase 18d: the general bodies of #7 and #8 (csrc/attention_any.cu,
+    and csrc/attention_wide.cu for the head dims past its shared memory)
     at ``F16_SIZES``' shapes in float32, bf16 and float16: each call held
     against its plain version (ATTN_RTOL / BF16_RTOL / F16_RTOL), the body
     each took printed beside ``attention_body`` / ``decode_body``'s
-    answer; one view off a 16-byte boundary for each; a bf16 cache of B x
-    Hkv = 65,536 at a few rows. The two timed shapes give the JSON
-    entries ``flash_attention_any`` / ``flash_decode_any``, whose launches
-    are the general bodies' in this phase."""
+    answer and the general route's plan path; one view off a 16-byte boundary for each; a float32 q over a
+    bf16 and a float16 cache (ATTN_RTOL); a bf16 cache of B x Hkv = 65,536
+    at a few rows. The two timed shapes give the JSON entries
+    ``flash_attention_any`` / ``flash_decode_any`` (float16), each with its
+    float32 and bf16 times under ``shapes`` (each beside its bound, SDPA in
+    the same type and the plain version); their launches are the general
+    bodies' in this phase."""
     import numpy as np
     import torch
 
@@ -4275,6 +4311,23 @@ def general_bodies_phase(card, kernels, launches) -> None:
         moved = buf[1:].view(t.shape)
         moved.copy_(t)
         return moved
+
+    # The timed shapes' rate units by operand type: 16-bit products at the
+    # dense bf16 / fp16 rate, float32 ones in 3xTF32.
+    units = {torch.float32: "3xtf32", torch.bfloat16: "bf16",
+             torch.float16: "fp16"}
+    timed = {"flash_attention_any": {}, "flash_decode_any": {}}
+    # Each decode shape's lengths, drawn once so that the three types (and
+    # `tools/kernel_ab.py --only any`) see the same visible keys.
+    lengths = {c[0]: torch.as_tensor(
+        np.random.default_rng(SEED + 20).integers(0, c[2] + 1, size=c[1]),
+        dtype=torch.int32, device=dev) for c in sz["any_decode"]}
+
+    def path(mode, d, rows, pairs, q, kv):
+        """The general route's plan path: the tensor-core body's, or the
+        wide head dims' (csrc/attention_wide.cu)."""
+        return fa.general_plan(mode, d, rows, pairs, q.dtype, kv.dtype,
+                               splits=1)["path"]
 
     t_phase = time.perf_counter()
     for fn in (fa.flash_attention, fd.flash_decode):
@@ -4302,39 +4355,37 @@ def general_bodies_phase(card, kernels, launches) -> None:
                          f"attention_body says {body}, {got.dtype}")
                 err, sc = hold(f"#7 {short} {name}{note}", got.float(),
                                want.float(), rtol)
+                via = (f" ({path(0, d, sq, b * hq, q, k)} path)"
+                       if body == "general" else "")
                 print(f"[any] #7 {short} {name}{note} (B={b} Sq={sq} "
                       f"Skv={skv} Hq={hq} Hkv={hkv} D={d} {opts or 'causal'})"
-                      f": the {body} body, max|d| {err:.3e} (limit "
+                      f": the {body} body{via}, max|d| {err:.3e} (limit "
                       f"{rtol:.4g}*{sc:.3f})")
-                if (dtype == torch.float16 and name == sz["timed_flash"]
-                        and aligned):
+                if name == sz["timed_flash"] and aligned:
                     live = live_pairs(sq, skv, opts.get("causal", True),
                                       opts.get("window"))
                     qt, kt, vt = (t.transpose(1, 2).contiguous()
                                   for t in (q, k, v))
                     lib = sdpa_yardstick(qt, kt, vt,
                                          is_causal=opts.get("causal", True))
-                    kernels["flash_attention_any"] = dict(
-                        route="cuda",
-                        source="src/repro_torch/csrc/attention_any.cu",
-                        replaces="src/repro/kernels/flash_attention.py:27",
+                    timed["flash_attention_any"][short] = dict(
                         body=body, max_abs_err=err,
                         ms=cuda_time_ms(
                             lambda: fa.flash_attention(q, k, v, **opts), 5),
                         plain_ms=cuda_time_ms(lambda: fa.flash_attention_plain(
                             q, k, v, scale=d ** -0.5, **opts), 2, warmup=1),
                         library_ms=cuda_time_ms(lib, 5),
-                        ops={"fp16": 4 * b * hq * live * d},
-                        bytes=2 * (2 * q.numel() + k.numel() + v.numel()),
-                        shape=f"fp16 {name} B={b} S={sq} Hq={hq} Hkv={hkv} "
-                              f"D={d}, the general body")
+                        ops={units[dtype]: 4 * b * hq * live * d},
+                        bytes=q.element_size() * (2 * q.numel() + k.numel()
+                                                  + v.numel()),
+                        shape=f"{short} {name} B={b} S={sq} Hq={hq} "
+                              f"Hkv={hkv} D={d}, the general body")
                     del qt, kt, vt
             del q, k, v, want
         for name, b, s, hq, hkv, d, opts in sz["any_decode"]:
             q = randn(dtype, b, hq, d)
             kc, vc = randn(dtype, b, s, hkv, d), randn(dtype, b, s, hkv, d)
-            lens = torch.as_tensor(rng.integers(0, s + 1, size=b),
-                                   dtype=torch.int32, device=dev)
+            lens = lengths[name]
             want = fd.flash_decode_plain(q, kc, vc, lens, scale=d ** -0.5,
                                          **opts)
             cases = [("", (q, kc, vc), True)]
@@ -4353,11 +4404,12 @@ def general_bodies_phase(card, kernels, launches) -> None:
                          f"decode_body says {body}, {got.dtype}")
                 err, sc = hold(f"#8 {short} {name}{note}", got.float(),
                                want.float(), rtol)
+                via = (f" ({path(1, d, hq // hkv, b * hkv, q, kc)} path)"
+                       if body == "general" else "")
                 print(f"[any] #8 {short} {name}{note} (B={b} S={s} Hq={hq} "
-                      f"Hkv={hkv} D={d} {opts}): the {body} body, max|d| "
+                      f"Hkv={hkv} D={d} {opts}): the {body} body{via}, max|d| "
                       f"{err:.3e} (limit {rtol:.4g}*{sc:.3f})")
-                if (dtype == torch.float16 and name == sz["timed_decode"]
-                        and aligned):
+                if name == sz["timed_decode"] and aligned:
                     vis = int(lens.clamp(max=s).sum())
                     ki = torch.arange(s, device=dev)[None, :]
                     mask = (ki < lens[:, None].long())[:, None, None, :]
@@ -4365,10 +4417,8 @@ def general_bodies_phase(card, kernels, launches) -> None:
                               for t in (kc, vc))
                     lib = sdpa_yardstick(q[:, :, None], kt, vt,
                                          attn_mask=mask, scale=d ** -0.5)
-                    kernels["flash_decode_any"] = dict(
-                        route="cuda",
-                        source="src/repro_torch/csrc/attention_any.cu",
-                        replaces="src/repro/kernels/flash_decode.py:28",
+                    size = q.element_size()
+                    timed["flash_decode_any"][short] = dict(
                         body=body, max_abs_err=err,
                         ms=cuda_time_ms(
                             lambda: fd.flash_decode(q, kc, vc, lens, **opts),
@@ -4376,16 +4426,45 @@ def general_bodies_phase(card, kernels, launches) -> None:
                         plain_ms=cuda_time_ms(lambda: fd.flash_decode_plain(
                             q, kc, vc, lens, scale=d ** -0.5, **opts), 5),
                         library_ms=cuda_time_ms(lib, 20),
-                        ops=dict(fp16=4 * vis * hq * d),
-                        bytes=2 * 2 * vis * hkv * d + 2 * 2 * q.numel()
+                        ops={units[dtype]: 4 * vis * hq * d},
+                        bytes=size * (2 * vis * hkv * d + 2 * q.numel())
                         + 4 * b,
-                        shape=f"fp16 cache, fp16 q, {name} B={b} S={s} "
-                              f"Hq={hq} Hkv={hkv} D={d}, lengths "
+                        shape=f"{short} cache, {short} q, {name} B={b} "
+                              f"S={s} Hq={hq} Hkv={hkv} D={d}, lengths "
                               f"{lens.tolist()}, {vis} visible keys, the "
                               f"general body")
                     del kt, vt, mask
             del q, kc, vc, want
         torch.cuda.empty_cache()
+    # A float32 q over a 16-bit cache: the float32 function of the widened
+    # cache (exact), within ATTN_RTOL.
+    name, b, s, hq, hkv, d, opts = next(
+        c for c in sz["any_decode"] if c[0] == sz["timed_decode"])
+    q = randn(torch.float32, b, hq, d)
+    lens = lengths[name]
+    for cache in (torch.bfloat16, torch.float16):
+        kc, vc = randn(cache, b, s, hkv, d), randn(cache, b, s, hkv, d)
+        before = fd.flash_decode.bodies.get("general", 0)
+        got = fd.flash_decode(q, kc, vc, lens, **opts)
+        if (fd.flash_decode.bodies.get("general", 0) != before + 1
+                or got.dtype != torch.float32):
+            fail(f"#8 float32 q over a {cache} cache: bodies "
+                 f"{fd.flash_decode.bodies}, {got.dtype}")
+        err, sc = hold(f"#8 float32 q over a {cache} cache", got,
+                       fd.flash_decode_plain(q, kc, vc, lens, scale=d ** -0.5,
+                                             **opts), ATTN_RTOL)
+        print(f"[any] #8 float32 q over a {str(cache)[6:]} cache, {name} "
+              f"(B={b} S={s} Hq={hq} Hkv={hkv} D={d}): the general body, "
+              f"max|d| {err:.3e} (limit {ATTN_RTOL:.4g}*{sc:.3f})")
+        del kc, vc
+    del q
+    for key, source in (("flash_attention_any", "flash_attention.py:27"),
+                        ("flash_decode_any", "flash_decode.py:28")):
+        by_type = timed[key]
+        kernels[key] = dict(route="cuda",
+                            source="src/repro_torch/csrc/attention_any.cu",
+                            replaces=f"src/repro/kernels/{source}",
+                            **by_type.pop("float16"), shapes=by_type)
     b, hkv, hq, s, d = sz["many_pairs"]
     q = randn(torch.bfloat16, b, hq, d)
     kc, vc = (randn(torch.bfloat16, b, s, hkv, d) for _ in range(2))
@@ -4895,23 +4974,22 @@ def main() -> int:
     def bli_device_ms(a, n=20, cold=True):
         """Mean device duration of the BLI kernel over ``n`` calls (each
         after the L2 flush unless not ``cold``), as torch.profiler
-        records it. The profiler now and then drops one activity record
-        of a window: such a window is profiled again, up to three times,
-        and only a window with all ``n`` records counts."""
-        from torch.profiler import ProfilerActivity, profile
-        for _ in range(3):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                cuda_time_ms(lambda: kb.bli_tile_matmul(*a), n, warmup=0,
-                             cold=cold)
-            _, by_name = device_busy(prof.events())
-            d = [t for name, ts in by_name.items() if "bli_kernel" in name
-                 for t in ts]
+        records it behind PROFILE_LEAD empty launches. A window that
+        still lost a BLI record is profiled again behind a lead-in four
+        times as long, up to four windows, and only a window with all
+        ``n`` records counts."""
+        lead = PROFILE_LEAD
+        for _ in range(4):
+            d, seen = profiled_window(lambda: kb.bli_tile_matmul(*a),
+                                      "bli_kernel", n, cold, lead)
             if len(d) == n:
                 return sum(d) / n / 1e3
             print(f"[kernels] the profiler saw {len(d)} BLI kernels in {n} "
-                  f"calls; profiling the window again")
-        fail(f"the profiler saw {len(d)} BLI kernels in {n} calls, three "
+                  f"calls ({seen} device records of the "
+                  f"{lead + (3 if cold else 2) * n} launched); profiling "
+                  f"the window again behind {4 * lead} empty launches")
+            lead *= 4
+        fail(f"the profiler saw {len(d)} BLI kernels in {n} calls, four "
              f"windows running")
 
     def bli_record(what, a):
@@ -5857,7 +5935,8 @@ def main() -> int:
         lib_ms = kd["library_ms"]
         print(f"[kernel] {card}: {name} at {shape}: {kd['ms']:.4f} ms "
               f"(bound {kd['bound_ms']:.6f} ms by {kd['bound_by']} at "
-              f"{kd['bound_rate']}{fp32_note}, plain "
+              f"{kd['bound_rate']}{fp32_note}, "
+              f"{100 * kd['bound_ms'] / kd['ms']:.1f} % of it, plain "
               f"{kd['plain_ms']:.4f} ms, library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}), "
               f"{kd['launches']} launches on its path")

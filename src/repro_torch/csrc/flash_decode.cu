@@ -36,10 +36,11 @@
 //   tiles, where keys = max(64, Hkv * (visible keys of the batch) /
 //   target), rounded up to whole tiles: about `target` blocks of equal
 //   work for the whole call, none with fewer than `keys` keys unless it is
-//   its sequence's only one (`split_of`; the wrapper's `split_ranges` is
-//   the same rule in Python). The grid is (B * Hkv, splits), `splits` an
-//   upper limit from shapes; blocks past their sequence's n return at
-//   once, after the busy ones. Every block reads `lengths` on the device:
+//   its sequence's only one (`split_of` in kv_split.cuh, shared with the
+//   general body; the wrapper's `split_ranges` is the same rule in
+//   Python). The grid is (B * Hkv, splits), `splits` an upper limit from
+//   shapes; blocks past their sequence's n return at once, after the busy
+//   ones. Every block reads `lengths` on the device:
 //   the host never waits.
 // * One block per (kv head, split) serves all g query heads, so every
 //   K/V byte is read from device memory once.
@@ -66,20 +67,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kv_split.cuh"
+
 namespace {
 
-constexpr int TK = 8;          // keys of one warp stage (the key tile)
+// Keys of one warp stage (the key tile): the split rule's whole runs.
+constexpr int TK = kv_split::TK;
 constexpr int RING = 3;        // stages of each warp's ring
-constexpr int MIN_KEYS = 64;   // fewest keys of a split that is not alone
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ long long visible(int len, int S, int window) {
-  const long long hi = min((long long)len, (long long)S);
-  const long long lo = max(0LL, (long long)len - (long long)window);
-  return max(0LL, hi - lo);
-}
 
 // out[i] = x in q's type (`q_type` 0 float32, 1 bf16, 2 float16; a 16-bit
 // type rounded to nearest).
@@ -91,27 +88,6 @@ __device__ __forceinline__ void put(void* out, long long i, float x,
     static_cast<__half*>(out)[i] = __float2half_rn(x);
   else
     static_cast<float*>(out)[i] = x;
-}
-
-// Split `sp` of a sequence: its keys [a, e) and the sequence's split
-// count n (0 when it has no visible key); `keys` is the batch's key count
-// a split aims at.
-struct Split {
-  long long a, e;
-  int n;
-};
-
-__device__ __forceinline__ Split split_of(int len, int S, int window,
-                                          int splits, long long keys,
-                                          int sp) {
-  const long long lo = max(0LL, (long long)len - (long long)window);
-  const long long nv = visible(len, S, window);
-  const int n =
-      nv > 0 ? (int)min((long long)splits, max(1LL, nv / keys)) : 0;
-  const long long nt = (nv + TK - 1) / TK;
-  const int ne = max(n, 1);
-  return {lo + TK * (nt * sp / ne),
-          min(lo + nv, lo + TK * (nt * (sp + 1) / ne)), n};
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -207,18 +183,12 @@ decode_kernel(const void* __restrict__ q, const T* __restrict__ k,
                 ? load4(static_cast<const __half*>(q) + bh0 * D + 4 * e)
                 : load4(static_cast<const float*>(q) + bh0 * D + 4 * e);
   }
-  // The batch's visible keys (every warp sums them), hence the keys a
-  // split aims at, hence this block's keys.
-  long long total = 0;
-  for (int i = lane; i < B; i += 32)
-    total += visible(lengths[i], S, window);
-#pragma unroll
-  for (int o = 16; o >= 1; o >>= 1)
-    total += __shfl_xor_sync(0xffffffffu, total, o);
+  // The keys a split aims at (every warp sums the batch's), hence this
+  // block's keys.
   const long long keys =
-      (max((long long)MIN_KEYS, (total * Hkv + target - 1) / target) + TK -
-       1) / TK * TK;
-  const Split r = split_of(lengths[b], S, window, splits, keys, sp);
+      kv_split::keys_a_split(lengths, B, S, window, Hkv, target, lane);
+  const kv_split::Split r =
+      kv_split::split_of(lengths[b], S, window, splits, keys, sp);
   const int ne = max(r.n, 1);
   if (sp >= ne) return;
 

@@ -46,7 +46,9 @@ _SIGNATURES = {
     "flash_attention_16_launch": [_P] * 4 + [_I] * 9 + [_F, _F, _I, _P],
     "flash_decode_launch": [_P] * 7 + [_I] * 11 + [_F, _F, _P],
     "flash_decode_bf16_launch": [_P] * 5 + [_I] * 9 + [_F, _F, _P],
-    "attention_any_launch": [_P] * 5 + [_I] * 12 + [_F, _F, _P],
+    "attention_any_launch": [_P] * 7 + [_I] * 21 + [_F, _F, _P],
+    "attention_any_smem_bytes": [_I] * 8,
+    "attention_wide_launch": [_P] * 5 + [_I] * 12 + [_F, _F, _P],
 }
 
 class KernelError(RuntimeError):

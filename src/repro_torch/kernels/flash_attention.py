@@ -26,8 +26,13 @@ head dim, the type and the operands' alignment before the launch:
   rounded once), bf16 or float16 operands, head dims that are multiples of
   8 up to 144;
 * ``"general"``: ``csrc/attention_any.cu``, every other shape the TPU
-  kernel takes: any head dim, operands off a 16-byte boundary; float32
-  inside, slow.
+  kernel takes: any head dim, operands off a 16-byte boundary; both
+  products on the tensor cores (``mma.sync``: bf16 / float16 with P
+  rounded to the operands' type, 3xTF32 in float32), launched on
+  :func:`general_plan`'s plan; a head dim whose whole-D tiles pass the
+  shared memory (from 1185 in float32, 1409 in 16 bits) takes its wide
+  path, ``csrc/attention_wide.cu`` (CUDA cores, 128 output
+  columns a block, the scores recomputed a slice).
 
 Every body's grid is flat (one block a row's query tile, or a row's slice),
 so the (batch x head) rows are bounded only by 2^31 - 1 blocks.
@@ -65,6 +70,25 @@ BLOCK_K = 32                    # keys per K/V tile of the float32 kernel
 BLOCK_K_BF16 = 64               # and of the bf16 kernel
 STAGES_BF16 = 4                 # K / V tiles each ring of it holds
 SMEM_LIMIT = 232_448            # shared memory a block may use on Hopper
+# The general body (csrc/attention_any.cu): keys a K / V tile at most, the
+# tiles its ring holds (at least, at most), O columns a warp holds in
+# registers, warps a block.
+GENERAL_KEYS = 64
+GENERAL_STAGES = 2
+GENERAL_MAX_STAGES = 4
+GENERAL_COLS = 256
+GENERAL_WARPS = 8
+# #8's row fragments a block at most (32 query heads a group chunk). A
+# fragment's warps share nothing with another fragment's: Falcon-7B's 71
+# heads as five fragments of one block gave each warp a whole tile's
+# products and softmax, and the block that merges the splits all 71 rows
+# of partials; two fragments of two column warps halve the first and
+# spread the second over three blocks (PERF.md §6, `kernel_ab --only any`).
+GENERAL_DECODE_FRAGS = 2
+# Output columns a block of the general route's wide path holds
+# (csrc/attention_wide.cu `DV`): the head dims the tensor-core body's tiles
+# do not fit are cut into slices of this many on the grid's y dimension.
+WIDE_COLS = 128
 # The operand types of #7 and #8 (each computes in float32).
 ATTN_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 HALF_DTYPES = (torch.bfloat16, torch.float16)
@@ -153,25 +177,194 @@ def attention_body(d: int, dtype=torch.float32, aligned: bool = True) -> str:
     return "general"
 
 
-def general_launch(lib, q, k, v, lengths, out, mode: int, *, sq: int,
-                   causal: bool, window, softcap, scale: float,
-                   round_to=None) -> None:
-    """One launch of ``csrc/attention_any.cu`` (mode 0: #7's operands, mode
-    1: #8's with ``lengths`` and the caches as k, v); ``round_to`` (mode 1)
-    rounds K and V to that type where read."""
+def copy_width(ptr: int, d: int, size: int) -> int:
+    """The general body's copy of rows of ``d`` values of ``size`` bytes
+    from address ``ptr``: 16 or 4 bytes (``cp.async``) where both the
+    address and the row's bytes are whole multiples of it, else one value
+    a load."""
+    for width in (16, 4):
+        if ptr % width == 0 and d * size % width == 0:
+            return width
+    return size
+
+
+def general_layout(d: int, rf: int, cw: int, bk: int, stages: int,
+                   half: bool, kv_size: int) -> dict:
+    """The general body's shared memory (``layout`` in
+    ``csrc/attention_any.cu``, the same rule) for head dim ``d``, ``rf``
+    row fragments of 16 rows, ``cw`` column warps a fragment, ``bk``-key
+    tiles and a ring of ``stages``; ``half``: the 16-bit body (q, k, v of
+    one 16-bit type), else TF32; ``kv_size`` bytes a K / V value.
+
+    ``dp``: d padded to a multiple of 16; ``col_w``: O columns a column
+    warp holds; ``cs`` S warps a fragment (the largest power of two within
+    ``cw`` and the tile's MMA steps), each scoring ``bk / cs`` keys. Regions,
+    from a 1024-byte aligned base: the K and V rings (``stages`` tiles of
+    ``bk`` rows in panels of 128 bytes, ``dp`` rounded up to whole panels),
+    q (``16 rf`` rows of ``dp + 8`` 16-bit values or ``dp + 4`` floats,
+    q * scale), P (``rf`` x 16 rows of ``bk + 8`` 16-bit values or ``bk +
+    4`` floats), the row maxima and sums (``2 rf cw`` x 16 floats), the
+    ring's four mbarriers and 16 bytes of merge flag; the output's stage
+    (``16 rf`` rows of ``dp + 4`` floats) reuses the rings' and q's bytes,
+    which are made at least as many; 1024 bytes to align the base."""
+    dp = -(-d // 16) * 16
+    col_w = -(-(-(-dp // cw)) // 16) * 16
+    steps = bk // (16 if half else 8)
+    cs = 1
+    while 2 * cs <= min(cw, steps):
+        cs *= 2
+    qsz = 2 if half else 4
+    wk = 128 // kv_size
+    dpw = -(-dp // wk) * wk
+    ldq = dp + 8 if half else dp + 4
+    ldp = bk + 8 if half else bk + 4
+    ring = stages * bk * dpw * kv_size
+    p_off = max(2 * ring + 16 * rf * ldq * qsz, 16 * rf * (dp + 4) * 4)
+    smem = (p_off + rf * 16 * ldp * qsz + 2 * rf * cw * 16 * 4
+            + 8 * GENERAL_MAX_STAGES + 16 + 1024)
+    return dict(dp=dp, col_w=col_w, cs=cs, smem_bytes=smem)
+
+
+def general_plan(mode: int, d: int, rows: int, pairs: int, q_dtype,
+                 kv_dtype, *, round_kv=None, ptrs=(0, 0, 0),
+                 splits: int = 1) -> dict:
+    """The launch plan of the general body, a pure function of shapes,
+    types and addresses. ``mode`` 0 (#7): ``rows`` = Sq, ``pairs`` = B x
+    Hq; 1 (#8): ``rows`` = the group Hq / Hkv, ``pairs`` = B x Hkv,
+    ``splits`` the upper limit on a sequence's splits. ``ptrs``: the
+    addresses of q, k, v.
+
+    ``path``: ``"16bit"`` where q and the caches are of one 16-bit type
+    and nothing is rounded, else ``"tf32"``. ``cw`` column warps a row
+    fragment hold O's ``dp`` columns, at most ``GENERAL_COLS`` each (#8:
+    at least four warps a block where the columns allow); ``rf`` row
+    fragments of 16 rows (#7: up to 8, 128 query rows; #8: the group's
+    heads, up to ``GENERAL_DECODE_FRAGS`` fragments a chunk) and ``bk`` keys a
+    tile (64, or 32, 16, 8 (TF32 only) where a wide head dim would pass
+    ``SMEM_LIMIT``): the largest ``bk``, then the largest ``rf``, whose
+    shared memory at ``GENERAL_STAGES`` stages (:func:`general_layout`)
+    fits; then the ring takes up to ``GENERAL_MAX_STAGES`` stages where that
+    keeps the block within half an SM's shared memory. ``copy``: the copy
+    widths of q, k, v (:func:`copy_width`; 16 for k or v: TMA boxes).
+    ``row_tiles``: query tiles a (batch, head) (#7) or group chunks (#8);
+    ``blocks`` = pairs x row_tiles x splits, at most 2^31 - 1.
+
+    A head dim whose smallest tiles pass ``SMEM_LIMIT``, or whose columns
+    pass the block's warps (from D 1185 over float32 caches, 1409 with q
+    and the caches 16-bit, 1793 for another q over 16-bit caches), takes
+    ``path`` ``"wide"``:
+    ``csrc/attention_wide.cu``, on CUDA cores in 25 KB of shared memory
+    whatever D is, ``block_rows`` 32 (#7) or 8 (#8) a block, ``col_slices``
+    of ``WIDE_COLS`` columns on the grid's y dimension, not split. Raises
+    ``ValueError`` for a grid past 2^31 - 1 blocks."""
+    half = (q_dtype == kv_dtype and kv_dtype in HALF_DTYPES
+            and round_kv is None)
+    kv_size = 2 if kv_dtype in HALF_DTYPES else 4
+    q_size = 2 if q_dtype in HALF_DTYPES else 4
+    dp = -(-d // 16) * 16
+    cw = -(-dp // GENERAL_COLS)
+    if cw > GENERAL_WARPS:
+        return _wide_plan(mode, d, rows, pairs)
+    rf_top = max(1, min(-(-rows // 16), GENERAL_WARPS // cw))
+    if mode == 1:
+        rf_top = min(rf_top, GENERAL_DECODE_FRAGS)
+        cw = max(cw, min(4 // rf_top, dp // 16))
+    steps = ((GENERAL_KEYS, 32, 16) if half
+             else (GENERAL_KEYS, 32, 16, 8))
+
+    def smem(rf, bk, stages):
+        return general_layout(d, rf, cw, bk, stages, half,
+                              kv_size)["smem_bytes"]
+
+    fit = None
+    for bk in steps:
+        for rf in range(rf_top, 0, -1):
+            if smem(rf, bk, GENERAL_STAGES) <= SMEM_LIMIT:
+                fit = rf, bk
+                break
+        if fit:
+            break
+    if fit is None:
+        return _wide_plan(mode, d, rows, pairs)
+    rf, bk = fit
+    stages = GENERAL_STAGES
+    room = max(smem(rf, bk, stages), SMEM_LIMIT // 2)
+    while (stages < GENERAL_MAX_STAGES
+           and smem(rf, bk, stages + 1) <= room):
+        stages += 1
+    lay = general_layout(d, rf, cw, bk, stages, half, kv_size)
+    row_tiles = -(-rows // (16 * rf))
+    splits = splits if mode == 1 else 1
+    blocks = _grid_blocks(pairs * row_tiles * splits)
+    copy = tuple(copy_width(p, d, n) for p, n in
+                 zip(ptrs, (q_size, kv_size, kv_size)))
+    return dict(path="16bit" if half else "tf32", dp=lay["dp"], rf=rf,
+                block_rows=16 * rf, cw=cw, col_w=lay["col_w"],
+                cs=lay["cs"], bk=bk, stages=stages, threads=32 * rf * cw,
+                smem_bytes=lay["smem_bytes"], copy=copy,
+                row_tiles=row_tiles, splits=splits, blocks=blocks)
+
+
+def _grid_blocks(blocks: int) -> int:
+    if blocks > 2**31 - 1:
+        raise ValueError(f"the general body's grid of {blocks} blocks is "
+                         f"past 2^31 - 1")
+    return blocks
+
+
+def _wide_plan(mode: int, d: int, rows: int, pairs: int) -> dict:
+    """:func:`general_plan`'s ``"wide"`` plan (``csrc/attention_wide.cu``):
+    4 warps over 32 rows (#7) or 8 query heads (#8) a block, one block a
+    ``WIDE_COLS``-column slice of the output."""
+    block_rows = 32 if mode == 0 else 8
+    row_tiles = -(-rows // block_rows)
+    col_slices = -(-d // WIDE_COLS)
+    if col_slices > 65535:
+        raise ValueError(f"head_dim {d}: the wide path's {col_slices} "
+                         f"column slices pass the grid's 65,535")
+    return dict(path="wide", block_rows=block_rows, threads=128,
+                col_slices=col_slices, row_tiles=row_tiles, splits=1,
+                blocks=_grid_blocks(pairs * row_tiles))
+
+
+def general_launch(lib, q, k, v, lengths, out, mode: int, plan: dict, *,
+                   sq: int, causal: bool, window, softcap, scale: float,
+                   round_to=None, part=None, tickets=None,
+                   target: int = 1) -> None:
+    """One launch of ``csrc/attention_any.cu`` (``csrc/attention_wide.cu``
+    on a ``"wide"`` plan) on :func:`general_plan`'s ``plan`` (mode 0: #7's
+    operands; mode 1: #8's with ``lengths``, the caches as k, v, the split
+    rule's ``target`` and, with more than one split, the float32 ``part``
+    scratch and the zeroed ``tickets``); ``round_to`` (mode 1) rounds K and
+    V to that type where read."""
     from repro_torch.kernels import _build
 
     b, hkv, d = k.shape[0], k.shape[2], k.shape[3]
     hq = q.shape[-2]
+    window = NO_WINDOW if window is None else int(window)
+    softcap = 0.0 if softcap is None else float(softcap)
+    if plan["path"] == "wide":
+        with torch.cuda.device(q.device):
+            err = lib.attention_wide_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if lengths is None else lengths.data_ptr(),
+                out.data_ptr(), mode, b, sq, k.shape[1], hq, hkv, d,
+                int(causal), window, dtype_code(q.dtype), dtype_code(k.dtype),
+                0 if round_to is None else dtype_code(round_to), scale,
+                softcap, _stream(q))
+        _build.check(err, "attention_wide_launch")
+        return
     with torch.cuda.device(q.device):
         err = lib.attention_any_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if lengths is None else lengths.data_ptr(), out.data_ptr(),
-            mode, b, sq, k.shape[1], hq, hkv, d, int(causal),
-            NO_WINDOW if window is None else int(window),
+            None if lengths is None else lengths.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if tickets is None else tickets.data_ptr(), out.data_ptr(),
+            mode, b, sq, k.shape[1], hq, hkv, d, int(causal), window,
             dtype_code(q.dtype), dtype_code(k.dtype),
-            0 if round_to is None else dtype_code(round_to), scale,
-            0.0 if softcap is None else float(softcap), _stream(q))
+            0 if round_to is None else dtype_code(round_to), plan["rf"],
+            plan["cw"], plan["bk"], plan["stages"], *plan["copy"],
+            plan["splits"], target, scale, softcap, _stream(q))
     _build.check(err, "attention_any_launch")
 
 
@@ -256,6 +449,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out.to(out_dtype)
+    if body == "general":
+        plan = general_plan(0, d, sq, b * hq, q.dtype, k.dtype, ptrs=(
+            (0, 0, 0) if fake else (q.data_ptr(), k.data_ptr(),
+                                    v.data_ptr())))
     if fake:            # the dry run: reported, nothing launched
         from repro_torch.launch import op_analysis
 
@@ -266,8 +463,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
     lib = _build.load()
     if body == "general":
-        general_launch(lib, q, k, v, None, out, 0, sq=sq, causal=causal,
-                       window=window, softcap=softcap, scale=scale)
+        general_launch(lib, q, k, v, None, out, 0, plan, sq=sq,
+                       causal=causal, window=window, softcap=softcap,
+                       scale=scale)
     else:
         tiles = tile_config(d, q.dtype)
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,

@@ -44,8 +44,13 @@ types and alignment before the launch:
   the result rounded once to float16.
 * ``"general"``: ``csrc/attention_any.cu``, every other shape the TPU
   kernel takes: any head dim, more than ``MAX_GROUP`` query heads a kv head
-  (in chunks of 8), operands off a 16-byte boundary, any B x Hkv, and a
-  rounding the fast bodies do not make; float32 inside, slow.
+  (the group's heads are the MMA rows, so a K / V tile is read once a
+  chunk of 32 heads), operands off a 16-byte boundary, any B x Hkv, and a
+  rounding the fast bodies do not make; both products on the tensor
+  cores, on ``flash_attention.general_plan``'s plan. Its splits are the
+  split body's (:func:`split_ranges` under the same limit), merged the
+  same way. Head dims past its shared memory take the wide path
+  (``csrc/attention_wide.cu``: CUDA cores, 8 heads a block, not split).
 """
 
 from __future__ import annotations
@@ -61,7 +66,8 @@ from repro_torch.kernels.flash_attention import (ATTN_DTYPES, MAX_HEAD_DIM,
                                                  NEG_INF, NO_WINDOW,
                                                  _check_gqa, _check_options,
                                                  check_attention_dtypes,
-                                                 count_body, general_launch)
+                                                 count_body, general_launch,
+                                                 general_plan)
 
 # The bf16 cluster body's grid carries B x Hkv in a dimension of at most
 # 65,535 blocks.
@@ -77,7 +83,7 @@ KEY_TILE = 8
 # The kernel's `target` under an explicit split count: 64 keys a split.
 _NO_TARGET = 2**31 - 1
 # Query heads per kv head the fast bodies hold in registers, at most (the
-# general body takes any group, in chunks of 8).
+# general body takes any group, 16 heads an MMA row fragment).
 MAX_GROUP = 8
 # Per (device, stream): the float32-cache kernel's zeroed tickets, one per
 # (sequence, kv head); every launch leaves them zero again.
@@ -153,8 +159,9 @@ def split_ranges(lengths, s_len: int, splits: int, kv_heads: int,
     when no key is visible. ``keys`` is ``kv_heads`` times the batch's
     visible keys over ``target`` blocks, at least ``_MIN_SPLIT_KEYS``,
     rounded up to whole tiles; with ``target=None`` (an explicit
-    ``num_splits``) it is ``_MIN_SPLIT_KEYS``. The kernel's ``split_of``
-    is this rule."""
+    ``num_splits``) it is ``_MIN_SPLIT_KEYS``. The kernels' ``split_of``
+    (``csrc/kv_split.cuh``, one copy for the split and general bodies) is
+    this rule."""
     vis = _visible(lengths, s_len, window)
     total = sum(n for _, n in vis)
     keys = _MIN_SPLIT_KEYS
@@ -272,10 +279,9 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
     takes ``min(num_splits, visible keys // 64)`` splits (at least one), in
     place of its share of the batch under :func:`default_splits`; over a
     bf16 cache at most ``MAX_CLUSTER`` blocks take them, each a run of
-    consecutive splits (:func:`cluster_ranges`); the general body does not
-    split. The result does not depend on the splits beyond float32
-    summation order. ``round_kv``: None, ``torch.bfloat16`` or
-    ``torch.float16``."""
+    consecutive splits (:func:`cluster_ranges`). The result does not
+    depend on the splits beyond float32 summation order. ``round_kv``:
+    None, ``torch.bfloat16`` or ``torch.float16``."""
     check_attention_dtypes(q=q, k_cache=k_cache, v_cache=v_cache)
     dev = _check_operands(dict(q=q, k_cache=k_cache, v_cache=v_cache),
                           dict(lengths=lengths), dtypes=ATTN_DTYPES,
@@ -316,6 +322,12 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
     out = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
+    if body == "general":
+        plan = general_plan(1, d, hq // hkv, b * hkv, q.dtype, k_cache.dtype,
+                            round_kv=round_kv, splits=splits, ptrs=(
+                                (0, 0, 0) if fake else
+                                tuple(t.data_ptr()
+                                      for t in (q, k_cache, v_cache))))
     if fake:            # the dry run: reported, nothing launched
         from repro_torch.launch import op_analysis
 
@@ -329,10 +341,17 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
     stream = _stream(q)
     key = "/".join(str(t.dtype).removeprefix("torch.") for t in (q, k_cache))
     cap = 0.0 if softcap is None else float(softcap)
+    target = _BLOCKS_PER_SM * sms if num_splits is None else _NO_TARGET
     if body == "general":
-        general_launch(lib, q, k_cache, v_cache, lengths, out, 1, sq=1,
+        part = tickets = None
+        if plan["splits"] > 1:
+            part = torch.empty(b * hq * plan["splits"] * (2 + d) + 4,
+                               dtype=torch.float32, device=dev)
+            tickets = _tickets(dev, stream, b * hkv * plan["row_tiles"])
+        general_launch(lib, q, k_cache, v_cache, lengths, out, 1, plan, sq=1,
                        causal=False, window=window, softcap=softcap,
-                       scale=scale, round_to=round_kv)
+                       scale=scale, round_to=round_kv, part=part,
+                       tickets=tickets, target=target)
     elif body == "cluster":
         # The cluster body takes a float32 or bf16 q: a float16 one is
         # widened (exactly) and the result rounded once.
@@ -359,8 +378,7 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window: int | None = None,
             err = lib.flash_decode_launch(
                 q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                 lengths.data_ptr(), part.data_ptr(), tickets.data_ptr(),
-                out.data_ptr(), b, s_len, hq, hkv, d, splits,
-                _BLOCKS_PER_SM * sms if num_splits is None else _NO_TARGET,
+                out.data_ptr(), b, s_len, hq, hkv, d, splits, target,
                 NO_WINDOW if window is None else int(window),
                 dtype_code(q.dtype), dtype_code(k_cache.dtype),
                 0 if round_kv is None else dtype_code(round_kv), scale, cap,

@@ -10,7 +10,11 @@ the same function, held here against the JAX kernels in interpret mode
 in another order), a 16-bit one within one ulp of its type at max|ref|
 (both sides round a float32 result once). Also an ``AttnConfig`` layer at
 head dim 256 over one kv head through both packages, and the pure body
-choosers ``attention_body`` / ``decode_body``, one case per shape class.
+choosers ``attention_body`` / ``decode_body``, one case per shape class,
+and the general body's launch plan ``general_plan`` (every head dim up to
+1024 within the shared memory, every one up to 4096 with a plan, the wide
+path past the shared memory, #8's splits covering each sequence's visible
+keys once, the grid within 2^31 - 1 blocks, the copy widths).
 The general bodies themselves are held against these plain versions on
 the card (``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 18d).
 """
@@ -185,3 +189,152 @@ def test_bodies_are_chosen_before_any_launch():
                            torch.tensor([2], dtype=torch.int32)).dtype == F16
     for fn in (fa.flash_attention, fd.flash_decode):
         assert fn.launches == 0 and fn.bodies == {}
+
+
+# -- the general body's launch plan (csrc/attention_any.cu) -------------------
+
+PLAN_TYPES = [(F32, F32, None), (BF16, BF16, None), (F16, F16, None),
+              (F32, BF16, None), (F16, F32, F16), (BF16, F16, BF16)]
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,rk", PLAN_TYPES)
+@pytest.mark.parametrize("mode,rows", [(0, 2048), (0, 3), (1, 71), (1, 2)])
+def test_general_plan_fits_every_head_dim(mode, rows, q_dtype, kv_dtype, rk):
+    """Every head dim 1..1024 plans within SMEM_LIMIT and the block's
+    warps, its column warps cover the padded head dim, its row tiles cover
+    the rows, and the 16-bit path is taken exactly where q and the caches
+    share a 16-bit type and nothing is rounded."""
+    half = q_dtype == kv_dtype and kv_dtype != F32 and rk is None
+    for d in range(1, 1025):
+        p = fa.general_plan(mode, d, rows, 4, q_dtype, kv_dtype, round_kv=rk)
+        assert p["smem_bytes"] <= fa.SMEM_LIMIT, (d, p)
+        assert p["threads"] == 32 * p["rf"] * p["cw"] <= 32 * fa.GENERAL_WARPS
+        assert p["cw"] * p["col_w"] >= p["dp"] >= d
+        assert p["col_w"] <= fa.GENERAL_COLS and p["col_w"] % 16 == 0
+        assert fa.GENERAL_STAGES <= p["stages"] <= fa.GENERAL_MAX_STAGES
+        assert p["bk"] in ((64, 32, 16) if half else (64, 32, 16, 8))
+        assert p["block_rows"] * p["row_tiles"] >= rows
+        assert p["path"] == ("16bit" if half else "tf32")
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16, F16])
+def test_general_plan_chunks_large_groups(dtype):
+    """#8 takes at most ``GENERAL_DECODE_FRAGS`` row fragments a block:
+    Falcon-7B's 71 heads over one kv head are three chunks of 32 heads, each
+    fragment's keys and columns over two warps; a group of 16 stays one
+    fragment over four warps."""
+    p = fa.general_plan(1, 64, 71, 4, dtype, dtype, splits=30)
+    assert (p["rf"], p["cw"], p["cs"], p["row_tiles"]) == (2, 2, 2, 3)
+    assert p["blocks"] == 4 * 3 * 30
+    p = fa.general_plan(1, 128, 16, 4, dtype, dtype, splits=8)
+    assert (p["rf"], p["cw"], p["row_tiles"]) == (1, 4, 1)
+
+
+# The first head dim whose tensor-core tiles pass the shared memory, by
+# (q, caches, round_kv): over float32 (or rounded float32) caches, q and
+# the caches of one 16-bit type, another q over 16-bit caches.
+WIDE_FROM = {(F32, F32, None): 1185, (BF16, BF16, None): 1409,
+             (F16, F16, None): 1409, (F32, BF16, None): 1793,
+             (F16, F32, F16): 1185, (BF16, F16, BF16): 1793}
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,rk", PLAN_TYPES)
+@pytest.mark.parametrize("mode,rows", [(0, 2048), (1, 71)])
+def test_general_plan_gives_every_head_dim_a_plan(mode, rows, q_dtype,
+                                                  kv_dtype, rk):
+    """Every head dim 1..4096 has a plan: the tensor-core body's below
+    ``WIDE_FROM``, the wide path's (``csrc/attention_wide.cu``) from it on,
+    32 (#7) or 8 (#8) rows a block, one block a 128-column slice of the
+    output, not split."""
+    first = WIDE_FROM[q_dtype, kv_dtype, rk]
+    for d in range(first - 64, 4097):
+        p = fa.general_plan(mode, d, rows, 4, q_dtype, kv_dtype, round_kv=rk,
+                            splits=8)
+        if d < first:
+            assert p["path"] != "wide" and p["smem_bytes"] <= fa.SMEM_LIMIT
+            continue
+        assert p["path"] == "wide", (d, p)
+        assert p["col_slices"] * fa.WIDE_COLS >= d > (p["col_slices"] - 1) \
+            * fa.WIDE_COLS
+        assert p["block_rows"] == (32 if mode == 0 else 8)
+        assert p["block_rows"] * p["row_tiles"] >= rows
+        assert p["splits"] == 1 and p["blocks"] == 4 * p["row_tiles"]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16, F16])
+@pytest.mark.parametrize("d", [1280, 1536, 2048])
+def test_general_plan_wide_head_dims(d, dtype):
+    """D 1280, 1536 and 2048 in each type: float32 takes the wide path at
+    all three, 16-bit operands at 1536 and 2048 and the tensor-core body at
+    1280; a grid past 2^31 - 1 blocks is refused on either path."""
+    p = fa.general_plan(0, d, 300, 2, dtype, dtype)
+    assert p["path"] == ("wide" if d >= WIDE_FROM[dtype, dtype, None]
+                         else "16bit")
+    with pytest.raises(ValueError, match="2\\^31"):
+        fa.general_plan(0, d, 2**30, 2**12, dtype, dtype)
+
+
+def test_split_rule_is_one_header():
+    """The CUDA split rule lives once, in ``csrc/kv_split.cuh``, which the
+    split body and the general body include, and its constants are
+    ``split_ranges``' (``KEY_TILE``, ``_MIN_SPLIT_KEYS``)."""
+    import re
+    from pathlib import Path
+
+    csrc = Path(fa.__file__).resolve().parent.parent / "csrc"
+    header = (csrc / "kv_split.cuh").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", header))
+    assert int(consts["TK"]) == fd.KEY_TILE
+    assert int(consts["MIN_KEYS"]) == fd._MIN_SPLIT_KEYS
+    for name in ("flash_decode.cu", "attention_any.cu"):
+        src = (csrc / name).read_text()
+        assert '#include "kv_split.cuh"' in src
+        assert "Split split_of(" not in src and "kv_split::split_of(" in src
+
+
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("num_splits", [1, 7, None])
+def test_general_splits_cover_visible_keys_once(window, num_splits):
+    """#8's splits (``split_ranges``, the rule of ``csrc/kv_split.cuh``
+    that the split and general bodies share) cover each sequence's visible
+    keys exactly once and in order, at most ``splits`` of them, none for a
+    sequence with no visible key."""
+    lengths, s_len = [0, 1, 63, 64, 65, 969, 1947, 2048, 2100], 2048
+    splits = num_splits or fd.default_splits(len(lengths), 1, s_len)
+    target = (None if num_splits else fd._BLOCKS_PER_SM * fd.H100_SMS)
+    ranges = fd.split_ranges(lengths, s_len, splits, 1, window,
+                             target=target)
+    for length, rs in zip(lengths, ranges):
+        lo = max(0, length - window) if window else 0
+        keys = [k for a, e in rs for k in range(a, e)]
+        assert keys == list(range(lo, min(length, s_len)))
+        assert len(rs) <= splits and all(a < e for a, e in rs)
+
+
+@pytest.mark.parametrize("s_len,g,d", [(16, 1, 16), (4096, 8, 128),
+                                       (32768, 71, 64)])
+def test_general_grid_within_int32_at_65536_pairs(s_len, g, d):
+    """B x Hkv = 65,536 (8192 x 8, past the cluster body's 65,535 rows) at
+    the default split limit: the grid's x dimension holds every (pair,
+    group chunk, split) block within 2^31 - 1; a grid past it is refused
+    before any launch."""
+    b, hkv = 8192, 8
+    splits = fd.default_splits(b, hkv, s_len)
+    p = fa.general_plan(1, d, g, b * hkv, BF16, BF16, splits=splits)
+    assert p["blocks"] == b * hkv * p["row_tiles"] * splits <= 2**31 - 1
+    assert fa.general_plan(0, d, 4096, b * hkv, F16, F16)["blocks"] <= \
+        2**31 - 1
+    with pytest.raises(ValueError, match="2\\^31"):
+        fa.general_plan(1, d, g, b * hkv, BF16, BF16, splits=2**15)
+
+
+@pytest.mark.parametrize("ptr,d,size,width", [
+    (0, 128, 2, 16),      # 16-byte rows from an aligned base: TMA boxes
+    (8, 128, 2, 4),       # 8 bytes past a 16-byte boundary
+    (2, 128, 2, 2),       # a bf16 view at an odd offset: value by value
+    (0, 100, 2, 4),       # 200-byte rows
+    (0, 6, 4, 4),         # 24-byte float32 rows
+    (0, 7, 2, 2),         # 14-byte rows
+])
+def test_copy_width(ptr, d, size, width):
+    assert fa.copy_width(ptr, d, size) == width

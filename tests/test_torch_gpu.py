@@ -2098,3 +2098,198 @@ def test_flash_decode_general_body_past_65535_pairs():
     got = fd.flash_decode(q, kc, vc, lens.cuda())
     assert fd.flash_decode.bodies == {"general": 1}
     _within(got, want, BF16_RTOL)
+
+
+# The general bodies on the tensor cores: a float32 q over a 16-bit cache,
+# round_kv across the 16-bit types, a group of 71 at several split counts,
+# wide head dims whose causal / window ranges skip whole key tiles, and
+# operands off 16- and 4-byte boundaries (each copy route of the plan).
+# Limits by output type: ATTN_RTOL, two bf16 ulps, one float16 ulp.
+GENERAL_RTOL = {torch.float32: 1e-4, torch.bfloat16: BF16_RTOL,
+                F16: 2.0 ** -10}
+
+
+def _shifted(t, values):
+    """A copy of ``t`` whose first value sits ``values`` values past an
+    allocation's (aligned) start."""
+    buf = torch.empty(t.numel() + values, dtype=t.dtype, device=t.device)
+    moved = buf[values:].view(t.shape)
+    moved.copy_(t)
+    return moved
+
+
+@pytest.mark.parametrize("cache", [torch.bfloat16, F16])
+@pytest.mark.parametrize("hq,hkv,d", [(16, 1, 64), (4, 2, 6)])
+def test_flash_decode_general_float32_q_over_16bit_cache(cache, hq, hkv, d):
+    """A float32 q over a bf16 or float16 cache (group 16; head dim 6) on
+    the general body: the float32 result on the widened cache, within
+    1e-4 of the plain version, one general launch."""
+    from repro_torch.kernels import flash_decode as fd
+
+    q, kc, vc, lens = _decode_operands(60 + d, 3, 300, hq, hkv, d,
+                                       [300, 77, 0])
+    kc, vc = kc.to(cache), vc.to(cache)
+    want = fd.flash_decode_plain(q, kc, vc, lens, scale=d ** -0.5)
+    fd.flash_decode.bodies = {}
+    got = fd.flash_decode(q.cuda(), kc.cuda(), vc.cuda(), lens.cuda())
+    assert fd.flash_decode.bodies == {"general": 1}
+    assert got.dtype == torch.float32
+    _within(got, want, 1e-4)
+    assert not got[2].any()
+
+
+@pytest.mark.parametrize("q_kind", ["float32", "rounded"])
+@pytest.mark.parametrize("cache,rk", [(torch.bfloat16, F16),
+                                      (F16, torch.bfloat16)])
+def test_flash_decode_general_round_kv_across_16bit_types(cache, rk, q_kind):
+    """``round_kv`` from one 16-bit cache type to the other (a bf16 cache
+    under a float16 model, and the reverse): each K and V value rounded
+    where read, the plain version's result under a float32 q (1e-4) and a
+    q of the rounded type (its limit)."""
+    from repro_torch.kernels import flash_decode as fd
+
+    q, kc, vc, lens = _decode_operands(64, 2, 257, 8, 2, 128, [257, 100])
+    kc, vc = kc.to(cache), vc.to(cache)
+    q = q if q_kind == "float32" else q.to(rk)
+    want = fd.flash_decode_plain(q, kc, vc, lens, scale=128 ** -0.5,
+                                 round_kv=rk)
+    fd.flash_decode.bodies = {}
+    got = fd.flash_decode(q.cuda(), kc.cuda(), vc.cuda(), lens.cuda(),
+                          round_kv=rk)
+    assert fd.flash_decode.bodies == {"general": 1}
+    assert got.dtype == q.dtype
+    _within(got, want, 1e-4 if q_kind == "float32" else GENERAL_RTOL[rk])
+
+
+@pytest.mark.parametrize("dtype", list(GENERAL_RTOL))
+def test_flash_decode_general_group_71_split_counts(dtype):
+    """Falcon-7B's 71 query heads over one kv head: lengths 0, 1, 63, 64,
+    65 and past S at 1, 7 and the default split count each match the plain
+    version, one general launch each; no visible key gives 0."""
+    from repro_torch.kernels import flash_decode as fd
+
+    lengths = [0, 1, 63, 64, 65, 230]
+    q, kc, vc, lens = _decode_operands(65, len(lengths), 200, 71, 1, 64,
+                                       lengths)
+    q, kc, vc = q.to(dtype), kc.to(dtype), vc.to(dtype)
+    want = fd.flash_decode_plain(q, kc, vc, lens, scale=64 ** -0.5)
+    args = [t.cuda() for t in (q, kc, vc, lens)]
+    for n in (1, 7, None):
+        fd.flash_decode.bodies = {}
+        got = fd.flash_decode(*args, num_splits=n)
+        assert fd.flash_decode.bodies == {"general": 1}
+        _within(got, want, GENERAL_RTOL[dtype])
+        assert not got[0].any()
+
+
+# (B, Sq, Skv, Hq, Hkv, D, options): head dims past the fast bodies whose
+# query tiles see only some key tiles (a window, Sq past Skv, causal).
+GENERAL_WIDE = [(1, 300, 300, 4, 2, 256, dict(window=40)),
+                (1, 260, 200, 2, 1, 320, dict(window=70)),
+                (1, 150, 150, 2, 2, 520, {}),
+                (2, 129, 129, 2, 1, 256, dict(softcap=30.0))]
+
+
+@pytest.mark.parametrize("dtype", list(GENERAL_RTOL))
+@pytest.mark.parametrize("case", range(len(GENERAL_WIDE)))
+def test_flash_attention_general_wide_heads_skip_tiles(case, dtype):
+    """#7 at head dims 256, 320 and 520 where each query tile's causal /
+    window range skips whole key tiles, rows with no key included: the
+    plain version's result, one general launch."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, sq, skv, hq, hkv, d, opts = GENERAL_WIDE[case]
+    rng = np.random.default_rng(500 + case)
+    q, k, v = (_bf16_normal(rng, *s).float().to(dtype).cuda()
+               for s in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+    want = fa.flash_attention_plain(q, k, v, scale=d ** -0.5, **opts)
+    fa.flash_attention.bodies = {}
+    got = fa.flash_attention(q, k, v, **opts)
+    assert fa.flash_attention.bodies == {"general": 1}
+    _within(got, want, GENERAL_RTOL[dtype])
+
+
+@pytest.mark.parametrize("which", ["all off 16 B", "q", "k", "v"])
+@pytest.mark.parametrize("kernel", ["flash", "decode"])
+def test_general_body_copy_routes(kernel, which):
+    """bf16 operands at head dim 128 (a fast body's shape): all three 8
+    bytes past a 16-byte boundary (4-byte copies), or one alone at an odd
+    bf16 offset (value-by-value loads) beside aligned ones (TMA boxes),
+    take the general body and give the plain version's result."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+
+    bf = torch.bfloat16
+    if kernel == "flash":
+        rng = np.random.default_rng(71)
+        ops = [_bf16_normal(rng, *s).cuda() for s in
+               ((1, 150, 8, 128), (1, 150, 2, 128), (1, 150, 2, 128))]
+        want = fa.flash_attention_plain(*ops, scale=128 ** -0.5)
+        fn = fa.flash_attention
+    else:
+        q, kc, vc, lens = _decode_operands(72, 3, 300, 8, 2, 128,
+                                           [300, 130, 1])
+        ops = [t.to(bf).cuda() for t in (q, kc, vc)]
+        lens = lens.cuda()
+        want = fd.flash_decode_plain(*ops, lens, scale=128 ** -0.5)
+        fn = fd.flash_decode
+    if which == "all off 16 B":
+        ops = [_shifted(t, 4) for t in ops]
+    else:
+        i = "qkv".index(which)
+        ops[i] = _shifted(ops[i], 1)
+    fn.bodies = {}
+    got = fn(*ops) if kernel == "flash" else fn(*ops, lens)
+    assert fn.bodies == {"general": 1}
+    _within(got, want, BF16_RTOL)
+
+
+@pytest.mark.parametrize("mode,rows", [(0, 2048), (1, 71), (1, 2)])
+def test_general_plan_smem_matches_the_kernel_layout(mode, rows):
+    """The plan's shared-memory bytes (``general_layout``, in Python) equal
+    the kernel's own ``layout`` for every head dim 1..1024 and each mix of
+    types, so a plan that fits ``SMEM_LIMIT`` is one the launch accepts."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    lib = _build.load()
+    bf = torch.bfloat16
+    for qd, kd, rk in [(torch.float32, torch.float32, None), (F16, F16, None),
+                       (bf, bf, None), (torch.float32, bf, None),
+                       (bf, torch.float32, bf), (F16, bf, F16)]:
+        for d in range(1, 1025):
+            p = fa.general_plan(mode, d, rows, 4, qd, kd, round_kv=rk)
+            got = lib.attention_any_smem_bytes(
+                d, p["rf"], p["cw"], p["bk"], p["stages"], fa.dtype_code(qd),
+                fa.dtype_code(kd), 0 if rk is None else fa.dtype_code(rk))
+            assert got == p["smem_bytes"], (d, qd, kd, rk, p)
+
+
+@pytest.mark.parametrize("dtype", list(GENERAL_RTOL))
+@pytest.mark.parametrize("d", [1280, 1536, 2048])
+def test_general_route_wide_head_dims(d, dtype):
+    """#7 (a window that skips whole key tiles) and #8 (group 2, lengths 0
+    and past S) at head dims 1280, 1536 and 2048 in each type, and #8 with
+    a float32 q over a bf16 cache: the general route takes the tensor-core
+    body where ``general_plan`` fits it and the wide path past the shared
+    memory, one general launch each, within the plain version's limit."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+
+    rng = np.random.default_rng(d)
+    q, k, v = (_bf16_normal(rng, *s).float().to(dtype).cuda()
+               for s in ((1, 100, 2, d), (1, 130, 1, d), (1, 130, 1, d)))
+    want = fa.flash_attention_plain(q, k, v, scale=d ** -0.5, window=50)
+    fa.flash_attention.bodies = {}
+    got = fa.flash_attention(q, k, v, window=50)
+    assert fa.flash_attention.bodies == {"general": 1}
+    _within(got, want, GENERAL_RTOL[dtype])
+    qd, kc, vc, lens = _decode_operands(d, 3, 150, 4, 2, d, [150, 0, 200])
+    for q_type, cache in ((dtype, dtype), (torch.float32, torch.bfloat16)):
+        ops = (qd.to(q_type), kc.to(cache), vc.to(cache))
+        want = fd.flash_decode_plain(*ops, lens, scale=d ** -0.5)
+        fd.flash_decode.bodies = {}
+        got = fd.flash_decode(*(t.cuda() for t in ops), lens.cuda())
+        assert fd.flash_decode.bodies == {"general": 1}
+        _within(got, want, GENERAL_RTOL[q_type])
+        assert not got[1].any()

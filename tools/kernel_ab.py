@@ -30,10 +30,22 @@ splits forced), each beside SDPA bf16 on the same values (``sdpa ...``
 keys) and its bytes bound at 2 B a value (``bound ...`` keys, computed). #7 is timed on random bf16 operands at the five shapes
 ``chip_smoke.py`` phase 13a holds (``BF16_SIZES["flash"]``: Qwen3-1.7B and
 granite prefill, a Gemma-2 local layer, llama-3.2-vision's self and
-cross layers) and in float32 at Qwen3-1.7B's 4 x 2048 prefill. Times are
+cross layers) and in float32 at Qwen3-1.7B's 4 x 2048 prefill. The
+general bodies of #7 and #8 (``csrc/attention_any.cu``) are timed at
+``chip_smoke.py`` phase 18d's two timed shapes (#7: Gemma-7B's D 256, 1 x
+2048, 16 / 16 heads, causal; #8: Falcon-7B's 71 query heads over one kv
+head, D 64, B 4 x 2048 rows, lengths drawn from seed SEED + 20) in
+float32, bf16 and float16, each beside SDPA in the same type (``any_flash
+<type>``, ``any_decode <type>``, ``sdpa any_... <type>`` keys), #8 also at
+8 splits forced (``any_decode <type> splits 8``) and, where the plan cuts
+a group into chunks (``GENERAL_DECODE_FRAGS``), with the whole group in one
+block (``any_decode <type> one block a group``); the general body is
+also timed against the split body at the latter's own shapes
+(``SPLIT_SHAPES``) over float32 and float16 caches (``split <shape>
+<type>``, ``general <shape> <type>``). Times are
 means of CUDA-event windows after an L2-evicting write
 (``chip_smoke.cuda_time_ms``). ``--only`` times one group: ``dcn``,
-``flash`` or ``decode``.
+``flash``, ``decode`` or ``any``.
 
 Prints the card's name and power limit, one ``PTXAS`` line per split-C,
 bf16 DCN, flash and decode kernel instantiation with its registers and
@@ -160,6 +172,10 @@ DECODE_BF16 = [
 ]
 
 
+# DECODE_BF16's shapes that phase 18a times #8's split body at.
+SPLIT_SHAPES = ("Qwen3 serving", "32k", "llama cross")
+
+
 def bf16_decode_operands(torch, b, s, hq, hkv, d, lengths, seed):
     """Random bf16 caches and a float32 q (rounded to bf16 values, so the
     bf16 q is the same numbers) and int32 lengths, on the card."""
@@ -198,7 +214,7 @@ def main() -> int:
     ap.add_argument("--src", required=True,
                     help="directory holding the repro_torch package")
     ap.add_argument("--iters", type=int, default=50)
-    ap.add_argument("--only", choices=("dcn", "flash", "decode"))
+    ap.add_argument("--only", choices=("dcn", "flash", "decode", "any"))
     args = ap.parse_args()
     src = os.path.abspath(args.src)
     sys.path.insert(0, src)
@@ -299,6 +315,74 @@ def main() -> int:
         nbytes = 2 * 2 * visible_keys(lengths, s, w) * hkv * d
         res[f"bound_bf16 {name}"] = nbytes / 3.35e12 * 1e3
         del q, qb, k, v, kt, vt
+    for dtype in ((torch.float32, torch.bfloat16, torch.float16)
+                  if want("any") else ()):
+        short = str(dtype).removeprefix("torch.")
+        gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 20)
+        name, b, sq, skv, hq, hkv, d, opts = next(
+            c for c in cs.F16_SIZES["any_flash"]
+            if c[0] == cs.F16_SIZES["timed_flash"])
+        q, k, v = (torch.randn(sh, generator=gen, device="cuda").to(dtype)
+                   for sh in ((b, sq, hq, d), (b, skv, hkv, d),
+                              (b, skv, hkv, d)))
+        res[f"any_flash {short}"] = cs.cuda_time_ms(
+            lambda: fa.flash_attention(q, k, v, **opts), args.iters)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        res[f"sdpa any_flash {short}"] = cs.cuda_time_ms(cs.sdpa_yardstick(
+            qt, kt, vt, is_causal=opts.get("causal", True)), args.iters)
+        del q, k, v, qt, kt, vt
+        name, b, s, hq, hkv, d, opts = next(
+            c for c in cs.F16_SIZES["any_decode"]
+            if c[0] == cs.F16_SIZES["timed_decode"])
+        lens = torch.as_tensor(np.random.default_rng(cs.SEED + 20).integers(
+            0, s + 1, size=b), dtype=torch.int32, device="cuda")
+        q = torch.randn((b, hq, d), generator=gen, device="cuda").to(dtype)
+        kc, vc = (torch.randn((b, s, hkv, d), generator=gen,
+                              device="cuda").to(dtype) for _ in range(2))
+        for n in (None, 8):     # the split rule's count, and 8 forced
+            res[f"any_decode {short}" + (f" splits {n}" if n else "")] = \
+                cs.cuda_time_ms(lambda: fd.flash_decode(
+                    q, kc, vc, lens, num_splits=n, **opts), args.iters)
+        if hasattr(fa, "GENERAL_DECODE_FRAGS"):
+            # The whole group in one block (five fragments of one warp).
+            frags, fa.GENERAL_DECODE_FRAGS = fa.GENERAL_DECODE_FRAGS, 8
+            res[f"any_decode {short} one block a group"] = cs.cuda_time_ms(
+                lambda: fd.flash_decode(q, kc, vc, lens, **opts), args.iters)
+            fa.GENERAL_DECODE_FRAGS = frags
+        ki = torch.arange(s, device="cuda")[None, :]
+        mask = (ki < lens[:, None].long())[:, None, None, :]
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
+        res[f"sdpa any_decode {short}"] = cs.cuda_time_ms(cs.sdpa_yardstick(
+            q[:, :, None], kt, vt, attn_mask=mask, scale=d ** -0.5),
+            args.iters)
+        del q, kc, vc, kt, vt
+    # The general body at the split body's own shapes (phase 18a's: Qwen3's
+    # serving shape and 32k cache, llama-3.2-vision's cross cache) over
+    # float32 and float16 caches, q of the cache's type: the split body as
+    # routed, and the general body forced by routing the call to it.
+    for name, b, s, hq, hkv, d, opts, lengths in (
+            [c for c in DECODE_BF16 if c[0] in SPLIT_SHAPES]
+            if want("any") and hasattr(fa, "general_plan") else []):
+        ops = bf16_decode_operands(torch, b, s, hq, hkv, d, lengths,
+                                   cs.SEED + 31)
+        lens = ops[3]
+        for cache in (torch.float32, torch.float16):
+            short = str(cache).removeprefix("torch.")
+            q, k, v = (t.to(cache) for t in ops[:3])
+            routed = fd.decode_body
+            for body in ("split", "general"):
+                if body == "general":
+                    fd.decode_body = lambda *a, **kw: "general"
+                try:
+                    fd.flash_decode.bodies = {}
+                    fd.flash_decode(q, k, v, lens)
+                    assert fd.flash_decode.bodies == {body: 1}, \
+                        fd.flash_decode.bodies
+                    res[f"{body} {name} {short}"] = cs.cuda_time_ms(
+                        lambda: fd.flash_decode(q, k, v, lens), args.iters)
+                finally:
+                    fd.decode_body = routed
+            del q, k, v
     print(f"RESULT {args.src} "
           f"{json.dumps({k: round(t, 6) for k, t in res.items()})}")
     return 0
